@@ -1,0 +1,179 @@
+"""Decoder-only transformer LM (port of ``models/transformer_lm.py``).
+
+Dense blocks only, as the serving path runs them: pre-LN blocks of causal
+multi-head attention and a GELU MLP, learned position embeddings, a final
+LayerNorm and an f32 head over the compute-dtype stream.  Parameter names
+mirror the flax tree (``block{i}.ln1``, ``block{i}.attn.qkv``, ...; see
+:mod:`.from_jax`).
+
+Decode mode is chosen per call, not by cloning: passing a
+:class:`..ops.attention.KVCache` makes a call a prefill (no
+``decode_pos``) or one decode step (``decode_pos`` [B], one token per row);
+the cache is written in place and returned with the logits.
+
+``fused_tails`` runs the residual-add + ln2 pair and fc1's bias + GELU of
+every block as the two hand-written kernels of
+:mod:`..ops.fused_elementwise`; the parameters are the same either way.
+
+Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
+MoE blocks, ``seq_axis``, remat (training slices P2 and P9), the paged cache
+(P4) and LoRA (P5).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..ops.attention import KVCache, MultiHeadAttention
+from ..ops.fused_elementwise import FusedResidualLayerNorm
+from ..ops.layers import Dense, LayerNorm
+from .vit import MLP
+
+__all__ = ["DecoderBlock", "TransformerLM"]
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, dtype=torch.float32,
+                 fused_tails: bool = False):
+        super().__init__()
+        self.fused_tails = fused_tails
+        self.ln1 = LayerNorm(dim, dtype)
+        self.attn = MultiHeadAttention(dim, num_heads, causal=True, dtype=dtype)
+        # ln1 has no add before it, and the block's last add feeds the next
+        # block's ln1, so add+ln2 is the pair one kernel can fuse
+        self.ln2 = (FusedResidualLayerNorm if fused_tails else LayerNorm)(dim, dtype)
+        self.mlp = MLP(dim, int(dim * mlp_ratio), dim, dtype, fused_tails)
+
+    def forward(self, x, cache: Optional[KVCache] = None, layer: int = 0, decode_pos=None):
+        attn_out = self.attn(self.ln1(x), cache, layer, decode_pos)
+        if self.fused_tails:
+            x, y = self.ln2(x, attn_out)
+        else:
+            x = x + attn_out
+            y = self.ln2(x)
+        return x + self.mlp(y)
+
+
+class TransformerLM(nn.Module):
+    """Causal LM over integer tokens ``[B, S] -> logits [B, S, V]`` (f32)."""
+
+    def __init__(
+        self,
+        vocab_size: int,
+        max_len: int = 1024,
+        embed_dim: int = 256,
+        depth: int = 4,
+        num_heads: int = 8,
+        mlp_ratio: float = 4.0,
+        dtype=torch.float32,
+        fused_tails: bool = False,
+        seq_axis: Optional[str] = None,
+        remat: bool = False,
+        moe_experts: int = 0,
+        paged: bool = False,
+        lora_rank: int = 0,
+    ):
+        super().__init__()
+        if moe_experts > 0:
+            raise NotImplementedError("MoE blocks are ROADMAP port item P9")
+        if seq_axis is not None:
+            raise NotImplementedError(
+                "seq_axis (ring/Ulysses sequence parallelism) is ROADMAP port item P9"
+            )
+        if remat:
+            raise NotImplementedError("remat comes with LM training, ROADMAP port item P2")
+        if paged:
+            raise NotImplementedError(
+                "the paged KV cache is ROADMAP port item P4 (continuous scheduler)"
+            )
+        if lora_rank > 0:
+            raise NotImplementedError("LoRA factors are ROADMAP port item P5")
+        if embed_dim % num_heads != 0:
+            raise ValueError(f"embed dim {embed_dim} not divisible by {num_heads} heads")
+        self.vocab_size = vocab_size
+        self.max_len = max_len
+        self.embed_dim = embed_dim
+        self.depth = depth
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.fused_tails = fused_tails
+        self.tok_embedding = nn.Parameter(torch.empty(vocab_size, embed_dim))
+        self.pos_embedding = nn.Parameter(torch.empty(max_len, embed_dim))
+        for i in range(depth):
+            self.add_module(
+                f"block{i}",
+                DecoderBlock(embed_dim, num_heads, mlp_ratio, dtype, fused_tails),
+            )
+        self.ln = LayerNorm(embed_dim, dtype)
+        self.head = Dense(embed_dim, vocab_size, torch.float32)
+        # the submodules initialised themselves; the embeddings are ours
+        with torch.no_grad():
+            self.tok_embedding.normal_(0.0, 0.02)
+            self.pos_embedding.normal_(0.0, 0.02)
+
+    @property
+    def blocks(self):
+        return [getattr(self, f"block{i}") for i in range(self.depth)]
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """flax's initializers: normal(0.02) embeddings, lecun-normal
+        kernels, zero biases, unit LayerNorm scales; drawn in a fixed module
+        order from ``generator``."""
+        with torch.no_grad():
+            self.tok_embedding.normal_(0.0, 0.02, generator=generator)
+            self.pos_embedding.normal_(0.0, 0.02, generator=generator)
+        for module in self.modules():
+            if module is not self and hasattr(module, "reset_parameters"):
+                module.reset_parameters(generator)
+
+    def cast_matmul_weights_(self) -> "TransformerLM":
+        """Round every Dense weight and bias to its compute dtype, once.
+
+        Each Dense casts its parameters to its dtype on every call (flax
+        ``promote_dtype``); casting the stored parameters ahead gives the
+        same numbers and spares decode the per-step conversion.  The head
+        (f32) and the LayerNorm and embedding parameters are unchanged.
+        """
+        with torch.no_grad():
+            for module in self.modules():
+                if isinstance(module, Dense):
+                    module.weight.data = module.weight.data.to(module.dtype)
+                    module.bias.data = module.bias.data.to(module.dtype)
+        return self
+
+    def new_cache(self, batch: int, device=None) -> KVCache:
+        """A zeroed KV cache of capacity ``max_len`` for ``batch`` rows."""
+        device = self.tok_embedding.device if device is None else device
+        return KVCache.zeros(
+            self.depth, batch, self.max_len, self.num_heads,
+            self.embed_dim // self.num_heads, self.dtype, device,
+        )
+
+    def trunk(self, tokens, cache: Optional[KVCache] = None, decode_pos=None):
+        """Embeddings and blocks: the residual stream ``[B, S, E]`` before
+        the final LayerNorm and head."""
+        b, s = tokens.shape
+        x = self.tok_embedding[tokens].to(self.dtype)
+        if decode_pos is not None:
+            if cache is None:
+                raise ValueError("decode_pos given without a KV cache")
+            # one new token per row at its own position
+            pe = self.pos_embedding[decode_pos][:, None]
+        else:
+            if s > self.max_len:
+                raise ValueError(f"sequence {s} exceeds max_len {self.max_len}")
+            pe = self.pos_embedding[:s][None]
+        x = x + pe.to(self.dtype)
+        for i, block in enumerate(self.blocks):
+            x = block(x, cache, i, decode_pos)
+        return x
+
+    def logits(self, x):
+        """Final LayerNorm and the f32 head over stream rows ``x``."""
+        return self.head(self.ln(x))
+
+    def forward(self, tokens, cache: Optional[KVCache] = None, decode_pos=None):
+        logits = self.logits(self.trunk(tokens, cache, decode_pos))
+        return logits if cache is None else (logits, cache)

@@ -1,0 +1,155 @@
+"""Multi-head attention for the LM serving path.
+
+Port of ``pytorch_distributed_training_tpu/ops/attention.py`` with the two
+paths serving runs, both plain torch as in the JAX package (an einsum there
+too, not a Pallas kernel):
+
+- causal attention over the prompt (prefill, and the cache-less forward):
+  scores in f32, masked with ``-inf``, softmax in f32;
+- one decode step against a contiguous KV cache (:func:`decode_attention`).
+
+The qkv projection's output factors heads-major, ``(H, 3, hd)``, exactly
+as the JAX module's (``ops/attention.py:269-275``): checkpoints converted
+from the JAX tree keep their meaning.
+
+Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
+item: the flash kernel (K2, item P2), ring and Ulysses sequence
+parallelism (P9), the paged cache (P4), LoRA factors (P5).
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import torch
+from torch import nn
+
+from .layers import Dense
+
+__all__ = ["KVCache", "MultiHeadAttention", "decode_attention", "dot_product_attention"]
+
+
+def dot_product_attention(q, k, v, causal: bool = False, impl: Optional[str] = None):
+    """Full attention ``[B, S, H, D] -> [B, S, H, D]`` in f32, out in q's dtype."""
+    if impl == "flash":
+        raise NotImplementedError(
+            "flash attention (TPU kernels K2a-g) is ROADMAP port item P2"
+        )
+    if impl not in (None, "xla"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        n = s.shape[-1]
+        mask = torch.ones(n, n, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype)
+
+
+class KVCache:
+    """Per-layer key and value tensors ``[B, cache_len, H, hd]``.
+
+    The JAX module's ``"cache"`` variable collection made explicit: passed
+    into the model and returned by it.  The port writes the new rows in
+    place rather than returning fresh arrays (one cache per batch, no
+    copy per step).  ``live_len`` is how many leading positions a decode
+    step may attend to (the largest position written + 1); positions past
+    it are masked in every row, so leaving them out is exact.  The decode
+    loop sets it from the positions it already holds on the host.
+    """
+
+    def __init__(self, keys: List[torch.Tensor], values: List[torch.Tensor]):
+        self.keys = keys
+        self.values = values
+        self.live_len = keys[0].shape[1]
+
+    @classmethod
+    def zeros(cls, depth: int, batch: int, cache_len: int, heads: int, head_dim: int,
+              dtype, device) -> "KVCache":
+        shape = (batch, cache_len, heads, head_dim)
+        return cls(
+            [torch.zeros(shape, dtype=dtype, device=device) for _ in range(depth)],
+            [torch.zeros(shape, dtype=dtype, device=device) for _ in range(depth)],
+        )
+
+
+def decode_attention(q, k, v, cached_key, cached_value, decode_pos=None, live_len=None):
+    """Prefill or one decode step against a layer's KV cache.
+
+    ``decode_pos=None`` is the prefill: the prompt's k/v land in cache rows
+    ``[0, S)`` and attention is the ordinary causal one.  Right-padded rows
+    write garbage k/v past their real length; each row's k/v depend only on
+    that position's own token, and decode steps overwrite those rows before
+    any query attends to them.
+
+    ``decode_pos`` ([B] int64) is one step: each row's new k/v go to its own
+    position, and q attends over the cache masked to ``<= decode_pos``.
+    """
+    b, s, heads, head_dim = q.shape
+    cache_len = cached_key.shape[1]
+    if decode_pos is None:
+        if s > cache_len:
+            raise ValueError(f"prompt length {s} exceeds cache_len {cache_len}")
+        cached_key[:, :s] = k.to(cached_key.dtype)
+        cached_value[:, :s] = v.to(cached_value.dtype)
+        return dot_product_attention(q, k, v, causal=True)
+    if s != 1:
+        raise ValueError(f"decode step takes one token per row, got S={s}")
+    rows = torch.arange(b, device=q.device)
+    cached_key[rows, decode_pos] = k[:, 0].to(cached_key.dtype)
+    cached_value[rows, decode_pos] = v[:, 0].to(cached_value.dtype)
+    n = cache_len if live_len is None else live_len
+    ck, cv = cached_key[:, :n], cached_value[:, :n]
+    scale = 1.0 / math.sqrt(head_dim)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), ck.float()) * scale
+    live = torch.arange(n, device=q.device)[None, :] <= decode_pos[:, None]  # [B, n]
+    logits = logits.masked_fill(~live[:, None, None, :], float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, cv.float())
+    return out.to(q.dtype)
+
+
+class MultiHeadAttention(nn.Module):
+    """QKV-projected multi-head attention (the JAX module's dense paths)."""
+
+    def __init__(self, dim: int, num_heads: int, causal: bool = False, dtype=torch.float32,
+                 seq_axis: Optional[str] = None, paged: bool = False, lora_rank: int = 0):
+        super().__init__()
+        if dim % num_heads != 0:
+            raise ValueError(f"embed dim {dim} not divisible by {num_heads} heads")
+        if seq_axis is not None:
+            raise NotImplementedError(
+                "ring/Ulysses sequence parallelism is ROADMAP port item P9"
+            )
+        if paged:
+            raise NotImplementedError(
+                "the paged KV cache is ROADMAP port item P4 (continuous scheduler)"
+            )
+        if lora_rank > 0:
+            raise NotImplementedError("LoRA factors are ROADMAP port item P5")
+        self.num_heads = num_heads
+        self.causal = causal
+        self.dtype = dtype
+        self.qkv = Dense(dim, 3 * dim, dtype)
+        self.proj = Dense(dim, dim, dtype)
+
+    def forward(self, x, cache: Optional[KVCache] = None, layer: int = 0, decode_pos=None):
+        b, s, dim = x.shape
+        head_dim = dim // self.num_heads
+        # heads-major: the flat 3*dim output factors as (H, 3, hd)
+        qkv = self.qkv(x).reshape(b, s, self.num_heads, 3, head_dim)
+        q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+        if cache is not None:
+            if not self.causal:
+                raise ValueError("decode mode requires causal attention")
+            out = decode_attention(
+                q, k, v, cache.keys[layer], cache.values[layer], decode_pos,
+                cache.live_len,
+            )
+        elif decode_pos is not None:
+            raise ValueError("decode_pos given without a KV cache")
+        else:
+            out = dot_product_attention(q, k, v, causal=self.causal)
+        return self.proj(out.reshape(b, s, dim))

@@ -1,0 +1,278 @@
+"""The transformer block's elementwise tails, each one hand-written kernel.
+
+Port of ``pytorch_distributed_training_tpu/ops/fused_elementwise.py``:
+
+- :func:`fused_add_layernorm`: ``s = x + delta; y = LN(s)``, emitting both
+  the new residual stream ``s`` and its normalisation ``y`` in one pass.
+  Replaces the TPU kernel ``_add_ln_kernel`` (``ops/fused_elementwise.py:88``,
+  launched at ``:107``).
+- :func:`fused_bias_gelu`: ``y = gelu(u + bias)`` with exact-erf GELU, for
+  the MLP's first projection.  Replaces ``_bias_gelu_kernel`` (``:203``,
+  launched at ``:214``).
+
+On a CUDA tensor each wrapper checks its inputs, launches its kernel
+(``csrc/fused_elementwise.cu``) on the current stream, adds one to its
+``launches`` count, and raises on anything the kernel does not take; it
+never falls back to the plain version.  On a CPU tensor it computes the
+plain PyTorch twin (:func:`add_layernorm_plain`, :func:`bias_gelu_plain`),
+which repeats the kernel's arithmetic op for op.
+
+Both kernels are bound by memory traffic, at the H100's 3.35 TB/s:
+:func:`add_layernorm_bytes` and :func:`bias_gelu_bytes` count each input
+read once and each output written once.
+
+Numerics follow the JAX module: LayerNorm statistics in f32 over the sum
+ROUNDED to the stream dtype, fast variance ``max(0, E[s^2] - E[s]^2)``,
+``eps`` (1e-6, flax's default) inside the rsqrt; GELU in f32 over
+``f32(u) + f32(bias)`` with the bias already in the compute dtype.
+
+The backward passes (plain math under ``custom_vjp`` in the JAX package)
+come with the training slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import kernels
+from .layers import Dense
+
+__all__ = [
+    "FusedDenseGelu",
+    "FusedResidualLayerNorm",
+    "KERNELS",
+    "MAX_FEATURES",
+    "add_layernorm_bytes",
+    "add_layernorm_plain",
+    "bias_gelu_bytes",
+    "bias_gelu_plain",
+    "fused_add_layernorm",
+    "fused_bias_gelu",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+_INV_SQRT2 = 0.7071067811865476
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# one thread block per row holds the row in registers: 256 threads x 32
+MAX_FEATURES = 8192
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(
+                f"{name}: the kernel takes CUDA tensors on one device, got "
+                f"{[str(u.device) for u in tensors]}"
+            )
+
+
+def _check_dtype(name: str, t: torch.Tensor) -> None:
+    if t.dtype not in _DTYPE_CODES:
+        raise TypeError(
+            f"{name}: the kernel takes float32, bfloat16 or float16, got {t.dtype}"
+        )
+
+
+def _check_contiguous(name: str, *tensors: torch.Tensor) -> None:
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+
+
+# ---------------------------------------------------------------------------
+# residual-add + LayerNorm
+
+
+def add_layernorm_plain(x, delta, scale, bias, eps: float = 1e-6, out_dtype=None):
+    """The plain twin of :func:`fused_add_layernorm`, op for op."""
+    if out_dtype is None:
+        out_dtype = torch.promote_types(x.dtype, torch.promote_types(scale.dtype, bias.dtype))
+    s = (x.float() + delta.float()).to(x.dtype)
+    s32 = s.float()
+    mu = s32.mean(-1, keepdim=True)
+    var = torch.clamp((s32 * s32).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    xhat = (s32 - mu) * torch.rsqrt(var + eps)
+    y = xhat * scale.float() + bias.float()
+    return s, y.to(out_dtype)
+
+
+def add_layernorm_bytes(rows: int, features: int, dtype, out_dtype) -> int:
+    """Least device-memory traffic: read x, delta, scale, bias once; write
+    s and y once."""
+    es = torch.empty((), dtype=dtype).element_size()
+    eo = torch.empty((), dtype=out_dtype).element_size()
+    return rows * features * (3 * es + eo) + 2 * features * 4
+
+
+def fused_add_layernorm(x, delta, scale, bias, eps: float = 1e-6, out_dtype=None):
+    """``s = x + delta; y = layernorm(s) * scale + bias`` in one kernel.
+
+    ``x``, ``delta``: [..., E] of one dtype (float32, bfloat16 or float16),
+    E <= 8192; ``scale``, ``bias``: [E] float32.  Returns ``(s, y)``: ``s``
+    in the input dtype, ``y`` in ``out_dtype`` (default: the promotion of
+    the inputs and parameters, as in the JAX function; the modules pass
+    their compute dtype, one rounding either way).
+    """
+    if out_dtype is None:
+        out_dtype = torch.promote_types(x.dtype, torch.promote_types(scale.dtype, bias.dtype))
+    if x.device.type == "cpu":
+        return add_layernorm_plain(x, delta, scale, bias, eps, out_dtype)
+    name = "fused_add_layernorm"
+    _check_dtype(name, x)
+    if delta.dtype != x.dtype or delta.shape != x.shape:
+        raise ValueError(
+            f"{name}: x and delta must share shape and dtype, got "
+            f"{tuple(x.shape)} {x.dtype} and {tuple(delta.shape)} {delta.dtype}"
+        )
+    feat = x.shape[-1]
+    if scale.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise TypeError(f"{name}: scale and bias must be float32")
+    if scale.shape != (feat,) or bias.shape != (feat,):
+        raise ValueError(f"{name}: scale and bias must have shape ({feat},)")
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"{name}: out_dtype must be {x.dtype} or float32, got {out_dtype}")
+    if not 1 <= feat <= MAX_FEATURES:
+        raise ValueError(f"{name}: feature width {feat} outside [1, {MAX_FEATURES}]")
+    _check_contiguous(name, x, delta, scale, bias)
+    _check_cuda(name, x, delta, scale, bias)
+    s = torch.empty_like(x)
+    y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    rows = x.numel() // feat
+    if rows == 0:
+        return s, y
+    lib = kernels.library("fused_elementwise")
+    with torch.cuda.device(x.device):
+        err = lib.pdt_add_layernorm(
+            x.data_ptr(), delta.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            s.data_ptr(), y.data_ptr(), rows, feat, float(eps),
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], _stream(x),
+        )
+    kernels.check(err, name)
+    fused_add_layernorm.launches += 1
+    return s, y
+
+
+fused_add_layernorm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# bias-add + exact-erf GELU
+
+
+def bias_gelu_plain(u, bias):
+    """The plain twin of :func:`fused_bias_gelu`, op for op."""
+    t = u.float() + bias.float()
+    return (0.5 * t * (1.0 + torch.erf(t * _INV_SQRT2))).to(u.dtype)
+
+
+def bias_gelu_bytes(rows: int, features: int, dtype) -> int:
+    """Least device-memory traffic: read u and bias once, write y once."""
+    es = torch.empty((), dtype=dtype).element_size()
+    return 2 * rows * features * es + features * es
+
+
+def fused_bias_gelu(u, bias):
+    """``gelu(u + bias, approximate=False)`` in one kernel.
+
+    ``u``: [..., H] pre-bias matmul output; ``bias``: [H] in ``u``'s dtype
+    (the module rounds it to the compute dtype first).  Output keeps
+    ``u``'s dtype.
+    """
+    if u.device.type == "cpu":
+        return bias_gelu_plain(u, bias)
+    name = "fused_bias_gelu"
+    _check_dtype(name, u)
+    feat = u.shape[-1]
+    if bias.dtype != u.dtype or bias.shape != (feat,):
+        raise ValueError(
+            f"{name}: bias must be [{feat}] in {u.dtype}, got "
+            f"{tuple(bias.shape)} {bias.dtype}"
+        )
+    if feat < 1:
+        raise ValueError(f"{name}: empty feature axis")
+    _check_contiguous(name, u, bias)
+    _check_cuda(name, u, bias)
+    y = torch.empty_like(u)
+    rows = u.numel() // feat
+    if rows == 0:
+        return y
+    lib = kernels.library("fused_elementwise")
+    with torch.cuda.device(u.device):
+        err = lib.pdt_bias_gelu(
+            u.data_ptr(), bias.data_ptr(), y.data_ptr(), rows, feat,
+            _DTYPE_CODES[u.dtype], _stream(u),
+        )
+    kernels.check(err, name)
+    fused_bias_gelu.launches += 1
+    return y
+
+
+fused_bias_gelu.launches = 0
+
+
+# every kernel wrapper of this module, by the name its launch count goes by
+KERNELS = {"add_layernorm": fused_add_layernorm, "bias_gelu": fused_bias_gelu}
+
+
+def launch_counts():
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# modules with the JAX modules' parameters
+
+
+class FusedResidualLayerNorm(nn.Module):
+    """``x + delta`` followed by a LayerNorm, as one kernel.
+
+    Same parameters as the LayerNorm it replaces (``weight`` = flax
+    ``scale``, ones; ``bias``, zeros; float32, shape [E]).  Returns
+    ``(s, y)``: the new residual stream and its normalisation in
+    ``dtype``.
+    """
+
+    def __init__(self, features: int, dtype=torch.float32, eps: float = 1e-6):
+        super().__init__()
+        self.dtype = dtype
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x, delta):
+        return fused_add_layernorm(
+            x, delta, self.weight, self.bias, self.eps, out_dtype=self.dtype
+        )
+
+
+class FusedDenseGelu(Dense):
+    """A Dense layer followed by exact-erf GELU; the bias add and GELU are
+    one kernel.
+
+    Same parameters as the Dense it replaces (``weight`` [out, in], the
+    flax ``kernel`` transposed; ``bias`` [out]).  The matmul is a plain
+    torch product in ``dtype``; the bias is rounded to ``dtype`` before the
+    kernel adds it, as the JAX module does.
+    """
+
+    def forward(self, x):
+        d = self.dtype
+        u = F.linear(x.to(d), self.weight.to(d))
+        return fused_bias_gelu(u, self.bias.to(d))
