@@ -2,29 +2,49 @@
 """On-card smoke test of the PyTorch/H100 port (``pytorch_distributed_training_tpu_torch``).
 
     python3 chip_smoke.py              # needs one CUDA card
-    python3 chip_smoke.py --profile    # also: a torch.profiler breakdown of one batch
+    python3 chip_smoke.py --profile    # also: torch.profiler breakdowns of
+                                       # one serving batch and one training step
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
-2. build every hand-written kernel from ``csrc/`` with nvcc for sm_90a;
-3. each kernel against its plain PyTorch twin on the card, at the main path's
-   shapes and a ragged one, with the time of each (CUDA events, median of
-   20 launches after warm-up, L2 flushed before each) beside its bound;
-   inputs the kernels do not take must raise;
+2. build every hand-written kernel from ``csrc/`` with nvcc for sm_90a
+   (one nvcc per library, all started together);
+3. the serving kernels (K3 add+LayerNorm, K4 bias+GELU) against their plain
+   PyTorch twins on the card, at the main path's shapes and a ragged one,
+   with the time of each (CUDA events, median of 20 launches after warm-up,
+   L2 flushed before each) beside its bound; inputs the kernels do not take
+   must raise;
 4. the model at full width (depth 2, float32, TF32 off) on the card with the
    kernels against the same weights on the CPU with the plain twins:
    prefill and one decode step's logits;
-5. the main path: ``InferenceEngine.from_config`` on the full-width config
-   (TransformerLM 1024 wide, 16 blocks, 32768 tokens, bf16, fused tails),
-   ``warmup()``, then 16 requests with seeded prompt lengths in [1, 512];
-   every request generates 32 tokens in range, and each kernel launched
-   exactly 16 x (1 + 31) = 512 times per batch.
+5. the serving main path: ``InferenceEngine.from_config`` on the full-width
+   config (TransformerLM 1024 wide, 16 blocks, 32768 tokens, bf16, fused
+   tails), ``warmup()``, then 16 requests with seeded prompt lengths in
+   [1, 512]; every request generates 32 tokens in range, K3 and K4 each
+   launch exactly 16 x (1 + 31) = 512 times per batch, and nothing else
+   (no flash, no CE launch: serving keeps the einsum attention);
+6. the training kernels against their twins, timed as in phase 3, beside
+   their bound and one PyTorch call computing the same function
+   (``F.cross_entropy``, ``F.scaled_dot_product_attention``, timed here
+   only): K1a/K1b at [16384, 32768] f32 and [37, 1000] in bf16 and f32 with
+   an out-of-range label; flash forward/backward at B 8, H 16, S 2048, D 64
+   bf16 causal, plus a non-causal and a float32 case; wrong dtype, wrong
+   device and an unsupported head dim must raise;
+7. one training step at full width (depth 2, float32, TF32 off) on the card
+   against the CPU on the same weights and batch: loss and the gradient of
+   every parameter;
+8. the training main path: the ``train_distributed`` runner on
+   ``configs/train-lm-1024.yml`` (full width, 16 blocks, bf16) for 6 steps
+   and one validation of 2 batches; every loss finite, and per step exactly
+   1 K1a, 1 K1b, 16 flash forwards, 2 x 16 flash backward launches and 16
+   each of K3/K4; the validation adds per batch 1 K1a, 16 flash forwards
+   and 16 each of K3/K4.  Prints step ms, tokens/s, MFU and peak memory.
 
 The line before the last lists every kernel with its TPU counterpart, its
-launches on the main path, its error against the plain twin, and its
-times.  The last line is ``{"ok": true, "device": {...}}``.  With no card
-the script prints no result and exits 1.  It imports nothing of JAX.
+launches on the main path that runs it, its error against the plain twin,
+and its times.  The last line is ``{"ok": true, "device": {...}}``.  With no
+card the script prints no result and exits 1.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -38,16 +58,45 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz: covers any host enqueue
-CONFIG = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)),
-    "pytorch_distributed_training_tpu_torch", "configs", "serve-lm-1024.yml",
-)
-SOURCE = "pytorch_distributed_training_tpu_torch/csrc/fused_elementwise.cu"
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "configs",
+                      "serve-lm-1024.yml")
+TRAIN_CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "configs",
+                            "train-lm-1024.yml")
+_CSRC = "pytorch_distributed_training_tpu_torch/csrc/"
+_TPU = "pytorch_distributed_training_tpu/ops/"
+# kernel -> (TPU kernel, file:line of it, source of the port's kernel)
 TPU_KERNELS = {
-    "add_layernorm": ("K3", "pytorch_distributed_training_tpu/ops/fused_elementwise.py:88"),
-    "bias_gelu": ("K4", "pytorch_distributed_training_tpu/ops/fused_elementwise.py:203"),
+    "add_layernorm": ("K3", _TPU + "fused_elementwise.py:88", _CSRC + "fused_elementwise.cu"),
+    "bias_gelu": ("K4", _TPU + "fused_elementwise.py:203", _CSRC + "fused_elementwise.cu"),
+    "ce_fwd": ("K1a", _TPU + "fused_ce.py:56", _CSRC + "fused_ce.cu"),
+    "ce_bwd": ("K1b", _TPU + "fused_ce.py:70", _CSRC + "fused_ce.cu"),
+    "flash_fwd": ("K2a", _TPU + "flash_attention.py:178", _CSRC + "flash_attention.cu"),
+    "flash_bwd": ("K2c", _TPU + "flash_attention.py:278", _CSRC + "flash_attention.cu"),
 }
+# arithmetic per logit for the CE operations bound: max compare, subtract,
+# exp, add (forward); subtract, exp, subtract the one-hot, scale (backward)
+CE_FLOPS_PER_ELEMENT = 4
+# card vs twin limits.  Elementwise: |kernel - twin| <= atol + rtol |twin|;
+# for flash also ||kernel - twin|| / ||twin|| per tensor.  K1b's dlogits
+# are (p - onehot) * scale, |p| <= 1: atol is tied to the scale, so every
+# entry is held to its own size, not only the label column and the largest
+# probabilities.  f32: summation order only; bf16: one ulp is 2^-8 (3.9e-3)
+# relative, so rtol 1e-2 allows an f32 sum taken in another order to round
+# to the neighbouring bf16 value.
+CE_BWD_ATOL_PER_SCALE = 1e-7
+CE_BWD_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# flash bf16: at the LM's shape a typical |o|, |dq|, |dk| is 0.04-0.05;
+# atol 5e-3 is a tenth of that, and the norm limits below hold each tensor
+# as a whole (the kernel rounds p in the forward against a running max, the
+# twin against the row's final max: o differs by more than the gradients,
+# whose p and ds both sides compute from the same lse)
+FLASH_TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=5e-3, rtol=1e-2)}
+FLASH_NORM_LIMIT = {"float32": {"o": 1e-5, "dq": 1e-5, "dk": 1e-5, "dv": 1e-5},
+                    "bfloat16": {"o": 3e-3, "dq": 1e-3, "dk": 1e-3, "dv": 1e-3}}
+FLASH_TILE = 64  # query / key rows per tile in csrc/flash_attention.cu
 # arithmetic per element, for the operations bound: add, two reductions
 # (sum, sum of squares), centre, scale by rstd, affine / add, scale,
 # erf, add, two products
@@ -58,10 +107,19 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
-def bound(name: str, nbytes: int, elements: int):
+def bound_of(nbytes: float, flops: float, flops_per_s: float):
+    """The least time (ms) for ``nbytes`` of traffic and ``flops`` of
+    arithmetic, and which of the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = FLOPS_PER_ELEMENT[name] * elements / F32_FLOPS * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def all_counts(modules) -> dict:
+    counts = {}
+    for m in modules:
+        counts.update(m.launch_counts())
+    return counts
 
 
 def time_ms(torch, fn, flush, reps: int = 20) -> float:
@@ -100,6 +158,52 @@ def call_ms(torch, fn, calls: int = 50) -> float:
     return (time.perf_counter() - t0) * 1e3 / calls
 
 
+def readings(got, want, atol: float, rtol: float) -> dict:
+    """How far ``got`` lies from ``want``: the largest |got - want|, the
+    largest |got - want| / (atol + rtol |want|) (``worst``: at most 1
+    passes), and ||got - want|| / ||want|| (``norm_rel``)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    return dict(max_abs_err=diff.max().item(),
+                worst=(diff / (atol + rtol * w.abs())).max().item(),
+                norm_rel=(diff.norm() / w.norm()).item())
+
+
+def within(r: dict, norm_limit=None) -> bool:
+    return r["worst"] <= 1.0 and (norm_limit is None or r["norm_rel"] <= norm_limit)
+
+
+def judge(checks) -> None:
+    """Print every (what, readings, norm limit, sound) first, then fail on
+    the first kernel output (sound True) outside its limits or the first
+    wrong variant (sound False) inside them: a check that a wrong kernel
+    would pass.  Sound None is a variant that is only read."""
+    kinds = {True: "card vs twin", False: "wrong variant", None: "variant, read only"}
+    for what, r, limit, sound in checks:
+        say(f"  {kinds[sound]} {what}: "
+            f"max_abs_err={r['max_abs_err']} worst={r['worst']} norm_rel={r['norm_rel']} "
+            f"(norm limit {limit}) -> {'within' if within(r, limit) else 'outside'}")
+    for what, r, limit, sound in checks:
+        if sound is not None and within(r, limit) != sound:
+            raise AssertionError(f"{what}: {'outside' if sound else 'within'} its limits: {r}")
+
+
+def fwd_skipping_tile(torch, q, k, v, scale: float, tile: int):
+    """Causal attention of ``[BH, S, D]`` in f32 with K tile ``tile`` left
+    out for every query row past it: what a forward kernel that skipped
+    one K tile of its loop would return."""
+    s_len = q.shape[1]
+    keep = torch.ones(s_len, s_len, dtype=torch.bool, device=q.device).tril()
+    keep[(tile + 1) * FLASH_TILE:, tile * FLASH_TILE:(tile + 1) * FLASH_TILE] = False
+    outs = []
+    for i in range(0, q.shape[0], 16):
+        qc, kc, vc = (x[i:i + 16].float() for x in (q, k, v))
+        sc = torch.matmul(qc, kc.transpose(-1, -2)) * scale
+        p = torch.softmax(sc.masked_fill(~keep, -1e30), dim=-1)
+        outs.append(torch.matmul(p, vc).to(q.dtype))
+    return torch.cat(outs)
+
+
 def expect_raise(exc, fn, what: str) -> None:
     try:
         fn()
@@ -133,7 +237,8 @@ def phase_kernels(torch, fe):
             kernel = lambda: fe.fused_add_layernorm(x, d, scale, bias, out_dtype=dtype)  # noqa: E731
             k_ms, c_ms = time_ms(torch, kernel, flush), call_ms(torch, kernel)
             p_ms = time_ms(torch, lambda: fe.add_layernorm_plain(x, d, scale, bias, out_dtype=dtype), flush)
-            b_ms, b_by = bound("add_layernorm", fe.add_layernorm_bytes(r, e, dtype, dtype), r * e)
+            b_ms, b_by = bound_of(fe.add_layernorm_bytes(r, e, dtype, dtype),
+                                  FLOPS_PER_ELEMENT["add_layernorm"] * r * e, F32_FLOPS)
             rows["add_layernorm"].append(dict(
                 shape=[r, e], dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
                 ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, call_ms=c_ms))
@@ -147,7 +252,8 @@ def phase_kernels(torch, fe):
             kernel = lambda: fe.fused_bias_gelu(u, b)  # noqa: E731
             k_ms, c_ms = time_ms(torch, kernel, flush), call_ms(torch, kernel)
             p_ms = time_ms(torch, lambda: fe.bias_gelu_plain(u, b), flush)
-            b_ms, b_by = bound("bias_gelu", fe.bias_gelu_bytes(r, h, dtype), r * h)
+            b_ms, b_by = bound_of(fe.bias_gelu_bytes(r, h, dtype),
+                                  FLOPS_PER_ELEMENT["bias_gelu"] * r * h, F32_FLOPS)
             rows["bias_gelu"].append(dict(
                 shape=[r, h], dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
                 ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, call_ms=c_ms))
@@ -214,7 +320,7 @@ def phase_model_vs_cpu(torch, fe):
     return worst
 
 
-def phase_main_path(torch, fe, np):
+def phase_main_path(torch, fe, np, modules):
     """Phase 5: the serving batcher path at full width."""
     from pytorch_distributed_training_tpu_torch.config_parsing import get_serve_cfg
     from pytorch_distributed_training_tpu_torch.serving import InferenceEngine
@@ -233,11 +339,16 @@ def phase_main_path(torch, fe, np):
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, vocab, int(rng.integers(1, 513))).astype(np.int32)
                    for _ in range(16)]
-        fe.reset_launch_counts()
+        for m in modules:
+            m.reset_launch_counts()
         futures = [engine.submit(p) for p in prompts]
         results = [f.result(timeout=600) for f in futures]
+        others = {k: v for k, v in all_counts(modules).items()
+                  if k not in fe.KERNELS}
         launches = fe.launch_counts()
         snap = engine.snapshot()
+    if any(others.values()):
+        raise AssertionError(f"serving launched training kernels: {others}")
     for r in results:
         if r["gen_len"] != max_new:
             raise AssertionError(f"gen_len {r['gen_len']} != {max_new}")
@@ -258,42 +369,359 @@ def phase_main_path(torch, fe, np):
     return launches, engine
 
 
-def phase_profile(torch, engine, np):
-    """``--profile``: device time by kernel for one batch's prefill and its
-    decode loop at the larger seq bucket, and the device's busy share of
-    each phase's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
+def profile_window(torch, label: str, fn, top: int) -> None:
+    """Run ``fn`` once under ``torch.profiler``; print its wall time, the
+    device kernel time and the device's busy share of that wall time, the
+    kernel launches, and the ``top`` kernels by device time."""
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     def device_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernel rows only: an operator's row repeats its kernels' time
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    say(f"  profile {label}: wall {wall_ms} ms, device kernel time {busy_ms} ms, busy "
+        f"share {busy_ms / wall_ms}, kernel launches {sum(e.count for e in events)}")
+    for e in sorted(events, key=lambda e: -device_us(e))[:top]:
+        say(f"    {device_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
+
+
+def phase_profile(torch, engine, np):
+    """``--profile``: one batch's prefill and its decode loop at the larger
+    seq bucket."""
     bb, sb = engine.batch_buckets[-1], engine.seq_buckets[-1]
     rng = np.random.default_rng(1)
     tokens = rng.integers(0, engine.vocab_size, (bb, sb)).astype(np.int32)
     plen = np.full((bb,), sb, np.int32)
     carry = []
-    phases = (
-        ("prefill", lambda: carry.append(engine._generate.prefill(tokens, plen))),
-        ("decode", lambda: engine._generate.decode(plen, carry[0])),
-    )
-    for phase, fn in phases:
+    profile_window(torch, f"prefill [{bb}x{sb}]",
+                   lambda: carry.append(engine._generate.prefill(tokens, plen)), 15)
+    profile_window(torch, f"decode [{bb}x{sb}]",
+                   lambda: engine._generate.decode(plen, carry[0]), 15)
+
+
+def phase_train_kernels(torch, ce, fa):
+    """Phase 6: K1a/K1b and the flash pair against their plain twins."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = {"ce_fwd": [], "ce_bwd": [], "flash_fwd": [], "flash_bwd": []}
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    checks = []
+    # --- K1a / K1b: the main path's [16384, 32768] f32, then ragged rows
+    for r, c, dtype in ((16384, 32768, torch.float32), (37, 1000, torch.bfloat16),
+                        (37, 1000, torch.float32)):
+        x = (torch.randn(r, c, generator=gen, device=dev) * 2.0).to(dtype)
+        labels = torch.randint(0, c, (r,), generator=gen, device=dev)
+        main = r == 16384
+        if not main:
+            labels[5] = c + 7  # out of range: true logit 0, no raise
+        scale = torch.full((1,), 1.0 / r, device=dev)
+        nll_k, lse_k = ce.fused_ce_forward(x, labels)
+        nll_p, lse_p = ce.ce_forward_plain(x, labels)
+        d_k = ce.fused_ce_backward(x, labels, lse_p, scale)
+        d_p = ce.ce_backward_plain(x, labels, lse_p, scale)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # kernel rows only: an operator's row repeats its kernels' time
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and device_us(e) > 0]
-        busy_ms = sum(device_us(e) for e in events) / 1e3
-        say(f"  profile {phase} [{bb}x{sb}]: wall {wall_ms} ms, device kernel time "
-            f"{busy_ms} ms, busy share {busy_ms / wall_ms}, kernel launches "
-            f"{sum(e.count for e in events)}")
-        for e in sorted(events, key=lambda e: -device_us(e))[:15]:
-            say(f"    {device_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
+        # f32 statistics over a row: summation order only
+        torch.testing.assert_close(nll_k, nll_p, atol=1e-4, rtol=1e-5)
+        torch.testing.assert_close(lse_k, lse_p, atol=1e-4, rtol=1e-5)
+        shape, dt = [r, c], str(dtype).replace("torch.", "")
+        ce_tol = dict(atol=CE_BWD_ATOL_PER_SCALE / r, rtol=CE_BWD_RTOL[dt])
+        checks.append((f"ce_bwd {shape} {dt}", readings(d_k, d_p, **ce_tol), None, True))
+        if main:
+            # wrong variants the limits must reject: dlogits through bf16
+            # (p at 8 bits), and the last 16 bytes of every row unwritten
+            checks.append(("ce_bwd through bf16", readings(
+                d_p.to(torch.bfloat16), d_p, **ce_tol), None, False))
+            tail = d_k.clone()
+            tail[:, -4:] = 0
+            checks.append(("ce_bwd last 4 columns unwritten",
+                           readings(tail, d_p, **ce_tol), None, False))
+            del tail
+        fwd = lambda: ce.fused_ce_forward(x, labels)  # noqa: E731
+        bwd = lambda: ce.fused_ce_backward(x, labels, lse_p, scale)  # noqa: E731
+        n = r * c
+        for name, kernel, plain, e, nbytes in (
+            ("ce_fwd", fwd, lambda: ce.ce_forward_plain(x, labels),
+             max(err(nll_k, nll_p), err(lse_k, lse_p)), ce.ce_forward_bytes(r, c, dtype)),
+            ("ce_bwd", bwd, lambda: ce.ce_backward_plain(x, labels, lse_p, scale),
+             err(d_k, d_p), ce.ce_backward_bytes(r, c, dtype)),
+        ):
+            b_ms, b_by = bound_of(nbytes, CE_FLOPS_PER_ELEMENT * n, F32_FLOPS)
+            lib_ms = None
+            if main:  # in-range labels only: F.cross_entropy asserts on the card
+                if name == "ce_fwd":
+                    lib = lambda: F.cross_entropy(x, labels, reduction="none")  # noqa: E731
+                else:
+                    xg = x.detach().requires_grad_(True)
+                    lib_loss = F.cross_entropy(xg, labels)
+                    lib = lambda: torch.autograd.grad(lib_loss, xg, retain_graph=True)  # noqa: E731
+                lib_ms = time_ms(torch, lib, flush)
+            rows[name].append(dict(
+                shape=shape, dtype=dt, max_abs_err=e, ms=time_ms(torch, kernel, flush),
+                call_ms=call_ms(torch, kernel), plain_ms=time_ms(torch, plain, flush),
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        del x, d_k, d_p
+    torch.cuda.empty_cache()
+
+    # --- flash: the main path's B 8 H 16 S 2048 D 64 bf16 causal first
+    for b, h, s_len, d, dtype, causal in ((8, 16, 2048, 64, torch.bfloat16, True),
+                                          (2, 4, 512, 128, torch.bfloat16, False),
+                                          (2, 4, 256, 64, torch.float32, True)):
+        bh = b * h
+        q, k, v, do = (torch.randn(bh, s_len, d, generator=gen, device=dev).to(dtype)
+                       for _ in range(4))
+        scale = 1.0 / d ** 0.5
+        o_k, lse_k = fa.flash_forward(q, k, v, causal, scale)
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, scale)
+        delta = (do.float() * o_p.float()).sum(-1)
+        g_k = fa.flash_backward(q, k, v, do, lse_p, delta, causal, scale)
+        g_p = fa.flash_bwd_plain(q, k, v, do, lse_p, delta, causal, scale)
+        torch.cuda.synchronize()
+        shape, dt = [b, h, s_len, d], str(dtype).replace("torch.", "")
+        tol, limit = FLASH_TOL[dt], FLASH_NORM_LIMIT[dt]
+        torch.testing.assert_close(lse_k, lse_p, atol=1e-4, rtol=1e-5)
+        for what, a, c in zip(("o", "dq", "dk", "dv"), (o_k, *g_k), (o_p, *g_p)):
+            checks.append((f"flash {what} {shape} {dt} causal={causal}",
+                           readings(a, c, **tol), limit[what], True))
+        if (b, h, s_len) == (8, 16, 2048):
+            # wrong variants the limits must reject: one kernel tile left
+            # out of the forward's K loop or of dK/dV's Q loop, and the
+            # bf16 roundings of p and ds left out
+            tile = s_len // FLASH_TILE // 2
+            checks.append(("flash o, one K tile skipped", readings(
+                fwd_skipping_tile(torch, q, k, v, scale, tile), o_p, **tol), limit["o"], False))
+            # read only: the kernel rounds p against a running max and the
+            # twin against the row's final max, so o differs from the twin
+            # by about what leaving the rounding out does
+            o_unrounded = fa.flash_fwd_plain(q.float(), k.float(), v.float(), causal, scale)[0]
+            checks.append(("flash o, p not rounded to bf16", readings(
+                o_unrounded.to(dtype), o_p, **tol), limit["o"], None))
+            cut = slice(tile * FLASH_TILE, (tile + 1) * FLASH_TILE)
+            do_cut, delta_cut = do.clone(), delta.clone()
+            do_cut[:, cut], delta_cut[:, cut] = 0, 0
+            _, dk_cut, dv_cut = fa.flash_backward(q, k, v, do_cut, lse_p, delta_cut, causal, scale)
+            for what, a, c in (("dk", dk_cut, g_p[1]), ("dv", dv_cut, g_p[2])):
+                checks.append((f"flash {what}, one Q tile skipped", readings(a, c, **tol),
+                               limit[what], False))
+            unrounded = fa.flash_bwd_plain(q.float(), k.float(), v.float(), do.float(), lse_p,
+                                           delta, causal, scale)
+            for what, a, c in zip(("dq", "dk", "dv"), unrounded, g_p):
+                checks.append((f"flash {what}, p and ds not rounded to bf16", readings(
+                    a.to(dtype), c, **tol), limit[what], False))
+            del do_cut, delta_cut, dk_cut, dv_cut, unrounded, o_unrounded
+        rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        fwd = lambda: fa.flash_forward(q, k, v, causal, scale)  # noqa: E731
+        bwd = lambda: fa.flash_backward(q, k, v, do, lse_p, delta, causal, scale)  # noqa: E731
+        qs, ks, vs = (x.view(b, h, s_len, d) for x in (q, k, v))
+        q4, k4, v4 = (x.detach().requires_grad_(True) for x in (qs, ks, vs))
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+        do4 = do.view(b, h, s_len, d)
+        for name, kernel, plain, e, backward, lib in (
+            ("flash_fwd", fwd, lambda: fa.flash_fwd_plain(q, k, v, causal, scale),
+             max(err(o_k, o_p), err(lse_k, lse_p)), False,
+             lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)),
+            ("flash_bwd", bwd,
+             lambda: fa.flash_bwd_plain(q, k, v, do, lse_p, delta, causal, scale),
+             max(err(a, c) for a, c in zip(g_k, g_p)), True,
+             lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)),
+        ):
+            b_ms, b_by = bound_of(fa.flash_bytes(bh, s_len, d, dtype, backward),
+                                  fa.flash_flops(bh, s_len, d, causal, backward), rate)
+            rows[name].append(dict(
+                shape=shape, dtype=dt, causal=causal, max_abs_err=e,
+                ms=time_ms(torch, kernel, flush), call_ms=call_ms(torch, kernel),
+                plain_ms=time_ms(torch, plain, flush), bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(torch, lib, flush)))
+        del q, k, v, do, o4, q4, k4, v4
+        torch.cuda.empty_cache()
+    judge(checks)
+    for name, cases in rows.items():
+        for c in cases:
+            say(f"  {name} {c['shape']} {c['dtype']}: kernel_ms={c['ms']} "
+                f"plain_ms={c['plain_ms']} library_ms={c['library_ms']} "
+                f"bound_ms={c['bound_ms']} ({c['bound_by']}) call_ms={c['call_ms']} "
+                f"max_abs_err={c['max_abs_err']}")
+
+    # what the kernels do not take raises; nothing falls back to the plain twin
+    x64 = torch.zeros(4, 64, device=dev, dtype=torch.float64)
+    lab = torch.zeros(4, dtype=torch.int64, device=dev)
+    expect_raise(TypeError, lambda: ce.fused_ce_forward(x64, lab), "ce f64")
+    expect_raise(ValueError, lambda: ce.fused_ce_forward(x64.float(), lab.cpu()),
+                 "ce labels on the CPU")
+    qh = torch.zeros(2, 128, 64, device=dev, dtype=torch.float16)
+    expect_raise(TypeError, lambda: fa.flash_forward(qh, qh, qh, True, 0.125), "flash f16")
+    q32 = torch.zeros(2, 128, 32, device=dev, dtype=torch.bfloat16)
+    expect_raise(ValueError, lambda: fa.flash_forward(q32, q32, q32, True, 0.125), "flash D=32")
+    qb = torch.zeros(2, 128, 64, device=dev, dtype=torch.bfloat16)
+    expect_raise(ValueError, lambda: fa.flash_forward(qb, qb.cpu(), qb, True, 0.125),
+                 "flash k on the CPU")
+    say("  wrong dtype / wrong device / unsupported head dim raise: ok")
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _train_model(torch, depth):
+    from pytorch_distributed_training_tpu_torch.models import TransformerLM
+
+    return TransformerLM(32768, max_len=2048, embed_dim=1024, depth=depth, num_heads=16,
+                         fused_tails=True, flash=True)
+
+
+def phase_train_step_vs_cpu(torch, modules):
+    """Phase 7: one full-width f32 training step (depth 2), card vs CPU."""
+    from pytorch_distributed_training_tpu_torch.engine import lm_loss_local
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = _train_model(torch, 2)
+    cpu.reset_parameters(torch.Generator().manual_seed(4))
+    gpu = _train_model(torch, 2)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.cuda()
+    gen = torch.Generator().manual_seed(5)
+    b, s_len = 2, 256
+    tokens = torch.randint(0, 32768, (b, s_len), generator=gen)
+    labels = torch.randint(0, 32768, (b, s_len), generator=gen)
+    for m in modules:
+        m.reset_launch_counts()
+    losses = {}
+    for where, model, tok, lab in (("cpu", cpu, tokens, labels),
+                                   ("card", gpu, tokens.cuda(), labels.cuda())):
+        loss = lm_loss_local(model(tok), lab, b * s_len)
+        loss.backward()
+        losses[where] = loss.item()
+    counts = all_counts(modules)
+    want = dict(add_layernorm=2, bias_gelu=2, ce_fwd=1, ce_bwd=1, flash_fwd=2, flash_bwd=4)
+    if counts != want:
+        raise AssertionError(f"training step on the card: launches {counts}, want {want}")
+    say(f"  loss card {losses['card']!r} cpu {losses['cpu']!r}")
+    if abs(losses["card"] - losses["cpu"]) > 1e-5 * abs(losses["cpu"]):
+        raise AssertionError("loss: card and CPU differ by more than rtol 1e-5")
+    # f32 everywhere, TF32 off: the sums run in other orders (cuBLAS, the
+    # kernels) than on the CPU; each gradient within 1e-4 of its own largest
+    # magnitude
+    worst_name, worst = "", 0.0
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        gc, gg = pc.grad, pg.grad.cpu()
+        rel = ((gg - gc).abs().max() / gc.abs().max().clamp_min(1e-30)).item()
+        if not torch.isfinite(gg).all() or rel > 1e-4:
+            raise AssertionError(f"grad {name}: card vs CPU relative error {rel}")
+        if rel > worst:
+            worst_name, worst = name, rel
+    say(f"  {len(list(cpu.parameters()))} gradients match; worst {worst_name}: "
+        f"max |card - cpu| / max |cpu| = {worst:.3g}")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return {"loss_card": losses["card"], "loss_cpu": losses["cpu"], "worst_grad_rel": worst}
+
+
+def phase_train_main_path(torch, modules):
+    """Phase 8: the training runner on the full-width config."""
+    import math
+
+    from functools import partial
+
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg, get_train_logger
+    from pytorch_distributed_training_tpu_torch.engine import Runner
+    from pytorch_distributed_training_tpu_torch.logger import MultiProcessLoggerListener
+
+    cfg = get_cfg(TRAIN_CONFIG)
+    steps = 6
+    cfg["training"].update(train_iters=steps, print_interval=1, val_interval=steps)
+    cfg["dataset"]["n_samples"] = 2 * cfg["training"]["batch_size"]  # 2 val batches
+    depth = cfg["model"]["depth"]
+    marks = []
+
+    def on_iter(runner):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), all_counts(modules)))
+
+    # the CLI's logging: records through the listener to stdout and a file
+    listener = MultiProcessLoggerListener(
+        partial(get_train_logger, os.path.join(_HERE, "run", "chip_smoke"), "train-lm-1024"),
+        "spawn")
+    runner = Runner(num_nodes=1, rank=0, seed=0, dist_url="", multiprocessing=False,
+                    logger_queue=listener.queue, global_cfg=cfg, device="cuda",
+                    on_iter=on_iter)
+    for m in modules:
+        m.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        runner()
+    finally:
+        listener.stop()
+    final = all_counts(modules)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in runner.train_log]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training losses: {losses}")
+    if len(runner.val_log) != 1 or not math.isfinite(runner.val_log[0]["loss"]):
+        raise AssertionError(f"validation: {runner.val_log}")
+    per_step = dict(add_layernorm=depth, bias_gelu=depth, ce_fwd=1, ce_bwd=1,
+                    flash_fwd=depth, flash_bwd=2 * depth)
+    per_val_batch = dict(add_layernorm=depth, bias_gelu=depth, ce_fwd=1, ce_bwd=0,
+                         flash_fwd=depth, flash_bwd=0)
+    prev = {k: 0 for k in per_step}
+    for i, (_, counts) in enumerate(marks):
+        got = {k: counts[k] - prev[k] for k in per_step}
+        if got != per_step:
+            raise AssertionError(f"step {i}: launches {got}, want {per_step}")
+        prev = counts
+    val_batches = len(runner.val_loader)
+    got = {k: final[k] - prev[k] for k in per_step}
+    want = {k: per_val_batch[k] * val_batches for k in per_step}
+    if got != want:
+        raise AssertionError(f"validation ({val_batches} batches): launches {got}, want {want}")
+    step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
+    tokens = cfg["training"]["batch_size"] * cfg["dataset"]["seq_len"]
+    med_ms = statistics.median(step_ms)
+    n_params = sum(p.numel() for p in runner.model.parameters())
+    flops = train_step_flops(runner.model, cfg["training"]["batch_size"],
+                             cfg["dataset"]["seq_len"])
+    say(f"  {n_params / 1e6:.1f} M parameters; losses {losses}; validation {runner.val_log[0]}")
+    say(f"  step ms (steps 1-{steps - 1}, host clock, synced): {step_ms}; median {med_ms}")
+    say(f"  tokens/s {tokens / med_ms * 1e3}; model FLOP a step {flops:.4g}; "
+        f"MFU at 989 TFLOP/s {flops / (med_ms / 1e3) / BF16_FLOPS}")
+    say(f"  launches: per step {per_step}, validation {got}; peak device memory {peak_gib} GiB")
+    return runner, final, dict(step_ms=step_ms, median_step_ms=med_ms,
+                               tokens_per_s=tokens / med_ms * 1e3,
+                               mfu=flops / (med_ms / 1e3) / BF16_FLOPS,
+                               peak_gib=peak_gib, losses=losses, val=runner.val_log[0])
+
+
+def train_step_flops(model, batch: int, seq: int) -> float:
+    """Model FLOP of one training step: 6 x (matmul parameters) per token,
+    plus the attention products over the causal half (2 forward, 4
+    backward), each 2 x S x D per (query, key) pair."""
+    matmul = sum(p.numel() for n, p in model.named_parameters()
+                 if n.endswith(".weight") and p.dim() == 2)
+    tokens = batch * seq
+    attn = 6 * 2 * model.embed_dim * model.depth * batch * seq * (seq + 1) // 2
+    return 6.0 * matmul * tokens + attn
+
+
+def phase_profile_train(torch, runner):
+    """``--profile``: one training step after a warm one."""
+    inp, label = next(iter(runner.train_loader))
+    tokens, labels = runner._to_device(inp, label)
+    runner.train_step(tokens, labels)
+    profile_window(torch, "train step", lambda: runner.train_step(tokens, labels), 20)
 
 
 def main(argv=None) -> int:
@@ -310,7 +738,11 @@ def main(argv=None) -> int:
     import numpy as np
 
     from pytorch_distributed_training_tpu_torch import kernels
+    from pytorch_distributed_training_tpu_torch.ops import fused_ce as ce
+    from pytorch_distributed_training_tpu_torch.ops import flash_attention as fa
     from pytorch_distributed_training_tpu_torch.ops import fused_elementwise as fe
+
+    modules = (fe, ce, fa)
 
     t_start = time.perf_counter()
     say("== phase 1: the card")
@@ -337,26 +769,48 @@ def main(argv=None) -> int:
     phase_model_vs_cpu(torch, fe)
 
     say("== phase 5: main path (serving batcher, full width)")
-    launches, engine = phase_main_path(torch, fe, np)
+    launches, engine = phase_main_path(torch, fe, np, modules)
     if args.profile:
         say("== profile")
         phase_profile(torch, engine, np)
+    engine = None
+    torch.cuda.empty_cache()
+
+    say("== phase 6: training kernels against their plain twins")
+    cases.update(phase_train_kernels(torch, ce, fa))
+
+    say("== phase 7: full-width training step, card vs CPU")
+    phase_train_step_vs_cpu(torch, modules)
+
+    say("== phase 8: main path (training runner, full width)")
+    runner, train_launches, train = phase_train_main_path(torch, modules)
+    say("training: " + json.dumps(train))
+    if args.profile:
+        say("== profile (training step)")
+        phase_profile_train(torch, runner)
+    runner = None
 
     summary = []
-    for name, (tpu, replaces) in TPU_KERNELS.items():
-        main_case = cases[name][0]  # bf16 at the main path's prefill shape
-        decode_case = cases[name][1]  # bf16 at the decode shape
-        summary.append(dict(
-            name=name, tpu_kernel=tpu, route="cuda", source=SOURCE, replaces=replaces,
-            matched=True, launches=launches[name], max_abs_err=main_case["max_abs_err"],
+    for name, (tpu, replaces, source) in TPU_KERNELS.items():
+        main_case = cases[name][0]  # the main path's fullest call
+        row = dict(
+            name=name, tpu_kernel=tpu, route="cuda", source=source, replaces=replaces,
+            matched=True, max_abs_err=main_case["max_abs_err"],
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
-            bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"], library_ms=None,
+            bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
+            library_ms=main_case.get("library_ms"),
             shape=main_case["shape"], dtype=main_case["dtype"],
-            call_ms=main_case["call_ms"],
-            decode_shape=decode_case["shape"], decode_ms=decode_case["ms"],
-            decode_plain_ms=decode_case["plain_ms"], decode_bound_ms=decode_case["bound_ms"],
-            decode_call_ms=decode_case["call_ms"],
-        ))
+            call_ms=main_case["call_ms"], train_launches=train_launches[name],
+        )
+        if name in launches:  # K3/K4: the serving path, as in slice 1
+            decode_case = cases[name][1]  # bf16 at the decode shape
+            row.update(launches=launches[name], decode_shape=decode_case["shape"],
+                       decode_ms=decode_case["ms"], decode_plain_ms=decode_case["plain_ms"],
+                       decode_bound_ms=decode_case["bound_ms"],
+                       decode_call_ms=decode_case["call_ms"])
+        else:
+            row.update(launches=train_launches[name])
+        summary.append(row)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": summary}))

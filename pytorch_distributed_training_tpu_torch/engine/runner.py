@@ -1,0 +1,307 @@
+"""The training runner, LM plain-DP slice (port of ``engine/runner.py``).
+
+``Runner(...)()`` builds everything from a training config and runs the
+reference's iteration loop:
+
+- datasets (``dataset.*``), the sampler (shuffled, ``drop_last`` for
+  training; in order and wrap-padded for validation; sharded by rank when
+  the world has more than one rank) and a plain batch loader;
+- the model from ``model.*`` with ``flash`` on, in ``training.dtype`` with
+  f32 master parameters, on the card (``device``, default ``cuda``);
+- the optimizer and LR schedule from ``training.optimizer`` /
+  ``training.lr_schedule``;
+- the train and eval steps of :mod:`.sp_steps`;
+- the loop: one step per iteration, the
+  ``Iter [i/T] Lr: [...] Loss: x (tok/s)`` line every ``print_interval``
+  (``runner.py:1216-1245``), the scheduler stepped every iteration
+  (``:1254``), and ``Start valuation`` / ``Acc@1 ... Acc@5 ... Loss`` at
+  ``val_interval`` and after the last iteration (``:1110-1114``,
+  ``:1265-1291``).
+
+A run of more than one rank is one process per rank; ``torch.distributed``
+gets its address, world size and rank from the caller (NCCL on the card,
+gloo on the CPU).  With ``multiprocessing`` the runner spawns one process
+per local card (or one on the CPU) per node, as the reference does.
+
+Not ported yet: every config key asking for one raises
+``NotImplementedError`` naming its ROADMAP item (:data:`UNPORTED_TRAINING_KEYS`):
+checkpointing, remat, grad accumulation, the anomaly guard and the rest of
+fault tolerance (P2b), sequence/tensor/pipeline/expert parallelism, ZeRO
+and ``comm`` (P9), telemetry, integrity and elastic recovery (P10).
+TensorBoard is absent (P10): the log file and the console carry the
+metrics.
+"""
+from __future__ import annotations
+
+import logging
+import math
+import time
+from logging.handlers import QueueHandler
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from .. import resolve_device
+from ..data import DataLoader, DistributedShardSampler, get_dataset, make_iter_dataloader
+from ..metrics import AverageMeter
+from ..models import get_model
+from ..optimizers import get_optimizer
+from ..schedulers import get_scheduler
+from ..utils import make_deterministic
+from .sp_steps import build_lm_eval_step, build_lm_train_step
+
+__all__ = ["Runner", "UNPORTED_TRAINING_KEYS"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# training.<key> -> why it raises; a key counts when it is set and truthy
+# (a parallelism degree counts above 1)
+UNPORTED_TRAINING_KEYS = {
+    "checkpoint": "checkpointing and resume are ROADMAP port item P2b",
+    "remat": "remat policies are ROADMAP port item P2b",
+    "grad_accumulation": "training.grad_accumulation > 1 is ROADMAP port item P2b",
+    "fault_tolerance": "fault tolerance (anomaly guard, watchdog, data-worker respawn) is "
+                       "ROADMAP port item P2b",
+    "sequence_parallelism": "sequence parallelism is ROADMAP port item P9",
+    "tensor_parallelism": "tensor parallelism is ROADMAP port item P9",
+    "pipeline_parallelism": "pipeline parallelism is ROADMAP port item P9",
+    "expert_parallelism": "expert parallelism is ROADMAP port item P9",
+    "zero": "ZeRO sharding is ROADMAP port item P9",
+    "comm": "training.comm (bucketed overlap, ZeRO-1) is ROADMAP port item P9",
+    "telemetry": "the telemetry layer is ROADMAP port item P10",
+    "integrity": "the integrity sentinel is ROADMAP port item P10",
+    "elastic": "elastic recovery is ROADMAP port item P10",
+    "ema": "training.ema is only wired for the image task (ROADMAP port item P3)",
+}
+
+
+def _reject_unported(train_cfg: Dict[str, Any]) -> None:
+    for key, why in UNPORTED_TRAINING_KEYS.items():
+        val = train_cfg.get(key)
+        if key.endswith("parallelism") or key == "grad_accumulation":
+            wanted = val is not None and int(val) > 1
+        elif key == "comm":
+            wanted = bool((val or {}).get("overlap", False))
+        else:
+            wanted = bool(val) and val != "none"
+        if wanted:
+            raise NotImplementedError(f"training.{key}: {why}")
+
+
+class Runner:
+    """Counterpart of the reference Runner (train_distributed.py:89) for the
+    LM plain-DP path.
+
+    ``num_nodes``/``rank`` follow the reference CLI: with
+    ``multiprocessing`` they count nodes and each node spawns one process
+    per local card; without it they are the world size and this process's
+    rank (``num_nodes`` <= 1: a single process).  ``on_iter(runner)``, if
+    given, is called after every training iteration (after its log line).
+    """
+
+    def __init__(self, num_nodes: int, rank: int, seed: Optional[int], dist_url: str,
+                 multiprocessing: bool, logger_queue, global_cfg: dict,
+                 device: Optional[str] = None, dist_backend: Optional[str] = None,
+                 on_iter: Optional[Callable[["Runner"], None]] = None):
+        self.num_nodes = num_nodes
+        self.rank = rank
+        self.seed = seed
+        self.dist_url = dist_url
+        self.multiprocessing = multiprocessing
+        self.logger_queue = logger_queue
+        self.global_cfg = global_cfg
+        self.device_name = device
+        self.dist_backend = dist_backend
+        self.on_iter = on_iter
+        self.iter = 0
+        # what the run printed, for callers that drive the runner in-process
+        self.train_log: List[Dict[str, float]] = []
+        self.val_log: List[Dict[str, float]] = []
+
+    def __call__(self):
+        if self.multiprocessing:
+            n_local = self._local_procs()
+            if n_local > 1:
+                torch.multiprocessing.spawn(_spawned_worker, args=(self,), nprocs=n_local)
+                return
+        self.worker(0)
+
+    def _local_procs(self) -> int:
+        if resolve_device(self.device_name).type == "cuda":
+            return torch.cuda.device_count()
+        return 1
+
+    # ------------------------------------------------------------------ setup
+    def worker(self, local_id: int):
+        if self.seed is not None:
+            make_deterministic(self.seed)
+        nodes = max(self.num_nodes or 1, 1)
+        if self.multiprocessing:
+            n_local = self._local_procs()
+            self.world_size = nodes * n_local
+            self.current_rank = max(self.rank, 0) * n_local + local_id
+        else:
+            self.world_size = nodes
+            self.current_rank = max(self.rank, 0) if nodes > 1 else 0
+        self.device = resolve_device(self.device_name)
+        if self.device.type == "cuda":
+            self.device = torch.device("cuda", local_id)
+            torch.cuda.set_device(self.device)
+        self.distributed = self.world_size > 1
+        if self.distributed:
+            backend = self.dist_backend or ("nccl" if self.device.type == "cuda" else "gloo")
+            dist.init_process_group(backend, init_method=self.dist_url,
+                                    world_size=self.world_size, rank=self.current_rank)
+        try:
+            self._run()
+        finally:
+            if self.distributed:
+                dist.destroy_process_group()
+
+    def _setup_logger(self) -> None:
+        self.logger = logging.getLogger(f"worker_rank_{self.current_rank}")
+        self.logger.propagate = False
+        self.logger.handlers.clear()
+        if self.logger_queue is not None:
+            self.logger.addHandler(QueueHandler(self.logger_queue))
+        self.logger.setLevel(logging.INFO)
+
+    def _run(self) -> None:
+        self._setup_logger()
+        where = (torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
+                 else "cpu")
+        self.logger.info("Use %d process(es), current rank: %d, device %s (%s)",
+                         self.world_size, self.current_rank, self.device, where)
+        cfg = self.global_cfg
+        train_cfg = cfg["training"]
+        _reject_unported(train_cfg)
+        self.compute_dtype = _DTYPES[train_cfg.get("dtype", "float32")]
+        self.label_smoothing = float(train_cfg.get("label_smoothing", 0.0))
+        if not 0.0 <= self.label_smoothing < 1.0:
+            raise ValueError(f"label_smoothing must be in [0, 1), got {self.label_smoothing}")
+
+        ds_kwargs = dict(n_classes=cfg["dataset"]["n_classes"],
+                         n_samples=cfg["dataset"].get("n_samples"),
+                         seq_len=cfg["dataset"].get("seq_len"))
+        train_dataset = get_dataset(cfg["dataset"]["name"], cfg["dataset"].get("root", ""),
+                                    split="train", **ds_kwargs)
+        val_dataset = get_dataset(cfg["dataset"]["name"], cfg["dataset"].get("root", ""),
+                                  split="val", **ds_kwargs)
+        self.seq_len = int(train_dataset[0][0].shape[0])
+
+        model_cfg = dict(cfg["model"])
+        model_name = model_cfg.pop("name")
+        model_cfg.setdefault("max_len", self.seq_len)
+        self.model = get_model(model_name, num_classes=cfg["dataset"]["n_classes"],
+                               dtype=self.compute_dtype, flash=True, **model_cfg)
+        self.model.to(self.device).train()
+        self.logger.info("Model %s: %.1f M parameters, compute %s, flash attention on",
+                         model_name, sum(p.numel() for p in self.model.parameters()) / 1e6,
+                         str(self.compute_dtype).replace("torch.", ""))
+
+        # reference parity (train_distributed.py:194): batch_size is per
+        # process, one process per card
+        self.host_batch = int(train_cfg["batch_size"])
+        self.global_batch = self.host_batch * self.world_size
+        optimizer_params = dict(train_cfg["optimizer"])
+        optimizer_cls = get_optimizer(optimizer_params)
+        optimizer_params.pop("name")
+        self.optimizer = optimizer_cls(**optimizer_params)
+        self.logger.info("Loaded optimizer: %s(%s)", optimizer_cls.__name__, optimizer_params)
+        self.scheduler = get_scheduler(self.optimizer, train_cfg["lr_schedule"])
+
+        seed = self.seed if self.seed is not None else 0
+        train_sampler = DistributedShardSampler(
+            len(train_dataset), self.world_size, self.current_rank, shuffle=True,
+            drop_last=True, seed=seed)
+        val_sampler = DistributedShardSampler(
+            len(val_dataset), self.world_size, self.current_rank, shuffle=False, seed=seed)
+        self.train_loader = DataLoader(train_dataset, self.host_batch, train_sampler,
+                                       drop_last=True)
+        # parity: the val loader reuses the training batch size (:235-241)
+        self.val_loader = DataLoader(val_dataset, self.host_batch, val_sampler,
+                                     drop_last=False)
+        self.logger.info(
+            "Load dataset done\nTraining: %d samples, %d batches\nEval: %d samples, %d batches",
+            len(train_dataset), len(self.train_loader), len(val_dataset), len(self.val_loader))
+        if cfg.get("validation", {}).get("exact", False):
+            self.logger.warning("validation.exact is implemented for the image eval path; "
+                                "LM validation keeps the per-batch meter semantics")
+
+        self.train_step = build_lm_train_step(
+            self.model, self.optimizer, self.scheduler.lr_fn, world_size=self.world_size,
+            label_smoothing=self.label_smoothing)
+        self.eval_step = build_lm_eval_step(self.model, world_size=self.world_size)
+        self._train_loop(make_iter_dataloader(self.train_loader), train_cfg)
+
+    # ------------------------------------------------------------- hot loop
+    def _to_device(self, inp: np.ndarray, label: np.ndarray):
+        tokens = torch.from_numpy(np.asarray(inp, dtype=np.int64))
+        labels = torch.from_numpy(np.asarray(label, dtype=np.int64))
+        if self.device.type == "cuda":
+            return (tokens.pin_memory().to(self.device, non_blocking=True),
+                    labels.pin_memory().to(self.device, non_blocking=True))
+        return tokens, labels
+
+    def _train_loop(self, iter_generator, train_cfg) -> None:
+        self._tput_t0 = time.monotonic()
+        self._tput_iters = 0
+        while self.iter < train_cfg["train_iters"]:
+            inp, label = next(iter_generator)
+            self.train_iter(*self._to_device(inp, label))
+            if self.on_iter is not None:
+                self.on_iter(self)
+            p1 = self.iter != 0
+            p2 = (self.iter + 1) % train_cfg["val_interval"] == 0
+            p3 = self.iter == train_cfg["train_iters"] - 1
+            if (p1 and p2) or p3:
+                self.validate()
+            self.iter += 1
+
+    def train_iter(self, tokens, labels) -> None:
+        train_cfg = self.global_cfg["training"]
+        loss = self.train_step(tokens, labels)
+        self._tput_iters += 1
+        if self.iter % train_cfg["print_interval"] == 0:
+            loss_val = float(loss)  # the loop's only host<->device sync
+            last_lr_group = self.scheduler.get_last_lr()
+            now = time.monotonic()
+            # the first window holds the one-time set-up costs: no rate
+            tok_per_s = (None if self.iter == 0 else
+                         self.global_batch * self.seq_len * self._tput_iters
+                         / max(now - self._tput_t0, 1e-9))
+            self._tput_t0, self._tput_iters = now, 0
+            self.train_log.append(dict(iter=self.iter, loss=loss_val,
+                                       lr=last_lr_group[0], tok_per_s=tok_per_s))
+            if not math.isfinite(loss_val):
+                self.logger.warning("Iter %d: loss is %s", self.iter, loss_val)
+            if self.current_rank == 0:
+                tput = ("" if tok_per_s is None else
+                        f" ({tok_per_s:.1f} tok/s, {tok_per_s / self.world_size:.1f} tok/s/card)")
+                self.logger.info("Iter [%d/%d] Lr: %s Loss: %.4f%s", self.iter,
+                                 train_cfg["train_iters"], last_lr_group, loss_val, tput)
+        self.scheduler.step()  # every iteration (:299)
+
+    # ------------------------------------------------------------ validation
+    def validate(self) -> None:
+        if self.current_rank == 0:
+            self.logger.info("Start valuation")
+        loss_meter, top_1, top_5 = AverageMeter(), AverageMeter(), AverageMeter()
+        self.model.eval()
+        for inp, label in self.val_loader:
+            loss, acc1, acc5 = self.eval_step(*self._to_device(inp, label))
+            loss_meter.update(float(loss))
+            top_1.update(float(acc1))
+            top_5.update(float(acc5))
+        self.model.train()
+        self.val_log.append(dict(iter=self.iter, loss=loss_meter.value(),
+                                 acc1=top_1.value(), acc5=top_5.value()))
+        if self.current_rank == 0:
+            self.logger.info("Acc@1: %.4f, Acc@5: %.4f, Loss: %.5f",
+                             top_1.value(), top_5.value(), loss_meter.value())
+
+
+def _spawned_worker(local_id: int, runner: Runner) -> None:
+    runner.worker(local_id)

@@ -13,6 +13,9 @@ import it: at import the module only names the sources and their C
 signatures.  Pointers and the stream are passed as
 ``c_void_p``, ints as ``c_int``; every C function returns
 ``cudaGetLastError()`` and :func:`check` raises when it is not 0.
+
+Libraries: ``fused_elementwise`` (K3/K4), ``fused_ce`` (K1a/K1b) and
+``flash_attention`` (K2a and the two-launch backward standing in for K2c).
 """
 from __future__ import annotations
 
@@ -36,6 +39,9 @@ __all__ = [
     "library",
     "library_path",
     "nvcc_command",
+    "require_contiguous",
+    "require_cuda",
+    "stream",
 ]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -64,6 +70,25 @@ SOURCES = {
             "pdt_add_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
             # u, bias, y, rows, features, dtype, stream
             "pdt_bias_gelu": [_P, _P, _P, _I, _I, _I, _P],
+        },
+    ),
+    "fused_ce": (
+        "fused_ce.cu",
+        {
+            # logits, labels, nll, lse, rows, classes, dtype, stream
+            "pdt_ce_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+            # logits, labels, lse, scale, dlogits, rows, classes, dtype, stream
+            "pdt_ce_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        },
+    ),
+    "flash_attention": (
+        "flash_attention.cu",
+        {
+            # q, k, v, o, lse, bh, seq, head_dim, scale, causal, dtype, stream
+            "pdt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+            # q, k, v, dout, lse, delta, dq, dk, dv, bh, seq, head_dim, scale,
+            # causal, dtype, stream
+            "pdt_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
         },
     ),
 }
@@ -161,3 +186,29 @@ def check(err: int, what: str) -> None:
     """Raise when a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+# --- checks the wrappers share (torch is imported by the caller's module)
+
+
+def stream(t) -> int:
+    """The raw ``cudaStream_t`` of the current stream on ``t``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors) -> None:
+    """Raise ``ValueError`` unless every tensor is a CUDA tensor on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(
+                f"{name}: the kernel takes CUDA tensors on one device, got "
+                f"{[str(u.device) for u in tensors]}"
+            )
+
+
+def require_contiguous(name: str, *tensors) -> None:
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: the kernel takes contiguous tensors")

@@ -15,8 +15,14 @@ the cache is written in place and returned with the logits.
 every block as the two hand-written kernels of
 :mod:`..ops.fused_elementwise`; the parameters are the same either way.
 
+``flash`` runs the cache-less forward's attention through the flash
+kernels (:mod:`..ops.flash_attention`), as the JAX model does inside its
+``shard_map`` training steps; the trainer sets it, serving does not.
+Training keeps f32 master parameters: each Dense casts to its compute dtype
+per call, so :meth:`TransformerLM.cast_matmul_weights_` is for serving only.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-MoE blocks, ``seq_axis``, remat (training slices P2 and P9), the paged cache
+MoE blocks and ``seq_axis`` (P9), remat policies (P2b), the paged cache
 (P4) and LoRA (P5).
 """
 from __future__ import annotations
@@ -36,11 +42,11 @@ __all__ = ["DecoderBlock", "TransformerLM"]
 
 class DecoderBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, dtype=torch.float32,
-                 fused_tails: bool = False):
+                 fused_tails: bool = False, flash: bool = False):
         super().__init__()
         self.fused_tails = fused_tails
         self.ln1 = LayerNorm(dim, dtype)
-        self.attn = MultiHeadAttention(dim, num_heads, causal=True, dtype=dtype)
+        self.attn = MultiHeadAttention(dim, num_heads, causal=True, dtype=dtype, flash=flash)
         # ln1 has no add before it, and the block's last add feeds the next
         # block's ln1, so add+ln2 is the pair one kernel can fuse
         self.ln2 = (FusedResidualLayerNorm if fused_tails else LayerNorm)(dim, dtype)
@@ -69,6 +75,7 @@ class TransformerLM(nn.Module):
         mlp_ratio: float = 4.0,
         dtype=torch.float32,
         fused_tails: bool = False,
+        flash: bool = False,
         seq_axis: Optional[str] = None,
         remat: bool = False,
         moe_experts: int = 0,
@@ -83,7 +90,9 @@ class TransformerLM(nn.Module):
                 "seq_axis (ring/Ulysses sequence parallelism) is ROADMAP port item P9"
             )
         if remat:
-            raise NotImplementedError("remat comes with LM training, ROADMAP port item P2")
+            raise NotImplementedError(
+                "remat policies (torch.utils.checkpoint) are ROADMAP port item P2b"
+            )
         if paged:
             raise NotImplementedError(
                 "the paged KV cache is ROADMAP port item P4 (continuous scheduler)"
@@ -99,12 +108,13 @@ class TransformerLM(nn.Module):
         self.num_heads = num_heads
         self.dtype = dtype
         self.fused_tails = fused_tails
+        self.flash = flash
         self.tok_embedding = nn.Parameter(torch.empty(vocab_size, embed_dim))
         self.pos_embedding = nn.Parameter(torch.empty(max_len, embed_dim))
         for i in range(depth):
             self.add_module(
                 f"block{i}",
-                DecoderBlock(embed_dim, num_heads, mlp_ratio, dtype, fused_tails),
+                DecoderBlock(embed_dim, num_heads, mlp_ratio, dtype, fused_tails, flash),
             )
         self.ln = LayerNorm(embed_dim, dtype)
         self.head = Dense(embed_dim, vocab_size, torch.float32)

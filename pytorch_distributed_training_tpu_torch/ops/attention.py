@@ -1,20 +1,31 @@
-"""Multi-head attention for the LM serving path.
+"""Multi-head attention for the LM serving and training paths.
 
-Port of ``pytorch_distributed_training_tpu/ops/attention.py`` with the two
-paths serving runs, both plain torch as in the JAX package (an einsum there
-too, not a Pallas kernel):
+Port of ``pytorch_distributed_training_tpu/ops/attention.py``:
 
-- causal attention over the prompt (prefill, and the cache-less forward):
-  scores in f32, masked with ``-inf``, softmax in f32;
+- the einsum path (``impl="xla"``, and ``impl=None``): scores in f32,
+  masked with ``-inf``, softmax in f32, plain torch as in the JAX package;
+  serving's prefill and the cache-less forward without ``flash`` run it;
+- the flash path (``impl="flash"``): the hand-written kernels of
+  :mod:`.flash_attention` (K2a forward, the K2c backward), masked with
+  ``-1e30``;
 - one decode step against a contiguous KV cache (:func:`decode_attention`).
+
+Choosing flash: the JAX package runs its kernel when the step is inside
+``shard_map`` (``ops/attention.py:34-55``), which is where its training
+steps run and its serving does not.  The port makes that choice explicit:
+``MultiHeadAttention(flash=True)`` (set by the trainer) takes the kernel
+whenever the sequence length passes the JAX package's gate
+(:func:`.flash_attention.flash_shapes_ok`: S >= 128, S % 128 == 0), the
+einsum otherwise, as JAX does; a head dim the kernels are not built for
+raises at construction.  Serving keeps ``flash=False``.
 
 The qkv projection's output factors heads-major, ``(H, 3, hd)``, exactly
 as the JAX module's (``ops/attention.py:269-275``): checkpoints converted
 from the JAX tree keep their meaning.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: the flash kernel (K2, item P2), ring and Ulysses sequence
-parallelism (P9), the paged cache (P4), LoRA factors (P5).
+item: ring and Ulysses sequence parallelism (P9), the paged cache (P4),
+LoRA factors (P5).
 """
 from __future__ import annotations
 
@@ -24,20 +35,24 @@ from typing import List, Optional
 import torch
 from torch import nn
 
+from .flash_attention import SUPPORTED_HEAD_DIMS, flash_attention, flash_shapes_ok
 from .layers import Dense
 
 __all__ = ["KVCache", "MultiHeadAttention", "decode_attention", "dot_product_attention"]
 
 
-def dot_product_attention(q, k, v, causal: bool = False, impl: Optional[str] = None):
-    """Full attention ``[B, S, H, D] -> [B, S, H, D]`` in f32, out in q's dtype."""
+def dot_product_attention(q, k, v, causal: bool = False, sm_scale: Optional[float] = None,
+                          impl: Optional[str] = None):
+    """Full attention ``[B, S, H, D] -> [B, S, H, D]``, out in q's dtype.
+
+    ``impl="flash"`` runs the flash kernels (raising on shapes they do not
+    take); ``None`` or ``"xla"`` the f32 einsum.
+    """
     if impl == "flash":
-        raise NotImplementedError(
-            "flash attention (TPU kernels K2a-g) is ROADMAP port item P2"
-        )
+        return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
     if impl not in (None, "xla"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
         n = s.shape[-1]
@@ -112,10 +127,15 @@ def decode_attention(q, k, v, cached_key, cached_value, decode_pos=None, live_le
 
 
 class MultiHeadAttention(nn.Module):
-    """QKV-projected multi-head attention (the JAX module's dense paths)."""
+    """QKV-projected multi-head attention (the JAX module's dense paths).
+
+    ``flash``: run the cache-less forward through the flash kernels where
+    the sequence length allows (see the module docstring).
+    """
 
     def __init__(self, dim: int, num_heads: int, causal: bool = False, dtype=torch.float32,
-                 seq_axis: Optional[str] = None, paged: bool = False, lora_rank: int = 0):
+                 seq_axis: Optional[str] = None, paged: bool = False, lora_rank: int = 0,
+                 flash: bool = False):
         super().__init__()
         if dim % num_heads != 0:
             raise ValueError(f"embed dim {dim} not divisible by {num_heads} heads")
@@ -129,8 +149,12 @@ class MultiHeadAttention(nn.Module):
             )
         if lora_rank > 0:
             raise NotImplementedError("LoRA factors are ROADMAP port item P5")
+        if flash and dim // num_heads not in SUPPORTED_HEAD_DIMS:
+            raise ValueError(f"flash attention takes head dims {SUPPORTED_HEAD_DIMS}, "
+                             f"got {dim // num_heads}")
         self.num_heads = num_heads
         self.causal = causal
+        self.flash = flash
         self.dtype = dtype
         self.qkv = Dense(dim, 3 * dim, dtype)
         self.proj = Dense(dim, dim, dtype)
@@ -151,5 +175,6 @@ class MultiHeadAttention(nn.Module):
         elif decode_pos is not None:
             raise ValueError("decode_pos given without a KV cache")
         else:
-            out = dot_product_attention(q, k, v, causal=self.causal)
+            impl = "flash" if self.flash and flash_shapes_ok(s) else "xla"
+            out = dot_product_attention(q, k, v, causal=self.causal, impl=impl)
         return self.proj(out.reshape(b, s, dim))

@@ -26,8 +26,13 @@ ROUNDED to the stream dtype, fast variance ``max(0, E[s^2] - E[s]^2)``,
 ``eps`` (1e-6, flax's default) inside the rsqrt; GELU in f32 over
 ``f32(u) + f32(bias)`` with the bias already in the compute dtype.
 
-The backward passes (plain math under ``custom_vjp`` in the JAX package)
-come with the training slice.
+Gradients: each wrapper is a ``torch.autograd.Function`` whenever a
+gradient is wanted, on the CPU as on the card, so the CPU tests exercise
+the backward the card runs.  The JAX package has no backward kernel for
+either: its ``custom_vjp`` backward is plain XLA (``:136-161``,
+``:233-239``), and here it is plain torch (:func:`add_layernorm_backward`,
+:func:`bias_gelu_backward`).  Without a gradient the wrappers are called
+directly (serving's path: the same launches, no autograd bookkeeping).
 """
 from __future__ import annotations
 
@@ -45,8 +50,10 @@ __all__ = [
     "FusedResidualLayerNorm",
     "KERNELS",
     "MAX_FEATURES",
+    "add_layernorm_backward",
     "add_layernorm_bytes",
     "add_layernorm_plain",
+    "bias_gelu_backward",
     "bias_gelu_bytes",
     "bias_gelu_plain",
     "fused_add_layernorm",
@@ -61,18 +68,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_FEATURES = 8192
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(
-                f"{name}: the kernel takes CUDA tensors on one device, got "
-                f"{[str(u.device) for u in tensors]}"
-            )
+_INV_SQRT_2PI = 0.3989422804014327
 
 
 def _check_dtype(name: str, t: torch.Tensor) -> None:
@@ -82,9 +78,8 @@ def _check_dtype(name: str, t: torch.Tensor) -> None:
         )
 
 
-def _check_contiguous(name: str, *tensors: torch.Tensor) -> None:
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +107,43 @@ def add_layernorm_bytes(rows: int, features: int, dtype, out_dtype) -> int:
     return rows * features * (3 * es + eo) + 2 * features * 4
 
 
+def add_layernorm_backward(s, scale, ds_up, dy, eps: float = 1e-6):
+    """The JAX ``custom_vjp`` backward (``fused_elementwise.py:136-161``) in
+    plain torch: f32 statistics recomputed from the saved ``s``; returns
+    ``(ds, dscale, dbias)``, ``ds`` (the gradient of both ``x`` and
+    ``delta``) in ``s``'s dtype, ``dscale``/``dbias`` in ``scale``'s."""
+    s32 = s.float()
+    mu = s32.mean(-1, keepdim=True)
+    var = torch.clamp((s32 * s32).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    r = torch.rsqrt(var + eps)
+    xhat = (s32 - mu) * r
+    dy32 = dy.float() if dy is not None else torch.zeros_like(s32)
+    lead = tuple(range(s.dim() - 1))
+    dscale = (dy32 * xhat).sum(lead)
+    dbias = dy32.sum(lead)
+    dxhat = dy32 * scale.float()
+    ds = r * (dxhat - dxhat.mean(-1, keepdim=True)
+              - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    if ds_up is not None:
+        ds = ds_up.float() + ds
+    return ds.to(s.dtype), dscale.to(scale.dtype), dbias.to(scale.dtype)
+
+
+class _AddLayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, delta, scale, bias, eps, out_dtype):
+        s, y = _add_layernorm(x, delta, scale, bias, eps, out_dtype)
+        ctx.save_for_backward(s, scale)
+        ctx.eps = eps
+        return s, y
+
+    @staticmethod
+    def backward(ctx, ds_up, dy):
+        s, scale = ctx.saved_tensors
+        ds, dscale, dbias = add_layernorm_backward(s, scale, ds_up, dy, ctx.eps)
+        return ds, ds, dscale, dbias, None, None
+
+
 def fused_add_layernorm(x, delta, scale, bias, eps: float = 1e-6, out_dtype=None):
     """``s = x + delta; y = layernorm(s) * scale + bias`` in one kernel.
 
@@ -119,10 +151,18 @@ def fused_add_layernorm(x, delta, scale, bias, eps: float = 1e-6, out_dtype=None
     E <= 8192; ``scale``, ``bias``: [E] float32.  Returns ``(s, y)``: ``s``
     in the input dtype, ``y`` in ``out_dtype`` (default: the promotion of
     the inputs and parameters, as in the JAX function; the modules pass
-    their compute dtype, one rounding either way).
+    their compute dtype, one rounding either way).  Differentiable in all
+    four inputs.
     """
     if out_dtype is None:
         out_dtype = torch.promote_types(x.dtype, torch.promote_types(scale.dtype, bias.dtype))
+    if _wants_grad(x, delta, scale, bias):
+        return _AddLayerNorm.apply(x, delta, scale, bias, eps, out_dtype)
+    return _add_layernorm(x, delta, scale, bias, eps, out_dtype)
+
+
+def _add_layernorm(x, delta, scale, bias, eps, out_dtype):
+    """The kernel's wrapper: plain twin on the CPU, launch or raise on CUDA."""
     if x.device.type == "cpu":
         return add_layernorm_plain(x, delta, scale, bias, eps, out_dtype)
     name = "fused_add_layernorm"
@@ -141,8 +181,8 @@ def fused_add_layernorm(x, delta, scale, bias, eps: float = 1e-6, out_dtype=None
         raise TypeError(f"{name}: out_dtype must be {x.dtype} or float32, got {out_dtype}")
     if not 1 <= feat <= MAX_FEATURES:
         raise ValueError(f"{name}: feature width {feat} outside [1, {MAX_FEATURES}]")
-    _check_contiguous(name, x, delta, scale, bias)
-    _check_cuda(name, x, delta, scale, bias)
+    kernels.require_contiguous(name, x, delta, scale, bias)
+    kernels.require_cuda(name, x, delta, scale, bias)
     s = torch.empty_like(x)
     y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     rows = x.numel() // feat
@@ -153,7 +193,7 @@ def fused_add_layernorm(x, delta, scale, bias, eps: float = 1e-6, out_dtype=None
         err = lib.pdt_add_layernorm(
             x.data_ptr(), delta.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             s.data_ptr(), y.data_ptr(), rows, feat, float(eps),
-            _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], _stream(x),
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], kernels.stream(x),
         )
     kernels.check(err, name)
     fused_add_layernorm.launches += 1
@@ -179,13 +219,43 @@ def bias_gelu_bytes(rows: int, features: int, dtype) -> int:
     return 2 * rows * features * es + features * es
 
 
+def bias_gelu_backward(u, bias, dy):
+    """The JAX ``custom_vjp`` backward (``fused_elementwise.py:233-239``) in
+    plain torch: ``du = dy * (cdf + t * pdf)`` at ``t = u + bias`` in f32;
+    returns ``(du, dbias)`` in ``u``'s and ``bias``'s dtypes."""
+    t = u.float() + bias.float()
+    cdf = 0.5 * (1.0 + torch.erf(t * _INV_SQRT2))
+    pdf = torch.exp(-0.5 * t * t) * _INV_SQRT_2PI
+    du = dy.float() * (cdf + t * pdf)
+    return du.to(u.dtype), du.sum(tuple(range(u.dim() - 1))).to(bias.dtype)
+
+
+class _BiasGelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, u, bias):
+        ctx.save_for_backward(u, bias)
+        return _bias_gelu(u, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        u, bias = ctx.saved_tensors
+        return bias_gelu_backward(u, bias, dy)
+
+
 def fused_bias_gelu(u, bias):
     """``gelu(u + bias, approximate=False)`` in one kernel.
 
     ``u``: [..., H] pre-bias matmul output; ``bias``: [H] in ``u``'s dtype
     (the module rounds it to the compute dtype first).  Output keeps
-    ``u``'s dtype.
+    ``u``'s dtype.  Differentiable in both inputs.
     """
+    if _wants_grad(u, bias):
+        return _BiasGelu.apply(u, bias)
+    return _bias_gelu(u, bias)
+
+
+def _bias_gelu(u, bias):
+    """The kernel's wrapper: plain twin on the CPU, launch or raise on CUDA."""
     if u.device.type == "cpu":
         return bias_gelu_plain(u, bias)
     name = "fused_bias_gelu"
@@ -198,8 +268,8 @@ def fused_bias_gelu(u, bias):
         )
     if feat < 1:
         raise ValueError(f"{name}: empty feature axis")
-    _check_contiguous(name, u, bias)
-    _check_cuda(name, u, bias)
+    kernels.require_contiguous(name, u, bias)
+    kernels.require_cuda(name, u, bias)
     y = torch.empty_like(u)
     rows = u.numel() // feat
     if rows == 0:
@@ -208,7 +278,7 @@ def fused_bias_gelu(u, bias):
     with torch.cuda.device(u.device):
         err = lib.pdt_bias_gelu(
             u.data_ptr(), bias.data_ptr(), y.data_ptr(), rows, feat,
-            _DTYPE_CODES[u.dtype], _stream(u),
+            _DTYPE_CODES[u.dtype], kernels.stream(u),
         )
     kernels.check(err, name)
     fused_bias_gelu.launches += 1

@@ -1,0 +1,153 @@
+"""Optimizers with PyTorch-exact update rules, written out by hand.
+
+Port of ``pytorch_distributed_training_tpu/optimizers/__init__.py``: the
+same ``get_optimizer(cfg) -> class`` surface, instantiated with the config
+minus its ``name``, and the same update order as the JAX package (which
+replicates ``torch.optim`` step for step; the port does not assume that
+``torch.optim`` still does):
+
+- :class:`SGD` (``:138-215``): coupled weight decay ``d = g + wd * p``
+  before momentum, torch's first-step buffer ``buf = d``, nesterov.
+- :class:`AdamW` (``:285-390``): decoupled decay ``p *= 1 - lr * wd``
+  before the step, bias-corrected moments, ``eps`` outside the square root
+  and added to the bias-corrected denominator (``:341``);
+  ``exclude_norm_bias`` skips the decay for rank <= 1 parameters.
+
+The JAX optimizers are functional; these keep the same
+``init(params) -> state`` / ``update(...)`` split but update the
+parameters in place (no second copy of 270 M parameters), each operation
+as one multi-tensor ``torch._foreach_*`` pass.  The scalar coefficients
+(``1 - lr * wd``, bias corrections) are computed in float32, as the JAX
+step computes them on the device.  ``fused`` is accepted for config
+compatibility: it picks nothing here, every update is already one pass
+per operation over all parameters.
+
+LARS (ROADMAP port item P3) and LAMB (P2b) raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple
+
+import numpy as np
+import torch
+
+__all__ = ["AdamW", "AdamWState", "OPTIMIZERS", "SGD", "SGDState", "get_optimizer"]
+
+
+class SGDState(NamedTuple):
+    momentum: List[torch.Tensor]  # like the params (zeros when momentum == 0)
+    step: int  # updates applied so far
+
+
+class AdamWState(NamedTuple):
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+    step: int
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def _is_excluded(param: torch.Tensor) -> bool:
+    """Biases and norm scales/offsets (rank <= 1), as ``_is_excluded`` of
+    the JAX package (``optimizers/__init__.py:216-228``)."""
+    return param.dim() <= 1
+
+
+class SGD:
+    """``torch.optim.SGD`` semantics (see the module docstring)."""
+
+    def __init__(self, lr: float, momentum: float = 0.0, weight_decay: float = 0.0,
+                 dampening: float = 0.0, nesterov: bool = False, fused: bool = False):
+        if nesterov and (momentum <= 0 or dampening != 0):
+            raise ValueError("Nesterov momentum requires momentum > 0 and dampening = 0")
+        self.lr = float(lr)
+        self.momentum = float(momentum)
+        self.weight_decay = float(weight_decay)
+        self.dampening = float(dampening)
+        self.nesterov = bool(nesterov)
+
+    def init(self, params: List[torch.Tensor]) -> SGDState:
+        return SGDState(momentum=[torch.zeros_like(p) for p in params], step=0)
+
+    @torch.no_grad()
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+               state: SGDState, lr=None) -> SGDState:
+        """Apply one step to ``params`` in place; returns the new state."""
+        lr = self.lr if lr is None else lr
+        mu, wd, damp = self.momentum, self.weight_decay, self.dampening
+        d = torch._foreach_add(grads, params, alpha=wd) if wd != 0 else list(grads)
+        bufs = state.momentum
+        if mu != 0:
+            if state.step == 0:
+                # torch: the buffer starts as the first d, not as mu*0 + (1-damp)*d
+                torch._foreach_copy_(bufs, d)
+            else:
+                torch._foreach_mul_(bufs, mu)
+                torch._foreach_add_(bufs, d, alpha=1.0 - damp)
+            step_dir = torch._foreach_add(d, bufs, alpha=mu) if self.nesterov else bufs
+        else:
+            step_dir = d
+        torch._foreach_add_(params, step_dir, alpha=-_f32(lr))
+        return SGDState(momentum=bufs, step=state.step + 1)
+
+
+class AdamW:
+    """``torch.optim.AdamW`` semantics (see the module docstring)."""
+
+    def __init__(self, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 1e-2, fused: bool = False,
+                 exclude_norm_bias: bool = False):
+        self.lr = float(lr)
+        self.b1, self.b2 = float(betas[0]), float(betas[1])
+        self.eps = float(eps)
+        self.weight_decay = float(weight_decay)
+        self.exclude_norm_bias = bool(exclude_norm_bias)
+
+    def init(self, params: List[torch.Tensor]) -> AdamWState:
+        return AdamWState(mu=[torch.zeros_like(p) for p in params],
+                          nu=[torch.zeros_like(p) for p in params], step=0)
+
+    @torch.no_grad()
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+               state: AdamWState, lr=None) -> AdamWState:
+        """Apply one step to ``params`` in place; returns the new state."""
+        lr = np.float32(self.lr if lr is None else lr)
+        b1, b2 = np.float32(self.b1), np.float32(self.b2)
+        t = np.float32(state.step + 1)
+        bc1 = np.float32(1.0) - b1 ** t
+        bc2 = np.float32(1.0) - b2 ** t
+        if self.weight_decay != 0.0:
+            decay = float(np.float32(1.0) - lr * np.float32(self.weight_decay))
+            decayed = [p for p in params if not (self.exclude_norm_bias and _is_excluded(p))]
+            if decayed:
+                torch._foreach_mul_(decayed, decay)
+        mu, nu = state.mu, state.nu
+        torch._foreach_mul_(mu, float(b1))
+        torch._foreach_add_(mu, grads, alpha=float(np.float32(1.0) - b1))
+        torch._foreach_mul_(nu, float(b2))
+        torch._foreach_addcmul_(nu, grads, grads, value=float(np.float32(1.0) - b2))
+        denom = torch._foreach_sqrt(nu)
+        torch._foreach_div_(denom, float(np.sqrt(bc2)))
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_addcdiv_(params, mu, denom, value=-float(lr / bc1))
+        return AdamWState(mu=mu, nu=nu, step=state.step + 1)
+
+
+OPTIMIZERS = {"SGD": SGD, "AdamW": AdamW}
+
+_NOT_YET = {
+    "LARS": "LARS (the large-batch ResNet recipe) is ROADMAP port item P3",
+    "LAMB": "LAMB is ROADMAP port item P2b",
+}
+
+
+def get_optimizer(cfg: Dict[str, Any]):
+    """The optimizer *class* for ``cfg['name']`` (reference: :204)."""
+    name = cfg["name"]
+    if name in _NOT_YET:
+        raise NotImplementedError(f"optimizer {name!r}: {_NOT_YET[name]}")
+    if name not in OPTIMIZERS:
+        raise KeyError(f"unknown optimizer '{name}' (have: {sorted(OPTIMIZERS)})")
+    return OPTIMIZERS[name]

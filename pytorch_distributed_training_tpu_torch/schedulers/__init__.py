@@ -1,0 +1,91 @@
+"""Per-iteration LR schedules (port of ``schedulers/__init__.py``).
+
+``get_scheduler(optimizer, cfg)`` returns an :class:`IterationScheduler`:
+``.step()`` once per iteration, ``.get_last_lr()`` a one-element list for
+logging, and ``.lr_fn(step)`` the schedule the train step reads.  The JAX
+package evaluates ``lr_fn`` on the device inside the compiled step; here
+the step runs eagerly and reads it on the host from its own step counter
+(a Python int, so no device sync).
+
+Ported: ``cosine`` with detectron-style warmup (``warmup_iters``,
+``warmup_mode`` linear or constant, ``warmup_factor``; ``:43-52``,
+``:129-153``).  ``multi_step`` and ``poly`` (the ResNet recipes) are ROADMAP
+port item P3 and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, List
+
+__all__ = ["IterationScheduler", "cosine_lr", "get_scheduler"]
+
+
+def _apply_warmup(lr: float, step: int, warmup_iters: int, warmup_mode: str,
+                  warmup_factor: float) -> float:
+    if not warmup_iters or warmup_iters <= 0 or step >= warmup_iters:
+        return lr
+    if warmup_mode == "linear":
+        alpha = step / warmup_iters
+        return lr * (warmup_factor * (1.0 - alpha) + alpha)
+    if warmup_mode == "constant":
+        return lr * warmup_factor
+    raise ValueError(f"unknown warmup_mode: {warmup_mode!r}")
+
+
+def cosine_lr(base_lr: float, total_iters: int, end_lr: float = 0.0, warmup_iters: int = 0,
+              warmup_mode: str = "linear", warmup_factor: float = 1.0 / 3) -> Callable:
+    """Cosine decay over the post-warmup iterations, then warmup on top."""
+    if warmup_mode not in ("linear", "constant"):
+        raise ValueError(f"unknown warmup_mode: {warmup_mode!r}")
+    decay_iters = max(total_iters - max(warmup_iters, 0), 1)
+
+    def lr_at(step: int) -> float:
+        s = min(max(step - max(warmup_iters, 0), 0), decay_iters)
+        cos = 0.5 * (1.0 + math.cos(math.pi * s / decay_iters))
+        lr = end_lr + (base_lr - end_lr) * cos
+        return _apply_warmup(lr, step, warmup_iters, warmup_mode, warmup_factor)
+
+    return lr_at
+
+
+class IterationScheduler:
+    """``.step()`` per iteration, ``.get_last_lr()`` for the current one."""
+
+    def __init__(self, lr_fn: Callable[[int], float], last_epoch: int = 0):
+        self.lr_fn = lr_fn
+        self.last_epoch = last_epoch
+
+    def step(self) -> None:
+        self.last_epoch += 1
+
+    def get_last_lr(self) -> List[float]:
+        return [float(self.lr_fn(self.last_epoch))]
+
+
+def _make_cosine(optimizer, cfg: Dict[str, Any]) -> IterationScheduler:
+    return IterationScheduler(cosine_lr(
+        base_lr=optimizer.lr,
+        total_iters=cfg["total_iters"],
+        end_lr=cfg.get("end_lr", 0.0),
+        warmup_iters=cfg.get("warmup_iters", 0),
+        warmup_mode=cfg.get("warmup_mode", "linear"),
+        warmup_factor=cfg.get("warmup_factor", 1.0 / 3),
+    ))
+
+
+SCHEDULERS = {"cosine": _make_cosine}
+_NOT_YET = {
+    "multi_step": "the multi_step schedule (ResNet recipes) is ROADMAP port item P3",
+    "poly": "the poly schedule (the LARS recipe) is ROADMAP port item P3",
+}
+
+
+def get_scheduler(optimizer, cfg: Dict[str, Any]) -> IterationScheduler:
+    """Factory keyed by ``cfg['name']`` (reference: train_distributed.py:211)."""
+    cfg = dict(cfg)
+    name = cfg.pop("name")
+    if name in _NOT_YET:
+        raise NotImplementedError(f"lr_schedule {name!r}: {_NOT_YET[name]}")
+    if name not in SCHEDULERS:
+        raise KeyError(f"unknown scheduler '{name}' (have: {sorted(SCHEDULERS)})")
+    return SCHEDULERS[name](optimizer, cfg)
