@@ -2,8 +2,8 @@
 """On-card smoke test of the PyTorch/H100 port (``pytorch_distributed_training_tpu_torch``).
 
     python3 chip_smoke.py              # needs one CUDA card
-    python3 chip_smoke.py --profile    # also: torch.profiler breakdowns of
-                                       # one serving batch and one training step
+    python3 chip_smoke.py --profile    # also: torch.profiler breakdowns of one
+                                       # serving batch and one step of each trainer
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -27,24 +27,42 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. the training kernels against their twins, timed as in phase 3, beside
    their bound and one PyTorch call computing the same function
    (``F.cross_entropy``, ``F.scaled_dot_product_attention``, timed here
-   only): K1a/K1b at [16384, 32768] f32 and [37, 1000] in bf16 and f32 with
-   an out-of-range label; flash forward/backward at B 8, H 16, S 2048, D 64
-   bf16 causal, plus a non-causal and a float32 case; wrong dtype, wrong
-   device and an unsupported head dim must raise;
+   only): K1a/K1b at [16384, 32768] and [65536, 8192] f32 and [37, 1000] in
+   bf16 and f32 with an out-of-range label; flash forward/backward at B 8,
+   H 16, S 2048, D 64 bf16 causal, plus a non-causal and a float32 case;
+   wrong dtype, wrong device and an unsupported head dim must raise;
 7. one training step at full width (depth 2, float32, TF32 off) on the card
    against the CPU on the same weights and batch: loss and the gradient of
    every parameter;
 8. the training main path: the ``train_distributed`` runner on
    ``configs/train-lm-1024.yml`` (full width, 16 blocks, bf16) for 6 steps
    and one validation of 2 batches; every loss finite, and per step exactly
-   1 K1a, 1 K1b, 16 flash forwards, 2 x 16 flash backward launches and 16
-   each of K3/K4; the validation adds per batch 1 K1a, 16 flash forwards
-   and 16 each of K3/K4.  Prints step ms, tokens/s, MFU and peak memory.
+   1 K1a, 1 K1b, 16 flash forwards (K2a), 2 x 16 flash backward launches
+   (K2c) and 16 each of K3/K4; the validation adds per batch 1 K1a, 16
+   flash forwards and 16 each of K3/K4.  Prints step ms, tokens/s, MFU and
+   peak memory;
+9. the long-context flash kernels against their twins: bf16 and f32 causal
+   at B 2, H 8, S 32768, D 64, where the JAX package streams K/V (K2b,
+   K2f, K2g), and f32 at B 8, H 16, S 2048, D 64 (its resident split
+   kernels K2a, K2d, K2e); each launch timed (fewer repeats at S = 32768)
+   beside its bound, the twins and SDPA; wrong variants that leave out the
+   diagonal tile, a middle K tile or the last Q tile must all be rejected;
+10. one f32 training step of the long-context model at its widths (512, 8
+    heads, vocab 8192), depth 2, seq 2048, remat on, TF32 off, card against
+    CPU: loss within rtol 1e-5, every gradient within 1e-4 of its largest
+    magnitude, and the tiled f32 kernels launched (K2a 4, K2d 2, K2e 2);
+11. the long-context main path: the runner on ``configs/train-lm-longctx.yml``
+    (seq 32768, embed 512, 8 blocks, block remat, bf16) for 6 steps and one
+    validation of 2 batches; every loss finite and per step exactly 1 K1a,
+    1 K1b, 16 flash forwards (8 blocks, each run again by remat) and 16
+    flash backward launches, all counted under K2b / K2f / K2g, no K3/K4.
+    Prints step ms, tokens/s, MFU and peak memory.
 
-The line before the last lists every kernel with its TPU counterpart, its
-launches on the main path that runs it, its error against the plain twin,
-and its times.  The last line is ``{"ok": true, "device": {...}}``.  With no
-card the script prints no result and exits 1.  It imports nothing of JAX.
+The line before the last lists every TPU kernel (K1a ... K4) with the CUDA
+kernel that stands for it, its launches on the path that runs it, its error
+against the plain twin, and its times.  The last line is ``{"ok": true,
+"device": {...}}``.  With no card the script prints no result and exits 1.
+It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -65,17 +83,45 @@ CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "configs"
                       "serve-lm-1024.yml")
 TRAIN_CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "configs",
                             "train-lm-1024.yml")
+LONGCTX_CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "configs",
+                              "train-lm-longctx.yml")
 _CSRC = "pytorch_distributed_training_tpu_torch/csrc/"
 _TPU = "pytorch_distributed_training_tpu/ops/"
-# kernel -> (TPU kernel, file:line of it, source of the port's kernel)
+_FA = _TPU + "flash_attention.py:"
+# TPU kernel -> (file:line of it, source of the port's kernel, the CUDA
+# kernel that stands for it, the phase-6/9 case whose times the kernels
+# line reports, the path whose launch counts it reports)
 TPU_KERNELS = {
-    "add_layernorm": ("K3", _TPU + "fused_elementwise.py:88", _CSRC + "fused_elementwise.cu"),
-    "bias_gelu": ("K4", _TPU + "fused_elementwise.py:203", _CSRC + "fused_elementwise.cu"),
-    "ce_fwd": ("K1a", _TPU + "fused_ce.py:56", _CSRC + "fused_ce.cu"),
-    "ce_bwd": ("K1b", _TPU + "fused_ce.py:70", _CSRC + "fused_ce.cu"),
-    "flash_fwd": ("K2a", _TPU + "flash_attention.py:178", _CSRC + "flash_attention.cu"),
-    "flash_bwd": ("K2c", _TPU + "flash_attention.py:278", _CSRC + "flash_attention.cu"),
+    "K1a": (_TPU + "fused_ce.py:56", "fused_ce.cu", "ce_fwd_kernel", ("ce_fwd", 1), "longctx"),
+    "K1b": (_TPU + "fused_ce.py:70", "fused_ce.cu", "ce_bwd_kernel", ("ce_bwd", 1), "longctx"),
+    "K2a": (_FA + "178", "flash_attention.cu", "flash_fwd_bf16_kernel", ("flash_fwd", 0),
+            "training"),
+    "K2b": (_FA + "407", "flash_attention.cu", "flash_fwd_bf16_kernel",
+            ("long_fwd", 0), "longctx"),
+    "K2c": (_FA + "278", "flash_attention.cu",
+            "flash_bwd_dkv_bf16_kernel + flash_bwd_dq_bf16_kernel", ("flash_bwd", 0),
+            "training"),
+    "K2d": (_FA + "233", "flash_attention.cu", "flash_bwd_dq_f32_kernel", ("long_dq", 2),
+            "f32_step"),
+    "K2e": (_FA + "348", "flash_attention.cu", "flash_bwd_dkv_f32_kernel", ("long_dkv", 2),
+            "f32_step"),
+    "K2f": (_FA + "460", "flash_attention.cu", "flash_bwd_dq_bf16_kernel", ("long_dq", 0),
+            "longctx"),
+    "K2g": (_FA + "506", "flash_attention.cu", "flash_bwd_dkv_bf16_kernel", ("long_dkv", 0),
+            "longctx"),
+    "K3": (_TPU + "fused_elementwise.py:88", "fused_elementwise.cu", "add_layernorm_kernel",
+           ("add_layernorm", 0), "serving"),
+    "K4": (_TPU + "fused_elementwise.py:203", "fused_elementwise.cu", "bias_gelu_kernel",
+           ("bias_gelu", 0), "serving"),
 }
+# other cases reported beside a row's own: the other main path's CE shape,
+# the f32 flash kernels, and K3/K4 at the decode shape
+ALSO = {"K1a": [("ce_fwd", 0)], "K1b": [("ce_bwd", 0)], "K2a": [("long_fwd", 2)],
+        "K2b": [("long_fwd", 1)], "K2f": [("long_dq", 1)], "K2g": [("long_dkv", 1)],
+        "K3": [("add_layernorm", 1)], "K4": [("bias_gelu", 1)]}
+# the port's wrappers whose launches stand for K1a/K1b/K3/K4 (flash is
+# counted by TPU kernel in ops/flash_attention.py itself)
+WRAPPER_OF = {"K1a": "ce_fwd", "K1b": "ce_bwd", "K3": "add_layernorm", "K4": "bias_gelu"}
 # arithmetic per logit for the CE operations bound: max compare, subtract,
 # exp, add (forward); subtract, exp, subtract the one-hot, scale (backward)
 CE_FLOPS_PER_ELEMENT = 4
@@ -94,9 +140,16 @@ CE_BWD_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # twin against the row's final max: o differs by more than the gradients,
 # whose p and ds both sides compute from the same lse)
 FLASH_TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=5e-3, rtol=1e-2)}
+# f32 at S = 32768: a dK/dV (or dQ) row sums up to 32768 terms, in 64-row
+# tiles on the card and 128-row GEMM chunks in the twin; f32 rounding in a
+# sum of n terms grows like eps sqrt(n) (~1e-5 relative at n = 32768), so
+# the elementwise rtol is 1e-4 there; the norm limits stay as they are
+FLASH_TOL_LONG = {"float32": dict(atol=1e-5, rtol=1e-4),
+                  "bfloat16": FLASH_TOL["bfloat16"]}
 FLASH_NORM_LIMIT = {"float32": {"o": 1e-5, "dq": 1e-5, "dk": 1e-5, "dv": 1e-5},
                     "bfloat16": {"o": 3e-3, "dq": 1e-3, "dk": 1e-3, "dv": 1e-3}}
 FLASH_TILE = 64  # query / key rows per tile in csrc/flash_attention.cu
+LONG_REPS = 5  # timed launches at S = 32768 (a bf16 backward is ~70 ms)
 # arithmetic per element, for the operations bound: add, two reductions
 # (sum, sum of squares), centre, scale by rstd, affine / add, scale,
 # erf, add, two products
@@ -116,19 +169,34 @@ def bound_of(nbytes: float, flops: float, flops_per_s: float):
 
 
 def all_counts(modules) -> dict:
+    """Launch counts by wrapper, and flash's by TPU kernel (K2a ... K2g)."""
     counts = {}
     for m in modules:
         counts.update(m.launch_counts())
+        if hasattr(m, "tpu_launch_counts"):
+            counts.update(m.tpu_launch_counts())
     return counts
 
 
-def time_ms(torch, fn, flush, reps: int = 20) -> float:
-    """Median device time of ``fn`` over ``reps`` launches, each after the
-    L2 cache was flushed by writing a buffer larger than it.  A spin kernel
-    queued ahead of the start event keeps the device busy while the host
-    enqueues ``fn``, so the events bracket device work only, not the
-    wrapper's Python."""
-    for _ in range(3):
+def by_tpu_kernel(counts: dict) -> dict:
+    return {k: counts[WRAPPER_OF.get(k, k)] for k in TPU_KERNELS}
+
+
+def check_launches(what: str, got: dict, want: dict) -> None:
+    """``got`` must equal ``want`` on every key, a key missing from
+    ``want`` counting 0."""
+    want = {k: want.get(k, 0) for k in got}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+
+
+def time_ms(torch, fn, flush, reps: int = 20, warm: int = 3) -> float:
+    """Median device time of ``fn`` over ``reps`` launches after ``warm``
+    untimed ones, each after the L2 cache was flushed by writing a buffer
+    larger than it.  A spin kernel queued ahead of the start event keeps the
+    device busy while the host enqueues ``fn``, so the events bracket device
+    work only, not the wrapper's Python."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -188,20 +256,44 @@ def judge(checks) -> None:
             raise AssertionError(f"{what}: {'outside' if sound else 'within'} its limits: {r}")
 
 
-def fwd_skipping_tile(torch, q, k, v, scale: float, tile: int):
-    """Causal attention of ``[BH, S, D]`` in f32 with K tile ``tile`` left
-    out for every query row past it: what a forward kernel that skipped
-    one K tile of its loop would return."""
-    s_len = q.shape[1]
-    keep = torch.ones(s_len, s_len, dtype=torch.bool, device=q.device).tril()
-    keep[(tile + 1) * FLASH_TILE:, tile * FLASH_TILE:(tile + 1) * FLASH_TILE] = False
-    outs = []
-    for i in range(0, q.shape[0], 16):
-        qc, kc, vc = (x[i:i + 16].float() for x in (q, k, v))
-        sc = torch.matmul(qc, kc.transpose(-1, -2)) * scale
-        p = torch.softmax(sc.masked_fill(~keep, -1e30), dim=-1)
-        outs.append(torch.matmul(p, vc).to(q.dtype))
-    return torch.cat(outs)
+def attention_dropping(torch, q, k, v, scale: float, drop, do=None, lse=None, delta=None):
+    """Causal attention of ``[BH, S, D]`` in f32 with the (query, key)
+    pairs where ``drop(rows, cols)`` is True left out: without ``do``, the
+    ``o`` a forward kernel that skipped those pairs would return; with
+    ``do``, ``lse`` and ``delta``, the ``(dq, dk, dv)`` of a backward kernel
+    that skipped them (p from the given lse).  Chunked over heads and query
+    rows, as the plain twins are, so that S = 32768 fits."""
+    bh, s_len, _ = q.shape
+    rows = max(1, min(s_len, (1 << 26) // (16 * s_len)))
+    cols = torch.arange(s_len, device=q.device)
+    out = [torch.empty_like(q)] if do is None else [torch.empty_like(x) for x in (q, k, v)]
+    for h in range(0, bh, 16):
+        hs = slice(h, h + 16)
+        kc, vc = k[hs].float(), v[hs].float()
+        dk32, dv32 = torch.zeros_like(kc), torch.zeros_like(vc)
+        for r in range(0, s_len, rows):
+            rs = slice(r, r + rows)
+            ridx = torch.arange(r, min(r + rows, s_len), device=q.device)[:, None]
+            keep = (cols[None, :] <= ridx) & ~drop(ridx, cols[None, :])
+            qc = q[hs, rs].float()
+            sc = torch.matmul(qc, kc.transpose(-1, -2)) * scale
+            if do is None:
+                p = torch.softmax(sc.masked_fill(~keep, -1e30), dim=-1)
+                out[0][hs, rs] = torch.matmul(p, vc).to(q.dtype)
+                continue
+            p = torch.exp(sc - lse[hs, rs][..., None]) * keep
+            dc = do[hs, rs].float()
+            dv32 += torch.matmul(p.transpose(-1, -2), dc)
+            ds = p * (torch.matmul(dc, vc.transpose(-1, -2)) - delta[hs, rs][..., None]) * scale
+            dk32 += torch.matmul(ds.transpose(-1, -2), qc)
+            out[0][hs, rs] = torch.matmul(ds, kc).to(q.dtype)
+        if do is not None:
+            out[1][hs], out[2][hs] = dk32.to(k.dtype), dv32.to(v.dtype)
+    return out[0] if do is None else tuple(out)
+
+
+def tile_of(idx):
+    return idx // FLASH_TILE
 
 
 def expect_raise(exc, fn, what: str) -> None:
@@ -343,8 +435,8 @@ def phase_main_path(torch, fe, np, modules):
             m.reset_launch_counts()
         futures = [engine.submit(p) for p in prompts]
         results = [f.result(timeout=600) for f in futures]
-        others = {k: v for k, v in all_counts(modules).items()
-                  if k not in fe.KERNELS}
+        counts = all_counts(modules)
+        others = {k: v for k, v in counts.items() if k not in fe.KERNELS}
         launches = fe.launch_counts()
         snap = engine.snapshot()
     if any(others.values()):
@@ -366,7 +458,7 @@ def phase_main_path(torch, fe, np, modules):
         f"= {per_batch} x {snap['batches']}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     say("serving: " + json.dumps(snap))
-    return launches, engine
+    return counts, engine
 
 
 def profile_window(torch, label: str, fn, top: int) -> None:
@@ -422,12 +514,13 @@ def phase_train_kernels(torch, ce, fa):
         return (a.float() - b.float()).abs().max().item()
 
     checks = []
-    # --- K1a / K1b: the main path's [16384, 32768] f32, then ragged rows
-    for r, c, dtype in ((16384, 32768, torch.float32), (37, 1000, torch.bfloat16),
-                        (37, 1000, torch.float32)):
+    # --- K1a / K1b: the main paths' [16384, 32768] (phase 8) and [65536,
+    # 8192] (phase 11) f32, then ragged rows
+    for r, c, dtype in ((16384, 32768, torch.float32), (65536, 8192, torch.float32),
+                        (37, 1000, torch.bfloat16), (37, 1000, torch.float32)):
         x = (torch.randn(r, c, generator=gen, device=dev) * 2.0).to(dtype)
         labels = torch.randint(0, c, (r,), generator=gen, device=dev)
-        main = r == 16384
+        main = r >= 16384
         if not main:
             labels[5] = c + 7  # out of range: true logit 0, no raise
         scale = torch.full((1,), 1.0 / r, device=dev)
@@ -442,7 +535,7 @@ def phase_train_kernels(torch, ce, fa):
         shape, dt = [r, c], str(dtype).replace("torch.", "")
         ce_tol = dict(atol=CE_BWD_ATOL_PER_SCALE / r, rtol=CE_BWD_RTOL[dt])
         checks.append((f"ce_bwd {shape} {dt}", readings(d_k, d_p, **ce_tol), None, True))
-        if main:
+        if r == 16384:
             # wrong variants the limits must reject: dlogits through bf16
             # (p at 8 bits), and the last 16 bytes of every row unwritten
             checks.append(("ce_bwd through bf16", readings(
@@ -503,8 +596,11 @@ def phase_train_kernels(torch, ce, fa):
             # out of the forward's K loop or of dK/dV's Q loop, and the
             # bf16 roundings of p and ds left out
             tile = s_len // FLASH_TILE // 2
-            checks.append(("flash o, one K tile skipped", readings(
-                fwd_skipping_tile(torch, q, k, v, scale, tile), o_p, **tol), limit["o"], False))
+            skip = attention_dropping(torch, q, k, v, scale,
+                                      lambda r, c: (tile_of(c) == tile) & (tile_of(r) > tile))
+            checks.append(("flash o, one K tile skipped", readings(skip, o_p, **tol),
+                           limit["o"], False))
+            del skip
             # read only: the kernel rounds p against a running max and the
             # twin against the row's final max, so o differs from the twin
             # by about what leaving the rounding out does
@@ -576,40 +672,37 @@ def phase_train_kernels(torch, ce, fa):
     return rows
 
 
-def _train_model(torch, depth):
-    from pytorch_distributed_training_tpu_torch.models import TransformerLM
-
-    return TransformerLM(32768, max_len=2048, embed_dim=1024, depth=depth, num_heads=16,
-                         fused_tails=True, flash=True)
-
-
-def phase_train_step_vs_cpu(torch, modules):
-    """Phase 7: one full-width f32 training step (depth 2), card vs CPU."""
+def phase_step_vs_cpu(torch, modules, what: str, model_kwargs: dict, batch: int, seq: int,
+                      seed: int, want: dict):
+    """Phases 7 and 10: one f32 training step (TF32 off) of
+    ``TransformerLM(**model_kwargs)`` on the card against the same weights
+    and batch on the CPU: the loss within rtol 1e-5 and every gradient
+    within 1e-4 of its largest magnitude; the card's launches exactly
+    ``want``."""
     from pytorch_distributed_training_tpu_torch.engine import lm_loss_local
+    from pytorch_distributed_training_tpu_torch.models import TransformerLM
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cpu = _train_model(torch, 2)
-    cpu.reset_parameters(torch.Generator().manual_seed(4))
-    gpu = _train_model(torch, 2)
+    cpu = TransformerLM(**model_kwargs)
+    cpu.reset_parameters(torch.Generator().manual_seed(seed))
+    gpu = TransformerLM(**model_kwargs)
     gpu.load_state_dict(cpu.state_dict())
     gpu = gpu.cuda()
-    gen = torch.Generator().manual_seed(5)
-    b, s_len = 2, 256
-    tokens = torch.randint(0, 32768, (b, s_len), generator=gen)
-    labels = torch.randint(0, 32768, (b, s_len), generator=gen)
+    gen = torch.Generator().manual_seed(seed + 1)
+    vocab = model_kwargs["vocab_size"]
+    tokens = torch.randint(0, vocab, (batch, seq), generator=gen)
+    labels = torch.randint(0, vocab, (batch, seq), generator=gen)
     for m in modules:
         m.reset_launch_counts()
     losses = {}
     for where, model, tok, lab in (("cpu", cpu, tokens, labels),
                                    ("card", gpu, tokens.cuda(), labels.cuda())):
-        loss = lm_loss_local(model(tok), lab, b * s_len)
+        loss = lm_loss_local(model(tok), lab, batch * seq)
         loss.backward()
         losses[where] = loss.item()
     counts = all_counts(modules)
-    want = dict(add_layernorm=2, bias_gelu=2, ce_fwd=1, ce_bwd=1, flash_fwd=2, flash_bwd=4)
-    if counts != want:
-        raise AssertionError(f"training step on the card: launches {counts}, want {want}")
+    check_launches(what, counts, want)
     say(f"  loss card {losses['card']!r} cpu {losses['cpu']!r}")
     if abs(losses["card"] - losses["cpu"]) > 1e-5 * abs(losses["cpu"]):
         raise AssertionError("loss: card and CPU differ by more than rtol 1e-5")
@@ -625,14 +718,138 @@ def phase_train_step_vs_cpu(torch, modules):
         if rel > worst:
             worst_name, worst = name, rel
     say(f"  {len(list(cpu.parameters()))} gradients match; worst {worst_name}: "
-        f"max |card - cpu| / max |cpu| = {worst:.3g}")
+        f"max |card - cpu| / max |cpu| = {worst:.3g}; launches {counts}")
     del cpu, gpu
     torch.cuda.empty_cache()
-    return {"loss_card": losses["card"], "loss_cpu": losses["cpu"], "worst_grad_rel": worst}
+    return counts, {"loss_card": losses["card"], "loss_cpu": losses["cpu"],
+                    "worst_grad_rel": worst}
 
 
-def phase_train_main_path(torch, modules):
-    """Phase 8: the training runner on the full-width config."""
+def phase_long_kernels(torch, fa):
+    """Phase 9: the flash kernels where the JAX package streams K/V (bf16
+    and f32 at S = 32768: K2b, K2f, K2g) and where it splits its resident
+    backward (f32 at S = 2048: K2a, K2d, K2e), against their twins, with
+    wrong variants that must be rejected; each launch timed."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = {"long_fwd": [], "long_dq": [], "long_dkv": []}
+    checks = []
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    for b, h, s_len, d, dtype in ((2, 8, 32768, 64, torch.bfloat16),
+                                  (2, 8, 32768, 64, torch.float32),
+                                  (8, 16, 2048, 64, torch.float32)):
+        bh, causal, scale = b * h, True, 1.0 / d ** 0.5
+        long = s_len >= 32768
+        # the twins take seconds a call at S = 32768: fewer repeats there
+        reps, warm, calls = (LONG_REPS, 1, 5) if long else (20, 3, 50)
+        q, k, v, do = (torch.randn(bh, s_len, d, generator=gen, device=dev).to(dtype)
+                       for _ in range(4))
+        tpu = fa.tpu_kernels(s_len, d, dtype)
+        o_k, lse_k = fa.flash_forward(q, k, v, causal, scale)
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, scale)
+        delta = (do.float() * o_p.float()).sum(-1)
+        dk_k, dv_k = fa.flash_backward_dkv(q, k, v, do, lse_p, delta, causal, scale)
+        dq_k = fa.flash_backward_dq(q, k, v, do, lse_p, delta, causal, scale)
+        dq_p, dk_p, dv_p = fa.flash_bwd_plain(q, k, v, do, lse_p, delta, causal, scale)
+        torch.cuda.synchronize()
+        shape, dt = [b, h, s_len, d], str(dtype).replace("torch.", "")
+        tol, limit = (FLASH_TOL_LONG if long else FLASH_TOL)[dt], FLASH_NORM_LIMIT[dt]
+        torch.testing.assert_close(lse_k, lse_p, atol=1e-4, rtol=1e-5)
+        label = f"{shape} {dt} ({tpu['forward']}, {tpu['dq']}, {tpu['dkv']})"
+        for what, a, c in (("o", o_k, o_p), ("dq", dq_k, dq_p), ("dk", dk_k, dk_p),
+                           ("dv", dv_k, dv_p)):
+            checks.append((f"flash {what} {label}", readings(a, c, **tol), limit[what], True))
+        # wrong variants the limits must reject, each what a kernel with one
+        # tile too few in its loop returns: the diagonal K tile left out of
+        # the forward (Q tiles past the first: the first has no other), a
+        # middle K tile left out, the diagonal tile left out of both
+        # backward loops, and the dK/dV loop stopped before the last Q tile
+        mid = s_len // FLASH_TILE // 2
+        for what, drop in (
+                ("diagonal K tile skipped",
+                 lambda r, c: (tile_of(r) == tile_of(c)) & (r >= FLASH_TILE)),
+                (f"K tile {mid} skipped", lambda r, c: (tile_of(c) == mid) & (tile_of(r) > mid))):
+            checks.append((f"flash o {label}, {what}", readings(
+                attention_dropping(torch, q, k, v, scale, drop), o_p, **tol), limit["o"], False))
+        wrong = attention_dropping(torch, q, k, v, scale, lambda r, c: tile_of(r) == tile_of(c),
+                                   do, lse_p, delta)
+        for what, a, c in zip(("dq", "dk", "dv"), wrong, (dq_p, dk_p, dv_p)):
+            checks.append((f"flash {what} {label}, diagonal tile skipped",
+                           readings(a, c, **tol), limit[what], False))
+        do_cut, delta_cut = do.clone(), delta.clone()
+        do_cut[:, -FLASH_TILE:], delta_cut[:, -FLASH_TILE:] = 0, 0
+        wrong = fa.flash_backward_dkv(q, k, v, do_cut, lse_p, delta_cut, causal, scale)
+        for what, a, c in zip(("dk", "dv"), wrong, (dk_p, dv_p)):
+            checks.append((f"flash {what} {label}, last Q tile skipped",
+                           readings(a, c, **tol), limit[what], False))
+        del wrong, do_cut, delta_cut
+        # times: each launch, the twins, and SDPA forward / backward on the
+        # same inputs (efficient or flash backend only: the math backend
+        # would hold [B, H, S, S] scores)
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        q4, k4, v4 = (x.view(b, h, s_len, d).detach().requires_grad_(True) for x in (q, k, v))
+        do4 = do.view(b, h, s_len, d)
+        lib_fwd = lib_bwd = None
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+            try:
+                o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+                lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q4.detach(), k4.detach(), v4.detach(), is_causal=causal), flush, reps, warm)
+                lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+                    o4, (q4, k4, v4), do4, retain_graph=True), flush, reps, warm)
+                del o4
+            except RuntimeError as exc:  # no fused SDPA backend for this shape
+                say(f"  SDPA {label}: {exc}")
+        plain_bwd = time_ms(torch, lambda: fa.flash_bwd_plain(q, k, v, do, lse_p, delta, causal,
+                                                              scale), flush, 2 if long else reps,
+                            warm)
+        rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        for name, part, kernel, plain_ms, e, lib in (
+            ("long_fwd", None, lambda: fa.flash_forward(q, k, v, causal, scale),
+             time_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, causal, scale), flush,
+                     2 if long else reps, warm),
+             max(err(o_k, o_p), err(lse_k, lse_p)), lib_fwd),
+            ("long_dq", "dq", lambda: fa.flash_backward_dq(q, k, v, do, lse_p, delta, causal,
+                                                           scale),
+             plain_bwd, err(dq_k, dq_p), lib_bwd),
+            ("long_dkv", "dkv", lambda: fa.flash_backward_dkv(q, k, v, do, lse_p, delta, causal,
+                                                              scale),
+             plain_bwd, max(err(dk_k, dk_p), err(dv_k, dv_p)), lib_bwd),
+        ):
+            b_ms, b_by = bound_of(fa.flash_bytes(bh, s_len, d, dtype, part=part),
+                                  fa.flash_flops(bh, s_len, d, causal, part=part), rate)
+            rows[name].append(dict(
+                shape=shape, dtype=dt, causal=causal,
+                tpu_kernel=tpu["forward" if part is None else part], max_abs_err=e,
+                ms=time_ms(torch, kernel, flush, reps, warm),
+                call_ms=call_ms(torch, kernel, calls), plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib))
+        del q, k, v, do, q4, k4, v4, o_k, o_p, dq_k, dk_k, dv_k, dq_p, dk_p, dv_p
+        torch.cuda.empty_cache()
+    judge(checks)
+    for name, cases in rows.items():
+        for c in cases:
+            say(f"  {name} ({c['tpu_kernel']}) {c['shape']} {c['dtype']}: kernel_ms={c['ms']} "
+                f"plain_ms={c['plain_ms']} library_ms={c['library_ms']} "
+                f"bound_ms={c['bound_ms']} ({c['bound_by']}) call_ms={c['call_ms']} "
+                f"max_abs_err={c['max_abs_err']}")
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_runner(torch, modules, config: str, name: str, per_step: dict,
+                 per_val_batch: dict):
+    """Phases 8 and 11: the training runner on ``config`` for 6 steps and
+    one validation of 2 batches, with exact launch counts per step and per
+    validation batch (keys missing from the dicts count 0)."""
     import math
 
     from functools import partial
@@ -641,11 +858,10 @@ def phase_train_main_path(torch, modules):
     from pytorch_distributed_training_tpu_torch.engine import Runner
     from pytorch_distributed_training_tpu_torch.logger import MultiProcessLoggerListener
 
-    cfg = get_cfg(TRAIN_CONFIG)
+    cfg = get_cfg(config)
     steps = 6
     cfg["training"].update(train_iters=steps, print_interval=1, val_interval=steps)
     cfg["dataset"]["n_samples"] = 2 * cfg["training"]["batch_size"]  # 2 val batches
-    depth = cfg["model"]["depth"]
     marks = []
 
     def on_iter(runner):
@@ -654,8 +870,7 @@ def phase_train_main_path(torch, modules):
 
     # the CLI's logging: records through the listener to stdout and a file
     listener = MultiProcessLoggerListener(
-        partial(get_train_logger, os.path.join(_HERE, "run", "chip_smoke"), "train-lm-1024"),
-        "spawn")
+        partial(get_train_logger, os.path.join(_HERE, "run", "chip_smoke"), name), "spawn")
     runner = Runner(num_nodes=1, rank=0, seed=0, dist_url="", multiprocessing=False,
                     logger_queue=listener.queue, global_cfg=cfg, device="cuda",
                     on_iter=on_iter)
@@ -673,35 +888,27 @@ def phase_train_main_path(torch, modules):
         raise AssertionError(f"training losses: {losses}")
     if len(runner.val_log) != 1 or not math.isfinite(runner.val_log[0]["loss"]):
         raise AssertionError(f"validation: {runner.val_log}")
-    per_step = dict(add_layernorm=depth, bias_gelu=depth, ce_fwd=1, ce_bwd=1,
-                    flash_fwd=depth, flash_bwd=2 * depth)
-    per_val_batch = dict(add_layernorm=depth, bias_gelu=depth, ce_fwd=1, ce_bwd=0,
-                         flash_fwd=depth, flash_bwd=0)
-    prev = {k: 0 for k in per_step}
+    prev = {k: 0 for k in final}
     for i, (_, counts) in enumerate(marks):
-        got = {k: counts[k] - prev[k] for k in per_step}
-        if got != per_step:
-            raise AssertionError(f"step {i}: launches {got}, want {per_step}")
+        check_launches(f"step {i}", {k: counts[k] - prev[k] for k in final}, per_step)
         prev = counts
     val_batches = len(runner.val_loader)
-    got = {k: final[k] - prev[k] for k in per_step}
-    want = {k: per_val_batch[k] * val_batches for k in per_step}
-    if got != want:
-        raise AssertionError(f"validation ({val_batches} batches): launches {got}, want {want}")
+    got = {k: final[k] - prev[k] for k in final}
+    check_launches(f"validation ({val_batches} batches)", got,
+                   {k: n * val_batches for k, n in per_val_batch.items()})
     step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
-    tokens = cfg["training"]["batch_size"] * cfg["dataset"]["seq_len"]
+    batch, seq = cfg["training"]["batch_size"], cfg["dataset"]["seq_len"]
     med_ms = statistics.median(step_ms)
     n_params = sum(p.numel() for p in runner.model.parameters())
-    flops = train_step_flops(runner.model, cfg["training"]["batch_size"],
-                             cfg["dataset"]["seq_len"])
+    flops = train_step_flops(runner.model, batch, seq)
     say(f"  {n_params / 1e6:.1f} M parameters; losses {losses}; validation {runner.val_log[0]}")
     say(f"  step ms (steps 1-{steps - 1}, host clock, synced): {step_ms}; median {med_ms}")
-    say(f"  tokens/s {tokens / med_ms * 1e3}; model FLOP a step {flops:.4g}; "
+    say(f"  tokens/s {batch * seq / med_ms * 1e3}; model FLOP a step {flops:.4g}; "
         f"MFU at 989 TFLOP/s {flops / (med_ms / 1e3) / BF16_FLOPS}")
     say(f"  launches: per step {per_step}, validation {got}; peak device memory {peak_gib} GiB")
     return runner, final, dict(step_ms=step_ms, median_step_ms=med_ms,
-                               tokens_per_s=tokens / med_ms * 1e3,
-                               mfu=flops / (med_ms / 1e3) / BF16_FLOPS,
+                               tokens_per_s=batch * seq / med_ms * 1e3,
+                               mfu=flops / (med_ms / 1e3) / BF16_FLOPS, model_flop=flops,
                                peak_gib=peak_gib, losses=losses, val=runner.val_log[0])
 
 
@@ -716,12 +923,12 @@ def train_step_flops(model, batch: int, seq: int) -> float:
     return 6.0 * matmul * tokens + attn
 
 
-def phase_profile_train(torch, runner):
+def phase_profile_train(torch, runner, label: str):
     """``--profile``: one training step after a warm one."""
-    inp, label = next(iter(runner.train_loader))
-    tokens, labels = runner._to_device(inp, label)
+    inp, lab = next(iter(runner.train_loader))
+    tokens, labels = runner._to_device(inp, lab)
     runner.train_step(tokens, labels)
-    profile_window(torch, "train step", lambda: runner.train_step(tokens, labels), 20)
+    profile_window(torch, label, lambda: runner.train_step(tokens, labels), 20)
 
 
 def main(argv=None) -> int:
@@ -741,6 +948,8 @@ def main(argv=None) -> int:
     from pytorch_distributed_training_tpu_torch.ops import fused_ce as ce
     from pytorch_distributed_training_tpu_torch.ops import flash_attention as fa
     from pytorch_distributed_training_tpu_torch.ops import fused_elementwise as fe
+
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
 
     modules = (fe, ce, fa)
 
@@ -769,7 +978,9 @@ def main(argv=None) -> int:
     phase_model_vs_cpu(torch, fe)
 
     say("== phase 5: main path (serving batcher, full width)")
-    launches, engine = phase_main_path(torch, fe, np, modules)
+    paths = {}
+    serve_counts, engine = phase_main_path(torch, fe, np, modules)
+    paths["serving"] = by_tpu_kernel(serve_counts)
     if args.profile:
         say("== profile")
         phase_profile(torch, engine, np)
@@ -780,36 +991,72 @@ def main(argv=None) -> int:
     cases.update(phase_train_kernels(torch, ce, fa))
 
     say("== phase 7: full-width training step, card vs CPU")
-    phase_train_step_vs_cpu(torch, modules)
+    # f32 at S = 256: the resident forward (K2a) and the split backward
+    # (K2d dQ, K2e dK/dV) of the JAX package, here the tiled f32 kernels
+    phase_step_vs_cpu(
+        torch, modules, "full-width training step on the card",
+        dict(vocab_size=32768, max_len=2048, embed_dim=1024, depth=2, num_heads=16,
+             fused_tails=True, flash=True), batch=2, seq=256, seed=4,
+        want=dict(add_layernorm=2, bias_gelu=2, ce_fwd=1, ce_bwd=1, flash_fwd=2, flash_bwd=4,
+                  K2a=2, K2d=2, K2e=2))
 
     say("== phase 8: main path (training runner, full width)")
-    runner, train_launches, train = phase_train_main_path(torch, modules)
+    depth = get_cfg(TRAIN_CONFIG)["model"]["depth"]
+    runner, counts, train = phase_runner(
+        torch, modules, TRAIN_CONFIG, "train-lm-1024",
+        per_step=dict(add_layernorm=depth, bias_gelu=depth, ce_fwd=1, ce_bwd=1, flash_fwd=depth,
+                      flash_bwd=2 * depth, K2a=depth, K2c=2 * depth),
+        per_val_batch=dict(add_layernorm=depth, bias_gelu=depth, ce_fwd=1, flash_fwd=depth,
+                           K2a=depth))
+    paths["training"] = by_tpu_kernel(counts)
     say("training: " + json.dumps(train))
     if args.profile:
         say("== profile (training step)")
-        phase_profile_train(torch, runner)
+        phase_profile_train(torch, runner, "train step")
     runner = None
+    torch.cuda.empty_cache()
 
+    say("== phase 9: long-context flash kernels against their plain twins")
+    cases.update(phase_long_kernels(torch, fa))
+
+    say("== phase 10: long-context widths, f32 training step with remat, card vs CPU")
+    # f32 at S = 2048: K2a forward (run twice a block: remat), K2d/K2e backward
+    counts, _ = phase_step_vs_cpu(
+        torch, modules, "long-context-width f32 step on the card",
+        dict(vocab_size=8192, max_len=2048, embed_dim=512, depth=2, num_heads=8, flash=True,
+             remat=True), batch=2, seq=2048, seed=8,
+        want=dict(ce_fwd=1, ce_bwd=1, flash_fwd=4, flash_bwd=4, K2a=4, K2d=2, K2e=2))
+    paths["f32_step"] = by_tpu_kernel(counts)
+
+    say("== phase 11: main path (training runner, long context)")
+    depth = get_cfg(LONGCTX_CONFIG)["model"]["depth"]
+    # remat runs every block's forward twice a step; S = 32768 is past the
+    # JAX package's resident budget, so every flash launch stands for a
+    # streamed TPU kernel
+    runner, counts, longctx = phase_runner(
+        torch, modules, LONGCTX_CONFIG, "train-lm-longctx",
+        per_step=dict(ce_fwd=1, ce_bwd=1, flash_fwd=2 * depth, flash_bwd=2 * depth,
+                      K2b=2 * depth, K2f=depth, K2g=depth),
+        per_val_batch=dict(ce_fwd=1, flash_fwd=depth, K2b=depth))
+    paths["longctx"] = by_tpu_kernel(counts)
+    say("longctx: " + json.dumps(longctx))
+    if args.profile:
+        say("== profile (long-context training step)")
+        phase_profile_train(torch, runner, "long-context train step")
+    runner = None
+    torch.cuda.empty_cache()
+
+    keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "call_ms")
     summary = []
-    for name, (tpu, replaces, source) in TPU_KERNELS.items():
-        main_case = cases[name][0]  # the main path's fullest call
-        row = dict(
-            name=name, tpu_kernel=tpu, route="cuda", source=source, replaces=replaces,
-            matched=True, max_abs_err=main_case["max_abs_err"],
-            ms=main_case["ms"], plain_ms=main_case["plain_ms"],
-            bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
-            library_ms=main_case.get("library_ms"),
-            shape=main_case["shape"], dtype=main_case["dtype"],
-            call_ms=main_case["call_ms"], train_launches=train_launches[name],
-        )
-        if name in launches:  # K3/K4: the serving path, as in slice 1
-            decode_case = cases[name][1]  # bf16 at the decode shape
-            row.update(launches=launches[name], decode_shape=decode_case["shape"],
-                       decode_ms=decode_case["ms"], decode_plain_ms=decode_case["plain_ms"],
-                       decode_bound_ms=decode_case["bound_ms"],
-                       decode_call_ms=decode_case["call_ms"])
-        else:
-            row.update(launches=train_launches[name])
+    for tpu, (replaces, src, cuda_kernel, (case, idx), path) in TPU_KERNELS.items():
+        if paths[path][tpu] == 0:
+            raise AssertionError(f"{tpu}: no launch on the {path} path")
+        row = dict(name=tpu, kernel=cuda_kernel, route="cuda", source=_CSRC + src,
+                   replaces=replaces, launches=paths[path][tpu], path=path,
+                   launches_by_path={p: n[tpu] for p, n in paths.items()}, matched=True)
+        row.update({k: cases[case][idx].get(k) for k in keys})
+        row["also"] = [{k: cases[c][i].get(k) for k in keys} for c, i in ALSO.get(tpu, ())]
         summary.append(row)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(smi)

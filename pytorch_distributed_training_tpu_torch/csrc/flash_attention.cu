@@ -5,19 +5,25 @@
 // q, k, v, o, dO, dq, dk, dv are [BH, S, D] (heads folded into the batch),
 // lse and delta are [BH, S] f32. D is 64 or 128; S is a multiple of 64.
 //
-// flash_fwd replaces the TPU kernel `_fwd_kernel`
+// The forward (pdt_flash_fwd) stands in for both TPU forwards, `_fwd_kernel`
 // (pytorch_distributed_training_tpu/ops/flash_attention.py:178, launched at
-// :651): online softmax over K/V tiles with f32 accumulation, o in the input
-// dtype and lse = m + log(l) in f32. With `causal` the loop over K tiles
-// stops at the diagonal tile (:190-194); masked scores are -1e30, not -inf
-// (:48-50, :68).
+// :651), which holds the whole K/V rows in VMEM, and `_fwd_stream_kernel`
+// (:407, launched at :615), which streams K/V tiles once 2 S D 4 bytes pass
+// the 8 MiB VMEM budget (:114-120). Here K/V always stream through shared
+// memory one 64-row tile at a time, so one kernel covers every S: online
+// softmax with f32 accumulation, o in the input dtype and lse = m + log(l)
+// in f32. With `causal` the loop over K tiles stops at the diagonal tile
+// (:190-194); masked scores are -1e30, not -inf (:48-50, :68).
 //
-// flash_bwd replaces the fused backward `_dqkv_kernel` (:278, launched at
-// :775). The TPU kernel carries dK/dV in VMEM across a sequential grid
-// dimension (:296-300, "arbitrary" at :781); blocks on this card run in no
-// order, so the backward is two launches, each deterministic: a dK/dV
-// kernel that owns a K tile and loops over Q tiles, and a dQ kernel that
-// owns a Q tile and loops over K tiles. Both recompute p = exp(s - lse);
+// The backward is two launches, each deterministic: a dK/dV kernel
+// (pdt_flash_bwd_dkv) that owns a K tile and loops over Q tiles, and a dQ
+// kernel (pdt_flash_bwd_dq) that owns a Q tile and loops over K tiles. That
+// is the TPU's split backward, `_dkv_kernel` (:348) / `_dq_kernel` (:233)
+// for resident shapes and `_dkv_stream_kernel` (:506) / `_dq_stream_kernel`
+// (:460) for streamed ones; the pair also stands in for the fused
+// `_dqkv_kernel` (:278, launched at :775), which carries dK/dV in VMEM
+// across a sequential grid dimension (:296-300, "arbitrary" at :781):
+// blocks on this card run in no order. Both recompute p = exp(s - lse);
 // delta = rowsum(dO * O) comes from outside, as in the JAX package
 // (:761-764). dK/dV accumulate in f32 and are rounded once when written
 // (:802); dq is written in q's dtype.
@@ -28,20 +34,21 @@
 //   p is rounded to bf16 before PV and before dV (:216, :327); ds is rounded
 //   to bf16 before dK and dQ (:335).
 // - f32 inputs: f32 FMA on the CUDA cores, no TF32; q * scale before the dot
-//   in the forward (:188), scale * (q . k) in the backward (:319).
+//   in the forward (:188), scale * (q . k) in the backward (:256, :319).
 //
 // Bound: operations. At the LM's shape (BH 128, S 2048, D 64, causal) the
 // forward does 2 S^2 D BH flops over the causal half (68.7 GFLOP: 0.069 ms
 // at 989 TFLOP/s bf16) against 100 MB of traffic (0.03 ms at 3.35 TB/s);
-// the backward's five products are 171.8 GFLOP. Design: a block owns one
-// 64-row tile (4 warps x 16 rows, one m16 fragment row each); K/V (or Q/dO)
-// tiles are staged in shared memory, rows padded by 8 elements so that the
-// fragment loads hit 32 distinct banks; s and p never leave registers: the
-// m16n8 accumulator layout of S is the A-fragment layout of the next
-// product, so p (and ds) feed the tensor cores straight from registers.
-// Operands that the next product needs with the other axis contiguous are
-// staged transposed. This is the simple version: no cp.async/TMA pipelining
-// and no wgmma; the f32 path is one warp per row.
+// the backward's five products are 171.8 GFLOP. In f32 the same work runs
+// at most at 67 TFLOP/s. bf16 design: a block owns one 64-row tile (4 warps
+// x 16 rows, one m16 fragment row each); K/V (or Q/dO) tiles are staged in
+// shared memory, rows padded by 8 elements so that the fragment loads hit
+// 32 distinct banks; s and p never leave registers: the m16n8 accumulator
+// layout of S is the A-fragment layout of the next product, so p (and ds)
+// feed the tensor cores straight from registers. Operands that the next
+// product needs with the other axis contiguous are staged transposed. f32
+// design: see the f32 section. This is the simple version: no cp.async/TMA
+// pipelining and no wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,7 +64,6 @@ typedef __nv_bfloat16 bf16;
 constexpr float kNeg = -1e30f;  // finite mask value (flash_attention.py:68)
 constexpr int kTile = 64;       // query rows / key rows per tile
 constexpr int kThreads = 128;   // 4 warps x 16 rows
-constexpr int kRowsF32 = 4;     // f32 path: one warp per row, 4 rows a block
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -137,12 +143,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 // ---------------------------------------------------------------------------
@@ -509,130 +509,332 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// f32: one warp per row, lane i holding elements i, i + 32, ... of it
+// f32: tiled kernels on the CUDA cores (FFMA; TF32 would round the operands)
+//
+// A block of 256 threads owns one 64-row tile. Every product it computes is
+// a 64 x 64 (or 64 x D) output; thread (ty, tx) = (tid / 16, tid % 16)
+// holds the 4 x 4 sub-tile at rows ty*4.., cols tx*4.. of it in registers
+// and accumulates it SGEMM-style, one rank-1 update a step: the A operand
+// is staged in shared memory as [K][rows], the B operand as [K][cols], so a
+// step reads one float4 of each (the A read is a broadcast across the 16
+// threads of a row) and issues 16 FMAs. The 16 threads that share a row are
+// 16 lanes of one warp: row max and row sum reduce with four shuffles.
+// Operands whose contraction axis is D are staged transposed ([D][64]);
+// P and dS are written to shared memory as [64][64 + 4] for the product
+// that follows. No atomics: the dK/dV kernel owns its key rows and the dQ
+// kernel its query rows, so results repeat bit for bit.
 
+constexpr int kThreadsF32 = 256;  // 16 x 16 threads, a 4 x 4 sub-tile each
+constexpr int kLdP = kTile + 4;   // P / dS rows: padded, 16-byte aligned
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+// a [kTile, D] tile of a row-major [S, D] f32 matrix into shared memory as is
 template <int D>
-__global__ void __launch_bounds__(kRowsF32 * 32)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int seq, float scale, int causal) {
-  constexpr int P = D / 32;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowsF32 + (threadIdx.x >> 5);
-  const size_t head = static_cast<size_t>(blockIdx.y) * seq * D;
-  float qv[P], acc[P];
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    qv[i] = q[head + static_cast<size_t>(row) * D + lane + 32 * i] * scale;
-    acc[i] = 0.f;
+__device__ __forceinline__ void load_f32(float* dst, const float* src) {
+  for (int c = threadIdx.x; c < kTile * D / 4; c += kThreadsF32) {
+    const int r = c / (D / 4), col = (c % (D / 4)) * 4;
+    *reinterpret_cast<float4*>(dst + r * D + col) = ld4(src + static_cast<size_t>(r) * D + col);
   }
-  float m = kNeg, l = 0.f;
-  const int last = causal ? row : seq - 1;
-  for (int key = 0; key <= last; ++key) {
-    const float* kr = k + head + static_cast<size_t>(key) * D;
-    const float* vr = v + head + static_cast<size_t>(key) * D;
-    float part = 0.f;
-#pragma unroll
-    for (int i = 0; i < P; ++i) part = fmaf(qv[i], kr[lane + 32 * i], part);
-    const float sv = warp_sum(part);
-    const float mx = fmaxf(m, sv);
-    const float a = expf(m - mx);
-    const float p = expf(sv - mx);
-    l = a * l + p;
-    m = mx;
-#pragma unroll
-    for (int i = 0; i < P; ++i) acc[i] = acc[i] * a + p * vr[lane + 32 * i];
+}
+
+// the same tile transposed, dst[col][row], each element times `mul`;
+// neighbouring threads take neighbouring rows, so the stores hit 32 banks
+template <int D>
+__device__ __forceinline__ void load_f32_t(float* dst, const float* src, float mul) {
+  for (int c = threadIdx.x; c < kTile * D / 4; c += kThreadsF32) {
+    const int r = c % kTile, col = (c / kTile) * 4;
+    const float4 x = ld4(src + static_cast<size_t>(r) * D + col);
+    dst[(col + 0) * kTile + r] = x.x * mul;
+    dst[(col + 1) * kTile + r] = x.y * mul;
+    dst[(col + 2) * kTile + r] = x.z * mul;
+    dst[(col + 3) * kTile + r] = x.w * mul;
   }
+}
+
+// acc[i][j] += sum_{k < K} a[k][ty*4 + i] * b[k][tx*4 + j]
+template <int K>
+__device__ __forceinline__ void ffma_tile(float (&acc)[4][4], const float* a, int lda,
+                                          const float* b, int ldb, int ty, int tx) {
+  a += ty * 4;
+  b += tx * 4;
+#pragma unroll 16
+  for (int k = 0; k < K; ++k) {
+    const float4 av = ld4(a + k * lda), bv = ld4(b + k * ldb);
+    const float ar[4] = {av.x, av.y, av.z, av.w};
+    const float br[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-  for (int i = 0; i < P; ++i) o[head + static_cast<size_t>(row) * D + lane + 32 * i] = acc[i] / l;
-  if (lane == 0) lse[static_cast<size_t>(blockIdx.y) * seq + row] = m + logf(l);
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N][4][4]) {
+#pragma unroll
+  for (int g = 0; g < N; ++g) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[g][i][0] = acc[g][i][1] = acc[g][i][2] = acc[g][i][3] = 0.f;
+  }
+}
+
+// a 4 x 4 sub-tile as column jj of a [64][kLdP] matrix at rows ty*4..ty*4+3:
+// thread (ty, tx) writes dst[tx*4 + jj][ty*4 + i] = v[i][jj]
+__device__ __forceinline__ void store_t(float* dst, const float (&v)[4][4], int ty, int tx) {
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    st4(dst + (tx * 4 + jj) * kLdP + ty * 4, v[0][jj], v[1][jj], v[2][jj], v[3][jj]);
+  }
+}
+
+__device__ __forceinline__ float max16(float v) {
+#pragma unroll
+  for (int off = 1; off < 16; off <<= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float sum16(float v) {
+#pragma unroll
+  for (int off = 1; off < 16; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// a [kTile, D] tile of a row-major f32 output from acc[g][i][c] (row
+// ty*4 + i, column g*64 + tx*4 + c), each value divided by div[i]
+template <int D>
+__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 64][4][4],
+                                           const float (&div)[4], int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float* row = dst + static_cast<size_t>(ty * 4 + i) * D + tx * 4;
+#pragma unroll
+    for (int g = 0; g < D / 64; ++g) {
+      st4(row + g * 64, acc[g][i][0] / div[i], acc[g][i][1] / div[i], acc[g][i][2] / div[i],
+          acc[g][i][3] / div[i]);
+    }
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kRowsF32 * 32)
+constexpr int fwd_f32_smem_bytes() {
+  return (3 * D * kTile + kTile * kLdP) * 4;
+}
+template <int D>
+constexpr int dq_f32_smem_bytes() {
+  return (5 * D * kTile + kTile * kLdP) * 4;
+}
+template <int D>
+constexpr int dkv_f32_smem_bytes() {
+  return (6 * D * kTile + kTile * kLdP) * 4;
+}
+
+// forward: the block owns Q tile qt and streams K/V tiles up to the diagonal
+template <int D>
+__global__ void __launch_bounds__(kThreadsF32)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int seq, float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qt_s = reinterpret_cast<float*>(smem_raw);  // [D][kTile], q * scale
+  float* kt_s = qt_s + D * kTile;                    // [D][kTile]
+  float* v_s = kt_s + D * kTile;                     // [kTile][D]
+  float* pt_s = v_s + kTile * D;                     // [kTile keys][kLdP]
+  const int n_tiles = seq / kTile;
+  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);  // longest rows first
+  const size_t head = static_cast<size_t>(blockIdx.y) * seq * D;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  load_f32_t<D>(qt_s, q + head + static_cast<size_t>(qt) * kTile * D, scale);
+  float acc[D / 64][4][4];
+  zero(acc);
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = kNeg, l[i] = 0.f;
+  const int last = causal ? qt : n_tiles - 1;
+  for (int j = 0; j <= last; ++j) {
+    __syncthreads();  // the previous tile and its P are consumed
+    const size_t off = head + static_cast<size_t>(j) * kTile * D;
+    load_f32_t<D>(kt_s, k + off, 1.f);
+    load_f32<D>(v_s, v + off);
+    __syncthreads();
+    float s[4][4] = {};
+    ffma_tile<D>(s, qt_s, kTile, kt_s, kTile, ty, tx);
+    const bool diag = causal && j == qt;
+    float alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if (diag && tx * 4 + jj > ty * 4 + i) s[i][jj] = kNeg;
+        mx = fmaxf(mx, s[i][jj]);
+      }
+      mx = max16(mx);
+      alpha[i] = expf(m[i] - mx);
+      float rs = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        s[i][jj] = expf(s[i][jj] - mx);
+        rs += s[i][jj];
+      }
+      l[i] = alpha[i] * l[i] + sum16(rs);
+      m[i] = mx;
+    }
+    store_t(pt_s, s, ty, tx);
+#pragma unroll
+    for (int g = 0; g < D / 64; ++g) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[g][i][c] *= alpha[i];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < D / 64; ++g) ffma_tile<kTile>(acc[g], pt_s, kLdP, v_s + g * 64, D, ty, tx);
+  }
+  store_rows<D>(o + head + static_cast<size_t>(qt) * kTile * D, acc, l, ty, tx);
+  if (tx == 0) {
+    float* lr = lse + static_cast<size_t>(blockIdx.y) * seq + qt * kTile + ty * 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) lr[i] = m[i] + logf(l[i]);
+  }
+}
+
+// dQ: the block owns Q tile qt and streams K/V tiles up to the diagonal
+template <int D>
+__global__ void __launch_bounds__(kThreadsF32)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dq, int seq, float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qt_s = reinterpret_cast<float*>(smem_raw);  // [D][kTile]
+  float* dot_s = qt_s + D * kTile;                   // [D][kTile]
+  float* kt_s = dot_s + D * kTile;                   // [D][kTile]
+  float* vt_s = kt_s + D * kTile;                    // [D][kTile]
+  float* k_s = vt_s + D * kTile;                     // [kTile][D]
+  float* dst_s = k_s + kTile * D;                    // [kTile keys][kLdP]
+  const int n_tiles = seq / kTile;
+  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);
+  const size_t head = static_cast<size_t>(blockIdx.y) * seq * D;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  const size_t qoff = head + static_cast<size_t>(qt) * kTile * D;
+  load_f32_t<D>(qt_s, q + qoff, 1.f);
+  load_f32_t<D>(dot_s, dout + qoff, 1.f);
+  const size_t rows = static_cast<size_t>(blockIdx.y) * seq + qt * kTile + ty * 4;
+  const float4 l4 = ld4(lse + rows), d4 = ld4(delta + rows);
+  const float lr[4] = {l4.x, l4.y, l4.z, l4.w}, dr[4] = {d4.x, d4.y, d4.z, d4.w};
+  float acc[D / 64][4][4];
+  zero(acc);
+  const int last = causal ? qt : n_tiles - 1;
+  for (int j = 0; j <= last; ++j) {
+    __syncthreads();
+    const size_t off = head + static_cast<size_t>(j) * kTile * D;
+    load_f32_t<D>(kt_s, k + off, 1.f);
+    load_f32_t<D>(vt_s, v + off, 1.f);
+    load_f32<D>(k_s, k + off);
+    __syncthreads();
+    float s[4][4] = {}, dp[4][4] = {};
+    ffma_tile<D>(s, qt_s, kTile, kt_s, kTile, ty, tx);
+    ffma_tile<D>(dp, dot_s, kTile, vt_s, kTile, ty, tx);
+    const bool diag = causal && j == qt;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float p = (diag && tx * 4 + jj > ty * 4 + i) ? 0.f : expf(scale * s[i][jj] - lr[i]);
+        s[i][jj] = p * (dp[i][jj] - dr[i]) * scale;
+      }
+    }
+    store_t(dst_s, s, ty, tx);
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < D / 64; ++g) ffma_tile<kTile>(acc[g], dst_s, kLdP, k_s + g * 64, D, ty, tx);
+  }
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  store_rows<D>(dq + qoff, acc, one, ty, tx);
+}
+
+// dK/dV: the block owns K tile kt and streams Q/dO tiles from the diagonal;
+// every product is computed transposed (rows = keys)
+template <int D>
+__global__ void __launch_bounds__(kThreadsF32)
 flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          float* __restrict__ dk, float* __restrict__ dv, int seq,
                          float scale, int causal) {
-  constexpr int P = D / 32;
-  const int lane = threadIdx.x & 31;
-  const int key = blockIdx.x * kRowsF32 + (threadIdx.x >> 5);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* kt_s = reinterpret_cast<float*>(smem_raw);  // [D][kTile]
+  float* vt_s = kt_s + D * kTile;                    // [D][kTile]
+  float* qt_s = vt_s + D * kTile;                    // [D][kTile]
+  float* dot_s = qt_s + D * kTile;                   // [D][kTile]
+  float* q_s = dot_s + D * kTile;                    // [kTile][D]
+  float* do_s = q_s + kTile * D;                     // [kTile][D]
+  float* ps_s = do_s + kTile * D;                    // [kTile queries][kLdP]: P, then dS
+  const int n_tiles = seq / kTile;
+  const int kt = blockIdx.x;  // causal: low K tiles see the most Q tiles
   const size_t head = static_cast<size_t>(blockIdx.y) * seq * D;
   const float* lse_h = lse + static_cast<size_t>(blockIdx.y) * seq;
   const float* delta_h = delta + static_cast<size_t>(blockIdx.y) * seq;
-  float kv[P], vv[P], dka[P], dva[P];
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    kv[i] = k[head + static_cast<size_t>(key) * D + lane + 32 * i];
-    vv[i] = v[head + static_cast<size_t>(key) * D + lane + 32 * i];
-    dka[i] = dva[i] = 0.f;
-  }
-  for (int qi = causal ? key : 0; qi < seq; ++qi) {
-    const float* qr = q + head + static_cast<size_t>(qi) * D;
-    const float* dr = dout + head + static_cast<size_t>(qi) * D;
-    float qv[P], dov[P];
-    float sp = 0.f, dpp = 0.f;
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-      qv[i] = qr[lane + 32 * i];
-      dov[i] = dr[lane + 32 * i];
-      sp = fmaf(qv[i], kv[i], sp);
-      dpp = fmaf(dov[i], vv[i], dpp);
-    }
-    const float p = expf(scale * warp_sum(sp) - lse_h[qi]);
-    const float ds = p * (warp_sum(dpp) - delta_h[qi]) * scale;
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-      dva[i] = fmaf(p, dov[i], dva[i]);
-      dka[i] = fmaf(ds, qv[i], dka[i]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    dk[head + static_cast<size_t>(key) * D + lane + 32 * i] = dka[i];
-    dv[head + static_cast<size_t>(key) * D + lane + 32 * i] = dva[i];
-  }
-}
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-template <int D>
-__global__ void __launch_bounds__(kRowsF32 * 32)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dq, int seq, float scale, int causal) {
-  constexpr int P = D / 32;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowsF32 + (threadIdx.x >> 5);
-  const size_t head = static_cast<size_t>(blockIdx.y) * seq * D;
-  const float l = lse[static_cast<size_t>(blockIdx.y) * seq + row];
-  const float de = delta[static_cast<size_t>(blockIdx.y) * seq + row];
-  float qv[P], dov[P], dqa[P];
+  const size_t koff = head + static_cast<size_t>(kt) * kTile * D;
+  load_f32_t<D>(kt_s, k + koff, 1.f);
+  load_f32_t<D>(vt_s, v + koff, 1.f);
+  float dk_acc[D / 64][4][4], dv_acc[D / 64][4][4];
+  zero(dk_acc);
+  zero(dv_acc);
+  for (int qi = causal ? kt : 0; qi < n_tiles; ++qi) {
+    __syncthreads();
+    const size_t off = head + static_cast<size_t>(qi) * kTile * D;
+    load_f32_t<D>(qt_s, q + off, 1.f);
+    load_f32_t<D>(dot_s, dout + off, 1.f);
+    load_f32<D>(q_s, q + off);
+    load_f32<D>(do_s, dout + off);
+    const float4 l4 = ld4(lse_h + qi * kTile + tx * 4), d4 = ld4(delta_h + qi * kTile + tx * 4);
+    const float lq[4] = {l4.x, l4.y, l4.z, l4.w}, dl[4] = {d4.x, d4.y, d4.z, d4.w};
+    __syncthreads();
+    // s^T = K Q^T and dp^T = V dO^T: [key ty*4 + i][query tx*4 + jj]
+    float st[4][4] = {}, dpt[4][4] = {};
+    ffma_tile<D>(st, kt_s, kTile, qt_s, kTile, ty, tx);
+    ffma_tile<D>(dpt, vt_s, kTile, dot_s, kTile, ty, tx);
+    const bool diag = causal && qi == kt;
 #pragma unroll
-  for (int i = 0; i < P; ++i) {
-    qv[i] = q[head + static_cast<size_t>(row) * D + lane + 32 * i];
-    dov[i] = dout[head + static_cast<size_t>(row) * D + lane + 32 * i];
-    dqa[i] = 0.f;
-  }
-  const int last = causal ? row : seq - 1;
-  for (int key = 0; key <= last; ++key) {
-    const float* kr = k + head + static_cast<size_t>(key) * D;
-    const float* vr = v + head + static_cast<size_t>(key) * D;
-    float kv[P];
-    float sp = 0.f, dpp = 0.f;
+    for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int i = 0; i < P; ++i) {
-      kv[i] = kr[lane + 32 * i];
-      sp = fmaf(qv[i], kv[i], sp);
-      dpp = fmaf(dov[i], vr[lane + 32 * i], dpp);
+      for (int jj = 0; jj < 4; ++jj) {
+        st[i][jj] = (diag && tx * 4 + jj < ty * 4 + i) ? 0.f : expf(scale * st[i][jj] - lq[jj]);
+      }
     }
-    const float p = expf(scale * warp_sum(sp) - l);
-    const float ds = p * (warp_sum(dpp) - de) * scale;
+    store_t(ps_s, st, ty, tx);  // P [query][key]
+    __syncthreads();
 #pragma unroll
-    for (int i = 0; i < P; ++i) dqa[i] = fmaf(ds, kv[i], dqa[i]);
+    for (int g = 0; g < D / 64; ++g) ffma_tile<kTile>(dv_acc[g], ps_s, kLdP, do_s + g * 64, D, ty, tx);
+    __syncthreads();  // P is consumed; dS takes its place
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) st[i][jj] = st[i][jj] * (dpt[i][jj] - dl[jj]) * scale;
+    }
+    store_t(ps_s, st, ty, tx);
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < D / 64; ++g) ffma_tile<kTile>(dk_acc[g], ps_s, kLdP, q_s + g * 64, D, ty, tx);
   }
-#pragma unroll
-  for (int i = 0; i < P; ++i) dq[head + static_cast<size_t>(row) * D + lane + 32 * i] = dqa[i];
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  store_rows<D>(dk + koff, dk_acc, one, ty, tx);
+  store_rows<D>(dv + koff, dv_acc, one, ty, tx);
 }
 
 // ---------------------------------------------------------------------------
@@ -644,64 +846,62 @@ cudaError_t set_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int D>
-int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-        int seq, float scale, int causal, int dtype, cudaStream_t st) {
-  float* l = static_cast<float*>(lse);
-  if (dtype == kBF16) {
-    constexpr int smem = fwd_smem_bytes<D>();
-    cudaError_t err = set_smem(flash_fwd_bf16_kernel<D>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_fwd_bf16_kernel<D><<<dim3(seq / kTile, bh), kThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), l, seq, scale, causal);
-  } else {
-    flash_fwd_f32_kernel<D><<<dim3(seq / kRowsF32, bh), kRowsF32 * 32, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), l, seq, scale, causal);
-  }
+template <typename K, typename... Args>
+int launch(K kernel, int threads, int smem, int seq, int bh, cudaStream_t st, Args... args) {
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(seq / kTile, bh), threads, smem, st>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-        const void* delta, void* dq, void* dk, void* dv, int bh, int seq, float scale,
-        int causal, int dtype, cudaStream_t st) {
+int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int seq,
+        float scale, int causal, int dtype, cudaStream_t st) {
+  float* l = static_cast<float*>(lse);
+  if (dtype == kBF16) {
+    return launch(flash_fwd_bf16_kernel<D>, kThreads, fwd_smem_bytes<D>(), seq, bh, st,
+                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<bf16*>(o), l, seq, scale, causal);
+  }
+  return launch(flash_fwd_f32_kernel<D>, kThreadsF32, fwd_f32_smem_bytes<D>(), seq, bh, st,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<float*>(o), l, seq, scale, causal);
+}
+
+template <int D>
+int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+            const void* delta, void* dk, void* dv, int bh, int seq, float scale, int causal,
+            int dtype, cudaStream_t st) {
   const float* l = static_cast<const float*>(lse);
   const float* de = static_cast<const float*>(delta);
   if (dtype == kBF16) {
-    const bf16* qb = static_cast<const bf16*>(q);
-    const bf16* kb = static_cast<const bf16*>(k);
-    const bf16* vb = static_cast<const bf16*>(v);
-    const bf16* db = static_cast<const bf16*>(dout);
-    constexpr int smem_kv = dkv_smem_bytes<D>();
-    cudaError_t err = set_smem(flash_bwd_dkv_bf16_kernel<D>, smem_kv);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dkv_bf16_kernel<D><<<dim3(seq / kTile, bh), kThreads, smem_kv, st>>>(
-        qb, kb, vb, db, l, de, static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq,
-        scale, causal);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    constexpr int smem_q = dq_smem_bytes<D>();
-    err = set_smem(flash_bwd_dq_bf16_kernel<D>, smem_q);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dq_bf16_kernel<D><<<dim3(seq / kTile, bh), kThreads, smem_q, st>>>(
-        qb, kb, vb, db, l, de, static_cast<bf16*>(dq), seq, scale, causal);
-  } else {
-    const float* qf = static_cast<const float*>(q);
-    const float* kf = static_cast<const float*>(k);
-    const float* vf = static_cast<const float*>(v);
-    const float* df = static_cast<const float*>(dout);
-    const dim3 grid(seq / kRowsF32, bh);
-    flash_bwd_dkv_f32_kernel<D><<<grid, kRowsF32 * 32, 0, st>>>(
-        qf, kf, vf, df, l, de, static_cast<float*>(dk), static_cast<float*>(dv), seq,
-        scale, causal);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dq_f32_kernel<D><<<grid, kRowsF32 * 32, 0, st>>>(
-        qf, kf, vf, df, l, de, static_cast<float*>(dq), seq, scale, causal);
+    return launch(flash_bwd_dkv_bf16_kernel<D>, kThreads, dkv_smem_bytes<D>(), seq, bh, st,
+                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, de,
+                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq, scale, causal);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch(flash_bwd_dkv_f32_kernel<D>, kThreadsF32, dkv_f32_smem_bytes<D>(), seq, bh, st,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<const float*>(dout), l, de,
+                static_cast<float*>(dk), static_cast<float*>(dv), seq, scale, causal);
+}
+
+template <int D>
+int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* delta, void* dq, int bh, int seq, float scale, int causal, int dtype,
+           cudaStream_t st) {
+  const float* l = static_cast<const float*>(lse);
+  const float* de = static_cast<const float*>(delta);
+  if (dtype == kBF16) {
+    return launch(flash_bwd_dq_bf16_kernel<D>, kThreads, dq_smem_bytes<D>(), seq, bh, st,
+                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, de,
+                  static_cast<bf16*>(dq), seq, scale, causal);
+  }
+  return launch(flash_bwd_dq_f32_kernel<D>, kThreadsF32, dq_f32_smem_bytes<D>(), seq, bh, st,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<const float*>(dout), l, de,
+                static_cast<float*>(dq), seq, scale, causal);
 }
 
 bool shapes_ok(int bh, int seq, int head_dim, int dtype) {
@@ -711,10 +911,10 @@ bool shapes_ok(int bh, int seq, int head_dim, int dtype) {
 
 }  // namespace
 
-// Each entry point launches on `stream`, does not synchronise, allocates
-// nothing, and returns cudaGetLastError() (0 when every launch was
+// Each entry point launches one kernel on `stream`, does not synchronise,
+// allocates nothing, and returns cudaGetLastError() (0 when the launch was
 // accepted). Arguments the kernels do not take return cudaErrorInvalidValue
-// unlaunched. flash_bwd launches two kernels: dK/dV, then dQ.
+// unlaunched. The backward is two entry points: dK/dV, then dQ.
 
 extern "C" int pdt_flash_fwd(const void* q, const void* k, const void* v, void* o,
                              void* lse, int bh, int seq, int head_dim, float scale,
@@ -725,14 +925,26 @@ extern "C" int pdt_flash_fwd(const void* q, const void* k, const void* v, void* 
   return fwd<128>(q, k, v, o, lse, bh, seq, scale, causal, dtype, st);
 }
 
-extern "C" int pdt_flash_bwd(const void* q, const void* k, const void* v,
-                             const void* dout, const void* lse, const void* delta,
-                             void* dq, void* dk, void* dv, int bh, int seq, int head_dim,
-                             float scale, int causal, int dtype, void* stream) {
+extern "C" int pdt_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse, const void* delta,
+                                 void* dk, void* dv, int bh, int seq, int head_dim,
+                                 float scale, int causal, int dtype, void* stream) {
   if (!shapes_ok(bh, seq, head_dim, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) {
-    return bwd<64>(q, k, v, dout, lse, delta, dq, dk, dv, bh, seq, scale, causal, dtype, st);
+    return bwd_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, seq, scale, causal, dtype, st);
   }
-  return bwd<128>(q, k, v, dout, lse, delta, dq, dk, dv, bh, seq, scale, causal, dtype, st);
+  return bwd_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, seq, scale, causal, dtype, st);
+}
+
+extern "C" int pdt_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse, const void* delta,
+                                void* dq, int bh, int seq, int head_dim, float scale,
+                                int causal, int dtype, void* stream) {
+  if (!shapes_ok(bh, seq, head_dim, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64) {
+    return bwd_dq<64>(q, k, v, dout, lse, delta, dq, bh, seq, scale, causal, dtype, st);
+  }
+  return bwd_dq<128>(q, k, v, dout, lse, delta, dq, bh, seq, scale, causal, dtype, st);
 }

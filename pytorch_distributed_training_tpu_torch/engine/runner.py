@@ -8,6 +8,8 @@ reference's iteration loop:
   the world has more than one rank) and a plain batch loader;
 - the model from ``model.*`` with ``flash`` on, in ``training.dtype`` with
   f32 master parameters, on the card (``device``, default ``cuda``);
+  ``training.remat`` is the JAX package's alias of
+  ``model.remat``/``model.remat_policy`` (:func:`apply_remat_alias`);
 - the optimizer and LR schedule from ``training.optimizer`` /
   ``training.lr_schedule``;
 - the train and eval steps of :mod:`.sp_steps`;
@@ -25,9 +27,10 @@ per local card (or one on the CPU) per node, as the reference does.
 
 Not ported yet: every config key asking for one raises
 ``NotImplementedError`` naming its ROADMAP item (:data:`UNPORTED_TRAINING_KEYS`):
-checkpointing, remat, grad accumulation, the anomaly guard and the rest of
-fault tolerance (P2b), sequence/tensor/pipeline/expert parallelism, ZeRO
-and ``comm`` (P9), telemetry, integrity and elastic recovery (P10).
+checkpointing, grad accumulation, the anomaly guard and the rest of
+fault tolerance, the remat policies ``dots``/``dots_saveable`` (P2b),
+sequence/tensor/pipeline/expert parallelism, ZeRO and ``comm`` (P9),
+telemetry, integrity and elastic recovery (P10).
 TensorBoard is absent (P10): the log file and the console carry the
 metrics.
 """
@@ -52,7 +55,7 @@ from ..schedulers import get_scheduler
 from ..utils import make_deterministic
 from .sp_steps import build_lm_eval_step, build_lm_train_step
 
-__all__ = ["Runner", "UNPORTED_TRAINING_KEYS"]
+__all__ = ["Runner", "UNPORTED_TRAINING_KEYS", "apply_remat_alias"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -60,7 +63,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # (a parallelism degree counts above 1)
 UNPORTED_TRAINING_KEYS = {
     "checkpoint": "checkpointing and resume are ROADMAP port item P2b",
-    "remat": "remat policies are ROADMAP port item P2b",
     "grad_accumulation": "training.grad_accumulation > 1 is ROADMAP port item P2b",
     "fault_tolerance": "fault tolerance (anomaly guard, watchdog, data-worker respawn) is "
                        "ROADMAP port item P2b",
@@ -88,6 +90,37 @@ def _reject_unported(train_cfg: Dict[str, Any]) -> None:
             wanted = bool(val) and val != "none"
         if wanted:
             raise NotImplementedError(f"training.{key}: {why}")
+
+
+# training.remat -> (model.remat, model.remat_policy) (topology.py:206-211)
+_REMAT_ALIAS = {
+    "none": (False, "nothing"),
+    "block": (True, "nothing"),
+    "dots": (True, "dots"),
+    "dots_saveable": (True, "dots_saveable"),
+}
+
+
+def apply_remat_alias(train_cfg: Dict[str, Any], model_cfg: Dict[str, Any],
+                      model_name: str) -> None:
+    """Port of the ``training.remat`` alias (``engine/topology.py:189-212``):
+    ``none`` | ``block`` | ``dots`` | ``dots_saveable`` set ``model.remat``
+    and ``model.remat_policy`` in ``model_cfg``; setting both sections is a
+    ``ValueError``, as is the alias on a model other than the LM.  The model
+    raises for the policies not ported (``dots``, ``dots_saveable``: P2b)."""
+    remat = train_cfg.get("remat")
+    if remat is None:
+        return
+    if model_name.lower() != "transformerlm":
+        raise ValueError("training.remat is only wired for the LM task "
+                         "(model.name: TransformerLM)")
+    if "remat" in model_cfg or "remat_policy" in model_cfg:
+        raise ValueError("set either training.remat or model.remat/model.remat_policy, "
+                         "not both")
+    if remat not in _REMAT_ALIAS:
+        raise ValueError(f"training.remat must be one of {sorted(_REMAT_ALIAS)}, "
+                         f"got {remat!r}")
+    model_cfg["remat"], model_cfg["remat_policy"] = _REMAT_ALIAS[remat]
 
 
 class Runner:
@@ -193,13 +226,15 @@ class Runner:
 
         model_cfg = dict(cfg["model"])
         model_name = model_cfg.pop("name")
+        apply_remat_alias(train_cfg, model_cfg, model_name)
         model_cfg.setdefault("max_len", self.seq_len)
         self.model = get_model(model_name, num_classes=cfg["dataset"]["n_classes"],
                                dtype=self.compute_dtype, flash=True, **model_cfg)
         self.model.to(self.device).train()
-        self.logger.info("Model %s: %.1f M parameters, compute %s, flash attention on",
+        self.logger.info("Model %s: %.1f M parameters, compute %s, flash attention on%s",
                          model_name, sum(p.numel() for p in self.model.parameters()) / 1e6,
-                         str(self.compute_dtype).replace("torch.", ""))
+                         str(self.compute_dtype).replace("torch.", ""),
+                         ", block remat" if self.model.remat else "")
 
         # reference parity (train_distributed.py:194): batch_size is per
         # process, one process per card

@@ -15,7 +15,9 @@ signatures.  Pointers and the stream are passed as
 ``cudaGetLastError()`` and :func:`check` raises when it is not 0.
 
 Libraries: ``fused_elementwise`` (K3/K4), ``fused_ce`` (K1a/K1b) and
-``flash_attention`` (K2a and the two-launch backward standing in for K2c).
+``flash_attention`` (one forward for K2a/K2b, a dQ kernel for K2d/K2f and
+a dK/dV kernel for K2e/K2g, the pair standing in for K2c; bf16 on the
+tensor cores, f32 tiled on the CUDA cores).
 """
 from __future__ import annotations
 
@@ -86,9 +88,12 @@ SOURCES = {
         {
             # q, k, v, o, lse, bh, seq, head_dim, scale, causal, dtype, stream
             "pdt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
-            # q, k, v, dout, lse, delta, dq, dk, dv, bh, seq, head_dim, scale,
+            # q, k, v, dout, lse, delta, dk, dv, bh, seq, head_dim, scale,
             # causal, dtype, stream
-            "pdt_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+            "pdt_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+            # q, k, v, dout, lse, delta, dq, bh, seq, head_dim, scale, causal,
+            # dtype, stream
+            "pdt_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
         },
     ),
 }

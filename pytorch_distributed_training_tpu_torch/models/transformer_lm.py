@@ -21,9 +21,17 @@ kernels (:mod:`..ops.flash_attention`), as the JAX model does inside its
 Training keeps f32 master parameters: each Dense casts to its compute dtype
 per call, so :meth:`TransformerLM.cast_matmul_weights_` is for serving only.
 
+``remat`` with ``remat_policy="nothing"`` is the JAX model's
+``nn.remat(DecoderBlock, policy=None)`` (``models/transformer_lm.py:268-279``):
+each block keeps only its input for the backward and runs its forward again
+there (``torch.utils.checkpoint``, non-reentrant), flash forward included.
+It applies only while autograd records: evaluation, prefill and decode run
+the blocks as they are.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-MoE blocks and ``seq_axis`` (P9), remat policies (P2b), the paged cache
-(P4) and LoRA (P5).
+MoE blocks and ``seq_axis`` (P9), the remat policies that save matmul
+outputs (``dots``, ``dots_saveable``: P2b), the paged cache (P4) and LoRA
+(P5).
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import KVCache, MultiHeadAttention
 from ..ops.fused_elementwise import FusedResidualLayerNorm
@@ -38,6 +47,9 @@ from ..ops.layers import Dense, LayerNorm
 from .vit import MLP
 
 __all__ = ["DecoderBlock", "TransformerLM"]
+
+# the names resolve_remat_policy takes (models/transformer_lm.py:33-54)
+REMAT_POLICIES = ("dots", "dots_saveable", "nothing")
 
 
 class DecoderBlock(nn.Module):
@@ -78,6 +90,7 @@ class TransformerLM(nn.Module):
         flash: bool = False,
         seq_axis: Optional[str] = None,
         remat: bool = False,
+        remat_policy: str = "nothing",
         moe_experts: int = 0,
         paged: bool = False,
         lora_rank: int = 0,
@@ -89,9 +102,14 @@ class TransformerLM(nn.Module):
             raise NotImplementedError(
                 "seq_axis (ring/Ulysses sequence parallelism) is ROADMAP port item P9"
             )
-        if remat:
+        # unknown names raise even with remat off, as in JAX
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"model.remat_policy must be one of {sorted(REMAT_POLICIES)}, "
+                             f"got {remat_policy!r}")
+        if remat and remat_policy != "nothing":
             raise NotImplementedError(
-                "remat policies (torch.utils.checkpoint) are ROADMAP port item P2b"
+                f"remat_policy {remat_policy!r} (save matmul outputs, recompute the rest) is "
+                "ROADMAP port item P2b; 'nothing' (recompute the whole block) is ported"
             )
         if paged:
             raise NotImplementedError(
@@ -109,6 +127,7 @@ class TransformerLM(nn.Module):
         self.dtype = dtype
         self.fused_tails = fused_tails
         self.flash = flash
+        self.remat = remat
         self.tok_embedding = nn.Parameter(torch.empty(vocab_size, embed_dim))
         self.pos_embedding = nn.Parameter(torch.empty(max_len, embed_dim))
         for i in range(depth):
@@ -176,8 +195,12 @@ class TransformerLM(nn.Module):
                 raise ValueError(f"sequence {s} exceeds max_len {self.max_len}")
             pe = self.pos_embedding[:s][None]
         x = x + pe.to(self.dtype)
+        recompute = self.remat and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
-            x = block(x, cache, i, decode_pos)
+            if recompute:
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x, cache, i, decode_pos)
         return x
 
     def logits(self, x):

@@ -4,35 +4,47 @@ Port of ``pytorch_distributed_training_tpu/ops/flash_attention.py``:
 
 - :func:`flash_forward`: ``o, lse`` of ``q, k, v [BH, S, D]`` by online
   softmax over K/V tiles, f32 accumulation, ``o`` in the input dtype and
-  ``lse`` [BH, S] f32.  Replaces the TPU kernel ``_fwd_kernel``
-  (``flash_attention.py:178``, launched at ``:651``).
+  ``lse`` [BH, S] f32.  One kernel replaces both TPU forwards: the resident
+  ``_fwd_kernel`` (``flash_attention.py:178``, launched at ``:651``) and the
+  streamed ``_fwd_stream_kernel`` (``:407``, launched at ``:615``).  On the
+  TPU the two differ in what VMEM holds; here K/V always stream through
+  shared memory one tile at a time.
 - :func:`flash_backward`: ``dq, dk, dv`` recomputing ``p = exp(s - lse)``
-  with ``delta = rowsum(dO * O)`` given.  Stands in for the fused backward
-  ``_dqkv_kernel`` (``:278``, launched at ``:775``) as two deterministic
-  launches, a dK/dV kernel over K tiles and a dQ kernel over Q tiles
-  (``csrc/flash_attention.cu`` says why); its launch count goes up by 2 a
+  with ``delta = rowsum(dO * O)`` given, as two deterministic launches: a
+  dK/dV kernel over K tiles (:func:`flash_backward_dkv`) and a dQ kernel over
+  Q tiles (:func:`flash_backward_dq`), ``csrc/flash_attention.cu`` says why.
+  That is the TPU's split backward (``_dkv_kernel`` ``:348`` / ``_dq_kernel``
+  ``:233``, streamed ``_dkv_stream_kernel`` ``:506`` / ``_dq_stream_kernel``
+  ``:460``), and the pair stands in for the fused ``_dqkv_kernel``
+  (``:278``) where the JAX package fuses.  Its launch count goes up by 2 a
   call.
 - :func:`flash_attention`: ``[B, S, H, D] -> [B, S, H, D]`` with heads folded
   into the batch (``:895-921``), a ``torch.autograd.Function`` whose
-  forward and backward are the two wrappers above.
+  forward and backward are the wrappers above.
 
 Numerics follow the JAX kernels: bf16 inputs go into the tensor cores as
 bf16 with f32 accumulation, the scale multiplies ``s`` after the dot, and
 ``p`` and ``ds`` are rounded to bf16 before the products they feed; f32
-inputs stay f32 throughout (no TF32) with ``q * scale`` before the forward
-dot.  Masked scores are ``-1e30``, not ``-inf`` (``:48-50``): every causal
-row keeps at least one valid column, so no NaN can form.  The einsum path
-of :mod:`.attention` keeps its own ``-inf``.
+inputs stay f32 throughout (tiled FFMA, no TF32) with ``q * scale`` before
+the forward dot.  Masked scores are ``-1e30``, not ``-inf`` (``:48-50``):
+every causal row keeps at least one valid column, so no NaN can form.  The
+einsum path of :mod:`.attention` keeps its own ``-inf``.
+
+Launches are counted twice: by the port's wrapper (:func:`launch_counts`,
+``flash_fwd`` / ``flash_bwd``) and by the TPU kernel each launch stands for
+(:func:`tpu_launch_counts`), as :func:`tpu_kernels` reads the JAX
+package's dispatch for that shape and dtype.
 
 On CUDA tensors the wrappers launch the kernels or raise; on CPU tensors
 they compute the plain twins (:func:`flash_fwd_plain`,
-:func:`flash_bwd_plain`), which repeat the kernels' roundings on whole
-score matrices.  Shapes are checked on both, so what runs on the CPU also
-launches on the card: bf16 or f32, ``S >= 128`` and ``S % 128 == 0``
-(:func:`flash_shapes_ok`, the JAX package's gate), and ``D`` in
-``SUPPORTED_HEAD_DIMS``; any other head dim raises rather than leaving the
-kernels.  Both kernels are bound by operations: :func:`flash_flops` counts
-the products over the pairs the causal mask keeps.
+:func:`flash_bwd_plain`), which repeat the kernels' roundings on score
+matrices chunked over heads and query rows.  Shapes are checked on both,
+so what runs on the CPU also launches on the card: bf16 or f32, ``S >= 128``
+and ``S % 128 == 0`` (:func:`flash_shapes_ok`, the JAX package's gate), and
+``D`` in ``SUPPORTED_HEAD_DIMS``; any other head dim raises rather than
+leaving the kernels.  The kernels are bound by operations:
+:func:`flash_flops` counts the products over the pairs the causal mask
+keeps.
 """
 from __future__ import annotations
 
@@ -46,8 +58,11 @@ from .. import kernels
 __all__ = [
     "KERNELS",
     "SUPPORTED_HEAD_DIMS",
+    "TPU_KERNELS",
     "flash_attention",
     "flash_backward",
+    "flash_backward_dkv",
+    "flash_backward_dq",
     "flash_bwd_plain",
     "flash_bytes",
     "flash_flops",
@@ -56,14 +71,24 @@ __all__ = [
     "flash_shapes_ok",
     "launch_counts",
     "reset_launch_counts",
+    "tpu_kernels",
+    "tpu_launch_counts",
 ]
 
 NEG = -1e30  # finite mask value (flash_attention.py:68)
 SUPPORTED_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the plain twins materialise [chunk, S, S] f32 scores; chunk the folded
-# batch so that the full-width check on the card stays within a few GB
-_PLAIN_CHUNK = 16
+# the plain twins hold [heads, rows, S] f32 scores at a time: at most
+# _PLAIN_HEADS folded heads and _PLAIN_SCORES scores (256 MB) a chunk, so the
+# checks on the card stay within a few GB at S = 32768
+_PLAIN_HEADS = 16
+_PLAIN_SCORES = 1 << 26
+# the JAX package's VMEM budget for its resident kernels (flash_attention.py:108)
+_VMEM_BYTES = 8 * 1024 * 1024
+# the TPU kernels of the JAX package's flash_attention.py, by the names of
+# the kernel table (ROADMAP queue 2)
+TPU_KERNELS = ("K2a", "K2b", "K2c", "K2d", "K2e", "K2f", "K2g")
+_tpu_launches = dict.fromkeys(TPU_KERNELS, 0)
 
 
 def flash_shapes_ok(s_len: int) -> bool:
@@ -73,74 +98,127 @@ def flash_shapes_ok(s_len: int) -> bool:
     return s_len >= 128 and s_len % 128 == 0
 
 
-def _causal_mask(s_len: int, device) -> torch.Tensor:
-    return torch.ones(s_len, s_len, dtype=torch.bool, device=device).tril()
+def tpu_kernels(s_len: int, d: int, dtype) -> dict:
+    """The TPU kernels the JAX package's ``flash_attention`` launches for
+    folded inputs ``[BH, S, D]`` all of ``dtype``: ``{"forward": ...,
+    "dq": ..., "dkv": ...}``.  The gates' shape rules, without their
+    environment overrides:
+
+    - ``_resident_ok`` (``:114-120``): K/V resident while 2 S D 4 <= 8 MiB
+      (K2a, and a resident backward), streamed beyond (K2b, K2f + K2g);
+    - bf16 dots (``:910-914``): all inputs bf16;
+    - ``_fused_bwd_ok`` as on the TPU (``interpret=False``, ``:123-142``):
+      bf16 dots and 2 S D (itemsize + 4) <= 8 MiB fuse the backward (K2c);
+      otherwise it is split (K2d + K2e).
+    """
+    if 2 * s_len * d * 4 > _VMEM_BYTES:
+        return {"forward": "K2b", "dq": "K2f", "dkv": "K2g"}
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if dtype == torch.bfloat16 and 2 * s_len * d * (itemsize + 4) <= _VMEM_BYTES:
+        return {"forward": "K2a", "dq": "K2c", "dkv": "K2c"}
+    return {"forward": "K2a", "dq": "K2d", "dkv": "K2e"}
+
+
+def _row_chunk(heads: int, s_len: int) -> int:
+    return max(1, min(s_len, _PLAIN_SCORES // (heads * s_len)))
+
+
+def _causal_mask(rows: slice, s_len: int, device) -> torch.Tensor:
+    """``[rows, S]``: True where key <= query."""
+    r = torch.arange(rows.start, min(rows.stop, s_len), device=device)
+    return torch.arange(s_len, device=device)[None, :] <= r[:, None]
 
 
 def flash_fwd_plain(q, k, v, causal: bool, scale: float):
     """The plain twin of :func:`flash_forward`: ``(o, lse)``."""
     bf16 = q.dtype == torch.bfloat16
-    outs, lses = [], []
-    mask = _causal_mask(q.shape[1], q.device) if causal else None
-    for i in range(0, q.shape[0], _PLAIN_CHUNK):
-        qc, kc, vc = (x[i:i + _PLAIN_CHUNK].float() for x in (q, k, v))
-        if bf16:
-            s = torch.matmul(qc, kc.transpose(-1, -2)) * scale
-        else:
-            s = torch.matmul(qc * scale, kc.transpose(-1, -2))
-        if causal:
-            s = s.masked_fill(~mask, NEG)
-        m = s.amax(-1, keepdim=True)
-        p = torch.exp(s - m)
-        l = p.sum(-1, keepdim=True)
-        pv = p.to(torch.bfloat16).float() if bf16 else p
-        outs.append((torch.matmul(pv, vc) / l).to(q.dtype))
-        lses.append((m + torch.log(l))[..., 0])
-    return torch.cat(outs), torch.cat(lses)
+    bh, s_len, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(bh, s_len, dtype=torch.float32, device=q.device)
+    for h in range(0, bh, _PLAIN_HEADS):
+        hs = slice(h, h + _PLAIN_HEADS)
+        kc, vc = k[hs].float(), v[hs].float()
+        n_rows = _row_chunk(kc.shape[0], s_len)
+        for r in range(0, s_len, n_rows):
+            rs = slice(r, r + n_rows)
+            qc = q[hs, rs].float()
+            if bf16:
+                sc = torch.matmul(qc, kc.transpose(-1, -2)) * scale
+            else:
+                sc = torch.matmul(qc * scale, kc.transpose(-1, -2))
+            if causal:
+                sc = sc.masked_fill(~_causal_mask(rs, s_len, q.device), NEG)
+            m = sc.amax(-1, keepdim=True)
+            p = torch.exp(sc - m)
+            l = p.sum(-1, keepdim=True)
+            pv = p.to(torch.bfloat16).float() if bf16 else p
+            o[hs, rs] = (torch.matmul(pv, vc) / l).to(q.dtype)
+            lse[hs, rs] = (m + torch.log(l))[..., 0]
+    return o, lse
 
 
 def flash_bwd_plain(q, k, v, dout, lse, delta, causal: bool, scale: float):
-    """The plain twin of :func:`flash_backward`: ``(dq, dk, dv)``."""
+    """The plain twin of :func:`flash_backward`: ``(dq, dk, dv)``.  dK and
+    dV accumulate in f32 over the row chunks and are rounded once."""
     bf16 = q.dtype == torch.bfloat16
-    dqs, dks, dvs = [], [], []
-    mask = _causal_mask(q.shape[1], q.device) if causal else None
+    bh, s_len, _ = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
     def rnd(x):
         return x.to(torch.bfloat16).float() if bf16 else x
 
-    for i in range(0, q.shape[0], _PLAIN_CHUNK):
-        sl = slice(i, i + _PLAIN_CHUNK)
-        qc, kc, vc, dc = (x[sl].float() for x in (q, k, v, dout))
-        s = scale * torch.matmul(qc, kc.transpose(-1, -2))
-        if causal:
-            s = s.masked_fill(~mask, NEG)
-        p = torch.exp(s - lse[sl][..., None])
-        dvs.append(torch.matmul(rnd(p).transpose(-1, -2), dc).to(v.dtype))
-        dp = torch.matmul(dc, vc.transpose(-1, -2))
-        ds = rnd(p * (dp - delta[sl][..., None]) * scale)
-        dks.append(torch.matmul(ds.transpose(-1, -2), qc).to(k.dtype))
-        dqs.append(torch.matmul(ds, kc).to(q.dtype))
-    return torch.cat(dqs), torch.cat(dks), torch.cat(dvs)
+    for h in range(0, bh, _PLAIN_HEADS):
+        hs = slice(h, h + _PLAIN_HEADS)
+        kc, vc = k[hs].float(), v[hs].float()
+        dk32, dv32 = torch.zeros_like(kc), torch.zeros_like(vc)
+        n_rows = _row_chunk(kc.shape[0], s_len)
+        for r in range(0, s_len, n_rows):
+            rs = slice(r, r + n_rows)
+            qc, dc = q[hs, rs].float(), dout[hs, rs].float()
+            sc = scale * torch.matmul(qc, kc.transpose(-1, -2))
+            if causal:
+                sc = sc.masked_fill(~_causal_mask(rs, s_len, q.device), NEG)
+            p = torch.exp(sc - lse[hs, rs][..., None])
+            dv32 += torch.matmul(rnd(p).transpose(-1, -2), dc)
+            dp = torch.matmul(dc, vc.transpose(-1, -2))
+            ds = rnd(p * (dp - delta[hs, rs][..., None]) * scale)
+            dk32 += torch.matmul(ds.transpose(-1, -2), qc)
+            dq[hs, rs] = torch.matmul(ds, kc).to(q.dtype)
+        dk[hs], dv[hs] = dk32.to(k.dtype), dv32.to(v.dtype)
+    return dq, dk, dv
 
 
 def _pairs(s_len: int, causal: bool) -> int:
     return s_len * (s_len + 1) // 2 if causal else s_len * s_len
 
 
-def flash_flops(bh: int, s_len: int, d: int, causal: bool, backward: bool = False) -> int:
+# products over the (query, key) pairs: forward QK^T, PV; fused backward
+# QK^T, dO V^T, P^T dO, dS^T Q, dS K; the split backward's dQ launch
+# QK^T, dO V^T, dS K and its dK/dV launch QK^T, dO V^T, P^T dO, dS^T Q
+_PRODUCTS = {"forward": 2, "backward": 5, "dq": 3, "dkv": 4}
+
+
+def flash_flops(bh: int, s_len: int, d: int, causal: bool, backward: bool = False,
+                part: Optional[str] = None) -> int:
     """Multiply-adds x 2 of the products over the (query, key) pairs the
-    mask keeps: 2 products forward (QK^T, PV), 5 backward (QK^T, dO V^T,
-    P^T dO, dS^T Q, dS K)."""
-    return (5 if backward else 2) * 2 * d * bh * _pairs(s_len, causal)
+    mask keeps: the forward's or the whole backward's, or with ``part``
+    ("dq" or "dkv") one launch of the backward's."""
+    products = _PRODUCTS[part or ("backward" if backward else "forward")]
+    return products * 2 * d * bh * _pairs(s_len, causal)
 
 
-def flash_bytes(bh: int, s_len: int, d: int, dtype, backward: bool = False) -> int:
-    """Least traffic: forward reads q, k, v and writes o and lse; backward
-    reads q, k, v, dO, lse, delta and writes dq, dk, dv."""
+def flash_bytes(bh: int, s_len: int, d: int, dtype, backward: bool = False,
+                part: Optional[str] = None) -> int:
+    """Least traffic: the forward reads q, k, v and writes o and lse; a
+    backward launch reads q, k, v, dO, lse, delta and writes dq (``part``
+    "dq"), dk and dv ("dkv") or all three (the whole backward)."""
     es = torch.empty((), dtype=dtype).element_size()
     mat = bh * s_len * d * es
     row = bh * s_len * 4
-    return 7 * mat + 2 * row if backward else 4 * mat + row
+    if not (backward or part):
+        return 4 * mat + row
+    written = {"dq": 1, "dkv": 2, None: 3}[part]
+    return (4 + written) * mat + 2 * row
 
 
 def _check(name: str, *ts) -> None:
@@ -160,11 +238,24 @@ def _check(name: str, *ts) -> None:
         raise ValueError(f"{name}: batch x heads {bh} outside [1, 65535]")
 
 
+def _check_bwd(name: str, q, k, v, dout, lse, delta) -> None:
+    _check(name, q, k, v, dout)
+    bh, s_len, _ = q.shape
+    for what, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.shape != (bh, s_len):
+            raise ValueError(f"{name}: {what} must be [{bh}, {s_len}] float32")
+
+
 def _check_cuda(name: str, *ts) -> None:
     kernels.require_contiguous(name, *ts)
     kernels.require_cuda(name, *ts)
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError(f"{name}: the kernels take 16-byte aligned tensors")
+
+
+def _counted(q, part: str) -> None:
+    _, s_len, d = q.shape
+    _tpu_launches[tpu_kernels(s_len, d, q.dtype)[part]] += 1
 
 
 def flash_forward(q, k, v, causal: bool, scale: float):
@@ -184,34 +275,62 @@ def flash_forward(q, k, v, causal: bool, scale: float):
                                 _DTYPE_CODES[q.dtype], kernels.stream(q))
     kernels.check(err, name)
     flash_forward.launches += 1
+    _counted(q, "forward")
     return o, lse
 
 
 flash_forward.launches = 0
 
 
-def flash_backward(q, k, v, dout, lse, delta, causal: bool, scale: float):
-    """``(dq, dk, dv)``; ``lse`` from the forward and ``delta = rowsum(dO *
-    O)``, both [BH, S] f32."""
-    name = "flash_backward"
-    _check(name, q, k, v, dout)
-    bh, s_len, _ = q.shape
-    for what, t in (("lse", lse), ("delta", delta)):
-        if t.dtype != torch.float32 or t.shape != (bh, s_len):
-            raise ValueError(f"{name}: {what} must be [{bh}, {s_len}] float32")
+def flash_backward_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float):
+    """``(dk, dv)``: the dK/dV launch of :func:`flash_backward`."""
+    name = "flash_backward_dkv"
+    _check_bwd(name, q, k, v, dout, lse, delta)
     if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale)
+        return flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale)[1:]
     _check_cuda(name, q, k, v, dout, lse, delta)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = kernels.library("flash_attention")
     with torch.cuda.device(q.device):
-        err = lib.pdt_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                                dk.data_ptr(), dv.data_ptr(), bh, s_len, q.shape[2],
-                                float(scale), int(causal), _DTYPE_CODES[q.dtype],
-                                kernels.stream(q))
+        err = lib.pdt_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                                    lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                                    dv.data_ptr(), q.shape[0], q.shape[1], q.shape[2],
+                                    float(scale), int(causal), _DTYPE_CODES[q.dtype],
+                                    kernels.stream(q))
     kernels.check(err, name)
-    flash_backward.launches += 2  # dK/dV, then dQ
+    flash_backward.launches += 1
+    _counted(q, "dkv")
+    return dk, dv
+
+
+def flash_backward_dq(q, k, v, dout, lse, delta, causal: bool, scale: float):
+    """``dq``: the dQ launch of :func:`flash_backward`."""
+    name = "flash_backward_dq"
+    _check_bwd(name, q, k, v, dout, lse, delta)
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale)[0]
+    _check_cuda(name, q, k, v, dout, lse, delta)
+    dq = torch.empty_like(q)
+    lib = kernels.library("flash_attention")
+    with torch.cuda.device(q.device):
+        err = lib.pdt_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                                   lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                                   q.shape[0], q.shape[1], q.shape[2], float(scale),
+                                   int(causal), _DTYPE_CODES[q.dtype], kernels.stream(q))
+    kernels.check(err, name)
+    flash_backward.launches += 1
+    _counted(q, "dq")
+    return dq
+
+
+def flash_backward(q, k, v, dout, lse, delta, causal: bool, scale: float):
+    """``(dq, dk, dv)``; ``lse`` from the forward and ``delta = rowsum(dO *
+    O)``, both [BH, S] f32: the dK/dV launch, then the dQ launch."""
+    _check_bwd("flash_backward", q, k, v, dout, lse, delta)
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale)
+    dk, dv = flash_backward_dkv(q, k, v, dout, lse, delta, causal, scale)
+    dq = flash_backward_dq(q, k, v, dout, lse, delta, causal, scale)
     return dq, dk, dv
 
 
@@ -254,6 +373,7 @@ def flash_attention(q, k, v, causal: bool = False, sm_scale: Optional[float] = N
 
 
 # every kernel wrapper of this module, by the name its launch count goes by
+# (flash_backward's count takes the launches of flash_backward_dkv/_dq)
 KERNELS = {"flash_fwd": flash_forward, "flash_bwd": flash_backward}
 
 
@@ -261,6 +381,15 @@ def launch_counts():
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def tpu_launch_counts():
+    """Launches by the TPU kernel each stands for (:func:`tpu_kernels`): a
+    forward counts as K2a or K2b, a dQ launch as K2c, K2d or K2f, a dK/dV
+    launch as K2c, K2e or K2g."""
+    return dict(_tpu_launches)
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for name in _tpu_launches:
+        _tpu_launches[name] = 0

@@ -244,8 +244,9 @@ def test_sampled_generate_is_reproducible(params):
 
 @pytest.mark.parametrize(
     "kwargs,item",
-    [({"moe_experts": 2}, "P9"), ({"seq_axis": "sequence"}, "P9"), ({"remat": True}, "P2"),
-     ({"paged": True}, "P4"), ({"lora_rank": 4}, "P5")],
+    [({"moe_experts": 2}, "P9"), ({"seq_axis": "sequence"}, "P9"),
+     ({"remat": True, "remat_policy": "dots"}, "P2"), ({"paged": True}, "P4"),
+     ({"lora_rank": 4}, "P5")],
 )
 def test_unported_model_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):

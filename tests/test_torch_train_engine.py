@@ -183,9 +183,9 @@ def lm_setup():
     return jm, params, batches
 
 
-def _port_model(params):
+def _port_model(params, remat=False):
     model = TransformerLM(VOCAB, max_len=SEQ, embed_dim=EMBED, depth=DEPTH, num_heads=HEADS,
-                          fused_tails=True, flash=True)
+                          fused_tails=True, flash=True, remat=remat)
     model.load_state_dict(lm_state_dict_from_jax(params), strict=True)
     return model
 
@@ -194,25 +194,31 @@ _SCHED = dict(name="cosine", total_iters=10, end_lr=1e-4, warmup_iters=2,
               warmup_mode="linear", warmup_factor=0.1)
 
 
-@pytest.mark.parametrize("opt_name,kwargs", [
-    ("AdamW", dict(lr=1e-3, weight_decay=0.1)),
-    ("SGD", dict(lr=0.05, momentum=0.9, weight_decay=1e-4)),
+@pytest.mark.parametrize("opt_name,kwargs,remat", [
+    pytest.param("AdamW", dict(lr=1e-3, weight_decay=0.1), False, id="AdamW-kwargs0"),
+    pytest.param("SGD", dict(lr=0.05, momentum=0.9, weight_decay=1e-4), False,
+                 id="SGD-kwargs1"),
+    pytest.param("SGD", dict(lr=0.05, momentum=0.9, weight_decay=1e-4), True, id="SGD-remat"),
 ])
-def test_three_trainer_steps_match_jax(lm_setup, opt_name, kwargs):
+def test_three_trainer_steps_match_jax(lm_setup, opt_name, kwargs, remat):
     """Losses of 3 steps within rtol 1e-4 for both optimizers; parameters
     after them within atol 1e-5 for SGD.  Not for AdamW: it divides each
     gradient element by its own magnitude, and the key part of the qkv bias
     has a true gradient of exactly 0 (softmax ignores a per-query constant),
     so on each side f32 noise of ~1e-10 becomes a step of ~lr in a random
-    direction; its losses still agree."""
+    direction; its losses still agree.  ``remat``: block remat on both
+    sides (flax ``nn.remat``, ``torch.utils.checkpoint``)."""
     jm, params, batches = lm_setup
+    if remat:
+        jm = JaxLM(vocab_size=VOCAB, max_len=SEQ, embed_dim=EMBED, depth=DEPTH,
+                   num_heads=HEADS, remat=True)
     jo = jopt.get_optimizer({"name": opt_name})(**kwargs)
     mesh = make_sp_mesh(1)
     state = TrainState(params=jax.tree_util.tree_map(jnp.asarray, params), batch_stats={},
                        opt_state=jo.init(params))
     state = jax.device_put(state, replicated_sharding(mesh))
     jstep = jax_train_step(jm, jo, jsched.get_scheduler(jo, _SCHED).lr_fn, mesh, donate=False)
-    model = _port_model(params)
+    model = _port_model(params, remat)
     to = topt.get_optimizer({"name": opt_name})(**kwargs)
     tstep = build_lm_train_step(model, to, tsched.get_scheduler(to, _SCHED).lr_fn)
     for inp, tgt in batches:

@@ -150,8 +150,12 @@ def test_model_flash_flag_and_remat():
     assert m.flash and m.blocks[0].attn.flash
     assert not TransformerLM(VOCAB, max_len=SEQ, embed_dim=EMBED, depth=1,
                              num_heads=HEADS).blocks[0].attn.flash
+    # block remat (policy "nothing") is ported; the policies that save dots are P2b
+    assert TransformerLM(VOCAB, max_len=SEQ, embed_dim=EMBED, depth=1, num_heads=HEADS,
+                         remat=True).remat
     with pytest.raises(NotImplementedError, match="P2b"):
-        TransformerLM(VOCAB, max_len=SEQ, embed_dim=EMBED, depth=1, num_heads=HEADS, remat=True)
+        TransformerLM(VOCAB, max_len=SEQ, embed_dim=EMBED, depth=1, num_heads=HEADS, remat=True,
+                      remat_policy="dots")
 
 
 def test_decode_cache_keeps_the_einsum_under_flash(params):
