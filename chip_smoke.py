@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 2. build every hand-written kernel from ``csrc/`` with nvcc for sm_90a
-   (one nvcc per library, all started together);
+   (one nvcc per library, all started together), with ptxas's registers
+   and spills for each kernel;
 3. the serving kernels (K3 add+LayerNorm, K4 bias+GELU) against their plain
    PyTorch twins on the card, at the main path's shapes and a ragged one,
    with the time of each (CUDA events, median of 20 launches after warm-up,
@@ -29,8 +30,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``F.cross_entropy``, ``F.scaled_dot_product_attention``, timed here
    only): K1a/K1b at [16384, 32768] and [65536, 8192] f32 and [37, 1000] in
    bf16 and f32 with an out-of-range label; flash forward/backward at B 8,
-   H 16, S 2048, D 64 bf16 causal, plus a non-causal and a float32 case;
-   wrong dtype, wrong device and an unsupported head dim must raise;
+   H 16, S 2048, D 64 bf16 causal (the backward also as its dK/dV and dQ
+   launches apart), plus D = 128 bf16 causal at [1, 8, 4096, 128], a
+   non-causal and a float32 case; wrong dtype, wrong device and an
+   unsupported head dim must raise;
 7. one training step at full width (depth 2, float32, TF32 off) on the card
    against the CPU on the same weights and batch: loss and the gradient of
    every parameter;
@@ -46,7 +49,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    K2f, K2g), and f32 at B 8, H 16, S 2048, D 64 (its resident split
    kernels K2a, K2d, K2e); each launch timed (fewer repeats at S = 32768)
    beside its bound, the twins and SDPA; wrong variants that leave out the
-   diagonal tile, a middle K tile or the last Q tile must all be rejected;
+   64-row block on the diagonal, a middle block of 64 keys or the last 64
+   query rows must all be rejected;
 10. one f32 training step of the long-context model at its widths (512, 8
     heads, vocab 8192), depth 2, seq 2048, remat on, TF32 off, card against
     CPU: loss within rtol 1e-5, every gradient within 1e-4 of its largest
@@ -115,8 +119,11 @@ TPU_KERNELS = {
            ("bias_gelu", 0), "serving"),
 }
 # other cases reported beside a row's own: the other main path's CE shape,
-# the f32 flash kernels, and K3/K4 at the decode shape
-ALSO = {"K1a": [("ce_fwd", 0)], "K1b": [("ce_bwd", 0)], "K2a": [("long_fwd", 2)],
+# flash at D = 128 and the f32 flash kernels, K2c's two launches apart, and
+# K3/K4 at the decode shape
+ALSO = {"K1a": [("ce_fwd", 0)], "K1b": [("ce_bwd", 0)],
+        "K2a": [("flash_fwd", 1), ("long_fwd", 2)],
+        "K2c": [("flash_dkv", 0), ("flash_dq", 0), ("flash_bwd", 1)],
         "K2b": [("long_fwd", 1)], "K2f": [("long_dq", 1)], "K2g": [("long_dkv", 1)],
         "K3": [("add_layernorm", 1)], "K4": [("bias_gelu", 1)]}
 # the port's wrappers whose launches stand for K1a/K1b/K3/K4 (flash is
@@ -148,7 +155,11 @@ FLASH_TOL_LONG = {"float32": dict(atol=1e-5, rtol=1e-4),
                   "bfloat16": FLASH_TOL["bfloat16"]}
 FLASH_NORM_LIMIT = {"float32": {"o": 1e-5, "dq": 1e-5, "dk": 1e-5, "dv": 1e-5},
                     "bfloat16": {"o": 3e-3, "dq": 1e-3, "dk": 1e-3, "dv": 1e-3}}
-FLASH_TILE = 64  # query / key rows per tile in csrc/flash_attention.cu
+# row granularity of the flash wrong variants: each leaves out blocks of 64
+# query or key rows.  The bf16 kernels' tiles are 128 rows (64-row Q tiles in
+# dK/dV), so a variant that drops 64 rows is stricter than one that drops a
+# whole kernel tile
+VARIANT_ROWS = 64
 LONG_REPS = 5  # timed launches at S = 32768 (a bf16 backward is ~70 ms)
 # arithmetic per element, for the operations bound: add, two reductions
 # (sum, sum of squares), centre, scale by rstd, affine / add, scale,
@@ -176,6 +187,40 @@ def all_counts(modules) -> dict:
         if hasattr(m, "tpu_launch_counts"):
             counts.update(m.tpu_launch_counts())
     return counts
+
+
+def ptxas_report(log: str) -> list:
+    """One line per kernel of nvcc's ``-Xptxas -v`` output: the kernel (its
+    name and template argument, read from the length-prefixed parts of the
+    mangled name), its registers, its spills and ptxas's performance
+    notes on it."""
+    import re
+
+    def kernel(mangled: str) -> str:
+        for m in re.finditer(r"\d+", mangled):
+            name = mangled[m.end():m.end() + int(m.group())]
+            if name.endswith("_kernel"):
+                arg = re.match(r"ILi(\d+)E", mangled[m.end() + len(name):])
+                return name + (f"<{arg.group(1)}>" if arg else "")
+        return mangled
+
+    # ptxas's performance notes (e.g. C7512, wgmma serialised) by kernel
+    notes = {}
+    for m in re.finditer(r"\((C\d+)\) Potential Performance Loss: (.*?) (?:for|in) the "
+                         r"function '(\w+)'", log):
+        notes.setdefault(kernel(m.group(3)), []).append(f"{m.group(1)} {m.group(2)}")
+    lines, name, spill = [], None, ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = kernel(entry.group(1))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            note = "".join(f"; {n}" for n in notes.get(name, ()))
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}{note}")
+            name, spill = None, ""
+    return lines
 
 
 def by_tpu_kernel(counts: dict) -> dict:
@@ -293,7 +338,7 @@ def attention_dropping(torch, q, k, v, scale: float, drop, do=None, lse=None, de
 
 
 def tile_of(idx):
-    return idx // FLASH_TILE
+    return idx // VARIANT_ROWS
 
 
 def expect_raise(exc, fn, what: str) -> None:
@@ -508,7 +553,8 @@ def phase_train_kernels(torch, ce, fa):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    rows = {"ce_fwd": [], "ce_bwd": [], "flash_fwd": [], "flash_bwd": []}
+    rows = {"ce_fwd": [], "ce_bwd": [], "flash_fwd": [], "flash_bwd": [], "flash_dkv": [],
+            "flash_dq": []}
 
     def err(a, b):
         return (a.float() - b.float()).abs().max().item()
@@ -571,8 +617,10 @@ def phase_train_kernels(torch, ce, fa):
         del x, d_k, d_p
     torch.cuda.empty_cache()
 
-    # --- flash: the main path's B 8 H 16 S 2048 D 64 bf16 causal first
+    # --- flash: the main path's B 8 H 16 S 2048 D 64 bf16 causal first, then
+    # D = 128 causal over 32 tiles and non-causal
     for b, h, s_len, d, dtype, causal in ((8, 16, 2048, 64, torch.bfloat16, True),
+                                          (1, 8, 4096, 128, torch.bfloat16, True),
                                           (2, 4, 512, 128, torch.bfloat16, False),
                                           (2, 4, 256, 64, torch.float32, True)):
         bh = b * h
@@ -592,10 +640,10 @@ def phase_train_kernels(torch, ce, fa):
             checks.append((f"flash {what} {shape} {dt} causal={causal}",
                            readings(a, c, **tol), limit[what], True))
         if (b, h, s_len) == (8, 16, 2048):
-            # wrong variants the limits must reject: one kernel tile left
-            # out of the forward's K loop or of dK/dV's Q loop, and the
-            # bf16 roundings of p and ds left out
-            tile = s_len // FLASH_TILE // 2
+            # wrong variants the limits must reject: 64 key rows left out
+            # of the forward's K loop, 64 query rows out of dK/dV's Q loop,
+            # and the bf16 roundings of p and ds left out
+            tile = s_len // VARIANT_ROWS // 2
             skip = attention_dropping(torch, q, k, v, scale,
                                       lambda r, c: (tile_of(c) == tile) & (tile_of(r) > tile))
             checks.append(("flash o, one K tile skipped", readings(skip, o_p, **tol),
@@ -607,7 +655,7 @@ def phase_train_kernels(torch, ce, fa):
             o_unrounded = fa.flash_fwd_plain(q.float(), k.float(), v.float(), causal, scale)[0]
             checks.append(("flash o, p not rounded to bf16", readings(
                 o_unrounded.to(dtype), o_p, **tol), limit["o"], None))
-            cut = slice(tile * FLASH_TILE, (tile + 1) * FLASH_TILE)
+            cut = slice(tile * VARIANT_ROWS, (tile + 1) * VARIANT_ROWS)
             do_cut, delta_cut = do.clone(), delta.clone()
             do_cut[:, cut], delta_cut[:, cut] = 0, 0
             _, dk_cut, dv_cut = fa.flash_backward(q, k, v, do_cut, lse_p, delta_cut, causal, scale)
@@ -643,6 +691,26 @@ def phase_train_kernels(torch, ce, fa):
                 ms=time_ms(torch, kernel, flush), call_ms=call_ms(torch, kernel),
                 plain_ms=time_ms(torch, plain, flush), bound_ms=b_ms, bound_by=b_by,
                 library_ms=time_ms(torch, lib, flush)))
+        if (b, h, s_len) == (8, 16, 2048):
+            # K2c's two launches apart, each beside its own bound; plain and
+            # library times are the whole backward's (one call computes dq,
+            # dk and dv)
+            whole = rows["flash_bwd"][-1]
+            for name, part, kernel, e in (
+                ("flash_dkv", "dkv",
+                 lambda: fa.flash_backward_dkv(q, k, v, do, lse_p, delta, causal, scale),
+                 max(err(g_k[1], g_p[1]), err(g_k[2], g_p[2]))),
+                ("flash_dq", "dq",
+                 lambda: fa.flash_backward_dq(q, k, v, do, lse_p, delta, causal, scale),
+                 err(g_k[0], g_p[0])),
+            ):
+                b_ms, b_by = bound_of(fa.flash_bytes(bh, s_len, d, dtype, part=part),
+                                      fa.flash_flops(bh, s_len, d, causal, part=part), rate)
+                rows[name].append(dict(
+                    shape=shape, dtype=dt, causal=causal, max_abs_err=e,
+                    ms=time_ms(torch, kernel, flush), call_ms=call_ms(torch, kernel),
+                    plain_ms=whole["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                    library_ms=whole["library_ms"]))
         del q, k, v, do, o4, q4, k4, v4
         torch.cuda.empty_cache()
     judge(checks)
@@ -765,15 +833,15 @@ def phase_long_kernels(torch, fa):
         for what, a, c in (("o", o_k, o_p), ("dq", dq_k, dq_p), ("dk", dk_k, dk_p),
                            ("dv", dv_k, dv_p)):
             checks.append((f"flash {what} {label}", readings(a, c, **tol), limit[what], True))
-        # wrong variants the limits must reject, each what a kernel with one
-        # tile too few in its loop returns: the diagonal K tile left out of
-        # the forward (Q tiles past the first: the first has no other), a
-        # middle K tile left out, the diagonal tile left out of both
-        # backward loops, and the dK/dV loop stopped before the last Q tile
-        mid = s_len // FLASH_TILE // 2
+        # wrong variants the limits must reject, each what a kernel with 64
+        # rows too few in its loop returns: the diagonal 64-key block left
+        # out of the forward (rows past the first 64: those have no other),
+        # a middle block of 64 keys left out, the diagonal block left out of
+        # both backward loops, and the dK/dV loop stopped 64 query rows short
+        mid = s_len // VARIANT_ROWS // 2
         for what, drop in (
                 ("diagonal K tile skipped",
-                 lambda r, c: (tile_of(r) == tile_of(c)) & (r >= FLASH_TILE)),
+                 lambda r, c: (tile_of(r) == tile_of(c)) & (r >= VARIANT_ROWS)),
                 (f"K tile {mid} skipped", lambda r, c: (tile_of(c) == mid) & (tile_of(r) > mid))):
             checks.append((f"flash o {label}, {what}", readings(
                 attention_dropping(torch, q, k, v, scale, drop), o_p, **tol), limit["o"], False))
@@ -783,7 +851,7 @@ def phase_long_kernels(torch, fa):
             checks.append((f"flash {what} {label}, diagonal tile skipped",
                            readings(a, c, **tol), limit[what], False))
         do_cut, delta_cut = do.clone(), delta.clone()
-        do_cut[:, -FLASH_TILE:], delta_cut[:, -FLASH_TILE:] = 0, 0
+        do_cut[:, -VARIANT_ROWS:], delta_cut[:, -VARIANT_ROWS:] = 0, 0
         wrong = fa.flash_backward_dkv(q, k, v, do_cut, lse_p, delta_cut, causal, scale)
         for what, a, c in zip(("dk", "dv"), wrong, (dk_p, dv_p)):
             checks.append((f"flash {what} {label}, last Q tile skipped",
@@ -967,9 +1035,8 @@ def main(argv=None) -> int:
     built = kernels.build()
     for name, secs in built.items():
         say(f"  built {name} in {secs:.1f} s -> {kernels.library_path(name)}")
-        for line in kernels.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"    {line.strip()}")
+        for line in ptxas_report(kernels.build_logs.get(name, "")):
+            say(f"    {line}")
 
     say("== phase 3: kernels against their plain twins")
     cases = phase_kernels(torch, fe)

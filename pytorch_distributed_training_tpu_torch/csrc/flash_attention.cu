@@ -3,53 +3,89 @@
 // (pytorch_distributed_training_tpu_torch/kernels/__init__.py).
 //
 // q, k, v, o, dO, dq, dk, dv are [BH, S, D] (heads folded into the batch),
-// lse and delta are [BH, S] f32. D is 64 or 128; S is a multiple of 64.
+// lse and delta are [BH, S] f32. D is 64 or 128; S is a multiple of 128 in
+// bf16 (the forward's and dK/dV's tiles) and of 64 in f32.
 //
-// The forward (pdt_flash_fwd) stands in for both TPU forwards, `_fwd_kernel`
+// The forward (pdt_flash_fwd: flash_fwd_bf16_kernel, flash_fwd_f32_kernel)
+// stands in for both TPU forwards, `_fwd_kernel`
 // (pytorch_distributed_training_tpu/ops/flash_attention.py:178, launched at
 // :651), which holds the whole K/V rows in VMEM, and `_fwd_stream_kernel`
 // (:407, launched at :615), which streams K/V tiles once 2 S D 4 bytes pass
 // the 8 MiB VMEM budget (:114-120). Here K/V always stream through shared
-// memory one 64-row tile at a time, so one kernel covers every S: online
+// memory one tile at a time, so one kernel covers every S: online
 // softmax with f32 accumulation, o in the input dtype and lse = m + log(l)
-// in f32. With `causal` the loop over K tiles stops at the diagonal tile
-// (:190-194); masked scores are -1e30, not -inf (:48-50, :68).
+// (natural log) in f32. With `causal` the loop over K tiles stops at the
+// diagonal tile (:190-194); masked scores are -1e30, not -inf (:48-50, :68),
+// applied only on the tiles the diagonal crosses.
 //
 // The backward is two launches, each deterministic: a dK/dV kernel
-// (pdt_flash_bwd_dkv) that owns a K tile and loops over Q tiles, and a dQ
-// kernel (pdt_flash_bwd_dq) that owns a Q tile and loops over K tiles. That
-// is the TPU's split backward, `_dkv_kernel` (:348) / `_dq_kernel` (:233)
-// for resident shapes and `_dkv_stream_kernel` (:506) / `_dq_stream_kernel`
-// (:460) for streamed ones; the pair also stands in for the fused
-// `_dqkv_kernel` (:278, launched at :775), which carries dK/dV in VMEM
-// across a sequential grid dimension (:296-300, "arbitrary" at :781):
+// (pdt_flash_bwd_dkv: flash_bwd_dkv_bf16_kernel, _f32_kernel) that owns a K
+// tile and loops over Q tiles, and a dQ kernel (pdt_flash_bwd_dq:
+// flash_bwd_dq_bf16_kernel, _f32_kernel) that owns a Q tile and loops over K
+// tiles. That is the TPU's split backward, `_dkv_kernel` (:348) /
+// `_dq_kernel` (:233) for resident shapes and `_dkv_stream_kernel` (:506) /
+// `_dq_stream_kernel` (:460) for streamed ones; the pair also stands in for
+// the fused `_dqkv_kernel` (:278, launched at :775), which carries dK/dV in
+// VMEM across a sequential grid dimension (:296-300, "arbitrary" at :781):
 // blocks on this card run in no order. Both recompute p = exp(s - lse);
 // delta = rowsum(dO * O) comes from outside, as in the JAX package
 // (:761-764). dK/dV accumulate in f32 and are rounded once when written
 // (:802); dq is written in q's dtype.
 //
 // Numerics, as in the JAX kernels:
-// - bf16 inputs: bf16 operands into the tensor cores (mma.sync m16n8k16)
-//   with f32 accumulation; the scale multiplies s after the dot (:206-207);
-//   p is rounded to bf16 before PV and before dV (:216, :327); ds is rounded
-//   to bf16 before dK and dQ (:335).
+// - bf16 inputs: bf16 operands into the tensor cores with f32 accumulation;
+//   the scale multiplies s after the dot, in f32 (:206-207); p is rounded to
+//   bf16 before PV and before dV (:216, :327); ds is rounded to bf16 before
+//   dK and dQ (:335).
 // - f32 inputs: f32 FMA on the CUDA cores, no TF32; q * scale before the dot
 //   in the forward (:188), scale * (q . k) in the backward (:256, :319).
 //
-// Bound: operations. At the LM's shape (BH 128, S 2048, D 64, causal) the
-// forward does 2 S^2 D BH flops over the causal half (68.7 GFLOP: 0.069 ms
-// at 989 TFLOP/s bf16) against 100 MB of traffic (0.03 ms at 3.35 TB/s);
-// the backward's five products are 171.8 GFLOP. In f32 the same work runs
-// at most at 67 TFLOP/s. bf16 design: a block owns one 64-row tile (4 warps
-// x 16 rows, one m16 fragment row each); K/V (or Q/dO) tiles are staged in
-// shared memory, rows padded by 8 elements so that the fragment loads hit
-// 32 distinct banks; s and p never leave registers: the m16n8 accumulator
-// layout of S is the A-fragment layout of the next product, so p (and ds)
-// feed the tensor cores straight from registers. Operands that the next
-// product needs with the other axis contiguous are staged transposed. f32
-// design: see the f32 section. This is the simple version: no cp.async/TMA
-// pipelining and no wgmma.
+// Bound: operations (`flash_flops` in ops/flash_attention.py: 2 S D
+// multiply-adds x 2 per kept (query, key) pair and product; the forward has
+// 2 products, dK/dV 4, dQ 3). At the LM's shape (BH 128, S 2048, D 64,
+// causal) the forward is 68.7 GFLOP (0.069 ms at 989 TFLOP/s bf16) against
+// 100 MB of traffic (0.03 ms at 3.35 TB/s); dK/dV is 137.4 GFLOP. In f32 the
+// same work runs at most at 67 TFLOP/s.
+//
+// bf16 forward and dK/dV, designed for Hopper. 384 threads: warpgroup 0
+// produces (one thread issues every copy; setmaxnreg hands its registers
+// to the others), warpgroups 1 and 2 consume, 64 rows each (wgmma's M).
+// Tiles arrive by TMA (cp.async.bulk.tensor over a 2D map of the [BH S, D]
+// view, encoded per call with cuTensorMapEncodeTiled and passed as a
+// __grid_constant__ parameter) with the 128-byte swizzle, in boxes of 64
+// columns (128 bytes): a D = 128 tile is two slabs. Each stage of a ring
+// has a full mbarrier, which the copies complete by their byte count, and
+// an empty one, on which the 8 consumer warps arrive once their wgmma have
+// read the stage. Every product is wgmma.mma_async with f32 accumulators
+// in registers. A product that contracts over D takes both operands from
+// shared memory, K-major (the descriptor advances 32 bytes per k16 step
+// inside the swizzled row); a product that contracts over a tile's rows
+// takes A (bf16 p or ds) from registers, packed from the accumulator of the
+// product before (the m64nN accumulator layout is the m64k16 A-fragment
+// layout), and B MN-major from the one staged copy of V, dO or Q: the
+// descriptor's major-ness replaces a transposed copy in shared memory.
+// - Forward: a block owns a 128-row Q tile (loaded once) and streams
+//   128-row K and V tiles through a 2-stage ring, with separate full
+//   barriers for K and V so that S = Q K^T starts before V lands.
+//   Softmax stays in registers: row max and row sum over the 4 lanes that
+//   hold a row, p = exp2f(one FFMA of the scaled score). Blocks take the
+//   longest rows first (grid y counts Q tiles from the last).
+// - dK/dV: a block owns a 128-row K/V tile (loaded once) and streams 64-row
+//   Q and dO tiles, with their lse and delta rows (cp.async.bulk), through
+//   a 2-stage ring. Per Q tile, every product transposed (rows = keys):
+//   S^T = K Q^T and dP^T = V dO^T (SS, both in flight), P^T = exp(scale S^T
+//   - lse), dV += bf16(P^T) dO (RS), dS^T = P^T (dP^T - delta) scale,
+//   dK += bf16(dS^T) Q (RS). Causal: the first Q tile of K tile kt is 2 kt,
+//   and the two Q tiles 2 kt and 2 kt + 1 cross the diagonal; blocks of the
+//   low K tiles, which see the most Q tiles, go first.
+// The bf16 dQ kernel is the simple mma.sync version: a block owns one
+// 64-row tile (4 warps x 16 rows); K/V tiles are staged in shared memory
+// with rows padded by 8 elements so that 32-bit fragment loads hit 32
+// banks, K also transposed for dS K; s and ds never leave registers (the
+// m16n8 accumulator layout of S is the m16k16 A-fragment layout). f32
+// design: see the f32 section.
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -62,8 +98,8 @@ enum DType : int { kF32 = 0, kBF16 = 1 };
 typedef __nv_bfloat16 bf16;
 
 constexpr float kNeg = -1e30f;  // finite mask value (flash_attention.py:68)
-constexpr int kTile = 64;       // query rows / key rows per tile
-constexpr int kThreads = 128;   // 4 warps x 16 rows
+constexpr int kTile = 64;       // dQ and f32 kernels: query rows / key rows per tile
+constexpr int kThreads = 128;   // bf16 dQ: 4 warps x 16 rows
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -146,267 +182,552 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernels
+// bf16 forward and dK/dV: TMA, mbarriers and wgmma (design in the header)
+
+constexpr int kRows = 128;       // forward Q/K/V tiles, dK/dV K/V tiles
+constexpr int kQRows = 64;       // dK/dV Q/dO tiles
+constexpr int kStages = 2;       // depth of the rings
+constexpr int kWarpgroup = 128;
+constexpr int kHopperThreads = 3 * kWarpgroup;  // producer + 2 consumer warpgroups
+constexpr int kConsumerWarps = 8;
+// setmaxnreg: 128 x 24 + 256 x 240 <= 65536. The exact fit, 32 and 240,
+// hung on the H100: the consumers' setmaxnreg.inc never returned
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kSwizzleRow = 128;   // bytes in a swizzled row: 64 bf16
+// dynamic shared memory of a TMA kernel is at least this: more than half an
+// SM's 228 KB, so one block holds an SM and setmaxnreg.inc always finds the
+// registers that its producer gave up (a second block could hold them)
+constexpr int kOneBlockSmem = 116 * 1024;
+constexpr uint32_t kSpinLimit = 1u << 26;  // polls of a barrier before a trap
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// spin until the phase of parity `parity` has completed; a wait that
+// never ends (a copy that never lands) traps instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done, polls = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (++polls == kSpinLimit) __trap();
+  } while (!done);
+}
+
+// the box of a 2D tensor map at (column c0, row c1) into shared memory at
+// dst; the copy completes its bytes on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes from global memory
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// wgmma descriptor of an operand in shared memory with the 128-byte swizzle
+// (layout type 1, bits 62-63): start address, leading and stride byte
+// offsets, each in 16-byte units. K-major: the stride offset steps 8 rows
+// (1024 bytes), the leading one is unused. MN-major: the stride offset
+// steps 8 rows along K, the leading one to the next 64 columns (slab).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving an access to these registers across a
+// wgmma issue or wait (the tensor cores read and write them asynchronously)
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int M, int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
+}
+
+// d (m64n64, f32) = a * b (+ d unless scale_d is 0): a and b in shared
+// memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (m64n128, f32) = a * b (+ d unless scale_d is 0): a and b in shared
+// memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (m64n64, f32) += a * b: a (a bf16 m64k16 fragment) from registers, b in
+// shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (m64n128, f32) += a * b: a (a bf16 m64k16 fragment) from registers, b in
+// shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (m64nD) += a * b for a head dim of D, b MN-major
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 64) {
+    wgmma_rs_n64(d, a, b);
+  } else {
+    wgmma_rs_n128(d, a, b);
+  }
+}
+
+// the bf16 A fragment of k16 step kk (columns 16 kk .. 16 kk + 15) of an
+// m64nN accumulator
+template <int N>
+__device__ __forceinline__ void acc_to_frag(uint32_t (&a)[4], const float (&acc)[N], int kk) {
+  a[0] = pack_bf16(acc[8 * kk], acc[8 * kk + 1]);
+  a[1] = pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
+  a[2] = pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
+  a[3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
+}
+
+__device__ __forceinline__ void init_barriers(uint32_t first, int n_full, uint32_t empty) {
+  for (int i = 0; i < n_full; ++i) mbar_init(first + 8 * i, 1);
+  for (int s = 0; s < kStages; ++s) mbar_init(empty + 8 * s, kConsumerWarps);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// forward shared memory: byte offsets from a 1024-byte aligned base (the
+// swizzle pattern repeats every 8 rows of 128 bytes)
+template <int D>
+struct FwdLayout {
+  static constexpr int kSlabBytes = kRows * kSwizzleRow;  // 128 rows x 64 columns
+  static constexpr int kTileBytes = (D / 64) * kSlabBytes;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTileBytes;               // kStages tiles
+  static constexpr int kV = kK + kStages * kTileBytes;     // kStages tiles
+  static constexpr int kBars = kV + kStages * kTileBytes;  // q_full, k_full[], v_full[], empty[]
+  static constexpr int kUsed = kBars + 8 * (1 + 3 * kStages) + 1024;  // + room to align
+  static constexpr int kBytes = kUsed > kOneBlockSmem ? kUsed : kOneBlockSmem;
+};
 
 template <int D>
-constexpr int fwd_smem_bytes() {
-  return (2 * kTile * (D + 8) + D * (kTile + 8)) * 2;
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
+                      float* __restrict__ lse, int seq, float scale, int causal) {
+  using L = FwdLayout<D>;
+  extern __shared__ __align__(128) unsigned char tma_smem[];
+  const uint32_t base = (smem_addr(tma_smem) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::kBars;
+  const uint32_t k_full = q_full + 8;  // stage s: + 8 s
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t empty = v_full + 8 * kStages;
+  const int n_tiles = seq / kRows;
+  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.y);  // longest rows first
+  const int n_kv = causal ? qt + 1 : n_tiles;
+  const int row0 = static_cast<int>(blockIdx.x) * seq;  // the head's first row of [BH S, D]
+  if (threadIdx.x == 0) init_barriers(q_full, 1 + 2 * kStages, empty);
+  __syncthreads();
+
+  if (threadIdx.x < kWarpgroup) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::kTileBytes);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(base + L::kQ + c * L::kSlabBytes, &q_map, q_full, c * 64, row0 + qt * kRows);
+      }
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(empty + 8 * s, ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(k_full + 8 * s, L::kTileBytes);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(base + L::kK + s * L::kTileBytes + c * L::kSlabBytes, &k_map, k_full + 8 * s,
+                   c * 64, row0 + j * kRows);
+        }
+        mbar_expect_tx(v_full + 8 * s, L::kTileBytes);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(base + L::kV + s * L::kTileBytes + c * L::kSlabBytes, &v_map, v_full + 8 * s,
+                   c * 64, row0 + j * kRows);
+        }
+      }
+    }
+  } else {  // consumers: warpgroup 1 takes rows 0..63 of the Q tile, 2 rows 64..127
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int half = threadIdx.x / kWarpgroup - 1;
+    const int warp = (threadIdx.x % kWarpgroup) / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = half * 64 + warp * 16 + g;  // this thread's rows r0, r0 + 8 of the tile
+    const uint32_t q_rows = base + L::kQ + half * 64 * kSwizzleRow;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % kStages;
+      const uint32_t parity = (j / kStages) & 1;
+      const uint32_t k_tile = base + L::kK + s * L::kTileBytes;
+      const uint32_t v_tile = base + L::kV + s * L::kTileBytes;
+      // s = Q K^T: [64 rows, 128 keys], k16 steps along D
+      float sc[64];
+      mbar_wait(k_full + 8 * s, parity);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * L::kSlabBytes + (kk % 4) * 32;
+        wgmma_ss_n128(sc, desc(q_rows + off, 16, 1024), desc(k_tile + off, 16, 1024), kk);
+      }
+      wg_commit();
+      wg_wait<0>();
+      pin(sc);
+      // online softmax; the mask only on the diagonal tile
+      const bool diag = causal && j == qt;
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float val = sc[4 * n + e] * scale;
+          if (diag && n * 8 + 2 * t + (e & 1) > r0 + (e >= 2 ? 8 : 0)) val = kNeg;
+          sc[4 * n + e] = val;
+          if (e < 2) {
+            mx0 = fmaxf(mx0, val);
+          } else {
+            mx1 = fmaxf(mx1, val);
+          }
+        }
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float a0 = exp2f((m0 - mx0) * kLog2e), a1 = exp2f((m1 - mx1) * kLog2e);
+      const float b0 = mx0 * kLog2e, b1 = mx1 * kLog2e;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        sc[4 * n] = exp2f(fmaf(sc[4 * n], kLog2e, -b0));
+        sc[4 * n + 1] = exp2f(fmaf(sc[4 * n + 1], kLog2e, -b0));
+        sc[4 * n + 2] = exp2f(fmaf(sc[4 * n + 2], kLog2e, -b1));
+        sc[4 * n + 3] = exp2f(fmaf(sc[4 * n + 3], kLog2e, -b1));
+        ps0 += sc[4 * n] + sc[4 * n + 1];
+        ps1 += sc[4 * n + 2] + sc[4 * n + 3];
+      }
+      l0 = a0 * l0 + quad_sum(ps0);
+      l1 = a1 * l1 + quad_sum(ps1);
+      m0 = mx0;
+      m1 = mx1;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[4 * n] *= a0;
+        acc[4 * n + 1] *= a0;
+        acc[4 * n + 2] *= a1;
+        acc[4 * n + 3] *= a1;
+      }
+      // o += bf16(p) V: 8 k16 steps over the tile's keys, V read MN-major
+      uint32_t pa[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) acc_to_frag(pa[kk], sc, kk);
+      mbar_wait(v_full + 8 * s, parity);
+      pin(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        wgmma_rs<D>(acc, pa[kk], desc(v_tile + kk * 16 * kSwizzleRow, L::kSlabBytes, 1024));
+      }
+      wg_commit();
+      wg_wait<0>();
+      pin(acc);
+      pin(pa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+    const int row = qt * kRows + r0;
+    bf16* o0 = o + (static_cast<size_t>(row0) + row) * D;
+    bf16* o1 = o0 + 8 * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = n * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(o0 + col) = pack_bf16(acc[4 * n] / l0, acc[4 * n + 1] / l0);
+      *reinterpret_cast<uint32_t*>(o1 + col) = pack_bf16(acc[4 * n + 2] / l1, acc[4 * n + 3] / l1);
+    }
+    if (t == 0) {
+      float* lr = lse + row0 + row;
+      lr[0] = m0 + logf(l0);
+      lr[8] = m1 + logf(l1);
+    }
+  }
 }
+
+// dK/dV shared memory, as FwdLayout
 template <int D>
-constexpr int dkv_smem_bytes() {
-  return (4 * kTile * (D + 8) + 2 * D * (kTile + 8)) * 2 + 2 * kTile * 4;
+struct DkvLayout {
+  static constexpr int kKvSlabBytes = kRows * kSwizzleRow;  // 128 key rows x 64 columns
+  static constexpr int kKvBytes = (D / 64) * kKvSlabBytes;
+  static constexpr int kQSlabBytes = kQRows * kSwizzleRow;  // 64 query rows x 64 columns
+  static constexpr int kQBytes = (D / 64) * kQSlabBytes;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kKvBytes;
+  static constexpr int kQ = kV + kKvBytes;                      // kStages tiles
+  static constexpr int kDo = kQ + kStages * kQBytes;            // kStages tiles
+  static constexpr int kLse = kDo + kStages * kQBytes;          // kStages x kQRows f32
+  static constexpr int kDelta = kLse + kStages * kQRows * 4;    // kStages x kQRows f32
+  static constexpr int kBars = kDelta + kStages * kQRows * 4;   // kv_full, full[], empty[]
+  static constexpr int kStageTx = 2 * kQBytes + 2 * kQRows * 4;  // bytes of one stage's copies
+  static constexpr int kUsed = kBars + 8 * (1 + 2 * kStages) + 1024;  // + room to align
+  static constexpr int kBytes = kUsed > kOneBlockSmem ? kUsed : kOneBlockSmem;
+};
+
+// dK/dV: the block owns K/V tile kt (128 keys; consumer warpgroup 1 keys
+// 0..63, 2 keys 64..127) and streams 64-row Q tiles; every product is
+// computed transposed (rows = keys)
+template <int D>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int seq, float scale,
+                          int causal) {
+  using L = DkvLayout<D>;
+  extern __shared__ __align__(128) unsigned char tma_smem[];
+  const uint32_t base = (smem_addr(tma_smem) + 1023u) & ~1023u;
+  const unsigned char* smem = tma_smem + (base - smem_addr(tma_smem));  // generic pointer to base
+  const uint32_t kv_full = base + L::kBars;
+  const uint32_t full = kv_full + 8;  // stage s: + 8 s
+  const uint32_t empty = full + 8 * kStages;
+  const int kt = blockIdx.y;  // causal: low K tiles see the most Q tiles and go first
+  const int row0 = static_cast<int>(blockIdx.x) * seq;
+  const int q_first = causal ? kt * (kRows / kQRows) : 0;
+  const int n_q = seq / kQRows;
+  if (threadIdx.x == 0) init_barriers(kv_full, 1 + kStages, empty);
+  __syncthreads();
+
+  if (threadIdx.x < kWarpgroup) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * L::kKvBytes);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(base + L::kK + c * L::kKvSlabBytes, &k_map, kv_full, c * 64, row0 + kt * kRows);
+        tma_load(base + L::kV + c * L::kKvSlabBytes, &v_map, kv_full, c * 64, row0 + kt * kRows);
+      }
+      for (int i = 0, qi = q_first; qi < n_q; ++i, ++qi) {
+        const int s = i % kStages;
+        if (i >= kStages) mbar_wait(empty + 8 * s, ((i / kStages) & 1) ^ 1);
+        const uint32_t bar = full + 8 * s;
+        const int row = row0 + qi * kQRows;
+        mbar_expect_tx(bar, L::kStageTx);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(base + L::kQ + s * L::kQBytes + c * L::kQSlabBytes, &q_map, bar, c * 64, row);
+          tma_load(base + L::kDo + s * L::kQBytes + c * L::kQSlabBytes, &do_map, bar, c * 64, row);
+        }
+        bulk_load(base + L::kLse + s * kQRows * 4, lse + row, kQRows * 4, bar);
+        bulk_load(base + L::kDelta + s * kQRows * 4, delta + row, kQRows * 4, bar);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int half = threadIdx.x / kWarpgroup - 1;
+    const int warp = (threadIdx.x % kWarpgroup) / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int key0 = kt * kRows + half * 64 + warp * 16 + g;  // this thread's keys key0, key0 + 8
+    const uint32_t k_rows = base + L::kK + half * 64 * kSwizzleRow;
+    const uint32_t v_rows = base + L::kV + half * 64 * kSwizzleRow;
+    const float scale2 = scale * kLog2e;
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(kv_full, 0);
+    for (int i = 0, qi = q_first; qi < n_q; ++i, ++qi) {
+      const int s = i % kStages;
+      const uint32_t q_tile = base + L::kQ + s * L::kQBytes;
+      const uint32_t do_tile = base + L::kDo + s * L::kQBytes;
+      const float* lse_s = reinterpret_cast<const float*>(smem + L::kLse + s * kQRows * 4);
+      const float* delta_s = reinterpret_cast<const float*>(smem + L::kDelta + s * kQRows * 4);
+      // s^T = K Q^T and dp^T = V dO^T: [64 keys, 64 queries] each, two groups
+      float st[32], dpt[32];
+      mbar_wait(full + 8 * s, (i / kStages) & 1);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss_n64(st, desc(k_rows + (kk / 4) * L::kKvSlabBytes + (kk % 4) * 32, 16, 1024),
+                     desc(q_tile + (kk / 4) * L::kQSlabBytes + (kk % 4) * 32, 16, 1024), kk);
+      }
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss_n64(dpt, desc(v_rows + (kk / 4) * L::kKvSlabBytes + (kk % 4) * 32, 16, 1024),
+                     desc(do_tile + (kk / 4) * L::kQSlabBytes + (kk % 4) * 32, 16, 1024), kk);
+      }
+      wg_commit();
+      wg_wait<1>();
+      pin(st);
+      // p^T = exp(scale s^T - lse), 0 above the diagonal: Q tiles 2 kt and
+      // 2 kt + 1 cross it
+      const bool diag = causal && qi / (kRows / kQRows) == kt;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 lq = *reinterpret_cast<const float2*>(lse_s + n * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = qi * kQRows + n * 8 + 2 * t + (e & 1);
+          const float l = (e & 1) ? lq.y : lq.x;
+          st[4 * n + e] = (diag && q < key0 + (e >= 2 ? 8 : 0))
+                              ? 0.f
+                              : exp2f(fmaf(st[4 * n + e], scale2, -l * kLog2e));
+        }
+      }
+      // dV += bf16(p^T) dO: 4 k16 steps over the queries, dO read MN-major
+      uint32_t fr[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_frag(fr[kk], st, kk);
+      pin(dv_acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<D>(dv_acc, fr[kk], desc(do_tile + kk * 16 * kSwizzleRow, L::kQSlabBytes, 1024));
+      }
+      wg_commit();
+      wg_wait<1>();  // dp^T has landed; dV may still run
+      pin(dpt);
+      // ds^T = p^T (dp^T - delta) scale
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 dl = *reinterpret_cast<const float2*>(delta_s + n * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          st[4 * n + e] = st[4 * n + e] * (dpt[4 * n + e] - ((e & 1) ? dl.y : dl.x)) * scale;
+        }
+      }
+      wg_wait<0>();
+      pin(dv_acc);
+      pin(fr);
+      // dK += bf16(ds^T) Q, Q read MN-major
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_frag(fr[kk], st, kk);
+      pin(dk_acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<D>(dk_acc, fr[kk], desc(q_tile + kk * 16 * kSwizzleRow, L::kQSlabBytes, 1024));
+      }
+      wg_commit();
+      wg_wait<0>();
+      pin(dk_acc);
+      pin(fr);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+    const size_t r = (static_cast<size_t>(row0) + key0) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const size_t col = r + n * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(dk + col) = pack_bf16(dk_acc[4 * n], dk_acc[4 * n + 1]);
+      *reinterpret_cast<uint32_t*>(dk + col + 8 * D) = pack_bf16(dk_acc[4 * n + 2], dk_acc[4 * n + 3]);
+      *reinterpret_cast<uint32_t*>(dv + col) = pack_bf16(dv_acc[4 * n], dv_acc[4 * n + 1]);
+      *reinterpret_cast<uint32_t*>(dv + col + 8 * D) = pack_bf16(dv_acc[4 * n + 2], dv_acc[4 * n + 3]);
+    }
+  }
 }
+
+// ---------------------------------------------------------------------------
+// bf16 dQ: the simple mma.sync kernel (see the header)
+
 template <int D>
 constexpr int dq_smem_bytes() {
   return (4 * kTile * (D + 8) + D * (kTile + 8)) * 2;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                      float* __restrict__ lse, int seq, float scale, int causal) {
-  constexpr int LD = D + 8;
-  constexpr int LDT = kTile + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kTile][LD]
-  bf16* k_s = q_s + kTile * LD;                   // [kTile][LD]
-  bf16* vt_s = k_s + kTile * LD;                  // [D][LDT]
-  const int n_tiles = seq / kTile;
-  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);  // longest rows first
-  const size_t head = static_cast<size_t>(blockIdx.y) * seq * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-
-  load_tile<D>(q_s, LD, q + head + static_cast<size_t>(qt) * kTile * D);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], q_s, LD, r0, kk * 16, g, t);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
-  const int last = causal ? qt : n_tiles - 1;
-  for (int j = 0; j <= last; ++j) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<D>(k_s, LD, k + head + static_cast<size_t>(j) * kTile * D);
-    load_tile_t<D>(vt_s, LDT, v + head + static_cast<size_t>(j) * kTile * D);
-    __syncthreads();
-    float s[kTile / 8][4];
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, k_s, LD, n * 8, kk * 16, g, t);
-        mma_bf16(s[n], qf[kk], b0, b1);
-      }
-    }
-    const bool diag = causal && j == qt;
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float val = s[n][e] * scale;
-        if (diag) {
-          const int row = r0 + g + (e >= 2 ? 8 : 0);
-          const int col = n * 8 + 2 * t + (e & 1);
-          if (col > row) val = kNeg;
-        }
-        s[n][e] = val;
-        if (e < 2) mx0 = fmaxf(mx0, val); else mx1 = fmaxf(mx1, val);
-      }
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float a0 = expf(m0 - mx0), a1 = expf(m1 - mx1);
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-      s[n][0] = expf(s[n][0] - mx0);
-      s[n][1] = expf(s[n][1] - mx0);
-      s[n][2] = expf(s[n][2] - mx1);
-      s[n][3] = expf(s[n][3] - mx1);
-      ps0 += s[n][0] + s[n][1];
-      ps1 += s[n][2] + s[n][3];
-    }
-    l0 = a0 * l0 + quad_sum(ps0);
-    l1 = a1 * l1 + quad_sum(ps1);
-    m0 = mx0;
-    m1 = mx1;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= a0;
-      acc[n][1] *= a0;
-      acc[n][2] *= a1;
-      acc[n][3] *= a1;
-    }
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t pa[4];
-      acc_to_a(pa, s, kk);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, vt_s, LDT, n * 8, kk * 16, g, t);
-        mma_bf16(acc[n], pa, b0, b1);
-      }
-    }
-  }
-  const int row = qt * kTile + r0 + g;
-  bf16* o0 = o + head + static_cast<size_t>(row) * D;
-  bf16* o1 = o0 + 8 * D;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(o0 + col) = pack_bf16(acc[n][0] / l0, acc[n][1] / l0);
-    *reinterpret_cast<uint32_t*>(o1 + col) = pack_bf16(acc[n][2] / l1, acc[n][3] / l1);
-  }
-  if (t == 0) {
-    float* lr = lse + static_cast<size_t>(blockIdx.y) * seq + row;
-    lr[0] = m0 + logf(l0);
-    lr[8] = m1 + logf(l1);
-  }
-}
-
-// dK/dV: the block owns K tile kt (4 warps x 16 key rows) and loops over Q
-// tiles; every product is computed transposed (rows = keys).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int seq,
-                          float scale, int causal) {
-  constexpr int LD = D + 8;
-  constexpr int LDT = kTile + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [kTile][LD]
-  bf16* v_s = k_s + kTile * LD;                   // [kTile][LD]
-  bf16* q_s = v_s + kTile * LD;                   // [kTile][LD]
-  bf16* do_s = q_s + kTile * LD;                  // [kTile][LD]
-  bf16* qt_s = do_s + kTile * LD;                 // [D][LDT]
-  bf16* dot_s = qt_s + D * LDT;                   // [D][LDT]
-  float* lse_s = reinterpret_cast<float*>(dot_s + D * LDT);
-  float* delta_s = lse_s + kTile;
-  const int n_tiles = seq / kTile;
-  const int kt = blockIdx.x;  // causal: low K tiles see the most Q tiles
-  const size_t head = static_cast<size_t>(blockIdx.y) * seq * D;
-  const float* lse_h = lse + static_cast<size_t>(blockIdx.y) * seq;
-  const float* delta_h = delta + static_cast<size_t>(blockIdx.y) * seq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-
-  load_tile<D>(k_s, LD, k + head + static_cast<size_t>(kt) * kTile * D);
-  load_tile<D>(v_s, LD, v + head + static_cast<size_t>(kt) * kTile * D);
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    dk_acc[n][0] = dk_acc[n][1] = dk_acc[n][2] = dk_acc[n][3] = 0.f;
-    dv_acc[n][0] = dv_acc[n][1] = dv_acc[n][2] = dv_acc[n][3] = 0.f;
-  }
-  for (int qi = causal ? kt : 0; qi < n_tiles; ++qi) {
-    __syncthreads();
-    const size_t off = head + static_cast<size_t>(qi) * kTile * D;
-    load_tile<D>(q_s, LD, q + off);
-    load_tile_t<D>(qt_s, LDT, q + off);
-    load_tile<D>(do_s, LD, dout + off);
-    load_tile_t<D>(dot_s, LDT, dout + off);
-    if (threadIdx.x < kTile) {
-      lse_s[threadIdx.x] = lse_h[qi * kTile + threadIdx.x];
-      delta_s[threadIdx.x] = delta_h[qi * kTile + threadIdx.x];
-    }
-    __syncthreads();
-    // s^T = K Q^T
-    float st[kTile / 8][4];
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, k_s, LD, r0, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, q_s, LD, n * 8, kk * 16, g, t);
-        mma_bf16(st[n], a, b0, b1);
-      }
-    }
-    // p^T = exp(scale s^T - lse), 0 above the diagonal
-    const bool diag = causal && qi == kt;
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = r0 + g + (e >= 2 ? 8 : 0);
-        const int qrow = n * 8 + 2 * t + (e & 1);
-        st[n][e] = (diag && qrow < key) ? 0.f : expf(scale * st[n][e] - lse_s[qrow]);
-      }
-    }
-    // dV += bf16(p)^T dO
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t pa[4];
-      acc_to_a(pa, st, kk);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, dot_s, LDT, n * 8, kk * 16, g, t);
-        mma_bf16(dv_acc[n], pa, b0, b1);
-      }
-    }
-    // dp^T = V dO^T
-    float dpt[kTile / 8][4];
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, v_s, LD, r0, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, do_s, LD, n * 8, kk * 16, g, t);
-        mma_bf16(dpt[n], a, b0, b1);
-      }
-    }
-    // ds^T = p^T (dp^T - delta) scale, kept in st
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qrow = n * 8 + 2 * t + (e & 1);
-        st[n][e] = st[n][e] * (dpt[n][e] - delta_s[qrow]) * scale;
-      }
-    }
-    // dK += bf16(ds)^T Q
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t da[4];
-      acc_to_a(da, st, kk);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, qt_s, LDT, n * 8, kk * 16, g, t);
-        mma_bf16(dk_acc[n], da, b0, b1);
-      }
-    }
-  }
-  const size_t row0 = head + static_cast<size_t>(kt * kTile + r0 + g) * D;
-  const size_t row1 = row0 + 8 * D;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(dk + row0 + col) = pack_bf16(dk_acc[n][0], dk_acc[n][1]);
-    *reinterpret_cast<uint32_t*>(dk + row1 + col) = pack_bf16(dk_acc[n][2], dk_acc[n][3]);
-    *reinterpret_cast<uint32_t*>(dv + row0 + col) = pack_bf16(dv_acc[n][0], dv_acc[n][1]);
-    *reinterpret_cast<uint32_t*>(dv + row1 + col) = pack_bf16(dv_acc[n][2], dv_acc[n][3]);
-  }
 }
 
 // dQ: the block owns Q tile qt and loops over K tiles up to the diagonal.
@@ -854,14 +1175,76 @@ int launch(K kernel, int threads, int smem, int seq, int bh, cudaStream_t st, Ar
   return static_cast<int>(cudaGetLastError());
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime: the library
+// links against no libcuda of its own
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a 2D map of the row-major [rows, D] bf16 matrix at ptr, in boxes of
+// [box_rows, 64] with the 128-byte swizzle that the wgmma descriptors read
+bool bf16_map(CUtensorMap* map, const void* ptr, uint64_t rows, int d, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), rows};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the TMA kernels: grid (heads, tiles), so that every head's first tile
+// (the longest rows, or the K tile with the most Q tiles) is scheduled first
+template <typename K, typename... Args>
+int launch_tma(K kernel, int smem, int tiles, int bh, cudaStream_t st, Args... args) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(bh, tiles), kHopperThreads, smem, st>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the bf16 forward and dK/dV take S % 128 == 0 and address rows of the
+// [BH S, D] view with 32-bit TMA coordinates
+bool tma_shapes_ok(int bh, int seq) {
+  return seq % kRows == 0 && static_cast<int64_t>(bh) * seq <= INT32_MAX;
+}
+
 template <int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int seq,
         float scale, int causal, int dtype, cudaStream_t st) {
   float* l = static_cast<float*>(lse);
   if (dtype == kBF16) {
-    return launch(flash_fwd_bf16_kernel<D>, kThreads, fwd_smem_bytes<D>(), seq, bh, st,
-                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<bf16*>(o), l, seq, scale, causal);
+    const uint64_t rows = static_cast<uint64_t>(bh) * seq;
+    CUtensorMap qm, km, vm;
+    if (!tma_shapes_ok(bh, seq) || !bf16_map(&qm, q, rows, D, kRows) ||
+        !bf16_map(&km, k, rows, D, kRows) || !bf16_map(&vm, v, rows, D, kRows)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_tma(flash_fwd_bf16_kernel<D>, FwdLayout<D>::kBytes, seq / kRows, bh, st, qm, km,
+                      vm, static_cast<bf16*>(o), l, seq, scale, causal);
   }
   return launch(flash_fwd_f32_kernel<D>, kThreadsF32, fwd_f32_smem_bytes<D>(), seq, bh, st,
                 static_cast<const float*>(q), static_cast<const float*>(k),
@@ -875,10 +1258,16 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
   const float* l = static_cast<const float*>(lse);
   const float* de = static_cast<const float*>(delta);
   if (dtype == kBF16) {
-    return launch(flash_bwd_dkv_bf16_kernel<D>, kThreads, dkv_smem_bytes<D>(), seq, bh, st,
-                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, de,
-                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq, scale, causal);
+    const uint64_t rows = static_cast<uint64_t>(bh) * seq;
+    CUtensorMap qm, km, vm, dom;
+    if (!tma_shapes_ok(bh, seq) || !bf16_map(&qm, q, rows, D, kQRows) ||
+        !bf16_map(&km, k, rows, D, kRows) || !bf16_map(&vm, v, rows, D, kRows) ||
+        !bf16_map(&dom, dout, rows, D, kQRows)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_tma(flash_bwd_dkv_bf16_kernel<D>, DkvLayout<D>::kBytes, seq / kRows, bh, st, qm,
+                      km, vm, dom, l, de, static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq,
+                      scale, causal);
   }
   return launch(flash_bwd_dkv_f32_kernel<D>, kThreadsF32, dkv_f32_smem_bytes<D>(), seq, bh, st,
                 static_cast<const float*>(q), static_cast<const float*>(k),

@@ -17,7 +17,11 @@ signatures.  Pointers and the stream are passed as
 Libraries: ``fused_elementwise`` (K3/K4), ``fused_ce`` (K1a/K1b) and
 ``flash_attention`` (one forward for K2a/K2b, a dQ kernel for K2d/K2f and
 a dK/dV kernel for K2e/K2g, the pair standing in for K2c; bf16 on the
-tensor cores, f32 tiled on the CUDA cores).
+tensor cores, the forward and dK/dV with TMA and ``wgmma``, f32 tiled on
+the CUDA cores).  The TMA kernels take their tensor maps from
+``cuTensorMapEncodeTiled``, which the library fetches from the driver
+through the runtime (``cudaGetDriverEntryPoint``), so no library links
+``-lcuda``.
 """
 from __future__ import annotations
 

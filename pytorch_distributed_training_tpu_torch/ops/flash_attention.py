@@ -8,7 +8,11 @@ Port of ``pytorch_distributed_training_tpu/ops/flash_attention.py``:
   ``_fwd_kernel`` (``flash_attention.py:178``, launched at ``:651``) and the
   streamed ``_fwd_stream_kernel`` (``:407``, launched at ``:615``).  On the
   TPU the two differ in what VMEM holds; here K/V always stream through
-  shared memory one tile at a time.
+  shared memory one tile at a time.  In bf16 (``flash_fwd_bf16_kernel``) a
+  block owns 128 query rows, two consumer warpgroups of 64, and a producer
+  warp streams 128-row K and V tiles by TMA through a 2-stage ring of
+  ``mbarrier``s; S = Q K^T is a ``wgmma`` from shared memory and O += P V a
+  ``wgmma`` with bf16 P from registers and V read MN-major, untransposed.
 - :func:`flash_backward`: ``dq, dk, dv`` recomputing ``p = exp(s - lse)``
   with ``delta = rowsum(dO * O)`` given, as two deterministic launches: a
   dK/dV kernel over K tiles (:func:`flash_backward_dkv`) and a dQ kernel over
@@ -17,7 +21,12 @@ Port of ``pytorch_distributed_training_tpu/ops/flash_attention.py``:
   ``:233``, streamed ``_dkv_stream_kernel`` ``:506`` / ``_dq_stream_kernel``
   ``:460``), and the pair stands in for the fused ``_dqkv_kernel``
   (``:278``) where the JAX package fuses.  Its launch count goes up by 2 a
-  call.
+  call.  In bf16 the dK/dV launch (``flash_bwd_dkv_bf16_kernel``) is built
+  as the forward is: a block owns 128 keys and streams 64-row Q and dO
+  tiles with their lse and delta rows by TMA; S^T and dP^T are ``wgmma``
+  from shared memory, dV += P^T dO and dK += dS^T Q take P^T and dS^T from
+  registers and read dO and Q MN-major from their one staged copy.  The
+  bf16 dQ launch is the simpler ``mma.sync`` kernel.
 - :func:`flash_attention`: ``[B, S, H, D] -> [B, S, H, D]`` with heads folded
   into the batch (``:895-921``), a ``torch.autograd.Function`` whose
   forward and backward are the wrappers above.
@@ -44,7 +53,10 @@ and ``S % 128 == 0`` (:func:`flash_shapes_ok`, the JAX package's gate), and
 ``D`` in ``SUPPORTED_HEAD_DIMS``; any other head dim raises rather than
 leaving the kernels.  The kernels are bound by operations:
 :func:`flash_flops` counts the products over the pairs the causal mask
-keeps.
+keeps (2 products in the forward, 4 in dK/dV, 3 in dQ).  The bf16 forward
+and dK/dV tiles are 128 rows, so their C entry points take ``S % 128 ==
+0`` (the gate above) and return ``cudaErrorInvalidValue`` unlaunched on
+any other S; ``csrc/flash_attention.cu`` holds the full design notes.
 """
 from __future__ import annotations
 

@@ -1,0 +1,119 @@
+"""The flash A/B tool of the port (``tools/flash_ab.py``) on the CPU: which
+backward it binds in a library, its arguments, and its refusal to run
+without a card.  The libraries here are stand-ins that expose (or lack)
+the C entry points by name, as ``ctypes.CDLL`` does."""
+import argparse
+import ctypes
+import types
+
+import pytest
+
+from pytorch_distributed_training_tpu_torch.tools import flash_ab
+
+
+def fake_lib(*names):
+    lib = types.SimpleNamespace()
+    for name in names:
+        setattr(lib, name, lambda *args: 0)
+    return lib
+
+
+def test_binds_the_split_pair_when_the_library_exports_it():
+    lib = fake_lib("pdt_flash_fwd", "pdt_flash_bwd_dkv", "pdt_flash_bwd_dq", "pdt_flash_bwd")
+    bound = flash_ab.bind(lib)
+    assert set(bound) == {"fwd", "dkv", "dq"}
+    assert bound["dkv"] is lib.pdt_flash_bwd_dkv and bound["dq"] is lib.pdt_flash_bwd_dq
+    # q, k, v, dout, lse, delta, dk, dv, then bh, seq, head_dim, scale,
+    # causal, dtype, stream
+    assert len(bound["dkv"].argtypes) == 15 and len(bound["dq"].argtypes) == 14
+    assert bound["fwd"].argtypes[8] is ctypes.c_float
+    assert all(fn.restype is ctypes.c_int for fn in bound.values())
+
+
+def test_binds_the_single_backward_of_an_older_library():
+    lib = fake_lib("pdt_flash_fwd", "pdt_flash_bwd")
+    bound = flash_ab.bind(lib)
+    assert set(bound) == {"fwd", "bwd"}
+    argtypes = bound["bwd"].argtypes
+    assert argtypes[:9] == [ctypes.c_void_p] * 9 and argtypes[12] is ctypes.c_float
+    assert len(argtypes) == 16
+
+
+@pytest.mark.parametrize("names", [("pdt_flash_fwd",),
+                                   ("pdt_flash_fwd", "pdt_flash_bwd_dkv"),
+                                   ("pdt_flash_bwd_dkv", "pdt_flash_bwd_dq")],
+                         ids=["no backward", "half the split pair", "no forward"])
+def test_raises_on_a_library_without_the_entry_points(names):
+    with pytest.raises(RuntimeError):
+        flash_ab.bind(fake_lib(*names))
+
+
+def test_arguments_default_to_bf16_and_the_main_paths_shapes():
+    args = flash_ab.parse_args(["--parent", "run/parent"])
+    assert args.parent == "run/parent" and args.dtype == "bfloat16"
+    assert args.shapes == [(8, 16, 2048, 64, True), (2, 8, 32768, 64, True),
+                           (2, 4, 512, 128, False)]
+
+
+def test_arguments_parse_dtype_and_shapes():
+    args = flash_ab.parse_args(["--parent", "p", "--dtype", "float32", "--shapes",
+                                "1,2,256,64", "2,4,512,128,full", "1,8,4096,128,causal"])
+    assert args.dtype == "float32"
+    assert args.shapes == [(1, 2, 256, 64, True), (2, 4, 512, 128, False),
+                           (1, 8, 4096, 128, True)]
+
+
+@pytest.mark.parametrize("text", ["1,2,256", "1,2,256,64,sometimes", "a,2,256,64"])
+def test_bad_shapes_are_refused(text):
+    with pytest.raises(argparse.ArgumentTypeError):
+        flash_ab.parse_shape(text)
+    with pytest.raises(SystemExit):
+        flash_ab.parse_args(["--parent", "p", "--shapes", text])
+
+
+def test_bad_dtype_is_refused():
+    with pytest.raises(SystemExit):
+        flash_ab.parse_args(["--parent", "p", "--dtype", "float16"])
+
+
+@pytest.mark.parametrize("parent, parts", [
+    (("pdt_flash_fwd", "pdt_flash_bwd_dkv", "pdt_flash_bwd_dq"), ("fwd", "dkv", "dq")),
+    (("pdt_flash_fwd", "pdt_flash_bwd"), ("fwd", "bwd")),
+], ids=["split parent", "single-backward parent"])
+def test_times_each_launch_only_where_both_trees_split_the_backward(monkeypatch, parent, parts):
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.ops import flash_attention as fa
+
+    launched = []
+
+    def entry(role):
+        return lambda *args: launched.append(role) or 0
+
+    def lib(*names):
+        return flash_ab.bind(types.SimpleNamespace(**{n: entry(n) for n in names}))
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(flash_ab, "time_ms", lambda torch, fn, flush, reps: (fn(), 1.0)[1])
+    libs = {"this": lib("pdt_flash_fwd", "pdt_flash_bwd_dkv", "pdt_flash_bwd_dq"),
+            "parent": lib(*parent)}
+    row = flash_ab.measure(torch, fa, libs, (1, 2, 256, 64, True), "bfloat16",
+                           torch.Generator().manual_seed(0), torch.empty(16, dtype=torch.uint8))
+    assert [k[:-3] for k in row if k.endswith("_ms") and "bound" not in k] == list(parts)
+    for part in parts:
+        assert row[f"{part}_ms"] == {"parent": [1.0, 1.0], "this": [1.0, 1.0]}
+        assert row[f"{part}_speedup"] == 1.0 and row[f"{part}_bound_ms"] > 0
+    assert set(row["norm_rel_vs_twin"]) == {"this", "parent"}
+    if "bwd" in parts:  # one check launch and two timed turns; this tree's are its two launches
+        assert launched.count("pdt_flash_bwd") == 3
+        assert launched.count("pdt_flash_bwd_dkv") == launched.count("pdt_flash_bwd_dq") == 3
+
+
+def test_main_returns_1_without_a_card(monkeypatch, capsys):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert flash_ab.main(["--parent", "does-not-exist"]) == 1
+    assert "CUDA is not available" in capsys.readouterr().err
