@@ -32,8 +32,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    bf16 and f32 with an out-of-range label; flash forward/backward at B 8,
    H 16, S 2048, D 64 bf16 causal (the backward also as its dK/dV and dQ
    launches apart), plus D = 128 bf16 causal at [1, 8, 4096, 128], a
-   non-causal and a float32 case; wrong dtype, wrong device and an
-   unsupported head dim must raise;
+   non-causal and a float32 case, and bf16 causal at [2, 4, 384, 128] and
+   [2, 4, 640, 64] (3 and 5 tiles of 128 rows); wrong variants of each
+   flash kernel must be rejected, and two dQ launches must be bitwise
+   equal; wrong dtype, wrong device and an unsupported head dim must raise;
 7. one training step at full width (depth 2, float32, TF32 off) on the card
    against the CPU on the same weights and batch: loss and the gradient of
    every parameter;
@@ -49,8 +51,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    K2f, K2g), and f32 at B 8, H 16, S 2048, D 64 (its resident split
    kernels K2a, K2d, K2e); each launch timed (fewer repeats at S = 32768)
    beside its bound, the twins and SDPA; wrong variants that leave out the
-   64-row block on the diagonal, a middle block of 64 keys or the last 64
-   query rows must all be rejected;
+   64-row block on the diagonal, a middle block of 64 keys, the last 64
+   query rows or (dQ) the diagonal block of the odd 64-row blocks must all
+   be rejected, and two dQ launches must be bitwise equal;
 10. one f32 training step of the long-context model at its widths (512, 8
     heads, vocab 8192), depth 2, seq 2048, remat on, TF32 off, card against
     CPU: loss within rtol 1e-5, every gradient within 1e-4 of its largest
@@ -341,6 +344,19 @@ def tile_of(idx):
     return idx // VARIANT_ROWS
 
 
+def dq_variants(torch, q, k, v, do, lse, delta, scale) -> list:
+    """``(what, dq)`` of two wrong dQ kernels the limits must reject: one
+    whose K loop leaves out a middle block of 64 keys, and one that leaves
+    out the diagonal 64-key block of the odd 64-row blocks only (the
+    diagonal tile of the bf16 kernel's second consumer warpgroup)."""
+    mid = q.shape[1] // VARIANT_ROWS // 2
+    return [(what, attention_dropping(torch, q, k, v, scale, drop, do, lse, delta)[0])
+            for what, drop in (
+                (f"K tile {mid} skipped", lambda r, c: (tile_of(c) == mid) & (tile_of(r) > mid)),
+                ("second diagonal block skipped",
+                 lambda r, c: (tile_of(c) == tile_of(r)) & (tile_of(r) % 2 == 1)))]
+
+
 def expect_raise(exc, fn, what: str) -> None:
     try:
         fn()
@@ -618,11 +634,14 @@ def phase_train_kernels(torch, ce, fa):
     torch.cuda.empty_cache()
 
     # --- flash: the main path's B 8 H 16 S 2048 D 64 bf16 causal first, then
-    # D = 128 causal over 32 tiles and non-causal
+    # D = 128 causal over 32 tiles and non-causal, f32, and two causal shapes
+    # whose 128-row tile counts (3 and 5) are not powers of two
     for b, h, s_len, d, dtype, causal in ((8, 16, 2048, 64, torch.bfloat16, True),
                                           (1, 8, 4096, 128, torch.bfloat16, True),
                                           (2, 4, 512, 128, torch.bfloat16, False),
-                                          (2, 4, 256, 64, torch.float32, True)):
+                                          (2, 4, 256, 64, torch.float32, True),
+                                          (2, 4, 384, 128, torch.bfloat16, True),
+                                          (2, 4, 640, 64, torch.bfloat16, True)):
         bh = b * h
         q, k, v, do = (torch.randn(bh, s_len, d, generator=gen, device=dev).to(dtype)
                        for _ in range(4))
@@ -667,7 +686,15 @@ def phase_train_kernels(torch, ce, fa):
             for what, a, c in zip(("dq", "dk", "dv"), unrounded, g_p):
                 checks.append((f"flash {what}, p and ds not rounded to bf16", readings(
                     a.to(dtype), c, **tol), limit[what], False))
-            del do_cut, delta_cut, dk_cut, dv_cut, unrounded, o_unrounded
+            for what, a in dq_variants(torch, q, k, v, do, lse_p, delta, scale):
+                checks.append((f"flash dq, {what}", readings(a, g_p[0], **tol), limit["dq"],
+                               False))
+            # one owner a row, no atomics: dq repeats bit for bit
+            dq_again = fa.flash_backward_dq(q, k, v, do, lse_p, delta, causal, scale)
+            if not torch.equal(dq_again, g_k[0]):
+                raise AssertionError(f"flash dq {shape}: two launches differ")
+            say(f"  flash dq {shape} {dt}: two launches bitwise equal")
+            del do_cut, delta_cut, dk_cut, dv_cut, unrounded, o_unrounded, dq_again
         rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
         fwd = lambda: fa.flash_forward(q, k, v, causal, scale)  # noqa: E731
         bwd = lambda: fa.flash_backward(q, k, v, do, lse_p, delta, causal, scale)  # noqa: E731
@@ -850,6 +877,15 @@ def phase_long_kernels(torch, fa):
         for what, a, c in zip(("dq", "dk", "dv"), wrong, (dq_p, dk_p, dv_p)):
             checks.append((f"flash {what} {label}, diagonal tile skipped",
                            readings(a, c, **tol), limit[what], False))
+        for what, a in dq_variants(torch, q, k, v, do, lse_p, delta, scale):
+            checks.append((f"flash dq {label}, {what}", readings(a, dq_p, **tol), limit["dq"],
+                           False))
+        # one owner a row, no atomics: dq repeats bit for bit
+        dq_again = fa.flash_backward_dq(q, k, v, do, lse_p, delta, causal, scale)
+        if not torch.equal(dq_again, dq_k):
+            raise AssertionError(f"flash dq {label}: two launches differ")
+        say(f"  flash dq {label}: two launches bitwise equal")
+        del dq_again
         do_cut, delta_cut = do.clone(), delta.clone()
         do_cut[:, -VARIANT_ROWS:], delta_cut[:, -VARIANT_ROWS:] = 0, 0
         wrong = fa.flash_backward_dkv(q, k, v, do_cut, lse_p, delta_cut, causal, scale)

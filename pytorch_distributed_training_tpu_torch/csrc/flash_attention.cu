@@ -4,7 +4,7 @@
 //
 // q, k, v, o, dO, dq, dk, dv are [BH, S, D] (heads folded into the batch),
 // lse and delta are [BH, S] f32. D is 64 or 128; S is a multiple of 128 in
-// bf16 (the forward's and dK/dV's tiles) and of 64 in f32.
+// bf16 (the tiles of the TMA kernels) and of 64 in f32.
 //
 // The forward (pdt_flash_fwd: flash_fwd_bf16_kernel, flash_fwd_f32_kernel)
 // stands in for both TPU forwards, `_fwd_kernel`
@@ -44,10 +44,11 @@
 // multiply-adds x 2 per kept (query, key) pair and product; the forward has
 // 2 products, dK/dV 4, dQ 3). At the LM's shape (BH 128, S 2048, D 64,
 // causal) the forward is 68.7 GFLOP (0.069 ms at 989 TFLOP/s bf16) against
-// 100 MB of traffic (0.03 ms at 3.35 TB/s); dK/dV is 137.4 GFLOP. In f32 the
-// same work runs at most at 67 TFLOP/s.
+// 135 MB of traffic (0.04 ms at 3.35 TB/s); dK/dV is 137.4 GFLOP, dQ 103.1
+// GFLOP (0.104 ms) against 170 MB (0.05 ms). In f32 the same work runs at
+// most at 67 TFLOP/s.
 //
-// bf16 forward and dK/dV, designed for Hopper. 384 threads: warpgroup 0
+// bf16 forward, dK/dV and dQ, designed for Hopper. 384 threads: warpgroup 0
 // produces (one thread issues every copy; setmaxnreg hands its registers
 // to the others), warpgroups 1 and 2 consume, 64 rows each (wgmma's M).
 // Tiles arrive by TMA (cp.async.bulk.tensor over a 2D map of the [BH S, D]
@@ -78,12 +79,22 @@
 //   dK += bf16(dS^T) Q (RS). Causal: the first Q tile of K tile kt is 2 kt,
 //   and the two Q tiles 2 kt and 2 kt + 1 cross the diagonal; blocks of the
 //   low K tiles, which see the most Q tiles, go first.
-// The bf16 dQ kernel is the simple mma.sync version: a block owns one
-// 64-row tile (4 warps x 16 rows); K/V tiles are staged in shared memory
-// with rows padded by 8 elements so that 32-bit fragment loads hit 32
-// banks, K also transposed for dS K; s and ds never leave registers (the
-// m16n8 accumulator layout of S is the m16k16 A-fragment layout). f32
-// design: see the f32 section.
+// - dQ: the forward's shape. A block owns a 128-row Q tile and its dO tile
+//   (loaded once; each consumer thread reads its two rows' lse and delta
+//   once) and streams 64-row K and V tiles through a 3-stage ring. Per K
+//   tile: S = Q K^T and dP = dO V^T (SS, both in flight), P = exp(scale S
+//   - lse) (no online softmax: lse is given), dS = P (dP - delta) scale,
+//   dQ += bf16(dS) K (RS, K read MN-major from its one staged copy: no
+//   transposed copy). 64 keys a tile keep a consumer's live state at s 32
+//   + dp 32 + dq D/2 + 16 fragment registers. Each tile waits for its own
+//   dQ product: leaving it in flight behind the next tile's S and dP ran
+//   8-21% slower on the H100, ptxas serialising the D = 128 wgmma (C7512). Causal: Q tile qt visits K
+//   tiles 0 .. 2 qt + 1; tile 2 qt is the diagonal of the first consumer
+//   warpgroup and 2 qt + 1 that of the second. The first skips the math of
+//   tile 2 qt + 1 (all masked for its rows) but still waits on it and frees
+//   its stage. Blocks take the longest rows first. dq is rounded once and written by the block that
+//   owns its rows: no atomics, so it repeats bit for bit.
+// f32 design: see the f32 section.
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
@@ -98,77 +109,11 @@ enum DType : int { kF32 = 0, kBF16 = 1 };
 typedef __nv_bfloat16 bf16;
 
 constexpr float kNeg = -1e30f;  // finite mask value (flash_attention.py:68)
-constexpr int kTile = 64;       // dQ and f32 kernels: query rows / key rows per tile
-constexpr int kThreads = 128;   // bf16 dQ: 4 warps x 16 rows
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int kTile = 64;       // f32 kernels: query rows / key rows per tile
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment (rows r0..r0+15, cols k0..k0+15) of a row-major tile
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* src, int ld, int r0,
-                                       int k0, int g, int t) {
-  a[0] = ld32(src + (r0 + g) * ld + k0 + 2 * t);
-  a[1] = ld32(src + (r0 + g + 8) * ld + k0 + 2 * t);
-  a[2] = ld32(src + (r0 + g) * ld + k0 + 2 * t + 8);
-  a[3] = ld32(src + (r0 + g + 8) * ld + k0 + 2 * t + 8);
-}
-
-// B fragment (k0..k0+15 x n0..n0+7) of a tile stored [n][k], k contiguous
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1, const bf16* src,
-                                       int ld, int n0, int k0, int g, int t) {
-  b0 = ld32(src + (n0 + g) * ld + k0 + 2 * t);
-  b1 = ld32(src + (n0 + g) * ld + k0 + 2 * t + 8);
-}
-
-// A fragment for k-block kk from 16x8 accumulators: the m16n8 C layout of
-// tiles 2kk and 2kk+1 is the m16k16 A layout, so no shuffle is needed
-__device__ __forceinline__ void acc_to_a(uint32_t* a, float (*acc)[4], int kk) {
-  a[0] = pack_bf16(acc[2 * kk][0], acc[2 * kk][1]);
-  a[1] = pack_bf16(acc[2 * kk][2], acc[2 * kk][3]);
-  a[2] = pack_bf16(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
-  a[3] = pack_bf16(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
-}
-
-// a [kTile, D] tile of a row-major [S, D] matrix into shared memory
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src) {
-  constexpr int kChunks = kTile * D / 8;
-  for (int c = threadIdx.x; c < kChunks; c += kThreads) {
-    const int r = c / (D / 8);
-    const int col = (c % (D / 8)) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ld + col) =
-        *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * D + col);
-  }
-}
-
-// the same tile transposed: dst[col][row]
-template <int D>
-__device__ __forceinline__ void load_tile_t(bf16* dst, int ld, const bf16* src) {
-  constexpr int kChunks = kTile * D / 8;
-  for (int c = threadIdx.x; c < kChunks; c += kThreads) {
-    const int r = c / (D / 8);
-    const int col = (c % (D / 8)) * 8;
-    const uint4 v = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * D + col);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(col + i) * ld + r] = e[i];
-  }
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -182,11 +127,13 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward and dK/dV: TMA, mbarriers and wgmma (design in the header)
+// bf16 forward, dK/dV and dQ: TMA, mbarriers and wgmma (design in the header)
 
-constexpr int kRows = 128;       // forward Q/K/V tiles, dK/dV K/V tiles
+constexpr int kRows = 128;       // forward Q/K/V tiles, dK/dV K/V tiles, dQ Q/dO tiles
 constexpr int kQRows = 64;       // dK/dV Q/dO tiles
-constexpr int kStages = 2;       // depth of the rings
+constexpr int kKRows = 64;       // dQ K/V tiles
+constexpr int kStages = 2;       // depth of the forward's and dK/dV's rings
+constexpr int kDqStages = 3;     // depth of dQ's ring
 constexpr int kWarpgroup = 128;
 constexpr int kHopperThreads = 3 * kWarpgroup;  // producer + 2 consumer warpgroups
 constexpr int kConsumerWarps = 8;
@@ -382,9 +329,10 @@ __device__ __forceinline__ void acc_to_frag(uint32_t (&a)[4], const float (&acc)
   a[3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
 }
 
-__device__ __forceinline__ void init_barriers(uint32_t first, int n_full, uint32_t empty) {
+__device__ __forceinline__ void init_barriers(uint32_t first, int n_full, uint32_t empty,
+                                              int stages = kStages) {
   for (int i = 0; i < n_full; ++i) mbar_init(first + 8 * i, 1);
-  for (int s = 0; s < kStages; ++s) mbar_init(empty + 8 * s, kConsumerWarps);
+  for (int s = 0; s < stages; ++s) mbar_init(empty + 8 * s, kConsumerWarps);
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
@@ -722,110 +670,157 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 dQ: the simple mma.sync kernel (see the header)
-
+// dQ shared memory, as FwdLayout
 template <int D>
-constexpr int dq_smem_bytes() {
-  return (4 * kTile * (D + 8) + D * (kTile + 8)) * 2;
-}
+struct DqLayout {
+  static constexpr int kQSlabBytes = kRows * kSwizzleRow;    // 128 query rows x 64 columns
+  static constexpr int kQBytes = (D / 64) * kQSlabBytes;
+  static constexpr int kKvSlabBytes = kKRows * kSwizzleRow;  // 64 key rows x 64 columns
+  static constexpr int kKvBytes = (D / 64) * kKvSlabBytes;
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQ + kQBytes;
+  static constexpr int kK = kDo + kQBytes;                    // kDqStages tiles
+  static constexpr int kV = kK + kDqStages * kKvBytes;        // kDqStages tiles
+  static constexpr int kBars = kV + kDqStages * kKvBytes;     // qdo_full, full[], empty[]
+  static constexpr int kUsed = kBars + 8 * (1 + 2 * kDqStages) + 1024;  // + room to align
+  static constexpr int kBytes = kUsed > kOneBlockSmem ? kUsed : kOneBlockSmem;
+};
 
-// dQ: the block owns Q tile qt and loops over K tiles up to the diagonal.
+// dQ: the block owns Q tile qt (128 rows; consumer warpgroup 1 rows 0..63,
+// 2 rows 64..127) and streams 64-row K and V tiles
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          bf16* __restrict__ dq, int seq, float scale, int causal) {
-  constexpr int LD = D + 8;
-  constexpr int LDT = kTile + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kTile][LD]
-  bf16* do_s = q_s + kTile * LD;                  // [kTile][LD]
-  bf16* k_s = do_s + kTile * LD;                  // [kTile][LD]
-  bf16* v_s = k_s + kTile * LD;                   // [kTile][LD]
-  bf16* kt_s = v_s + kTile * LD;                  // [D][LDT]
-  const int n_tiles = seq / kTile;
-  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);
-  const size_t head = static_cast<size_t>(blockIdx.y) * seq * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-  const int row = qt * kTile + r0 + g;
-
-  load_tile<D>(q_s, LD, q + head + static_cast<size_t>(qt) * kTile * D);
-  load_tile<D>(do_s, LD, dout + head + static_cast<size_t>(qt) * kTile * D);
+  using L = DqLayout<D>;
+  extern __shared__ __align__(128) unsigned char tma_smem[];
+  const uint32_t base = (smem_addr(tma_smem) + 1023u) & ~1023u;
+  const uint32_t qdo_full = base + L::kBars;
+  const uint32_t full = qdo_full + 8;  // stage s: + 8 s
+  const uint32_t empty = full + 8 * kDqStages;
+  const int n_tiles = seq / kRows;
+  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.y);  // longest rows first
+  // causal: K tiles 2 qt and 2 qt + 1 cross the diagonal
+  const int n_kv = causal ? 2 * qt + 2 : seq / kKRows;
+  const int row0 = static_cast<int>(blockIdx.x) * seq;  // the head's first row of [BH S, D]
+  if (threadIdx.x == 0) init_barriers(qdo_full, 1 + kDqStages, empty, kDqStages);
   __syncthreads();
-  uint32_t qf[D / 16][4], df[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a(qf[kk], q_s, LD, r0, kk * 16, g, t);
-    load_a(df[kk], do_s, LD, r0, kk * 16, g, t);
-  }
-  const float* lse_h = lse + static_cast<size_t>(blockIdx.y) * seq;
-  const float* delta_h = delta + static_cast<size_t>(blockIdx.y) * seq;
-  const float l0 = lse_h[row], l1 = lse_h[row + 8];
-  const float de0 = delta_h[row], de1 = delta_h[row + 8];
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) dq_acc[n][0] = dq_acc[n][1] = dq_acc[n][2] = dq_acc[n][3] = 0.f;
-  const int last = causal ? qt : n_tiles - 1;
-  for (int j = 0; j <= last; ++j) {
-    __syncthreads();
-    const size_t off = head + static_cast<size_t>(j) * kTile * D;
-    load_tile<D>(k_s, LD, k + off);
-    load_tile_t<D>(kt_s, LDT, k + off);
-    load_tile<D>(v_s, LD, v + off);
-    __syncthreads();
-    float s[kTile / 8][4], dp[kTile / 8][4];
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, k_s, LD, n * 8, kk * 16, g, t);
-        mma_bf16(s[n], qf[kk], b0, b1);
-        load_b(b0, b1, v_s, LD, n * 8, kk * 16, g, t);
-        mma_bf16(dp[n], df[kk], b0, b1);
+
+  if (threadIdx.x < kWarpgroup) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qdo_full, 2 * L::kQBytes);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(base + L::kQ + c * L::kQSlabBytes, &q_map, qdo_full, c * 64, row0 + qt * kRows);
+        tma_load(base + L::kDo + c * L::kQSlabBytes, &do_map, qdo_full, c * 64, row0 + qt * kRows);
+      }
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % kDqStages;
+        if (j >= kDqStages) mbar_wait(empty + 8 * s, ((j / kDqStages) & 1) ^ 1);
+        const uint32_t bar = full + 8 * s;
+        mbar_expect_tx(bar, 2 * L::kKvBytes);
+        for (int c = 0; c < D / 64; ++c) {
+          const uint32_t off = s * L::kKvBytes + c * L::kKvSlabBytes;
+          tma_load(base + L::kK + off, &k_map, bar, c * 64, row0 + j * kKRows);
+          tma_load(base + L::kV + off, &v_map, bar, c * 64, row0 + j * kKRows);
+        }
       }
     }
-    const bool diag = causal && j == qt;
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int half = threadIdx.x / kWarpgroup - 1;
+    const int warp = (threadIdx.x % kWarpgroup) / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = warp * 16 + g;  // this thread's rows r0, r0 + 8 of its warpgroup's 64
+    const int row = qt * kRows + half * 64 + r0;
+    const uint32_t q_rows = base + L::kQ + half * 64 * kSwizzleRow;
+    const uint32_t do_rows = base + L::kDo + half * 64 * kSwizzleRow;
+    const float scale2 = scale * kLog2e;
+    const float* lr = lse + row0 + row;
+    const float* dr = delta + row0 + row;
+    const float l0 = lr[0] * kLog2e, l1 = lr[8] * kLog2e, de0 = dr[0], de1 = dr[8];
+    // the K tile on this warpgroup's diagonal; causal tiles past it are all masked
+    const int diag_tile = causal ? 2 * qt + half : -1;
+    float dq_acc[D / 2];
 #pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+    mbar_wait(qdo_full, 0);
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % kDqStages;
+      // every consumer warp waits and arrives on every tile, the masked
+      // ones too: the producer's ring counts 8 arrivals a stage
+      mbar_wait(full + 8 * s, (j / kDqStages) & 1);
+      if (!causal || j <= diag_tile) {
+        const uint32_t k_tile = base + L::kK + s * L::kKvBytes;
+        const uint32_t v_tile = base + L::kV + s * L::kKvBytes;
+        // s = Q K^T and dp = dO V^T: [64 rows, 64 keys] each, two groups
+        float sc[32], dp[32];
+        wg_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qrow = r0 + g + (e >= 2 ? 8 : 0);
-        const int key = n * 8 + 2 * t + (e & 1);
-        const float l = e >= 2 ? l1 : l0;
-        const float de = e >= 2 ? de1 : de0;
-        const float p = (diag && key > qrow) ? 0.f : expf(scale * s[n][e] - l);
-        s[n][e] = p * (dp[n][e] - de) * scale;
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wgmma_ss_n64(sc, desc(q_rows + (kk / 4) * L::kQSlabBytes + (kk % 4) * 32, 16, 1024),
+                       desc(k_tile + (kk / 4) * L::kKvSlabBytes + (kk % 4) * 32, 16, 1024), kk);
+        }
+        wg_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wgmma_ss_n64(dp, desc(do_rows + (kk / 4) * L::kQSlabBytes + (kk % 4) * 32, 16, 1024),
+                       desc(v_tile + (kk / 4) * L::kKvSlabBytes + (kk % 4) * 32, 16, 1024), kk);
+        }
+        wg_commit();
+        wg_wait<1>();
+        pin(sc);
+        // p = exp(scale s - lse), 0 above the diagonal
+        const bool diag = j == diag_tile;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sc[4 * n + e] = (diag && n * 8 + 2 * t + (e & 1) > r0 + (e >= 2 ? 8 : 0))
+                                ? 0.f
+                                : exp2f(fmaf(sc[4 * n + e], scale2, e >= 2 ? -l1 : -l0));
+          }
+        }
+        wg_wait<0>();
+        pin(dp);
+        // ds = p (dp - delta) scale
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sc[4 * n + e] = sc[4 * n + e] * (dp[4 * n + e] - (e >= 2 ? de1 : de0)) * scale;
+          }
+        }
+        // dQ += bf16(ds) K: 4 k16 steps over the tile's keys, K read MN-major
+        uint32_t fr[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) acc_to_frag(fr[kk], sc, kk);
+        pin(dq_acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_rs<D>(dq_acc, fr[kk], desc(k_tile + kk * 16 * kSwizzleRow, L::kKvSlabBytes, 1024));
+        }
+        wg_commit();
+        wg_wait<0>();
+        pin(dq_acc);
+        pin(fr);
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
     }
-    // dQ += bf16(ds) K
+    bf16* d0 = dq + (static_cast<size_t>(row0) + row) * D;
+    bf16* d1 = d0 + 8 * D;
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t da[4];
-      acc_to_a(da, s, kk);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, kt_s, LDT, n * 8, kk * 16, g, t);
-        mma_bf16(dq_acc[n], da, b0, b1);
-      }
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = n * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(d0 + col) = pack_bf16(dq_acc[4 * n], dq_acc[4 * n + 1]);
+      *reinterpret_cast<uint32_t*>(d1 + col) = pack_bf16(dq_acc[4 * n + 2], dq_acc[4 * n + 3]);
     }
-  }
-  bf16* d0 = dq + head + static_cast<size_t>(row) * D;
-  bf16* d1 = d0 + 8 * D;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(d0 + col) = pack_bf16(dq_acc[n][0], dq_acc[n][1]);
-    *reinterpret_cast<uint32_t*>(d1 + col) = pack_bf16(dq_acc[n][2], dq_acc[n][3]);
   }
 }
 
@@ -1226,8 +1221,8 @@ int launch_tma(K kernel, int smem, int tiles, int bh, cudaStream_t st, Args... a
   return static_cast<int>(cudaGetLastError());
 }
 
-// the bf16 forward and dK/dV take S % 128 == 0 and address rows of the
-// [BH S, D] view with 32-bit TMA coordinates
+// the bf16 TMA kernels take S % 128 == 0 and address rows of the [BH S, D]
+// view with 32-bit TMA coordinates
 bool tma_shapes_ok(int bh, int seq) {
   return seq % kRows == 0 && static_cast<int64_t>(bh) * seq <= INT32_MAX;
 }
@@ -1282,10 +1277,15 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const 
   const float* l = static_cast<const float*>(lse);
   const float* de = static_cast<const float*>(delta);
   if (dtype == kBF16) {
-    return launch(flash_bwd_dq_bf16_kernel<D>, kThreads, dq_smem_bytes<D>(), seq, bh, st,
-                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, de,
-                  static_cast<bf16*>(dq), seq, scale, causal);
+    const uint64_t rows = static_cast<uint64_t>(bh) * seq;
+    CUtensorMap qm, km, vm, dom;
+    if (!tma_shapes_ok(bh, seq) || !bf16_map(&qm, q, rows, D, kRows) ||
+        !bf16_map(&km, k, rows, D, kKRows) || !bf16_map(&vm, v, rows, D, kKRows) ||
+        !bf16_map(&dom, dout, rows, D, kRows)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_tma(flash_bwd_dq_bf16_kernel<D>, DqLayout<D>::kBytes, seq / kRows, bh, st, qm,
+                      km, vm, dom, l, de, static_cast<bf16*>(dq), seq, scale, causal);
   }
   return launch(flash_bwd_dq_f32_kernel<D>, kThreadsF32, dq_f32_smem_bytes<D>(), seq, bh, st,
                 static_cast<const float*>(q), static_cast<const float*>(k),

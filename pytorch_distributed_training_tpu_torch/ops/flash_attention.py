@@ -26,7 +26,10 @@ Port of ``pytorch_distributed_training_tpu/ops/flash_attention.py``:
   tiles with their lse and delta rows by TMA; S^T and dP^T are ``wgmma``
   from shared memory, dV += P^T dO and dK += dS^T Q take P^T and dS^T from
   registers and read dO and Q MN-major from their one staged copy.  The
-  bf16 dQ launch is the simpler ``mma.sync`` kernel.
+  bf16 dQ launch (``flash_bwd_dq_bf16_kernel``) has the forward's shape: a
+  block owns 128 query rows with their dO, and streams 64-row K and V
+  tiles by TMA; S and dP are ``wgmma`` from shared memory and dQ += dS K
+  takes dS from registers and reads K MN-major, untransposed.
 - :func:`flash_attention`: ``[B, S, H, D] -> [B, S, H, D]`` with heads folded
   into the batch (``:895-921``), a ``torch.autograd.Function`` whose
   forward and backward are the wrappers above.
@@ -53,9 +56,9 @@ and ``S % 128 == 0`` (:func:`flash_shapes_ok`, the JAX package's gate), and
 ``D`` in ``SUPPORTED_HEAD_DIMS``; any other head dim raises rather than
 leaving the kernels.  The kernels are bound by operations:
 :func:`flash_flops` counts the products over the pairs the causal mask
-keeps (2 products in the forward, 4 in dK/dV, 3 in dQ).  The bf16 forward
-and dK/dV tiles are 128 rows, so their C entry points take ``S % 128 ==
-0`` (the gate above) and return ``cudaErrorInvalidValue`` unlaunched on
+keeps (2 products in the forward, 4 in dK/dV, 3 in dQ).  Each bf16 kernel
+block owns a 128-row tile, so their C entry points take ``S % 128 == 0``
+(the gate above) and return ``cudaErrorInvalidValue`` unlaunched on
 any other S; ``csrc/flash_attention.cu`` holds the full design notes.
 """
 from __future__ import annotations
