@@ -11,11 +11,18 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build every hand-written kernel from ``csrc/`` with nvcc for sm_90a
    (one nvcc per library, all started together), with ptxas's registers
    and spills for each kernel;
-3. the serving kernels (K3 add+LayerNorm, K4 bias+GELU) against their plain
-   PyTorch twins on the card, at the main path's shapes and a ragged one,
-   with the time of each (CUDA events, median of 20 launches after warm-up,
-   L2 flushed before each) beside its bound; inputs the kernels do not take
-   must raise;
+3. the elementwise kernels (K3 add+LayerNorm, K4 bias+GELU) against their
+   plain PyTorch twins on the card, in bf16 and f32: at the LM-1024 step's
+   shapes ([16384, 1024] and [16384, 4096], bf16), serving's prefill and
+   decode shapes, [37, 1000], a ragged [37, 1001], a misaligned [37,
+   1024] view, [4133, 1000] (partial blocks and row groups) and, for K3,
+   [37, 4096] and [37, 4095] (a block a row); s bitwise equal, y within the norm-relative limits of
+   ``tools/elementwise_checks.py``, whose wrong kernels (unwritten vectors
+   or rows, the variance over E - 1, the neighbouring vector's scale, bias
+   or GELU bias, tanh GELU) must all be rejected; the time of each (CUDA
+   events, median of 20 launches after warm-up, L2 flushed before each)
+   beside its bound, its share of it and the host time per call; inputs
+   the kernels do not take must raise;
 4. the model at full width (depth 2, float32, TF32 off) on the card with the
    kernels against the same weights on the CPU with the plain twins:
    prefill and one decode step's logits;
@@ -117,18 +124,19 @@ TPU_KERNELS = {
     "K2g": (_FA + "506", "flash_attention.cu", "flash_bwd_dkv_bf16_kernel", ("long_dkv", 0),
             "longctx"),
     "K3": (_TPU + "fused_elementwise.py:88", "fused_elementwise.cu", "add_layernorm_kernel",
-           ("add_layernorm", 0), "serving"),
+           ("add_layernorm", 0), "training"),
     "K4": (_TPU + "fused_elementwise.py:203", "fused_elementwise.cu", "bias_gelu_kernel",
-           ("bias_gelu", 0), "serving"),
+           ("bias_gelu", 0), "training"),
 }
 # other cases reported beside a row's own: the other main path's CE shape,
 # flash at D = 128 and the f32 flash kernels, K2c's two launches apart, and
-# K3/K4 at the decode shape
+# K3/K4 at serving's prefill and decode shapes
 ALSO = {"K1a": [("ce_fwd", 0)], "K1b": [("ce_bwd", 0)],
         "K2a": [("flash_fwd", 1), ("long_fwd", 2)],
         "K2c": [("flash_dkv", 0), ("flash_dq", 0), ("flash_bwd", 1)],
         "K2b": [("long_fwd", 1)], "K2f": [("long_dq", 1)], "K2g": [("long_dkv", 1)],
-        "K3": [("add_layernorm", 1)], "K4": [("bias_gelu", 1)]}
+        "K3": [("add_layernorm", 1), ("add_layernorm", 2)],
+        "K4": [("bias_gelu", 1), ("bias_gelu", 2)]}
 # the port's wrappers whose launches stand for K1a/K1b/K3/K4 (flash is
 # counted by TPU kernel in ops/flash_attention.py itself)
 WRAPPER_OF = {"K1a": "ce_fwd", "K1b": "ce_bwd", "K3": "add_layernorm", "K4": "bias_gelu"}
@@ -366,55 +374,97 @@ def expect_raise(exc, fn, what: str) -> None:
 
 
 def phase_kernels(torch, fe):
-    """Phase 3: each kernel against its plain twin; returns per-kernel rows."""
+    """Phase 3: each kernel against its plain twin; returns per-kernel rows.
+
+    The rows of each kernel start with bf16 at the LM-1024 step's shape, the
+    prefill shape and the decode shape (the kernels line reports the first
+    and keeps the other two in ``also``).  Each kernel's ``s`` must equal the
+    twin's bitwise and its ``y`` lie within ``elementwise_checks.TOL`` and
+    ``NORM_LIMIT``; the wrong kernels of ``elementwise_checks`` must lie
+    outside them in the dtypes that module names (read only in the others).
+    [37, 1001] is ragged and [37, 1024] a view one element into a flat
+    buffer: both take the kernels' scalar accesses."""
+    from pytorch_distributed_training_tpu_torch.tools import elementwise_checks as ec
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = {"add_layernorm": [], "bias_gelu": []}
+    checks = []
 
-    def randn(shape, dtype, scale=1.0, shift=0.0):
-        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+    def randn(shape, dtype, scale=1.0, shift=0.0, misaligned=False):
+        if not misaligned:
+            return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+        flat = randn(shape[0] * shape[1] + 1, dtype, scale, shift)
+        return flat[1:].view(shape)  # contiguous, E % 8 == 0, 2 or 4 bytes off 16
 
+    def record(name, shape, dtype, layout, kernel, plain, nbytes, got, want):
+        dt = str(dtype).replace("torch.", "")
+        what = f"{name} {list(shape)} {dt}{' ' + layout if layout else ''}"
+        r = readings(got, want, **ec.TOL[dt])
+        checks.append((what, r, ec.NORM_LIMIT[dt], True))
+        k_ms, c_ms = time_ms(torch, kernel, flush), call_ms(torch, kernel)
+        p_ms = time_ms(torch, plain, flush)
+        b_ms, b_by = bound_of(nbytes, FLOPS_PER_ELEMENT[name] * shape[0] * shape[1], F32_FLOPS)
+        rows[name].append(dict(
+            shape=list(shape), dtype=dt, layout=layout or "aligned", max_abs_err=r["max_abs_err"],
+            norm_rel=r["norm_rel"], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+            share_of_bound=b_ms / k_ms, call_ms=c_ms))
+
+    def variants(dt, shape, built, want):
+        for what, wrong in built:
+            sound = False if dt in ec.REJECT_IN[what] else None
+            checks.append((f"{what} {list(shape)} {dt}", readings(wrong, want, **ec.TOL[dt]),
+                           ec.NORM_LIMIT[dt], sound))
+
+    # rows at the main paths' widths: the LM-1024 step (bf16 only), prefill
+    # and decode; then (rows, E, layout) at the edges.  4133 rows: K3's last
+    # block of 8 warps holds 5 rows, K4's vectors walk 4 rows a thread, the
+    # last group 1 row, in a column block of 125 vectors.  E > 1024: K3's
+    # block-a-row kernel, with vectors (4096) and scalars (4095)
+    main_rows = {torch.bfloat16: (16384, 4096, 8), torch.float32: (4096, 8)}
+    edge = [(37, 1000, None), (37, 1001, "ragged"), (37, 1024, "misaligned"), (4133, 1000, None)]
+    wide = {"add_layernorm": [(37, 4096, None), (37, 4095, "ragged")], "bias_gelu": []}
     for dtype in (torch.bfloat16, torch.float32):
-        tol = dict(atol=1e-5, rtol=0.0) if dtype == torch.float32 else dict(atol=2e-2, rtol=1e-2)
-        for r, e in ((4096, 1024), (8, 1024), (37, 1000)):
-            x, d = randn((r, e), dtype, 2.0), randn((r, e), dtype)
-            scale, bias = randn(e, torch.float32, 0.3, 1.0), randn(e, torch.float32, 0.1)
-            s_k, y_k = fe.fused_add_layernorm(x, d, scale, bias, out_dtype=dtype)
-            s_p, y_p = fe.add_layernorm_plain(x, d, scale, bias, out_dtype=dtype)
-            torch.cuda.synchronize()
-            if not torch.equal(s_k, s_p):
-                raise AssertionError(f"add_layernorm {r}x{e} {dtype}: s not bitwise equal")
-            torch.testing.assert_close(y_k.float(), y_p.float(), **tol)
-            err = (y_k.float() - y_p.float()).abs().max().item()
-            kernel = lambda: fe.fused_add_layernorm(x, d, scale, bias, out_dtype=dtype)  # noqa: E731
-            k_ms, c_ms = time_ms(torch, kernel, flush), call_ms(torch, kernel)
-            p_ms = time_ms(torch, lambda: fe.add_layernorm_plain(x, d, scale, bias, out_dtype=dtype), flush)
-            b_ms, b_by = bound_of(fe.add_layernorm_bytes(r, e, dtype, dtype),
-                                  FLOPS_PER_ELEMENT["add_layernorm"] * r * e, F32_FLOPS)
-            rows["add_layernorm"].append(dict(
-                shape=[r, e], dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
-                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, call_ms=c_ms))
-        for r, h in ((4096, 4096), (8, 4096), (37, 1000)):
-            u, b = randn((r, h), dtype, 2.0), randn(h, dtype, 0.5)
-            y_k = fe.fused_bias_gelu(u, b)
-            y_p = fe.bias_gelu_plain(u, b)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(y_k.float(), y_p.float(), **tol)
-            err = (y_k.float() - y_p.float()).abs().max().item()
-            kernel = lambda: fe.fused_bias_gelu(u, b)  # noqa: E731
-            k_ms, c_ms = time_ms(torch, kernel, flush), call_ms(torch, kernel)
-            p_ms = time_ms(torch, lambda: fe.bias_gelu_plain(u, b), flush)
-            b_ms, b_by = bound_of(fe.bias_gelu_bytes(r, h, dtype),
-                                  FLOPS_PER_ELEMENT["bias_gelu"] * r * h, F32_FLOPS)
-            rows["bias_gelu"].append(dict(
-                shape=[r, h], dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
-                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, call_ms=c_ms))
+        dt = str(dtype).replace("torch.", "")
+        for width, name in ((1024, "add_layernorm"), (4096, "bias_gelu")):
+            cases = [(r, width, None) for r in main_rows[dtype]] + edge + wide[name]
+            for r, e, layout in cases:
+                lay = layout == "misaligned"
+                # the wrong kernels are read at the largest shape and at 37 rows
+                probe = (r, e) in ((37, 1000), (main_rows[dtype][0], width))
+                if name == "add_layernorm":
+                    x, d = randn((r, e), dtype, 2.0, misaligned=lay), randn((r, e), dtype, misaligned=lay)
+                    scale, bias = randn(e, torch.float32, 0.3, 1.0), randn(e, torch.float32, 0.1)
+                    s_k, y_k = fe.fused_add_layernorm(x, d, scale, bias, out_dtype=dtype)
+                    s_p, y_p = fe.add_layernorm_plain(x, d, scale, bias, out_dtype=dtype)
+                    torch.cuda.synchronize()
+                    if not torch.equal(s_k, s_p):
+                        raise AssertionError(f"add_layernorm {r}x{e} {dt} {layout}: s not bitwise equal")
+                    record(name, (r, e), dtype, layout,
+                           lambda: fe.fused_add_layernorm(x, d, scale, bias, out_dtype=dtype),  # noqa: B023
+                           lambda: fe.add_layernorm_plain(x, d, scale, bias, out_dtype=dtype),  # noqa: B023
+                           fe.add_layernorm_bytes(r, e, dtype, dtype), y_k, y_p)
+                    if probe:
+                        variants(dt, (r, e), ec.add_layernorm_variants(
+                            x, d, scale, bias, out_dtype=dtype), y_p)
+                else:
+                    u, b = randn((r, e), dtype, 2.0, misaligned=lay), randn(e, dtype, 0.5)
+                    y_k, y_p = fe.fused_bias_gelu(u, b), fe.bias_gelu_plain(u, b)
+                    torch.cuda.synchronize()
+                    record(name, (r, e), dtype, layout,
+                           lambda: fe.fused_bias_gelu(u, b),  # noqa: B023
+                           lambda: fe.bias_gelu_plain(u, b),  # noqa: B023
+                           fe.bias_gelu_bytes(r, e, dtype), y_k, y_p)
+                    if probe:
+                        variants(dt, (r, e), ec.bias_gelu_variants(u, b), y_p)
     for name, cases in rows.items():
         for c in cases:
-            say(f"  {name} {c['shape']} {c['dtype']}: kernel_ms={c['ms']} "
+            say(f"  {name} {c['shape']} {c['dtype']} {c['layout']}: kernel_ms={c['ms']} "
                 f"plain_ms={c['plain_ms']} bound_ms={c['bound_ms']} ({c['bound_by']}) "
-                f"call_ms={c['call_ms']} max_abs_err={c['max_abs_err']}")
+                f"share_of_bound={c['share_of_bound']:.3f} call_ms={c['call_ms']} "
+                f"max_abs_err={c['max_abs_err']} norm_rel={c['norm_rel']}")
+    judge(checks)
     # what the kernels do not take raises; nothing falls back to the plain twin
     x = torch.zeros(4, 64, device=dev, dtype=torch.float64)
     p32 = torch.ones(64, device=dev)

@@ -176,7 +176,12 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if it is missing."""
+    """The loaded library ``name``, built first if it is missing.  Once it is
+    loaded this takes no lock: a dict read is atomic, and the wrappers call
+    it on every launch."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
@@ -201,17 +206,18 @@ def check(err: int, what: str) -> None:
 
 
 def stream(t) -> int:
-    """The raw ``cudaStream_t`` of the current stream on ``t``'s device."""
+    """The raw ``cudaStream_t`` of the current stream on ``t``'s device, read
+    without building a ``torch.cuda.Stream``."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require_cuda(name: str, *tensors) -> None:
     """Raise ``ValueError`` unless every tensor is a CUDA tensor on one device."""
-    dev = tensors[0].device
+    dev = tensors[0].get_device()
     for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
+        if not t.is_cuda or t.get_device() != dev:
             raise ValueError(
                 f"{name}: the kernel takes CUDA tensors on one device, got "
                 f"{[str(u.device) for u in tensors]}"
@@ -219,5 +225,6 @@ def require_cuda(name: str, *tensors) -> None:
 
 
 def require_contiguous(name: str, *tensors) -> None:
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous tensors")

@@ -19,7 +19,13 @@ which repeats the kernel's arithmetic op for op.
 
 Both kernels are bound by memory traffic, at the H100's 3.35 TB/s:
 :func:`add_layernorm_bytes` and :func:`bias_gelu_bytes` count each input
-read once and each output written once.
+read once and each output written once.  Both move 16-byte vectors where
+the feature width is a multiple of 8 and every pointer is 16-byte aligned,
+and scalars otherwise (a ragged width, or a view that starts mid-vector);
+the source says how (``csrc/fused_elementwise.cu``).  The wrappers keep
+their host cost low for the decode loop, which calls each one 496 times a
+batch: the C entry points are resolved once, the device guard is entered
+only for a tensor off the current device, and the stream is read raw.
 
 Numerics follow the JAX module: LayerNorm statistics in f32 over the sum
 ROUNDED to the stream dtype, fast variance ``max(0, E[s^2] - E[s]^2)``,
@@ -64,7 +70,8 @@ __all__ = [
 
 _INV_SQRT2 = 0.7071067811865476
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# one thread block per row holds the row in registers: 256 threads x 32
+# a row is held in registers: one warp x 32 values up to 1024 features,
+# 256 threads x 32 above that
 MAX_FEATURES = 8192
 
 
@@ -79,7 +86,29 @@ def _check_dtype(name: str, t: torch.Tensor) -> None:
 
 
 def _wants_grad(*tensors: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    if torch.is_grad_enabled():
+        for t in tensors:
+            if t.requires_grad:
+                return True
+    return False
+
+
+# the two C entry points by name, each resolved once (decode calls each
+# wrapper 496 times a batch: the host cost of a call is its Python)
+_ENTRIES = {}
+
+
+def _launch(fn: str, t: torch.Tensor, *args) -> int:
+    """Call C entry point ``fn`` with ``args`` and the raw current stream of
+    ``t``'s card, under a device guard only when that card is not current."""
+    entry = _ENTRIES.get(fn)
+    if entry is None:
+        entry = _ENTRIES[fn] = getattr(kernels.library("fused_elementwise"), fn)
+    index = t.get_device()
+    if index == torch._C._cuda_getDevice():
+        return entry(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return entry(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +192,7 @@ def fused_add_layernorm(x, delta, scale, bias, eps: float = 1e-6, out_dtype=None
 
 def _add_layernorm(x, delta, scale, bias, eps, out_dtype):
     """The kernel's wrapper: plain twin on the CPU, launch or raise on CUDA."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return add_layernorm_plain(x, delta, scale, bias, eps, out_dtype)
     name = "fused_add_layernorm"
     _check_dtype(name, x)
@@ -184,17 +213,15 @@ def _add_layernorm(x, delta, scale, bias, eps, out_dtype):
     kernels.require_contiguous(name, x, delta, scale, bias)
     kernels.require_cuda(name, x, delta, scale, bias)
     s = torch.empty_like(x)
-    y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    y = torch.empty_like(x, dtype=out_dtype)
     rows = x.numel() // feat
     if rows == 0:
         return s, y
-    lib = kernels.library("fused_elementwise")
-    with torch.cuda.device(x.device):
-        err = lib.pdt_add_layernorm(
-            x.data_ptr(), delta.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            s.data_ptr(), y.data_ptr(), rows, feat, float(eps),
-            _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], kernels.stream(x),
-        )
+    err = _launch(
+        "pdt_add_layernorm", x, x.data_ptr(), delta.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), s.data_ptr(), y.data_ptr(), rows, feat, float(eps),
+        _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype],
+    )
     kernels.check(err, name)
     fused_add_layernorm.launches += 1
     return s, y
@@ -256,7 +283,7 @@ def fused_bias_gelu(u, bias):
 
 def _bias_gelu(u, bias):
     """The kernel's wrapper: plain twin on the CPU, launch or raise on CUDA."""
-    if u.device.type == "cpu":
+    if u.is_cpu:
         return bias_gelu_plain(u, bias)
     name = "fused_bias_gelu"
     _check_dtype(name, u)
@@ -274,12 +301,10 @@ def _bias_gelu(u, bias):
     rows = u.numel() // feat
     if rows == 0:
         return y
-    lib = kernels.library("fused_elementwise")
-    with torch.cuda.device(u.device):
-        err = lib.pdt_bias_gelu(
-            u.data_ptr(), bias.data_ptr(), y.data_ptr(), rows, feat,
-            _DTYPE_CODES[u.dtype], kernels.stream(u),
-        )
+    err = _launch(
+        "pdt_bias_gelu", u, u.data_ptr(), bias.data_ptr(), y.data_ptr(), rows, feat,
+        _DTYPE_CODES[u.dtype],
+    )
     kernels.check(err, name)
     fused_bias_gelu.launches += 1
     return y
