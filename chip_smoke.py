@@ -4,6 +4,8 @@
     python3 chip_smoke.py              # needs one CUDA card
     python3 chip_smoke.py --profile    # also: torch.profiler breakdowns of one
                                        # serving batch and one step of each trainer
+    python3 chip_smoke.py --f32-runner # phases 1, 2 and 12 only: the f32 trainer,
+                                       # to time it against another tree in turns
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -41,8 +43,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches apart), plus D = 128 bf16 causal at [1, 8, 4096, 128], a
    non-causal and a float32 case, and bf16 causal at [2, 4, 384, 128] and
    [2, 4, 640, 64] (3 and 5 tiles of 128 rows); wrong variants of each
-   flash kernel must be rejected, and two dQ launches must be bitwise
-   equal; wrong dtype, wrong device and an unsupported head dim must raise;
+   flash kernel must be rejected (in f32 also the forward in one TF32
+   product, ``tools/flash_checks.py``; its 3xTF32 emulation is read only),
+   and two dQ launches must be bitwise equal; f32 flash bounds at the
+   3xTF32 tensor-core rate, with the share of the FFMA bound beside them;
+   wrong dtype, wrong device and an unsupported head dim must raise;
 7. one training step at full width (depth 2, float32, TF32 off) on the card
    against the CPU on the same weights and batch: loss and the gradient of
    every parameter;
@@ -59,8 +64,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels K2a, K2d, K2e); each launch timed (fewer repeats at S = 32768)
    beside its bound, the twins and SDPA; wrong variants that leave out the
    64-row block on the diagonal, a middle block of 64 keys, the last 64
-   query rows or (dQ) the diagonal block of the odd 64-row blocks must all
-   be rejected, and two dQ launches must be bitwise equal;
+   query rows or (dQ) the diagonal block of the odd 64-row blocks, and in
+   f32 the forward in one TF32 product, must all be rejected, and two dQ
+   launches must be bitwise equal;
 10. one f32 training step of the long-context model at its widths (512, 8
     heads, vocab 8192), depth 2, seq 2048, remat on, TF32 off, card against
     CPU: loss within rtol 1e-5, every gradient within 1e-4 of its largest
@@ -70,7 +76,13 @@ Phases, in order; any failure raises and the script exits non-zero:
     validation of 2 batches; every loss finite and per step exactly 1 K1a,
     1 K1b, 16 flash forwards (8 blocks, each run again by remat) and 16
     flash backward launches, all counted under K2b / K2f / K2g, no K3/K4.
-    Prints step ms, tokens/s, MFU and peak memory.
+    Prints step ms, tokens/s, MFU and peak memory;
+12. the training main path at the trainer's default dtype: the runner on
+    ``configs/train-lm-1024.yml`` with ``training.dtype`` set to float32 in
+    memory (full width, 16 blocks) for 3 steps and one validation of 2
+    batches; per step exactly 16 f32 flash forwards (K2a,
+    ``flash_fwd_3xtf32_kernel``), 16 K2d and 16 K2e launches, besides
+    K1a/K1b and 16 each of K3/K4.  Prints step ms, tokens/s and peak memory.
 
 The line before the last lists every TPU kernel (K1a ... K4) with the CUDA
 kernel that stands for it, its launches on the path that runs it, its error
@@ -89,7 +101,10 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (FFMA)
+# H100 SXM f32-accurate products on the tensor cores: 3 TF32 products each
+# (494.7 TFLOP/s TF32 dense), the f32 flash kernels' bound
+TF32X3_FLOPS = 494.7e12 / 3
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz: covers any host enqueue
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -108,17 +123,19 @@ _FA = _TPU + "flash_attention.py:"
 TPU_KERNELS = {
     "K1a": (_TPU + "fused_ce.py:56", "fused_ce.cu", "ce_fwd_kernel", ("ce_fwd", 1), "longctx"),
     "K1b": (_TPU + "fused_ce.py:70", "fused_ce.cu", "ce_bwd_kernel", ("ce_bwd", 1), "longctx"),
-    "K2a": (_FA + "178", "flash_attention.cu", "flash_fwd_bf16_kernel", ("flash_fwd", 0),
+    "K2a": (_FA + "178", "flash_attention.cu",
+            "flash_fwd_bf16_kernel (bf16) / flash_fwd_3xtf32_kernel (f32)", ("flash_fwd", 0),
             "training"),
-    "K2b": (_FA + "407", "flash_attention.cu", "flash_fwd_bf16_kernel",
+    "K2b": (_FA + "407", "flash_attention.cu",
+            "flash_fwd_bf16_kernel (bf16) / flash_fwd_3xtf32_kernel (f32)",
             ("long_fwd", 0), "longctx"),
     "K2c": (_FA + "278", "flash_attention.cu",
             "flash_bwd_dkv_bf16_kernel + flash_bwd_dq_bf16_kernel", ("flash_bwd", 0),
             "training"),
     "K2d": (_FA + "233", "flash_attention.cu", "flash_bwd_dq_f32_kernel", ("long_dq", 2),
-            "f32_step"),
+            "f32_runner"),
     "K2e": (_FA + "348", "flash_attention.cu", "flash_bwd_dkv_f32_kernel", ("long_dkv", 2),
-            "f32_step"),
+            "f32_runner"),
     "K2f": (_FA + "460", "flash_attention.cu", "flash_bwd_dq_bf16_kernel", ("long_dq", 0),
             "longctx"),
     "K2g": (_FA + "506", "flash_attention.cu", "flash_bwd_dkv_bf16_kernel", ("long_dkv", 0),
@@ -132,7 +149,7 @@ TPU_KERNELS = {
 # flash at D = 128 and the f32 flash kernels, K2c's two launches apart, and
 # K3/K4 at serving's prefill and decode shapes
 ALSO = {"K1a": [("ce_fwd", 0)], "K1b": [("ce_bwd", 0)],
-        "K2a": [("flash_fwd", 1), ("long_fwd", 2)],
+        "K2a": [("flash_fwd", 1), ("long_fwd", 2), ("flash_fwd", 3)],
         "K2c": [("flash_dkv", 0), ("flash_dq", 0), ("flash_bwd", 1)],
         "K2b": [("long_fwd", 1)], "K2f": [("long_dq", 1)], "K2g": [("long_dkv", 1)],
         "K3": [("add_layernorm", 1), ("add_layernorm", 2)],
@@ -188,6 +205,41 @@ def bound_of(nbytes: float, flops: float, flops_per_s: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_bound(fa, bh: int, s_len: int, d: int, dtype, causal: bool, backward: bool = False,
+                part=None) -> dict:
+    """A flash launch's bound: bf16 at the bf16 tensor-core rate, f32 at the
+    3xTF32 one, and for f32 also the bound of the same work as FFMA on the
+    CUDA cores (``ffma_bound_ms``)."""
+    import torch
+
+    flops = fa.flash_flops(bh, s_len, d, causal, backward, part)
+    nbytes = fa.flash_bytes(bh, s_len, d, dtype, backward, part)
+    f32 = dtype == torch.float32
+    b_ms, b_by = bound_of(nbytes, flops, TF32X3_FLOPS if f32 else BF16_FLOPS)
+    return dict(bound_ms=b_ms, bound_by=b_by,
+                ffma_bound_ms=bound_of(nbytes, flops, F32_FLOPS)[0] if f32 else None)
+
+
+def shares(row: dict) -> str:
+    """The share of the bound a timed row reached, and of the FFMA bound for
+    an f32 flash row."""
+    text = f"share_of_bound={row['bound_ms'] / row['ms']:.4f}"
+    if row.get("ffma_bound_ms"):
+        text += f" ffma_share={row['ffma_bound_ms'] / row['ms']:.4f}"
+    return text
+
+
+def tf32_checks(fc, q, k, v, causal: bool, scale: float, o_want, tol: dict, limit: float,
+                label: str) -> list:
+    """Checks of the f32 forward with each product in 3 TF32 products (the
+    kernel's arithmetic: read only) and in 1 (a kernel that ran plain TF32:
+    a wrong variant the limits must reject)."""
+    return [(f"flash o {label}, {terms}xTF32 emulated",
+             readings(fc.flash_fwd_emulated(q, k, v, causal, scale, terms)[0], o_want, **tol),
+             limit, sound)
+            for terms, sound in ((3, None), (1, False))]
 
 
 def all_counts(modules) -> dict:
@@ -616,6 +668,8 @@ def phase_train_kernels(torch, ce, fa):
     """Phase 6: K1a/K1b and the flash pair against their plain twins."""
     import torch.nn.functional as F
 
+    from pytorch_distributed_training_tpu_torch.tools import flash_checks as fc
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -708,6 +762,9 @@ def phase_train_kernels(torch, ce, fa):
         for what, a, c in zip(("o", "dq", "dk", "dv"), (o_k, *g_k), (o_p, *g_p)):
             checks.append((f"flash {what} {shape} {dt} causal={causal}",
                            readings(a, c, **tol), limit[what], True))
+        if dtype == torch.float32:
+            checks += tf32_checks(fc, q, k, v, causal, scale, o_p, tol, limit["o"],
+                                  f"{shape} {dt} causal={causal}")
         if (b, h, s_len) == (8, 16, 2048):
             # wrong variants the limits must reject: 64 key rows left out
             # of the forward's K loop, 64 query rows out of dK/dV's Q loop,
@@ -745,7 +802,6 @@ def phase_train_kernels(torch, ce, fa):
                 raise AssertionError(f"flash dq {shape}: two launches differ")
             say(f"  flash dq {shape} {dt}: two launches bitwise equal")
             del do_cut, delta_cut, dk_cut, dv_cut, unrounded, o_unrounded, dq_again
-        rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
         fwd = lambda: fa.flash_forward(q, k, v, causal, scale)  # noqa: E731
         bwd = lambda: fa.flash_backward(q, k, v, do, lse_p, delta, causal, scale)  # noqa: E731
         qs, ks, vs = (x.view(b, h, s_len, d) for x in (q, k, v))
@@ -761,13 +817,11 @@ def phase_train_kernels(torch, ce, fa):
              max(err(a, c) for a, c in zip(g_k, g_p)), True,
              lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)),
         ):
-            b_ms, b_by = bound_of(fa.flash_bytes(bh, s_len, d, dtype, backward),
-                                  fa.flash_flops(bh, s_len, d, causal, backward), rate)
             rows[name].append(dict(
                 shape=shape, dtype=dt, causal=causal, max_abs_err=e,
                 ms=time_ms(torch, kernel, flush), call_ms=call_ms(torch, kernel),
-                plain_ms=time_ms(torch, plain, flush), bound_ms=b_ms, bound_by=b_by,
-                library_ms=time_ms(torch, lib, flush)))
+                plain_ms=time_ms(torch, plain, flush), library_ms=time_ms(torch, lib, flush),
+                **flash_bound(fa, bh, s_len, d, dtype, causal, backward)))
         if (b, h, s_len) == (8, 16, 2048):
             # K2c's two launches apart, each beside its own bound; plain and
             # library times are the whole backward's (one call computes dq,
@@ -781,13 +835,11 @@ def phase_train_kernels(torch, ce, fa):
                  lambda: fa.flash_backward_dq(q, k, v, do, lse_p, delta, causal, scale),
                  err(g_k[0], g_p[0])),
             ):
-                b_ms, b_by = bound_of(fa.flash_bytes(bh, s_len, d, dtype, part=part),
-                                      fa.flash_flops(bh, s_len, d, causal, part=part), rate)
                 rows[name].append(dict(
                     shape=shape, dtype=dt, causal=causal, max_abs_err=e,
                     ms=time_ms(torch, kernel, flush), call_ms=call_ms(torch, kernel),
-                    plain_ms=whole["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                    library_ms=whole["library_ms"]))
+                    plain_ms=whole["plain_ms"], library_ms=whole["library_ms"],
+                    **flash_bound(fa, bh, s_len, d, dtype, causal, part=part)))
         del q, k, v, do, o4, q4, k4, v4
         torch.cuda.empty_cache()
     judge(checks)
@@ -795,7 +847,7 @@ def phase_train_kernels(torch, ce, fa):
         for c in cases:
             say(f"  {name} {c['shape']} {c['dtype']}: kernel_ms={c['ms']} "
                 f"plain_ms={c['plain_ms']} library_ms={c['library_ms']} "
-                f"bound_ms={c['bound_ms']} ({c['bound_by']}) call_ms={c['call_ms']} "
+                f"bound_ms={c['bound_ms']} ({c['bound_by']}) {shares(c)} call_ms={c['call_ms']} "
                 f"max_abs_err={c['max_abs_err']}")
 
     # what the kernels do not take raises; nothing falls back to the plain twin
@@ -877,6 +929,8 @@ def phase_long_kernels(torch, fa):
     wrong variants that must be rejected; each launch timed."""
     import torch.nn.functional as F
 
+    from pytorch_distributed_training_tpu_torch.tools import flash_checks as fc
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -910,6 +964,8 @@ def phase_long_kernels(torch, fa):
         for what, a, c in (("o", o_k, o_p), ("dq", dq_k, dq_p), ("dk", dk_k, dk_p),
                            ("dv", dv_k, dv_p)):
             checks.append((f"flash {what} {label}", readings(a, c, **tol), limit[what], True))
+        if dtype == torch.float32:
+            checks += tf32_checks(fc, q, k, v, causal, scale, o_p, tol, limit["o"], label)
         # wrong variants the limits must reject, each what a kernel with 64
         # rows too few in its loop returns: the diagonal 64-key block left
         # out of the forward (rows past the first 64: those have no other),
@@ -964,7 +1020,6 @@ def phase_long_kernels(torch, fa):
         plain_bwd = time_ms(torch, lambda: fa.flash_bwd_plain(q, k, v, do, lse_p, delta, causal,
                                                               scale), flush, 2 if long else reps,
                             warm)
-        rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
         for name, part, kernel, plain_ms, e, lib in (
             ("long_fwd", None, lambda: fa.flash_forward(q, k, v, causal, scale),
              time_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, causal, scale), flush,
@@ -977,14 +1032,12 @@ def phase_long_kernels(torch, fa):
                                                               scale),
              plain_bwd, max(err(dk_k, dk_p), err(dv_k, dv_p)), lib_bwd),
         ):
-            b_ms, b_by = bound_of(fa.flash_bytes(bh, s_len, d, dtype, part=part),
-                                  fa.flash_flops(bh, s_len, d, causal, part=part), rate)
             rows[name].append(dict(
                 shape=shape, dtype=dt, causal=causal,
                 tpu_kernel=tpu["forward" if part is None else part], max_abs_err=e,
                 ms=time_ms(torch, kernel, flush, reps, warm),
-                call_ms=call_ms(torch, kernel, calls), plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib))
+                call_ms=call_ms(torch, kernel, calls), plain_ms=plain_ms, library_ms=lib,
+                **flash_bound(fa, bh, s_len, d, dtype, causal, part=part)))
         del q, k, v, do, q4, k4, v4, o_k, o_p, dq_k, dk_k, dv_k, dq_p, dk_p, dv_p
         torch.cuda.empty_cache()
     judge(checks)
@@ -992,7 +1045,7 @@ def phase_long_kernels(torch, fa):
         for c in cases:
             say(f"  {name} ({c['tpu_kernel']}) {c['shape']} {c['dtype']}: kernel_ms={c['ms']} "
                 f"plain_ms={c['plain_ms']} library_ms={c['library_ms']} "
-                f"bound_ms={c['bound_ms']} ({c['bound_by']}) call_ms={c['call_ms']} "
+                f"bound_ms={c['bound_ms']} ({c['bound_by']}) {shares(c)} call_ms={c['call_ms']} "
                 f"max_abs_err={c['max_abs_err']}")
     del flush
     torch.cuda.empty_cache()
@@ -1000,10 +1053,11 @@ def phase_long_kernels(torch, fa):
 
 
 def phase_runner(torch, modules, config: str, name: str, per_step: dict,
-                 per_val_batch: dict):
-    """Phases 8 and 11: the training runner on ``config`` for 6 steps and
-    one validation of 2 batches, with exact launch counts per step and per
-    validation batch (keys missing from the dicts count 0)."""
+                 per_val_batch: dict, steps: int = 6, dtype=None):
+    """Phases 8, 11 and 12: the training runner on ``config`` (its
+    ``training.dtype`` replaced by ``dtype`` if given) for ``steps`` steps
+    and one validation of 2 batches, with exact launch counts per step and
+    per validation batch (keys missing from the dicts count 0)."""
     import math
 
     from functools import partial
@@ -1013,8 +1067,9 @@ def phase_runner(torch, modules, config: str, name: str, per_step: dict,
     from pytorch_distributed_training_tpu_torch.logger import MultiProcessLoggerListener
 
     cfg = get_cfg(config)
-    steps = 6
     cfg["training"].update(train_iters=steps, print_interval=1, val_interval=steps)
+    if dtype is not None:
+        cfg["training"]["dtype"] = dtype
     cfg["dataset"]["n_samples"] = 2 * cfg["training"]["batch_size"]  # 2 val batches
     marks = []
 
@@ -1085,9 +1140,29 @@ def phase_profile_train(torch, runner, label: str):
     profile_window(torch, label, lambda: runner.train_step(tokens, labels), 20)
 
 
+def phase_f32_runner(torch, modules):
+    """Phase 12: the trainer at its default dtype, f32, on the LM-1024
+    config: every flash launch is an f32 one (K2a forward, K2d/K2e split
+    backward, as the JAX package dispatches f32 at S = 2048)."""
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
+
+    depth = get_cfg(TRAIN_CONFIG)["model"]["depth"]
+    _, counts, f32 = phase_runner(
+        torch, modules, TRAIN_CONFIG, "train-lm-1024-f32", steps=3, dtype="float32",
+        per_step=dict(add_layernorm=depth, bias_gelu=depth, ce_fwd=1, ce_bwd=1,
+                      flash_fwd=depth, flash_bwd=2 * depth, K2a=depth, K2d=depth, K2e=depth),
+        per_val_batch=dict(add_layernorm=depth, bias_gelu=depth, ce_fwd=1, flash_fwd=depth,
+                           K2a=depth))
+    say("f32_runner: " + json.dumps(f32))
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true")
+    parser.add_argument("--f32-runner", action="store_true",
+                        help="phases 1, 2 and 12 only (no result line)")
     args = parser.parse_args(argv)
 
     import torch
@@ -1123,6 +1198,12 @@ def main(argv=None) -> int:
         say(f"  built {name} in {secs:.1f} s -> {kernels.library_path(name)}")
         for line in ptxas_report(kernels.build_logs.get(name, "")):
             say(f"    {line}")
+
+    if args.f32_runner:
+        say("== phase 12: main path (training runner, full width, float32)")
+        phase_f32_runner(torch, modules)
+        say(smi)
+        return 0
 
     say("== phase 3: kernels against their plain twins")
     cases = phase_kernels(torch, fe)
@@ -1199,8 +1280,11 @@ def main(argv=None) -> int:
     runner = None
     torch.cuda.empty_cache()
 
+    say("== phase 12: main path (training runner, full width, float32)")
+    paths["f32_runner"] = by_tpu_kernel(phase_f32_runner(torch, modules))
+
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "call_ms")
+            "library_ms", "call_ms", "ffma_bound_ms")
     summary = []
     for tpu, (replaces, src, cuda_kernel, (case, idx), path) in TPU_KERNELS.items():
         if paths[path][tpu] == 0:

@@ -6,7 +6,7 @@
 // lse and delta are [BH, S] f32. D is 64 or 128; S is a multiple of 128 in
 // bf16 (the tiles of the TMA kernels) and of 64 in f32.
 //
-// The forward (pdt_flash_fwd: flash_fwd_bf16_kernel, flash_fwd_f32_kernel)
+// The forward (pdt_flash_fwd: flash_fwd_bf16_kernel, flash_fwd_3xtf32_kernel)
 // stands in for both TPU forwards, `_fwd_kernel`
 // (pytorch_distributed_training_tpu/ops/flash_attention.py:178, launched at
 // :651), which holds the whole K/V rows in VMEM, and `_fwd_stream_kernel`
@@ -37,8 +37,12 @@
 //   the scale multiplies s after the dot, in f32 (:206-207); p is rounded to
 //   bf16 before PV and before dV (:216, :327); ds is rounded to bf16 before
 //   dK and dQ (:335).
-// - f32 inputs: f32 FMA on the CUDA cores, no TF32; q * scale before the dot
-//   in the forward (:188), scale * (q . k) in the backward (:256, :319).
+// - f32 inputs: q * scale before the dot in the forward (:188), scale *
+//   (q . k) in the backward (:256, :319); p stays f32 into P V (:216). The
+//   forward runs on the tensor cores in 3xTF32 (each f32 operand split into
+//   a TF32 part and a TF32 remainder, three TF32 products a step, each
+//   product off by about 2^-22 of its size); dQ and dK/dV run f32 FMA on
+//   the CUDA cores.
 //
 // Bound: operations (`flash_flops` in ops/flash_attention.py: 2 S D
 // multiply-adds x 2 per kept (query, key) pair and product; the forward has
@@ -46,7 +50,8 @@
 // causal) the forward is 68.7 GFLOP (0.069 ms at 989 TFLOP/s bf16) against
 // 135 MB of traffic (0.04 ms at 3.35 TB/s); dK/dV is 137.4 GFLOP, dQ 103.1
 // GFLOP (0.104 ms) against 170 MB (0.05 ms). In f32 the same work runs at
-// most at 67 TFLOP/s.
+// most at 494.7 / 3 = 164.9 TFLOP/s (3xTF32 on the tensor cores: 0.417 ms
+// for that forward), and at 67 TFLOP/s as FFMA on the CUDA cores.
 //
 // bf16 forward, dK/dV and dQ, designed for Hopper. 384 threads: warpgroup 0
 // produces (one thread issues every copy; setmaxnreg hands its registers
@@ -94,7 +99,7 @@
 //   tile 2 qt + 1 (all masked for its rows) but still waits on it and frees
 //   its stage. Blocks take the longest rows first. dq is rounded once and written by the block that
 //   owns its rows: no atomics, so it repeats bit for bit.
-// f32 design: see the f32 section.
+// f32 designs: see the f32 sections (the 3xTF32 forward, the FFMA backward).
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
@@ -825,7 +830,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------------
-// f32: tiled kernels on the CUDA cores (FFMA; TF32 would round the operands)
+// f32 dQ and dK/dV: tiled kernels on the CUDA cores (FFMA)
 //
 // A block of 256 threads owns one 64-row tile. Every product it computes is
 // a 64 x 64 (or 64 x D) output; thread (ty, tx) = (tid / 16, tid % 16)
@@ -911,18 +916,6 @@ __device__ __forceinline__ void store_t(float* dst, const float (&v)[4][4], int 
   }
 }
 
-__device__ __forceinline__ float max16(float v) {
-#pragma unroll
-  for (int off = 1; off < 16; off <<= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float sum16(float v) {
-#pragma unroll
-  for (int off = 1; off < 16; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // a [kTile, D] tile of a row-major f32 output from acc[g][i][c] (row
 // ty*4 + i, column g*64 + tx*4 + c), each value divided by div[i]
 template <int D>
@@ -940,89 +933,12 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 64
 }
 
 template <int D>
-constexpr int fwd_f32_smem_bytes() {
-  return (3 * D * kTile + kTile * kLdP) * 4;
-}
-template <int D>
 constexpr int dq_f32_smem_bytes() {
   return (5 * D * kTile + kTile * kLdP) * 4;
 }
 template <int D>
 constexpr int dkv_f32_smem_bytes() {
   return (6 * D * kTile + kTile * kLdP) * 4;
-}
-
-// forward: the block owns Q tile qt and streams K/V tiles up to the diagonal
-template <int D>
-__global__ void __launch_bounds__(kThreadsF32)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int seq, float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qt_s = reinterpret_cast<float*>(smem_raw);  // [D][kTile], q * scale
-  float* kt_s = qt_s + D * kTile;                    // [D][kTile]
-  float* v_s = kt_s + D * kTile;                     // [kTile][D]
-  float* pt_s = v_s + kTile * D;                     // [kTile keys][kLdP]
-  const int n_tiles = seq / kTile;
-  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);  // longest rows first
-  const size_t head = static_cast<size_t>(blockIdx.y) * seq * D;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  load_f32_t<D>(qt_s, q + head + static_cast<size_t>(qt) * kTile * D, scale);
-  float acc[D / 64][4][4];
-  zero(acc);
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = kNeg, l[i] = 0.f;
-  const int last = causal ? qt : n_tiles - 1;
-  for (int j = 0; j <= last; ++j) {
-    __syncthreads();  // the previous tile and its P are consumed
-    const size_t off = head + static_cast<size_t>(j) * kTile * D;
-    load_f32_t<D>(kt_s, k + off, 1.f);
-    load_f32<D>(v_s, v + off);
-    __syncthreads();
-    float s[4][4] = {};
-    ffma_tile<D>(s, qt_s, kTile, kt_s, kTile, ty, tx);
-    const bool diag = causal && j == qt;
-    float alpha[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = m[i];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        if (diag && tx * 4 + jj > ty * 4 + i) s[i][jj] = kNeg;
-        mx = fmaxf(mx, s[i][jj]);
-      }
-      mx = max16(mx);
-      alpha[i] = expf(m[i] - mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        s[i][jj] = expf(s[i][jj] - mx);
-        rs += s[i][jj];
-      }
-      l[i] = alpha[i] * l[i] + sum16(rs);
-      m[i] = mx;
-    }
-    store_t(pt_s, s, ty, tx);
-#pragma unroll
-    for (int g = 0; g < D / 64; ++g) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[g][i][c] *= alpha[i];
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int g = 0; g < D / 64; ++g) ffma_tile<kTile>(acc[g], pt_s, kLdP, v_s + g * 64, D, ty, tx);
-  }
-  store_rows<D>(o + head + static_cast<size_t>(qt) * kTile * D, acc, l, ty, tx);
-  if (tx == 0) {
-    float* lr = lse + static_cast<size_t>(blockIdx.y) * seq + qt * kTile + ty * 4;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) lr[i] = m[i] + logf(l[i]);
-  }
 }
 
 // dQ: the block owns Q tile qt and streams K/V tiles up to the diagonal
@@ -1154,6 +1070,294 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
+// f32 forward on the tensor cores: 3xTF32 with mma.sync m16n8k8
+//
+// Replaces the tiled FFMA forward, which reached 39% of the 67 TFLOP/s of
+// the CUDA cores. The tensor cores multiply TF32 (10 mantissa bits) at
+// 494.7 TFLOP/s dense, so an f32-accurate product taken as three TF32
+// products runs at up to 164.9: each operand x is split into big = tf32(x)
+// and small = tf32(x - big), both rounded to nearest with ties away from
+// zero (the bits of cvt.rna.tf32.f32), and a step adds a_small b_big +
+// a_big b_small + a_big b_big, the small products first (CUTLASS's
+// OpMultiplyAddFastF32, which PyTorch's own f32 attention takes on sm80
+// and later). big + small is x within 2^-22 |x|; the dropped a_small
+// b_small is below 2^-22 of the product. tools/flash_checks.py repeats this
+// arithmetic in PyTorch.
+//
+// A block of 4 warps owns a 64-row Q tile, 16 rows a warp, and streams
+// K/V tiles of kKeys rows (32 at D = 64, 64 at D = 128) through a 2-stage
+// cp.async ring: 16-byte cp.async.cg copies, one commit group and one
+// barrier a tile; the copy of tile j + 1 is issued after the barrier that
+// ends every warp's use of its stage, and runs under tile j's math. At
+// D = 64 three blocks fit an SM (68 KB of shared memory, at most 168
+// registers by the launch bounds; 64-key tiles fit two and ran 8% slower on
+// the H100), at D = 128 one.
+// Tiles keep their row-major layout with rows padded to D + 4 floats, so
+// that every fragment load below is free of bank conflicts ((4 g + t) and
+// (8 t + g) cover the 32 banks). mma.sync reads its operands from
+// registers, which each lane loads from shared memory by itself: no
+// transposed copy, no swizzle, no TMA.
+//
+// Fragments of m16n8k8 (g = lane / 4, t = lane % 4): A a0..a3 = A[g][t],
+// A[g + 8][t], A[g][t + 4], A[g + 8][t + 4]; B b0, b1 = B[t][g], B[t + 4][g];
+// C c0..c3 = C[g][2t], C[g][2t + 1], C[g + 8][2t], C[g + 8][2t + 1].
+// - S = Q K^T: A is q * scale, split once into two shared-memory planes
+//   (big and small) that the warps read a k-step at a time; B[t][g] is
+//   K[g][t], read from the K tile and split per warp.
+// - O += P V: P stays in the registers of S's C fragments. A product
+//   contracts over the 8 keys of a step in any order, so the step takes
+//   key 2t as its k = t and key 2t + 1 as its k = t + 4: then A is
+//   {c0, c2, c1, c3} of S's fragment as it stands (no shuffle, no shared
+//   memory), and B is V[2t][g], V[2t + 1][g] of the V tile.
+// The tensor cores add an mma.sync's products into its f32 accumulator by
+// truncation, not to nearest as an FFMA rounds, so a long chain of them into
+// one accumulator drifts: with O accumulated across all K/V tiles, o was off
+// from the twin by 5.4e-5 (norm-relative) at S = 32768, over the 1e-5
+// limit. Each tile's P V therefore starts from zero (64 columns of O at a
+// time) and is added to O by an f32 FMA, O = alpha O + P V, as the FFMA
+// kernel rounded: 1.4e-6 there. The two small products of a step go to an
+// accumulator of their own, added to the big one once a tile: the two
+// chains no longer wait on each other, and the small sums are not truncated
+// at the big one's exponent (3-4% faster on the H100, and o 5.0e-7 from the
+// twin, not 7.5e-7, at [8, 16, 2048, 64]). Splitting K and V once a stage
+// into shared planes instead of per warp ran 16% slower (two barriers a
+// tile, two blocks an SM at D = 64).
+// Online softmax in registers: a row's scores of a tile lie in the 4 lanes
+// of a quad (rows g and g + 8), reduced with two xor shuffles; expf and
+// logf as in the FFMA kernel; the -1e30 mask on the tiles the diagonal
+// crosses only.
+
+constexpr int kThreads3x = 128;  // 4 warps, 16 query rows each
+
+template <int D>
+struct Fwd3xLayout {
+  static constexpr int kKeys = D == 64 ? 32 : 64;  // K/V rows a tile
+  static constexpr int kLd = D + 4;  // floats a staged row
+  static constexpr int kKvFloats = kKeys * kLd;
+  static constexpr int kQFloats = kTile * kLd;
+  // 2 stages of K and V, then Q's big and small planes
+  static constexpr int kBytes = (4 * kKvFloats + 2 * kQFloats) * 4;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// a [R, D] tile of a row-major [S, D] f32 matrix into shared memory with
+// rows of D + 4 floats, 16 bytes a copy, neighbouring threads on
+// neighbouring addresses
+template <int R, int D>
+__device__ __forceinline__ void stage_f32(float* dst, const float* src) {
+#pragma unroll
+  for (int i = 0; i < R * D / 4 / kThreads3x; ++i) {
+    const int c = threadIdx.x + i * kThreads3x;
+    const int r = c / (D / 4), col = (c % (D / 4)) * 4;
+    cp_async16(dst + r * (D + 4) + col, src + static_cast<size_t>(r) * D + col);
+  }
+}
+
+// x rounded to TF32, to nearest with ties away from zero: the bits of
+// cvt.rna.tf32.f32 for every finite x (adding half a TF32 ulp to the
+// magnitude bits carries into the kept ones exactly when x rounds up) in two
+// integer instructions, where ptxas spends four on the cvt and its NaN test
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small within 2^-22 |x|, both TF32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// a b in 3xTF32: c_small += a_small b_big + a_big b_small (the small
+// products first), c += a_big b_big; the caller adds c_small to c
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], float (&c_small)[4],
+                                           const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4], float b0, float b1) {
+  uint32_t big[2], small[2];
+  split_tf32(b0, big[0], small[0]);
+  split_tf32(b1, big[1], small[1]);
+  mma_tf32(c_small, a_small, big);
+  mma_tf32(c_small, a_big, small);
+  mma_tf32(c, a_big, big);
+}
+
+// the block owns Q tile qt and streams K/V tiles up to the diagonal
+template <int D>
+__global__ void __launch_bounds__(kThreads3x, D == 64 ? 3 : 1)
+flash_fwd_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int seq, float scale, int causal) {
+  using L = Fwd3xLayout<D>;
+  constexpr int kLd = L::kLd, kKeys = L::kKeys;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);  // [stage][K, V][kKeys][kLd]
+  float* q_big = ring + 4 * L::kKvFloats;            // [kTile][kLd] each
+  float* q_small = q_big + L::kQFloats;
+  const int qt = seq / kTile - 1 - static_cast<int>(blockIdx.x);  // longest rows first
+  const size_t head = static_cast<size_t>(blockIdx.y) * seq * D;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int row = warp * 16 + g;  // this lane's first row in the tile; the second is row + 8
+  const int q_row = qt * kTile + row;
+  // the last K/V tile: causal, the one that holds the tile's last row
+  const int last = causal ? ((qt + 1) * kTile - 1) / kKeys : seq / kKeys - 1;
+
+  auto stage_kv = [&](int j) {
+    float* dst = ring + (j & 1) * 2 * L::kKvFloats;
+    const size_t off = head + static_cast<size_t>(j) * kKeys * D;
+    stage_f32<kKeys, D>(dst, k + off);
+    stage_f32<kKeys, D>(dst + L::kKvFloats, v + off);
+    cp_async_commit();
+  };
+  stage_kv(0);
+
+  // q * scale split into two planes; the loop's first barrier publishes them
+  const float* q_tile = q + head + static_cast<size_t>(qt) * kTile * D;
+#pragma unroll
+  for (int i = 0; i < kTile * D / 4 / kThreads3x; ++i) {
+    const int c = threadIdx.x + i * kThreads3x;
+    const int r = c / (D / 4), col = (c % (D / 4)) * 4;
+    const float4 x = ld4(q_tile + static_cast<size_t>(r) * D + col);
+    const float xs[4] = {x.x * scale, x.y * scale, x.z * scale, x.w * scale};
+    uint32_t big[4], small[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(xs[e], big[e], small[e]);
+    *reinterpret_cast<uint4*>(q_big + r * kLd + col) = make_uint4(big[0], big[1], big[2], big[3]);
+    *reinterpret_cast<uint4*>(q_small + r * kLd + col) =
+        make_uint4(small[0], small[1], small[2], small[3]);
+  }
+
+  float acc[D / 8][4] = {};  // O: rows row, row + 8; columns 8 n + 2 t, + 1
+  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
+  for (int j = 0; j <= last; ++j) {
+    cp_async_wait_all();  // this thread's copies of tile j
+    __syncthreads();      // everyone's; and every warp is done with tile j - 1
+    if (j < last) stage_kv(j + 1);
+    const float* k_s = ring + (j & 1) * 2 * L::kKvFloats;
+    const float* v_s = k_s + L::kKvFloats;
+
+    float s[kKeys / 8][4] = {};  // S: rows row, row + 8; keys 8 n + 2 t, + 1
+    float s_small[kKeys / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int at = row * kLd + 8 * kk + t;
+      const int offs[4] = {at, at + 8 * kLd, at + 4, at + 8 * kLd + 4};
+      uint32_t a_big[4], a_small[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        a_big[e] = __float_as_uint(q_big[offs[e]]);
+        a_small[e] = __float_as_uint(q_small[offs[e]]);
+      }
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n) {
+        const float* kp = k_s + (8 * n + g) * kLd + 8 * kk + t;  // B[t][g] = K[g][t]
+        mma_3xtf32(s[n], s_small[n], a_big, a_small, kp[0], kp[4]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] += s_small[n][e];
+    }
+
+    if (causal && (j + 1) * kKeys > qt * kTile) {  // tiles the diagonal crosses
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = j * kKeys + 8 * n + 2 * t + e;
+          if (key > q_row) s[n][e] = kNeg;
+          if (key > q_row + 8) s[n][2 + e] = kNeg;
+        }
+      }
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float alpha0 = expf(m0 - mx0), alpha1 = expf(m1 - mx1);
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n) {
+      s[n][0] = expf(s[n][0] - mx0);
+      s[n][1] = expf(s[n][1] - mx0);
+      s[n][2] = expf(s[n][2] - mx1);
+      s[n][3] = expf(s[n][3] - mx1);
+      rs0 += s[n][0] + s[n][1];
+      rs1 += s[n][2] + s[n][3];
+    }
+    l0 = alpha0 * l0 + quad_sum(rs0);
+    l1 = alpha1 * l1 + quad_sum(rs1);
+    m0 = mx0;
+    m1 = mx1;
+
+    // P V of this tile into a fresh accumulator, 64 columns of O at a time,
+    // then O = alpha O + P V in f32 registers (see above)
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) {
+      float pv[8][4] = {}, pv_small[8][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 8; ++kk) {
+        // keys 8 kk + 2 t and 8 kk + 2 t + 1 as k = t and t + 4 (see above)
+        uint32_t p_big[4], p_small[4];
+        split_tf32(s[kk][0], p_big[0], p_small[0]);
+        split_tf32(s[kk][2], p_big[1], p_small[1]);
+        split_tf32(s[kk][1], p_big[2], p_small[2]);
+        split_tf32(s[kk][3], p_big[3], p_small[3]);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float* vp = v_s + (8 * kk + 2 * t) * kLd + 64 * h + 8 * n + g;
+          mma_3xtf32(pv[n], pv_small[n], p_big, p_small, vp[0], vp[kLd]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float (&a)[4] = acc[8 * h + n];
+        a[0] = fmaf(a[0], alpha0, pv[n][0] + pv_small[n][0]);
+        a[1] = fmaf(a[1], alpha0, pv[n][1] + pv_small[n][1]);
+        a[2] = fmaf(a[2], alpha1, pv[n][2] + pv_small[n][2]);
+        a[3] = fmaf(a[3], alpha1, pv[n][3] + pv_small[n][3]);
+      }
+    }
+  }
+
+  float* o0 = o + head + static_cast<size_t>(q_row) * D + 2 * t;
+  float* o1 = o0 + 8 * D;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<float2*>(o0 + 8 * n) = make_float2(acc[n][0] / l0, acc[n][1] / l0);
+    *reinterpret_cast<float2*>(o1 + 8 * n) = make_float2(acc[n][2] / l1, acc[n][3] / l1);
+  }
+  if (t == 0) {
+    float* lr = lse + static_cast<size_t>(blockIdx.y) * seq + q_row;
+    lr[0] = m0 + logf(l0);
+    lr[8] = m1 + logf(l1);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 
 template <typename K>
@@ -1241,7 +1445,7 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
     return launch_tma(flash_fwd_bf16_kernel<D>, FwdLayout<D>::kBytes, seq / kRows, bh, st, qm, km,
                       vm, static_cast<bf16*>(o), l, seq, scale, causal);
   }
-  return launch(flash_fwd_f32_kernel<D>, kThreadsF32, fwd_f32_smem_bytes<D>(), seq, bh, st,
+  return launch(flash_fwd_3xtf32_kernel<D>, kThreads3x, Fwd3xLayout<D>::kBytes, seq, bh, st,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<float*>(o), l, seq, scale, causal);
 }

@@ -13,6 +13,10 @@ Port of ``pytorch_distributed_training_tpu/ops/flash_attention.py``:
   warp streams 128-row K and V tiles by TMA through a 2-stage ring of
   ``mbarrier``s; S = Q K^T is a ``wgmma`` from shared memory and O += P V a
   ``wgmma`` with bf16 P from registers and V read MN-major, untransposed.
+  In f32 (``flash_fwd_3xtf32_kernel``) a block of 4 warps owns 64 query
+  rows and streams K/V tiles through a 2-stage ``cp.async`` ring; both
+  products are ``mma.sync`` m16n8k8 in 3xTF32 on fragments each lane loads
+  from the row-major tiles, P straight from S's accumulator registers.
 - :func:`flash_backward`: ``dq, dk, dv`` recomputing ``p = exp(s - lse)``
   with ``delta = rowsum(dO * O)`` given, as two deterministic launches: a
   dK/dV kernel over K tiles (:func:`flash_backward_dkv`) and a dQ kernel over
@@ -37,10 +41,15 @@ Port of ``pytorch_distributed_training_tpu/ops/flash_attention.py``:
 Numerics follow the JAX kernels: bf16 inputs go into the tensor cores as
 bf16 with f32 accumulation, the scale multiplies ``s`` after the dot, and
 ``p`` and ``ds`` are rounded to bf16 before the products they feed; f32
-inputs stay f32 throughout (tiled FFMA, no TF32) with ``q * scale`` before
-the forward dot.  Masked scores are ``-1e30``, not ``-inf`` (``:48-50``):
-every causal row keeps at least one valid column, so no NaN can form.  The
-einsum path of :mod:`.attention` keeps its own ``-inf``.
+inputs keep f32 accuracy throughout, with ``q * scale`` before the forward
+dot and ``p`` in f32 into ``P V``.  The f32 forward
+(``flash_fwd_3xtf32_kernel``) runs on the tensor cores in 3xTF32 with
+``mma.sync`` (each operand split into a TF32 part and a TF32 remainder,
+three TF32 products a step: ``tools/flash_checks.py`` repeats that
+arithmetic); the f32 dQ and dK/dV are tiled FFMA on the CUDA cores.
+Masked scores are ``-1e30``, not ``-inf`` (``:48-50``): every causal row
+keeps at least one valid column, so no NaN can form.  The einsum path of
+:mod:`.attention` keeps its own ``-inf``.
 
 Launches are counted twice: by the port's wrapper (:func:`launch_counts`,
 ``flash_fwd`` / ``flash_bwd``) and by the TPU kernel each launch stands for

@@ -16,30 +16,39 @@ within this one process: the forward, and dK/dV and dQ apart where both
 trees have the split pair, the whole backward otherwise.  Each time is the
 median of CUDA-event timings with the L2 flushed before each launch and a
 spin kernel queued ahead of the start event, so that the events bracket
-device work only (20 launches; 5 at S >= 32768).  Prints the card's
-``nvidia-smi`` name and power limit, then one JSON line per shape.  Default
-shapes: the two training paths' [8, 16, 2048, 64] and [2, 8, 32768, 64],
-causal, and [2, 4, 512, 128] non-causal.  Needs one CUDA card and nvcc;
-exits 1 without a card, and 1 when this tree's kernels disagree with the
-twins beyond ``chip_smoke.py``'s norm limits.
+device work only (20 launches; 5 at S >= 32768).  Each time stands beside
+its bound: bf16 at the bf16 tensor-core rate, f32 at the 3xTF32 one
+(``tools/flash_checks.py``), with the bound of the same work as FFMA on the
+CUDA cores beside it in f32 (``*_ffma_bound_ms``).  Prints the card's
+``nvidia-smi`` name and power limit, then one JSON line per shape, then a
+SASS line for this tree's library (``cuobjdump -sass``): for each f32
+forward kernel, its instructions and those of its loop over K/V tiles, by
+class (HMMA, LDS, MUFU, integer and float ALU, the rest).  Default shapes:
+the two training paths' [8, 16, 2048, 64] and [2, 8, 32768, 64], causal,
+and [2, 4, 512, 128] non-causal.  Needs one CUDA card and nvcc; exits 1
+without a card, and 1 when this tree's kernels disagree with the twins
+beyond ``chip_smoke.py``'s norm limits.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 
 from .. import kernels
+from .flash_checks import FFMA_FLOPS, TF32X3_FLOPS
 
 DEFAULT_SHAPES = ("8,16,2048,64", "2,8,32768,64", "2,4,512,128,full")
 SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's clock: covers any host enqueue
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM, dense
+FLOPS_PER_S = {"bfloat16": 989e12, "float32": TF32X3_FLOPS}  # H100 SXM, dense
 # chip_smoke.py's norm-relative limits of each kernel output against its twin
 NORM_LIMIT = {"bfloat16": {"o": 3e-3, "dq": 1e-3, "dk": 1e-3, "dv": 1e-3},
               "float32": {"o": 1e-5, "dq": 1e-5, "dk": 1e-5, "dv": 1e-5}}
@@ -194,7 +203,57 @@ def measure(torch, fa, libs: dict, shape, dtype_name: str, gen, flush) -> dict:
         nbytes = fa.flash_bytes(bh, s_len, d, dtype, backward=part == "bwd", part=launch)
         row[f"{part}_bound_ms"] = max(flops / FLOPS_PER_S[dtype_name],
                                       nbytes / HBM_BYTES_PER_S) * 1e3
+        if dtype == torch.float32:
+            row[f"{part}_ffma_bound_ms"] = max(flops / FFMA_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
     return row
+
+
+# SASS opcodes by class, for the mix of a kernel's loop
+SASS_CLASSES = (("hmma", ("HMMA",)), ("lds", ("LDS",)), ("mufu", ("MUFU",)),
+                ("int_alu", ("IADD3", "VIADD", "LOP3", "IMAD", "SHF", "LEA", "ISETP", "SEL")),
+                ("float_alu", ("FADD", "FFMA", "FMUL", "FMNMX", "FSEL", "FSETP")),
+                ("cvt", ("F2F", "F2FP", "I2F", "F2I")))
+
+
+def sass_mix(text: str, name_part: str) -> dict:
+    """For each kernel in ``cuobjdump -sass`` output ``text`` whose name holds
+    ``name_part``: its instructions (NOPs left out), and those of its loop
+    by class.  The loop runs from the target of the first backward branch
+    after the kernel's first barrier (``BAR``) to that branch: the K/V tile
+    loop of a kernel whose only barrier heads the loop."""
+    out = {}
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if name_part not in name:
+            continue
+        ins = []
+        for line in part.splitlines():
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*)",
+                          line)
+            if m and not m.group(2).startswith("NOP"):
+                ins.append((int(m.group(1), 16), m.group(2).split(".")[0], m.group(3)))
+        bar = next((a for a, op, _ in ins if op == "BAR"), None)
+        loop = []
+        for addr, op, rest in ins:
+            target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" and bar is not None else None
+            if target and addr > bar and int(target.group(1), 16) <= bar:
+                loop = [o for a, o, _ in ins if int(target.group(1), 16) <= a <= addr]
+                break
+        counts = collections.Counter(loop)
+        mix = {cls: sum(counts[o] for o in ops) for cls, ops in SASS_CLASSES}
+        mix["other"] = len(loop) - sum(mix.values())
+        arg = re.search(name_part + r"ILi(\d+)E", name)
+        out[f"{name_part}<{arg.group(1)}>" if arg else name] = dict(
+            instructions=len(ins), loop_instructions=len(loop), loop_mix=mix)
+    return out
+
+
+def sass_line(lib_path: str) -> dict:
+    """The SASS line: :func:`sass_mix` of this tree's f32 forward kernels."""
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    return {"sass": sass_mix(text, "flash_fwd_3xtf32_kernel")}
 
 
 def main(argv=None) -> int:
@@ -225,6 +284,7 @@ def main(argv=None) -> int:
         agree = agree and row["within_limits"]["this"]
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()
+    print(json.dumps(sass_line(kernels.library_path("flash_attention"))), flush=True)
     return 0 if agree else 1
 
 
