@@ -41,11 +41,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    bf16 and f32 with an out-of-range label; flash forward/backward at B 8,
    H 16, S 2048, D 64 bf16 causal (the backward also as its dK/dV and dQ
    launches apart), plus D = 128 bf16 causal at [1, 8, 4096, 128], a
-   non-causal and a float32 case, and bf16 causal at [2, 4, 384, 128] and
-   [2, 4, 640, 64] (3 and 5 tiles of 128 rows); wrong variants of each
-   flash kernel must be rejected (in f32 also the forward in one TF32
-   product, ``tools/flash_checks.py``; its 3xTF32 emulation is read only),
-   and two dQ launches must be bitwise equal; f32 flash bounds at the
+   non-causal case, bf16 causal at [2, 4, 384, 128] and [2, 4, 640, 64] (3
+   and 5 tiles of 128 rows), and f32 at [2, 4, 256, 64] causal and [2, 4,
+   512, 128] non-causal; wrong variants of each flash kernel must be
+   rejected (in f32 also the forward and dK/dV in one TF32 product,
+   ``tools/flash_checks.py``, whose 3xTF32 emulations are read only, and
+   dK/dV with a Q tile or the diagonal blocks left out), and two dQ and
+   two dK/dV launches must be bitwise equal; f32 flash bounds at the
    3xTF32 tensor-core rate, with the share of the FFMA bound beside them;
    wrong dtype, wrong device and an unsupported head dim must raise;
 7. one training step at full width (depth 2, float32, TF32 off) on the card
@@ -65,12 +67,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    beside its bound, the twins and SDPA; wrong variants that leave out the
    64-row block on the diagonal, a middle block of 64 keys, the last 64
    query rows or (dQ) the diagonal block of the odd 64-row blocks, and in
-   f32 the forward in one TF32 product, must all be rejected, and two dQ
-   launches must be bitwise equal;
+   f32 the forward and dK/dV in one TF32 product, must all be rejected,
+   and two dQ and two dK/dV launches must be bitwise equal;
 10. one f32 training step of the long-context model at its widths (512, 8
     heads, vocab 8192), depth 2, seq 2048, remat on, TF32 off, card against
     CPU: loss within rtol 1e-5, every gradient within 1e-4 of its largest
-    magnitude, and the tiled f32 kernels launched (K2a 4, K2d 2, K2e 2);
+    magnitude, and the f32 kernels launched (K2a 4, K2d 2, K2e 2);
 11. the long-context main path: the runner on ``configs/train-lm-longctx.yml``
     (seq 32768, embed 512, 8 blocks, block remat, bf16) for 6 steps and one
     validation of 2 batches; every loss finite and per step exactly 1 K1a,
@@ -81,7 +83,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``configs/train-lm-1024.yml`` with ``training.dtype`` set to float32 in
     memory (full width, 16 blocks) for 3 steps and one validation of 2
     batches; per step exactly 16 f32 flash forwards (K2a,
-    ``flash_fwd_3xtf32_kernel``), 16 K2d and 16 K2e launches, besides
+    ``flash_fwd_3xtf32_kernel``), 16 K2d and 16 K2e
+    (``flash_bwd_dkv_3xtf32_kernel``) launches, besides
     K1a/K1b and 16 each of K3/K4.  Prints step ms, tokens/s and peak memory.
 
 The line before the last lists every TPU kernel (K1a ... K4) with the CUDA
@@ -134,12 +137,13 @@ TPU_KERNELS = {
             "training"),
     "K2d": (_FA + "233", "flash_attention.cu", "flash_bwd_dq_f32_kernel", ("long_dq", 2),
             "f32_runner"),
-    "K2e": (_FA + "348", "flash_attention.cu", "flash_bwd_dkv_f32_kernel", ("long_dkv", 2),
+    "K2e": (_FA + "348", "flash_attention.cu", "flash_bwd_dkv_3xtf32_kernel", ("long_dkv", 2),
             "f32_runner"),
     "K2f": (_FA + "460", "flash_attention.cu", "flash_bwd_dq_bf16_kernel", ("long_dq", 0),
             "longctx"),
-    "K2g": (_FA + "506", "flash_attention.cu", "flash_bwd_dkv_bf16_kernel", ("long_dkv", 0),
-            "longctx"),
+    "K2g": (_FA + "506", "flash_attention.cu",
+            "flash_bwd_dkv_bf16_kernel (bf16) / flash_bwd_dkv_3xtf32_kernel (f32)",
+            ("long_dkv", 0), "longctx"),
     "K3": (_TPU + "fused_elementwise.py:88", "fused_elementwise.cu", "add_layernorm_kernel",
            ("add_layernorm", 0), "training"),
     "K4": (_TPU + "fused_elementwise.py:203", "fused_elementwise.cu", "bias_gelu_kernel",
@@ -240,6 +244,20 @@ def tf32_checks(fc, q, k, v, causal: bool, scale: float, o_want, tol: dict, limi
              readings(fc.flash_fwd_emulated(q, k, v, causal, scale, terms)[0], o_want, **tol),
              limit, sound)
             for terms, sound in ((3, None), (1, False))]
+
+
+def dkv_tf32_checks(fc, q, k, v, do, lse, delta, causal: bool, scale: float, want, tol: dict,
+                    limit: dict, label: str) -> list:
+    """The same for the f32 dK/dV: dk and dv of ``tools/flash_checks.py``'s
+    emulation with each of the four products in 3 TF32 products (read only)
+    and in 1 (a wrong variant), against ``want = (dk, dv)`` of the twin."""
+    checks = []
+    for terms, sound in ((3, None), (1, False)):
+        got = fc.flash_bwd_emulated(q, k, v, do, lse, delta, causal, scale, terms)
+        for what, a, c in zip(("dk", "dv"), got, want):
+            checks.append((f"flash {what} {label}, {terms}xTF32 emulated",
+                           readings(a, c, **tol), limit[what], sound))
+    return checks
 
 
 def all_counts(modules) -> dict:
@@ -364,10 +382,12 @@ def judge(checks) -> None:
             raise AssertionError(f"{what}: {'outside' if sound else 'within'} its limits: {r}")
 
 
-def attention_dropping(torch, q, k, v, scale: float, drop, do=None, lse=None, delta=None):
-    """Causal attention of ``[BH, S, D]`` in f32 with the (query, key)
-    pairs where ``drop(rows, cols)`` is True left out: without ``do``, the
-    ``o`` a forward kernel that skipped those pairs would return; with
+def attention_dropping(torch, q, k, v, scale: float, drop, do=None, lse=None, delta=None,
+                       causal: bool = True):
+    """Attention of ``[BH, S, D]`` in f32 (causal unless said otherwise)
+    with the (query, key) pairs where ``drop(rows, cols)`` is True left
+    out: without ``do``, the ``o`` a forward kernel that skipped those
+    pairs would return; with
     ``do``, ``lse`` and ``delta``, the ``(dq, dk, dv)`` of a backward kernel
     that skipped them (p from the given lse).  Chunked over heads and query
     rows, as the plain twins are, so that S = 32768 fits."""
@@ -382,7 +402,9 @@ def attention_dropping(torch, q, k, v, scale: float, drop, do=None, lse=None, de
         for r in range(0, s_len, rows):
             rs = slice(r, r + rows)
             ridx = torch.arange(r, min(r + rows, s_len), device=q.device)[:, None]
-            keep = (cols[None, :] <= ridx) & ~drop(ridx, cols[None, :])
+            keep = ~drop(ridx, cols[None, :])
+            if causal:
+                keep &= cols[None, :] <= ridx
             qc = q[hs, rs].float()
             sc = torch.matmul(qc, kc.transpose(-1, -2)) * scale
             if do is None:
@@ -415,6 +437,15 @@ def dq_variants(torch, q, k, v, do, lse, delta, scale) -> list:
                 (f"K tile {mid} skipped", lambda r, c: (tile_of(c) == mid) & (tile_of(r) > mid)),
                 ("second diagonal block skipped",
                  lambda r, c: (tile_of(c) == tile_of(r)) & (tile_of(r) % 2 == 1)))]
+
+
+def dkv_repeats(torch, fa, got, args, label: str) -> None:
+    """A second dK/dV launch on ``args`` must give ``got = (dk, dv)`` bit
+    for bit: one block owns each key row, no atomics."""
+    again = fa.flash_backward_dkv(*args)
+    if not all(torch.equal(a, b) for a, b in zip(again, got)):
+        raise AssertionError(f"flash dk/dv {label}: two launches differ")
+    say(f"  flash dk/dv {label}: two launches bitwise equal")
 
 
 def expect_raise(exc, fn, what: str) -> None:
@@ -738,14 +769,16 @@ def phase_train_kernels(torch, ce, fa):
     torch.cuda.empty_cache()
 
     # --- flash: the main path's B 8 H 16 S 2048 D 64 bf16 causal first, then
-    # D = 128 causal over 32 tiles and non-causal, f32, and two causal shapes
-    # whose 128-row tile counts (3 and 5) are not powers of two
+    # D = 128 causal over 32 tiles and non-causal, f32, two causal shapes
+    # whose 128-row tile counts (3 and 5) are not powers of two, and f32 at
+    # D = 128 non-causal
     for b, h, s_len, d, dtype, causal in ((8, 16, 2048, 64, torch.bfloat16, True),
                                           (1, 8, 4096, 128, torch.bfloat16, True),
                                           (2, 4, 512, 128, torch.bfloat16, False),
                                           (2, 4, 256, 64, torch.float32, True),
                                           (2, 4, 384, 128, torch.bfloat16, True),
-                                          (2, 4, 640, 64, torch.bfloat16, True)):
+                                          (2, 4, 640, 64, torch.bfloat16, True),
+                                          (2, 4, 512, 128, torch.float32, False)):
         bh = b * h
         q, k, v, do = (torch.randn(bh, s_len, d, generator=gen, device=dev).to(dtype)
                        for _ in range(4))
@@ -763,8 +796,27 @@ def phase_train_kernels(torch, ce, fa):
             checks.append((f"flash {what} {shape} {dt} causal={causal}",
                            readings(a, c, **tol), limit[what], True))
         if dtype == torch.float32:
-            checks += tf32_checks(fc, q, k, v, causal, scale, o_p, tol, limit["o"],
-                                  f"{shape} {dt} causal={causal}")
+            label = f"{shape} {dt} causal={causal}"
+            checks += tf32_checks(fc, q, k, v, causal, scale, o_p, tol, limit["o"], label)
+            checks += dkv_tf32_checks(fc, q, k, v, do, lse_p, delta, causal, scale, g_p[1:], tol,
+                                      limit, label)
+            # wrong variants: 64 query rows left out of dK/dV's Q loop, and
+            # the diagonal 64-row blocks left out of both backward loops
+            tile = s_len // VARIANT_ROWS // 2
+            q_rows = slice(tile * VARIANT_ROWS, (tile + 1) * VARIANT_ROWS)
+            do_cut, delta_cut = do.clone(), delta.clone()
+            do_cut[:, q_rows], delta_cut[:, q_rows] = 0, 0
+            cut = fa.flash_backward_dkv(q, k, v, do_cut, lse_p, delta_cut, causal, scale)
+            for what, a, c in zip(("dk", "dv"), cut, g_p[1:]):
+                checks.append((f"flash {what} {label}, one Q tile skipped",
+                               readings(a, c, **tol), limit[what], False))
+            wrong = attention_dropping(torch, q, k, v, scale, lambda r, c: tile_of(r) == tile_of(c),
+                                       do, lse_p, delta, causal)
+            for what, a, c in zip(("dq", "dk", "dv"), wrong, g_p):
+                checks.append((f"flash {what} {label}, diagonal tile skipped",
+                               readings(a, c, **tol), limit[what], False))
+            dkv_repeats(torch, fa, g_k[1:], (q, k, v, do, lse_p, delta, causal, scale), label)
+            del do_cut, delta_cut, cut, wrong
         if (b, h, s_len) == (8, 16, 2048):
             # wrong variants the limits must reject: 64 key rows left out
             # of the forward's K loop, 64 query rows out of dK/dV's Q loop,
@@ -796,11 +848,13 @@ def phase_train_kernels(torch, ce, fa):
             for what, a in dq_variants(torch, q, k, v, do, lse_p, delta, scale):
                 checks.append((f"flash dq, {what}", readings(a, g_p[0], **tol), limit["dq"],
                                False))
-            # one owner a row, no atomics: dq repeats bit for bit
+            # one owner a row, no atomics: dq, dk and dv repeat bit for bit
             dq_again = fa.flash_backward_dq(q, k, v, do, lse_p, delta, causal, scale)
             if not torch.equal(dq_again, g_k[0]):
                 raise AssertionError(f"flash dq {shape}: two launches differ")
             say(f"  flash dq {shape} {dt}: two launches bitwise equal")
+            dkv_repeats(torch, fa, g_k[1:], (q, k, v, do, lse_p, delta, causal, scale),
+                        f"{shape} {dt}")
             del do_cut, delta_cut, dk_cut, dv_cut, unrounded, o_unrounded, dq_again
         fwd = lambda: fa.flash_forward(q, k, v, causal, scale)  # noqa: E731
         bwd = lambda: fa.flash_backward(q, k, v, do, lse_p, delta, causal, scale)  # noqa: E731
@@ -966,6 +1020,8 @@ def phase_long_kernels(torch, fa):
             checks.append((f"flash {what} {label}", readings(a, c, **tol), limit[what], True))
         if dtype == torch.float32:
             checks += tf32_checks(fc, q, k, v, causal, scale, o_p, tol, limit["o"], label)
+            checks += dkv_tf32_checks(fc, q, k, v, do, lse_p, delta, causal, scale, (dk_p, dv_p),
+                                      tol, limit, label)
         # wrong variants the limits must reject, each what a kernel with 64
         # rows too few in its loop returns: the diagonal 64-key block left
         # out of the forward (rows past the first 64: those have no other),
@@ -986,11 +1042,12 @@ def phase_long_kernels(torch, fa):
         for what, a in dq_variants(torch, q, k, v, do, lse_p, delta, scale):
             checks.append((f"flash dq {label}, {what}", readings(a, dq_p, **tol), limit["dq"],
                            False))
-        # one owner a row, no atomics: dq repeats bit for bit
+        # one owner a row, no atomics: dq, dk and dv repeat bit for bit
         dq_again = fa.flash_backward_dq(q, k, v, do, lse_p, delta, causal, scale)
         if not torch.equal(dq_again, dq_k):
             raise AssertionError(f"flash dq {label}: two launches differ")
         say(f"  flash dq {label}: two launches bitwise equal")
+        dkv_repeats(torch, fa, (dk_k, dv_k), (q, k, v, do, lse_p, delta, causal, scale), label)
         del dq_again
         do_cut, delta_cut = do.clone(), delta.clone()
         do_cut[:, -VARIANT_ROWS:], delta_cut[:, -VARIANT_ROWS:] = 0, 0
@@ -1226,7 +1283,7 @@ def main(argv=None) -> int:
 
     say("== phase 7: full-width training step, card vs CPU")
     # f32 at S = 256: the resident forward (K2a) and the split backward
-    # (K2d dQ, K2e dK/dV) of the JAX package, here the tiled f32 kernels
+    # (K2d dQ, K2e dK/dV) of the JAX package, here the f32 kernels
     phase_step_vs_cpu(
         torch, modules, "full-width training step on the card",
         dict(vocab_size=32768, max_len=2048, embed_dim=1024, depth=2, num_heads=16,

@@ -19,7 +19,7 @@
 // applied only on the tiles the diagonal crosses.
 //
 // The backward is two launches, each deterministic: a dK/dV kernel
-// (pdt_flash_bwd_dkv: flash_bwd_dkv_bf16_kernel, _f32_kernel) that owns a K
+// (pdt_flash_bwd_dkv: flash_bwd_dkv_bf16_kernel, _3xtf32_kernel) that owns a K
 // tile and loops over Q tiles, and a dQ kernel (pdt_flash_bwd_dq:
 // flash_bwd_dq_bf16_kernel, _f32_kernel) that owns a Q tile and loops over K
 // tiles. That is the TPU's split backward, `_dkv_kernel` (:348) /
@@ -39,9 +39,9 @@
 //   dK and dQ (:335).
 // - f32 inputs: q * scale before the dot in the forward (:188), scale *
 //   (q . k) in the backward (:256, :319); p stays f32 into P V (:216). The
-//   forward runs on the tensor cores in 3xTF32 (each f32 operand split into
-//   a TF32 part and a TF32 remainder, three TF32 products a step, each
-//   product off by about 2^-22 of its size); dQ and dK/dV run f32 FMA on
+//   forward and dK/dV run on the tensor cores in 3xTF32 (each f32 operand
+//   split into a TF32 part and a TF32 remainder, three TF32 products a
+//   step, each product off by about 2^-22 of its size); dQ runs f32 FMA on
 //   the CUDA cores.
 //
 // Bound: operations (`flash_flops` in ops/flash_attention.py: 2 S D
@@ -830,10 +830,10 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------------
-// f32 dQ and dK/dV: tiled kernels on the CUDA cores (FFMA)
+// f32 dQ: a tiled kernel on the CUDA cores (FFMA)
 //
-// A block of 256 threads owns one 64-row tile. Every product it computes is
-// a 64 x 64 (or 64 x D) output; thread (ty, tx) = (tid / 16, tid % 16)
+// A block of 256 threads owns one 64-row Q tile. Every product it computes
+// is a 64 x 64 (or 64 x D) output; thread (ty, tx) = (tid / 16, tid % 16)
 // holds the 4 x 4 sub-tile at rows ty*4.., cols tx*4.. of it in registers
 // and accumulates it SGEMM-style, one rank-1 update a step: the A operand
 // is staged in shared memory as [K][rows], the B operand as [K][cols], so a
@@ -841,9 +841,9 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 // threads of a row) and issues 16 FMAs. The 16 threads that share a row are
 // 16 lanes of one warp: row max and row sum reduce with four shuffles.
 // Operands whose contraction axis is D are staged transposed ([D][64]);
-// P and dS are written to shared memory as [64][64 + 4] for the product
-// that follows. No atomics: the dK/dV kernel owns its key rows and the dQ
-// kernel its query rows, so results repeat bit for bit.
+// dS is written to shared memory as [64][64 + 4] for the product that
+// follows. No atomics: the kernel owns its query rows, so dq repeats bit
+// for bit.
 
 constexpr int kThreadsF32 = 256;  // 16 x 16 threads, a 4 x 4 sub-tile each
 constexpr int kLdP = kTile + 4;   // P / dS rows: padded, 16-byte aligned
@@ -936,10 +936,6 @@ template <int D>
 constexpr int dq_f32_smem_bytes() {
   return (5 * D * kTile + kTile * kLdP) * 4;
 }
-template <int D>
-constexpr int dkv_f32_smem_bytes() {
-  return (6 * D * kTile + kTile * kLdP) * 4;
-}
 
 // dQ: the block owns Q tile qt and streams K/V tiles up to the diagonal
 template <int D>
@@ -995,78 +991,6 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
   store_rows<D>(dq + qoff, acc, one, ty, tx);
-}
-
-// dK/dV: the block owns K tile kt and streams Q/dO tiles from the diagonal;
-// every product is computed transposed (rows = keys)
-template <int D>
-__global__ void __launch_bounds__(kThreadsF32)
-flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv, int seq,
-                         float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* kt_s = reinterpret_cast<float*>(smem_raw);  // [D][kTile]
-  float* vt_s = kt_s + D * kTile;                    // [D][kTile]
-  float* qt_s = vt_s + D * kTile;                    // [D][kTile]
-  float* dot_s = qt_s + D * kTile;                   // [D][kTile]
-  float* q_s = dot_s + D * kTile;                    // [kTile][D]
-  float* do_s = q_s + kTile * D;                     // [kTile][D]
-  float* ps_s = do_s + kTile * D;                    // [kTile queries][kLdP]: P, then dS
-  const int n_tiles = seq / kTile;
-  const int kt = blockIdx.x;  // causal: low K tiles see the most Q tiles
-  const size_t head = static_cast<size_t>(blockIdx.y) * seq * D;
-  const float* lse_h = lse + static_cast<size_t>(blockIdx.y) * seq;
-  const float* delta_h = delta + static_cast<size_t>(blockIdx.y) * seq;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  const size_t koff = head + static_cast<size_t>(kt) * kTile * D;
-  load_f32_t<D>(kt_s, k + koff, 1.f);
-  load_f32_t<D>(vt_s, v + koff, 1.f);
-  float dk_acc[D / 64][4][4], dv_acc[D / 64][4][4];
-  zero(dk_acc);
-  zero(dv_acc);
-  for (int qi = causal ? kt : 0; qi < n_tiles; ++qi) {
-    __syncthreads();
-    const size_t off = head + static_cast<size_t>(qi) * kTile * D;
-    load_f32_t<D>(qt_s, q + off, 1.f);
-    load_f32_t<D>(dot_s, dout + off, 1.f);
-    load_f32<D>(q_s, q + off);
-    load_f32<D>(do_s, dout + off);
-    const float4 l4 = ld4(lse_h + qi * kTile + tx * 4), d4 = ld4(delta_h + qi * kTile + tx * 4);
-    const float lq[4] = {l4.x, l4.y, l4.z, l4.w}, dl[4] = {d4.x, d4.y, d4.z, d4.w};
-    __syncthreads();
-    // s^T = K Q^T and dp^T = V dO^T: [key ty*4 + i][query tx*4 + jj]
-    float st[4][4] = {}, dpt[4][4] = {};
-    ffma_tile<D>(st, kt_s, kTile, qt_s, kTile, ty, tx);
-    ffma_tile<D>(dpt, vt_s, kTile, dot_s, kTile, ty, tx);
-    const bool diag = causal && qi == kt;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        st[i][jj] = (diag && tx * 4 + jj < ty * 4 + i) ? 0.f : expf(scale * st[i][jj] - lq[jj]);
-      }
-    }
-    store_t(ps_s, st, ty, tx);  // P [query][key]
-    __syncthreads();
-#pragma unroll
-    for (int g = 0; g < D / 64; ++g) ffma_tile<kTile>(dv_acc[g], ps_s, kLdP, do_s + g * 64, D, ty, tx);
-    __syncthreads();  // P is consumed; dS takes its place
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) st[i][jj] = st[i][jj] * (dpt[i][jj] - dl[jj]) * scale;
-    }
-    store_t(ps_s, st, ty, tx);
-    __syncthreads();
-#pragma unroll
-    for (int g = 0; g < D / 64; ++g) ffma_tile<kTile>(dk_acc[g], ps_s, kLdP, q_s + g * 64, D, ty, tx);
-  }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<D>(dk + koff, dk_acc, one, ty, tx);
-  store_rows<D>(dv + koff, dv_acc, one, ty, tx);
 }
 
 // ---------------------------------------------------------------------------
@@ -1358,6 +1282,232 @@ flash_fwd_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k
 }
 
 // ---------------------------------------------------------------------------
+// f32 dK/dV on the tensor cores: 3xTF32 with mma.sync m16n8k8
+//
+// Replaces TPU kernels K2e and K2g in f32, `_dkv_kernel`
+// (pytorch_distributed_training_tpu/ops/flash_attention.py:348) and
+// `_dkv_stream_kernel` (:506), and the tiled FFMA dK/dV before it, which
+// reached 41% of the 67 TFLOP/s of the CUDA cores (4.95 ms against an FFMA
+// bound of 2.05 ms at [8, 16, 2048, 64] causal on the H100): only the
+// tensor cores can go below that. Bound: flash_flops(part="dkv"), four
+// products over the kept (query, key) pairs, at 164.9 TFLOP/s (3xTF32, see
+// the forward above): 0.834 ms at that shape. Every product is taken in
+// 3xTF32 as in the forward, with the same split, rounding and fragment
+// loads.
+//
+// A block of 4 warps owns a 64-row K tile, 16 keys a warp (kt =
+// blockIdx.x: causal, the low K tiles see the most Q tiles and go first),
+// and computes every product transposed, keys as rows:
+// - S^T = (scale K) Q^T and dP^T = V dO^T: A is the warp's 16 rows of K
+//   (times scale) or V, split once, before the loop, into big and small
+//   shared-memory planes with rows of D + 4 floats; B[t][g] is Q[g][t] (or
+//   dO[g][t]), read from the streamed tile as the forward reads K, and
+//   split per warp.
+// - P^T = exp(S^T - lse[query]) and dS^T = P^T (dP^T - delta[query]) scale
+//   stay in the registers of S^T's and dP^T's C fragments; the mask (p = 0
+//   where query < key, as exp(-1e30 - lse) is) only on the Q tiles the
+//   diagonal crosses.
+// - dV += P^T dO and dK += dS^T Q contract over the tile's queries: the
+//   step takes query 2t as k = t and query 2t + 1 as k = t + 4, so A is
+//   {c0, c2, c1, c3} of P^T's (dS^T's) fragment as it stands, and B is
+//   dO[2t][g], dO[2t + 1][g] (Q's), read as the forward reads V.
+// Q and dO tiles of kQ = 32 rows, with the lse and delta of those rows,
+// stream through a 2-stage cp.async ring: one commit group and one barrier
+// a tile, the copy of tile i + 1 issued after the barrier that ends every
+// warp's use of its stage. Shared memory: the four K/V planes (68 KB at
+// D = 64, 132 KB at D = 128) and the ring (34 KB, 66 KB): two blocks an SM
+// at D = 64, one at D = 128.
+// A dK/dV row sums over up to S / kQ tiles (1024 at S = 32768), and the
+// tensor cores add their products by truncation (the forward's o drifted
+// to 5.4e-5 with one chain across all tiles), so each tile's P^T dO and
+// dS^T Q start from zero, 64 columns at a time, with the small products in
+// an accumulator of their own, and are added to the running dV and dK in
+// f32. No atomics: the block owns its key rows, so dk and dv repeat bit
+// for bit.
+
+template <int D>
+struct Dkv3xLayout {
+  static constexpr int kQ = 32;               // query rows a streamed tile
+  static constexpr int kLd = D + 4;           // floats a staged row
+  static constexpr int kPlane = kTile * kLd;  // a K or V plane
+  static constexpr int kQFloats = kQ * kLd;   // a Q or dO tile
+  // a stage: Q, dO, then the kQ lse and kQ delta values of its rows
+  static constexpr int kStage = 2 * kQFloats + 2 * kQ;
+  // K big, K small, V big, V small, then the 2 stages
+  static constexpr int kBytes = (4 * kPlane + 2 * kStage) * 4;
+};
+
+// out[8 h + n] += A B for the 64 columns of half h, over the R rows of one
+// staged tile: A (16 rows) from the C fragments a, whose rows 2t and 2t + 1
+// of a k-step serve as k = t and t + 4; B from the tile b_s (rows of D + 4
+// floats). The product goes into a fresh accumulator, its small products
+// into one of their own, and is added to out in f32.
+template <int D, int R>
+__device__ __forceinline__ void add_rows_product(float (&out)[D / 8][4], const float (&a)[R / 8][4],
+                                                 const float* b_s, int h, int g, int t) {
+  float acc[8][4] = {}, acc_small[8][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < R / 8; ++kk) {
+    uint32_t a_big[4], a_small[4];
+    split_tf32(a[kk][0], a_big[0], a_small[0]);
+    split_tf32(a[kk][2], a_big[1], a_small[1]);
+    split_tf32(a[kk][1], a_big[2], a_small[2]);
+    split_tf32(a[kk][3], a_big[3], a_small[3]);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float* bp = b_s + (8 * kk + 2 * t) * (D + 4) + 64 * h + 8 * n + g;
+      mma_3xtf32(acc[n], acc_small[n], a_big, a_small, bp[0], bp[D + 4]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[8 * h + n][e] += acc[n][e] + acc_small[n][e];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads3x, D == 64 ? 2 : 1)
+flash_bwd_dkv_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv, int seq,
+                            float scale, int causal) {
+  using L = Dkv3xLayout<D>;
+  constexpr int kLd = L::kLd, kQ = L::kQ;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* k_big = reinterpret_cast<float*>(smem_raw);  // [kTile][kLd] each
+  float* k_small = k_big + L::kPlane;
+  float* v_big = k_small + L::kPlane;
+  float* v_small = v_big + L::kPlane;
+  float* ring = v_small + L::kPlane;  // [stage]: Q, dO [kQ][kLd], lse [kQ], delta [kQ]
+  const int kt = blockIdx.x;
+  const size_t head = static_cast<size_t>(blockIdx.y) * seq * D;
+  const float* lse_h = lse + static_cast<size_t>(blockIdx.y) * seq;
+  const float* delta_h = delta + static_cast<size_t>(blockIdx.y) * seq;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int row = warp * 16 + g;  // this lane's first key in the tile; the second is row + 8
+  const int key = kt * kTile + row;
+  const int first = causal ? kt * kTile / kQ : 0;  // the Q tile that holds query kt * kTile
+  const int n_q = seq / kQ;
+
+  auto stage_q = [&](int i) {
+    float* dst = ring + (i & 1) * L::kStage;
+    const size_t off = head + static_cast<size_t>(i) * kQ * D;
+    stage_f32<kQ, D>(dst, q + off);
+    stage_f32<kQ, D>(dst + L::kQFloats, dout + off);
+    if (threadIdx.x < kQ / 2) {  // kQ / 4 copies of lse, then kQ / 4 of delta
+      const int c = threadIdx.x % (kQ / 4), which = threadIdx.x / (kQ / 4);
+      cp_async16(dst + 2 * L::kQFloats + which * kQ + 4 * c,
+                 (which ? delta_h : lse_h) + static_cast<size_t>(i) * kQ + 4 * c);
+    }
+    cp_async_commit();
+  };
+  stage_q(first);
+
+  // K * scale and V split into their planes; the loop's first barrier
+  // publishes them
+  const size_t koff = head + static_cast<size_t>(kt) * kTile * D;
+#pragma unroll
+  for (int i = 0; i < kTile * D / 4 / kThreads3x; ++i) {
+    const int c = threadIdx.x + i * kThreads3x;
+    const int r = c / (D / 4), col = (c % (D / 4)) * 4;
+    const float4 xk = ld4(k + koff + static_cast<size_t>(r) * D + col);
+    const float4 xv = ld4(v + koff + static_cast<size_t>(r) * D + col);
+    const float ks[4] = {xk.x * scale, xk.y * scale, xk.z * scale, xk.w * scale};
+    const float vs[4] = {xv.x, xv.y, xv.z, xv.w};
+    uint32_t kb[4], ksm[4], vb[4], vsm[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      split_tf32(ks[e], kb[e], ksm[e]);
+      split_tf32(vs[e], vb[e], vsm[e]);
+    }
+    const int at = r * kLd + col;
+    *reinterpret_cast<uint4*>(k_big + at) = make_uint4(kb[0], kb[1], kb[2], kb[3]);
+    *reinterpret_cast<uint4*>(k_small + at) = make_uint4(ksm[0], ksm[1], ksm[2], ksm[3]);
+    *reinterpret_cast<uint4*>(v_big + at) = make_uint4(vb[0], vb[1], vb[2], vb[3]);
+    *reinterpret_cast<uint4*>(v_small + at) = make_uint4(vsm[0], vsm[1], vsm[2], vsm[3]);
+  }
+
+  // the running dK and dV: keys row, row + 8; columns 8 n + 2 t, + 1
+  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
+  for (int i = first; i < n_q; ++i) {
+    cp_async_wait_all();  // this thread's copies of tile i
+    __syncthreads();      // everyone's; and every warp is done with tile i - 1
+    if (i + 1 < n_q) stage_q(i + 1);
+    const float* q_s = ring + (i & 1) * L::kStage;
+    const float* do_s = q_s + L::kQFloats;
+    const float* lse_s = do_s + L::kQFloats;
+    const float* delta_s = lse_s + kQ;
+
+    // S^T = (scale K) Q^T and dP^T = V dO^T: keys row, row + 8; queries
+    // 8 n + 2 t, + 1
+    float st[kQ / 8][4] = {}, st_small[kQ / 8][4] = {};
+    float dpt[kQ / 8][4] = {}, dpt_small[kQ / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int at = row * kLd + 8 * kk + t;
+      const int offs[4] = {at, at + 8 * kLd, at + 4, at + 8 * kLd + 4};
+      uint32_t a_big[4], a_small[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        a_big[e] = __float_as_uint(k_big[offs[e]]);
+        a_small[e] = __float_as_uint(k_small[offs[e]]);
+      }
+#pragma unroll
+      for (int n = 0; n < kQ / 8; ++n) {
+        const float* qp = q_s + (8 * n + g) * kLd + 8 * kk + t;  // B[t][g] = Q[g][t]
+        mma_3xtf32(st[n], st_small[n], a_big, a_small, qp[0], qp[4]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        a_big[e] = __float_as_uint(v_big[offs[e]]);
+        a_small[e] = __float_as_uint(v_small[offs[e]]);
+      }
+#pragma unroll
+      for (int n = 0; n < kQ / 8; ++n) {
+        const float* op = do_s + (8 * n + g) * kLd + 8 * kk + t;  // B[t][g] = dO[g][t]
+        mma_3xtf32(dpt[n], dpt_small[n], a_big, a_small, op[0], op[4]);
+      }
+    }
+
+    // P^T and dS^T in place of S^T and dP^T
+    const bool diag = causal && i * kQ < (kt + 1) * kTile;  // tiles the diagonal crosses
+#pragma unroll
+    for (int n = 0; n < kQ / 8; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * n + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(delta_s + 8 * n + 2 * t);
+      const float lq[2] = {l2.x, l2.y}, dl[2] = {d2.x, d2.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int query = i * kQ + 8 * n + 2 * t + (e & 1);
+        const float s = st[n][e] + st_small[n][e];
+        const float p = (diag && query < key + 8 * (e >> 1)) ? 0.f : expf(s - lq[e & 1]);
+        st[n][e] = p;
+        dpt[n][e] = p * (dpt[n][e] + dpt_small[n][e] - dl[e & 1]) * scale;
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q (see above)
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) {
+      add_rows_product<D, kQ>(dv_acc, st, do_s, h, g, t);
+      add_rows_product<D, kQ>(dk_acc, dpt, q_s, h, g, t);
+    }
+  }
+
+  float* dk0 = dk + koff + static_cast<size_t>(row) * D + 2 * t;
+  float* dv0 = dv + koff + static_cast<size_t>(row) * D + 2 * t;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<float2*>(dk0 + 8 * n) = make_float2(dk_acc[n][0], dk_acc[n][1]);
+    *reinterpret_cast<float2*>(dk0 + 8 * D + 8 * n) = make_float2(dk_acc[n][2], dk_acc[n][3]);
+    *reinterpret_cast<float2*>(dv0 + 8 * n) = make_float2(dv_acc[n][0], dv_acc[n][1]);
+    *reinterpret_cast<float2*>(dv0 + 8 * D + 8 * n) = make_float2(dv_acc[n][2], dv_acc[n][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 
 template <typename K>
@@ -1468,7 +1618,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
                       km, vm, dom, l, de, static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq,
                       scale, causal);
   }
-  return launch(flash_bwd_dkv_f32_kernel<D>, kThreadsF32, dkv_f32_smem_bytes<D>(), seq, bh, st,
+  return launch(flash_bwd_dkv_3xtf32_kernel<D>, kThreads3x, Dkv3xLayout<D>::kBytes, seq, bh, st,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<const float*>(dout), l, de,
                 static_cast<float*>(dk), static_cast<float*>(dv), seq, scale, causal);

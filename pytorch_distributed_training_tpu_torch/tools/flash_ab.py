@@ -22,8 +22,9 @@ its bound: bf16 at the bf16 tensor-core rate, f32 at the 3xTF32 one
 CUDA cores beside it in f32 (``*_ffma_bound_ms``).  Prints the card's
 ``nvidia-smi`` name and power limit, then one JSON line per shape, then a
 SASS line for this tree's library (``cuobjdump -sass``): for each f32
-forward kernel, its instructions and those of its loop over K/V tiles, by
-class (HMMA, LDS, MUFU, integer and float ALU, the rest).  Default shapes:
+tensor-core kernel (the forward and dK/dV, ``SASS_KERNELS``), its
+instructions and those of its tile loop, by class (HMMA, LDS, MUFU,
+integer and float ALU, the rest).  Default shapes:
 the two training paths' [8, 16, 2048, 64] and [2, 8, 32768, 64], causal,
 and [2, 4, 512, 128] non-causal.  Needs one CUDA card and nvcc; exits 1
 without a card, and 1 when this tree's kernels disagree with the twins
@@ -208,6 +209,9 @@ def measure(torch, fa, libs: dict, shape, dtype_name: str, gen, flush) -> dict:
     return row
 
 
+# the kernels of the SASS line: the f32 forward (loop over K/V tiles) and
+# the f32 dK/dV (loop over Q/dO tiles)
+SASS_KERNELS = ("flash_fwd_3xtf32_kernel", "flash_bwd_dkv_3xtf32_kernel")
 # SASS opcodes by class, for the mix of a kernel's loop
 SASS_CLASSES = (("hmma", ("HMMA",)), ("lds", ("LDS",)), ("mufu", ("MUFU",)),
                 ("int_alu", ("IADD3", "VIADD", "LOP3", "IMAD", "SHF", "LEA", "ISETP", "SEL")),
@@ -219,7 +223,7 @@ def sass_mix(text: str, name_part: str) -> dict:
     """For each kernel in ``cuobjdump -sass`` output ``text`` whose name holds
     ``name_part``: its instructions (NOPs left out), and those of its loop
     by class.  The loop runs from the target of the first backward branch
-    after the kernel's first barrier (``BAR``) to that branch: the K/V tile
+    after the kernel's first barrier (``BAR``) to that branch: the tile
     loop of a kernel whose only barrier heads the loop."""
     out = {}
     for part in re.split(r"\n\s*Function : ", text)[1:]:
@@ -249,11 +253,15 @@ def sass_mix(text: str, name_part: str) -> dict:
 
 
 def sass_line(lib_path: str) -> dict:
-    """The SASS line: :func:`sass_mix` of this tree's f32 forward kernels."""
+    """The SASS line: :func:`sass_mix` of this tree's kernels named in
+    ``SASS_KERNELS``, at each head dim."""
     cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
                           check=True).stdout
-    return {"sass": sass_mix(text, "flash_fwd_3xtf32_kernel")}
+    mix = {}
+    for name in SASS_KERNELS:
+        mix.update(sass_mix(text, name))
+    return {"sass": mix}
 
 
 def main(argv=None) -> int:

@@ -117,3 +117,49 @@ def test_main_returns_1_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert flash_ab.main(["--parent", "does-not-exist"]) == 1
     assert "CUDA is not available" in capsys.readouterr().err
+
+
+SASS_TWO_KERNELS = """
+        Function : _ZN12_GLOBAL__N_127flash_bwd_dkv_3xtf32_kernelILi64EEEvPKfS2_S2_S2_S2_S2_PfS3_ifi
+        /*0000*/                   LDGSTS.E.BYPASS.128 [R3], desc[UR4][R4.64] ;
+        /*0010*/                   LDG.E.128 R8, desc[UR4][R6.64] ;
+        /*0020*/                   LDGDEPBAR ;
+        /*0030*/                   DEPBAR.LE SB0, 0x0 ;
+        /*0040*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0050*/                   LDS R8, [R2] ;
+        /*0060*/                   HMMA.1688.F32.TF32 R12, R4, R9, R12 ;
+        /*0070*/                   HMMA.1688.F32.TF32 R16, R4, R10, R16 ;
+        /*0080*/                   FADD R20, R12, R16 ;
+        /*0090*/               @P0 BRA 0x30 ;
+        /*00a0*/                   STG.E.64 desc[UR4][R6.64], R12 ;
+        /*00b0*/                   EXIT ;
+        Function : _ZN12_GLOBAL__N_123flash_fwd_3xtf32_kernelILi128EEEvPKfS2_S2_PfS3_ifi
+        /*0000*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0010*/                   HMMA.1688.F32.TF32 R12, R4, R9, R12 ;
+        /*0020*/               @P0 BRA 0x0 ;
+        /*0030*/                   EXIT ;
+        Function : _ZN12_GLOBAL__N_123flash_bwd_dq_f32_kernelILi64EEEvPKfS2_S2_S2_S2_S2_Pfifi
+        /*0000*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0010*/               @P0 BRA 0x0 ;
+        /*0020*/                   EXIT ;
+"""
+
+
+def test_sass_line_covers_the_f32_forward_and_dkv(monkeypatch):
+    """The SASS line names both f32 tensor-core kernels at their head dims,
+    each with its tile loop's HMMA count; the FFMA dQ is left out."""
+    monkeypatch.setattr(flash_ab.kernels, "_nvcc", lambda: "/toolkit/bin/nvcc")
+    seen = []
+
+    def run(cmd, **kwargs):
+        seen.append(cmd)
+        return types.SimpleNamespace(stdout=SASS_TWO_KERNELS)
+
+    monkeypatch.setattr(flash_ab.subprocess, "run", run)
+    got = flash_ab.sass_line("lib.so")["sass"]
+    assert seen == [["/toolkit/bin/cuobjdump", "-sass", "lib.so"]]
+    assert set(got) == {"flash_fwd_3xtf32_kernel<128>", "flash_bwd_dkv_3xtf32_kernel<64>"}
+    dkv = got["flash_bwd_dkv_3xtf32_kernel<64>"]
+    assert dkv["instructions"] == 12 and dkv["loop_instructions"] == 7
+    assert dkv["loop_mix"] == dict(hmma=2, lds=1, mufu=0, int_alu=0, float_alu=1, cvt=0, other=3)
+    assert got["flash_fwd_3xtf32_kernel<128>"]["loop_mix"]["hmma"] == 1
