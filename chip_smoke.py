@@ -4,8 +4,10 @@
     python3 chip_smoke.py              # needs one CUDA card
     python3 chip_smoke.py --profile    # also: torch.profiler breakdowns of one
                                        # serving batch and one step of each trainer
+                                       # (phases 8, 11 and 12)
     python3 chip_smoke.py --f32-runner # phases 1, 2 and 12 only: the f32 trainer,
                                        # to time it against another tree in turns
+                                       # (with --profile: and its step's breakdown)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -44,9 +46,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    non-causal case, bf16 causal at [2, 4, 384, 128] and [2, 4, 640, 64] (3
    and 5 tiles of 128 rows), and f32 at [2, 4, 256, 64] causal and [2, 4,
    512, 128] non-causal; wrong variants of each flash kernel must be
-   rejected (in f32 also the forward and dK/dV in one TF32 product,
-   ``tools/flash_checks.py``, whose 3xTF32 emulations are read only, and
-   dK/dV with a Q tile or the diagonal blocks left out), and two dQ and
+   rejected (in f32 also the forward, dK/dV and dQ in one TF32 product,
+   ``tools/flash_checks.py``, whose 3xTF32 emulations are read only,
+   dK/dV with a Q tile or the diagonal blocks left out, and the dQ
+   variants of phase 9), and two dQ and
    two dK/dV launches must be bitwise equal; f32 flash bounds at the
    3xTF32 tensor-core rate, with the share of the FFMA bound beside them;
    wrong dtype, wrong device and an unsupported head dim must raise;
@@ -66,8 +69,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels K2a, K2d, K2e); each launch timed (fewer repeats at S = 32768)
    beside its bound, the twins and SDPA; wrong variants that leave out the
    64-row block on the diagonal, a middle block of 64 keys, the last 64
-   query rows or (dQ) the diagonal block of the odd 64-row blocks, and in
-   f32 the forward and dK/dV in one TF32 product, must all be rejected,
+   query rows or (dQ) the diagonal block of the odd 64-row blocks or each
+   query's own key, and in f32 the forward, dK/dV and dQ in one TF32
+   product, must all be rejected,
    and two dQ and two dK/dV launches must be bitwise equal;
 10. one f32 training step of the long-context model at its widths (512, 8
     heads, vocab 8192), depth 2, seq 2048, remat on, TF32 off, card against
@@ -83,8 +87,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``configs/train-lm-1024.yml`` with ``training.dtype`` set to float32 in
     memory (full width, 16 blocks) for 3 steps and one validation of 2
     batches; per step exactly 16 f32 flash forwards (K2a,
-    ``flash_fwd_3xtf32_kernel``), 16 K2d and 16 K2e
-    (``flash_bwd_dkv_3xtf32_kernel``) launches, besides
+    ``flash_fwd_3xtf32_kernel``), 16 K2d (``flash_bwd_dq_3xtf32_kernel``)
+    and 16 K2e (``flash_bwd_dkv_3xtf32_kernel``) launches, besides
     K1a/K1b and 16 each of K3/K4.  Prints step ms, tokens/s and peak memory.
 
 The line before the last lists every TPU kernel (K1a ... K4) with the CUDA
@@ -135,11 +139,12 @@ TPU_KERNELS = {
     "K2c": (_FA + "278", "flash_attention.cu",
             "flash_bwd_dkv_bf16_kernel + flash_bwd_dq_bf16_kernel", ("flash_bwd", 0),
             "training"),
-    "K2d": (_FA + "233", "flash_attention.cu", "flash_bwd_dq_f32_kernel", ("long_dq", 2),
+    "K2d": (_FA + "233", "flash_attention.cu", "flash_bwd_dq_3xtf32_kernel", ("long_dq", 2),
             "f32_runner"),
     "K2e": (_FA + "348", "flash_attention.cu", "flash_bwd_dkv_3xtf32_kernel", ("long_dkv", 2),
             "f32_runner"),
-    "K2f": (_FA + "460", "flash_attention.cu", "flash_bwd_dq_bf16_kernel", ("long_dq", 0),
+    "K2f": (_FA + "460", "flash_attention.cu",
+            "flash_bwd_dq_bf16_kernel (bf16) / flash_bwd_dq_3xtf32_kernel (f32)", ("long_dq", 0),
             "longctx"),
     "K2g": (_FA + "506", "flash_attention.cu",
             "flash_bwd_dkv_bf16_kernel (bf16) / flash_bwd_dkv_3xtf32_kernel (f32)",
@@ -258,6 +263,17 @@ def dkv_tf32_checks(fc, q, k, v, do, lse, delta, causal: bool, scale: float, wan
             checks.append((f"flash {what} {label}, {terms}xTF32 emulated",
                            readings(a, c, **tol), limit[what], sound))
     return checks
+
+
+def dq_tf32_checks(fc, q, k, v, do, lse, delta, causal: bool, scale: float, want, tol: dict,
+                   limit: float, label: str) -> list:
+    """The same for the f32 dQ: dq of ``tools/flash_checks.py``'s emulation
+    with each of its three products in 3 TF32 products (read only) and in 1
+    (a wrong variant), against ``want``, the twin's dq."""
+    return [(f"flash dq {label}, {terms}xTF32 emulated",
+             readings(fc.flash_dq_emulated(q, k, v, do, lse, delta, causal, scale, terms), want,
+                      **tol), limit, sound)
+            for terms, sound in ((3, None), (1, False))]
 
 
 def all_counts(modules) -> dict:
@@ -426,17 +442,27 @@ def tile_of(idx):
     return idx // VARIANT_ROWS
 
 
-def dq_variants(torch, q, k, v, do, lse, delta, scale) -> list:
-    """``(what, dq)`` of two wrong dQ kernels the limits must reject: one
-    whose K loop leaves out a middle block of 64 keys, and one that leaves
-    out the diagonal 64-key block of the odd 64-row blocks only (the
-    diagonal tile of the bf16 kernel's second consumer warpgroup)."""
+def dq_variants(torch, q, k, v, do, lse, delta, scale, causal: bool = True) -> list:
+    """``(what, dq)`` of three wrong dQ kernels the limits must reject: one
+    whose K loop leaves out a middle block of 64 keys, one that leaves out
+    the diagonal 64-key block of the odd 64-row blocks only (the diagonal
+    tile of the bf16 kernel's second consumer warpgroup), and one whose mask
+    is off by one: each query's own key left out."""
     mid = q.shape[1] // VARIANT_ROWS // 2
-    return [(what, attention_dropping(torch, q, k, v, scale, drop, do, lse, delta)[0])
+    return [(what, attention_dropping(torch, q, k, v, scale, drop, do, lse, delta, causal)[0])
             for what, drop in (
                 (f"K tile {mid} skipped", lambda r, c: (tile_of(c) == mid) & (tile_of(r) > mid)),
                 ("second diagonal block skipped",
-                 lambda r, c: (tile_of(c) == tile_of(r)) & (tile_of(r) % 2 == 1)))]
+                 lambda r, c: (tile_of(c) == tile_of(r)) & (tile_of(r) % 2 == 1)),
+                ("own key dropped", lambda r, c: r == c))]
+
+
+def dq_repeats(torch, fa, got, args, label: str) -> None:
+    """A second dQ launch on ``args`` must give ``got`` bit for bit: one
+    block owns each query row, no atomics."""
+    if not torch.equal(fa.flash_backward_dq(*args), got):
+        raise AssertionError(f"flash dq {label}: two launches differ")
+    say(f"  flash dq {label}: two launches bitwise equal")
 
 
 def dkv_repeats(torch, fa, got, args, label: str) -> None:
@@ -800,6 +826,11 @@ def phase_train_kernels(torch, ce, fa):
             checks += tf32_checks(fc, q, k, v, causal, scale, o_p, tol, limit["o"], label)
             checks += dkv_tf32_checks(fc, q, k, v, do, lse_p, delta, causal, scale, g_p[1:], tol,
                                       limit, label)
+            checks += dq_tf32_checks(fc, q, k, v, do, lse_p, delta, causal, scale, g_p[0], tol,
+                                     limit["dq"], label)
+            for what, a in dq_variants(torch, q, k, v, do, lse_p, delta, scale, causal):
+                checks.append((f"flash dq {label}, {what}", readings(a, g_p[0], **tol),
+                               limit["dq"], False))
             # wrong variants: 64 query rows left out of dK/dV's Q loop, and
             # the diagonal 64-row blocks left out of both backward loops
             tile = s_len // VARIANT_ROWS // 2
@@ -815,6 +846,7 @@ def phase_train_kernels(torch, ce, fa):
             for what, a, c in zip(("dq", "dk", "dv"), wrong, g_p):
                 checks.append((f"flash {what} {label}, diagonal tile skipped",
                                readings(a, c, **tol), limit[what], False))
+            dq_repeats(torch, fa, g_k[0], (q, k, v, do, lse_p, delta, causal, scale), label)
             dkv_repeats(torch, fa, g_k[1:], (q, k, v, do, lse_p, delta, causal, scale), label)
             del do_cut, delta_cut, cut, wrong
         if (b, h, s_len) == (8, 16, 2048):
@@ -849,13 +881,11 @@ def phase_train_kernels(torch, ce, fa):
                 checks.append((f"flash dq, {what}", readings(a, g_p[0], **tol), limit["dq"],
                                False))
             # one owner a row, no atomics: dq, dk and dv repeat bit for bit
-            dq_again = fa.flash_backward_dq(q, k, v, do, lse_p, delta, causal, scale)
-            if not torch.equal(dq_again, g_k[0]):
-                raise AssertionError(f"flash dq {shape}: two launches differ")
-            say(f"  flash dq {shape} {dt}: two launches bitwise equal")
+            dq_repeats(torch, fa, g_k[0], (q, k, v, do, lse_p, delta, causal, scale),
+                       f"{shape} {dt}")
             dkv_repeats(torch, fa, g_k[1:], (q, k, v, do, lse_p, delta, causal, scale),
                         f"{shape} {dt}")
-            del do_cut, delta_cut, dk_cut, dv_cut, unrounded, o_unrounded, dq_again
+            del do_cut, delta_cut, dk_cut, dv_cut, unrounded, o_unrounded
         fwd = lambda: fa.flash_forward(q, k, v, causal, scale)  # noqa: E731
         bwd = lambda: fa.flash_backward(q, k, v, do, lse_p, delta, causal, scale)  # noqa: E731
         qs, ks, vs = (x.view(b, h, s_len, d) for x in (q, k, v))
@@ -1022,6 +1052,8 @@ def phase_long_kernels(torch, fa):
             checks += tf32_checks(fc, q, k, v, causal, scale, o_p, tol, limit["o"], label)
             checks += dkv_tf32_checks(fc, q, k, v, do, lse_p, delta, causal, scale, (dk_p, dv_p),
                                       tol, limit, label)
+            checks += dq_tf32_checks(fc, q, k, v, do, lse_p, delta, causal, scale, dq_p, tol,
+                                     limit["dq"], label)
         # wrong variants the limits must reject, each what a kernel with 64
         # rows too few in its loop returns: the diagonal 64-key block left
         # out of the forward (rows past the first 64: those have no other),
@@ -1043,12 +1075,8 @@ def phase_long_kernels(torch, fa):
             checks.append((f"flash dq {label}, {what}", readings(a, dq_p, **tol), limit["dq"],
                            False))
         # one owner a row, no atomics: dq, dk and dv repeat bit for bit
-        dq_again = fa.flash_backward_dq(q, k, v, do, lse_p, delta, causal, scale)
-        if not torch.equal(dq_again, dq_k):
-            raise AssertionError(f"flash dq {label}: two launches differ")
-        say(f"  flash dq {label}: two launches bitwise equal")
+        dq_repeats(torch, fa, dq_k, (q, k, v, do, lse_p, delta, causal, scale), label)
         dkv_repeats(torch, fa, (dk_k, dv_k), (q, k, v, do, lse_p, delta, causal, scale), label)
-        del dq_again
         do_cut, delta_cut = do.clone(), delta.clone()
         do_cut[:, -VARIANT_ROWS:], delta_cut[:, -VARIANT_ROWS:] = 0, 0
         wrong = fa.flash_backward_dkv(q, k, v, do_cut, lse_p, delta_cut, causal, scale)
@@ -1200,17 +1228,29 @@ def phase_profile_train(torch, runner, label: str):
 def phase_f32_runner(torch, modules):
     """Phase 12: the trainer at its default dtype, f32, on the LM-1024
     config: every flash launch is an f32 one (K2a forward, K2d/K2e split
-    backward, as the JAX package dispatches f32 at S = 2048)."""
+    backward, as the JAX package dispatches f32 at S = 2048).  Returns the
+    runner and its launch counts."""
     from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
 
     depth = get_cfg(TRAIN_CONFIG)["model"]["depth"]
-    _, counts, f32 = phase_runner(
+    runner, counts, f32 = phase_runner(
         torch, modules, TRAIN_CONFIG, "train-lm-1024-f32", steps=3, dtype="float32",
         per_step=dict(add_layernorm=depth, bias_gelu=depth, ce_fwd=1, ce_bwd=1,
                       flash_fwd=depth, flash_bwd=2 * depth, K2a=depth, K2d=depth, K2e=depth),
         per_val_batch=dict(add_layernorm=depth, bias_gelu=depth, ce_fwd=1, flash_fwd=depth,
                            K2a=depth))
     say("f32_runner: " + json.dumps(f32))
+    return runner, counts
+
+
+def phase_f32_runner_and_profile(torch, modules, profile: bool) -> dict:
+    """Phase 12, then with ``profile`` one f32 step under the profiler;
+    returns the launch counts."""
+    runner, counts = phase_f32_runner(torch, modules)
+    if profile:
+        say("== profile (f32 train step)")
+        phase_profile_train(torch, runner, "f32 train step")
+    del runner
     torch.cuda.empty_cache()
     return counts
 
@@ -1258,7 +1298,7 @@ def main(argv=None) -> int:
 
     if args.f32_runner:
         say("== phase 12: main path (training runner, full width, float32)")
-        phase_f32_runner(torch, modules)
+        phase_f32_runner_and_profile(torch, modules, args.profile)
         say(smi)
         return 0
 
@@ -1338,7 +1378,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     say("== phase 12: main path (training runner, full width, float32)")
-    paths["f32_runner"] = by_tpu_kernel(phase_f32_runner(torch, modules))
+    paths["f32_runner"] = by_tpu_kernel(phase_f32_runner_and_profile(torch, modules, args.profile))
 
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "ffma_bound_ms")

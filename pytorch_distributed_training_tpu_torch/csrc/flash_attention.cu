@@ -21,7 +21,7 @@
 // The backward is two launches, each deterministic: a dK/dV kernel
 // (pdt_flash_bwd_dkv: flash_bwd_dkv_bf16_kernel, _3xtf32_kernel) that owns a K
 // tile and loops over Q tiles, and a dQ kernel (pdt_flash_bwd_dq:
-// flash_bwd_dq_bf16_kernel, _f32_kernel) that owns a Q tile and loops over K
+// flash_bwd_dq_bf16_kernel, _3xtf32_kernel) that owns a Q tile and loops over K
 // tiles. That is the TPU's split backward, `_dkv_kernel` (:348) /
 // `_dq_kernel` (:233) for resident shapes and `_dkv_stream_kernel` (:506) /
 // `_dq_stream_kernel` (:460) for streamed ones; the pair also stands in for
@@ -38,11 +38,12 @@
 //   bf16 before PV and before dV (:216, :327); ds is rounded to bf16 before
 //   dK and dQ (:335).
 // - f32 inputs: q * scale before the dot in the forward (:188), scale *
-//   (q . k) in the backward (:256, :319); p stays f32 into P V (:216). The
-//   forward and dK/dV run on the tensor cores in 3xTF32 (each f32 operand
-//   split into a TF32 part and a TF32 remainder, three TF32 products a
-//   step, each product off by about 2^-22 of its size); dQ runs f32 FMA on
-//   the CUDA cores.
+//   (q . k) in the backward (:256, :319; the kernels fold the scale into
+//   one operand, which changes only the rounding order); p stays f32 into
+//   P V (:216). The forward, dK/dV and dQ run on the tensor cores in
+//   3xTF32 (each f32 operand split into a TF32 part and a TF32 remainder,
+//   three TF32 products a step, each product off by about 2^-22 of its
+//   size).
 //
 // Bound: operations (`flash_flops` in ops/flash_attention.py: 2 S D
 // multiply-adds x 2 per kept (query, key) pair and product; the forward has
@@ -99,7 +100,7 @@
 //   tile 2 qt + 1 (all masked for its rows) but still waits on it and frees
 //   its stage. Blocks take the longest rows first. dq is rounded once and written by the block that
 //   owns its rows: no atomics, so it repeats bit for bit.
-// f32 designs: see the f32 sections (the 3xTF32 forward, the FFMA backward).
+// f32 designs: see the f32 sections (the 3xTF32 forward, dK/dV and dQ).
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
@@ -830,170 +831,6 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------------
-// f32 dQ: a tiled kernel on the CUDA cores (FFMA)
-//
-// A block of 256 threads owns one 64-row Q tile. Every product it computes
-// is a 64 x 64 (or 64 x D) output; thread (ty, tx) = (tid / 16, tid % 16)
-// holds the 4 x 4 sub-tile at rows ty*4.., cols tx*4.. of it in registers
-// and accumulates it SGEMM-style, one rank-1 update a step: the A operand
-// is staged in shared memory as [K][rows], the B operand as [K][cols], so a
-// step reads one float4 of each (the A read is a broadcast across the 16
-// threads of a row) and issues 16 FMAs. The 16 threads that share a row are
-// 16 lanes of one warp: row max and row sum reduce with four shuffles.
-// Operands whose contraction axis is D are staged transposed ([D][64]);
-// dS is written to shared memory as [64][64 + 4] for the product that
-// follows. No atomics: the kernel owns its query rows, so dq repeats bit
-// for bit.
-
-constexpr int kThreadsF32 = 256;  // 16 x 16 threads, a 4 x 4 sub-tile each
-constexpr int kLdP = kTile + 4;   // P / dS rows: padded, 16-byte aligned
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st4(float* p, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-
-// a [kTile, D] tile of a row-major [S, D] f32 matrix into shared memory as is
-template <int D>
-__device__ __forceinline__ void load_f32(float* dst, const float* src) {
-  for (int c = threadIdx.x; c < kTile * D / 4; c += kThreadsF32) {
-    const int r = c / (D / 4), col = (c % (D / 4)) * 4;
-    *reinterpret_cast<float4*>(dst + r * D + col) = ld4(src + static_cast<size_t>(r) * D + col);
-  }
-}
-
-// the same tile transposed, dst[col][row], each element times `mul`;
-// neighbouring threads take neighbouring rows, so the stores hit 32 banks
-template <int D>
-__device__ __forceinline__ void load_f32_t(float* dst, const float* src, float mul) {
-  for (int c = threadIdx.x; c < kTile * D / 4; c += kThreadsF32) {
-    const int r = c % kTile, col = (c / kTile) * 4;
-    const float4 x = ld4(src + static_cast<size_t>(r) * D + col);
-    dst[(col + 0) * kTile + r] = x.x * mul;
-    dst[(col + 1) * kTile + r] = x.y * mul;
-    dst[(col + 2) * kTile + r] = x.z * mul;
-    dst[(col + 3) * kTile + r] = x.w * mul;
-  }
-}
-
-// acc[i][j] += sum_{k < K} a[k][ty*4 + i] * b[k][tx*4 + j]
-template <int K>
-__device__ __forceinline__ void ffma_tile(float (&acc)[4][4], const float* a, int lda,
-                                          const float* b, int ldb, int ty, int tx) {
-  a += ty * 4;
-  b += tx * 4;
-#pragma unroll 16
-  for (int k = 0; k < K; ++k) {
-    const float4 av = ld4(a + k * lda), bv = ld4(b + k * ldb);
-    const float ar[4] = {av.x, av.y, av.z, av.w};
-    const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&acc)[N][4][4]) {
-#pragma unroll
-  for (int g = 0; g < N; ++g) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[g][i][0] = acc[g][i][1] = acc[g][i][2] = acc[g][i][3] = 0.f;
-  }
-}
-
-// a 4 x 4 sub-tile as column jj of a [64][kLdP] matrix at rows ty*4..ty*4+3:
-// thread (ty, tx) writes dst[tx*4 + jj][ty*4 + i] = v[i][jj]
-__device__ __forceinline__ void store_t(float* dst, const float (&v)[4][4], int ty, int tx) {
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj) {
-    st4(dst + (tx * 4 + jj) * kLdP + ty * 4, v[0][jj], v[1][jj], v[2][jj], v[3][jj]);
-  }
-}
-
-// a [kTile, D] tile of a row-major f32 output from acc[g][i][c] (row
-// ty*4 + i, column g*64 + tx*4 + c), each value divided by div[i]
-template <int D>
-__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 64][4][4],
-                                           const float (&div)[4], int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float* row = dst + static_cast<size_t>(ty * 4 + i) * D + tx * 4;
-#pragma unroll
-    for (int g = 0; g < D / 64; ++g) {
-      st4(row + g * 64, acc[g][i][0] / div[i], acc[g][i][1] / div[i], acc[g][i][2] / div[i],
-          acc[g][i][3] / div[i]);
-    }
-  }
-}
-
-template <int D>
-constexpr int dq_f32_smem_bytes() {
-  return (5 * D * kTile + kTile * kLdP) * 4;
-}
-
-// dQ: the block owns Q tile qt and streams K/V tiles up to the diagonal
-template <int D>
-__global__ void __launch_bounds__(kThreadsF32)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dq, int seq, float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qt_s = reinterpret_cast<float*>(smem_raw);  // [D][kTile]
-  float* dot_s = qt_s + D * kTile;                   // [D][kTile]
-  float* kt_s = dot_s + D * kTile;                   // [D][kTile]
-  float* vt_s = kt_s + D * kTile;                    // [D][kTile]
-  float* k_s = vt_s + D * kTile;                     // [kTile][D]
-  float* dst_s = k_s + kTile * D;                    // [kTile keys][kLdP]
-  const int n_tiles = seq / kTile;
-  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);
-  const size_t head = static_cast<size_t>(blockIdx.y) * seq * D;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  const size_t qoff = head + static_cast<size_t>(qt) * kTile * D;
-  load_f32_t<D>(qt_s, q + qoff, 1.f);
-  load_f32_t<D>(dot_s, dout + qoff, 1.f);
-  const size_t rows = static_cast<size_t>(blockIdx.y) * seq + qt * kTile + ty * 4;
-  const float4 l4 = ld4(lse + rows), d4 = ld4(delta + rows);
-  const float lr[4] = {l4.x, l4.y, l4.z, l4.w}, dr[4] = {d4.x, d4.y, d4.z, d4.w};
-  float acc[D / 64][4][4];
-  zero(acc);
-  const int last = causal ? qt : n_tiles - 1;
-  for (int j = 0; j <= last; ++j) {
-    __syncthreads();
-    const size_t off = head + static_cast<size_t>(j) * kTile * D;
-    load_f32_t<D>(kt_s, k + off, 1.f);
-    load_f32_t<D>(vt_s, v + off, 1.f);
-    load_f32<D>(k_s, k + off);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    ffma_tile<D>(s, qt_s, kTile, kt_s, kTile, ty, tx);
-    ffma_tile<D>(dp, dot_s, kTile, vt_s, kTile, ty, tx);
-    const bool diag = causal && j == qt;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float p = (diag && tx * 4 + jj > ty * 4 + i) ? 0.f : expf(scale * s[i][jj] - lr[i]);
-        s[i][jj] = p * (dp[i][jj] - dr[i]) * scale;
-      }
-    }
-    store_t(dst_s, s, ty, tx);
-    __syncthreads();
-#pragma unroll
-    for (int g = 0; g < D / 64; ++g) ffma_tile<kTile>(acc[g], dst_s, kLdP, k_s + g * 64, D, ty, tx);
-  }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<D>(dq + qoff, acc, one, ty, tx);
-}
-
-// ---------------------------------------------------------------------------
 // f32 forward on the tensor cores: 3xTF32 with mma.sync m16n8k8
 //
 // Replaces the tiled FFMA forward, which reached 39% of the 67 TFLOP/s of
@@ -1062,6 +899,10 @@ struct Fwd3xLayout {
   // 2 stages of K and V, then Q's big and small planes
   static constexpr int kBytes = (4 * kKvFloats + 2 * kQFloats) * 4;
 };
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
@@ -1508,6 +1349,185 @@ flash_bwd_dkv_3xtf32_kernel(const float* __restrict__ q, const float* __restrict
 }
 
 // ---------------------------------------------------------------------------
+// f32 dQ on the tensor cores: 3xTF32 with mma.sync m16n8k8
+//
+// Replaces TPU kernels K2d and K2f in f32, `_dq_kernel`
+// (pytorch_distributed_training_tpu/ops/flash_attention.py:233) and
+// `_dq_stream_kernel` (:460), and the tiled FFMA dQ before it, which
+// reached 40% of the 67 TFLOP/s of the CUDA cores (3.83 ms against an FFMA
+// bound of 1.54 ms at [8, 16, 2048, 64] causal on the H100): only the
+// tensor cores can go below that. Bound: flash_flops(part="dq"), three
+// products over the kept (query, key) pairs, at 164.9 TFLOP/s (3xTF32, see
+// the forward above): 0.625 ms at that shape. Every product is taken in
+// 3xTF32 as in the forward, with the same split, rounding and fragment
+// loads.
+//
+// The forward's loop with one more product. A block of 4 warps owns a
+// 64-row Q tile, 16 rows a warp (longest rows first, as the forward), and
+// streams K/V tiles of kKeys = 32 rows:
+// - S = (scale Q) K^T and dP = dO V^T: A is the warp's 16 rows of Q (times
+//   scale, which changes only the rounding order against the JAX kernel's
+//   scale (q . k)) or of dO, split once, before the loop, into big and
+//   small shared-memory planes with rows of D + 4 floats; B[t][g] is K[g][t]
+//   (V[g][t]), read from the streamed tile as the forward reads K, and split
+//   per warp. Each lane keeps the lse and delta of its two rows in
+//   registers.
+// - P = exp(S - lse) and dS = P (dP - delta) scale stay in the registers of
+//   S's and dP's C fragments; the mask (p = 0 where query < key, as
+//   exp(-1e30 - lse) is) only on the K tiles the diagonal crosses.
+// - dQ += dS K contracts over the tile's keys: the step takes key 2t as
+//   k = t and key 2t + 1 as k = t + 4, so A is {c0, c2, c1, c3} of dS's
+//   fragment as it stands, and B is K[2t][g], K[2t + 1][g], read as the
+//   forward reads V (add_rows_product).
+// K and V tiles stream through the forward's 2-stage cp.async ring: one
+// commit group and one barrier a tile, the copy of tile j + 1 issued after
+// the barrier that ends every warp's use of its stage. Shared memory: the
+// four Q/dO planes (68 KB at D = 64, 132 KB at D = 128) and the ring (34
+// KB, 66 KB): two blocks an SM at D = 64, one at D = 128 (the forward's
+// 64-key tiles at D = 128 would not fit beside the planes).
+// A dQ row sums over up to S / kKeys tiles (1024 at S = 32768), and the
+// tensor cores add their products by truncation (the forward's o drifted
+// to 5.4e-5 with one chain across all tiles), so each tile's dS K starts
+// from zero, 64 columns at a time, with the small products in an
+// accumulator of their own, and is added to the running dQ in f32. No
+// atomics: the block owns its query rows, so dq repeats bit for bit.
+
+template <int D>
+struct Dq3xLayout {
+  static constexpr int kKeys = 32;            // K/V rows a streamed tile
+  static constexpr int kLd = D + 4;           // floats a staged row
+  static constexpr int kPlane = kTile * kLd;  // a Q or dO plane
+  static constexpr int kKvFloats = kKeys * kLd;
+  // Q big, Q small, dO big, dO small, then 2 stages of K and V
+  static constexpr int kBytes = (4 * kPlane + 4 * kKvFloats) * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads3x, D == 64 ? 2 : 1)
+flash_bwd_dq_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           float* __restrict__ dq, int seq, float scale, int causal) {
+  using L = Dq3xLayout<D>;
+  constexpr int kLd = L::kLd, kKeys = L::kKeys;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_big = reinterpret_cast<float*>(smem_raw);  // [kTile][kLd] each
+  float* q_small = q_big + L::kPlane;
+  float* do_big = q_small + L::kPlane;
+  float* do_small = do_big + L::kPlane;
+  float* ring = do_small + L::kPlane;  // [stage][K, V][kKeys][kLd]
+  const int qt = seq / kTile - 1 - static_cast<int>(blockIdx.x);  // longest rows first
+  const size_t head = static_cast<size_t>(blockIdx.y) * seq * D;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int row = warp * 16 + g;  // this lane's first row in the tile; the second is row + 8
+  const int q_row = qt * kTile + row;
+  // the last K/V tile: causal, the one that holds the tile's last row
+  const int last = causal ? ((qt + 1) * kTile - 1) / kKeys : seq / kKeys - 1;
+
+  auto stage_kv = [&](int j) {
+    float* dst = ring + (j & 1) * 2 * L::kKvFloats;
+    const size_t off = head + static_cast<size_t>(j) * kKeys * D;
+    stage_f32<kKeys, D>(dst, k + off);
+    stage_f32<kKeys, D>(dst + L::kKvFloats, v + off);
+    cp_async_commit();
+  };
+  stage_kv(0);
+
+  // q * scale and dO split into their planes; the loop's first barrier
+  // publishes them
+  const size_t qoff = head + static_cast<size_t>(qt) * kTile * D;
+#pragma unroll
+  for (int i = 0; i < kTile * D / 4 / kThreads3x; ++i) {
+    const int c = threadIdx.x + i * kThreads3x;
+    const int r = c / (D / 4), col = (c % (D / 4)) * 4;
+    const float4 xq = ld4(q + qoff + static_cast<size_t>(r) * D + col);
+    const float4 xd = ld4(dout + qoff + static_cast<size_t>(r) * D + col);
+    const float qs[4] = {xq.x * scale, xq.y * scale, xq.z * scale, xq.w * scale};
+    const float dos[4] = {xd.x, xd.y, xd.z, xd.w};
+    uint32_t qb[4], qsm[4], db[4], dsm[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      split_tf32(qs[e], qb[e], qsm[e]);
+      split_tf32(dos[e], db[e], dsm[e]);
+    }
+    const int at = r * kLd + col;
+    *reinterpret_cast<uint4*>(q_big + at) = make_uint4(qb[0], qb[1], qb[2], qb[3]);
+    *reinterpret_cast<uint4*>(q_small + at) = make_uint4(qsm[0], qsm[1], qsm[2], qsm[3]);
+    *reinterpret_cast<uint4*>(do_big + at) = make_uint4(db[0], db[1], db[2], db[3]);
+    *reinterpret_cast<uint4*>(do_small + at) = make_uint4(dsm[0], dsm[1], dsm[2], dsm[3]);
+  }
+  const float* lse_r = lse + static_cast<size_t>(blockIdx.y) * seq + q_row;
+  const float* delta_r = delta + static_cast<size_t>(blockIdx.y) * seq + q_row;
+  const float l0 = lse_r[0], l1 = lse_r[8], de0 = delta_r[0], de1 = delta_r[8];
+
+  float dq_acc[D / 8][4] = {};  // the running dQ: rows row, row + 8; columns 8 n + 2 t, + 1
+  for (int j = 0; j <= last; ++j) {
+    cp_async_wait_all();  // this thread's copies of tile j
+    __syncthreads();      // everyone's; and every warp is done with tile j - 1
+    if (j < last) stage_kv(j + 1);
+    const float* k_s = ring + (j & 1) * 2 * L::kKvFloats;
+    const float* v_s = k_s + L::kKvFloats;
+
+    // S = (scale Q) K^T and dP = dO V^T: rows row, row + 8; keys 8 n + 2 t, + 1
+    float s[kKeys / 8][4] = {}, s_small[kKeys / 8][4] = {};
+    float dp[kKeys / 8][4] = {}, dp_small[kKeys / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int at = row * kLd + 8 * kk + t;
+      const int offs[4] = {at, at + 8 * kLd, at + 4, at + 8 * kLd + 4};
+      uint32_t a_big[4], a_small[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        a_big[e] = __float_as_uint(q_big[offs[e]]);
+        a_small[e] = __float_as_uint(q_small[offs[e]]);
+      }
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n) {
+        const float* kp = k_s + (8 * n + g) * kLd + 8 * kk + t;  // B[t][g] = K[g][t]
+        mma_3xtf32(s[n], s_small[n], a_big, a_small, kp[0], kp[4]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        a_big[e] = __float_as_uint(do_big[offs[e]]);
+        a_small[e] = __float_as_uint(do_small[offs[e]]);
+      }
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n) {
+        const float* vp = v_s + (8 * n + g) * kLd + 8 * kk + t;  // B[t][g] = V[g][t]
+        mma_3xtf32(dp[n], dp_small[n], a_big, a_small, vp[0], vp[4]);
+      }
+    }
+
+    // dS in place of S
+    const bool diag = causal && (j + 1) * kKeys > qt * kTile;  // tiles the diagonal crosses
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = j * kKeys + 8 * n + 2 * t + (e & 1);
+        const bool low = e < 2;
+        const float p = (diag && key > q_row + (low ? 0 : 8))
+                            ? 0.f
+                            : expf(s[n][e] + s_small[n][e] - (low ? l0 : l1));
+        s[n][e] = p * (dp[n][e] + dp_small[n][e] - (low ? de0 : de1)) * scale;
+      }
+    }
+
+    // dQ += dS K (see above)
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) add_rows_product<D, kKeys>(dq_acc, s, k_s, h, g, t);
+  }
+
+  float* dq0 = dq + qoff + static_cast<size_t>(row) * D + 2 * t;
+  float* dq1 = dq0 + 8 * D;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<float2*>(dq0 + 8 * n) = make_float2(dq_acc[n][0], dq_acc[n][1]);
+    *reinterpret_cast<float2*>(dq1 + 8 * n) = make_float2(dq_acc[n][2], dq_acc[n][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 
 template <typename K>
@@ -1641,7 +1661,7 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const 
     return launch_tma(flash_bwd_dq_bf16_kernel<D>, DqLayout<D>::kBytes, seq / kRows, bh, st, qm,
                       km, vm, dom, l, de, static_cast<bf16*>(dq), seq, scale, causal);
   }
-  return launch(flash_bwd_dq_f32_kernel<D>, kThreadsF32, dq_f32_smem_bytes<D>(), seq, bh, st,
+  return launch(flash_bwd_dq_3xtf32_kernel<D>, kThreads3x, Dq3xLayout<D>::kBytes, seq, bh, st,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<const float*>(dout), l, de,
                 static_cast<float*>(dq), seq, scale, causal);

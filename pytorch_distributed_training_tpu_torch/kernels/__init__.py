@@ -17,12 +17,11 @@ signatures.  Pointers and the stream are passed as
 Libraries: ``fused_elementwise`` (K3/K4), ``fused_ce`` (K1a/K1b) and
 ``flash_attention`` (one forward for K2a/K2b, a dQ kernel for K2d/K2f and
 a dK/dV kernel for K2e/K2g, the pair standing in for K2c; bf16 on the
-tensor cores with TMA and ``wgmma``; the f32 forward and dK/dV on the
-tensor cores in 3xTF32 with ``mma.sync`` and ``cp.async``, the f32 dQ
-tiled on the CUDA cores).  The TMA kernels take their tensor maps from
-``cuTensorMapEncodeTiled``, which the library fetches from the driver
-through the runtime (``cudaGetDriverEntryPoint``), so no library links
-``-lcuda``.
+tensor cores with TMA and ``wgmma``; the f32 forward, dK/dV and dQ on
+the tensor cores in 3xTF32 with ``mma.sync`` and ``cp.async``).  The TMA
+kernels take their tensor maps from ``cuTensorMapEncodeTiled``, which the
+library fetches from the driver through the runtime
+(``cudaGetDriverEntryPoint``), so no library links ``-lcuda``.
 """
 from __future__ import annotations
 

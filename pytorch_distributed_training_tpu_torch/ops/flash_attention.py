@@ -40,7 +40,12 @@ Port of ``pytorch_distributed_training_tpu/ops/flash_attention.py``:
   lse and delta rows through a 2-stage ``cp.async`` ring; all four
   products are ``mma.sync`` m16n8k8 in 3xTF32, P^T and dS^T straight from
   the accumulator registers of S^T and dP^T, and each tile's dV and dK
-  products start from zero before they are added in f32.
+  products start from zero before they are added in f32.  The f32 dQ
+  launch (``flash_bwd_dq_3xtf32_kernel``) is the f32 forward's loop with
+  one more product: a block of 4 warps owns 64 query rows (``q * scale``
+  and dO split once into TF32 planes) and streams 32-row K and V tiles;
+  S, dP and dQ += dS K are ``mma.sync`` in 3xTF32, dS straight from the
+  accumulator registers, each tile's dS K summed apart.
 - :func:`flash_attention`: ``[B, S, H, D] -> [B, S, H, D]`` with heads folded
   into the batch (``:895-921``), a ``torch.autograd.Function`` whose
   forward and backward are the wrappers above.
@@ -50,11 +55,11 @@ bf16 with f32 accumulation, the scale multiplies ``s`` after the dot, and
 ``p`` and ``ds`` are rounded to bf16 before the products they feed; f32
 inputs keep f32 accuracy throughout, with ``q * scale`` before the forward
 dot and ``p`` in f32 into ``P V``.  The f32 forward
-(``flash_fwd_3xtf32_kernel``) and dK/dV (``flash_bwd_dkv_3xtf32_kernel``)
-run on the tensor cores in 3xTF32 with ``mma.sync`` (each operand split
-into a TF32 part and a TF32 remainder, three TF32 products a step:
-``tools/flash_checks.py`` repeats that arithmetic); the f32 dQ is tiled
-FFMA on the CUDA cores.
+(``flash_fwd_3xtf32_kernel``), dK/dV (``flash_bwd_dkv_3xtf32_kernel``) and
+dQ (``flash_bwd_dq_3xtf32_kernel``) run on the tensor cores in 3xTF32 with
+``mma.sync`` (each operand split into a TF32 part and a TF32 remainder,
+three TF32 products a step: ``tools/flash_checks.py`` repeats that
+arithmetic).
 Masked scores are ``-1e30``, not ``-inf`` (``:48-50``): every causal row
 keeps at least one valid column, so no NaN can form.  The einsum path of
 :mod:`.attention` keeps its own ``-inf``.

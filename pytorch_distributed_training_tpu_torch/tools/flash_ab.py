@@ -22,7 +22,7 @@ its bound: bf16 at the bf16 tensor-core rate, f32 at the 3xTF32 one
 CUDA cores beside it in f32 (``*_ffma_bound_ms``).  Prints the card's
 ``nvidia-smi`` name and power limit, then one JSON line per shape, then a
 SASS line for this tree's library (``cuobjdump -sass``): for each f32
-tensor-core kernel (the forward and dK/dV, ``SASS_KERNELS``), its
+tensor-core kernel (the forward, dK/dV and dQ, ``SASS_KERNELS``), its
 instructions and those of its tile loop, by class (HMMA, LDS, MUFU,
 integer and float ALU, the rest).  Default shapes:
 the two training paths' [8, 16, 2048, 64] and [2, 8, 32768, 64], causal,
@@ -209,9 +209,10 @@ def measure(torch, fa, libs: dict, shape, dtype_name: str, gen, flush) -> dict:
     return row
 
 
-# the kernels of the SASS line: the f32 forward (loop over K/V tiles) and
-# the f32 dK/dV (loop over Q/dO tiles)
-SASS_KERNELS = ("flash_fwd_3xtf32_kernel", "flash_bwd_dkv_3xtf32_kernel")
+# the kernels of the SASS line: the f32 forward and dQ (loops over K/V
+# tiles) and the f32 dK/dV (loop over Q/dO tiles)
+SASS_KERNELS = ("flash_fwd_3xtf32_kernel", "flash_bwd_dkv_3xtf32_kernel",
+                "flash_bwd_dq_3xtf32_kernel")
 # SASS opcodes by class, for the mix of a kernel's loop
 SASS_CLASSES = (("hmma", ("HMMA",)), ("lds", ("LDS",)), ("mufu", ("MUFU",)),
                 ("int_alu", ("IADD3", "VIADD", "LOP3", "IMAD", "SHF", "LEA", "ISETP", "SEL")),

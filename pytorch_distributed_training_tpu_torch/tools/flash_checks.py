@@ -1,11 +1,11 @@
 """The arithmetic of the f32 flash kernels on the tensor cores, repeated in
 plain PyTorch, and the wrong kernels the f32 limits must reject.
 
-``flash_fwd_3xtf32_kernel`` and ``flash_bwd_dkv_3xtf32_kernel``
-(``csrc/flash_attention.cu``) take every f32 product in 3xTF32: each
-operand x is split into ``big = tf32(x)`` and ``small = tf32(x - big)``,
-both rounded to nearest with ties away from zero
-(``cvt.rna.tf32.f32``), and a product of a and b is
+``flash_fwd_3xtf32_kernel``, ``flash_bwd_dkv_3xtf32_kernel`` and
+``flash_bwd_dq_3xtf32_kernel`` (``csrc/flash_attention.cu``) take every
+f32 product in 3xTF32: each operand x is split into ``big = tf32(x)`` and
+``small = tf32(x - big)``, both rounded to nearest with ties away from
+zero (``cvt.rna.tf32.f32``), and a product of a and b is
 ``a_small b_big + a_big b_small + a_big b_big``.  TF32 keeps 10 of f32's
 23 mantissa bits, so ``big + small`` is x within 2^-22 |x|, and one TF32
 product alone is off by up to about 2^-10 of its size.
@@ -20,14 +20,18 @@ product alone is off by up to about 2^-10 of its size.
 - :func:`flash_bwd_emulated` is dK/dV of
   :func:`..ops.flash_attention.flash_bwd_plain` with each of its four
   products (``q (scale K)^T``, ``dO V^T``, ``P^T dO``, ``dS^T Q``) taken in
-  ``terms`` TF32 products, the scale folded into K as the kernel folds it.
+  ``terms`` TF32 products, the scale folded into K as the kernel folds it;
+- :func:`flash_dq_emulated` is dQ of the same twin with each of its three
+  products (``(q * scale) K^T``, ``dO V^T``, ``dS K``) taken in ``terms``
+  TF32 products, the scale folded into q as the kernel folds it.
 
-``chip_smoke.py`` (phases 6 and 9) holds the 1-term forward and dK/dV as
-wrong kernels that its f32 limits must reject at every f32 shape, and
-prints the 3-term ones, read only; ``tests/test_torch_flash_f32.py`` and
-``tests/test_torch_flash_dkv_f32.py`` hold both on the CPU.  The products
-of TF32 values are exact in f32, so the emulation gives the same result
-whether a matmul runs in f32 or in TF32.
+``chip_smoke.py`` (phases 6 and 9) holds the 1-term forward, dK/dV and dQ
+as wrong kernels that its f32 limits must reject at every f32 shape, and
+prints the 3-term ones, read only; ``tests/test_torch_flash_f32.py``,
+``tests/test_torch_flash_dkv_f32.py`` and ``tests/test_torch_flash_dq_f32.py``
+hold them on the CPU.  The products of TF32 values are exact in f32, so
+the emulation gives the same result whether a matmul runs in f32 or in
+TF32.
 """
 from __future__ import annotations
 
@@ -35,8 +39,8 @@ import torch
 
 from ..ops import flash_attention as fa
 
-__all__ = ["FFMA_FLOPS", "TF32X3_FLOPS", "flash_bwd_emulated", "flash_fwd_emulated",
-           "split_3xtf32", "tf32_round"]
+__all__ = ["FFMA_FLOPS", "TF32X3_FLOPS", "flash_bwd_emulated", "flash_dq_emulated",
+           "flash_fwd_emulated", "split_3xtf32", "tf32_round"]
 
 # H100 SXM, dense: f32-accurate products as 3 TF32 products on the tensor
 # cores (494.7 TFLOP/s TF32), and f32 FMA on the CUDA cores
@@ -136,3 +140,28 @@ def flash_bwd_emulated(q, k, v, dout, lse, delta, causal: bool, scale: float, te
             dk32 += _matmul(split_3xtf32(ds.transpose(-1, -2)), qc, terms)
         dk[hs], dv[hs] = dk32, dv32
     return dk, dv
+
+
+def flash_dq_emulated(q, k, v, dout, lse, delta, causal: bool, scale: float, terms: int = 3):
+    """``dq`` of f32 ``q, k, v, dout [BH, S, D]`` with ``lse`` and ``delta``
+    [BH, S] as :func:`..ops.flash_attention.flash_bwd_plain` computes it,
+    chunked the same way, with ``S = (q * scale) K^T``, ``dP = dO V^T`` and
+    ``dQ = dS K`` each taken in ``terms`` (3 or 1) TF32 products."""
+    _check_inputs("flash_dq_emulated", terms, q, k, v, dout, lse, delta)
+    bh, s_len, _ = q.shape
+    dq = torch.empty_like(q)
+    for h in range(0, bh, fa._PLAIN_HEADS):
+        hs = slice(h, h + fa._PLAIN_HEADS)
+        kt, kc = split_3xtf32(k[hs].transpose(-1, -2)), split_3xtf32(k[hs])
+        vt = split_3xtf32(v[hs].transpose(-1, -2))
+        n_rows = fa._row_chunk(k[hs].shape[0], s_len)
+        for r in range(0, s_len, n_rows):
+            rs = slice(r, r + n_rows)
+            sc = _matmul(split_3xtf32(q[hs, rs] * scale), kt, terms)
+            if causal:
+                sc = sc.masked_fill(~fa._causal_mask(rs, s_len, q.device), fa.NEG)
+            p = torch.exp(sc - lse[hs, rs][..., None])
+            dp = _matmul(split_3xtf32(dout[hs, rs]), vt, terms)
+            ds = p * (dp - delta[hs, rs][..., None]) * scale
+            dq[hs, rs] = _matmul(split_3xtf32(ds), kc, terms)
+    return dq

@@ -138,7 +138,17 @@ SASS_TWO_KERNELS = """
         /*0010*/                   HMMA.1688.F32.TF32 R12, R4, R9, R12 ;
         /*0020*/               @P0 BRA 0x0 ;
         /*0030*/                   EXIT ;
-        Function : _ZN12_GLOBAL__N_123flash_bwd_dq_f32_kernelILi64EEEvPKfS2_S2_S2_S2_S2_Pfifi
+        Function : _ZN12_GLOBAL__N_126flash_bwd_dq_3xtf32_kernelILi128EEEvPKfS2_S2_S2_S2_S2_Pfifi
+        /*0000*/                   LDG.E.128 R8, desc[UR4][R6.64] ;
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0020*/                   LDS R8, [R2] ;
+        /*0030*/                   HMMA.1688.F32.TF32 R12, R4, R9, R12 ;
+        /*0040*/                   HMMA.1688.F32.TF32 R16, R4, R10, R16 ;
+        /*0050*/                   HMMA.1688.F32.TF32 R20, R4, R11, R20 ;
+        /*0060*/                   MUFU.EX2 R13, R13 ;
+        /*0070*/               @P0 BRA 0x10 ;
+        /*0080*/                   EXIT ;
+        Function : _ZN12_GLOBAL__N_112ce_fwd_kernelEPKfPKlPfS3_ii
         /*0000*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
         /*0010*/               @P0 BRA 0x0 ;
         /*0020*/                   EXIT ;
@@ -146,8 +156,9 @@ SASS_TWO_KERNELS = """
 
 
 def test_sass_line_covers_the_f32_forward_and_dkv(monkeypatch):
-    """The SASS line names both f32 tensor-core kernels at their head dims,
-    each with its tile loop's HMMA count; the FFMA dQ is left out."""
+    """The SASS line names the three f32 tensor-core kernels (forward,
+    dK/dV, dQ) at their head dims, each with its tile loop's HMMA count;
+    a kernel that is not one of them is left out."""
     monkeypatch.setattr(flash_ab.kernels, "_nvcc", lambda: "/toolkit/bin/nvcc")
     seen = []
 
@@ -158,8 +169,12 @@ def test_sass_line_covers_the_f32_forward_and_dkv(monkeypatch):
     monkeypatch.setattr(flash_ab.subprocess, "run", run)
     got = flash_ab.sass_line("lib.so")["sass"]
     assert seen == [["/toolkit/bin/cuobjdump", "-sass", "lib.so"]]
-    assert set(got) == {"flash_fwd_3xtf32_kernel<128>", "flash_bwd_dkv_3xtf32_kernel<64>"}
+    assert set(got) == {"flash_fwd_3xtf32_kernel<128>", "flash_bwd_dkv_3xtf32_kernel<64>",
+                        "flash_bwd_dq_3xtf32_kernel<128>"}
     dkv = got["flash_bwd_dkv_3xtf32_kernel<64>"]
     assert dkv["instructions"] == 12 and dkv["loop_instructions"] == 7
     assert dkv["loop_mix"] == dict(hmma=2, lds=1, mufu=0, int_alu=0, float_alu=1, cvt=0, other=3)
     assert got["flash_fwd_3xtf32_kernel<128>"]["loop_mix"]["hmma"] == 1
+    dq = got["flash_bwd_dq_3xtf32_kernel<128>"]
+    assert dq["instructions"] == 9 and dq["loop_instructions"] == 7
+    assert dq["loop_mix"] == dict(hmma=3, lds=1, mufu=1, int_alu=0, float_alu=0, cvt=0, other=2)

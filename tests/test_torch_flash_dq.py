@@ -87,11 +87,12 @@ def test_dq_matches_jax_split_backward(monkeypatch, shape, causal, dtype):
     np.testing.assert_allclose(tdq, jdq, **(F32_TOL if dtype == "float32" else BF16_TOL))
 
 
-@pytest.mark.parametrize("which", [0, 1])
+@pytest.mark.parametrize("which", [0, 1, 2])
 def test_dq_wrong_variants_read_outside_the_limit(which):
     """At [4, 640, 64] bf16 causal (5 tiles of 128 rows): a dQ whose K loop
-    skips a middle 64-key block, and one that skips the diagonal block of
-    the odd 64-row blocks, are both rejected against the twin."""
+    skips a middle 64-key block, one that skips the diagonal block of the
+    odd 64-row blocks, and one whose mask leaves out each query's own key,
+    are all rejected against the twin."""
     cs = _chip_smoke()
     rng = np.random.default_rng(41)
     q, k, v, do = (torch.from_numpy(rng.normal(size=(4, 640, 64)).astype(np.float32))
@@ -105,7 +106,8 @@ def test_dq_wrong_variants_read_outside_the_limit(which):
     # the twin itself reads inside: the checks can pass at all
     assert cs.within(cs.readings(dq, dq, **tol), limit)
     variants = cs.dq_variants(torch, q, k, v, do, lse, delta, scale)
-    assert [w for w, _ in variants] == ["K tile 5 skipped", "second diagonal block skipped"]
+    assert [w for w, _ in variants] == ["K tile 5 skipped", "second diagonal block skipped",
+                                        "own key dropped"]
     what, wrong = variants[which]
     assert wrong.dtype == torch.bfloat16 and wrong.shape == dq.shape
     r = cs.readings(wrong, dq, **tol)

@@ -193,8 +193,13 @@ SASS = """
         /*00a0*/                   NOP ;
         /*00b0*/                   STG.E.64 desc[UR4][R6.64], R12 ;
         /*00c0*/                   EXIT ;
-        Function : _ZN12_GLOBAL__N_123flash_bwd_dq_f32_kernelILi64EEEvPKfS2_S2_S2_S2_S2_Pfifi
-        /*0000*/                   EXIT ;
+        Function : _ZN12_GLOBAL__N_126flash_bwd_dq_3xtf32_kernelILi64EEEvPKfS2_S2_S2_S2_S2_Pfifi
+        /*0000*/                   LDGSTS.E.BYPASS.128 [R3], desc[UR4][R4.64] ;
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0020*/                   HMMA.1688.F32.TF32 R12, R4, R9, R12 ;
+        /*0030*/                   HMMA.1688.F32.TF32 R16, R4, R10, R16 ;
+        /*0040*/               @P0 BRA 0x10 ;
+        /*0050*/                   EXIT ;
 """
 
 
@@ -208,6 +213,10 @@ def test_sass_mix_counts_the_tile_loop_by_class():
     assert got == {"flash_fwd_3xtf32_kernel<64>": dict(
         instructions=12, loop_instructions=8,
         loop_mix=dict(hmma=1, lds=1, mufu=1, int_alu=2, float_alu=1, cvt=0, other=2))}
+    got = flash_ab.sass_mix(SASS, "flash_bwd_dq_3xtf32_kernel")
+    assert got == {"flash_bwd_dq_3xtf32_kernel<64>": dict(
+        instructions=6, loop_instructions=4,
+        loop_mix=dict(hmma=2, lds=0, mufu=0, int_alu=0, float_alu=0, cvt=0, other=2))}
 
 
 def test_chip_smoke_f32_runner_needs_a_card(monkeypatch, capsys):
