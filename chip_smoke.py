@@ -4,10 +4,12 @@
     python3 chip_smoke.py              # needs one CUDA card
     python3 chip_smoke.py --profile    # also: torch.profiler breakdowns of one
                                        # serving batch and one step of each trainer
-                                       # (phases 8, 11 and 12)
+                                       # (phases 8, 11, 12 and 14)
     python3 chip_smoke.py --f32-runner # phases 1, 2 and 12 only: the f32 trainer,
                                        # to time it against another tree in turns
                                        # (with --profile: and its step's breakdown)
+    python3 chip_smoke.py --resnet     # phases 1, 2, 13 and 14 only: the ResNet
+                                       # path (with --profile: its steps' breakdowns)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -39,8 +41,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. the training kernels against their twins, timed as in phase 3, beside
    their bound and one PyTorch call computing the same function
    (``F.cross_entropy``, ``F.scaled_dot_product_attention``, timed here
-   only): K1a/K1b at [16384, 32768] and [65536, 8192] f32 and [37, 1000] in
-   bf16 and f32 with an out-of-range label; flash forward/backward at B 8,
+   only): K1a/K1b at [16384, 32768] and [65536, 8192] f32, ResNet's [64,
+   1000] f32, and [37, 1000] in bf16 and f32 with an out-of-range label; flash forward/backward at B 8,
    H 16, S 2048, D 64 bf16 causal (the backward also as its dK/dV and dQ
    launches apart), plus D = 128 bf16 causal at [1, 8, 4096, 128], a
    non-causal case, bf16 causal at [2, 4, 384, 128] and [2, 4, 640, 64] (3
@@ -89,7 +91,25 @@ Phases, in order; any failure raises and the script exits non-zero:
     batches; per step exactly 16 f32 flash forwards (K2a,
     ``flash_fwd_3xtf32_kernel``), 16 K2d (``flash_bwd_dq_3xtf32_kernel``)
     and 16 K2e (``flash_bwd_dkv_3xtf32_kernel``) launches, besides
-    K1a/K1b and 16 each of K3/K4.  Prints step ms, tokens/s and peak memory.
+    K1a/K1b and 16 each of K3/K4.  Prints step ms, tokens/s and peak memory;
+13. one training step of ResNet-50 at full width (f32, TF32 off for matmul
+    and cuDNN, ``sync_bn`` on at world size 1: raw-moment statistics) on the
+    card against the same weights and a seeded batch of 4 images at 224^2
+    on the CPU: the loss within rtol 1e-5, the logits and every BatchNorm
+    running statistic after the step within 1e-4 of their largest
+    magnitude, every gradient as close to a float64 run on the CPU as the
+    CPU's f32 one (the f32 backward of this network amplifies rounding to
+    ~2.5%), and exactly 1 K1a and 1 K1b launch;
+14. the ResNet main path: the runner on ``config/test-sync.yml`` as it is
+    (ResNet-50, synthetic 224^2, 1000 classes, batch 64, SGD, multi_step,
+    ``sync_bn``, f32) with only ``train_iters`` (8) and the dataset size (2
+    validation batches) set in memory, then the same at
+    ``training.dtype: bfloat16``; every loss finite and exactly 1 K1a + 1
+    K1b a step and 1 K1a a validation batch.  Prints step ms, images/s,
+    peak memory, the TF32 flags in force (torch's defaults), model FLOP an
+    image and the rate reached; then the step on one batch held on the card
+    (no loader) in ``channels_last`` as the runner runs it, in contiguous
+    NCHW and with ``cudnn.benchmark``, and the loader's host time a batch.
 
 The line before the last lists every TPU kernel (K1a ... K4) with the CUDA
 kernel that stands for it, its launches on the path that runs it, its error
@@ -109,9 +129,10 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (FFMA)
-# H100 SXM f32-accurate products on the tensor cores: 3 TF32 products each
-# (494.7 TFLOP/s TF32 dense), the f32 flash kernels' bound
-TF32X3_FLOPS = 494.7e12 / 3
+TF32_FLOPS = 494.7e12  # H100 SXM TF32 tensor cores, dense
+# H100 SXM f32-accurate products on the tensor cores: 3 TF32 products each,
+# the f32 flash kernels' bound
+TF32X3_FLOPS = TF32_FLOPS / 3
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz: covers any host enqueue
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -121,6 +142,7 @@ TRAIN_CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "co
                             "train-lm-1024.yml")
 LONGCTX_CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "configs",
                               "train-lm-longctx.yml")
+RESNET_CONFIG = os.path.join(_HERE, "config", "test-sync.yml")
 _CSRC = "pytorch_distributed_training_tpu_torch/csrc/"
 _TPU = "pytorch_distributed_training_tpu/ops/"
 _FA = _TPU + "flash_attention.py:"
@@ -154,10 +176,10 @@ TPU_KERNELS = {
     "K4": (_TPU + "fused_elementwise.py:203", "fused_elementwise.cu", "bias_gelu_kernel",
            ("bias_gelu", 0), "training"),
 }
-# other cases reported beside a row's own: the other main path's CE shape,
+# other cases reported beside a row's own: the other main paths' CE shapes,
 # flash at D = 128 and the f32 flash kernels, K2c's two launches apart, and
 # K3/K4 at serving's prefill and decode shapes
-ALSO = {"K1a": [("ce_fwd", 0)], "K1b": [("ce_bwd", 0)],
+ALSO = {"K1a": [("ce_fwd", 0), ("ce_fwd", 4)], "K1b": [("ce_bwd", 0), ("ce_bwd", 4)],
         "K2a": [("flash_fwd", 1), ("long_fwd", 2), ("flash_fwd", 3)],
         "K2c": [("flash_dkv", 0), ("flash_dq", 0), ("flash_bwd", 1)],
         "K2b": [("long_fwd", 1)], "K2f": [("long_dq", 1)], "K2g": [("long_dkv", 1)],
@@ -738,12 +760,14 @@ def phase_train_kernels(torch, ce, fa):
 
     checks = []
     # --- K1a / K1b: the main paths' [16384, 32768] (phase 8) and [65536,
-    # 8192] (phase 11) f32, then ragged rows
+    # 8192] (phase 11) f32, then ragged rows, then ResNet's [64, 1000] f32
+    # (phase 14)
     for r, c, dtype in ((16384, 32768, torch.float32), (65536, 8192, torch.float32),
-                        (37, 1000, torch.bfloat16), (37, 1000, torch.float32)):
+                        (37, 1000, torch.bfloat16), (37, 1000, torch.float32),
+                        (64, 1000, torch.float32)):
         x = (torch.randn(r, c, generator=gen, device=dev) * 2.0).to(dtype)
         labels = torch.randint(0, c, (r,), generator=gen, device=dev)
-        main = r >= 16384
+        main = r != 37
         if not main:
             labels[5] = c + 7  # out of range: true logit 0, no raise
         scale = torch.full((1,), 1.0 / r, device=dev)
@@ -1255,11 +1279,276 @@ def phase_f32_runner_and_profile(torch, modules, profile: bool) -> dict:
     return counts
 
 
+def relative_to_largest(got, want) -> float:
+    """max |got - want| / max |want|."""
+    return ((got.double() - want.double()).abs().max()
+            / want.double().abs().max().clamp_min(1e-300)).item()
+
+
+def norm_relative(got, want) -> float:
+    """||got - want|| / ||want||."""
+    return ((got.double() - want.double()).norm() / want.double().norm().clamp_min(1e-300)).item()
+
+
+def phase_resnet_step_vs_cpu(torch, modules, batch: int = 4, seed: int = 12) -> dict:
+    """Phase 13: one ResNet-50 training step (its forward and backward) at
+    full width, f32 with TF32 off, ``sync_bn`` on at world size 1, on the
+    card against the same weights and batch on the CPU, in f32 and in
+    float64 (statistics and products in float64, the logits and CE in f32).
+
+    - the loss within rtol 1e-5 of the CPU's, the logits and every
+      BatchNorm running statistic after the step within 1e-4 of their
+      largest magnitude;
+    - the gradients against the float64 run: the f32 backward of this
+      network at its init amplifies rounding (the CPU's own f32 gradients
+      lie ~2.5% from float64 in norm, torch's own BatchNorm likewise), so
+      each gradient of the card must lie as close to float64 as the CPU's
+      f32 one does: its norm-relative error at most 3x the CPU's (or 1e-4),
+      and over all gradients at most 2x; the card-vs-CPU error against the
+      largest magnitude is printed beside them;
+    - exactly 1 K1a and 1 K1b launch on the card."""
+    from pytorch_distributed_training_tpu_torch import optimizers
+    from pytorch_distributed_training_tpu_torch.engine import build_train_step
+    from pytorch_distributed_training_tpu_torch.models import get_model
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu = get_model("ResNet50", num_classes=1000, sync_bn=True)
+        cpu.reset_parameters(torch.Generator().manual_seed(seed))
+        ref = get_model("ResNet50", num_classes=1000, sync_bn=True, dtype=torch.float64)
+        ref.load_state_dict(cpu.state_dict())
+        ref.double()
+        gpu = get_model("ResNet50", num_classes=1000, sync_bn=True)
+        gpu.load_state_dict(cpu.state_dict())
+        gpu = gpu.to("cuda", memory_format=torch.channels_last)
+        gen = torch.Generator().manual_seed(seed + 1)
+        img = torch.randn(batch, 224, 224, 3, generator=gen)
+        labels = torch.randint(0, 1000, (batch,), generator=gen)
+        out = {}
+        for where, model, x, y in (("float64", ref, img.double(), labels),
+                                   ("cpu", cpu, img, labels),
+                                   ("card", gpu, img.cuda(), labels.cuda())):
+            for m in modules:
+                m.reset_launch_counts()
+            opt = optimizers.SGD(lr=0.1, momentum=0.9, weight_decay=1e-4)
+            step = build_train_step(model, opt, lambda s: 0.1, sync_bn=True)
+            t0 = time.perf_counter()
+            loss, logits = step.forward_backward(x, y)
+            out[where] = (loss.item(), logits.cpu())
+            say(f"  {where}: forward and backward in {time.perf_counter() - t0:.2f} s")
+        counts = all_counts(modules)
+        check_launches("ResNet-50 step on the card", counts, dict(ce_fwd=1, ce_bwd=1))
+        (l_cpu, y_cpu), (l_card, y_card) = out["cpu"], out["card"]
+        say(f"  loss card {l_card!r} cpu {l_cpu!r} float64 {out['float64'][0]!r}")
+        if abs(l_card - l_cpu) > 1e-5 * abs(l_cpu):
+            raise AssertionError("loss: card and CPU differ by more than rtol 1e-5")
+        numbers = {"logits": relative_to_largest(y_card, y_cpu)}
+        if not torch.isfinite(y_card).all() or numbers["logits"] > 1e-4:
+            raise AssertionError(f"logits: card vs CPU relative error {numbers['logits']}")
+        name, rel = max(((n, relative_to_largest(bg.cpu(), bc)) for (n, bc), bg in
+                         zip(cpu.named_buffers(), gpu.buffers())), key=lambda t: t[1])
+        if rel > 1e-4:
+            raise AssertionError(f"running statistic {name}: card vs CPU relative error {rel}")
+        numbers["running"] = (name, rel)
+        say(f"  logits {tuple(y_card.shape)}: max |card - cpu| / max |cpu| = "
+            f"{numbers['logits']:.3g}; {len(list(cpu.buffers()))} running statistics, worst "
+            f"{name} {rel:.3g}; launches {counts}")
+        grads = [(n, pc.grad, pg.grad.cpu(), pr.grad) for (n, pc), pg, pr in
+                 zip(cpu.named_parameters(), gpu.parameters(), ref.parameters())]
+        if not all(torch.isfinite(g).all() for _, _, g, _ in grads):
+            raise AssertionError("gradients: non-finite on the card")
+        ratios = []
+        for n, gc, gg, gr in grads:
+            e_card, e_cpu = norm_relative(gg, gr), norm_relative(gc, gr)
+            if e_card > max(1e-4, 3 * e_cpu):
+                raise AssertionError(f"grad {n}: card {e_card} from float64, CPU f32 {e_cpu}")
+            ratios.append((e_card / max(e_cpu, 1e-300), n, e_card, e_cpu))
+        flat = [torch.cat([t.double().reshape(-1) for t in ts])
+                for ts in zip(*[(gc, gg, gr) for _, gc, gg, gr in grads])]
+        g_cpu, g_card = norm_relative(flat[0], flat[2]), norm_relative(flat[1], flat[2])
+        if g_card > 2 * g_cpu:
+            raise AssertionError(f"gradients: card {g_card} from float64 over all, CPU {g_cpu}")
+        worst = max(ratios)
+        vs_cpu = max((relative_to_largest(gg, gc), n) for n, gc, gg, _ in grads)
+        numbers.update(grad_norm_rel_float64=dict(card=g_card, cpu=g_cpu),
+                       worst_ratio=worst, card_vs_cpu_largest=vs_cpu)
+        say(f"  {len(grads)} gradients against float64 (norm-relative): all of them card "
+            f"{g_card:.4g}, CPU f32 {g_cpu:.4g}; worst card/CPU ratio {worst[0]:.3g} at "
+            f"{worst[1]} ({worst[2]:.3g} vs {worst[3]:.3g}); read only: max |card - cpu| / "
+            f"max |cpu| worst {vs_cpu[0]:.3g} at {vs_cpu[1]}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    say("resnet_step: " + json.dumps(numbers))
+    del cpu, gpu, ref
+    torch.cuda.empty_cache()
+    return counts
+
+
+def resnet_forward_flop(torch, name: str, classes: int, image_size: int) -> float:
+    """Model FLOP of one image's forward: 2 x the multiply-adds of every
+    conv and of ``fc``, from the shapes (a meta-device model, no data)."""
+    from pytorch_distributed_training_tpu_torch.models import get_model
+
+    total = [0]
+
+    def count(module, inputs, output):
+        if isinstance(module, torch.nn.Conv2d):
+            k = module.kernel_size[0] * module.kernel_size[1] * module.in_channels
+            total[0] += 2 * output.numel() * k // module.groups
+        else:
+            total[0] += 2 * output.numel() * module.weight.shape[1]
+
+    with torch.device("meta"):
+        model = get_model(name, num_classes=classes)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d) or m is model.fc:
+                m.register_forward_hook(count)
+        model(torch.empty(1, 3, image_size, image_size))
+    return float(total[0])
+
+
+def device_step_ms(torch, step, img, labels, reps: int = 8) -> float:
+    """Median wall ms of ``step`` on a batch already on the card, each call
+    synchronised, after two warm calls."""
+    times = []
+    for i in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(img, labels)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_resnet_runner(torch, modules, dtype: str, tf32_defaults, profile: bool,
+                        steps: int = 8):
+    """Phase 14: the runner on ``config/test-sync.yml`` as it is, with
+    ``train_iters`` and the dataset size (2 validation batches) set in
+    memory and ``training.dtype`` set to ``dtype``; TF32 flags at torch's
+    defaults, which the runner does not touch.  Returns the launch counts
+    and the numbers printed."""
+    import math
+
+    from functools import partial
+
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg, get_train_logger
+    from pytorch_distributed_training_tpu_torch.engine import Runner
+    from pytorch_distributed_training_tpu_torch.logger import MultiProcessLoggerListener
+
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+    cfg = get_cfg(RESNET_CONFIG)
+    batch = cfg["training"]["batch_size"]
+    cfg["training"]["train_iters"] = steps
+    cfg["training"]["dtype"] = dtype
+    cfg["dataset"]["n_samples"] = 2 * batch  # 2 validation batches
+    marks, losses = [], []
+
+    def on_iter(runner):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), all_counts(modules)))
+        losses.append(float(runner.last_loss))
+
+    listener = MultiProcessLoggerListener(
+        partial(get_train_logger, os.path.join(_HERE, "run", "chip_smoke"), f"resnet-{dtype}"),
+        "spawn")
+    runner = Runner(num_nodes=1, rank=0, seed=0, dist_url="", multiprocessing=False,
+                    logger_queue=listener.queue, global_cfg=cfg, device="cuda", on_iter=on_iter)
+    for m in modules:
+        m.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        runner()
+    finally:
+        listener.stop()
+    final = all_counts(modules)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training losses: {losses}")
+    if len(runner.val_log) != 1 or not math.isfinite(runner.val_log[0]["loss"]):
+        raise AssertionError(f"validation: {runner.val_log}")
+    prev = {k: 0 for k in final}
+    for i, (_, counts) in enumerate(marks):
+        check_launches(f"step {i}", {k: counts[k] - prev[k] for k in final},
+                       dict(ce_fwd=1, ce_bwd=1))
+        prev = counts
+    val_batches = len(runner.val_loader)
+    check_launches(f"validation ({val_batches} batches)", {k: final[k] - prev[k] for k in final},
+                   dict(ce_fwd=val_batches))
+    step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
+    med_ms = statistics.median(step_ms)
+    image_size = cfg["dataset"].get("image_size", 224)
+    flop = 3 * resnet_forward_flop(torch, cfg["model"]["name"], cfg["dataset"]["n_classes"],
+                                   image_size)
+    # bf16 convs on the bf16 tensor cores; f32 convs under cuDNN's TF32 default
+    peak = BF16_FLOPS if dtype == "bfloat16" else TF32_FLOPS
+    flags = dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                 cudnn=torch.backends.cudnn.allow_tf32)
+    say(f"  losses {losses}; validation {runner.val_log[0]}")
+    say(f"  allow_tf32 in force (torch's defaults): {flags}; sync_bn in force: "
+        f"{runner.sync_bn} (one rank)")
+    say(f"  step ms (steps 1-{steps - 1}, host clock, loader-fed, synced): {step_ms}; "
+        f"median {med_ms}; images/s per card {batch / med_ms * 1e3}")
+    say(f"  model FLOP an image (train: 3 x forward) {flop:.4g}; rate "
+        f"{flop * batch / med_ms / 1e9:.2f} TFLOP/s, "
+        f"{flop * batch / (med_ms / 1e3) / peak:.4f} of {peak / 1e12:.1f}")
+    say(f"  launches a step {{'ce_fwd': 1, 'ce_bwd': 1}}, validation "
+        f"{{'ce_fwd': {val_batches}}}; peak device memory {peak_gib} GiB")
+
+    # the same step on one batch held on the card, apart from the loader
+    t0 = time.perf_counter()
+    inp, lab = next(iter(runner.train_loader))
+    loader_ms = (time.perf_counter() - t0) * 1e3
+    img, labels = runner._to_device(inp, lab)
+    model, step = runner.model, runner.train_step
+    dev_ms = {"channels_last": device_step_ms(torch, step, img, labels)}
+    model.to(memory_format=torch.contiguous_format)
+    nchw_img = img.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)  # permutes back to NCHW
+    dev_ms["nchw"] = device_step_ms(torch, step, nchw_img, labels)
+    model.to(memory_format=torch.channels_last)
+    torch.backends.cudnn.benchmark = True
+    try:
+        dev_ms["channels_last_cudnn_benchmark"] = device_step_ms(torch, step, img, labels)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    say(f"  loader (host, one thread): {loader_ms} ms a batch of {batch}, "
+        f"{batch / loader_ms * 1e3} images/s")
+    for layout, ms in dev_ms.items():
+        say(f"  device-resident step ({layout}): {ms} ms, {batch / ms * 1e3} images/s, "
+            f"{flop * batch / ms / 1e9:.2f} TFLOP/s")
+    if profile:
+        say(f"== profile (ResNet-50 {dtype} train step, device-resident)")
+        profile_window(torch, f"ResNet-50 {dtype} step", lambda: step(img, labels), 20)
+    numbers = dict(dtype=dtype, step_ms=step_ms, median_step_ms=med_ms,
+                   images_per_s=batch / med_ms * 1e3, loader_ms=loader_ms,
+                   device_step_ms=dev_ms, model_flop_per_image=flop / 3, peak_gib=peak_gib,
+                   allow_tf32=flags, losses=losses, val=runner.val_log[0])
+    say(f"resnet_{dtype}: " + json.dumps(numbers))
+    del runner, model, step, img
+    torch.cuda.empty_cache()
+    return final
+
+
+def phase_resnet(torch, modules, tf32_defaults, profile: bool) -> dict:
+    """Phases 13 and 14; returns the launch counts by path."""
+    say("== phase 13: ResNet-50 training step at full width, card vs CPU")
+    paths = {"resnet_step": by_tpu_kernel(phase_resnet_step_vs_cpu(torch, modules))}
+    say("== phase 14: main path (training runner, ResNet-50, config/test-sync.yml)")
+    paths["resnet"] = by_tpu_kernel(
+        phase_resnet_runner(torch, modules, "float32", tf32_defaults, profile))
+    paths["resnet_bf16"] = by_tpu_kernel(
+        phase_resnet_runner(torch, modules, "bfloat16", tf32_defaults, profile))
+    return paths
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true")
     parser.add_argument("--f32-runner", action="store_true",
                         help="phases 1, 2 and 12 only (no result line)")
+    parser.add_argument("--resnet", action="store_true",
+                        help="phases 1, 2, 13 and 14 only (no result line)")
     args = parser.parse_args(argv)
 
     import torch
@@ -1278,6 +1567,8 @@ def main(argv=None) -> int:
     from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
 
     modules = (fe, ce, fa)
+    # phases 4, 7, 10 and 13 turn TF32 off; phase 14 runs at torch's defaults
+    tf32_defaults = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
 
     t_start = time.perf_counter()
     say("== phase 1: the card")
@@ -1299,6 +1590,11 @@ def main(argv=None) -> int:
     if args.f32_runner:
         say("== phase 12: main path (training runner, full width, float32)")
         phase_f32_runner_and_profile(torch, modules, args.profile)
+        say(smi)
+        return 0
+    if args.resnet:
+        phase_resnet(torch, modules, tf32_defaults, args.profile)
+        say(f"total {time.perf_counter() - t_start:.1f} s")
         say(smi)
         return 0
 
@@ -1379,6 +1675,7 @@ def main(argv=None) -> int:
 
     say("== phase 12: main path (training runner, full width, float32)")
     paths["f32_runner"] = by_tpu_kernel(phase_f32_runner_and_profile(torch, modules, args.profile))
+    paths.update(phase_resnet(torch, modules, tf32_defaults, args.profile))
 
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "ffma_bound_ms")

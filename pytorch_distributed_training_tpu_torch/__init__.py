@@ -6,8 +6,12 @@ package), and replaces each Pallas TPU kernel on a ported path with a
 kernel written by hand for Hopper (``csrc/``, bound in :mod:`.kernels`).
 
 Ported so far: the LM serving batcher path (``python -m
-pytorch_distributed_training_tpu_torch.serving``).  Entry points run on the
-card unless the caller asks for the CPU; :func:`resolve_device` enforces it.
+pytorch_distributed_training_tpu_torch.serving``), LM training at plain
+data parallelism and on one card at long context, and ResNet training at
+data parallelism on synthetic images (``python -m
+pytorch_distributed_training_tpu_torch.train_distributed``).  Entry points
+run on the card unless the caller asks for the CPU; :func:`resolve_device`
+enforces it.
 """
 from __future__ import annotations
 

@@ -1,14 +1,20 @@
-"""Datasets (port of the LM half of ``data/datasets.py``).
+"""Datasets (port of the synthetic datasets of ``data/datasets.py``).
 
-The port keeps its own numpy copy of :class:`SyntheticTextDataset`
-(``datasets.py:99``): the same per-split transition table and the same
-per-index Markov chain, so a seed gives the same arrays as the JAX
-package's.  Yields host-shifted ``(inputs [seq_len], targets [seq_len])``
-int32 pairs.
+The port keeps its own numpy copies, so a seed gives the same arrays as
+the JAX package's, bit for bit (the same crc32 salt of the split and the
+same ``default_rng`` stream per index):
 
-``get_dataset`` knows ``synthetic_text``; the ``tokens`` file dataset is
-ROADMAP port item P2b and the image datasets (``imagenet``, ``synthetic``)
-item P3, each raising ``NotImplementedError``.
+- :class:`SyntheticDataset` (``datasets.py:58``): class-dependent Gaussian
+  images, ``(image [H, W, 3] float32, label int64)``, HWC as the JAX
+  package feeds its NHWC model;
+- :class:`SyntheticTextDataset` (``datasets.py:99``): per-index Markov
+  chains over a per-split transition table, host-shifted ``(inputs
+  [seq_len], targets [seq_len])`` int32 pairs.
+
+``get_dataset`` knows ``synthetic``/``fake``/``fake_imagenet`` and
+``synthetic_text``/``fake_text``; the ``tokens`` file dataset is ROADMAP
+port item P2b and ``imagenet`` (ImageFolder and native decode) item P3b,
+each raising ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,7 +23,30 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["SyntheticTextDataset", "get_dataset"]
+__all__ = ["SyntheticDataset", "SyntheticTextDataset", "get_dataset"]
+
+
+class SyntheticDataset:
+    """Deterministic fake ImageNet: standard-normal images with a mean shift
+    by class, so short runs have something to learn."""
+
+    def __init__(self, n_samples: int = 1280, n_classes: int = 1000, image_size: int = 224,
+                 split: str = "train", seed: int = 0):
+        self.n_samples = int(n_samples)
+        self.n_classes = int(n_classes)
+        self.image_size = int(image_size)
+        # crc32, not hash(): the same salt in every process
+        self._salt = (zlib.crc32(split.encode()) & 0xFFFF) ^ seed
+
+    def __len__(self) -> int:
+        return self.n_samples
+
+    def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.int64]:
+        rng = np.random.default_rng(self._salt * 1_000_003 + idx)
+        label = idx % self.n_classes
+        img = rng.standard_normal((self.image_size, self.image_size, 3), dtype=np.float32)
+        img += 0.1 * ((label % 16) - 8) / 8.0
+        return img, np.int64(label)
 
 
 class SyntheticTextDataset:
@@ -61,24 +90,26 @@ class SyntheticTextDataset:
 _NOT_YET = {
     "tokens": "the token-file dataset is ROADMAP port item P2b",
     "tokenbin": "the token-file dataset is ROADMAP port item P2b",
-    "imagenet": "image datasets are ROADMAP port item P3",
-    "synthetic": "image datasets are ROADMAP port item P3",
-    "fake": "image datasets are ROADMAP port item P3",
-    "fake_imagenet": "image datasets are ROADMAP port item P3",
+    "imagenet": "ImageFolder with native decode is ROADMAP port item P3b",
 }
 
 
 def get_dataset(name: str, root: str, split: str, n_classes: Optional[int] = None,
-                n_samples: Optional[int] = None, seq_len: Optional[int] = None, **_):
-    """Dataset factory (reference: train_distributed.py:171-181).  For LM
-    datasets ``n_classes`` is the vocabulary size; ``n_samples`` defaults
-    to 4096 (train) and 512 (val), ``seq_len`` to 128, as in the JAX
-    package.  Other keyword arguments (``image_size``) are ignored."""
+                n_samples: Optional[int] = None, seq_len: Optional[int] = None,
+                image_size: int = 224):
+    """Dataset factory (reference: train_distributed.py:171-181), with the
+    JAX package's defaults: images ``n_samples`` 12,800 (train) and 1,280
+    (val), 1000 classes, ``image_size`` 224; LM datasets (``n_classes`` the
+    vocabulary size) 4096 and 512 samples, ``seq_len`` 128."""
     key = name.lower()
     if key in _NOT_YET:
         raise NotImplementedError(f"dataset {name!r}: {_NOT_YET[key]}")
+    if key in ("synthetic", "fake", "fake_imagenet"):
+        n = n_samples if n_samples else (12_800 if split == "train" else 1_280)
+        return SyntheticDataset(n_samples=n, n_classes=n_classes or 1000,
+                                image_size=image_size, split=split)
     if key in ("synthetic_text", "fake_text"):
         n = n_samples if n_samples else (4_096 if split == "train" else 512)
         return SyntheticTextDataset(n_samples=n, vocab_size=n_classes or 512,
                                     seq_len=seq_len or 128, split=split)
-    raise KeyError(f"unknown dataset '{name}' (the port has: synthetic_text)")
+    raise KeyError(f"unknown dataset '{name}' (the port has: synthetic, synthetic_text)")

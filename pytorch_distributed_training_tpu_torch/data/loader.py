@@ -4,7 +4,7 @@
 ``batch_size`` in order and stacks the samples in the calling thread; with
 ``drop_last=False`` the last partial batch wraps around to full size, as
 the JAX loader does (``data/loader.py:132-144``).  The JAX package's worker
-pool, native decode and prefetch are ROADMAP port item P3.
+pool, native decode and prefetch are ROADMAP port item P3b.
 
 :func:`make_iter_dataloader` turns the epoch loader into the endless
 per-iteration stream the trainer draws from, advancing the sampler's

@@ -1,24 +1,33 @@
-"""The training runner, LM plain-DP slice (port of ``engine/runner.py``).
+"""The training runner: LM and image data parallelism (port of ``engine/runner.py``).
 
 ``Runner(...)()`` builds everything from a training config and runs the
-reference's iteration loop:
+reference's iteration loop.  The model family picks the path, as the JAX
+package's ``engine/paths.py`` does: ``TransformerLM`` trains on the LM
+path, a ResNet on the image path.
 
 - datasets (``dataset.*``), the sampler (shuffled, ``drop_last`` for
   training; in order and wrap-padded for validation; sharded by rank when
   the world has more than one rank) and a plain batch loader;
-- the model from ``model.*`` with ``flash`` on, in ``training.dtype`` with
-  f32 master parameters, on the card (``device``, default ``cuda``);
-  ``training.remat`` is the JAX package's alias of
-  ``model.remat``/``model.remat_policy`` (:func:`apply_remat_alias`);
+- the model from ``model.*`` in ``training.dtype`` with f32 master
+  parameters, on the card (``device``, default ``cuda``):
+  - LM: flash on; ``training.remat`` is the JAX package's alias of
+    ``model.remat``/``model.remat_policy`` (:func:`apply_remat_alias`);
+  - image: a ResNet whose BatchNorms average their statistics over the
+    ranks when ``training.sync_bn`` is set and the world has more than one
+    rank (JAX ``engine/topology.py:81``: at world size 1 the statistics
+    are local), in ``channels_last`` on the card; of the ``model:`` keys
+    only ``space_to_depth`` and ``bn_stat_dtype`` are read (both P3b
+    beyond their defaults);
 - the optimizer and LR schedule from ``training.optimizer`` /
   ``training.lr_schedule``;
-- the train and eval steps of :mod:`.sp_steps`;
+- the train and eval steps of :mod:`.sp_steps` (LM) or :mod:`.steps`
+  (image);
 - the loop: one step per iteration, the
-  ``Iter [i/T] Lr: [...] Loss: x (tok/s)`` line every ``print_interval``
-  (``runner.py:1216-1245``), the scheduler stepped every iteration
-  (``:1254``), and ``Start valuation`` / ``Acc@1 ... Acc@5 ... Loss`` at
-  ``val_interval`` and after the last iteration (``:1110-1114``,
-  ``:1265-1291``).
+  ``Iter [i/T] Lr: [...] Loss: x (tok/s or img/s)`` line every
+  ``print_interval`` (``runner.py:1216-1245``), the scheduler stepped
+  every iteration (``:1254``), and ``Start valuation`` / ``Acc@1 ... Acc@5
+  ... Loss`` at ``val_interval`` and after the last iteration
+  (``:1110-1114``, ``:1265-1291``).
 
 A run of more than one rank is one process per rank; ``torch.distributed``
 gets its address, world size and rank from the caller (NCCL on the card,
@@ -29,6 +38,7 @@ Not ported yet: every config key asking for one raises
 ``NotImplementedError`` naming its ROADMAP item (:data:`UNPORTED_TRAINING_KEYS`):
 checkpointing, grad accumulation, the anomaly guard and the rest of
 fault tolerance, the remat policies ``dots``/``dots_saveable`` (P2b),
+``ema``, ``device_normalize`` and exact image validation (P3b),
 sequence/tensor/pipeline/expert parallelism, ZeRO and ``comm`` (P9),
 telemetry, integrity and elastic recovery (P10).
 TensorBoard is absent (P10): the log file and the console carry the
@@ -49,11 +59,12 @@ import torch.distributed as dist
 from .. import resolve_device
 from ..data import DataLoader, DistributedShardSampler, get_dataset, make_iter_dataloader
 from ..metrics import AverageMeter
-from ..models import get_model
+from ..models import get_model, is_resnet
 from ..optimizers import get_optimizer
 from ..schedulers import get_scheduler
 from ..utils import make_deterministic
 from .sp_steps import build_lm_eval_step, build_lm_train_step
+from .steps import build_eval_step, build_train_step
 
 __all__ = ["Runner", "UNPORTED_TRAINING_KEYS", "apply_remat_alias"]
 
@@ -75,7 +86,9 @@ UNPORTED_TRAINING_KEYS = {
     "telemetry": "the telemetry layer is ROADMAP port item P10",
     "integrity": "the integrity sentinel is ROADMAP port item P10",
     "elastic": "elastic recovery is ROADMAP port item P10",
-    "ema": "training.ema is only wired for the image task (ROADMAP port item P3)",
+    "ema": "training.ema (the image task's weight EMA) is ROADMAP port item P3b",
+    "device_normalize": "training.device_normalize (uint8 batches normalized on the card) is "
+                        "ROADMAP port item P3b",
 }
 
 
@@ -125,7 +138,7 @@ def apply_remat_alias(train_cfg: Dict[str, Any], model_cfg: Dict[str, Any],
 
 class Runner:
     """Counterpart of the reference Runner (train_distributed.py:89) for the
-    LM plain-DP path.
+    LM and image data-parallel paths.
 
     ``num_nodes``/``rank`` follow the reference CLI: with
     ``multiprocessing`` they count nodes and each node spawns one process
@@ -215,26 +228,22 @@ class Runner:
         if not 0.0 <= self.label_smoothing < 1.0:
             raise ValueError(f"label_smoothing must be in [0, 1), got {self.label_smoothing}")
 
+        model_cfg = dict(cfg["model"])
+        model_name = model_cfg.pop("name")
+        self.is_lm = not is_resnet(model_name)
+        apply_remat_alias(train_cfg, model_cfg, model_name)
         ds_kwargs = dict(n_classes=cfg["dataset"]["n_classes"],
                          n_samples=cfg["dataset"].get("n_samples"),
-                         seq_len=cfg["dataset"].get("seq_len"))
+                         seq_len=cfg["dataset"].get("seq_len"),
+                         image_size=cfg["dataset"].get("image_size", 224))
         train_dataset = get_dataset(cfg["dataset"]["name"], cfg["dataset"].get("root", ""),
                                     split="train", **ds_kwargs)
         val_dataset = get_dataset(cfg["dataset"]["name"], cfg["dataset"].get("root", ""),
                                   split="val", **ds_kwargs)
-        self.seq_len = int(train_dataset[0][0].shape[0])
-
-        model_cfg = dict(cfg["model"])
-        model_name = model_cfg.pop("name")
-        apply_remat_alias(train_cfg, model_cfg, model_name)
-        model_cfg.setdefault("max_len", self.seq_len)
-        self.model = get_model(model_name, num_classes=cfg["dataset"]["n_classes"],
-                               dtype=self.compute_dtype, flash=True, **model_cfg)
-        self.model.to(self.device).train()
-        self.logger.info("Model %s: %.1f M parameters, compute %s, flash attention on%s",
-                         model_name, sum(p.numel() for p in self.model.parameters()) / 1e6,
-                         str(self.compute_dtype).replace("torch.", ""),
-                         ", block remat" if self.model.remat else "")
+        if self.is_lm:
+            self._build_lm_model(model_name, model_cfg, train_dataset)
+        else:
+            self._build_image_model(model_name, model_cfg)
 
         # reference parity (train_distributed.py:194): batch_size is per
         # process, one process per card
@@ -261,24 +270,66 @@ class Runner:
         self.logger.info(
             "Load dataset done\nTraining: %d samples, %d batches\nEval: %d samples, %d batches",
             len(train_dataset), len(self.train_loader), len(val_dataset), len(self.val_loader))
-        if cfg.get("validation", {}).get("exact", False):
-            self.logger.warning("validation.exact is implemented for the image eval path; "
-                                "LM validation keeps the per-batch meter semantics")
-
-        self.train_step = build_lm_train_step(
-            self.model, self.optimizer, self.scheduler.lr_fn, world_size=self.world_size,
-            label_smoothing=self.label_smoothing)
-        self.eval_step = build_lm_eval_step(self.model, world_size=self.world_size)
+        exact = cfg.get("validation", {}).get("exact", False)
+        if self.is_lm:
+            if exact:
+                self.logger.warning("validation.exact applies to the image eval path (ROADMAP "
+                                    "port item P3b); LM validation keeps the per-batch meter "
+                                    "semantics")
+            self.train_step = build_lm_train_step(
+                self.model, self.optimizer, self.scheduler.lr_fn, world_size=self.world_size,
+                label_smoothing=self.label_smoothing)
+            self.eval_step = build_lm_eval_step(self.model, world_size=self.world_size)
+        else:
+            if exact:
+                raise NotImplementedError("validation.exact (exact-count image validation) is "
+                                          "ROADMAP port item P3b")
+            self.train_step = build_train_step(
+                self.model, self.optimizer, self.scheduler.lr_fn, world_size=self.world_size,
+                sync_bn=self.sync_bn, label_smoothing=self.label_smoothing)
+            self.eval_step = build_eval_step(self.model, world_size=self.world_size)
         self._train_loop(make_iter_dataloader(self.train_loader), train_cfg)
+
+    def _build_lm_model(self, model_name: str, model_cfg: dict, train_dataset) -> None:
+        self.seq_len = int(train_dataset[0][0].shape[0])
+        self.unit, self.items_per_sample = "tok", self.seq_len
+        model_cfg.setdefault("max_len", self.seq_len)
+        self.model = get_model(model_name, num_classes=self.global_cfg["dataset"]["n_classes"],
+                               dtype=self.compute_dtype, flash=True, **model_cfg)
+        self.model.to(self.device).train()
+        self.logger.info("Model %s: %.1f M parameters, compute %s, flash attention on%s",
+                         model_name, sum(p.numel() for p in self.model.parameters()) / 1e6,
+                         str(self.compute_dtype).replace("torch.", ""),
+                         ", block remat" if self.model.remat else "")
+
+    def _build_image_model(self, model_name: str, model_cfg: dict) -> None:
+        self.unit, self.items_per_sample = "img", 1
+        # JAX engine/topology.py:81: synchronized statistics only across ranks
+        self.sync_bn = bool(self.global_cfg["training"]["sync_bn"]) and self.distributed
+        bn_stat = model_cfg.get("bn_stat_dtype")
+        if bn_stat is not None and bn_stat not in _DTYPES:
+            raise ValueError(f"model.bn_stat_dtype must be 'float32' or 'bfloat16', "
+                             f"got {bn_stat!r}")
+        self.model = get_model(model_name, num_classes=self.global_cfg["dataset"]["n_classes"],
+                               dtype=self.compute_dtype, sync_bn=self.sync_bn,
+                               space_to_depth=bool(model_cfg.get("space_to_depth", False)),
+                               bn_stat_dtype=_DTYPES.get(bn_stat))
+        layout = torch.channels_last if self.device.type == "cuda" else torch.contiguous_format
+        self.model.to(self.device, memory_format=layout).train()
+        self.logger.info("Model %s: %.1f M parameters, compute %s, BatchNorm statistics %s",
+                         model_name, sum(p.numel() for p in self.model.parameters()) / 1e6,
+                         str(self.compute_dtype).replace("torch.", ""),
+                         "synchronized over the ranks" if self.sync_bn else "local")
 
     # ------------------------------------------------------------- hot loop
     def _to_device(self, inp: np.ndarray, label: np.ndarray):
-        tokens = torch.from_numpy(np.asarray(inp, dtype=np.int64))
+        """Tokens (int64) or NHWC images (float32), and int64 labels."""
+        inputs = torch.from_numpy(np.asarray(inp, dtype=np.int64 if self.is_lm else np.float32))
         labels = torch.from_numpy(np.asarray(label, dtype=np.int64))
         if self.device.type == "cuda":
-            return (tokens.pin_memory().to(self.device, non_blocking=True),
+            return (inputs.pin_memory().to(self.device, non_blocking=True),
                     labels.pin_memory().to(self.device, non_blocking=True))
-        return tokens, labels
+        return inputs, labels
 
     def _train_loop(self, iter_generator, train_cfg) -> None:
         self._tput_t0 = time.monotonic()
@@ -295,26 +346,28 @@ class Runner:
                 self.validate()
             self.iter += 1
 
-    def train_iter(self, tokens, labels) -> None:
+    def train_iter(self, inputs, labels) -> None:
         train_cfg = self.global_cfg["training"]
-        loss = self.train_step(tokens, labels)
+        loss = self.train_step(inputs, labels)
+        self.last_loss = loss  # a device scalar: reading it syncs
         self._tput_iters += 1
         if self.iter % train_cfg["print_interval"] == 0:
             loss_val = float(loss)  # the loop's only host<->device sync
             last_lr_group = self.scheduler.get_last_lr()
             now = time.monotonic()
             # the first window holds the one-time set-up costs: no rate
-            tok_per_s = (None if self.iter == 0 else
-                         self.global_batch * self.seq_len * self._tput_iters
-                         / max(now - self._tput_t0, 1e-9))
+            rate = (None if self.iter == 0 else
+                    self.global_batch * self.items_per_sample * self._tput_iters
+                    / max(now - self._tput_t0, 1e-9))
             self._tput_t0, self._tput_iters = now, 0
-            self.train_log.append(dict(iter=self.iter, loss=loss_val,
-                                       lr=last_lr_group[0], tok_per_s=tok_per_s))
+            unit = self.unit
+            self.train_log.append({"iter": self.iter, "loss": loss_val, "lr": last_lr_group[0],
+                                   f"{unit}_per_s": rate})
             if not math.isfinite(loss_val):
                 self.logger.warning("Iter %d: loss is %s", self.iter, loss_val)
             if self.current_rank == 0:
-                tput = ("" if tok_per_s is None else
-                        f" ({tok_per_s:.1f} tok/s, {tok_per_s / self.world_size:.1f} tok/s/card)")
+                tput = ("" if rate is None else
+                        f" ({rate:.1f} {unit}/s, {rate / self.world_size:.1f} {unit}/s/card)")
                 self.logger.info("Iter [%d/%d] Lr: %s Loss: %.4f%s", self.iter,
                                  train_cfg["train_iters"], last_lr_group, loss_val, tput)
         self.scheduler.step()  # every iteration (:299)

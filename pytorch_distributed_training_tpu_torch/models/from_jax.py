@@ -1,7 +1,8 @@
-"""JAX TransformerLM parameters -> the port's ``state_dict``.
+"""JAX model variables -> the port's ``state_dict``.
 
-Takes the flax ``params`` tree of the JAX package's ``TransformerLM`` as
-nested dicts of numpy float32 arrays (no JAX needed here) and maps it:
+:func:`lm_state_dict_from_jax` takes the flax ``params`` tree of the JAX
+package's ``TransformerLM`` as nested dicts of numpy float32 arrays (no
+JAX needed here) and maps it:
 
 - ``tok_embedding`` and ``pos_embedding`` as they are;
 - ``.../{ln1,ln2,ln}/scale`` -> ``weight``, ``bias`` -> ``bias``;
@@ -15,6 +16,16 @@ The conversion is strict.  The expected leaves and their shapes follow from
 the tree's own dimensions (vocabulary and width from ``tok_embedding``,
 depth from the ``block{i}`` count, MLP width from ``block0``'s fc1); a
 missing leaf, an extra leaf or a wrong shape raises ``ValueError``.
+
+:func:`resnet_state_dict_from_jax` does the same for a JAX ``ResNet``'s
+``{"params", "batch_stats"}`` into torchvision's names (the inverse of the
+JAX package's ``models/torch_port.py``): convs HWIO -> OIHW, the ``fc``
+kernel transposed, BatchNorm ``scale``/``bias``/``mean``/``var`` ->
+``weight``/``bias``/``running_mean``/``running_var``, ``layer{s}_{b}`` ->
+``layer{s}.{b}`` and ``downsample_conv``/``downsample_bn`` ->
+``downsample.0``/``.1``.  The expected keys and shapes are those of the
+port's ``ResNet`` of the tree's own topology (block type, blocks a stage,
+classes), so any leaf left over or missing raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -23,7 +34,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["lm_state_dict_from_jax"]
+__all__ = ["lm_state_dict_from_jax", "resnet_state_dict_from_jax"]
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -85,4 +96,60 @@ def lm_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         elif leaf == "scale":
             leaf = "weight"
         state[".".join(mod + [leaf])] = torch.tensor(np.ascontiguousarray(arr))
+    return state
+
+
+def _resnet_key(path: str) -> str:
+    """torchvision's key for a ``collection/module.../leaf`` path."""
+    collection, *mods, leaf = path.split("/")
+    names = []
+    for m in mods:
+        if m.startswith("layer") and "_" in m:
+            names.append(m.replace("_", "."))
+        elif m in ("downsample_conv", "downsample_bn"):
+            names.append("downsample." + ("0" if m == "downsample_conv" else "1"))
+        else:
+            names.append(m)
+    if collection == "batch_stats":
+        leaf = {"mean": "running_mean", "var": "running_var"}.get(leaf, leaf)
+    elif collection == "params":
+        leaf = {"scale": "weight", "kernel": "weight"}.get(leaf, leaf)
+    else:
+        raise ValueError(f"JAX variables: unknown collection in {path!r}")
+    return ".".join(names + [leaf])
+
+
+def resnet_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``ResNet`` state_dict for JAX ``{"params", "batch_stats"}``."""
+    from .resnet import BasicBlock, Bottleneck, ResNet
+
+    params = variables["params"]
+    leaves = _flatten(variables)
+    stages: Dict[int, int] = {}
+    for name in params:
+        if name.startswith("layer") and "_" in name:
+            stage, block = (int(v) for v in name[len("layer"):].split("_"))
+            stages[stage] = max(stages.get(stage, 0), block + 1)
+    if "params/fc/kernel" not in leaves:
+        raise ValueError("JAX variables: missing leaf 'params/fc/kernel'")
+    block_cls = Bottleneck if "conv3" in params.get("layer1_0", {}) else BasicBlock
+    with torch.device("meta"):
+        template = ResNet([stages[s] for s in sorted(stages)], block_cls,
+                          leaves["params/fc/kernel"].shape[1])
+    shapes = {k: tuple(v.shape) for k, v in template.state_dict().items()}
+    state = {}
+    for path, arr in leaves.items():
+        key = _resnet_key(path)
+        if arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        elif path.endswith("fc/kernel"):
+            arr = arr.T
+        if key in shapes and arr.shape != shapes[key]:
+            raise ValueError(f"JAX variables: {path} maps to {key} of shape {arr.shape}, "
+                             f"expected {shapes[key]}")
+        state[key] = torch.tensor(np.ascontiguousarray(arr))
+    missing = sorted(set(shapes) - set(state))
+    extra = sorted(set(state) - set(shapes))
+    if missing or extra:
+        raise ValueError(f"JAX variables: missing {missing}, left over {extra}")
     return state

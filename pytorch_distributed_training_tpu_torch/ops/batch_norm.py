@@ -1,0 +1,140 @@
+"""Distributed (synchronized) BatchNorm (port of ``ops/batch_norm.py``).
+
+:class:`DistributedBatchNorm` normalizes over every axis but the channel
+axis (axis 1: ``[N, C]`` or ``[N, C, H, W]``, in any memory format), with
+the JAX package's semantics (``batch_norm.py:11-27``):
+
+- statistics in float32 whatever the activation dtype (float64 for a
+  float64 input, a reference for tests); the output in the input's dtype;
+- normalization by the **biased** batch variance, ``eps`` 1e-5;
+- ``running_var`` updated with the unbiased ``var * n / (n - 1)``, ``n``
+  the **global** element count (every rank's);
+- torch's momentum convention, ``r <- (1 - m) r + m stat``, ``m`` 0.1.
+
+Two formulas, chosen by ``sync``, not by the world size (``:97-130``):
+
+- ``sync``: raw moments ``E[x^2] - E[x]^2`` of ``(mean, mean_sq)``, which
+  one all-reduce averages over the ranks (skipped at world size 1).  The
+  all-reduce is differentiable: its backward all-reduces the cotangent, so
+  each rank's gradient holds every rank's share of the statistics' use.
+- local: the shifted one-pass form ``E[(x - c)^2] - (E[x] - c)^2`` with
+  ``c`` the running mean, taken as a constant.
+
+Plain torch ops: the JAX package's BatchNorm is XLA, not a Pallas kernel.
+``torch.nn.SyncBatchNorm`` is not used: it refuses CPU tensors, so it
+could not run over gloo on the CPU.  Statistics in bfloat16 (JAX
+``stat_dtype``, config ``model.bn_stat_dtype``) are ROADMAP port item P3b.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+__all__ = ["DistributedBatchNorm"]
+
+
+def _world_size(group) -> int:
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1
+    return dist.get_world_size(group)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks; the backward sums the cotangent the same way."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+def _all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of ``group``, differentiable; ``x``
+    itself at world size 1."""
+    world = _world_size(group)
+    if world == 1:
+        return x
+    return _AllReduceSum.apply(x, group) / world
+
+
+class DistributedBatchNorm(nn.Module):
+    """BatchNorm over axis 1 with optional cross-rank statistics.
+
+    ``weight``/``bias`` are the JAX ``scale``/``bias``; ``running_mean``/
+    ``running_var`` (float32 buffers) its ``batch_stats`` ``mean``/``var``.
+    ``self.training`` selects batch statistics (and their running update)
+    over the running ones, as the JAX ``use_running_average`` does.
+    """
+
+    def __init__(self, num_features: int, sync: bool = False, momentum: float = 0.1,
+                 eps: float = 1e-5, group=None, stat_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if stat_dtype not in (None, torch.float32):
+            raise NotImplementedError(
+                "BatchNorm statistics in bfloat16 (model.bn_stat_dtype) are ROADMAP "
+                "port item P3b")
+        self.num_features = int(num_features)
+        self.sync = bool(sync)
+        self.momentum = float(momentum)
+        self.eps = float(eps)
+        self.group = group
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def _shape(self, x) -> tuple:
+        return (1, -1) + (1,) * (x.dim() - 2)
+
+    def forward(self, x):
+        if x.dim() < 2 or x.shape[1] != self.num_features:
+            raise ValueError(f"DistributedBatchNorm({self.num_features}): got input of "
+                             f"shape {tuple(x.shape)}")
+        xf = x.to(torch.float64 if x.dtype == torch.float64 else torch.float32)
+        shape = self._shape(x)
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            axes = (0,) + tuple(range(2, x.dim()))
+            n = x.numel() // self.num_features
+            mean = xf.mean(axes)
+            if self.sync:
+                mean_sq = xf.square().mean(axes)
+                world = _world_size(self.group)
+                if world > 1:
+                    mean, mean_sq = _all_reduce_mean(torch.stack([mean, mean_sq]), self.group)
+                n *= world
+                var = mean_sq - mean.square()
+            else:
+                c = self.running_mean.detach()
+                var = (xf - c.view(shape)).square().mean(axes) - (mean - c).square()
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * (n / max(n - 1, 1))
+                self.running_mean.mul_(1.0 - m).add_(m * mean)
+                self.running_var.mul_(1.0 - m).add_(m * unbiased)
+        inv = torch.rsqrt(var + self.eps)
+        y = (xf - mean.view(shape)) * inv.view(shape) * self.weight.view(shape) \
+            + self.bias.view(shape)
+        return y.to(x.dtype)
+
+    def extra_repr(self) -> str:
+        return f"{self.num_features}, sync={self.sync}, momentum={self.momentum}, eps={self.eps}"

@@ -22,7 +22,7 @@ step computes them on the device.  ``fused`` is accepted for config
 compatibility: it picks nothing here, every update is already one pass
 per operation over all parameters.
 
-LARS (ROADMAP port item P3) and LAMB (P2b) raise ``NotImplementedError``.
+LARS (ROADMAP port item P3b) and LAMB (P2b) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -138,7 +138,7 @@ class AdamW:
 OPTIMIZERS = {"SGD": SGD, "AdamW": AdamW}
 
 _NOT_YET = {
-    "LARS": "LARS (the large-batch ResNet recipe) is ROADMAP port item P3",
+    "LARS": "LARS (the large-batch ResNet recipe) is ROADMAP port item P3b",
     "LAMB": "LAMB is ROADMAP port item P2b",
 }
 

@@ -7,17 +7,20 @@ package evaluates ``lr_fn`` on the device inside the compiled step; here
 the step runs eagerly and reads it on the host from its own step counter
 (a Python int, so no device sync).
 
-Ported: ``cosine`` with detectron-style warmup (``warmup_iters``,
-``warmup_mode`` linear or constant, ``warmup_factor``; ``:43-52``,
-``:129-153``).  ``multi_step`` and ``poly`` (the ResNet recipes) are ROADMAP
-port item P3 and raise ``NotImplementedError``.
+Ported: ``multi_step`` (milestones and gamma, ``:55-78``) and ``cosine``
+(``:129-153``), each with detectron-style warmup (``warmup_iters``,
+``warmup_mode`` linear or constant, ``warmup_factor``; ``:43-52``).  The
+host arithmetic is float64, as the JAX package's host path
+(``get_last_lr``); the train step rounds the value to float32.  ``poly``
+(the LARS recipe) is ROADMAP port item P3b and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Sequence
 
-__all__ = ["IterationScheduler", "cosine_lr", "get_scheduler"]
+__all__ = ["IterationScheduler", "cosine_lr", "get_scheduler", "multi_step_lr"]
 
 
 def _apply_warmup(lr: float, step: int, warmup_iters: int, warmup_mode: str,
@@ -30,6 +33,22 @@ def _apply_warmup(lr: float, step: int, warmup_iters: int, warmup_mode: str,
     if warmup_mode == "constant":
         return lr * warmup_factor
     raise ValueError(f"unknown warmup_mode: {warmup_mode!r}")
+
+
+def multi_step_lr(base_lr: float, milestones: Sequence[int], gamma: float,
+                  warmup_iters: int = 0, warmup_mode: str = "linear",
+                  warmup_factor: float = 1.0 / 3) -> Callable:
+    """``base_lr * gamma ** |{m in milestones : m <= step}|``, torch's
+    ``MultiStepLR`` stepped every iteration, then warmup on top."""
+    if warmup_mode not in ("linear", "constant"):
+        raise ValueError(f"unknown warmup_mode: {warmup_mode!r}")
+    ms_sorted = sorted(milestones)
+
+    def lr_at(step: int) -> float:
+        lr = base_lr * gamma ** sum(1 for m in ms_sorted if step >= m)
+        return _apply_warmup(lr, step, warmup_iters, warmup_mode, warmup_factor)
+
+    return lr_at
 
 
 def cosine_lr(base_lr: float, total_iters: int, end_lr: float = 0.0, warmup_iters: int = 0,
@@ -62,6 +81,17 @@ class IterationScheduler:
         return [float(self.lr_fn(self.last_epoch))]
 
 
+def _make_multi_step(optimizer, cfg: Dict[str, Any]) -> IterationScheduler:
+    return IterationScheduler(multi_step_lr(
+        base_lr=optimizer.lr,
+        milestones=cfg["milestones"],
+        gamma=cfg["gamma"],
+        warmup_iters=cfg.get("warmup_iters", 0),
+        warmup_mode=cfg.get("warmup_mode", "linear"),
+        warmup_factor=cfg.get("warmup_factor", 1.0 / 3),
+    ))
+
+
 def _make_cosine(optimizer, cfg: Dict[str, Any]) -> IterationScheduler:
     return IterationScheduler(cosine_lr(
         base_lr=optimizer.lr,
@@ -73,10 +103,9 @@ def _make_cosine(optimizer, cfg: Dict[str, Any]) -> IterationScheduler:
     ))
 
 
-SCHEDULERS = {"cosine": _make_cosine}
+SCHEDULERS = {"multi_step": _make_multi_step, "cosine": _make_cosine}
 _NOT_YET = {
-    "multi_step": "the multi_step schedule (ResNet recipes) is ROADMAP port item P3",
-    "poly": "the poly schedule (the LARS recipe) is ROADMAP port item P3",
+    "poly": "the poly schedule (the LARS recipe) is ROADMAP port item P3b",
 }
 
 

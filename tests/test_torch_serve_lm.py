@@ -253,7 +253,7 @@ def test_unported_model_options_raise(kwargs, item):
         TransformerLM(VOCAB, max_len=MAXLEN, embed_dim=EMBED, depth=1, num_heads=HEADS, **kwargs)
 
 
-@pytest.mark.parametrize("name,item", [("ResNet50", "P3"), ("ViT-S16", "P8")])
+@pytest.mark.parametrize("name,item", [("ViT-B16", "P8"), ("ViT-S16", "P8")])
 def test_unported_models_raise(name, item):
     with pytest.raises(NotImplementedError, match=item):
         get_model(name, num_classes=10)

@@ -102,12 +102,12 @@ def test_cosine_schedule_matches_jax():
 
 @pytest.mark.parametrize(
     "fn,arg,item",
-    [(topt.get_optimizer, {"name": "LARS"}, "P3"), (topt.get_optimizer, {"name": "LAMB"}, "P2b"),
+    [(topt.get_optimizer, {"name": "LARS"}, "P3b"), (topt.get_optimizer, {"name": "LAMB"}, "P2b"),
      (lambda c: tsched.get_scheduler(topt.SGD(lr=0.1), c),
-      {"name": "multi_step", "milestones": [2], "gamma": 0.1}, "P3"),
+      {"name": "poly", "total_iters": 10}, "P3b"),
      (lambda n: tdata.get_dataset(n, "", "train"), "tokens", "P2b"),
-     (lambda n: tdata.get_dataset(n, "", "train"), "imagenet", "P3")],
-    ids=["lars", "lamb", "multi-step", "tokens", "imagenet"],
+     (lambda n: tdata.get_dataset(n, "", "train"), "imagenet", "P3b")],
+    ids=["lars", "lamb", "poly", "tokens", "imagenet"],
 )
 def test_unported_pieces_raise_with_their_item(fn, arg, item):
     with pytest.raises(NotImplementedError, match=item):
