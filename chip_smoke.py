@@ -8,7 +8,7 @@
     python3 chip_smoke.py --f32-runner # phases 1, 2 and 12 only: the f32 trainer,
                                        # to time it against another tree in turns
                                        # (with --profile: and its step's breakdown)
-    python3 chip_smoke.py --resnet     # phases 1, 2, 13 and 14 only: the ResNet
+    python3 chip_smoke.py --resnet     # phases 1, 2, 13, 14 and 15 only: the ResNet
                                        # path (with --profile: its steps' breakdowns)
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -104,12 +104,24 @@ Phases, in order; any failure raises and the script exits non-zero:
     (ResNet-50, synthetic 224^2, 1000 classes, batch 64, SGD, multi_step,
     ``sync_bn``, f32) with only ``train_iters`` (8) and the dataset size (2
     validation batches) set in memory, then the same at
-    ``training.dtype: bfloat16``; every loss finite and exactly 1 K1a + 1
-    K1b a step and 1 K1a a validation batch.  Prints step ms, images/s,
-    peak memory, the TF32 flags in force (torch's defaults), model FLOP an
-    image and the rate reached; then the step on one batch held on the card
-    (no loader) in ``channels_last`` as the runner runs it, in contiguous
-    NCHW and with ``cudnn.benchmark``, and the loader's host time a batch.
+    ``training.dtype: bfloat16``; the loader in ``thread`` mode with the
+    config's 8 threads, batches staged on the card two ahead
+    (``device_prefetch``, pinned buffers); every loss finite and exactly 1
+    K1a + 1 K1b a step and 1 K1a a validation batch.  Prints step ms,
+    images/s, peak memory, the TF32 flags in force (torch's defaults),
+    model FLOP an image and the rate reached; then the loader's host time a
+    batch alone, the host-to-device bytes a batch, and the step on one
+    batch held on the card (no loader) in ``channels_last`` as the runner
+    runs it, in contiguous NCHW and with ``cudnn.benchmark``;
+15. the same config through the process loader (``training.worker_mode:
+    process``, 8 spawned workers filling shared-memory slots) with
+    ``validation.exact``, f32, 6 steps over a set of 300 samples; the same
+    launch checks and readings (``nproc`` too), the exact validation's
+    count n = 300 held, and the parity validation of the same weights
+    beside it (its wrap-padded tail counted again).  The card's host has no
+    libjpeg, so the native decoder does not build there: ImageFolder,
+    native decode and ``device_normalize`` are held on the CPU only (the
+    tests), which the phase prints.
 
 The line before the last lists every TPU kernel (K1a ... K4) with the CUDA
 kernel that stands for it, its launches on the path that runs it, its error
@@ -1422,27 +1434,52 @@ def device_step_ms(torch, step, img, labels, reps: int = 8) -> float:
     return statistics.median(times)
 
 
+def loader_ms(loader, batches: int = 6) -> float:
+    """Host ms a batch of ``loader`` alone: its stream after one warm batch
+    (pool start-up and first decode), ``batches`` batches timed."""
+    from pytorch_distributed_training_tpu_torch.data import make_iter_dataloader
+
+    stream = make_iter_dataloader(loader)
+    try:
+        next(stream)
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            next(stream)
+        return (time.perf_counter() - t0) * 1e3 / batches
+    finally:
+        stream.close()
+
+
 def phase_resnet_runner(torch, modules, dtype: str, tf32_defaults, profile: bool,
-                        steps: int = 8):
-    """Phase 14: the runner on ``config/test-sync.yml`` as it is, with
-    ``train_iters`` and the dataset size (2 validation batches) set in
-    memory and ``training.dtype`` set to ``dtype``; TF32 flags at torch's
-    defaults, which the runner does not touch.  Returns the launch counts
-    and the numbers printed."""
+                        steps: int = 8, n_samples=None, training=None, validation=None,
+                        layouts=("channels_last", "nchw", "channels_last_cudnn_benchmark"),
+                        label=None, after_run=None):
+    """Phases 14 and 15: the runner on ``config/test-sync.yml`` as it is,
+    with ``train_iters`` (``steps``), the dataset size (``n_samples``,
+    default 2 validation batches), ``training.dtype`` and the keys of
+    ``training``/``validation`` set in memory; TF32 flags at torch's
+    defaults, which the runner does not touch.  Per step exactly 1 K1a + 1
+    K1b, per validation batch 1 K1a.  ``after_run(runner)``, if given, runs
+    on the trained weights before the timings below train them further.
+    Returns the runner (its loaders closed), the launch counts and the
+    numbers printed."""
     import math
 
     from functools import partial
+
+    import numpy as np
 
     from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg, get_train_logger
     from pytorch_distributed_training_tpu_torch.engine import Runner
     from pytorch_distributed_training_tpu_torch.logger import MultiProcessLoggerListener
 
+    label = label or f"resnet_{dtype}"
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
     cfg = get_cfg(RESNET_CONFIG)
     batch = cfg["training"]["batch_size"]
-    cfg["training"]["train_iters"] = steps
-    cfg["training"]["dtype"] = dtype
-    cfg["dataset"]["n_samples"] = 2 * batch  # 2 validation batches
+    cfg["training"].update(train_iters=steps, dtype=dtype, **(training or {}))
+    cfg["validation"].update(validation or {})
+    cfg["dataset"]["n_samples"] = n_samples or 2 * batch
     marks, losses = [], []
 
     def on_iter(runner):
@@ -1451,8 +1488,7 @@ def phase_resnet_runner(torch, modules, dtype: str, tf32_defaults, profile: bool
         losses.append(float(runner.last_loss))
 
     listener = MultiProcessLoggerListener(
-        partial(get_train_logger, os.path.join(_HERE, "run", "chip_smoke"), f"resnet-{dtype}"),
-        "spawn")
+        partial(get_train_logger, os.path.join(_HERE, "run", "chip_smoke"), label), "spawn")
     runner = Runner(num_nodes=1, rank=0, seed=0, dist_url="", multiprocessing=False,
                     logger_queue=listener.queue, global_cfg=cfg, device="cuda", on_iter=on_iter)
     for m in modules:
@@ -1485,6 +1521,9 @@ def phase_resnet_runner(torch, modules, dtype: str, tf32_defaults, profile: bool
     peak = BF16_FLOPS if dtype == "bfloat16" else TF32_FLOPS
     flags = dict(matmul=torch.backends.cuda.matmul.allow_tf32,
                  cudnn=torch.backends.cudnn.allow_tf32)
+    loader = runner.train_loader
+    say(f"  loader: {loader.worker_mode} mode, {loader.num_workers} worker(s), "
+        f"{loader.output_dtype} batches; nproc {os.cpu_count()}")
     say(f"  losses {losses}; validation {runner.val_log[0]}")
     say(f"  allow_tf32 in force (torch's defaults): {flags}; sync_bn in force: "
         f"{runner.sync_bn} (one rank)")
@@ -1495,25 +1534,33 @@ def phase_resnet_runner(torch, modules, dtype: str, tf32_defaults, profile: bool
         f"{flop * batch / (med_ms / 1e3) / peak:.4f} of {peak / 1e12:.1f}")
     say(f"  launches a step {{'ce_fwd': 1, 'ce_bwd': 1}}, validation "
         f"{{'ce_fwd': {val_batches}}}; peak device memory {peak_gib} GiB")
+    if after_run is not None:
+        after_run(runner)
 
-    # the same step on one batch held on the card, apart from the loader
-    t0 = time.perf_counter()
-    inp, lab = next(iter(runner.train_loader))
-    loader_ms = (time.perf_counter() - t0) * 1e3
+    # the loader alone, then the same step on one batch held on the card
+    load_ms = loader_ms(loader)
+    inp, lab = next(iter(loader))
+    loader.close()
+    h2d = dict(float32=inp.size * 4 + lab.nbytes, uint8=inp.size + lab.nbytes)
     img, labels = runner._to_device(inp, lab)
     model, step = runner.model, runner.train_step
-    dev_ms = {"channels_last": device_step_ms(torch, step, img, labels)}
-    model.to(memory_format=torch.contiguous_format)
-    nchw_img = img.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)  # permutes back to NCHW
-    dev_ms["nchw"] = device_step_ms(torch, step, nchw_img, labels)
-    model.to(memory_format=torch.channels_last)
-    torch.backends.cudnn.benchmark = True
-    try:
-        dev_ms["channels_last_cudnn_benchmark"] = device_step_ms(torch, step, img, labels)
-    finally:
-        torch.backends.cudnn.benchmark = False
-    say(f"  loader (host, one thread): {loader_ms} ms a batch of {batch}, "
-        f"{batch / loader_ms * 1e3} images/s")
+    dev_ms = {}
+    for layout in layouts:
+        if layout == "nchw":
+            model.to(memory_format=torch.contiguous_format)
+            nchw_img = img.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+            dev_ms[layout] = device_step_ms(torch, step, nchw_img, labels)
+            model.to(memory_format=torch.channels_last)
+            continue
+        torch.backends.cudnn.benchmark = layout.endswith("cudnn_benchmark")
+        try:
+            dev_ms[layout] = device_step_ms(torch, step, img, labels)
+        finally:
+            torch.backends.cudnn.benchmark = False
+    say(f"  loader alone (host): {load_ms} ms a batch of {batch}, "
+        f"{batch / load_ms * 1e3} images/s; host-to-device bytes a batch "
+        f"{np.dtype(inp.dtype).name} {inp.nbytes + lab.nbytes} (as float32 {h2d['float32']}, "
+        f"as uint8 {h2d['uint8']})")
     for layout, ms in dev_ms.items():
         say(f"  device-resident step ({layout}): {ms} ms, {batch / ms * 1e3} images/s, "
             f"{flop * batch / ms / 1e9:.2f} TFLOP/s")
@@ -1521,24 +1568,89 @@ def phase_resnet_runner(torch, modules, dtype: str, tf32_defaults, profile: bool
         say(f"== profile (ResNet-50 {dtype} train step, device-resident)")
         profile_window(torch, f"ResNet-50 {dtype} step", lambda: step(img, labels), 20)
     numbers = dict(dtype=dtype, step_ms=step_ms, median_step_ms=med_ms,
-                   images_per_s=batch / med_ms * 1e3, loader_ms=loader_ms,
-                   device_step_ms=dev_ms, model_flop_per_image=flop / 3, peak_gib=peak_gib,
-                   allow_tf32=flags, losses=losses, val=runner.val_log[0])
-    say(f"resnet_{dtype}: " + json.dumps(numbers))
-    del runner, model, step, img
+                   images_per_s=batch / med_ms * 1e3, loader_ms=load_ms,
+                   loader=dict(mode=loader.worker_mode, workers=loader.num_workers,
+                               output=loader.output_dtype), nproc=os.cpu_count(),
+                   h2d_bytes=inp.nbytes + lab.nbytes, device_step_ms=dev_ms,
+                   model_flop_per_image=flop / 3, peak_gib=peak_gib, allow_tf32=flags,
+                   losses=losses, val=runner.val_log[0])
+    say(f"{label}: " + json.dumps(numbers))
+    del model, step, img
     torch.cuda.empty_cache()
-    return final
+    return runner, final, numbers
+
+
+# The card's host, probed for this phase: Pillow 12.2, g++ 13.3, 8 cores, and
+# neither libjpeg's headers (jpeglib.h) nor libjpeg itself, only nvJPEG.  The
+# native decoder (native/decode.cpp, linked with -ljpeg) cannot build there.
+NATIVE_DECODE_ON_CARD = ("not run: the card's host has no libjpeg (no jpeglib.h, no "
+                         "libjpeg.so), so the native decoder does not build there; the "
+                         "ImageFolder, native-decode and device_normalize paths are held on "
+                         "the CPU only (tests/test_torch_imagefolder.py, test_torch_loader.py, "
+                         "test_torch_resnet_data.py)")
+PROCESS_VAL_SAMPLES = 300  # 5 validation batches of 64, the last wrap-padded by 20
+
+
+def phase_resnet_process_exact(torch, modules, tf32_defaults, profile: bool) -> dict:
+    """Phase 15: ``config/test-sync.yml`` through the process loader
+    (``training.worker_mode: process``, 8 workers) with
+    ``validation.exact``, 6 steps over a set of 300 (an epoch of 4
+    batches, so the pool runs a second epoch); then the parity validation
+    of the same weights.  Holds the launches of phase 14 (also for the
+    parity validation) and the exact count n = 300."""
+    import logging
+
+    say(f"  native decode, ImageFolder, device_normalize on the card: {NATIVE_DECODE_ON_CARD}")
+
+    def parity(runner):
+        """The reference's per-batch meter on the weights just validated."""
+        exact = runner.val_log[0]
+        if exact.get("n") != PROCESS_VAL_SAMPLES:
+            raise AssertionError(f"exact validation counted {exact.get('n')} samples, want "
+                                 f"{PROCESS_VAL_SAMPLES}")
+        before = all_counts(modules)
+        runner.exact_eval = False
+        runner.logger.handlers = [logging.StreamHandler(sys.stdout)]  # its listener stopped
+        try:
+            runner.validate()
+        finally:
+            runner.val_loader.close()
+        val_batches = len(runner.val_loader)
+        check_launches(f"parity validation ({val_batches} batches)",
+                       {k: v - before[k] for k, v in all_counts(modules).items()},
+                       dict(ce_fwd=val_batches))
+        padded = -PROCESS_VAL_SAMPLES % runner.host_batch
+        say(f"  validation of the same weights: exact {exact} (n = {exact['n']}); parity "
+            f"(per-batch meter, the {padded} wrap-padded samples counted again) "
+            f"{runner.val_log[1]}")
+        say("resnet_process_exact_validation: "
+            + json.dumps(dict(exact=exact, parity=runner.val_log[1])))
+
+    runner, counts, _ = phase_resnet_runner(
+        torch, modules, "float32", tf32_defaults, profile, steps=6,
+        n_samples=PROCESS_VAL_SAMPLES, training=dict(worker_mode="process", print_interval=1,
+                                                     val_interval=6),
+        validation=dict(exact=True), layouts=("channels_last",), label="resnet_process_exact",
+        after_run=parity)
+    if runner.train_loader.worker_mode != "process":
+        raise AssertionError(f"loader mode {runner.train_loader.worker_mode}, want process")
+    del runner
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_resnet(torch, modules, tf32_defaults, profile: bool) -> dict:
-    """Phases 13 and 14; returns the launch counts by path."""
+    """Phases 13, 14 and 15; returns the launch counts by path."""
     say("== phase 13: ResNet-50 training step at full width, card vs CPU")
     paths = {"resnet_step": by_tpu_kernel(phase_resnet_step_vs_cpu(torch, modules))}
     say("== phase 14: main path (training runner, ResNet-50, config/test-sync.yml)")
-    paths["resnet"] = by_tpu_kernel(
-        phase_resnet_runner(torch, modules, "float32", tf32_defaults, profile))
-    paths["resnet_bf16"] = by_tpu_kernel(
-        phase_resnet_runner(torch, modules, "bfloat16", tf32_defaults, profile))
+    for dtype, path in (("float32", "resnet"), ("bfloat16", "resnet_bf16")):
+        runner, counts, _ = phase_resnet_runner(torch, modules, dtype, tf32_defaults, profile)
+        paths[path] = by_tpu_kernel(counts)
+        del runner
+    say("== phase 15: main path (ResNet-50 through the process loader, exact validation)")
+    paths["resnet_process_exact"] = by_tpu_kernel(
+        phase_resnet_process_exact(torch, modules, tf32_defaults, profile))
     return paths
 
 
@@ -1548,7 +1660,7 @@ def main(argv=None) -> int:
     parser.add_argument("--f32-runner", action="store_true",
                         help="phases 1, 2 and 12 only (no result line)")
     parser.add_argument("--resnet", action="store_true",
-                        help="phases 1, 2, 13 and 14 only (no result line)")
+                        help="phases 1, 2, 13, 14 and 15 only (no result line)")
     args = parser.parse_args(argv)
 
     import torch

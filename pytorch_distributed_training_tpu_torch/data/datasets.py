@@ -1,4 +1,4 @@
-"""Datasets (port of the synthetic datasets of ``data/datasets.py``).
+"""Datasets (port of ``data/datasets.py``).
 
 The port keeps its own numpy copies, so a seed gives the same arrays as
 the JAX package's, bit for bit (the same crc32 salt of the split and the
@@ -9,21 +9,44 @@ same ``default_rng`` stream per index):
   package feeds its NHWC model;
 - :class:`SyntheticTextDataset` (``datasets.py:99``): per-index Markov
   chains over a per-split transition table, host-shifted ``(inputs
-  [seq_len], targets [seq_len])`` int32 pairs.
+  [seq_len], targets [seq_len])`` int32 pairs;
+- :class:`ImageFolderDataset` (``datasets.py:287``): ``<root>/<split>/
+  <class>/<image>`` with torchvision's sorted class mapping; crop boxes and
+  flips are sampled on the host from per-sample streams
+  (:func:`sample_rng`, :func:`sample_crop_params`), pixels come from PIL
+  here or, a batch at a time, from the native decoder
+  (:mod:`..native`), which the loader drives through :meth:`crop_task`.
 
-``get_dataset`` knows ``synthetic``/``fake``/``fake_imagenet`` and
-``synthetic_text``/``fake_text``; the ``tokens`` file dataset is ROADMAP
-port item P2b and ``imagenet`` (ImageFolder and native decode) item P3b,
-each raising ``NotImplementedError``.
+``get_dataset`` knows ``imagenet``, ``synthetic``/``fake``/
+``fake_imagenet`` and ``synthetic_text``/``fake_text``; the ``tokens``
+file dataset is ROADMAP port item P2b and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import logging
+import os
+import threading
 import zlib
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["SyntheticDataset", "SyntheticTextDataset", "get_dataset"]
+__all__ = [
+    "IMAGENET_MEAN",
+    "IMAGENET_STD",
+    "ImageFolderDataset",
+    "SyntheticDataset",
+    "SyntheticTextDataset",
+    "fetch_sample",
+    "get_dataset",
+    "sample_crop_params",
+    "sample_rng",
+]
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+
+_IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 
 
 class SyntheticDataset:
@@ -87,10 +110,201 @@ class SyntheticTextDataset:
         return toks[:-1], toks[1:]
 
 
+def sample_rng(seed: int, epoch: int, idx: int) -> np.random.Generator:
+    """Per-sample augmentation stream ``default_rng([seed, epoch, idx])``:
+    reproducible whichever thread or process draws it."""
+    return np.random.default_rng([int(seed) & 0xFFFFFFFF, int(epoch), int(idx)])
+
+
+def fetch_sample(dataset, idx: int, seed: int, epoch: int):
+    """``dataset[idx]``, through ``get_sample(idx, rng)`` with the per-sample
+    stream where the dataset augments."""
+    get = getattr(dataset, "get_sample", None)
+    if get is not None:
+        return get(idx, sample_rng(seed, epoch, idx))
+    return dataset[int(idx)]
+
+
+def sample_crop_params(w: int, h: int, rng: Optional[np.random.Generator], train: bool,
+                       scale=(0.08, 1.0), ratio=(3 / 4, 4 / 3), resize_to: int = 256,
+                       size: int = 224) -> Tuple[float, float, float, float, bool]:
+    """The source crop box ``(x, y, cw, ch)`` and the horizontal flip.
+
+    Train: torchvision's ``RandomResizedCrop`` (10 attempts at an area- and
+    aspect-jittered box, then a centre crop at the clamped aspect) and a
+    flip with p = 0.5.  Val: Resize(``resize_to``) + CenterCrop(``size``)
+    as one source box, so every backend resamples the original once.
+    """
+    if train:
+        if rng is None:
+            raise ValueError("train crop sampling requires an RNG")
+        area = w * h
+        log_ratio = (np.log(ratio[0]), np.log(ratio[1]))
+        for _ in range(10):
+            target_area = area * rng.uniform(*scale)
+            aspect = np.exp(rng.uniform(*log_ratio))
+            cw = int(round(np.sqrt(target_area * aspect)))
+            ch = int(round(np.sqrt(target_area / aspect)))
+            if 0 < cw <= w and 0 < ch <= h:
+                x = int(rng.integers(0, w - cw + 1))
+                y = int(rng.integers(0, h - ch + 1))
+                return float(x), float(y), float(cw), float(ch), bool(rng.random() < 0.5)
+        in_ratio = w / h
+        if in_ratio < ratio[0]:
+            cw, ch = w, int(round(w / ratio[0]))
+        elif in_ratio > ratio[1]:
+            cw, ch = int(round(h * ratio[1])), h
+        else:
+            cw, ch = w, h
+        x, y = (w - cw) // 2, (h - ch) // 2
+        return float(x), float(y), float(cw), float(ch), bool(rng.random() < 0.5)
+    s = resize_to / min(w, h)
+    cw = size / s
+    ch = size / s
+    return (w - cw) / 2, (h - ch) / 2, cw, ch, False
+
+
+class ImageFolderDataset:
+    """``<root>/<split>/<class_dir>/<image>``, torchvision's semantics.
+
+    Classes take indices in sorted order of their directory names.
+    Samples are ``(uint8 [size, size, 3], int64 label)``; the loader
+    normalises them with :attr:`norm_mean`/:attr:`norm_std`, on the host or
+    on the card.  A file that neither libjpeg nor PIL decodes is
+    quarantined: zero pixels under its true label, one
+    ``data_corrupt_samples`` count each time, one log line per path.
+    """
+
+    norm_mean = IMAGENET_MEAN
+    norm_std = IMAGENET_STD
+
+    def __init__(self, root: str, split: str, image_size: int = 224,
+                 train_transform: Optional[bool] = None):
+        self.root = os.path.expanduser(root)
+        self.split = split
+        self.image_size = image_size
+        self.train = train_transform if train_transform is not None else (split == "train")
+        split_dir = os.path.join(self.root, split)
+        if not os.path.isdir(split_dir):
+            raise FileNotFoundError(f"dataset split dir not found: {split_dir}")
+        classes = sorted(d for d in os.listdir(split_dir)
+                         if os.path.isdir(os.path.join(split_dir, d)))
+        if not classes:
+            raise FileNotFoundError(f"no class directories under {split_dir}")
+        self.class_to_idx = {c: i for i, c in enumerate(classes)}
+        self.samples: List[Tuple[str, int]] = []
+        for c in classes:
+            cdir = os.path.join(split_dir, c)
+            for fname in sorted(os.listdir(cdir)):
+                if fname.lower().endswith(_IMG_EXTS):
+                    self.samples.append((os.path.join(cdir, fname), self.class_to_idx[c]))
+        # header dims, (w, h) a sample, w == 0 unseen: allocated at first
+        # use under the lock, so two threads cannot each install an array
+        self._dims_cache: Optional[np.ndarray] = None
+        self._dims_lock = threading.Lock()
+        self._corrupt_logged: set = set()  # guarded by _corrupt_lock
+        self._corrupt_lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getstate__(self):
+        # locks do not pickle; a worker starts with an empty memo
+        state = self.__dict__.copy()
+        state.update(_dims_lock=None, _dims_cache=None, _corrupt_lock=None,
+                     _corrupt_logged=set())
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._dims_lock = threading.Lock()
+        self._corrupt_lock = threading.Lock()
+
+    def image_dims(self, idx: int) -> Tuple[int, int]:
+        """``(width, height)`` from the header alone, memoised: the crop
+        sampling that needs it runs serially before each native batch."""
+        if self._dims_cache is None:
+            with self._dims_lock:
+                if self._dims_cache is None:
+                    self._dims_cache = np.zeros((len(self.samples), 2), np.int32)
+        w, h = self._dims_cache[idx]
+        if w:
+            return int(w), int(h)
+        from PIL import Image
+
+        try:
+            with Image.open(self.samples[idx][0]) as im:
+                dims = im.size
+        except (OSError, ValueError, SyntaxError):
+            # the decode fails this row too, and quarantines it
+            dims = (self.image_size, self.image_size)
+        self._dims_cache[idx] = dims
+        return dims
+
+    def crop_task(self, idx: int, rng: Optional[np.random.Generator]):
+        """``(path, label, (x, y, cw, ch, flip))`` for the native batch decode."""
+        path, label = self.samples[idx]
+        w, h = self.image_dims(idx)
+        return path, label, sample_crop_params(w, h, rng, self.train, size=self.image_size)
+
+    def _pil_pixels(self, im, params) -> np.ndarray:
+        from PIL import Image
+
+        x, y, cw, ch, flip = params
+        im = im.convert("RGB").resize((self.image_size, self.image_size), Image.BILINEAR,
+                                      box=(x, y, x + cw, y + ch))
+        if flip:
+            im = im.transpose(Image.FLIP_LEFT_RIGHT)
+        return np.asarray(im, dtype=np.uint8)
+
+    def _quarantine(self, idx: int, exc: Exception) -> np.ndarray:
+        """Zero pixels for a sample that does not decode, instead of a raise
+        that would kill a pool worker over a file no respawn can fix."""
+        from ..telemetry.registry import get_registry
+
+        get_registry().counter("data_corrupt_samples").inc()
+        path = self.samples[idx][0]
+        with self._corrupt_lock:
+            first = path not in self._corrupt_logged
+            self._corrupt_logged.add(path)
+        if first:
+            logging.getLogger(__name__).warning(
+                "quarantined corrupt sample %s (%s: %s) — feeding zero pixels with its "
+                "label; fix or remove the file", path, type(exc).__name__, exc)
+        return np.zeros((self.image_size, self.image_size, 3), np.uint8)
+
+    def decode_with_params(self, idx: int, params) -> np.ndarray:
+        """PIL pixels for already-sampled params: the loader's repair of a row
+        the native decoder refused, with the params that row was given."""
+        from PIL import Image
+
+        try:
+            with Image.open(self.samples[idx][0]) as im:
+                return self._pil_pixels(im, params)
+        except (OSError, ValueError, SyntaxError) as e:
+            return self._quarantine(idx, e)
+
+    def get_sample(self, idx: int, rng: Optional[np.random.Generator]):
+        """The PIL path: one open for the header, the params and the pixels."""
+        from PIL import Image
+
+        path, label = self.samples[idx]
+        try:
+            with Image.open(path) as im:
+                w, h = im.size
+                params = sample_crop_params(w, h, rng, self.train, size=self.image_size)
+                return self._pil_pixels(im, params), np.int64(label)
+        except (OSError, ValueError, SyntaxError) as e:
+            return self._quarantine(idx, e), np.int64(label)
+
+    def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.int64]:
+        # the epoch-0 stream; loaders draw (seed, epoch, idx) streams instead
+        return self.get_sample(idx, sample_rng(0, 0, idx))
+
+
 _NOT_YET = {
     "tokens": "the token-file dataset is ROADMAP port item P2b",
     "tokenbin": "the token-file dataset is ROADMAP port item P2b",
-    "imagenet": "ImageFolder with native decode is ROADMAP port item P3b",
 }
 
 
@@ -100,10 +314,14 @@ def get_dataset(name: str, root: str, split: str, n_classes: Optional[int] = Non
     """Dataset factory (reference: train_distributed.py:171-181), with the
     JAX package's defaults: images ``n_samples`` 12,800 (train) and 1,280
     (val), 1000 classes, ``image_size`` 224; LM datasets (``n_classes`` the
-    vocabulary size) 4096 and 512 samples, ``seq_len`` 128."""
+    vocabulary size) 4096 and 512 samples, ``seq_len`` 128.  ``imagenet``
+    reads ``<root>/<split>`` (a missing directory raises
+    ``FileNotFoundError``)."""
     key = name.lower()
     if key in _NOT_YET:
         raise NotImplementedError(f"dataset {name!r}: {_NOT_YET[key]}")
+    if key == "imagenet":
+        return ImageFolderDataset(root, split, image_size=image_size)
     if key in ("synthetic", "fake", "fake_imagenet"):
         n = n_samples if n_samples else (12_800 if split == "train" else 1_280)
         return SyntheticDataset(n_samples=n, n_classes=n_classes or 1000,
@@ -112,4 +330,5 @@ def get_dataset(name: str, root: str, split: str, n_classes: Optional[int] = Non
         n = n_samples if n_samples else (4_096 if split == "train" else 512)
         return SyntheticTextDataset(n_samples=n, vocab_size=n_classes or 512,
                                     seq_len=seq_len or 128, split=split)
-    raise KeyError(f"unknown dataset '{name}' (the port has: synthetic, synthetic_text)")
+    raise KeyError(f"unknown dataset '{name}' (the port has: imagenet, synthetic, "
+                   "synthetic_text)")

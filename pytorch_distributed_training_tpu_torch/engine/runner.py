@@ -7,7 +7,16 @@ path, a ResNet on the image path.
 
 - datasets (``dataset.*``), the sampler (shuffled, ``drop_last`` for
   training; in order and wrap-padded for validation; sharded by rank when
-  the world has more than one rank) and a plain batch loader;
+  the world has more than one rank) and the batch loader: on the image
+  path with ``training.worker_mode`` (``auto``: native JPEG decode for
+  ImageFolder, threads otherwise), ``max(1, num_workers // cards on the
+  node)`` workers a process (one process a card, where the JAX runner
+  gives ``num_workers`` to each host's one controller), uint8 batches
+  with ``training.device_normalize`` (normalised on the card) and
+  ``training.dct_denom`` for the training loader (``runner.py:219-310``);
+  the LM path assembles in one producer thread (its worker pool is
+  P3b-2).  Batches reach the card through :func:`..data.device_prefetch`
+  with a :class:`..data.PinnedStager` (two copies in flight);
 - the model from ``model.*`` in ``training.dtype`` with f32 master
   parameters, on the card (``device``, default ``cuda``):
   - LM: flash on; ``training.remat`` is the JAX package's alias of
@@ -27,7 +36,10 @@ path, a ResNet on the image path.
   ``print_interval`` (``runner.py:1216-1245``), the scheduler stepped
   every iteration (``:1254``), and ``Start valuation`` / ``Acc@1 ... Acc@5
   ... Loss`` at ``val_interval`` and after the last iteration
-  (``:1110-1114``, ``:1265-1291``).
+  (``:1110-1114``, ``:1265-1291``); with ``validation.exact`` the image
+  path counts every real validation sample once (``:1293-1334``), by
+  default it keeps the reference's per-batch meter over the wrap-padded
+  tail.
 
 A run of more than one rank is one process per rank; ``torch.distributed``
 gets its address, world size and rank from the caller (NCCL on the card,
@@ -38,7 +50,7 @@ Not ported yet: every config key asking for one raises
 ``NotImplementedError`` naming its ROADMAP item (:data:`UNPORTED_TRAINING_KEYS`):
 checkpointing, grad accumulation, the anomaly guard and the rest of
 fault tolerance, the remat policies ``dots``/``dots_saveable`` (P2b),
-``ema``, ``device_normalize`` and exact image validation (P3b),
+``ema`` (P3b),
 sequence/tensor/pipeline/expert parallelism, ZeRO and ``comm`` (P9),
 telemetry, integrity and elastic recovery (P10).
 TensorBoard is absent (P10): the log file and the console carry the
@@ -57,14 +69,21 @@ import torch
 import torch.distributed as dist
 
 from .. import resolve_device
-from ..data import DataLoader, DistributedShardSampler, get_dataset, make_iter_dataloader
+from ..data import (
+    DataLoader,
+    DistributedShardSampler,
+    PinnedStager,
+    device_prefetch,
+    get_dataset,
+    make_iter_dataloader,
+)
 from ..metrics import AverageMeter
 from ..models import get_model, is_resnet
 from ..optimizers import get_optimizer
 from ..schedulers import get_scheduler
 from ..utils import make_deterministic
 from .sp_steps import build_lm_eval_step, build_lm_train_step
-from .steps import build_eval_step, build_train_step
+from .steps import build_eval_step, build_eval_step_exact, build_train_step
 
 __all__ = ["Runner", "UNPORTED_TRAINING_KEYS", "apply_remat_alias"]
 
@@ -87,9 +106,9 @@ UNPORTED_TRAINING_KEYS = {
     "integrity": "the integrity sentinel is ROADMAP port item P10",
     "elastic": "elastic recovery is ROADMAP port item P10",
     "ema": "training.ema (the image task's weight EMA) is ROADMAP port item P3b",
-    "device_normalize": "training.device_normalize (uint8 batches normalized on the card) is "
-                        "ROADMAP port item P3b",
 }
+# batches staged on the card ahead of the step (data/prefetch.py)
+PREFETCH_DEPTH = 2
 
 
 def _reject_unported(train_cfg: Dict[str, Any]) -> None:
@@ -203,6 +222,10 @@ class Runner:
         try:
             self._run()
         finally:
+            for loader in (getattr(self, "train_loader", None),
+                           getattr(self, "val_loader", None)):
+                if loader is not None:
+                    loader.close()
             if self.distributed:
                 dist.destroy_process_group()
 
@@ -262,33 +285,71 @@ class Runner:
             drop_last=True, seed=seed)
         val_sampler = DistributedShardSampler(
             len(val_dataset), self.world_size, self.current_rank, shuffle=False, seed=seed)
-        self.train_loader = DataLoader(train_dataset, self.host_batch, train_sampler,
-                                       drop_last=True)
+        # JAX runner.py:264-274: uint8 batches, normalised on the card
+        self.device_normalize = bool(train_cfg.get("device_normalize", False))
+        if self.device_normalize and (self.is_lm
+                                      or getattr(train_dataset, "norm_mean", None) is None):
+            raise ValueError("training.device_normalize requires an image dataset with "
+                             "norm_mean/norm_std (e.g. imagenet)")
+        input_norm = ((train_dataset.norm_mean, train_dataset.norm_std)
+                      if self.device_normalize else None)
         # parity: the val loader reuses the training batch size (:235-241)
-        self.val_loader = DataLoader(val_dataset, self.host_batch, val_sampler,
-                                     drop_last=False)
+        if self.is_lm:
+            self.train_loader = DataLoader(train_dataset, self.host_batch, train_sampler,
+                                           drop_last=True)
+            self.val_loader = DataLoader(val_dataset, self.host_batch, val_sampler,
+                                         drop_last=False)
+        else:
+            self._build_image_loaders(train_cfg, train_dataset, val_dataset, train_sampler,
+                                      val_sampler)
         self.logger.info(
             "Load dataset done\nTraining: %d samples, %d batches\nEval: %d samples, %d batches",
             len(train_dataset), len(self.train_loader), len(val_dataset), len(self.val_loader))
-        exact = cfg.get("validation", {}).get("exact", False)
+        self._val_len = len(val_dataset)
+        self._stager = (PinnedStager(self.device, PREFETCH_DEPTH)
+                        if self.device.type == "cuda" else None)
+        self.exact_eval = bool(cfg.get("validation", {}).get("exact", False))
         if self.is_lm:
-            if exact:
-                self.logger.warning("validation.exact applies to the image eval path (ROADMAP "
-                                    "port item P3b); LM validation keeps the per-batch meter "
-                                    "semantics")
+            if self.exact_eval:
+                self.logger.warning("validation.exact applies to the image eval path; LM "
+                                    "validation keeps the per-batch meter semantics")
             self.train_step = build_lm_train_step(
                 self.model, self.optimizer, self.scheduler.lr_fn, world_size=self.world_size,
                 label_smoothing=self.label_smoothing)
             self.eval_step = build_lm_eval_step(self.model, world_size=self.world_size)
         else:
-            if exact:
-                raise NotImplementedError("validation.exact (exact-count image validation) is "
-                                          "ROADMAP port item P3b")
             self.train_step = build_train_step(
                 self.model, self.optimizer, self.scheduler.lr_fn, world_size=self.world_size,
-                sync_bn=self.sync_bn, label_smoothing=self.label_smoothing)
-            self.eval_step = build_eval_step(self.model, world_size=self.world_size)
+                sync_bn=self.sync_bn, label_smoothing=self.label_smoothing,
+                input_norm=input_norm)
+            self.eval_step = build_eval_step(self.model, world_size=self.world_size,
+                                             input_norm=input_norm)
+            self.eval_step_exact = build_eval_step_exact(
+                self.model, world_size=self.world_size, input_norm=input_norm)
         self._train_loop(make_iter_dataloader(self.train_loader), train_cfg)
+
+    def _build_image_loaders(self, train_cfg, train_dataset, val_dataset, train_sampler,
+                             val_sampler) -> None:
+        """The image path's loaders (JAX ``runner.py:219-310``): the backend
+        of ``training.worker_mode``, ``num_workers`` shared among the cards
+        of the node (one process each), uint8 batches with
+        ``device_normalize``, and ``dct_denom`` for training only
+        (validation decodes at full fidelity)."""
+        cards = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        workers = max(1, int(train_cfg.get("num_workers", 0)) // cards)
+        dct_denom = int(train_cfg.get("dct_denom", 1))
+        if dct_denom not in (0, 1, 2, 4, 8):
+            raise ValueError(f"training.dct_denom must be 0 (auto), 1, 2, 4, or 8; "
+                             f"got {dct_denom}")
+        common = dict(num_workers=workers, worker_mode=train_cfg.get("worker_mode", "auto"),
+                      output_dtype="uint8" if self.device_normalize else "float32")
+        self.train_loader = DataLoader(train_dataset, self.host_batch, train_sampler,
+                                       drop_last=True, dct_denom=dct_denom, **common)
+        self.val_loader = DataLoader(val_dataset, self.host_batch, val_sampler,
+                                     drop_last=False, **common)
+        self.logger.info("Loader: %s mode, %d worker(s) a process (num_workers %s over %d "
+                         "card(s)), %s batches", self.train_loader.worker_mode, workers,
+                         train_cfg.get("num_workers", 0), cards, common["output_dtype"])
 
     def _build_lm_model(self, model_name: str, model_cfg: dict, train_dataset) -> None:
         self.seq_len = int(train_dataset[0][0].shape[0])
@@ -322,29 +383,48 @@ class Runner:
                          "synchronized over the ranks" if self.sync_bn else "local")
 
     # ------------------------------------------------------------- hot loop
+    def _stage(self, inp: np.ndarray, label: np.ndarray):
+        """Start one host batch's way to the device: tokens (int64), NHWC
+        images (uint8 as they come, else float32) and int64 labels."""
+        if self.is_lm:
+            inp = np.asarray(inp, dtype=np.int64)
+        elif np.asarray(inp).dtype != np.uint8:
+            inp = np.asarray(inp, dtype=np.float32)
+        label = np.asarray(label, dtype=np.int64)
+        if self._stager is not None:
+            return self._stager.put(inp, label)
+        return torch.from_numpy(inp), torch.from_numpy(label)
+
+    def _take(self, staged):
+        return self._stager.take(staged) if self._stager is not None else staged
+
     def _to_device(self, inp: np.ndarray, label: np.ndarray):
-        """Tokens (int64) or NHWC images (float32), and int64 labels."""
-        inputs = torch.from_numpy(np.asarray(inp, dtype=np.int64 if self.is_lm else np.float32))
-        labels = torch.from_numpy(np.asarray(label, dtype=np.int64))
-        if self.device.type == "cuda":
-            return (inputs.pin_memory().to(self.device, non_blocking=True),
-                    labels.pin_memory().to(self.device, non_blocking=True))
-        return inputs, labels
+        """One host batch on the device, ready for the current stream."""
+        return self._take(self._stage(inp, label))
+
+    def _device_batches(self, host_iter):
+        """``host_iter``'s batches on the device, ``PREFETCH_DEPTH`` staged ahead."""
+        for staged in device_prefetch(host_iter, self._stage, PREFETCH_DEPTH):
+            yield self._take(staged)
 
     def _train_loop(self, iter_generator, train_cfg) -> None:
         self._tput_t0 = time.monotonic()
         self._tput_iters = 0
-        while self.iter < train_cfg["train_iters"]:
-            inp, label = next(iter_generator)
-            self.train_iter(*self._to_device(inp, label))
-            if self.on_iter is not None:
-                self.on_iter(self)
-            p1 = self.iter != 0
-            p2 = (self.iter + 1) % train_cfg["val_interval"] == 0
-            p3 = self.iter == train_cfg["train_iters"] - 1
-            if (p1 and p2) or p3:
-                self.validate()
-            self.iter += 1
+        batches = self._device_batches(iter_generator)
+        try:
+            while self.iter < train_cfg["train_iters"]:
+                self.train_iter(*next(batches))
+                if self.on_iter is not None:
+                    self.on_iter(self)
+                p1 = self.iter != 0
+                p2 = (self.iter + 1) % train_cfg["val_interval"] == 0
+                p3 = self.iter == train_cfg["train_iters"] - 1
+                if (p1 and p2) or p3:
+                    self.validate()
+                self.iter += 1
+        finally:
+            batches.close()
+            iter_generator.close()  # stops the loader's producer
 
     def train_iter(self, inputs, labels) -> None:
         train_cfg = self.global_cfg["training"]
@@ -376,19 +456,48 @@ class Runner:
     def validate(self) -> None:
         if self.current_rank == 0:
             self.logger.info("Start valuation")
-        loss_meter, top_1, top_5 = AverageMeter(), AverageMeter(), AverageMeter()
         self.model.eval()
-        for inp, label in self.val_loader:
-            loss, acc1, acc5 = self.eval_step(*self._to_device(inp, label))
+        try:
+            if self.exact_eval and not self.is_lm:
+                record = self._validate_exact()
+            else:
+                record = self._validate_parity()
+        finally:
+            self.model.train()
+        self.val_log.append(dict(iter=self.iter, **record))
+        if self.current_rank == 0:
+            self.logger.info("Acc@1: %.4f, Acc@5: %.4f, Loss: %.5f",
+                             record["acc1"], record["acc5"], record["loss"])
+
+    def _validate_parity(self) -> dict:
+        """The reference's per-batch meter: every batch weighs the same, the
+        wrap-padded tail counted again."""
+        loss_meter, top_1, top_5 = AverageMeter(), AverageMeter(), AverageMeter()
+        for img, label in self._device_batches(iter(self.val_loader)):
+            loss, acc1, acc5 = self.eval_step(img, label)
             loss_meter.update(float(loss))
             top_1.update(float(acc1))
             top_5.update(float(acc5))
-        self.model.train()
-        self.val_log.append(dict(iter=self.iter, loss=loss_meter.value(),
-                                 acc1=top_1.value(), acc5=top_5.value()))
-        if self.current_rank == 0:
-            self.logger.info("Acc@1: %.4f, Acc@5: %.4f, Loss: %.5f",
-                             top_1.value(), top_5.value(), loss_meter.value())
+        return dict(loss=loss_meter.value(), acc1=top_1.value(), acc5=top_5.value())
+
+    def _validate_exact(self) -> dict:
+        """``validation.exact`` (JAX ``runner.py:1293-1334``): per-sample sums
+        under a position mask, one read at the end.  Local position p is
+        the sampler's global slot ``rank + world * p``; the slots past the
+        dataset's length, and the loader's wrap-pad of its last batch, are
+        the positions from ``n_real`` on."""
+        n_real = max(0, -(-(self._val_len - self.current_rank) // self.world_size))
+        totals = torch.zeros(4, dtype=torch.float64, device=self.device)
+        seen = 0
+        for img, label in self._device_batches(iter(self.val_loader)):
+            b = label.shape[0]
+            mask = torch.arange(seen, seen + b, device=self.device) < n_real
+            seen += b
+            totals += self.eval_step_exact(img, label, mask).double()
+        ce, top1, top5, n = totals.tolist()
+        n_div = max(n, 1.0)
+        return dict(loss=ce / n_div, acc1=100.0 * top1 / n_div, acc5=100.0 * top5 / n_div,
+                    n=int(n))
 
 
 def _spawned_worker(local_id: int, runner: Runner) -> None:

@@ -18,26 +18,36 @@ compiled ``shard_map`` program; here each rank is one process on one card:
    world size 1 skips it;
 4. SGD (or AdamW) in place at ``lr_fn(step)``.
 
-Input normalization is the identity: the synthetic dataset is float
-(uint8 input normalized on the card, ``training.device_normalize``, and
-the weight EMA are ROADMAP port item P3b; the runner refuses both keys).
+``input_norm = (mean, std)`` takes a uint8 NHWC batch and normalises it
+on the card before the permute, as ``x.float() * scale + bias`` with the
+native host kernel's f32 ``scale = 1 / (255 std)`` and ``bias = -mean /
+std`` (``steps.py:88-110``, ``training.device_normalize``); without it
+the batch is already normalised float.
+
+:func:`build_eval_step_exact` is ``validation.exact`` (``steps.py:397-430``):
+per-sample sums under a validity mask, so wrap-padded samples count for
+nothing.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
 item: ``grad_accum > 1`` and the anomaly guard (P2b), ``comm.overlap``
-(P9).
+(P9); the weight EMA is P3b-2 (the runner refuses ``training.ema``).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..metrics import accuracy
 from ..ops.batch_norm import DistributedBatchNorm
+from ..ops.fused_ce import fused_ce_forward
 from ..ops.losses import cross_entropy_loss
 from .sp_steps import _all_reduce_sum_
 
-__all__ = ["ImageTrainStep", "build_eval_step", "build_train_step"]
+__all__ = ["ImageTrainStep", "build_eval_step", "build_eval_step_exact", "build_train_step",
+           "input_normalizer"]
 
 
 def _nchw(img: torch.Tensor) -> torch.Tensor:
@@ -45,19 +55,42 @@ def _nchw(img: torch.Tensor) -> torch.Tensor:
     return img.permute(0, 3, 1, 2)
 
 
+def input_normalizer(input_norm) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The identity for ``input_norm=None``; else ``(mean, std)`` per channel
+    becomes ``img -> img.float() * scale + bias`` (f32), the constants moved
+    to each device once."""
+    if input_norm is None:
+        return lambda img: img
+    mean, std = (np.asarray(x, np.float32) for x in input_norm)
+    scale = torch.from_numpy((1.0 / (255.0 * std)).astype(np.float32))
+    bias = torch.from_numpy((-mean / std).astype(np.float32))
+    on: Dict[torch.device, tuple] = {}
+
+    def normalize(img: torch.Tensor) -> torch.Tensor:
+        consts = on.get(img.device)
+        if consts is None:
+            consts = on[img.device] = (scale.to(img.device), bias.to(img.device))
+        return img.float() * consts[0] + consts[1]
+
+    return normalize
+
+
 class ImageTrainStep:
     """One training iteration: ``step(img, labels) -> loss``.
 
-    ``img`` is this rank's ``[B_local, H, W, 3]`` float batch and
-    ``labels`` its ``[B_local]`` integer classes.  The parameters and the
+    ``img`` is this rank's ``[B_local, H, W, 3]`` batch, float or (with
+    ``input_norm``) uint8, and ``labels`` its ``[B_local]`` integer
+    classes.  The parameters and the
     BatchNorm buffers of ``model`` are updated in place; ``opt_state``
     carries the optimizer's state and its step count, which also indexes
     ``lr_fn``.
     """
 
     def __init__(self, model, optimizer, lr_fn: Callable[[int], float], world_size: int = 1,
-                 group=None, sync_bn: bool = False, label_smoothing: float = 0.0):
+                 group=None, sync_bn: bool = False, label_smoothing: float = 0.0,
+                 input_norm=None):
         self.model = model
+        self.normalize = input_normalizer(input_norm)
         self.optimizer = optimizer
         self.lr_fn = lr_fn
         self.world_size = int(world_size)
@@ -75,7 +108,7 @@ class ImageTrainStep:
         for p in self.params:
             p.grad = None
         self.model.train()
-        logits = self.model(_nchw(img))
+        logits = self.model(_nchw(self.normalize(img)))
         loss = cross_entropy_loss(logits, labels, self.label_smoothing) / self.world_size
         loss.backward()
         return loss.detach(), logits.detach()
@@ -99,11 +132,11 @@ class ImageTrainStep:
 def build_train_step(model, optimizer, lr_fn: Callable[[int], float], world_size: int = 1,
                      group=None, sync_bn: bool = False, grad_accum: int = 1,
                      label_smoothing: float = 0.0, anomaly_factor: Optional[float] = None,
-                     comm=None) -> ImageTrainStep:
+                     comm=None, input_norm=None) -> ImageTrainStep:
     """The image DP training step (see the module docstring).  ``sync_bn``
     says whether the model's BatchNorms average their statistics over the
     ranks (the model is built so); without it the step averages the
-    buffers."""
+    buffers.  ``input_norm``: ``(mean, std)`` for uint8 batches."""
     if grad_accum != 1:
         raise NotImplementedError("training.grad_accumulation > 1 is ROADMAP port item P2b")
     if anomaly_factor is not None:
@@ -113,23 +146,29 @@ def build_train_step(model, optimizer, lr_fn: Callable[[int], float], world_size
     if comm is not None and getattr(comm, "overlap", False):
         raise NotImplementedError("training.comm.overlap is ROADMAP port item P9")
     return ImageTrainStep(model, optimizer, lr_fn, world_size, group, sync_bn,
-                          label_smoothing)
+                          label_smoothing, input_norm)
 
 
-def build_eval_step(model, world_size: int = 1, group=None):
+def _eval_logits(model, img):
+    """The model's logits in eval mode (running statistics), its mode restored."""
+    was_training = model.training
+    model.eval()
+    try:
+        return model(_nchw(img))
+    finally:
+        model.train(was_training)
+
+
+def build_eval_step(model, world_size: int = 1, group=None, input_norm=None):
     """``eval_step(img, labels) -> (loss, acc1, acc5)`` on the running
     statistics: mean CE (unsmoothed) and top-1/top-5 accuracy in percent,
     each summed over the ranks and divided by the world size
     (``steps.py:372-380``)."""
+    normalize = input_normalizer(input_norm)
 
     @torch.no_grad()
     def eval_step(img, labels):
-        was_training = model.training
-        model.eval()
-        try:
-            logits = model(_nchw(img))
-        finally:
-            model.train(was_training)
+        logits = _eval_logits(model, normalize(img))
         loss = cross_entropy_loss(logits, labels)
         acc1, acc5 = accuracy(logits, labels, topk=(1, 5))
         if world_size > 1:
@@ -138,5 +177,32 @@ def build_eval_step(model, world_size: int = 1, group=None):
             out = out / world_size
             return out[0], out[1], out[2]
         return loss, acc1, acc5
+
+    return eval_step
+
+
+def build_eval_step_exact(model, world_size: int = 1, group=None, input_norm=None):
+    """``eval_step(img, labels, mask) -> [ce_sum, top1_sum, top5_sum, n]``
+    (f32), summed over the ranks (``steps.py:397-430``).
+
+    Per sample: the f32 CE (``nll`` of the fused CE forward, K1a), top-1
+    and top-5 hits with k clamped to the class count; each times
+    ``mask`` (1 for a real sample, 0 for a wrap-padded one) before the
+    sums, so ``sums / n`` over a validation is exact for any set size.
+    """
+    normalize = input_normalizer(input_norm)
+
+    @torch.no_grad()
+    def eval_step(img, labels, mask):
+        logits = _eval_logits(model, normalize(img)).float()
+        ce, _ = fused_ce_forward(logits, labels)
+        topk = torch.topk(logits, min(5, logits.shape[-1]), dim=-1).indices
+        hits = topk == labels.long()[:, None]
+        m = mask.float()
+        out = torch.stack([(ce * m).sum(), (hits[:, 0].float() * m).sum(),
+                           (hits.any(-1).float() * m).sum(), m.sum()])
+        if world_size > 1:
+            dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
 
     return eval_step

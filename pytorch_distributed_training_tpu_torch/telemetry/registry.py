@@ -1,7 +1,10 @@
 """Metrics registry: counters, gauges, bounded reservoir histograms.
 
 Port of the JAX package's ``telemetry/registry.py``, cut to what
-:class:`..serving.metrics.ServingMetrics` uses.  Standard library only.
+:class:`..serving.metrics.ServingMetrics` and the data pipeline use (the
+process-wide registry of :func:`get_registry` holds the loader's
+``data_corrupt_samples``, ``worker_respawns`` and
+``data_pool_outstanding``).  Standard library only.
 
 Histograms keep an Algorithm-R reservoir (a uniform sample of everything
 observed) plus EXACT count, sum, min and max, so percentiles stay stable
@@ -17,7 +20,7 @@ import threading
 import zlib
 from typing import Dict, List, Optional
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "get_registry"]
 
 
 class Counter:
@@ -168,3 +171,11 @@ class MetricsRegistry:
 
     def gauges(self) -> Dict[str, float]:
         return {g.name: g.value for g in self._of(Gauge)}
+
+
+_REGISTRY = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    """The process-wide registry (JAX ``telemetry/registry.py:271``)."""
+    return _REGISTRY

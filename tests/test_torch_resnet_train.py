@@ -370,18 +370,36 @@ def test_runner_trains_and_validates_on_cpu():
 
 
 @pytest.mark.parametrize(
-    "section,key,value,item",
-    [("training", "ema", {"decay": 0.999}, "P3b"),
-     ("training", "device_normalize", True, "P3b"),
-     ("model", "space_to_depth", True, "P3b"), ("model", "bn_stat_dtype", "bfloat16", "P3b"),
-     ("validation", "exact", True, "P3b"), ("training", "grad_accumulation", 2, "P2b")],
+    "section,key,value,raises,match",
+    [pytest.param("training", "ema", {"decay": 0.999}, NotImplementedError, "P3b",
+                  id="training-ema-value0-P3b"),
+     # ported (P3b-1): the JAX runner's refusal of uint8 batches from a
+     # dataset without normalisation constants (the synthetic one)
+     pytest.param("training", "device_normalize", True, ValueError, "norm_mean",
+                  id="training-device_normalize-True-P3b"),
+     pytest.param("model", "space_to_depth", True, NotImplementedError, "P3b",
+                  id="model-space_to_depth-True-P3b"),
+     pytest.param("model", "bn_stat_dtype", "bfloat16", NotImplementedError, "P3b",
+                  id="model-bn_stat_dtype-bfloat16-P3b"),
+     # ported (P3b-1): it runs, and counts each of 7 validation samples once
+     # over two batches of 4 (the second wrap-padded)
+     pytest.param("validation", "exact", True, None, None, id="validation-exact-True-P3b"),
+     pytest.param("training", "grad_accumulation", 2, NotImplementedError, "P2b",
+                  id="training-grad_accumulation-2-P2b")],
 )
-def test_runner_rejects_unported_image_keys(section, key, value, item):
+def test_runner_rejects_unported_image_keys(section, key, value, raises, match):
     cfg = _tiny_cfg()
     cfg[section][key] = value
+    if raises is None:
+        cfg["dataset"]["n_samples"] = 7
     runner = Runner(num_nodes=1, rank=0, seed=0, dist_url="", multiprocessing=False,
                     logger_queue=None, global_cfg=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
+    if raises is None:
+        runner()
+        assert [v["n"] for v in runner.val_log] == [7, 7]
+        assert all(0.0 <= v["acc1"] <= v["acc5"] <= 100.0 for v in runner.val_log)
+        return
+    with pytest.raises(raises, match=match):
         runner()
 
 
@@ -411,11 +429,15 @@ def test_cli_on_the_cpu_prints_iter_and_accuracy_lines(tmp_path):
     assert "CRITICAL" not in log
 
 
-@pytest.mark.parametrize("cfg,match", [("test-sync.yml", "CUDA is not available"),
-                                       ("ResNet50.yml", "P3b")])
+@pytest.mark.parametrize("cfg,match", [
+    ("test-sync.yml", "CUDA is not available"),
+    # ported (P3b-1): ResNet50.yml's ImageFolder root is not on this machine
+    pytest.param("ResNet50.yml", "dataset split dir not found", id="ResNet50.yml-P3b")])
 def test_cli_on_the_repo_configs_without_a_card(tmp_path, cfg, match):
     """The reference configs as they are: test-sync.yml needs the card by
-    default, ResNet50.yml's ImageFolder dataset is P3b (on the CPU too)."""
+    default, ResNet50.yml's ImageFolder root (``~/datasets/ILSVRC2012``)
+    must exist (on the CPU too; ``tests/test_torch_resnet_data.py`` trains
+    it over a written tree)."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: this checks the refusals on machines without one")
     rc, log = _cli(tmp_path, str(REPO / "config" / cfg),

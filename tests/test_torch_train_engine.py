@@ -101,16 +101,19 @@ def test_cosine_schedule_matches_jax():
 
 
 @pytest.mark.parametrize(
-    "fn,arg,item",
-    [(topt.get_optimizer, {"name": "LARS"}, "P3b"), (topt.get_optimizer, {"name": "LAMB"}, "P2b"),
+    "fn,arg,exc,item",
+    [(topt.get_optimizer, {"name": "LARS"}, NotImplementedError, "P3b"),
+     (topt.get_optimizer, {"name": "LAMB"}, NotImplementedError, "P2b"),
      (lambda c: tsched.get_scheduler(topt.SGD(lr=0.1), c),
-      {"name": "poly", "total_iters": 10}, "P3b"),
-     (lambda n: tdata.get_dataset(n, "", "train"), "tokens", "P2b"),
-     (lambda n: tdata.get_dataset(n, "", "train"), "imagenet", "P3b")],
+      {"name": "poly", "total_iters": 10}, NotImplementedError, "P3b"),
+     (lambda n: tdata.get_dataset(n, "", "train"), "tokens", NotImplementedError, "P2b"),
+     # ported (P3b-1): a missing ImageFolder root raises as in the JAX package
+     (lambda n: tdata.get_dataset(n, "/nonexistent/imagenet", "train"), "imagenet",
+      FileNotFoundError, "split dir not found")],
     ids=["lars", "lamb", "poly", "tokens", "imagenet"],
 )
-def test_unported_pieces_raise_with_their_item(fn, arg, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_unported_pieces_raise_with_their_item(fn, arg, exc, item):
+    with pytest.raises(exc, match=item):
         fn(arg)
 
 
