@@ -8,7 +8,7 @@
     python3 chip_smoke.py --f32-runner # phases 1, 2 and 12 only: the f32 trainer,
                                        # to time it against another tree in turns
                                        # (with --profile: and its step's breakdown)
-    python3 chip_smoke.py --resnet     # phases 1, 2, 13, 14 and 15 only: the ResNet
+    python3 chip_smoke.py --resnet     # phases 1, 2 and 13 to 17 only: the ResNet
                                        # path (with --profile: its steps' breakdowns)
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -42,7 +42,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    their bound and one PyTorch call computing the same function
    (``F.cross_entropy``, ``F.scaled_dot_product_attention``, timed here
    only): K1a/K1b at [16384, 32768] and [65536, 8192] f32, ResNet's [64,
-   1000] f32, and [37, 1000] in bf16 and f32 with an out-of-range label; flash forward/backward at B 8,
+   1000] f32, the LARS recipe's [256, 1000] bf16, and [37, 1000] in bf16
+   and f32 with an out-of-range label; flash forward/backward at B 8,
    H 16, S 2048, D 64 bf16 causal (the backward also as its dK/dV and dQ
    launches apart), plus D = 128 bf16 causal at [1, 8, 4096, 128], a
    non-causal case, bf16 causal at [2, 4, 384, 128] and [2, 4, 640, 64] (3
@@ -121,10 +122,35 @@ Phases, in order; any failure raises and the script exits non-zero:
     beside it (its wrap-padded tail counted again).  The card's host has no
     libjpeg, so the native decoder does not build there: ImageFolder,
     native decode and ``device_normalize`` are held on the CPU only (the
-    tests), which the phase prints.
+    tests), which the phase prints;
+16. the LARS recipe: the runner on ``config/ResNet50-lars8k.yml`` (ResNet-50,
+    LARS lr 10, ``poly`` power 2 with warmup, bf16, ``sync_bn``, 32 loader
+    threads) with, in memory, synthetic data (no libjpeg on the card's
+    host), batch 8192 -> 256 (a card's share at 32 cards), 6500 -> 8 steps
+    with a 3-step warmup and validation at the 8th: (a) as it is, (b) with
+    the space-to-depth stem, bf16 BatchNorm statistics and the weight EMA
+    (0.999; validation on the EMA).  Held first: the s2d ResNet-50 with the
+    folded stem against the 7x7 model with the unfolded weights in f32
+    (within 3x the CPU pair's f32 error from float64), and one LARS step of
+    ResNet-50 on the card against the CPU; then each step's lr against
+    ``poly_lr``, 1 K1a + 1 K1b a step ([256, 1000] bf16) and 1 K1a a
+    validation batch.  Prints as phase 14 (device-resident in
+    ``channels_last`` only), the EMA update's ms, LARS's and SGD's update
+    ms, and the device-resident step in four forms (7x7 or s2d stem, f32
+    or bf16 statistics) in turns;
+17. checkpoint, resume and preemption: ``config/test-sync.yml`` in f32 with
+    ``training.checkpoint`` (every 3 steps under ``run/chip_smoke/ckpt``) and
+    the EMA, 6 steps straight, killed after step 2's save and resumed by a
+    new runner, and stopped by its own SIGTERM at step 4 (a save at 4) and
+    relaunched; deterministic algorithms, ``cudnn.benchmark`` off and
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set in the phase, the resumed runs'
+    parameters, BatchNorm buffers, momentum, EMA and losses of steps 3-5
+    equal the straight run's bit for bit.  Prints the bytes of a step on
+    disk, the save and restore ms and a sidecar.
 
 The line before the last lists every TPU kernel (K1a ... K4) with the CUDA
-kernel that stands for it, its launches on the path that runs it, its error
+kernel that stands for it, its launches on the path that runs it (and on
+every path, ``launches_by_path``), its error
 against the plain twin, and its times.  The last line is ``{"ok": true,
 "device": {...}}``.  With no card the script prints no result and exits 1.
 It imports nothing of JAX.
@@ -155,6 +181,12 @@ TRAIN_CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "co
 LONGCTX_CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "configs",
                               "train-lm-longctx.yml")
 RESNET_CONFIG = os.path.join(_HERE, "config", "test-sync.yml")
+LARS_CONFIG = os.path.join(_HERE, "config", "ResNet50-lars8k.yml")
+# phase 16's cuts of the LARS recipe: the per-card share of batch 8192 at 32
+# cards; 8 steps with a 3-step warmup, so warmup, hand-over and decay all run
+LARS_BATCH, LARS_STEPS, LARS_WARMUP = 256, 8, 3
+# phase 17: checkpoints of config/test-sync.yml, each run in its own directory
+CKPT_DIR = os.path.join(_HERE, "run", "chip_smoke", "ckpt")
 _CSRC = "pytorch_distributed_training_tpu_torch/csrc/"
 _TPU = "pytorch_distributed_training_tpu/ops/"
 _FA = _TPU + "flash_attention.py:"
@@ -191,7 +223,8 @@ TPU_KERNELS = {
 # other cases reported beside a row's own: the other main paths' CE shapes,
 # flash at D = 128 and the f32 flash kernels, K2c's two launches apart, and
 # K3/K4 at serving's prefill and decode shapes
-ALSO = {"K1a": [("ce_fwd", 0), ("ce_fwd", 4)], "K1b": [("ce_bwd", 0), ("ce_bwd", 4)],
+ALSO = {"K1a": [("ce_fwd", 0), ("ce_fwd", 4), ("ce_fwd", 5)],
+        "K1b": [("ce_bwd", 0), ("ce_bwd", 4), ("ce_bwd", 5)],
         "K2a": [("flash_fwd", 1), ("long_fwd", 2), ("flash_fwd", 3)],
         "K2c": [("flash_dkv", 0), ("flash_dq", 0), ("flash_bwd", 1)],
         "K2b": [("long_fwd", 1)], "K2f": [("long_dq", 1)], "K2g": [("long_dkv", 1)],
@@ -773,10 +806,10 @@ def phase_train_kernels(torch, ce, fa):
     checks = []
     # --- K1a / K1b: the main paths' [16384, 32768] (phase 8) and [65536,
     # 8192] (phase 11) f32, then ragged rows, then ResNet's [64, 1000] f32
-    # (phase 14)
+    # (phase 14) and the LARS recipe's [256, 1000] bf16 (phase 16)
     for r, c, dtype in ((16384, 32768, torch.float32), (65536, 8192, torch.float32),
                         (37, 1000, torch.bfloat16), (37, 1000, torch.float32),
-                        (64, 1000, torch.float32)):
+                        (64, 1000, torch.float32), (256, 1000, torch.bfloat16)):
         x = (torch.randn(r, c, generator=gen, device=dev) * 2.0).to(dtype)
         labels = torch.randint(0, c, (r,), generator=gen, device=dev)
         main = r != 37
@@ -1397,9 +1430,11 @@ def phase_resnet_step_vs_cpu(torch, modules, batch: int = 4, seed: int = 12) -> 
     return counts
 
 
-def resnet_forward_flop(torch, name: str, classes: int, image_size: int) -> float:
+def resnet_forward_flop(torch, name: str, classes: int, image_size: int,
+                        space_to_depth: bool = False) -> float:
     """Model FLOP of one image's forward: 2 x the multiply-adds of every
-    conv and of ``fc``, from the shapes (a meta-device model, no data)."""
+    conv and of ``fc``, from the shapes (a meta-device model, no data; the
+    packed stem's zero taps counted, as the card computes them)."""
     from pytorch_distributed_training_tpu_torch.models import get_model
 
     total = [0]
@@ -1412,7 +1447,7 @@ def resnet_forward_flop(torch, name: str, classes: int, image_size: int) -> floa
             total[0] += 2 * output.numel() * module.weight.shape[1]
 
     with torch.device("meta"):
-        model = get_model(name, num_classes=classes)
+        model = get_model(name, num_classes=classes, space_to_depth=space_to_depth)
         for m in model.modules():
             if isinstance(m, torch.nn.Conv2d) or m is model.fc:
                 m.register_forward_hook(count)
@@ -1453,16 +1488,16 @@ def loader_ms(loader, batches: int = 6) -> float:
 def phase_resnet_runner(torch, modules, dtype: str, tf32_defaults, profile: bool,
                         steps: int = 8, n_samples=None, training=None, validation=None,
                         layouts=("channels_last", "nchw", "channels_last_cudnn_benchmark"),
-                        label=None, after_run=None):
-    """Phases 14 and 15: the runner on ``config/test-sync.yml`` as it is,
-    with ``train_iters`` (``steps``), the dataset size (``n_samples``,
-    default 2 validation batches), ``training.dtype`` and the keys of
-    ``training``/``validation`` set in memory; TF32 flags at torch's
-    defaults, which the runner does not touch.  Per step exactly 1 K1a + 1
-    K1b, per validation batch 1 K1a.  ``after_run(runner)``, if given, runs
-    on the trained weights before the timings below train them further.
-    Returns the runner (its loaders closed), the launch counts and the
-    numbers printed."""
+                        label=None, after_run=None, config=RESNET_CONFIG, edit=None):
+    """Phases 14, 15 and 16: the runner on ``config`` (``config/test-sync.yml``)
+    as it is, with ``edit(cfg)``'s cuts, ``train_iters`` (``steps``), the
+    dataset size (``n_samples``, default 2 validation batches),
+    ``training.dtype`` and the keys of ``training``/``validation`` set in
+    memory; TF32 flags at torch's defaults, which the runner does not
+    touch.  Per step exactly 1 K1a + 1 K1b, per validation batch 1 K1a.
+    ``after_run(runner)``, if given, runs on the trained weights before the
+    timings below train them further.  Returns the runner (its loaders
+    closed), the launch counts and the numbers printed."""
     import math
 
     from functools import partial
@@ -1475,7 +1510,9 @@ def phase_resnet_runner(torch, modules, dtype: str, tf32_defaults, profile: bool
 
     label = label or f"resnet_{dtype}"
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
-    cfg = get_cfg(RESNET_CONFIG)
+    cfg = get_cfg(config)
+    if edit is not None:
+        edit(cfg)
     batch = cfg["training"]["batch_size"]
     cfg["training"].update(train_iters=steps, dtype=dtype, **(training or {}))
     cfg["validation"].update(validation or {})
@@ -1516,7 +1553,7 @@ def phase_resnet_runner(torch, modules, dtype: str, tf32_defaults, profile: bool
     med_ms = statistics.median(step_ms)
     image_size = cfg["dataset"].get("image_size", 224)
     flop = 3 * resnet_forward_flop(torch, cfg["model"]["name"], cfg["dataset"]["n_classes"],
-                                   image_size)
+                                   image_size, cfg["model"].get("space_to_depth", False))
     # bf16 convs on the bf16 tensor cores; f32 convs under cuDNN's TF32 default
     peak = BF16_FLOPS if dtype == "bfloat16" else TF32_FLOPS
     flags = dict(matmul=torch.backends.cuda.matmul.allow_tf32,
@@ -1639,8 +1676,317 @@ def phase_resnet_process_exact(torch, modules, tf32_defaults, profile: bool) -> 
     return counts
 
 
+def lars_cuts(variant: str):
+    """Phase 16's cuts of ``config/ResNet50-lars8k.yml``, made in memory
+    (``PERF.md`` section 4): synthetic images (the card's host has no
+    libjpeg), batch 8192 -> 256, train_iters and total_iters 6500 -> 8,
+    warmup 782 -> 3, print every step, validate at the 8th; variant ``b``
+    also sets the space-to-depth stem, bf16 BatchNorm statistics and the
+    weight EMA (validation then on the EMA)."""
+
+    def edit(cfg):
+        cfg["dataset"]["name"] = "synthetic"
+        cfg["training"].update(batch_size=LARS_BATCH, print_interval=1, val_interval=LARS_STEPS)
+        cfg["training"]["lr_schedule"].update(total_iters=LARS_STEPS, warmup_iters=LARS_WARMUP)
+        if variant == "b":
+            cfg["model"].update(space_to_depth=True, bn_stat_dtype="bfloat16")
+            cfg["training"]["ema"] = {"decay": 0.999}
+
+    return edit
+
+
+def phase_s2d_vs_7x7(torch, batch: int = 2, seed: int = 16) -> dict:
+    """Phase 16, first check: on one batch at 224^2 in f32 (TF32 off), the
+    s2d ResNet-50 forward (train mode) with the folded stem against the 7x7
+    model with the unfolded weights, on the card.  The limit is the f32
+    error of the same pair on the CPU, as phase 13 sets its own: the card's
+    s2d logits within 3x the CPU pair's worst error (each from a float64
+    run, and from each other; relative to the largest logit, at least
+    1e-6) of the card's 7x7 logits and of float64."""
+    from pytorch_distributed_training_tpu_torch.models import get_model
+    from pytorch_distributed_training_tpu_torch.models.resnet import fold_stem_weight
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = get_model("ResNet50", num_classes=1000)
+        ref.reset_parameters(torch.Generator().manual_seed(seed))
+        folded = dict(ref.state_dict())
+        folded["conv1.weight"] = fold_stem_weight(folded["conv1.weight"])
+        x = torch.randn(batch, 3, 224, 224, generator=torch.Generator().manual_seed(seed + 1))
+        out = {}
+        for where in ("cpu", "cuda"):
+            for stem in ("7x7", "s2d"):
+                model = get_model("ResNet50", num_classes=1000, space_to_depth=stem == "s2d")
+                model.load_state_dict(ref.state_dict() if stem == "7x7" else folded)
+                with torch.no_grad():
+                    out[where, stem] = model.to(where).train()(x.to(where)).cpu()
+        f64 = get_model("ResNet50", num_classes=1000, dtype=torch.float64)
+        f64.load_state_dict(ref.state_dict())
+        with torch.no_grad():
+            y64 = f64.double().train()(x.double()).double()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    cpu_err = max([relative_to_largest(out["cpu", s].double(), y64) for s in ("7x7", "s2d")]
+                  + [relative_to_largest(out["cpu", "s2d"], out["cpu", "7x7"])])
+    limit = max(3 * cpu_err, 1e-6)
+    numbers = dict(card_s2d_vs_7x7=relative_to_largest(out["cuda", "s2d"], out["cuda", "7x7"]),
+                   card_s2d_vs_float64=relative_to_largest(out["cuda", "s2d"].double(), y64),
+                   cpu_f32_vs_float64=cpu_err, limit=limit)
+    say(f"  s2d ResNet-50 (folded stem) vs 7x7 (unfolded), f32, train mode, batch {batch}: "
+        f"{numbers}")
+    if not torch.isfinite(out["cuda", "s2d"]).all() or max(
+            numbers["card_s2d_vs_7x7"], numbers["card_s2d_vs_float64"]) > limit:
+        raise AssertionError(f"s2d stem on the card: {numbers}")
+    return numbers
+
+
+def phase_lars_step_vs_cpu(torch, seed: int = 18) -> dict:
+    """Phase 16, second check: one LARS step (the recipe's lr 10, momentum
+    0.9, wd 1e-4, eta 0.001) of ResNet-50's parameters on the card against
+    the CPU on the same weights and gradients.  The norms are f32 sums in
+    another order on each side (~1e-6 relative apart for a few million
+    terms), and the trust ratio carries that into the step: each
+    parameter's update (and momentum) within 1e-5 of its own norm, and
+    rank <= 1 parameters (plain momentum SGD, no norms) within 1e-6.
+    Then the device ms of one LARS update and of one SGD update (momentum
+    0.9, wd 1e-4, past its first step) on the same parameters."""
+    from pytorch_distributed_training_tpu_torch import optimizers
+    from pytorch_distributed_training_tpu_torch.models import get_model
+
+    model = get_model("ResNet50", num_classes=1000)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    params = [p.detach().clone() for p in model.parameters()]
+    grads = [torch.randn(p.shape, generator=gen) * 1e-2 for p in params]
+    opt = optimizers.LARS(lr=10.0, momentum=0.9, weight_decay=1e-4, eta=0.001)
+    out = {}
+    for where in ("cpu", "cuda"):
+        p = [t.to(where, copy=True) for t in params]  # updated in place
+        g = [t.to(where) for t in grads]
+        state = opt.update(p, g, opt.init(p), 10.0)
+        out[where] = ([t.cpu() for t in p], [t.cpu() for t in state.momentum])
+    torch.cuda.synchronize()
+    worst = {}
+    for i, p0 in enumerate(params):
+        limit = 1e-6 if p0.dim() <= 1 else 1e-5
+        for what, got, want in (("update", out["cuda"][0][i] - p0, out["cpu"][0][i] - p0),
+                                ("momentum", out["cuda"][1][i], out["cpu"][1][i])):
+            e = norm_relative(got, want)
+            worst[what] = max(worst.get(what, (0.0, 0)), (e, i))
+            if not torch.isfinite(got).all() or e > limit:
+                raise AssertionError(f"LARS {what} of parameter {i} {tuple(p0.shape)}: "
+                                     f"card vs CPU {e} > {limit}")
+    # the card's tensors: timed only now, each update changes them in place
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    sgd = optimizers.SGD(lr=0.1, momentum=0.9, weight_decay=1e-4)
+    sgd_state = sgd.init(p)._replace(step=1)
+    update_ms = dict(lars=time_ms(torch, lambda: opt.update(p, g, state, 1e-3), flush),
+                     sgd=time_ms(torch, lambda: sgd.update(p, g, sgd_state, 1e-3), flush))
+    say(f"  one LARS step of ResNet-50 ({len(params)} tensors), card vs CPU: worst "
+        f"norm-relative update {worst['update']}, momentum {worst['momentum']}")
+    say(f"  optimizer update alone on the card (ResNet-50, {sum(t.numel() for t in p)} "
+        f"values): LARS {update_ms['lars']} ms, SGD {update_ms['sgd']} ms")
+    return dict({k: v[0] for k, v in worst.items()}, update_ms=update_ms)
+
+
+def phase_lars_forms(torch, reps: int = 6, seed: int = 20) -> dict:
+    """Phase 16, last: what the stem and the statistics' dtype each do to
+    the step.  The LARS step of ResNet-50 in bf16 at batch 256 on one
+    batch held on the card, in four forms (7x7 or space-to-depth stem, f32
+    or bf16 BatchNorm statistics), timed in turns (each form's median of
+    ``reps`` synchronised steps after two warm ones, the forms in order and
+    then in reverse)."""
+    from pytorch_distributed_training_tpu_torch import optimizers
+    from pytorch_distributed_training_tpu_torch.engine import build_train_step
+    from pytorch_distributed_training_tpu_torch.models import get_model
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.randn(LARS_BATCH, 224, 224, 3, generator=gen, device="cuda")
+    labels = torch.randint(0, 1000, (LARS_BATCH,), generator=gen, device="cuda")
+    forms = {}
+    for s2d in (False, True):
+        for stats in ("float32", "bfloat16"):
+            model = get_model("ResNet50", num_classes=1000, dtype=torch.bfloat16,
+                              space_to_depth=s2d,
+                              bn_stat_dtype=torch.bfloat16 if stats == "bfloat16" else None)
+            model = model.to("cuda", memory_format=torch.channels_last).train()
+            opt = optimizers.LARS(lr=0.1, momentum=0.9, weight_decay=1e-4, eta=0.001)
+            forms[("s2d" if s2d else "7x7") + f"_{stats}_stats"] = build_train_step(
+                model, opt, lambda step: 0.1)
+    times = {name: [] for name in forms}
+    for name in list(forms) + list(reversed(forms)):
+        times[name].append(device_step_ms(torch, forms[name], img, labels, reps=reps))
+    ms = {name: statistics.median(t) for name, t in times.items()}
+    base = ms["7x7_float32_stats"]
+    say(f"  LARS bf16 step, batch {LARS_BATCH}, device-resident, in turns: "
+        + "; ".join(f"{k} {v} ms ({v / base:.3f}x)" for k, v in ms.items())
+        + f" (turns {times})")
+    del forms
+    torch.cuda.empty_cache()
+    return dict(ms=ms, turns=times)
+
+
+def phase_lars(torch, modules, tf32_defaults, profile: bool) -> dict:
+    """Phase 16: ``config/ResNet50-lars8k.yml`` (:func:`lars_cuts`), runs
+    (a) and (b), after the two checks above.  Holds each step's lr against
+    ``poly_lr`` computed here and the launches of phase 14; prints the
+    step ms loader-fed and device-resident, images/s, peak memory and, for
+    (b), the EMA update's ms.  Returns the launch counts by path."""
+    from pytorch_distributed_training_tpu_torch.schedulers import poly_lr
+
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
+
+    checks = dict(s2d=phase_s2d_vs_7x7(torch), lars=phase_lars_step_vs_cpu(torch))
+    train_cfg = get_cfg(LARS_CONFIG)["training"]
+    sched = train_cfg["lr_schedule"]
+    want_lr = poly_lr(float(train_cfg["optimizer"]["lr"]), LARS_STEPS, power=sched["power"],
+                      end_lr=sched["end_lr"], warmup_iters=LARS_WARMUP,
+                      warmup_mode=sched["warmup_mode"], warmup_factor=sched["warmup_factor"])
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    paths = {}
+    for variant, path in (("a", "resnet_lars"), ("b", "resnet_lars_s2d_ema")):
+        extra = {}
+
+        def after_run(runner, extra=extra):
+            lrs = [r["lr"] for r in runner.train_log]
+            if lrs != [want_lr(i) for i in range(LARS_STEPS)]:
+                raise AssertionError(f"lr by step {lrs}, poly_lr gives "
+                                     f"{[want_lr(i) for i in range(LARS_STEPS)]}")
+            step = runner.train_step
+            if type(runner.optimizer).__name__ != "LARS":
+                raise AssertionError(f"optimizer {type(runner.optimizer).__name__}")
+            extra["lr"] = lrs
+            if variant == "b":
+                if step.ema is None or not runner.model.space_to_depth or not all(
+                        m.low_stats for m in runner.model.modules() if hasattr(m, "low_stats")):
+                    raise AssertionError("variant b: EMA, s2d stem or bf16 statistics missing")
+                extra["ema_update_ms"] = time_ms(torch, step.update_ema, flush)
+                say(f"  EMA update alone ({len(step.params)} tensors, "
+                    f"{sum(p.numel() for p in step.params)} values): "
+                    f"{extra['ema_update_ms']} ms")
+            say(f"  lr by step (poly, warmup {LARS_WARMUP}): {lrs}")
+
+        runner, counts, _ = phase_resnet_runner(
+            torch, modules, "bfloat16", tf32_defaults, profile, steps=LARS_STEPS,
+            layouts=("channels_last",), label=path, after_run=after_run, config=LARS_CONFIG,
+            edit=lars_cuts(variant))
+        paths[path] = by_tpu_kernel(counts)
+        say(f"{path}_extra: " + json.dumps(extra))
+        del runner
+        torch.cuda.empty_cache()
+    checks["forms"] = phase_lars_forms(torch)
+    say("resnet_lars_checks: " + json.dumps(checks))
+    return paths
+
+
+def phase_checkpoint(torch, modules) -> dict:
+    """Phase 17: checkpoint, resume and preemption on ``config/test-sync.yml``
+    (f32, 6 steps over 2-batch epochs) with ``training.checkpoint`` (every
+    3 steps, its own directory under ``run/chip_smoke/ckpt``) and the EMA
+    (0.999): (a) straight; (b) killed after step 2's save, then a new
+    runner resumes at 3 and runs to 6; (c) SIGTERM sent to itself at step
+    4, which saves at 4 and returns cleanly, then a relaunch from 5.  Runs
+    under ``torch.use_deterministic_algorithms(True)``, ``cudnn.benchmark``
+    off and ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, set here; (b)'s and (c)'s
+    final parameters, BatchNorm buffers, momentum, EMA and the losses of
+    steps 3-5 must equal (a)'s bit for bit.  Prints the bytes on disk a
+    step, the ms of a save and of a restore, and a sidecar."""
+    import shutil
+    import signal
+
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
+    from pytorch_distributed_training_tpu_torch.engine import Runner
+
+    class Killed(Exception):
+        pass
+
+    def run(sub: str, kill_at=None, sigterm_at=None):
+        cfg = get_cfg(RESNET_CONFIG)
+        cfg["training"].update(train_iters=6, print_interval=1, dtype="float32",
+                               ema={"decay": 0.999},
+                               checkpoint={"dir": os.path.join(CKPT_DIR, sub), "interval": 3})
+        cfg["dataset"]["n_samples"] = 2 * cfg["training"]["batch_size"]
+        losses = {}
+
+        def on_iter(runner):
+            if runner.iter == kill_at:
+                raise Killed
+            losses[runner.iter] = float(runner.last_loss)
+            if runner.iter == sigterm_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        runner = Runner(num_nodes=1, rank=0, seed=0, dist_url="", multiprocessing=False,
+                        logger_queue=None, global_cfg=cfg, device="cuda", on_iter=on_iter)
+        try:
+            runner()
+        except Killed:
+            pass
+        torch.cuda.synchronize()
+        return runner, losses
+
+    def state(runner):
+        step = runner.train_step
+        return dict(model={k: v.cpu() for k, v in runner.model.state_dict().items()},
+                    momentum=[t.cpu() for t in step.opt_state.momentum],
+                    ema=[t.cpu() for t in step.ema], step=step.opt_state.step)
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    saved = (os.environ.get("CUBLAS_WORKSPACE_CONFIG"), torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled())
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    try:
+        a, la = run("a")
+        _, lb1 = run("b", kill_at=3)
+        b, lb2 = run("b")
+        c1, lc1 = run("c", sigterm_at=4)
+        c_steps = sorted(os.listdir(os.path.join(CKPT_DIR, "c")))
+        c, lc2 = run("c")
+    finally:
+        if saved[0] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[0]
+        torch.backends.cudnn.benchmark = saved[1]
+        torch.use_deterministic_algorithms(saved[2])
+    if c1.iter != 4 or c_steps != ["2", "4", "pipeline_2.json", "pipeline_4.json"]:
+        raise AssertionError(f"SIGTERM at step 4: stopped at {c1.iter}, saved {c_steps}")
+    if sorted(lb2) != [3, 4, 5] or sorted(lc2) != [5]:
+        raise AssertionError(f"resumed steps: (b) {sorted(lb2)}, (c) {sorted(lc2)}")
+    want = state(a)
+    for name, runner, losses in (("b", b, {**lb1, **lb2}), ("c", c, {**lc1, **lc2})):
+        got = state(runner)
+        bad = [k for k, v in want["model"].items() if not torch.equal(v, got["model"][k])]
+        bad += [f"momentum[{i}]" for i, (x, y) in enumerate(zip(want["momentum"],
+                                                               got["momentum"]))
+                if not torch.equal(x, y)]
+        bad += [f"ema[{i}]" for i, (x, y) in enumerate(zip(want["ema"], got["ema"]))
+                if not torch.equal(x, y)]
+        bad += [f"loss[{i}]" for i in (3, 4, 5) if losses.get(i) != la[i]]
+        if got["step"] != want["step"]:
+            bad.append("optimizer step")
+        if bad:
+            raise AssertionError(f"({name}) differs from the straight run in {bad[:10]} "
+                                 f"({len(bad)} in all)")
+    save, restore = a.checkpointer.last_save, b.checkpointer.last_restore
+    side = json.loads(open(os.path.join(CKPT_DIR, "b", "pipeline_2.json")).read())
+    numbers = dict(bytes_a_step=save["bytes"], save_ms=save["seconds"] * 1e3,
+                   restore_ms=restore["seconds"] * 1e3, sidecar_step_2=side,
+                   losses=[la[i] for i in range(6)])
+    say(f"  (b) killed after step 2's save, resumed at 3; (c) SIGTERM at 4, saved at 4, "
+        f"relaunched at 5: final parameters, BatchNorm buffers, momentum, EMA and the "
+        f"losses of steps 3-5 equal the straight run's bit for bit")
+    say(f"  a step on disk {save['bytes']} bytes (ResNet-50 parameters, buffers, momentum, "
+        f"EMA); save {numbers['save_ms']} ms, restore {numbers['restore_ms']} ms; sidecar "
+        f"pipeline_2.json {side}")
+    say("resnet_checkpoint: " + json.dumps(numbers))
+    return numbers
+
+
 def phase_resnet(torch, modules, tf32_defaults, profile: bool) -> dict:
-    """Phases 13, 14 and 15; returns the launch counts by path."""
+    """Phases 13 to 17; returns the launch counts by path."""
     say("== phase 13: ResNet-50 training step at full width, card vs CPU")
     paths = {"resnet_step": by_tpu_kernel(phase_resnet_step_vs_cpu(torch, modules))}
     say("== phase 14: main path (training runner, ResNet-50, config/test-sync.yml)")
@@ -1651,6 +1997,11 @@ def phase_resnet(torch, modules, tf32_defaults, profile: bool) -> dict:
     say("== phase 15: main path (ResNet-50 through the process loader, exact validation)")
     paths["resnet_process_exact"] = by_tpu_kernel(
         phase_resnet_process_exact(torch, modules, tf32_defaults, profile))
+    say("== phase 16: main path (training runner, config/ResNet50-lars8k.yml: LARS, poly, "
+        "bf16; then s2d, bf16 statistics, EMA)")
+    paths.update(phase_lars(torch, modules, tf32_defaults, profile))
+    say("== phase 17: checkpoint, resume and preemption (config/test-sync.yml, f32, EMA)")
+    phase_checkpoint(torch, modules)
     return paths
 
 
@@ -1660,7 +2011,7 @@ def main(argv=None) -> int:
     parser.add_argument("--f32-runner", action="store_true",
                         help="phases 1, 2 and 12 only (no result line)")
     parser.add_argument("--resnet", action="store_true",
-                        help="phases 1, 2, 13, 14 and 15 only (no result line)")
+                        help="phases 1, 2 and 13 to 17 only (no result line)")
     args = parser.parse_args(argv)
 
     import torch

@@ -28,10 +28,13 @@ consumer, through a bounded queue of ``prefetch_batches``.
 ``drop_last`` only full batches are yielded; without it the last partial
 batch wraps around to full size (JAX ``data/loader.py:132-144``).
 
+:meth:`DataLoader.skip_next` drops the first batches of the next epoch
+at the index level (nothing is decoded or dispatched to a worker), which
+checkpoint resume needs (JAX ``data/loader.py:108-124``).
 :func:`make_iter_dataloader` turns the epoch loader into the endless
 per-iteration stream the trainer draws from, advancing the sampler's
-epoch between passes (``utils/__init__.py:92-165``, without its resume
-offsets, which come with checkpointing).
+epoch between passes and starting at a resume position
+(``utils/__init__.py:92-165``).
 """
 from __future__ import annotations
 
@@ -72,6 +75,7 @@ class DataLoader:
         self.output_dtype = output_dtype
         self.seed = int(getattr(sampler, "seed", 0))
         self._pool = None  # the ProcessLoaderPool, made at the first process epoch
+        self._skip_next = 0  # batches the next epoch drops (skip_next)
         if worker_mode == "auto":
             worker_mode = "native" if hasattr(dataset, "crop_task") else "thread"
         if worker_mode == "native":
@@ -85,6 +89,16 @@ class DataLoader:
 
     def set_epoch(self, epoch: int) -> None:
         self.sampler.set_epoch(epoch)
+
+    def skip_next(self, n_batches: int) -> None:
+        """Drop the first ``n_batches`` of the next epoch only, by index.  A
+        negative count raises here; a count past the epoch's end is
+        clamped, so that epoch yields nothing (a resume saved at an epoch
+        boundary)."""
+        n = int(n_batches)
+        if n < 0:
+            raise ValueError(f"skip_next: n_batches must be >= 0, got {n}")
+        self._skip_next = n
 
     def close(self) -> None:
         """Stop the worker processes (a no-op for the other modes)."""
@@ -159,6 +173,9 @@ class DataLoader:
     # ------------------------------------------------------------ iteration
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         batches = self._batch_indices()
+        if self._skip_next:
+            batches = batches[min(self._skip_next, len(batches)):]
+            self._skip_next = 0
         if not batches:
             return iter(())
         epoch = int(getattr(self.sampler, "epoch", 0))
@@ -170,11 +187,12 @@ class DataLoader:
         if self._pool is None:
             from .worker_pool import ProcessLoaderPool
 
-            probe_img, _ = fetch_sample(self.dataset, int(batches[0][0]), self.seed, epoch)
+            probe_img, probe_label = fetch_sample(self.dataset, int(batches[0][0]), self.seed,
+                                                  epoch)
             self._pool = ProcessLoaderPool(
                 self.dataset, batch_size=self.batch_size, sample_shape=probe_img.shape,
                 sample_dtype=probe_img.dtype, num_workers=max(1, self.num_workers),
-                seed=self.seed)
+                seed=self.seed, label_shape=np.shape(probe_label))
 
         def postprocess(slot_view: np.ndarray, label_view: np.ndarray):
             if slot_view.dtype == np.uint8 and self.output_dtype == "float32":
@@ -231,19 +249,37 @@ class DataLoader:
                 pool.shutdown(wait=False, cancel_futures=True)
 
 
-def make_iter_dataloader(loader: DataLoader) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-    """Endless batches, epoch after epoch (epoch 0 first)."""
+def make_iter_dataloader(loader: DataLoader, start_iter: int = 0,
+                         start_epoch: Optional[int] = None,
+                         skip_batches: Optional[int] = None
+                         ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Endless batches, epoch after epoch, from a resume position: epoch
+    ``start_iter // len(loader)`` less its first ``start_iter % len(loader)``
+    batches, or the explicit ``(start_epoch, skip_batches)`` of a
+    checkpoint's sidecar (both or neither), which win.  Checked here, at
+    the call, not at the first ``next()``."""
     if len(loader) == 0:
         raise ValueError(
             "loader yields no batches (dataset shard smaller than batch size "
             "with drop_last?) — the iteration-based loop would spin forever"
         )
+    if (start_epoch is None) != (skip_batches is None):
+        raise ValueError("start_epoch and skip_batches must be given together "
+                         f"(got start_epoch={start_epoch}, skip_batches={skip_batches})")
+    if start_epoch is not None:
+        epoch, skip = int(start_epoch), int(skip_batches)
+        if epoch < 0 or skip < 0:
+            raise ValueError(f"start_epoch/skip_batches must be >= 0, got "
+                             f"{start_epoch}/{skip_batches}")
+    else:
+        epoch, skip = divmod(int(start_iter), len(loader))
+    if skip:
+        loader.skip_next(skip)
 
-    def stream():
-        epoch = 0
+    def stream(epoch):
         while True:
             loader.set_epoch(epoch)
             yield from loader
             epoch += 1
 
-    return stream()
+    return stream(epoch)

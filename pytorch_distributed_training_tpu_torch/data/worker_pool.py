@@ -7,9 +7,11 @@ processes do:
 
 - ``spawn`` workers.  They import this package, and so torch, but never
   touch CUDA; they fetch samples with :func:`.datasets.fetch_sample`.
-- One shared-memory slab of ``n_slots`` batch slots plus a label slab:
-  a worker writes its batch straight into the slot it was given, and the
-  queues carry only ``(gen, seq, slot, ...)`` tuples, never pixels.
+- One shared-memory slab of ``n_slots`` batch slots plus an int64 label
+  slab (a label a sample, or an array of ``label_shape``: the LM's next
+  tokens): a worker writes its batch straight into the slot it was given,
+  and the queues carry only ``(gen, seq, slot, ...)`` tuples, never
+  pixels.
 - A reorder buffer keyed by sequence number keeps batch order; the
   per-sample augmentation streams make a batch's bytes independent of the
   worker that built it.
@@ -48,15 +50,16 @@ _WAIT_SLICE_S = 0.01  # one blocking wait on a result queue between sweeps
 
 
 def _pool_worker_main(dataset, seed: int, shm_name: str, lshm_name: str, n_slots: int,
-                      batch_size: int, sample_shape: tuple, sample_dtype: str, task_q,
-                      result_q):
+                      batch_size: int, sample_shape: tuple, sample_dtype: str,
+                      label_shape: tuple, task_q, result_q):
     """Worker loop: fetch each task's samples into its shared-memory slot."""
     shm = shared_memory.SharedMemory(name=shm_name)
     lshm = shared_memory.SharedMemory(name=lshm_name)
     try:
         slots = np.ndarray((n_slots, batch_size) + sample_shape, dtype=np.dtype(sample_dtype),
                            buffer=shm.buf)
-        labels = np.ndarray((n_slots, batch_size), dtype=np.int64, buffer=lshm.buf)
+        labels = np.ndarray((n_slots, batch_size) + label_shape, dtype=np.int64,
+                            buffer=lshm.buf)
         while True:
             task = task_q.get()
             if task is None:
@@ -81,7 +84,7 @@ class ProcessLoaderPool:
     def __init__(self, dataset, batch_size: int, sample_shape: Sequence[int],
                  sample_dtype: np.dtype, num_workers: int, seed: int,
                  n_slots: Optional[int] = None, max_respawns: int = 8,
-                 stall_timeout: float = 60.0):
+                 stall_timeout: float = 60.0, label_shape: Sequence[int] = ()):
         if num_workers < 1:
             raise ValueError("ProcessLoaderPool requires num_workers >= 1")
         if stall_timeout <= 0:
@@ -90,6 +93,7 @@ class ProcessLoaderPool:
         self.batch_size = int(batch_size)
         self.sample_shape = tuple(int(s) for s in sample_shape)
         self.sample_dtype = np.dtype(sample_dtype)
+        self.label_shape = tuple(int(s) for s in label_shape)
         self.num_workers = int(num_workers)
         # every worker busy while finished batches wait in the reorder buffer
         self.n_slots = int(n_slots) if n_slots else self.num_workers + 2
@@ -111,12 +115,12 @@ class ProcessLoaderPool:
                       * self.sample_dtype.itemsize)
         self._shm = shared_memory.SharedMemory(create=True,
                                                size=max(1, self.n_slots * slot_bytes))
-        self._lshm = shared_memory.SharedMemory(create=True,
-                                                size=self.n_slots * self.batch_size * 8)
+        self._lshm = shared_memory.SharedMemory(
+            create=True, size=self.n_slots * self.batch_size * int(np.prod(self.label_shape)) * 8)
         self._slots = np.ndarray((self.n_slots, self.batch_size) + self.sample_shape,
                                  dtype=self.sample_dtype, buffer=self._shm.buf)
-        self._labels = np.ndarray((self.n_slots, self.batch_size), dtype=np.int64,
-                                  buffer=self._lshm.buf)
+        self._labels = np.ndarray((self.n_slots, self.batch_size) + self.label_shape,
+                                  dtype=np.int64, buffer=self._lshm.buf)
         self._ctx = mp.get_context("spawn")
         self._task_qs = [self._ctx.Queue() for _ in range(self.num_workers)]
         self._result_qs = [self._ctx.Queue() for _ in range(self.num_workers)]
@@ -128,7 +132,7 @@ class ProcessLoaderPool:
             target=_pool_worker_main,
             args=(self.dataset, self.seed, self._shm.name, self._lshm.name, self.n_slots,
                   self.batch_size, self.sample_shape, self.sample_dtype.str,
-                  self._task_qs[wid], self._result_qs[wid]),
+                  self.label_shape, self._task_qs[wid], self._result_qs[wid]),
             daemon=True,
         )
         p.start()

@@ -1,0 +1,257 @@
+"""Checkpoint and resume of the training runner, in the port's own format.
+
+The JAX package checkpoints through orbax (``engine/checkpoint.py``),
+which the port cannot read without JAX (ROADMAP P7).  The port writes its
+own: under ``training.checkpoint.dir``
+
+- ``<step>/state.pt``: one ``torch.save`` payload, the state after
+  iteration ``step`` (:func:`capture_training_state`): the model's
+  ``state_dict`` (f32 parameters and BatchNorm buffers), the optimizer's
+  slots by parameter name (never by position) and its step count, the
+  weight EMA by name, and the iteration;
+- ``pipeline_<step>.json``: the input pipeline's position, ``epoch``,
+  ``batch_in_epoch``, ``seed``, ``world_processes`` and
+  ``batches_per_epoch`` (JAX ``:515-575``), so a resume starts on the
+  next unseen batch.
+
+A save writes the payload into ``<step>.tmp-<pid>`` and commits it with
+one ``os.rename``; only all-digit directories are steps, so a save cut
+short leaves a directory that :meth:`Checkpointer.restore_latest` never
+sees.  The sidecar is written after the commit, then ``max_to_keep``
+prunes the oldest steps with their sidecars.  The state is replicated
+under data parallelism: rank 0 writes, every rank waits at a barrier,
+and every rank restores, with ``weights_only=True`` onto its device.  A
+newest step that does not load falls back to the one before it, with a
+warning; only when every step fails does the newest step's error raise
+(JAX ``:793-839``).
+
+Config keys (JAX ``:275-306``): ``dir`` (required to enable), ``interval``
+(1000), ``max_to_keep`` (3), ``resume`` (True); ``preemption``,
+``preemption_signals`` and ``preemption_sync_interval`` belong to
+:mod:`.preemption` and the runner.  Not ported, raising
+``NotImplementedError`` naming ROADMAP item P10: ``async`` and
+``max_inflight`` (background writes), ``retry`` (retried storage calls)
+and ``emergency_drain_timeout_s`` (emergency saves).  The integrity
+manifest and the layout-converting restore, which take no key, are P10
+as well.
+"""
+from __future__ import annotations
+
+import json
+import logging
+import os
+import shutil
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["Checkpointer", "UNPORTED_CHECKPOINT_KEYS", "capture_training_state",
+           "restore_training_state"]
+
+# key -> (the value that asks for nothing unported, why it raises)
+UNPORTED_CHECKPOINT_KEYS = {
+    "async": (False, "asynchronous checkpoint writes are ROADMAP port item P10"),
+    "max_inflight": (1, "asynchronous checkpoint writes (max_inflight) are ROADMAP port "
+                        "item P10"),
+    "retry": (None, "retried checkpoint storage calls are ROADMAP port item P10"),
+    "emergency_drain_timeout_s": (5.0, "emergency checkpoints are ROADMAP port item P10"),
+}
+_STATE_FILE = "state.pt"
+
+
+def _param_names(model) -> List[str]:
+    """The names of the parameters a train step updates, in its order."""
+    return [n for n, p in model.named_parameters() if p.requires_grad]
+
+
+def capture_training_state(model, train_step, iteration: int) -> Dict[str, Any]:
+    """The payload of one step: the model's ``state_dict``, the optimizer
+    state of ``train_step`` (``opt_state``: lists aligned with its params,
+    and ``step``) keyed by parameter name, its EMA (or ``None``) and the
+    iteration."""
+    names = _param_names(model)
+    opt = train_step.opt_state
+    slots = {field: dict(zip(names, getattr(opt, field)))
+             for field in opt._fields if field != "step"}
+    ema = getattr(train_step, "ema", None)
+    return {"iter": int(iteration), "model": model.state_dict(),
+            "optimizer": {"type": type(opt).__name__, "step": int(opt.step), "slots": slots},
+            "ema": None if ema is None else dict(zip(names, ema))}
+
+
+def restore_training_state(payload: Dict[str, Any], model, train_step) -> int:
+    """Copy ``payload`` into ``model`` and ``train_step`` in place (their
+    devices and memory formats kept); returns the saved iteration.  A
+    payload of another model, optimizer or EMA setting raises
+    ``ValueError``."""
+    model.load_state_dict(payload["model"], strict=True)
+    names = _param_names(model)
+    opt = train_step.opt_state
+    saved = payload["optimizer"]
+    if saved["type"] != type(opt).__name__:
+        raise ValueError(f"checkpoint optimizer state is {saved['type']}, this run's is "
+                         f"{type(opt).__name__}")
+    fields = [f for f in opt._fields if f != "step"]
+    if sorted(saved["slots"]) != sorted(fields):
+        raise ValueError(f"checkpoint optimizer slots {sorted(saved['slots'])}, want {fields}")
+    ema = getattr(train_step, "ema", None)
+    if (payload["ema"] is None) != (ema is None):
+        raise ValueError("checkpoint and run disagree on training.ema: "
+                         f"saved {'with' if payload['ema'] is not None else 'without'} an EMA")
+    pairs = [(getattr(opt, f), saved["slots"][f]) for f in fields]
+    if ema is not None:
+        pairs.append((ema, payload["ema"]))
+    with torch.no_grad():
+        for tensors, by_name in pairs:
+            if sorted(by_name) != sorted(names):
+                raise ValueError("checkpoint parameter names differ from the model's")
+            for t, name in zip(tensors, names):
+                t.copy_(by_name[name])
+    train_step.opt_state = opt._replace(step=int(saved["step"]))
+    return int(payload["iter"])
+
+
+class Checkpointer:
+    """Saves and restores steps under ``directory`` (see the module
+    docstring).  ``rank``/``world_size``: this process's place in the
+    data-parallel world (the default process group); rank 0 writes.  ``last_save`` and
+    ``last_restore`` hold the step, the seconds and (a save) the bytes of
+    the latest of each."""
+
+    def __init__(self, directory: str, interval: int = 1000, max_to_keep: int = 3,
+                 rank: int = 0, world_size: int = 1):
+        if int(interval) < 1:
+            raise ValueError(f"checkpoint.interval must be >= 1, got {interval}")
+        self.directory = os.path.abspath(os.path.expanduser(directory))
+        self.interval = int(interval)
+        self.max_to_keep = int(max_to_keep) if max_to_keep else 0
+        self.rank = int(rank)
+        self.world_size = int(world_size)
+        self.last_save: Optional[dict] = None
+        self.last_restore: Optional[dict] = None
+
+    @classmethod
+    def from_config(cls, train_cfg: dict, rank: int = 0,
+                    world_size: int = 1) -> Optional["Checkpointer"]:
+        """``None`` unless ``training.checkpoint.dir`` is set; a key asking
+        for what is not ported raises ``NotImplementedError``."""
+        ck = train_cfg.get("checkpoint")
+        if not ck or not ck.get("dir"):
+            return None
+        for key, (default, why) in UNPORTED_CHECKPOINT_KEYS.items():
+            if key in ck and ck[key] != default:
+                raise NotImplementedError(f"training.checkpoint.{key}: {why}")
+        return cls(ck["dir"], interval=ck.get("interval", 1000),
+                   max_to_keep=ck.get("max_to_keep", 3), rank=rank, world_size=world_size)
+
+    # ----------------------------------------------------------- the steps
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.directory, str(int(step)))
+
+    def _extras_path(self, step: int) -> str:
+        return os.path.join(self.directory, f"pipeline_{int(step)}.json")
+
+    def all_steps(self) -> List[int]:
+        """The committed steps, oldest first."""
+        if not os.path.isdir(self.directory):
+            return []
+        return sorted(int(name) for name in os.listdir(self.directory)
+                      if name.isdigit() and os.path.isdir(os.path.join(self.directory, name)))
+
+    def latest(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def should_save(self, it: int, train_iters: int) -> bool:
+        return (it + 1) % self.interval == 0 or it == train_iters - 1
+
+    # ----------------------------------------------------------------- save
+    def save(self, it: int, payload: Dict[str, Any], extras: Optional[dict] = None) -> None:
+        """Commit step ``it``: rank 0 writes ``payload`` (and the sidecar
+        ``extras``), then every rank waits for it at a barrier."""
+        if self.rank == 0:
+            t0 = time.perf_counter()
+            final = self._step_dir(it)
+            if os.path.exists(final):
+                raise FileExistsError(f"checkpoint step {it} already exists at {final}")
+            os.makedirs(self.directory, exist_ok=True)
+            tmp = f"{final}.tmp-{os.getpid()}"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            path = os.path.join(tmp, _STATE_FILE)
+            torch.save(payload, path)
+            nbytes = os.path.getsize(path)
+            os.rename(tmp, final)  # the commit
+            if extras is not None:
+                self._write_extras(it, extras)
+            self._prune()
+            self.last_save = dict(step=int(it), seconds=time.perf_counter() - t0, bytes=nbytes)
+        if self.world_size > 1:
+            dist.barrier()
+
+    def _write_extras(self, step: int, extras: dict) -> None:
+        """The sidecar, written to a temporary name and renamed; the step
+        rides along flat, as JAX ``_write_extras`` writes it."""
+        tmp = f"{self._extras_path(step)}.tmp{os.getpid()}"
+        with open(tmp, "w") as fp:
+            json.dump({**extras, "step": int(step)}, fp)
+        os.replace(tmp, self._extras_path(step))
+
+    def _prune(self) -> None:
+        steps = self.all_steps()
+        if not self.max_to_keep or len(steps) <= self.max_to_keep:
+            return
+        for step in steps[:-self.max_to_keep]:
+            shutil.rmtree(self._step_dir(step), ignore_errors=True)
+            try:
+                os.remove(self._extras_path(step))
+            except FileNotFoundError:
+                pass
+
+    # -------------------------------------------------------------- restore
+    def read_extras(self, step: int) -> Optional[dict]:
+        """The sidecar of ``step`` without its ``step`` key, or ``None`` when
+        it is missing or unreadable (the caller derives the position)."""
+        try:
+            with open(self._extras_path(step)) as fp:
+                payload = json.load(fp)
+        except (OSError, ValueError):
+            return None
+        if not isinstance(payload, dict):
+            return None
+        payload.pop("step", None)
+        return payload
+
+    def restore_latest(self, apply: Callable[[Dict[str, Any]], Any], map_location,
+                       logger: Optional[logging.Logger] = None) -> int:
+        """Load the newest committed step onto ``map_location`` and hand its
+        payload to ``apply``; returns the next iteration (0 when there is
+        no step).  A step that fails to load or apply falls back to the one
+        before it with a warning; if every step fails, the newest step's
+        error raises."""
+        steps = self.all_steps()
+        first_err: Optional[BaseException] = None
+        for step in reversed(steps):
+            t0 = time.perf_counter()
+            try:
+                payload = torch.load(os.path.join(self._step_dir(step), _STATE_FILE),
+                                     map_location=map_location, weights_only=True)
+                if payload.get("iter") != step:
+                    raise ValueError(f"checkpoint step {step} holds iteration "
+                                     f"{payload.get('iter')}")
+                apply(payload)
+            except Exception as e:  # a truncated or foreign step: try the one before
+                if first_err is None:
+                    first_err = e
+                if step != steps[0]:
+                    (logger or logging.getLogger(__name__)).warning(
+                        "checkpoint step %d at %s is unreadable (%s: %s) — falling back to "
+                        "the previous step", step, self.directory, type(e).__name__, e)
+                continue
+            self.last_restore = dict(step=int(step), seconds=time.perf_counter() - t0)
+            return step + 1
+        if first_err is not None:
+            raise first_err
+        return 0

@@ -14,9 +14,10 @@ path, a ResNet on the image path.
   gives ``num_workers`` to each host's one controller), uint8 batches
   with ``training.device_normalize`` (normalised on the card) and
   ``training.dct_denom`` for the training loader (``runner.py:219-310``);
-  the LM path assembles in one producer thread (its worker pool is
-  P3b-2).  Batches reach the card through :func:`..data.device_prefetch`
-  with a :class:`..data.PinnedStager` (two copies in flight);
+  the LM path's loaders take the same ``num_workers`` share and
+  ``worker_mode`` (``thread`` or ``process``).  Batches reach the card
+  through :func:`..data.device_prefetch` with a :class:`..data.PinnedStager`
+  (two copies in flight);
 - the model from ``model.*`` in ``training.dtype`` with f32 master
   parameters, on the card (``device``, default ``cuda``):
   - LM: flash on; ``training.remat`` is the JAX package's alias of
@@ -25,12 +26,24 @@ path, a ResNet on the image path.
     ranks when ``training.sync_bn`` is set and the world has more than one
     rank (JAX ``engine/topology.py:81``: at world size 1 the statistics
     are local), in ``channels_last`` on the card; of the ``model:`` keys
-    only ``space_to_depth`` and ``bn_stat_dtype`` are read (both P3b
-    beyond their defaults);
+    only ``space_to_depth`` (the packed stem) and ``bn_stat_dtype``
+    (``bfloat16`` statistics) are read;
 - the optimizer and LR schedule from ``training.optimizer`` /
   ``training.lr_schedule``;
 - the train and eval steps of :mod:`.sp_steps` (LM) or :mod:`.steps`
-  (image);
+  (image), on the image path with the weight EMA of ``training.ema.decay``
+  (in (0, 1); the LM path refuses it, as JAX ``engine/topology.py:347-352``
+  does), validation then running on the EMA weights with the raw
+  BatchNorm running statistics (JAX ``runner.py:1257-1262``);
+- with ``training.checkpoint`` (:mod:`.checkpoint`, both paths): resume
+  from the newest step (the state, ``self.iter``, the scheduler and the
+  input pipeline's position from the step's sidecar, else
+  ``divmod(iter, batches an epoch)``), a save every ``interval`` and after
+  the last iteration, and the :class:`.preemption.PreemptionGuard`: a
+  latched signal saves at the current iteration and returns; with more
+  than one rank the ranks agree on it every ``preemption_sync_interval``
+  steps through one all-reduce (JAX ``runner.py:340-356``, ``:443-485``,
+  ``:612-680``);
 - the loop: one step per iteration, the
   ``Iter [i/T] Lr: [...] Loss: x (tok/s or img/s)`` line every
   ``print_interval`` (``runner.py:1216-1245``), the scheduler stepped
@@ -48,16 +61,17 @@ per local card (or one on the CPU) per node, as the reference does.
 
 Not ported yet: every config key asking for one raises
 ``NotImplementedError`` naming its ROADMAP item (:data:`UNPORTED_TRAINING_KEYS`):
-checkpointing, grad accumulation, the anomaly guard and the rest of
-fault tolerance, the remat policies ``dots``/``dots_saveable`` (P2b),
-``ema`` (P3b),
+grad accumulation, the anomaly guard and the rest of fault tolerance, the
+remat policies ``dots``/``dots_saveable`` (P2b),
 sequence/tensor/pipeline/expert parallelism, ZeRO and ``comm`` (P9),
-telemetry, integrity and elastic recovery (P10).
+telemetry, integrity, elastic recovery and the checkpoint keys of
+:data:`.checkpoint.UNPORTED_CHECKPOINT_KEYS` (P10).
 TensorBoard is absent (P10): the log file and the console carry the
 metrics.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import time
@@ -82,6 +96,8 @@ from ..models import get_model, is_resnet
 from ..optimizers import get_optimizer
 from ..schedulers import get_scheduler
 from ..utils import make_deterministic
+from .checkpoint import Checkpointer, capture_training_state, restore_training_state
+from .preemption import PreemptionGuard
 from .sp_steps import build_lm_eval_step, build_lm_train_step
 from .steps import build_eval_step, build_eval_step_exact, build_train_step
 
@@ -92,7 +108,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # training.<key> -> why it raises; a key counts when it is set and truthy
 # (a parallelism degree counts above 1)
 UNPORTED_TRAINING_KEYS = {
-    "checkpoint": "checkpointing and resume are ROADMAP port item P2b",
     "grad_accumulation": "training.grad_accumulation > 1 is ROADMAP port item P2b",
     "fault_tolerance": "fault tolerance (anomaly guard, watchdog, data-worker respawn) is "
                        "ROADMAP port item P2b",
@@ -105,7 +120,6 @@ UNPORTED_TRAINING_KEYS = {
     "telemetry": "the telemetry layer is ROADMAP port item P10",
     "integrity": "the integrity sentinel is ROADMAP port item P10",
     "elastic": "elastic recovery is ROADMAP port item P10",
-    "ema": "training.ema (the image task's weight EMA) is ROADMAP port item P3b",
 }
 # batches staged on the card ahead of the step (data/prefetch.py)
 PREFETCH_DEPTH = 2
@@ -246,6 +260,8 @@ class Runner:
         cfg = self.global_cfg
         train_cfg = cfg["training"]
         _reject_unported(train_cfg)
+        self.checkpointer = Checkpointer.from_config(
+            train_cfg, rank=self.current_rank, world_size=self.world_size)
         self.compute_dtype = _DTYPES[train_cfg.get("dtype", "float32")]
         self.label_smoothing = float(train_cfg.get("label_smoothing", 0.0))
         if not 0.0 <= self.label_smoothing < 1.0:
@@ -255,6 +271,13 @@ class Runner:
         model_name = model_cfg.pop("name")
         self.is_lm = not is_resnet(model_name)
         apply_remat_alias(train_cfg, model_cfg, model_name)
+        # JAX engine/topology.py:347-352
+        ema_cfg = train_cfg.get("ema")
+        self.ema_decay = float(ema_cfg["decay"]) if ema_cfg else None
+        if self.ema_decay is not None and not 0.0 < self.ema_decay < 1.0:
+            raise ValueError(f"ema.decay must be in (0, 1), got {self.ema_decay}")
+        if self.ema_decay is not None and self.is_lm:
+            raise ValueError("training.ema is only wired for the image task")
         ds_kwargs = dict(n_classes=cfg["dataset"]["n_classes"],
                          n_samples=cfg["dataset"].get("n_samples"),
                          seq_len=cfg["dataset"].get("seq_len"),
@@ -293,15 +316,7 @@ class Runner:
                              "norm_mean/norm_std (e.g. imagenet)")
         input_norm = ((train_dataset.norm_mean, train_dataset.norm_std)
                       if self.device_normalize else None)
-        # parity: the val loader reuses the training batch size (:235-241)
-        if self.is_lm:
-            self.train_loader = DataLoader(train_dataset, self.host_batch, train_sampler,
-                                           drop_last=True)
-            self.val_loader = DataLoader(val_dataset, self.host_batch, val_sampler,
-                                         drop_last=False)
-        else:
-            self._build_image_loaders(train_cfg, train_dataset, val_dataset, train_sampler,
-                                      val_sampler)
+        self._build_loaders(train_cfg, train_dataset, val_dataset, train_sampler, val_sampler)
         self.logger.info(
             "Load dataset done\nTraining: %d samples, %d batches\nEval: %d samples, %d batches",
             len(train_dataset), len(self.train_loader), len(val_dataset), len(self.val_loader))
@@ -321,20 +336,25 @@ class Runner:
             self.train_step = build_train_step(
                 self.model, self.optimizer, self.scheduler.lr_fn, world_size=self.world_size,
                 sync_bn=self.sync_bn, label_smoothing=self.label_smoothing,
-                input_norm=input_norm)
+                input_norm=input_norm, ema_decay=self.ema_decay)
             self.eval_step = build_eval_step(self.model, world_size=self.world_size,
                                              input_norm=input_norm)
             self.eval_step_exact = build_eval_step_exact(
                 self.model, world_size=self.world_size, input_norm=input_norm)
-        self._train_loop(make_iter_dataloader(self.train_loader), train_cfg)
+        self._setup_checkpoint(train_cfg)
+        stream = make_iter_dataloader(self.train_loader, start_iter=self.iter,
+                                      start_epoch=self._epoch, skip_batches=self._batch_in_epoch)
+        with self._preempt if self._preempt is not None else contextlib.nullcontext():
+            self._train_loop(stream, train_cfg)
 
-    def _build_image_loaders(self, train_cfg, train_dataset, val_dataset, train_sampler,
-                             val_sampler) -> None:
-        """The image path's loaders (JAX ``runner.py:219-310``): the backend
+    def _build_loaders(self, train_cfg, train_dataset, val_dataset, train_sampler,
+                       val_sampler) -> None:
+        """The loaders of both paths (JAX ``runner.py:219-310``): the backend
         of ``training.worker_mode``, ``num_workers`` shared among the cards
-        of the node (one process each), uint8 batches with
-        ``device_normalize``, and ``dct_denom`` for training only
-        (validation decodes at full fidelity)."""
+        of the node (one process each), and on the image path uint8
+        batches with ``device_normalize`` and ``dct_denom`` for training
+        only (validation decodes at full fidelity).  The validation loader
+        reuses the training batch size (reference :235-241)."""
         cards = torch.cuda.device_count() if self.device.type == "cuda" else 1
         workers = max(1, int(train_cfg.get("num_workers", 0)) // cards)
         dct_denom = int(train_cfg.get("dct_denom", 1))
@@ -348,8 +368,97 @@ class Runner:
         self.val_loader = DataLoader(val_dataset, self.host_batch, val_sampler,
                                      drop_last=False, **common)
         self.logger.info("Loader: %s mode, %d worker(s) a process (num_workers %s over %d "
-                         "card(s)), %s batches", self.train_loader.worker_mode, workers,
-                         train_cfg.get("num_workers", 0), cards, common["output_dtype"])
+                         "card(s))%s", self.train_loader.worker_mode, workers,
+                         train_cfg.get("num_workers", 0), cards,
+                         "" if self.is_lm else f", {common['output_dtype']} batches")
+
+    # ------------------------------------------------------------ checkpoint
+    def _setup_checkpoint(self, train_cfg) -> None:
+        """``training.checkpoint`` (JAX ``runner.py:340-363``, ``:443-485``):
+        restore the newest step, or refuse a populated directory with
+        ``resume: false``; the pipeline position; the preemption guard."""
+        self._preempt = None
+        self._preempt_sync = 10
+        if self.checkpointer is not None:
+            ck = train_cfg["checkpoint"]
+            if ck.get("resume", True):
+                self.iter = self.checkpointer.restore_latest(
+                    lambda payload: restore_training_state(payload, self.model, self.train_step),
+                    self.device, self.logger)
+                self.scheduler.last_epoch = self.iter
+                if self.iter:
+                    self.logger.info("Resumed from checkpoint step %d at %s", self.iter - 1,
+                                     self.checkpointer.directory)
+            elif self.checkpointer.latest() is not None:
+                raise ValueError(
+                    f"checkpoint dir {self.checkpointer.directory} already has step "
+                    f"{self.checkpointer.latest()} but resume is False — clear the directory "
+                    "or point checkpoint.dir elsewhere")
+            if ck.get("preemption", True):
+                self._preempt = PreemptionGuard(
+                    PreemptionGuard.parse_signals(ck.get("preemption_signals", ("SIGTERM",))),
+                    logger=self.logger)
+                self._preempt_sync = int(ck.get("preemption_sync_interval", 10))
+                if self._preempt_sync < 1:
+                    raise ValueError(f"checkpoint.preemption_sync_interval must be >= 1, got "
+                                     f"{self._preempt_sync}")
+        self._init_pipeline_position()
+
+    def _init_pipeline_position(self) -> None:
+        """(``_epoch``, ``_batch_in_epoch``) of the next batch: the resumed
+        step's sidecar, else ``divmod(iter, batches an epoch)`` (JAX
+        ``runner.py:611-643``)."""
+        self._batches_per_epoch = len(self.train_loader)
+        self._epoch, self._batch_in_epoch = divmod(self.iter, self._batches_per_epoch)
+        if self.checkpointer is None or self.iter == 0:
+            return
+        extras = self.checkpointer.read_extras(self.iter - 1)
+        if extras is None:
+            return
+        saved_bpe = int(extras.get("batches_per_epoch", self._batches_per_epoch))
+        if saved_bpe != self._batches_per_epoch:
+            self.logger.warning(
+                "pipeline sidecar was written with %d batches/epoch but this run yields %d — "
+                "resuming at its recorded position, but the batches may differ from an "
+                "uninterrupted run's", saved_bpe, self._batches_per_epoch)
+        self._epoch = int(extras["epoch"])
+        self._batch_in_epoch = int(extras["batch_in_epoch"])
+        self.logger.info("pipeline position restored from sidecar: epoch %d, %d/%d batches "
+                         "consumed", self._epoch, self._batch_in_epoch, self._batches_per_epoch)
+
+    def _pipeline_extras(self) -> dict:
+        """The sidecar of a save (JSON)."""
+        return {"epoch": int(self._epoch), "batch_in_epoch": int(self._batch_in_epoch),
+                "seed": int(self.seed) if self.seed is not None else 0,
+                "world_processes": int(self.world_size),
+                "batches_per_epoch": int(self._batches_per_epoch)}
+
+    def _advance_pipeline(self) -> None:
+        """One training batch consumed."""
+        self._batch_in_epoch += 1
+        if self._batch_in_epoch >= self._batches_per_epoch:
+            self._epoch += 1
+            self._batch_in_epoch = 0
+
+    def _save_checkpoint(self) -> None:
+        """Save the state after the current iteration (every rank calls it)."""
+        self.checkpointer.save(
+            self.iter, capture_training_state(self.model, self.train_step, self.iter),
+            extras=self._pipeline_extras())
+
+    def _globally_preempted(self) -> bool:
+        """Whether to act on a latched signal at this iteration: at one rank
+        the flag itself; with more, every ``preemption_sync_interval``
+        iterations all ranks sum their flags in one all-reduce (the same
+        iterations on every rank, so the collectives match) and act on the
+        OR (JAX ``runner.py:1141-1158``)."""
+        if self.world_size == 1:
+            return self._preempt.triggered
+        if (self.iter + 1) % self._preempt_sync != 0:
+            return False
+        flag = torch.tensor([float(self._preempt.triggered)], device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.SUM)
+        return bool(flag.item() > 0)
 
     def _build_lm_model(self, model_name: str, model_cfg: dict, train_dataset) -> None:
         self.seq_len = int(train_dataset[0][0].shape[0])
@@ -414,13 +523,22 @@ class Runner:
         try:
             while self.iter < train_cfg["train_iters"]:
                 self.train_iter(*next(batches))
+                self._advance_pipeline()
                 if self.on_iter is not None:
                     self.on_iter(self)
+                if self._preempt is not None and self._globally_preempted():
+                    self.logger.warning("Preemption signal received: saving checkpoint at "
+                                        "iter %d and exiting", self.iter)
+                    self._save_checkpoint()
+                    return
                 p1 = self.iter != 0
                 p2 = (self.iter + 1) % train_cfg["val_interval"] == 0
                 p3 = self.iter == train_cfg["train_iters"] - 1
                 if (p1 and p2) or p3:
                     self.validate()
+                if self.checkpointer is not None and self.checkpointer.should_save(
+                        self.iter, train_cfg["train_iters"]):
+                    self._save_checkpoint()
                 self.iter += 1
         finally:
             batches.close()
@@ -458,16 +576,37 @@ class Runner:
             self.logger.info("Start valuation")
         self.model.eval()
         try:
-            if self.exact_eval and not self.is_lm:
-                record = self._validate_exact()
-            else:
-                record = self._validate_parity()
+            with self._eval_weights():
+                if self.exact_eval and not self.is_lm:
+                    record = self._validate_exact()
+                else:
+                    record = self._validate_parity()
         finally:
             self.model.train()
         self.val_log.append(dict(iter=self.iter, **record))
         if self.current_rank == 0:
             self.logger.info("Acc@1: %.4f, Acc@5: %.4f, Loss: %.5f",
                              record["acc1"], record["acc5"], record["loss"])
+
+    @contextlib.contextmanager
+    def _eval_weights(self):
+        """With the weight EMA, its values in the parameters for the
+        validation (the BatchNorm running statistics stay the model's, as
+        JAX ``state.replace(params=state.ema)`` keeps them), the trained
+        values copied back afterwards, bit for bit."""
+        ema = getattr(self.train_step, "ema", None)
+        if ema is None:
+            yield
+            return
+        params = self.train_step.params
+        with torch.no_grad():
+            trained = [p.detach().clone(memory_format=torch.preserve_format) for p in params]
+            torch._foreach_copy_(params, ema)
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                torch._foreach_copy_(params, trained)
 
     def _validate_parity(self) -> dict:
         """The reference's per-batch meter: every batch weighs the same, the

@@ -16,7 +16,13 @@ compiled ``shard_map`` program; here each rank is one process on one card:
    same all-reduce pre-scaled by ``1 / world``: each rank's statistics
    diverge, and their average keeps the ranks equal (``steps.py:256-261``);
    world size 1 skips it;
-4. SGD (or AdamW) in place at ``lr_fn(step)``.
+4. the optimizer (SGD, LARS or AdamW) in place at ``lr_fn(step)``;
+5. with ``ema_decay`` ``d`` (config ``training.ema.decay``), the weight
+   EMA ``ema <- d * ema + (1 - d) * params`` (JAX ``_ema_outside``,
+   ``steps.py:318-331``): ``1 - d`` taken in Python double and applied in
+   f32, as the JAX package's weak-typed scalar is, and rounded as XLA
+   rounds it (:meth:`ImageTrainStep.update_ema`).  The EMA starts as a
+   copy of the f32 parameters (JAX ``engine/paths.py:269-275``).
 
 ``input_norm = (mean, std)`` takes a uint8 NHWC batch and normalises it
 on the card before the permute, as ``x.float() * scale + bias`` with the
@@ -30,7 +36,7 @@ nothing.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
 item: ``grad_accum > 1`` and the anomaly guard (P2b), ``comm.overlap``
-(P9); the weight EMA is P3b-2 (the runner refuses ``training.ema``).
+(P9).
 """
 from __future__ import annotations
 
@@ -83,12 +89,13 @@ class ImageTrainStep:
     classes.  The parameters and the
     BatchNorm buffers of ``model`` are updated in place; ``opt_state``
     carries the optimizer's state and its step count, which also indexes
-    ``lr_fn``.
+    ``lr_fn``; ``ema`` the weight EMA, one tensor a parameter (``None``
+    without ``ema_decay``).
     """
 
     def __init__(self, model, optimizer, lr_fn: Callable[[int], float], world_size: int = 1,
                  group=None, sync_bn: bool = False, label_smoothing: float = 0.0,
-                 input_norm=None):
+                 input_norm=None, ema_decay: Optional[float] = None):
         self.model = model
         self.normalize = input_normalizer(input_norm)
         self.optimizer = optimizer
@@ -101,6 +108,19 @@ class ImageTrainStep:
         self.bn_buffers = [b for m in model.modules() if isinstance(m, DistributedBatchNorm)
                            for b in (m.running_mean, m.running_var)]
         self.opt_state = optimizer.init(self.params)
+        self.ema_decay = None if ema_decay is None else float(ema_decay)
+        self.ema = (None if ema_decay is None else
+                    [p.detach().clone(memory_format=torch.preserve_format) for p in self.params])
+
+    @torch.no_grad()
+    def update_ema(self) -> None:
+        """``ema <- d * ema + (1 - d) * params`` in two ``_foreach`` passes:
+        ``(1 - d) * params`` rounded, then ``+ d * ema`` as one multiply-add
+        (``add`` with ``alpha``), the rounding of XLA's fused
+        ``fma(d, ema, (1 - d) * params)``."""
+        new = torch._foreach_mul(self.params, 1.0 - self.ema_decay)
+        torch._foreach_add_(new, self.ema, alpha=self.ema_decay)
+        self.ema = new
 
     def forward_backward(self, img, labels):
         """Forward in train mode, this rank's share of the loss and its
@@ -126,17 +146,21 @@ class ImageTrainStep:
         self.opt_state = self.optimizer.update(self.params, grads, self.opt_state, lr)
         for p in self.params:
             p.grad = None
+        if self.ema is not None:
+            self.update_ema()
         return loss
 
 
 def build_train_step(model, optimizer, lr_fn: Callable[[int], float], world_size: int = 1,
                      group=None, sync_bn: bool = False, grad_accum: int = 1,
                      label_smoothing: float = 0.0, anomaly_factor: Optional[float] = None,
-                     comm=None, input_norm=None) -> ImageTrainStep:
+                     comm=None, input_norm=None,
+                     ema_decay: Optional[float] = None) -> ImageTrainStep:
     """The image DP training step (see the module docstring).  ``sync_bn``
     says whether the model's BatchNorms average their statistics over the
     ranks (the model is built so); without it the step averages the
-    buffers.  ``input_norm``: ``(mean, std)`` for uint8 batches."""
+    buffers.  ``input_norm``: ``(mean, std)`` for uint8 batches;
+    ``ema_decay``: keep the weight EMA."""
     if grad_accum != 1:
         raise NotImplementedError("training.grad_accumulation > 1 is ROADMAP port item P2b")
     if anomaly_factor is not None:
@@ -146,7 +170,7 @@ def build_train_step(model, optimizer, lr_fn: Callable[[int], float], world_size
     if comm is not None and getattr(comm, "overlap", False):
         raise NotImplementedError("training.comm.overlap is ROADMAP port item P9")
     return ImageTrainStep(model, optimizer, lr_fn, world_size, group, sync_bn,
-                          label_smoothing, input_norm)
+                          label_smoothing, input_norm, ema_decay)
 
 
 def _eval_logits(model, img):

@@ -8,11 +8,12 @@ from __future__ import annotations
 import torch
 
 from .from_jax import lm_state_dict_from_jax, resnet_state_dict_from_jax
-from .resnet import RESNET_CONFIGS, BasicBlock, Bottleneck, ResNet
+from .resnet import RESNET_CONFIGS, BasicBlock, Bottleneck, ResNet, fold_stem_kernel
 from .transformer_lm import TransformerLM
 
-__all__ = ["BasicBlock", "Bottleneck", "RESNET_CONFIGS", "ResNet", "TransformerLM", "get_model",
-           "is_resnet", "lm_state_dict_from_jax", "resnet_state_dict_from_jax"]
+__all__ = ["BasicBlock", "Bottleneck", "RESNET_CONFIGS", "ResNet", "TransformerLM",
+           "fold_stem_kernel", "get_model", "is_resnet", "lm_state_dict_from_jax",
+           "resnet_state_dict_from_jax"]
 
 _RESNETS = {name.lower(): name for name in RESNET_CONFIGS}
 _NOT_YET = {

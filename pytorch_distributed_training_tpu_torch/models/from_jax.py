@@ -25,7 +25,8 @@ kernel transposed, BatchNorm ``scale``/``bias``/``mean``/``var`` ->
 ``layer{s}.{b}`` and ``downsample_conv``/``downsample_bn`` ->
 ``downsample.0``/``.1``.  The expected keys and shapes are those of the
 port's ``ResNet`` of the tree's own topology (block type, blocks a stage,
-classes), so any leaf left over or missing raises ``ValueError``.
+classes, and the space-to-depth stem when ``conv1``'s kernel is 4x4), so
+any leaf left over or missing raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -133,9 +134,12 @@ def resnet_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     if "params/fc/kernel" not in leaves:
         raise ValueError("JAX variables: missing leaf 'params/fc/kernel'")
     block_cls = Bottleneck if "conv3" in params.get("layer1_0", {}) else BasicBlock
+    # a [4, 4, 12, 64] stem is the space-to-depth one (JAX resnet.py:233-238)
+    stem = leaves.get("params/conv1/kernel")
+    s2d = stem is not None and tuple(stem.shape[:2]) == (4, 4)
     with torch.device("meta"):
         template = ResNet([stages[s] for s in sorted(stages)], block_cls,
-                          leaves["params/fc/kernel"].shape[1])
+                          leaves["params/fc/kernel"].shape[1], space_to_depth=s2d)
     shapes = {k: tuple(v.shape) for k, v in template.state_dict().items()}
     state = {}
     for path, arr in leaves.items():

@@ -38,6 +38,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -184,7 +185,10 @@ class TransformerLM(nn.Module):
         """Embeddings and blocks: the residual stream ``[B, S, E]`` before
         the final LayerNorm and head."""
         b, s = tokens.shape
-        x = self.tok_embedding[tokens].to(self.dtype)
+        # F.embedding, not indexing: the same rows, and a backward that sums
+        # each row's gradient in a fixed order (indexing's scatter-add on the
+        # CPU does not), so a resumed run repeats a straight one bit for bit
+        x = F.embedding(tokens, self.tok_embedding).to(self.dtype)
         if decode_pos is not None:
             if cache is None:
                 raise ValueError("decode_pos given without a KV cache")

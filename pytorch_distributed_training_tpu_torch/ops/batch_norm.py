@@ -20,10 +20,17 @@ Two formulas, chosen by ``sync``, not by the world size (``:97-130``):
 - local: the shifted one-pass form ``E[(x - c)^2] - (E[x] - c)^2`` with
   ``c`` the running mean, taken as a constant.
 
+``stat_dtype=torch.bfloat16`` (JAX ``stat_dtype``, config
+``model.bn_stat_dtype``; ``:85-147``) takes the moments and the
+normalisation in bfloat16 while the running statistics stay float32.
+Both forms then shift by ``c`` = the running mean: the sync form applies
+it to the second moment only, ``E[(x - c)^2] - (E[x] - c)^2``, inside the
+same one all-reduce, and ``var`` is clamped at 0 (bfloat16's 8 mantissa
+bits can round it below).  float32 keeps the forms above bit for bit.
+
 Plain torch ops: the JAX package's BatchNorm is XLA, not a Pallas kernel.
 ``torch.nn.SyncBatchNorm`` is not used: it refuses CPU tensors, so it
-could not run over gloo on the CPU.  Statistics in bfloat16 (JAX
-``stat_dtype``, config ``model.bn_stat_dtype``) are ROADMAP port item P3b.
+could not run over gloo on the CPU.
 """
 from __future__ import annotations
 
@@ -80,10 +87,9 @@ class DistributedBatchNorm(nn.Module):
     def __init__(self, num_features: int, sync: bool = False, momentum: float = 0.1,
                  eps: float = 1e-5, group=None, stat_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if stat_dtype not in (None, torch.float32):
-            raise NotImplementedError(
-                "BatchNorm statistics in bfloat16 (model.bn_stat_dtype) are ROADMAP "
-                "port item P3b")
+        if stat_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"stat_dtype must be float32 or bfloat16, got {stat_dtype}")
+        self.low_stats = stat_dtype == torch.bfloat16
         self.num_features = int(num_features)
         self.sync = bool(sync)
         self.momentum = float(momentum)
@@ -108,7 +114,11 @@ class DistributedBatchNorm(nn.Module):
         if x.dim() < 2 or x.shape[1] != self.num_features:
             raise ValueError(f"DistributedBatchNorm({self.num_features}): got input of "
                              f"shape {tuple(x.shape)}")
-        xf = x.to(torch.float64 if x.dtype == torch.float64 else torch.float32)
+        if self.low_stats:
+            sd = torch.bfloat16
+        else:
+            sd = torch.float64 if x.dtype == torch.float64 else torch.float32
+        xf = x.to(sd)
         shape = self._shape(x)
         if not self.training:
             mean, var = self.running_mean, self.running_var
@@ -116,25 +126,31 @@ class DistributedBatchNorm(nn.Module):
             axes = (0,) + tuple(range(2, x.dim()))
             n = x.numel() // self.num_features
             mean = xf.mean(axes)
+            c = self.running_mean.detach().to(sd)
             if self.sync:
-                mean_sq = xf.square().mean(axes)
+                if self.low_stats:
+                    mean_sq = (xf - c.view(shape)).square().mean(axes)
+                else:
+                    mean_sq = xf.square().mean(axes)  # raw moments: c = 0
                 world = _world_size(self.group)
                 if world > 1:
                     mean, mean_sq = _all_reduce_mean(torch.stack([mean, mean_sq]), self.group)
                 n *= world
-                var = mean_sq - mean.square()
+                var = mean_sq - ((mean - c) if self.low_stats else mean).square()
             else:
-                c = self.running_mean.detach()
                 var = (xf - c.view(shape)).square().mean(axes) - (mean - c).square()
+            if self.low_stats:
+                var = var.clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 unbiased = var * (n / max(n - 1, 1))
                 self.running_mean.mul_(1.0 - m).add_(m * mean)
                 self.running_var.mul_(1.0 - m).add_(m * unbiased)
-        inv = torch.rsqrt(var + self.eps)
-        y = (xf - mean.view(shape)) * inv.view(shape) * self.weight.view(shape) \
-            + self.bias.view(shape)
+        inv = torch.rsqrt(var.to(sd) + self.eps)
+        y = (xf - mean.to(sd).view(shape)) * inv.view(shape) * self.weight.to(sd).view(shape) \
+            + self.bias.to(sd).view(shape)
         return y.to(x.dtype)
 
     def extra_repr(self) -> str:
-        return f"{self.num_features}, sync={self.sync}, momentum={self.momentum}, eps={self.eps}"
+        return (f"{self.num_features}, sync={self.sync}, momentum={self.momentum}, eps={self.eps}"
+                + (", stat_dtype=bfloat16" if self.low_stats else ""))

@@ -8,6 +8,10 @@ replicates ``torch.optim`` step for step; the port does not assume that
 
 - :class:`SGD` (``:138-215``): coupled weight decay ``d = g + wd * p``
   before momentum, torch's first-step buffer ``buf = d``, nesterov.
+- :class:`LARS` (``:230-282``): per parameter of rank >= 2 the trust
+  ratio ``eta ||p|| / (||g|| + wd ||p|| + eps)`` (1 where either norm is
+  0) scales ``g + wd * p``, then plain momentum ``buf = mu buf + d`` (no
+  first-step special case); parameters of rank <= 1 take ``d = g``;
 - :class:`AdamW` (``:285-390``): decoupled decay ``p *= 1 - lr * wd``
   before the step, bias-corrected moments, ``eps`` outside the square root
   and added to the bias-corrected denominator (``:341``);
@@ -22,7 +26,7 @@ step computes them on the device.  ``fused`` is accepted for config
 compatibility: it picks nothing here, every update is already one pass
 per operation over all parameters.
 
-LARS (ROADMAP port item P3b) and LAMB (P2b) raise ``NotImplementedError``.
+LAMB (ROADMAP port item P2b) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from typing import Any, Dict, List, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["AdamW", "AdamWState", "OPTIMIZERS", "SGD", "SGDState", "get_optimizer"]
+__all__ = ["AdamW", "AdamWState", "LARS", "OPTIMIZERS", "SGD", "SGDState", "get_optimizer"]
 
 
 class SGDState(NamedTuple):
@@ -51,7 +55,8 @@ def _f32(x) -> float:
 
 def _is_excluded(param: torch.Tensor) -> bool:
     """Biases and norm scales/offsets (rank <= 1), as ``_is_excluded`` of
-    the JAX package (``optimizers/__init__.py:216-228``)."""
+    the JAX package (``optimizers/__init__.py:216-228``): by rank, not by
+    name, so LayerNorm scales are excluded as BatchNorm's are."""
     return param.dim() <= 1
 
 
@@ -90,6 +95,49 @@ class SGD:
         else:
             step_dir = d
         torch._foreach_add_(params, step_dir, alpha=-_f32(lr))
+        return SGDState(momentum=bufs, step=state.step + 1)
+
+
+class LARS:
+    """Layer-wise Adaptive Rate Scaling with momentum (see the module
+    docstring); the norms of a step are one ``torch._foreach_norm`` pass
+    each over the adapted parameters and their gradients."""
+
+    def __init__(self, lr: float, momentum: float = 0.9, weight_decay: float = 0.0,
+                 eta: float = 0.001, eps: float = 1e-9):
+        self.lr = float(lr)
+        self.momentum = float(momentum)
+        self.weight_decay = float(weight_decay)
+        self.eta = float(eta)
+        self.eps = float(eps)
+
+    def init(self, params: List[torch.Tensor]) -> SGDState:
+        return SGDState(momentum=[torch.zeros_like(p) for p in params], step=0)
+
+    @torch.no_grad()
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+               state: SGDState, lr=None) -> SGDState:
+        """Apply one step to ``params`` in place; returns the new state."""
+        lr = self.lr if lr is None else lr
+        wd = self.weight_decay
+        d = list(grads)  # rank <= 1: the plain gradient, no decay
+        adapt = [i for i, p in enumerate(params) if not _is_excluded(p)]
+        if adapt:
+            ps, gs = [params[i] for i in adapt], [grads[i] for i in adapt]
+            p_norm = torch.stack(torch._foreach_norm(ps))
+            g_norm = torch.stack(torch._foreach_norm(gs))
+            trust = torch.where((p_norm > 0) & (g_norm > 0),
+                                self.eta * p_norm / (g_norm + wd * p_norm + self.eps),
+                                torch.ones_like(p_norm))
+            decayed = torch._foreach_mul(ps, wd)
+            torch._foreach_add_(decayed, gs)
+            torch._foreach_mul_(decayed, list(trust.unbind()))
+            for i, t in zip(adapt, decayed):
+                d[i] = t
+        bufs = state.momentum
+        torch._foreach_mul_(bufs, self.momentum)
+        torch._foreach_add_(bufs, d)
+        torch._foreach_add_(params, bufs, alpha=-_f32(lr))
         return SGDState(momentum=bufs, step=state.step + 1)
 
 
@@ -135,10 +183,9 @@ class AdamW:
         return AdamWState(mu=mu, nu=nu, step=state.step + 1)
 
 
-OPTIMIZERS = {"SGD": SGD, "AdamW": AdamW}
+OPTIMIZERS = {"SGD": SGD, "LARS": LARS, "AdamW": AdamW}
 
 _NOT_YET = {
-    "LARS": "LARS (the large-batch ResNet recipe) is ROADMAP port item P3b",
     "LAMB": "LAMB is ROADMAP port item P2b",
 }
 

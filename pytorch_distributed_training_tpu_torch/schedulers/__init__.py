@@ -7,20 +7,19 @@ package evaluates ``lr_fn`` on the device inside the compiled step; here
 the step runs eagerly and reads it on the host from its own step counter
 (a Python int, so no device sync).
 
-Ported: ``multi_step`` (milestones and gamma, ``:55-78``) and ``cosine``
+Ported: ``multi_step`` (milestones and gamma, ``:55-78``), ``poly`` (the
+LARS recipe's polynomial decay, ``:97-127``) and ``cosine``
 (``:129-153``), each with detectron-style warmup (``warmup_iters``,
 ``warmup_mode`` linear or constant, ``warmup_factor``; ``:43-52``).  The
 host arithmetic is float64, as the JAX package's host path
-(``get_last_lr``); the train step rounds the value to float32.  ``poly``
-(the LARS recipe) is ROADMAP port item P3b and raises
-``NotImplementedError``.
+(``get_last_lr``); the train step rounds the value to float32.
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Callable, Dict, List, Sequence
 
-__all__ = ["IterationScheduler", "cosine_lr", "get_scheduler", "multi_step_lr"]
+__all__ = ["IterationScheduler", "cosine_lr", "get_scheduler", "multi_step_lr", "poly_lr"]
 
 
 def _apply_warmup(lr: float, step: int, warmup_iters: int, warmup_mode: str,
@@ -46,6 +45,24 @@ def multi_step_lr(base_lr: float, milestones: Sequence[int], gamma: float,
 
     def lr_at(step: int) -> float:
         lr = base_lr * gamma ** sum(1 for m in ms_sorted if step >= m)
+        return _apply_warmup(lr, step, warmup_iters, warmup_mode, warmup_factor)
+
+    return lr_at
+
+
+def poly_lr(base_lr: float, total_iters: int, power: float = 2.0, end_lr: float = 0.0,
+            warmup_iters: int = 0, warmup_mode: str = "linear",
+            warmup_factor: float = 1.0 / 3) -> Callable:
+    """``end + (base - end) * (1 - s / decay_iters) ** power``, the decay
+    horizon measured after the warmup (so the decay starts from
+    ``base_lr`` when the warmup hands over), then warmup on top."""
+    if warmup_mode not in ("linear", "constant"):
+        raise ValueError(f"unknown warmup_mode: {warmup_mode!r}")
+    decay_iters = max(total_iters - max(warmup_iters, 0), 1)
+
+    def lr_at(step: int) -> float:
+        s = min(max(step - max(warmup_iters, 0), 0), decay_iters)
+        lr = end_lr + (base_lr - end_lr) * (1.0 - s / decay_iters) ** power
         return _apply_warmup(lr, step, warmup_iters, warmup_mode, warmup_factor)
 
     return lr_at
@@ -92,6 +109,18 @@ def _make_multi_step(optimizer, cfg: Dict[str, Any]) -> IterationScheduler:
     ))
 
 
+def _make_poly(optimizer, cfg: Dict[str, Any]) -> IterationScheduler:
+    return IterationScheduler(poly_lr(
+        base_lr=optimizer.lr,
+        total_iters=cfg["total_iters"],
+        power=cfg.get("power", 2.0),
+        end_lr=cfg.get("end_lr", 0.0),
+        warmup_iters=cfg.get("warmup_iters", 0),
+        warmup_mode=cfg.get("warmup_mode", "linear"),
+        warmup_factor=cfg.get("warmup_factor", 1.0 / 3),
+    ))
+
+
 def _make_cosine(optimizer, cfg: Dict[str, Any]) -> IterationScheduler:
     return IterationScheduler(cosine_lr(
         base_lr=optimizer.lr,
@@ -103,18 +132,13 @@ def _make_cosine(optimizer, cfg: Dict[str, Any]) -> IterationScheduler:
     ))
 
 
-SCHEDULERS = {"multi_step": _make_multi_step, "cosine": _make_cosine}
-_NOT_YET = {
-    "poly": "the poly schedule (the LARS recipe) is ROADMAP port item P3b",
-}
+SCHEDULERS = {"multi_step": _make_multi_step, "poly": _make_poly, "cosine": _make_cosine}
 
 
 def get_scheduler(optimizer, cfg: Dict[str, Any]) -> IterationScheduler:
     """Factory keyed by ``cfg['name']`` (reference: train_distributed.py:211)."""
     cfg = dict(cfg)
     name = cfg.pop("name")
-    if name in _NOT_YET:
-        raise NotImplementedError(f"lr_schedule {name!r}: {_NOT_YET[name]}")
     if name not in SCHEDULERS:
         raise KeyError(f"unknown scheduler '{name}' (have: {sorted(SCHEDULERS)})")
     return SCHEDULERS[name](optimizer, cfg)

@@ -120,8 +120,13 @@ def test_batch_norm_bf16_output_and_statistics():
     assert y.dtype == torch.bfloat16 and bn.running_var.dtype == torch.float32
     torch.testing.assert_close(y, want.to(torch.bfloat16), atol=0, rtol=0)
     torch.testing.assert_close(bn.running_var, ref.running_var, atol=0, rtol=0)
-    with pytest.raises(NotImplementedError, match="P3b"):
-        DistributedBatchNorm(8, stat_dtype=torch.bfloat16)
+    # ported: statistics in bf16 (model.bn_stat_dtype), running buffers f32;
+    # within a few bf16 ulps (2^-8 relative) of the f32 statistics
+    low = DistributedBatchNorm(8, stat_dtype=torch.bfloat16)
+    y_low = low(xb)
+    assert y_low.dtype == torch.bfloat16 and low.running_var.dtype == torch.float32
+    torch.testing.assert_close(y_low.float(), want, atol=4 * 2**-8, rtol=4 * 2**-8)
+    torch.testing.assert_close(low.running_var, ref.running_var, atol=0, rtol=4 * 2**-8)
 
 
 # --------------------------------------------------------------------- #
@@ -215,10 +220,28 @@ def test_resnet_family_sizes_are_torchvision_s(name, n_params):
 
 
 @pytest.mark.parametrize("kwargs", [dict(space_to_depth=True),
-                                    dict(bn_stat_dtype=torch.bfloat16)])
+                                    dict(bn_stat_dtype=torch.bfloat16),
+                                    dict(space_to_depth=True, size=31)])
 def test_unported_resnet_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="P3b"):
-        get_model("ResNet18", num_classes=10, **kwargs)
+    """Ported (P3b-2): the space-to-depth stem and bf16 BatchNorm statistics
+    build and train-forward to finite logits; the stem refuses odd input
+    dims with the JAX package's ``ValueError``."""
+    kwargs = dict(kwargs)
+    size = kwargs.pop("size", 32)
+    model = get_model("ResNet18", num_classes=10, **kwargs)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 3, size, size),
+                                                                   np.float32))
+    if size % 2:
+        with pytest.raises(ValueError, match="space_to_depth requires even input dims, got "
+                                             "31x31"):
+            model(x)
+        return
+    y = model(x)
+    assert y.shape == (2, 10) and torch.isfinite(y).all()
+    if kwargs.get("space_to_depth"):
+        assert tuple(model.conv1.weight.shape) == (64, 12, 4, 4)
+    else:
+        assert all(m.low_stats for m in model.modules() if isinstance(m, DistributedBatchNorm))
 
 
 # --------------------------------------------------------------------- #

@@ -371,19 +371,21 @@ def test_runner_trains_and_validates_on_cpu():
 
 @pytest.mark.parametrize(
     "section,key,value,raises,match",
-    [pytest.param("training", "ema", {"decay": 0.999}, NotImplementedError, "P3b",
+    [pytest.param("training", "ema", {"decay": 0.999}, None, "ema",
                   id="training-ema-value0-P3b"),
      # ported (P3b-1): the JAX runner's refusal of uint8 batches from a
      # dataset without normalisation constants (the synthetic one)
      pytest.param("training", "device_normalize", True, ValueError, "norm_mean",
                   id="training-device_normalize-True-P3b"),
-     pytest.param("model", "space_to_depth", True, NotImplementedError, "P3b",
+     # ported (P3b-2): the space-to-depth stem, bf16 statistics and the
+     # EMA run; ``match`` names what the case checks
+     pytest.param("model", "space_to_depth", True, None, "space_to_depth",
                   id="model-space_to_depth-True-P3b"),
-     pytest.param("model", "bn_stat_dtype", "bfloat16", NotImplementedError, "P3b",
+     pytest.param("model", "bn_stat_dtype", "bfloat16", None, "bn_stat_dtype",
                   id="model-bn_stat_dtype-bfloat16-P3b"),
      # ported (P3b-1): it runs, and counts each of 7 validation samples once
      # over two batches of 4 (the second wrap-padded)
-     pytest.param("validation", "exact", True, None, None, id="validation-exact-True-P3b"),
+     pytest.param("validation", "exact", True, None, "exact", id="validation-exact-True-P3b"),
      pytest.param("training", "grad_accumulation", 2, NotImplementedError, "P2b",
                   id="training-grad_accumulation-2-P2b")],
 )
@@ -396,8 +398,19 @@ def test_runner_rejects_unported_image_keys(section, key, value, raises, match):
                     logger_queue=None, global_cfg=cfg, device="cpu")
     if raises is None:
         runner()
-        assert [v["n"] for v in runner.val_log] == [7, 7]
+        assert all(np.isfinite(r["loss"]) for r in runner.train_log)
         assert all(0.0 <= v["acc1"] <= v["acc5"] <= 100.0 for v in runner.val_log)
+        if match == "exact":
+            assert [v["n"] for v in runner.val_log] == [7, 7]
+        elif match == "space_to_depth":
+            assert tuple(runner.model.conv1.weight.shape) == (64, 12, 4, 4)
+        elif match == "bn_stat_dtype":
+            assert all(m.low_stats and m.running_var.dtype == torch.float32
+                       for m in runner.model.modules() if hasattr(m, "low_stats"))
+        else:  # the EMA, after 3 steps at d = 0.999 still near the initial weights
+            step = runner.train_step
+            assert step.ema_decay == 0.999 and len(step.ema) == len(step.params)
+            assert any(not torch.equal(e, p) for e, p in zip(step.ema, step.params))
         return
     with pytest.raises(raises, match=match):
         runner()
