@@ -158,6 +158,7 @@ It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -187,6 +188,17 @@ LARS_CONFIG = os.path.join(_HERE, "config", "ResNet50-lars8k.yml")
 LARS_BATCH, LARS_STEPS, LARS_WARMUP = 256, 8, 3
 # phase 17: checkpoints of config/test-sync.yml, each run in its own directory
 CKPT_DIR = os.path.join(_HERE, "run", "chip_smoke", "ckpt")
+# phase 18: the fsdp config's batch of 64 as 8 micro-batches, over a token
+# corpus written here from a seed (4 train batches, 2 validation batches)
+ACCUM_CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "configs",
+                            "train-lm-1024-accum.yml")
+TOKENS_DIR = os.path.join(_HERE, "run", "chip_smoke", "tokens")
+# phase 19: the fault scenarios' checkpoints, each run in its own directory
+FAULTS_DIR = os.path.join(_HERE, "run", "chip_smoke", "faults")
+# phase 18's f32 checks: an accumulated step against a plain one, each
+# gradient within this share of its largest magnitude (f32 sums taken in
+# another order; phase 7's limit for card against CPU)
+ACCUM_GRAD_LIMIT = 1e-4
 _CSRC = "pytorch_distributed_training_tpu_torch/csrc/"
 _TPU = "pytorch_distributed_training_tpu/ops/"
 _FA = _TPU + "flash_attention.py:"
@@ -1207,11 +1219,12 @@ def phase_long_kernels(torch, fa):
 
 
 def phase_runner(torch, modules, config: str, name: str, per_step: dict,
-                 per_val_batch: dict, steps: int = 6, dtype=None):
-    """Phases 8, 11 and 12: the training runner on ``config`` (its
-    ``training.dtype`` replaced by ``dtype`` if given) for ``steps`` steps
-    and one validation of 2 batches, with exact launch counts per step and
-    per validation batch (keys missing from the dicts count 0)."""
+                 per_val_batch: dict, steps: int = 6, dtype=None, edit=None):
+    """Phases 8, 11, 12 and 18: the training runner on ``config`` (its
+    ``training.dtype`` replaced by ``dtype`` if given, then ``edit(cfg)``'s
+    cuts) for ``steps`` steps and one validation of 2 batches, with exact
+    launch counts per step and per validation batch (keys missing from the
+    dicts count 0)."""
     import math
 
     from functools import partial
@@ -1225,6 +1238,8 @@ def phase_runner(torch, modules, config: str, name: str, per_step: dict,
     if dtype is not None:
         cfg["training"]["dtype"] = dtype
     cfg["dataset"]["n_samples"] = 2 * cfg["training"]["batch_size"]  # 2 val batches
+    if edit is not None:
+        edit(cfg)
     marks = []
 
     def on_iter(runner):
@@ -1880,6 +1895,27 @@ def phase_lars(torch, modules, tf32_defaults, profile: bool) -> dict:
     return paths
 
 
+@contextlib.contextmanager
+def deterministic(torch):
+    """Phases 17 and 19: ``torch.use_deterministic_algorithms(True)``,
+    ``cudnn.benchmark`` off and ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, each
+    put back afterwards (the runner sets none of them)."""
+    saved = (os.environ.get("CUBLAS_WORKSPACE_CONFIG"), torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled())
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        if saved[0] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[0]
+        torch.backends.cudnn.benchmark = saved[1]
+        torch.use_deterministic_algorithms(saved[2])
+
+
 def phase_checkpoint(torch, modules) -> dict:
     """Phase 17: checkpoint, resume and preemption on ``config/test-sync.yml``
     (f32, 6 steps over 2-batch epochs) with ``training.checkpoint`` (every
@@ -1932,25 +1968,13 @@ def phase_checkpoint(torch, modules) -> dict:
                     ema=[t.cpu() for t in step.ema], step=step.opt_state.step)
 
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    saved = (os.environ.get("CUBLAS_WORKSPACE_CONFIG"), torch.backends.cudnn.benchmark,
-             torch.are_deterministic_algorithms_enabled())
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.backends.cudnn.benchmark = False
-    torch.use_deterministic_algorithms(True)
-    try:
+    with deterministic(torch):
         a, la = run("a")
         _, lb1 = run("b", kill_at=3)
         b, lb2 = run("b")
         c1, lc1 = run("c", sigterm_at=4)
         c_steps = sorted(os.listdir(os.path.join(CKPT_DIR, "c")))
         c, lc2 = run("c")
-    finally:
-        if saved[0] is None:
-            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
-        else:
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[0]
-        torch.backends.cudnn.benchmark = saved[1]
-        torch.use_deterministic_algorithms(saved[2])
     if c1.iter != 4 or c_steps != ["2", "4", "pipeline_2.json", "pipeline_4.json"]:
         raise AssertionError(f"SIGTERM at step 4: stopped at {c1.iter}, saved {c_steps}")
     if sorted(lb2) != [3, 4, 5] or sorted(lc2) != [5]:
@@ -2005,6 +2029,450 @@ def phase_resnet(torch, modules, tf32_defaults, profile: bool) -> dict:
     return paths
 
 
+def write_corpus(root: str, vocab: int, seq_len: int, windows: dict, seed: int = 18) -> None:
+    """``<root>/{split}.bin`` of uint16 token ids drawn from ``seed``,
+    ``windows[split]`` non-overlapping ``seq_len + 1`` windows each, and a
+    ``meta.json``."""
+    import numpy as np
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for split, n in windows.items():
+        rng.integers(0, vocab, n * seq_len + 1).astype(np.uint16).tofile(
+            os.path.join(root, f"{split}.bin"))
+    with open(os.path.join(root, "meta.json"), "w") as fp:
+        json.dump({"dtype": "uint16", "vocab_size": vocab}, fp)
+
+
+def matmul_ops_on_card(torch) -> dict:
+    """The aten ops that ``F.linear`` on a [8, 2048, 1024] bf16 stream
+    reaches on the card, with a bias and without, and the matmul ops of one
+    fused, flash decoder block's forward: the ``dots`` policy must name
+    them all (``SAVED_OPS``), and the flash kernels must reach none."""
+    import torch.nn.functional as F
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from pytorch_distributed_training_tpu_torch.models.transformer_lm import (
+        SAVED_OPS,
+        DecoderBlock,
+    )
+
+    class Seen(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    dev, bf16 = "cuda", torch.bfloat16
+    x = torch.randn(8, 2048, 1024, device=dev, dtype=bf16)
+    w, b = torch.randn(4096, 1024, device=dev, dtype=bf16), torch.randn(4096, device=dev,
+                                                                        dtype=bf16)
+    block = DecoderBlock(1024, 16, 4.0, bf16, fused_tails=True, flash=True).to(dev)
+    out = {}
+    with torch.no_grad():
+        for name, fn in (("linear, bias", lambda: F.linear(x, w, b)),
+                         ("linear, no bias", lambda: F.linear(x, w)),
+                         ("decoder block", lambda: block(x))):
+            with Seen() as seen:
+                fn()
+            out[name] = sorted({str(op) for op in seen.ops if "mm" in str(op)})
+            unnamed = [op for op in seen.ops if "mm" in str(op) and op not in SAVED_OPS["dots"]]
+            if unnamed:
+                raise AssertionError(f"{name} reaches {unnamed}, which dots does not save")
+    torch.cuda.synchronize()
+    return out
+
+
+class KeepGrads:
+    """An optimizer that keeps a step's reduced gradients and applies
+    nothing (phase 18's f32 checks)."""
+
+    def init(self, params):
+        from pytorch_distributed_training_tpu_torch.optimizers import SGDState
+
+        return SGDState(momentum=[], step=0)
+
+    def update(self, params, grads, state, lr=None):
+        self.grads = [g.detach().clone() for g in grads]
+        return state
+
+
+def accum_and_dots_f32(torch, batch: int = 16, seq: int = 2048, seed: int = 18) -> dict:
+    """Phase 18's f32 checks at full width, depth 2, TF32 off, card against
+    card: the step over ``batch`` sequences as 2 micro-batches against the
+    same step whole (loss rtol 1e-6, each gradient within
+    ``ACCUM_GRAD_LIMIT`` of its largest magnitude), and the same
+    accumulated step under ``remat: dots`` against it without remat (the
+    recompute repeats the same launches on the same inputs: equal bits
+    expected; the largest difference printed)."""
+    from pytorch_distributed_training_tpu_torch.engine import build_lm_train_step
+    from pytorch_distributed_training_tpu_torch.models import TransformerLM
+
+    saved_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(seed)
+    model = TransformerLM(32768, max_len=seq, embed_dim=1024, depth=2, num_heads=16,
+                          fused_tails=True, flash=True).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, 32768, (batch, seq + 1), device="cuda", generator=gen)
+    tokens, labels = toks[:, :-1], toks[:, 1:]
+    results = {}
+    try:
+        for name, n, policy in (("whole", 1, None), ("accum", 2, None), ("accum_dots", 2, "dots")):
+            model.set_remat(policy is not None, policy or "nothing")
+            keep = KeepGrads()
+            loss = build_lm_train_step(model, keep, lambda s: 0.0, grad_accum=n)(tokens, labels)
+            results[name] = (float(loss), keep.grads)
+            del keep
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+    (lw, gw), (la, ga), (ld, gd) = results["whole"], results["accum"], results["accum_dots"]
+    worst = max(relative_to_largest(a, w) for a, w in zip(ga, gw))
+    dots_abs = max((d - a).abs().max().item() for d, a in zip(gd, ga))
+    dots_rel = max(relative_to_largest(d, a) for d, a in zip(gd, ga))
+    numbers = dict(loss_whole=lw, loss_accum=la, loss_accum_dots=ld,
+                   accum_vs_whole_worst_grad=worst, accum_vs_whole_loss_rel=abs(la - lw) / abs(lw),
+                   dots_vs_none_max_abs=dots_abs, dots_vs_none_worst_grad=dots_rel,
+                   dots_bitwise=all(torch.equal(d, a) for d, a in zip(gd, ga)) and ld == la)
+    say(f"  f32, depth 2, {batch} x {seq}, TF32 off: 2 micro-batches vs whole: loss "
+        f"{la} vs {lw}, worst gradient {worst:.3e} of its largest (limit "
+        f"{ACCUM_GRAD_LIMIT}); dots vs no remat: largest |difference| {dots_abs} "
+        f"(bitwise: {numbers['dots_bitwise']})")
+    if not abs(la - lw) <= 1e-6 * abs(lw) or worst > ACCUM_GRAD_LIMIT:
+        raise AssertionError(f"accumulated step vs whole: {numbers}")
+    if dots_rel > ACCUM_GRAD_LIMIT or not abs(ld - la) <= 1e-6 * abs(la):
+        raise AssertionError(f"dots step vs no remat: {numbers}")
+    del model, results, ga, gw, gd
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def remat_forms(torch, batch: int = 8, seq: int = 2048, steps: int = 3, seed: int = 19) -> dict:
+    """One LM-1024 training step (full width, bf16, fused tails, flash,
+    AdamW) at ``batch`` under ``remat`` none, block, dots and dots_saveable
+    in turns (each form twice, in the order there and back), ``steps``
+    timed steps a turn after a warm one, each synchronised; the median ms,
+    the median host ms (until the step returns, before the synchronise:
+    the host's own time when the card keeps up) and
+    ``max_memory_allocated`` of each form."""
+    import math
+
+    from pytorch_distributed_training_tpu_torch.engine import build_lm_train_step
+    from pytorch_distributed_training_tpu_torch.models import TransformerLM
+    from pytorch_distributed_training_tpu_torch.optimizers import AdamW
+
+    torch.manual_seed(seed)
+    model = TransformerLM(32768, max_len=seq, embed_dim=1024, depth=16, num_heads=16,
+                          dtype=torch.bfloat16, fused_tails=True, flash=True).cuda()
+    step = build_lm_train_step(model, AdamW(lr=3e-4, weight_decay=0.1), lambda s: 3e-4)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, 32768, (batch, seq + 1), device="cuda", generator=gen)
+    forms = [("none", False, "nothing"), ("block", True, "nothing"), ("dots", True, "dots"),
+             ("dots_saveable", True, "dots_saveable")]
+    times = {name: [] for name, _, _ in forms}
+    host = {name: [] for name, _, _ in forms}
+    peak = {}
+    for name, remat, policy in forms + forms[::-1]:
+        model.set_remat(remat, policy)
+        step(toks[:, :-1], toks[:, 1:])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            loss = step(toks[:, :-1], toks[:, 1:])
+            host[name].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            if not math.isfinite(float(loss)):
+                raise AssertionError(f"remat {name}: loss {float(loss)}")
+        peak[name] = max(peak.get(name, 0.0), torch.cuda.max_memory_allocated() / 2**30)
+    out = {name: dict(median_ms=statistics.median(t), ms=t, peak_gib=peak[name],
+                      host_ms=statistics.median(host[name]))
+           for name, t in times.items()}
+    for name, r in out.items():
+        say(f"  remat {name}: step {r['median_ms']} ms (median of {len(r['ms'])}, two turns), "
+            f"host {r['host_ms']} ms until the step returns, peak {r['peak_gib']} GiB")
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def optimizer_updates(torch, reps: int = 10, seed: int = 20) -> dict:
+    """One LAMB update of the LM-1024's 270.8 M f32 parameters against one
+    AdamW update, in turns (AdamW, LAMB, LAMB, AdamW), each the mean of
+    ``reps`` updates between CUDA events after two warm ones, on seeded
+    parameters and gradients of the model's shapes; with each one's byte
+    bound (AdamW reads p, g, m, v and writes p, m, v: 7 passes; LAMB also
+    writes and reads its denominator and its direction, and reads p and u
+    for the norms: 11 passes)."""
+    from pytorch_distributed_training_tpu_torch.models import TransformerLM
+    from pytorch_distributed_training_tpu_torch.optimizers import LAMB, AdamW
+
+    shapes = [p.shape for p in TransformerLM(32768, max_len=2048, embed_dim=1024, depth=16,
+                                              num_heads=16).parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = [torch.randn(s, device="cuda", generator=gen) * 0.02 for s in shapes]
+    grads = [torch.randn(s, device="cuda", generator=gen) * 1e-3 for s in shapes]
+    n = sum(p.numel() for p in params)
+    opts = {"AdamW": AdamW(lr=3e-4, weight_decay=0.1), "LAMB": LAMB(lr=3e-4, weight_decay=0.1)}
+    ms = {k: [] for k in opts}
+    for name in ("AdamW", "LAMB", "LAMB", "AdamW"):
+        opt = opts[name]
+        state = opt.init(params)
+        for _ in range(2):
+            state = opt.update(params, grads, state)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            state = opt.update(params, grads, state)
+        end.record()
+        end.synchronize()
+        ms[name].append(start.elapsed_time(end) / reps)
+        del state
+    if not all(bool(torch.isfinite(p).all()) for p in params):
+        raise AssertionError("optimizer updates left non-finite parameters")
+    passes = {"AdamW": 7, "LAMB": 11}
+    out = {name: dict(ms=statistics.mean(t), turns=t, bound_ms=passes[name] * 4 * n
+                      / HBM_BYTES_PER_S * 1e3) for name, t in ms.items()}
+    out["parameters"] = n
+    say(f"  one update of {n / 1e6:.1f} M f32 parameters: AdamW {out['AdamW']['ms']} ms "
+        f"(turns {ms['AdamW']}, bytes bound {out['AdamW']['bound_ms']}), LAMB "
+        f"{out['LAMB']['ms']} ms (turns {ms['LAMB']}, bytes bound {out['LAMB']['bound_ms']}); "
+        f"LAMB / AdamW {out['LAMB']['ms'] / out['AdamW']['ms']}")
+    del params, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def guard_cost(torch, batch: int = 8, seq: int = 2048, steps: int = 4, seed: int = 21) -> dict:
+    """The anomaly guard's cost: LM-1024 steps (bf16, no remat, AdamW) at
+    ``batch`` with the guard armed against without, in turns (without,
+    with, with, without), ``steps`` steps back to back a turn after a warm
+    one, synchronised at the end only: the guard's per-step host read
+    holds the host until the backward is done, where the plain step
+    queues the optimizer behind it."""
+    import math
+
+    from pytorch_distributed_training_tpu_torch.engine import build_lm_train_step
+    from pytorch_distributed_training_tpu_torch.models import TransformerLM
+    from pytorch_distributed_training_tpu_torch.optimizers import AdamW
+
+    torch.manual_seed(seed)
+    model = TransformerLM(32768, max_len=seq, embed_dim=1024, depth=16, num_heads=16,
+                          dtype=torch.bfloat16, fused_tails=True, flash=True).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, 32768, (batch, seq + 1), device="cuda", generator=gen)
+    tok, lab = toks[:, :-1], toks[:, 1:]
+    plain = build_lm_train_step(model, AdamW(lr=3e-4, weight_decay=0.1), lambda s: 3e-4)
+    guarded = build_lm_train_step(model, AdamW(lr=3e-4, weight_decay=0.1), lambda s: 3e-4,
+                                  anomaly_factor=10.0)
+    calls = {"plain": lambda: plain(tok, lab),
+             "guarded": lambda: guarded(tok, lab, 0.0)[0]}
+    ms = {k: [] for k in calls}
+    for name in ("plain", "guarded", "guarded", "plain"):
+        calls[name]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [calls[name]() for _ in range(steps)]
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3 / steps)
+        if not all(math.isfinite(float(x)) for x in losses):
+            raise AssertionError(f"guard cost ({name}): losses {losses}")
+    out = {k: dict(ms_per_step=statistics.mean(v), turns=v) for k, v in ms.items()}
+    out["guarded_over_plain"] = out["guarded"]["ms_per_step"] / out["plain"]["ms_per_step"]
+    say(f"  guard: {out['guarded']['ms_per_step']} ms a step armed (turns {ms['guarded']}) "
+        f"against {out['plain']['ms_per_step']} ms (turns {ms['plain']}): "
+        f"{out['guarded_over_plain']}x")
+    del model, plain, guarded
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_accum(torch, modules) -> dict:
+    """Phase 18: ``configs/train-lm-1024-accum.yml`` (LM-1024, batch 64 as 8
+    micro-batches of 8 x 2048, a ``tokens`` file, ``remat: dots``, the
+    anomaly guard armed) for 3 steps and one validation of 2 batches of 64,
+    over a corpus written here (``TOKENS_DIR``; vocab 32768, uint16), the
+    config's checkpoint dropped in memory; per step exactly 8 K1a and 8 K1b
+    (one a micro-batch), 8 x 2 x 16 K2c launches, and K2a, K3 and K4 each 8
+    x 2 x 16 (every block's forward run again by the recompute).  Before
+    it: the matmul ops ``F.linear`` reaches on the card, and the f32 checks
+    of :func:`accum_and_dots_f32`; after it, the remat forms, LAMB against
+    AdamW and the guard's cost.  Returns the launch counts and the numbers."""
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
+
+    say(f"  F.linear and a decoder block on the card reach: {matmul_ops_on_card(torch)}")
+    checks = accum_and_dots_f32(torch)
+    cfg = get_cfg(ACCUM_CONFIG)
+    depth, n = cfg["model"]["depth"], cfg["training"]["grad_accumulation"]
+    batch, seq = cfg["training"]["batch_size"], cfg["dataset"]["seq_len"]
+    write_corpus(TOKENS_DIR, cfg["dataset"]["n_classes"], seq,
+                 {"train": 4 * batch, "val": 2 * batch})
+
+    def edit(c):
+        c["dataset"]["root"] = TOKENS_DIR
+        c["training"].pop("checkpoint", None)
+
+    per_micro = 2 * depth  # each block's forward twice (the recompute), its backward once
+    runner, counts, accum = phase_runner(
+        torch, modules, ACCUM_CONFIG, "train-lm-1024-accum", steps=3, edit=edit,
+        per_step=dict(ce_fwd=n, ce_bwd=n, flash_fwd=n * per_micro, flash_bwd=n * 2 * depth,
+                      K2a=n * per_micro, K2c=n * 2 * depth, add_layernorm=n * per_micro,
+                      bias_gelu=n * per_micro),
+        per_val_batch=dict(ce_fwd=1, flash_fwd=depth, K2a=depth, add_layernorm=depth,
+                           bias_gelu=depth))
+    if runner.model.remat_policy != "dots" or runner.train_step.grad_accum != n or not (
+            runner.anomaly_enabled and runner._consec_anomalies == 0):
+        raise AssertionError("phase 18 did not run the accumulated, dots, guarded path")
+    say(f"  {n} micro-batches of {batch // n} x {seq} a step, remat dots, guard armed: "
+        f"{len(runner._gnorm_hist)} applied steps, gradient norms {list(runner._gnorm_hist)}")
+    del runner
+    torch.cuda.empty_cache()
+    numbers = dict(f32=checks, runner=accum, remat=remat_forms(torch),
+                   optimizers=optimizer_updates(torch), guard=guard_cost(torch))
+    say("lm_accum: " + json.dumps(numbers))
+    return counts
+
+
+def phase_faults(torch) -> dict:
+    """Phase 19: ResNet-50 under injected faults on ``config/test-sync.yml``
+    (f32, the EMA, 2-batch epochs unless stated, deterministic algorithms
+    as in phase 17), each run in its own directory under ``FAULTS_DIR``:
+    (a) ``nan_batch@1``: step 1 skipped, the state after it bitwise the
+    state before it; (b) ``nan_batch@2;3;4`` with ``max_consecutive: 3``
+    and a save every 2 steps: one rollback, 6 iterations and 4 applied
+    steps, the final state bitwise that of a run of ``nan_batch@2;3``;
+    (c) ``ckpt_fail@0:2`` with ``retry``: 2 retries, the final state
+    bitwise a clean run's; (d) ``kill_worker@2`` through the process loader
+    (8 workers, 4-batch epochs, 10 steps): one respawn, every batch and
+    loss bitwise the clean run's; (e) ``stall_step@5:3`` with the watchdog
+    (factor 2, ``min_seconds`` 1, warm-up 3): it fires once.  Prints the
+    counters of each and the seconds the rollback took."""
+    import shutil
+
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
+    from pytorch_distributed_training_tpu_torch.engine import Runner, fault
+
+    class Recording(Runner):
+        """Keeps each step's batch sum and loss (host reads, one a step)."""
+
+        def train_iter(self, inputs, labels):
+            self.batch_sums = getattr(self, "batch_sums", [])
+            self.batch_sums.append(float(inputs.double().sum()))
+            super().train_iter(inputs, labels)
+
+    def run(sub, iters, spec=None, anomaly=None, ckpt_every=None, retry=None, watchdog=None,
+            n_batches=2, **training):
+        cfg = get_cfg(RESNET_CONFIG)
+        cfg["training"].update(train_iters=iters, print_interval=1, dtype="float32",
+                               ema={"decay": 0.999}, **training)
+        cfg["dataset"]["n_samples"] = n_batches * cfg["training"]["batch_size"]
+        ft = {k: v for k, v in (("anomaly", anomaly), ("watchdog", watchdog),
+                                ("fault_spec", spec)) if v is not None}
+        if ft:
+            cfg["training"]["fault_tolerance"] = ft
+        if ckpt_every is not None:
+            cfg["training"]["checkpoint"] = {"dir": os.path.join(FAULTS_DIR, sub),
+                                             "interval": ckpt_every,
+                                             **({"retry": retry} if retry else {})}
+        snaps, losses = {}, {}
+
+        def on_iter(runner):
+            losses[runner.iter] = float(runner.last_loss)
+            if sub == "a" and runner.iter in (0, 1):
+                snaps[runner.iter] = state(runner)
+
+        fault.reset_counters()
+        runner = Recording(num_nodes=1, rank=0, seed=0, dist_url="", multiprocessing=False,
+                           logger_queue=None, global_cfg=cfg, device="cuda", on_iter=on_iter)
+        runner()
+        torch.cuda.synchronize()
+        return runner, fault.counters(), snaps, losses
+
+    def state(runner):
+        step = runner.train_step
+        return dict(model={k: v.detach().clone() for k, v in runner.model.state_dict().items()},
+                    momentum=[t.clone() for t in step.opt_state.momentum],
+                    ema=[t.clone() for t in step.ema], step=step.opt_state.step)
+
+    def differs(a, b):
+        bad = [k for k, v in a["model"].items() if not torch.equal(v, b["model"][k])]
+        bad += [f"momentum[{i}]" for i, (x, y) in enumerate(zip(a["momentum"], b["momentum"]))
+                if not torch.equal(x, y)]
+        bad += [f"ema[{i}]" for i, (x, y) in enumerate(zip(a["ema"], b["ema"]))
+                if not torch.equal(x, y)]
+        return bad + (["optimizer step"] if a["step"] != b["step"] else [])
+
+    shutil.rmtree(FAULTS_DIR, ignore_errors=True)
+    anomaly = {"enabled": True, "max_consecutive": 3}
+    out = {}
+    with deterministic(torch):
+        a, ca, snaps, _ = run("a", 3, "nan_batch@1", anomaly={"enabled": True})
+        bad = differs(snaps[0], snaps[1])
+        if bad or ca.get("skipped_steps") != 1 or a.train_step.opt_state.step != 2:
+            raise AssertionError(f"(a) NaN step: differs in {bad[:10]}, counters {ca}")
+        out["a"] = ca
+        say(f"  (a) nan_batch@1: step 1 skipped; parameters, BatchNorm buffers, momentum, EMA "
+            f"and optimizer step bitwise unchanged; counters {ca}")
+
+        b, cb, _, _ = run("b", 6, "nan_batch@2;nan_batch@3;nan_batch@4", anomaly=anomaly,
+                          ckpt_every=2)
+        b0, cb0, _, _ = run("b0", 6, "nan_batch@2;nan_batch@3", anomaly=anomaly)
+        bad = differs(state(b), state(b0))
+        if (bad or cb.get("rollbacks") != 1 or cb.get("skipped_steps") != 3 or b.iter != 6
+                or b.train_step.opt_state.step != 4 or "rollbacks" in cb0):
+            raise AssertionError(f"(b) rollback: differs in {bad[:10]}, counters {cb}, "
+                                 f"iter {b.iter}, step {b.train_step.opt_state.step}")
+        out["b"] = dict(counters=cb, rollback_s=b.rollback_seconds,
+                        restore_ms=b.checkpointer.last_restore["seconds"] * 1e3)
+        say(f"  (b) burst at 2-4: one rollback to the save of step 3 in "
+            f"{b.rollback_seconds[0] * 1e3} ms (restore "
+            f"{out['b']['restore_ms']} ms), 6 iterations, 4 applied; the final state bitwise "
+            f"the skip-only run's; counters {cb}")
+
+        retry = {"attempts": 3, "backoff": 0.0, "jitter": 0.0}
+        c, cc, _, _ = run("c", 4, "ckpt_fail@0:2", ckpt_every=2, retry=retry)
+        c0, _, _, _ = run("c0", 4, ckpt_every=2)
+        bad = differs(state(c), state(c0))
+        if bad or cc.get("ckpt_retries") != 2 or c.checkpointer.retries != 2:
+            raise AssertionError(f"(c) ckpt_fail: differs in {bad[:10]}, counters {cc}")
+        out["c"] = cc
+        say(f"  (c) ckpt_fail@0:2: 2 retries, saves {c.checkpointer.all_steps()}, the final "
+            f"state bitwise the clean run's; counters {cc}")
+
+        d0, _, _, ld0 = run("d0", 10, worker_mode="process", n_batches=4)
+        d, cd, _, ld = run("d", 10, "kill_worker@2", worker_mode="process", n_batches=4)
+        if (cd.get("worker_respawns") != 1 or d.batch_sums != d0.batch_sums or ld != ld0):
+            raise AssertionError(f"(d) kill_worker: counters {cd}, batches {d.batch_sums} vs "
+                                 f"{d0.batch_sums}, losses {ld} vs {ld0}")
+        out["d"] = cd
+        say(f"  (d) kill_worker@2 (process loader, 8 workers): one respawn, every batch and "
+            f"loss bitwise the clean run's; counters {cd}")
+
+        watchdog = {"factor": 2.0, "min_seconds": 1.0, "poll_seconds": 0.05, "warmup": 3}
+        e, ce, _, _ = run("e", 7, "stall_step@5:3.0", watchdog=watchdog)
+        if e._watchdog.fires != 1 or ce.get("watchdog_fires") != 1:
+            raise AssertionError(f"(e) stall: {e._watchdog.fires} fires, counters {ce}")
+        out["e"] = dict(counters=ce, trailing_median_s=e._watchdog.trailing_median())
+        say(f"  (e) stall_step@5:3.0 past the warm-up: the watchdog fired once; counters {ce}")
+    say("faults: " + json.dumps(out))
+    return out
+
+
+def phase_accum_and_faults(torch, modules) -> dict:
+    """Phases 18 and 19; returns the launch counts by path."""
+    say("== phase 18: main path (training runner, configs/train-lm-1024-accum.yml: batch 64 "
+        "as 8 micro-batches, tokens file, remat dots, guard armed)")
+    counts = phase_lm_accum(torch, modules)
+    say("== phase 19: fault tolerance (config/test-sync.yml, ResNet-50, f32, injected faults)")
+    phase_faults(torch)
+    return {"lm_accum": by_tpu_kernel(counts)}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true")
@@ -2012,6 +2480,8 @@ def main(argv=None) -> int:
                         help="phases 1, 2 and 12 only (no result line)")
     parser.add_argument("--resnet", action="store_true",
                         help="phases 1, 2 and 13 to 17 only (no result line)")
+    parser.add_argument("--accum-faults", action="store_true",
+                        help="phases 1, 2, 18 and 19 only (no result line)")
     args = parser.parse_args(argv)
 
     import torch
@@ -2057,6 +2527,11 @@ def main(argv=None) -> int:
         return 0
     if args.resnet:
         phase_resnet(torch, modules, tf32_defaults, args.profile)
+        say(f"total {time.perf_counter() - t_start:.1f} s")
+        say(smi)
+        return 0
+    if args.accum_faults:
+        phase_accum_and_faults(torch, modules)
         say(f"total {time.perf_counter() - t_start:.1f} s")
         say(smi)
         return 0
@@ -2139,6 +2614,7 @@ def main(argv=None) -> int:
     say("== phase 12: main path (training runner, full width, float32)")
     paths["f32_runner"] = by_tpu_kernel(phase_f32_runner_and_profile(torch, modules, args.profile))
     paths.update(phase_resnet(torch, modules, tf32_defaults, args.profile))
+    paths.update(phase_accum_and_faults(torch, modules))
 
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "ffma_bound_ms")

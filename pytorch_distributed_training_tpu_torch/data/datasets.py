@@ -17,9 +17,13 @@ same ``default_rng`` stream per index):
   here or, a batch at a time, from the native decoder
   (:mod:`..native`), which the loader drives through :meth:`crop_task`.
 
+- :class:`TokenFileDataset` (``datasets.py:163-200``): a memory-mapped
+  ``<root>/<split>.bin`` of token ids in non-overlapping ``seq_len + 1``
+  windows, ``(inputs, targets)`` int32 pairs.
+
 ``get_dataset`` knows ``imagenet``, ``synthetic``/``fake``/
-``fake_imagenet`` and ``synthetic_text``/``fake_text``; the ``tokens``
-file dataset is ROADMAP port item P2b and raises ``NotImplementedError``.
+``fake_imagenet``, ``synthetic_text``/``fake_text`` and ``tokens``/
+``tokenbin``.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ __all__ = [
     "ImageFolderDataset",
     "SyntheticDataset",
     "SyntheticTextDataset",
+    "TokenFileDataset",
     "fetch_sample",
     "get_dataset",
     "sample_crop_params",
@@ -108,6 +113,51 @@ class SyntheticTextDataset:
             out.append(cur)
         toks = np.asarray(out, dtype=np.int32)
         return toks[:-1], toks[1:]
+
+
+class TokenFileDataset:
+    """``<root>/<split>.bin`` of little-endian token ids, cut into
+    non-overlapping ``seq_len + 1`` windows; window ``i`` yields the
+    host-shifted ``(inputs, targets)``.  ``<root>/meta.json`` may set
+    ``dtype`` (default ``uint16``) and ``vocab_size``.  The file is mapped
+    in each process that reads it (a pickled dataset carries its path, not
+    its tokens)."""
+
+    def __init__(self, root: str, split: str, seq_len: int = 128):
+        import json
+
+        self.root = os.path.expanduser(root)
+        self.seq_len = int(seq_len)
+        self.path = os.path.join(self.root, f"{split}.bin")
+        if not os.path.isfile(self.path):
+            raise FileNotFoundError(f"token file not found: {self.path}")
+        self.dtype = np.dtype("uint16")
+        self.vocab_size: Optional[int] = None
+        meta_path = os.path.join(self.root, "meta.json")
+        if os.path.isfile(meta_path):
+            with open(meta_path) as fp:
+                meta = json.load(fp)
+            self.dtype = np.dtype(meta.get("dtype", "uint16"))
+            self.vocab_size = meta.get("vocab_size")
+        self._tokens = None
+        n_tokens = os.path.getsize(self.path) // self.dtype.itemsize
+        self.n_windows = (n_tokens - 1) // self.seq_len
+        if self.n_windows <= 0:
+            raise ValueError(
+                f"{self.path}: {n_tokens} tokens < one {self.seq_len + 1}-token window")
+
+    def __getstate__(self):
+        return {**self.__dict__, "_tokens": None}
+
+    def __len__(self) -> int:
+        return self.n_windows
+
+    def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+        if self._tokens is None:
+            self._tokens = np.memmap(self.path, dtype=self.dtype, mode="r")
+        start = int(idx) * self.seq_len
+        window = np.asarray(self._tokens[start:start + self.seq_len + 1], dtype=np.int32)
+        return window[:-1], window[1:]
 
 
 def sample_rng(seed: int, epoch: int, idx: int) -> np.random.Generator:
@@ -302,12 +352,6 @@ class ImageFolderDataset:
         return self.get_sample(idx, sample_rng(0, 0, idx))
 
 
-_NOT_YET = {
-    "tokens": "the token-file dataset is ROADMAP port item P2b",
-    "tokenbin": "the token-file dataset is ROADMAP port item P2b",
-}
-
-
 def get_dataset(name: str, root: str, split: str, n_classes: Optional[int] = None,
                 n_samples: Optional[int] = None, seq_len: Optional[int] = None,
                 image_size: int = 224):
@@ -316,10 +360,10 @@ def get_dataset(name: str, root: str, split: str, n_classes: Optional[int] = Non
     (val), 1000 classes, ``image_size`` 224; LM datasets (``n_classes`` the
     vocabulary size) 4096 and 512 samples, ``seq_len`` 128.  ``imagenet``
     reads ``<root>/<split>`` (a missing directory raises
-    ``FileNotFoundError``)."""
+    ``FileNotFoundError``); ``tokens``/``tokenbin`` read
+    ``<root>/<split>.bin``, and a ``meta.json`` ``vocab_size`` above
+    ``n_classes`` raises ``ValueError``."""
     key = name.lower()
-    if key in _NOT_YET:
-        raise NotImplementedError(f"dataset {name!r}: {_NOT_YET[key]}")
     if key == "imagenet":
         return ImageFolderDataset(root, split, image_size=image_size)
     if key in ("synthetic", "fake", "fake_imagenet"):
@@ -330,5 +374,11 @@ def get_dataset(name: str, root: str, split: str, n_classes: Optional[int] = Non
         n = n_samples if n_samples else (4_096 if split == "train" else 512)
         return SyntheticTextDataset(n_samples=n, vocab_size=n_classes or 512,
                                     seq_len=seq_len or 128, split=split)
+    if key in ("tokens", "tokenbin"):
+        ds = TokenFileDataset(root, split, seq_len=seq_len or 128)
+        if ds.vocab_size is not None and n_classes and ds.vocab_size > n_classes:
+            raise ValueError(f"{root}/meta.json vocab_size {ds.vocab_size} exceeds "
+                             f"dataset.n_classes {n_classes}")
+        return ds
     raise KeyError(f"unknown dataset '{name}' (the port has: imagenet, synthetic, "
-                   "synthetic_text)")
+                   "synthetic_text, tokens)")

@@ -26,14 +26,18 @@ warning; only when every step fails does the newest step's error raise
 (JAX ``:793-839``).
 
 Config keys (JAX ``:275-306``): ``dir`` (required to enable), ``interval``
-(1000), ``max_to_keep`` (3), ``resume`` (True); ``preemption``,
-``preemption_signals`` and ``preemption_sync_interval`` belong to
-:mod:`.preemption` and the runner.  Not ported, raising
+(1000), ``max_to_keep`` (3), ``resume`` (True), ``retry`` (``attempts``
+3, ``backoff`` 0.25, ``max_backoff`` 8.0, ``jitter`` 0.25,
+``total_timeout_s``; JAX ``:205-301``): each save's write and each step's
+load run under a :class:`..utils.retry.Retry`, behind the fault points
+``ckpt_save`` and ``ckpt_restore`` of :mod:`.fault`; a retried attempt
+counts ``ckpt_retries`` and :attr:`Checkpointer.retries`.
+``preemption``, ``preemption_signals`` and ``preemption_sync_interval``
+belong to :mod:`.preemption` and the runner.  Not ported, raising
 ``NotImplementedError`` naming ROADMAP item P10: ``async`` and
-``max_inflight`` (background writes), ``retry`` (retried storage calls)
-and ``emergency_drain_timeout_s`` (emergency saves).  The integrity
-manifest and the layout-converting restore, which take no key, are P10
-as well.
+``max_inflight`` (background writes) and ``emergency_drain_timeout_s``
+(emergency saves).  The integrity manifest and the layout-converting
+restore, which take no key, are P10 as well.
 """
 from __future__ import annotations
 
@@ -47,6 +51,9 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 import torch.distributed as dist
 
+from ..utils.retry import Retry
+from . import fault
+
 __all__ = ["Checkpointer", "UNPORTED_CHECKPOINT_KEYS", "capture_training_state",
            "restore_training_state"]
 
@@ -55,7 +62,6 @@ UNPORTED_CHECKPOINT_KEYS = {
     "async": (False, "asynchronous checkpoint writes are ROADMAP port item P10"),
     "max_inflight": (1, "asynchronous checkpoint writes (max_inflight) are ROADMAP port "
                         "item P10"),
-    "retry": (None, "retried checkpoint storage calls are ROADMAP port item P10"),
     "emergency_drain_timeout_s": (5.0, "emergency checkpoints are ROADMAP port item P10"),
 }
 _STATE_FILE = "state.pt"
@@ -116,12 +122,14 @@ def restore_training_state(payload: Dict[str, Any], model, train_step) -> int:
 class Checkpointer:
     """Saves and restores steps under ``directory`` (see the module
     docstring).  ``rank``/``world_size``: this process's place in the
-    data-parallel world (the default process group); rank 0 writes.  ``last_save`` and
-    ``last_restore`` hold the step, the seconds and (a save) the bytes of
-    the latest of each."""
+    data-parallel world (the default process group); rank 0 writes.  ``retry``:
+    the policy of each write and load (default :class:`..utils.retry.Retry`'s).
+    ``last_save`` and ``last_restore`` hold the step, the seconds and (a
+    save) the bytes of the latest of each; ``retries`` counts retried
+    attempts."""
 
     def __init__(self, directory: str, interval: int = 1000, max_to_keep: int = 3,
-                 rank: int = 0, world_size: int = 1):
+                 rank: int = 0, world_size: int = 1, retry: Optional[Retry] = None):
         if int(interval) < 1:
             raise ValueError(f"checkpoint.interval must be >= 1, got {interval}")
         self.directory = os.path.abspath(os.path.expanduser(directory))
@@ -129,6 +137,8 @@ class Checkpointer:
         self.max_to_keep = int(max_to_keep) if max_to_keep else 0
         self.rank = int(rank)
         self.world_size = int(world_size)
+        self.retry = retry if retry is not None else Retry(logger=logging.getLogger(__name__))
+        self.retries = 0
         self.last_save: Optional[dict] = None
         self.last_restore: Optional[dict] = None
 
@@ -143,8 +153,20 @@ class Checkpointer:
         for key, (default, why) in UNPORTED_CHECKPOINT_KEYS.items():
             if key in ck and ck[key] != default:
                 raise NotImplementedError(f"training.checkpoint.{key}: {why}")
+        rc = ck.get("retry") or {}
+        unknown = set(rc) - {"attempts", "backoff", "max_backoff", "jitter", "total_timeout_s"}
+        if unknown:
+            raise ValueError(f"checkpoint.retry: unknown key(s) {sorted(unknown)} "
+                             "(want attempts/backoff/max_backoff/jitter/total_timeout_s)")
+        tts = rc.get("total_timeout_s")
+        retry = Retry(attempts=int(rc.get("attempts", 3)), backoff=float(rc.get("backoff", 0.25)),
+                      max_backoff=float(rc.get("max_backoff", 8.0)),
+                      jitter=float(rc.get("jitter", 0.25)),
+                      total_timeout_s=float(tts) if tts is not None else None,
+                      logger=logging.getLogger(__name__))
         return cls(ck["dir"], interval=ck.get("interval", 1000),
-                   max_to_keep=ck.get("max_to_keep", 3), rank=rank, world_size=world_size)
+                   max_to_keep=ck.get("max_to_keep", 3), rank=rank, world_size=world_size,
+                   retry=retry)
 
     # ----------------------------------------------------------- the steps
     def _step_dir(self, step: int) -> str:
@@ -167,10 +189,16 @@ class Checkpointer:
     def should_save(self, it: int, train_iters: int) -> bool:
         return (it + 1) % self.interval == 0 or it == train_iters - 1
 
+    def _count_retry(self, attempt, exc, delay) -> None:
+        del attempt, exc, delay
+        self.retries += 1
+        fault.bump("ckpt_retries")
+
     # ----------------------------------------------------------------- save
     def save(self, it: int, payload: Dict[str, Any], extras: Optional[dict] = None) -> None:
-        """Commit step ``it``: rank 0 writes ``payload`` (and the sidecar
-        ``extras``), then every rank waits for it at a barrier."""
+        """Commit step ``it``: rank 0 writes ``payload`` under the retry
+        policy (and the sidecar ``extras``), then every rank waits for it
+        at a barrier."""
         if self.rank == 0:
             t0 = time.perf_counter()
             final = self._step_dir(it)
@@ -178,12 +206,18 @@ class Checkpointer:
                 raise FileExistsError(f"checkpoint step {it} already exists at {final}")
             os.makedirs(self.directory, exist_ok=True)
             tmp = f"{final}.tmp-{os.getpid()}"
-            shutil.rmtree(tmp, ignore_errors=True)
-            os.makedirs(tmp)
-            path = os.path.join(tmp, _STATE_FILE)
-            torch.save(payload, path)
-            nbytes = os.path.getsize(path)
-            os.rename(tmp, final)  # the commit
+
+            def _save() -> int:
+                fault.get_injector().check_fail_point("ckpt_save")
+                shutil.rmtree(tmp, ignore_errors=True)
+                os.makedirs(tmp)
+                path = os.path.join(tmp, _STATE_FILE)
+                torch.save(payload, path)
+                nbytes = os.path.getsize(path)
+                os.rename(tmp, final)  # the commit
+                return nbytes
+
+            nbytes = self.retry.call(_save, on_retry=self._count_retry)
             if extras is not None:
                 self._write_extras(it, extras)
             self._prune()
@@ -228,16 +262,22 @@ class Checkpointer:
                        logger: Optional[logging.Logger] = None) -> int:
         """Load the newest committed step onto ``map_location`` and hand its
         payload to ``apply``; returns the next iteration (0 when there is
-        no step).  A step that fails to load or apply falls back to the one
-        before it with a warning; if every step fails, the newest step's
+        no step).  Each load runs under the retry policy; a step that still
+        fails to load, or to apply, falls back to the one before it with a
+        warning (``ckpt_fallbacks``); if every step fails, the newest step's
         error raises."""
         steps = self.all_steps()
         first_err: Optional[BaseException] = None
         for step in reversed(steps):
             t0 = time.perf_counter()
+            path = os.path.join(self._step_dir(step), _STATE_FILE)
+
+            def _load():
+                fault.get_injector().check_fail_point("ckpt_restore")
+                return torch.load(path, map_location=map_location, weights_only=True)
+
             try:
-                payload = torch.load(os.path.join(self._step_dir(step), _STATE_FILE),
-                                     map_location=map_location, weights_only=True)
+                payload = self.retry.call(_load, on_retry=self._count_retry)
                 if payload.get("iter") != step:
                     raise ValueError(f"checkpoint step {step} holds iteration "
                                      f"{payload.get('iter')}")
@@ -246,6 +286,7 @@ class Checkpointer:
                 if first_err is None:
                     first_err = e
                 if step != steps[0]:
+                    fault.bump("ckpt_fallbacks")
                     (logger or logging.getLogger(__name__)).warning(
                         "checkpoint step %d at %s is unreadable (%s: %s) — falling back to "
                         "the previous step", step, self.directory, type(e).__name__, e)

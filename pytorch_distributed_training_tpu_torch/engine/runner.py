@@ -44,6 +44,28 @@ path, a ResNet on the image path.
   than one rank the ranks agree on it every ``preemption_sync_interval``
   steps through one all-reduce (JAX ``runner.py:340-356``, ``:443-485``,
   ``:612-680``);
+- ``training.grad_accumulation`` N: each step runs its local batch as N
+  micro-batches (:mod:`.sp_steps`, :mod:`.steps`); a per-card batch that
+  N does not divide raises at start-up (JAX ``topology.py:328-375``);
+- ``training.fault_tolerance`` (:func:`.topology.parse_fault_tolerance`,
+  JAX ``runner.py:206-217``, ``:486-497``, ``:668-730``, ``:852-903``,
+  ``:1183-1212``):
+  - ``anomaly``: the steps' guard against the trailing median of the
+    applied steps' gradient norms (``window`` of them); ``max_consecutive``
+    skipped steps in a row roll back (:meth:`Runner._rollback`): the newest
+    checkpoint restored, its parameters checked finite, ``iter``, the
+    scheduler and the input position set from it, the history cleared,
+    the watchdog back in its warm-up and the stream rebuilt; with no
+    ``training.checkpoint`` a rollback raises ``RuntimeError``;
+  - ``watchdog``: :class:`.watchdog.StepWatchdog` around each iteration;
+    on a fire it logs the step, the loader's queue and every thread's
+    stack, and with ``checkpoint_and_exit`` sets the preemption flag;
+  - ``fault_spec`` (or ``PDT_FAULT_SPEC``, which wins): the injector of
+    :mod:`.fault`; ``nan_batch`` poisons the stream, ``kill_worker``
+    SIGKILLs a worker of the process pool (without one it logs a
+    warning), ``stall_step`` sleeps in the step's host window, and
+    ``ckpt_fail``/``restore_fail`` fail the checkpoint's attempts; any
+    other kind raises ``NotImplementedError`` naming its ROADMAP item;
 - the loop: one step per iteration, the
   ``Iter [i/T] Lr: [...] Loss: x (tok/s or img/s)`` line every
   ``print_interval`` (``runner.py:1216-1245``), the scheduler stepped
@@ -61,8 +83,6 @@ per local card (or one on the CPU) per node, as the reference does.
 
 Not ported yet: every config key asking for one raises
 ``NotImplementedError`` naming its ROADMAP item (:data:`UNPORTED_TRAINING_KEYS`):
-grad accumulation, the anomaly guard and the rest of fault tolerance, the
-remat policies ``dots``/``dots_saveable`` (P2b),
 sequence/tensor/pipeline/expert parallelism, ZeRO and ``comm`` (P9),
 telemetry, integrity, elastic recovery and the checkpoint keys of
 :data:`.checkpoint.UNPORTED_CHECKPOINT_KEYS` (P10).
@@ -74,7 +94,13 @@ from __future__ import annotations
 import contextlib
 import logging
 import math
+import os
+import signal
+import sys
+import threading
 import time
+import traceback
+from collections import deque
 from logging.handlers import QueueHandler
 from typing import Any, Callable, Dict, List, Optional
 
@@ -96,10 +122,13 @@ from ..models import get_model, is_resnet
 from ..optimizers import get_optimizer
 from ..schedulers import get_scheduler
 from ..utils import make_deterministic
+from . import fault
 from .checkpoint import Checkpointer, capture_training_state, restore_training_state
 from .preemption import PreemptionGuard
 from .sp_steps import build_lm_eval_step, build_lm_train_step
 from .steps import build_eval_step, build_eval_step_exact, build_train_step
+from .topology import parse_fault_tolerance
+from .watchdog import StepWatchdog
 
 __all__ = ["Runner", "UNPORTED_TRAINING_KEYS", "apply_remat_alias"]
 
@@ -108,9 +137,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # training.<key> -> why it raises; a key counts when it is set and truthy
 # (a parallelism degree counts above 1)
 UNPORTED_TRAINING_KEYS = {
-    "grad_accumulation": "training.grad_accumulation > 1 is ROADMAP port item P2b",
-    "fault_tolerance": "fault tolerance (anomaly guard, watchdog, data-worker respawn) is "
-                       "ROADMAP port item P2b",
     "sequence_parallelism": "sequence parallelism is ROADMAP port item P9",
     "tensor_parallelism": "tensor parallelism is ROADMAP port item P9",
     "pipeline_parallelism": "pipeline parallelism is ROADMAP port item P9",
@@ -128,7 +154,7 @@ PREFETCH_DEPTH = 2
 def _reject_unported(train_cfg: Dict[str, Any]) -> None:
     for key, why in UNPORTED_TRAINING_KEYS.items():
         val = train_cfg.get(key)
-        if key.endswith("parallelism") or key == "grad_accumulation":
+        if key.endswith("parallelism"):
             wanted = val is not None and int(val) > 1
         elif key == "comm":
             wanted = bool((val or {}).get("overlap", False))
@@ -152,8 +178,7 @@ def apply_remat_alias(train_cfg: Dict[str, Any], model_cfg: Dict[str, Any],
     """Port of the ``training.remat`` alias (``engine/topology.py:189-212``):
     ``none`` | ``block`` | ``dots`` | ``dots_saveable`` set ``model.remat``
     and ``model.remat_policy`` in ``model_cfg``; setting both sections is a
-    ``ValueError``, as is the alias on a model other than the LM.  The model
-    raises for the policies not ported (``dots``, ``dots_saveable``: P2b)."""
+    ``ValueError``, as is the alias on a model other than the LM."""
     remat = train_cfg.get("remat")
     if remat is None:
         return
@@ -195,6 +220,8 @@ class Runner:
         self.dist_backend = dist_backend
         self.on_iter = on_iter
         self.iter = 0
+        # seconds each rollback took (restore and stream rebuilt)
+        self.rollback_seconds: List[float] = []
         # what the run printed, for callers that drive the runner in-process
         self.train_log: List[Dict[str, float]] = []
         self.val_log: List[Dict[str, float]] = []
@@ -233,9 +260,12 @@ class Runner:
             backend = self.dist_backend or ("nccl" if self.device.type == "cuda" else "gloo")
             dist.init_process_group(backend, init_method=self.dist_url,
                                     world_size=self.world_size, rank=self.current_rank)
+        self._watchdog = None
         try:
             self._run()
         finally:
+            if self._watchdog is not None:
+                self._watchdog.close()
             for loader in (getattr(self, "train_loader", None),
                            getattr(self, "val_loader", None)):
                 if loader is not None:
@@ -260,6 +290,14 @@ class Runner:
         cfg = self.global_cfg
         train_cfg = cfg["training"]
         _reject_unported(train_cfg)
+        parse_fault_tolerance(self, train_cfg)
+        self.grad_accum = int(train_cfg.get("grad_accumulation", 1))
+        if self.grad_accum < 1:
+            raise ValueError(f"grad_accumulation must be >= 1, got {self.grad_accum}")
+        if int(train_cfg["batch_size"]) % self.grad_accum != 0:
+            raise ValueError(f"per-shard batch ({train_cfg['batch_size']}) not divisible by "
+                             f"training.grad_accumulation ({self.grad_accum})")
+        self._setup_faults()
         self.checkpointer = Checkpointer.from_config(
             train_cfg, rank=self.current_rank, world_size=self.world_size)
         self.compute_dtype = _DTYPES[train_cfg.get("dtype", "float32")]
@@ -324,28 +362,138 @@ class Runner:
         self._stager = (PinnedStager(self.device, PREFETCH_DEPTH)
                         if self.device.type == "cuda" else None)
         self.exact_eval = bool(cfg.get("validation", {}).get("exact", False))
+        anomaly_factor = self.anomaly_factor if self.anomaly_enabled else None
         if self.is_lm:
             if self.exact_eval:
                 self.logger.warning("validation.exact applies to the image eval path; LM "
                                     "validation keeps the per-batch meter semantics")
             self.train_step = build_lm_train_step(
                 self.model, self.optimizer, self.scheduler.lr_fn, world_size=self.world_size,
-                label_smoothing=self.label_smoothing)
+                grad_accum=self.grad_accum, label_smoothing=self.label_smoothing,
+                anomaly_factor=anomaly_factor)
             self.eval_step = build_lm_eval_step(self.model, world_size=self.world_size)
         else:
             self.train_step = build_train_step(
                 self.model, self.optimizer, self.scheduler.lr_fn, world_size=self.world_size,
-                sync_bn=self.sync_bn, label_smoothing=self.label_smoothing,
+                sync_bn=self.sync_bn, grad_accum=self.grad_accum,
+                label_smoothing=self.label_smoothing, anomaly_factor=anomaly_factor,
                 input_norm=input_norm, ema_decay=self.ema_decay)
             self.eval_step = build_eval_step(self.model, world_size=self.world_size,
                                              input_norm=input_norm)
             self.eval_step_exact = build_eval_step_exact(
                 self.model, world_size=self.world_size, input_norm=input_norm)
         self._setup_checkpoint(train_cfg)
-        stream = make_iter_dataloader(self.train_loader, start_iter=self.iter,
-                                      start_epoch=self._epoch, skip_batches=self._batch_in_epoch)
+        if self.watchdog_exit and self._preempt is None:
+            raise ValueError("fault_tolerance.watchdog.checkpoint_and_exit needs the preemption "
+                             "path: configure training.checkpoint.dir and leave "
+                             "checkpoint.preemption enabled")
+        if self.watchdog_enabled:
+            self._watchdog = StepWatchdog(
+                factor=self.watchdog_factor, min_seconds=self.watchdog_min_seconds,
+                window=self.watchdog_window, warmup=self.watchdog_warmup,
+                poll_seconds=self.watchdog_poll, on_hang=self._on_hang, logger=self.logger)
         with self._preempt if self._preempt is not None else contextlib.nullcontext():
-            self._train_loop(stream, train_cfg)
+            self._train_loop(train_cfg)
+
+    # ------------------------------------------------------- fault tolerance
+    def _setup_faults(self) -> None:
+        """The injector (``PDT_FAULT_SPEC`` if set, else the config's spec),
+        refused when it arms a kind the port cannot recover from, and the
+        guard's host state: the norms of the applied steps only, so a spike
+        never becomes its own reference (JAX ``runner.py:206-217``).  Each
+        runner installs its own injector, so a runner never inherits the
+        faults of one that ran before it in the process."""
+        spec = os.environ.get(fault.ENV_VAR) or self.fault_spec
+        fault.check_ported(fault.FaultInjector(spec))
+        self._injector = fault.install(spec)
+        if self._injector.active:
+            self.logger.warning("fault injection ACTIVE: %s", self._injector.spec)
+        self._gnorm_hist: deque = deque(maxlen=self.anomaly_window)
+        self._consec_anomalies = 0
+
+    def _make_stream(self):
+        """The training stream from the current position: the epoch
+        iterator (resumed at ``_epoch``/``_batch_in_epoch``), the
+        ``nan_batch`` faults, then the batches staged on the device
+        (JAX ``runner.py:668-686``).  Returns (host stream, device batches)."""
+        host = make_iter_dataloader(self.train_loader, start_iter=self.iter,
+                                    start_epoch=self._epoch, skip_batches=self._batch_in_epoch)
+        fed = host
+        if self._injector.active:
+            fed = fault.poison_batches(host, self._injector, start_iter=self.iter,
+                                       logger=self.logger)
+        return host, self._device_batches(fed)
+
+    def _apply_step_faults(self) -> None:
+        """The host-side faults keyed to this iteration (JAX
+        ``runner.py:688-730``); ``nan_batch`` lives in the stream."""
+        inj = self._injector
+        if not inj.active:
+            return
+        w = inj.take("kill_worker", self.iter)
+        if w is not None:
+            pool = getattr(self.train_loader, "_pool", None)
+            if pool is None:
+                self.logger.warning("fault injection: kill_worker@%d ignored — the loader has "
+                                    "no process pool (worker_mode)", self.iter)
+            else:
+                wid = int(w) % pool.num_workers
+                pid = pool._procs[wid].pid
+                self.logger.warning("fault injection: SIGKILL loader worker %d (pid %d) at "
+                                    "step %d", wid, pid, self.iter)
+                os.kill(pid, signal.SIGKILL)
+        s = inj.take("stall_step", self.iter)
+        if s is not None:
+            self.logger.warning("fault injection: stalling step %d for %.2fs", self.iter, s)
+            time.sleep(float(s))
+
+    def _on_hang(self, step: int, elapsed: float, limit: float) -> None:
+        """The watchdog's report (its monitor thread): the step, the loader
+        pool's outstanding tasks and every thread's stack; with
+        ``checkpoint_and_exit`` the preemption flag (JAX ``runner.py:741-790``)."""
+        fault.bump("watchdog_fires")
+        pool = getattr(self.train_loader, "_pool", None)
+        median = self._watchdog.trailing_median()
+        self.logger.error("watchdog: rank %d stuck in step %d for %.1fs (limit %.1fs, trailing "
+                          "median %.3fs); loader pool tasks outstanding: %s", self.current_rank,
+                          step, elapsed, limit, -1.0 if median is None else median,
+                          getattr(pool, "_outstanding", "n/a"))
+        names = {t.ident: t.name for t in threading.enumerate()}
+        dump = [f"Thread {names.get(tid, '?')} (id {tid}):\n" + "".join(traceback.format_stack(f))
+                for tid, f in sys._current_frames().items()]
+        self.logger.error("watchdog stack dump:\n%s", "\n".join(dump))
+        if self.watchdog_exit and self._preempt is not None:
+            self.logger.error("watchdog: requesting checkpoint-and-exit via the preemption flag")
+            self._preempt.triggered = True
+
+    def _rollback(self) -> None:
+        """``max_consecutive`` anomalous steps: restore the newest
+        checkpoint and resume from it (JAX ``runner.py:852-903``); the
+        one-shot faults stay consumed, so the replay runs clean."""
+        fault.bump("rollbacks")
+        if self.checkpointer is None:
+            raise RuntimeError(f"{self._consec_anomalies} consecutive anomalous steps at iter "
+                               f"{self.iter} and no training.checkpoint configured to roll back "
+                               "to")
+        self.logger.error("anomaly guard: %d consecutive anomalous steps at iter %d — rolling "
+                          "back to the last checkpoint", self._consec_anomalies, self.iter)
+        t0 = time.perf_counter()
+        start_iter = self.checkpointer.restore_latest(
+            lambda payload: restore_training_state(payload, self.model, self.train_step),
+            self.device, self.logger)
+        # a restore handing back non-finite parameters would trip the guard
+        # again and loop rollback -> restore for ever
+        if not all(bool(torch.isfinite(p).all()) for p in self.train_step.params):
+            raise RuntimeError(f"rollback restore of step {start_iter} returned non-finite "
+                               "parameters — checkpoint or restore path is corrupt")
+        self.iter = start_iter
+        self.scheduler.last_epoch = start_iter
+        self._init_pipeline_position()
+        self._consec_anomalies = 0
+        self._gnorm_hist.clear()
+        if self._watchdog is not None:
+            self._watchdog.reset()
+        self.rollback_seconds.append(time.perf_counter() - t0)
 
     def _build_loaders(self, train_cfg, train_dataset, val_dataset, train_sampler,
                        val_sampler) -> None:
@@ -470,7 +618,7 @@ class Runner:
         self.logger.info("Model %s: %.1f M parameters, compute %s, flash attention on%s",
                          model_name, sum(p.numel() for p in self.model.parameters()) / 1e6,
                          str(self.compute_dtype).replace("torch.", ""),
-                         ", block remat" if self.model.remat else "")
+                         f", remat ({self.model.remat_policy})" if self.model.remat else "")
 
     def _build_image_model(self, model_name: str, model_cfg: dict) -> None:
         self.unit, self.items_per_sample = "img", 1
@@ -516,14 +664,25 @@ class Runner:
         for staged in device_prefetch(host_iter, self._stage, PREFETCH_DEPTH):
             yield self._take(staged)
 
-    def _train_loop(self, iter_generator, train_cfg) -> None:
+    def _train_loop(self, train_cfg) -> None:
         self._tput_t0 = time.monotonic()
         self._tput_iters = 0
-        batches = self._device_batches(iter_generator)
+        host, batches = self._make_stream()
         try:
             while self.iter < train_cfg["train_iters"]:
+                if self._watchdog is not None:
+                    self._watchdog.step_started(self.iter)
+                self._apply_step_faults()
                 self.train_iter(*next(batches))
                 self._advance_pipeline()
+                if self._watchdog is not None:
+                    self._watchdog.step_finished()
+                if self.anomaly_enabled and self._consec_anomalies >= self.anomaly_max_consec:
+                    batches.close()
+                    host.close()
+                    self._rollback()
+                    host, batches = self._make_stream()
+                    continue
                 if self.on_iter is not None:
                     self.on_iter(self)
                 if self._preempt is not None and self._globally_preempted():
@@ -542,11 +701,25 @@ class Runner:
                 self.iter += 1
         finally:
             batches.close()
-            iter_generator.close()  # stops the loader's producer
+            host.close()  # stops the loader's producer
 
     def train_iter(self, inputs, labels) -> None:
         train_cfg = self.global_cfg["training"]
-        loss = self.train_step(inputs, labels)
+        if self.anomaly_enabled:
+            # the guard's verdict is one host read a step (JAX runner.py:1183-1212)
+            ref = float(np.median(self._gnorm_hist)) if self._gnorm_hist else 0.0
+            loss, gnorm, applied = self.train_step(inputs, labels, ref)
+            if applied:
+                self._gnorm_hist.append(gnorm)
+                self._consec_anomalies = 0
+            else:
+                self._consec_anomalies += 1
+                fault.bump("skipped_steps")
+                self.logger.warning("anomaly guard: step %d SKIPPED (loss=%g grad_norm=%g, "
+                                    "trailing median %g) — %d consecutive", self.iter,
+                                    float(loss), gnorm, ref, self._consec_anomalies)
+        else:
+            loss = self.train_step(inputs, labels)
         self.last_loss = loss  # a device scalar: reading it syncs
         self._tput_iters += 1
         if self.iter % train_cfg["print_interval"] == 0:

@@ -17,21 +17,38 @@ partial loss; here each rank is one process on one card:
 The loss returned is the global mean (the partials all-reduced), a device
 scalar: reading it is the caller's only sync.
 
+``grad_accum`` N > 1 (``sp_steps.py:135-216``, config
+``training.grad_accumulation``) runs the local batch as N micro-batches in
+turn, each one's partial loss normalised by the whole step's global token
+count, so the partials and their gradients sum (in ``p.grad``) to the
+full batch's; the logits of a micro-batch are freed before its backward.
+The one all-reduce comes after the last micro-batch, as DDP's ``no_sync``
+does (the JAX step reduces every micro-batch: the same sum reassociated).
+A local batch that N does not divide raises the JAX package's
+``ValueError``.
+
+``anomaly_factor`` arms the anomaly-step guard (:func:`guard_verdict`,
+config ``training.fault_tolerance.anomaly``): the step takes the host's
+trailing median ``gnorm_ref`` and returns ``(loss, gnorm, applied)``; a
+skipped step leaves the parameters and the optimizer state (its step
+count too) as they were.  Deciding costs one host read a step.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``grad_accum > 1`` and the anomaly guard (P2b), ``comm.overlap`` and
-``zero1`` (P9).
+``comm.overlap`` and ``zero1`` (P9).
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..metrics import accuracy
 from ..ops.losses import cross_entropy_loss
 
-__all__ = ["LMTrainStep", "build_lm_eval_step", "build_lm_train_step", "lm_loss_local"]
+__all__ = ["LMTrainStep", "build_lm_eval_step", "build_lm_train_step", "guard_verdict",
+           "lm_loss_local"]
 
 
 def lm_loss_local(logits, labels, global_tokens: int, label_smoothing: float = 0.0):
@@ -55,8 +72,36 @@ def _all_reduce_sum_(tensors, group=None) -> None:
         offset += n
 
 
+def micro_slices(batch: int, grad_accum: int, what: str):
+    """The ``grad_accum`` equal slices of a local batch of ``batch``; a batch
+    they do not divide raises the JAX package's ``ValueError``."""
+    if batch % grad_accum != 0:
+        raise ValueError(f"{what} batch {batch} not divisible by grad_accumulation {grad_accum}")
+    micro = batch // grad_accum
+    return [slice(i * micro, (i + 1) * micro) for i in range(grad_accum)]
+
+
+def guard_verdict(loss, grads, factor: float, gnorm_ref: float):
+    """The anomaly guard's decision on a reduced gradient (JAX
+    ``steps.py:263-279``): ``gnorm``, the f32 norm of ``grads``, and whether
+    to apply the step: ``loss`` and ``gnorm`` finite and, with ``factor``
+    > 0 and ``gnorm_ref`` > 0, ``gnorm <= factor * gnorm_ref`` (in f32, as
+    the JAX step computes it).  Both come to the host in one read, the
+    step's one sync: ``(gnorm, applied)`` as a Python float and bool."""
+    norms = torch._foreach_norm([g.float() if g.dtype != torch.float32 else g for g in grads])
+    gnorm = torch.linalg.vector_norm(torch.stack(norms))
+    ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+    ref = np.float32(gnorm_ref)
+    if factor > 0 and ref > 0:
+        ok = ok & (gnorm <= float(np.float32(factor) * ref))
+    flag, norm = torch.stack([ok.float(), gnorm]).tolist()
+    return norm, flag == 1.0
+
+
 class LMTrainStep:
-    """One training iteration: ``step(tokens, labels) -> loss``.
+    """One training iteration: ``step(tokens, labels) -> loss``, or with
+    the guard armed ``step(tokens, labels, gnorm_ref) -> (loss, gnorm,
+    applied)``.
 
     ``tokens``/``labels`` are this rank's ``[B_local, S]`` integer batch
     (labels are the host-shifted next tokens).  The parameters of ``model``
@@ -65,34 +110,48 @@ class LMTrainStep:
     """
 
     def __init__(self, model, optimizer, lr_fn: Callable[[int], float], world_size: int = 1,
-                 group=None, label_smoothing: float = 0.0):
+                 group=None, label_smoothing: float = 0.0, grad_accum: int = 1,
+                 anomaly_factor: Optional[float] = None):
+        if int(grad_accum) < 1:
+            raise ValueError(f"grad_accumulation must be >= 1, got {grad_accum}")
         self.model = model
         self.optimizer = optimizer
         self.lr_fn = lr_fn
         self.world_size = int(world_size)
         self.group = group
         self.label_smoothing = float(label_smoothing)
+        self.grad_accum = int(grad_accum)
+        self.anomaly_factor = None if anomaly_factor is None else float(anomaly_factor)
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.opt_state = optimizer.init(self.params)
 
-    def __call__(self, tokens, labels):
+    def __call__(self, tokens, labels, gnorm_ref: Optional[float] = None):
         b_local, s_len = tokens.shape
         global_tokens = b_local * s_len * self.world_size
         for p in self.params:
             p.grad = None
-        logits = self.model(tokens)
-        loss = lm_loss_local(logits, labels, global_tokens, self.label_smoothing)
-        del logits
-        loss.backward()
+        loss = None
+        for sl in micro_slices(b_local, self.grad_accum, "per-shard"):
+            logits = self.model(tokens[sl])
+            part = lm_loss_local(logits, labels[sl], global_tokens, self.label_smoothing)
+            del logits
+            part.backward()
+            loss = part.detach() if loss is None else loss + part.detach()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-        loss = loss.detach()
         if self.world_size > 1:
             _all_reduce_sum_(grads + [loss.reshape(1)], self.group)
-        lr = self.lr_fn(self.opt_state.step)
-        self.opt_state = self.optimizer.update(self.params, grads, self.opt_state, lr)
+        applied = True
+        if self.anomaly_factor is not None:
+            gnorm, applied = guard_verdict(loss, grads, self.anomaly_factor,
+                                           0.0 if gnorm_ref is None else gnorm_ref)
+        if applied:
+            lr = self.lr_fn(self.opt_state.step)
+            self.opt_state = self.optimizer.update(self.params, grads, self.opt_state, lr)
         for p in self.params:
             p.grad = None
-        return loss
+        if self.anomaly_factor is None:
+            return loss
+        return loss, gnorm, applied
 
 
 def build_lm_train_step(model, optimizer, lr_fn: Callable[[int], float], world_size: int = 1,
@@ -100,17 +159,12 @@ def build_lm_train_step(model, optimizer, lr_fn: Callable[[int], float], world_s
                         anomaly_factor: Optional[float] = None, comm=None,
                         zero1: bool = False) -> LMTrainStep:
     """The plain-DP LM training step (see the module docstring)."""
-    if grad_accum != 1:
-        raise NotImplementedError("training.grad_accumulation > 1 is ROADMAP port item P2b")
-    if anomaly_factor is not None:
-        raise NotImplementedError(
-            "training.fault_tolerance.anomaly (the anomaly-step guard) is ROADMAP port item P2b"
-        )
     if comm is not None and getattr(comm, "overlap", False):
         raise NotImplementedError("training.comm.overlap is ROADMAP port item P9")
     if zero1:
         raise NotImplementedError("ZeRO-1 weight-update sharding is ROADMAP port item P9")
-    return LMTrainStep(model, optimizer, lr_fn, world_size, group, label_smoothing)
+    return LMTrainStep(model, optimizer, lr_fn, world_size, group, label_smoothing, grad_accum,
+                       anomaly_factor)
 
 
 def build_lm_eval_step(model, world_size: int = 1, group=None):

@@ -30,13 +30,30 @@ native host kernel's f32 ``scale = 1 / (255 std)`` and ``bias = -mean /
 std`` (``steps.py:88-110``, ``training.device_normalize``); without it
 the batch is already normalised float.
 
+``grad_accum`` N > 1 (``steps.py:183-230``) runs the local batch as N
+micro-batches in turn, each normalised on its own (a uint8 batch is never
+converted whole), each one's loss and gradients divided by N; the
+BatchNorm running statistics update once per micro-batch, as the JAX
+scan threads them.  The one all-reduce comes after the last micro-batch
+(DDP's ``no_sync``; the JAX step reduces each micro-batch, the same sum
+reassociated).  A local batch that N does not divide raises the JAX
+package's ``ValueError``.
+
+``anomaly_factor`` arms the anomaly-step guard (``steps.py:263-300``,
+:func:`.sp_steps.guard_verdict`): ``step(img, labels, gnorm_ref)``
+returns ``(loss, gnorm, applied)``.  The BatchNorm buffers are copied
+before the forward; the verdict is read once, after the all-reduce and
+before the optimizer; a skipped step runs neither the optimizer nor the
+EMA and copies the buffers back, so parameters, buffers, momentum, EMA and
+``opt_state.step`` stay bitwise as they were.  A NaN batch on one rank
+alone makes the reduced gradient NaN on every rank, so all ranks skip.
+
 :func:`build_eval_step_exact` is ``validation.exact`` (``steps.py:397-430``):
 per-sample sums under a validity mask, so wrap-padded samples count for
 nothing.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``grad_accum > 1`` and the anomaly guard (P2b), ``comm.overlap``
-(P9).
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
+``comm.overlap`` (P9).
 """
 from __future__ import annotations
 
@@ -50,7 +67,7 @@ from ..metrics import accuracy
 from ..ops.batch_norm import DistributedBatchNorm
 from ..ops.fused_ce import fused_ce_forward
 from ..ops.losses import cross_entropy_loss
-from .sp_steps import _all_reduce_sum_
+from .sp_steps import _all_reduce_sum_, guard_verdict, micro_slices
 
 __all__ = ["ImageTrainStep", "build_eval_step", "build_eval_step_exact", "build_train_step",
            "input_normalizer"]
@@ -82,7 +99,8 @@ def input_normalizer(input_norm) -> Callable[[torch.Tensor], torch.Tensor]:
 
 
 class ImageTrainStep:
-    """One training iteration: ``step(img, labels) -> loss``.
+    """One training iteration: ``step(img, labels) -> loss``, or with the
+    guard armed ``step(img, labels, gnorm_ref) -> (loss, gnorm, applied)``.
 
     ``img`` is this rank's ``[B_local, H, W, 3]`` batch, float or (with
     ``input_norm``) uint8, and ``labels`` its ``[B_local]`` integer
@@ -95,8 +113,13 @@ class ImageTrainStep:
 
     def __init__(self, model, optimizer, lr_fn: Callable[[int], float], world_size: int = 1,
                  group=None, sync_bn: bool = False, label_smoothing: float = 0.0,
-                 input_norm=None, ema_decay: Optional[float] = None):
+                 input_norm=None, ema_decay: Optional[float] = None, grad_accum: int = 1,
+                 anomaly_factor: Optional[float] = None):
+        if int(grad_accum) < 1:
+            raise ValueError(f"grad_accumulation must be >= 1, got {grad_accum}")
         self.model = model
+        self.grad_accum = int(grad_accum)
+        self.anomaly_factor = None if anomaly_factor is None else float(anomaly_factor)
         self.normalize = input_normalizer(input_norm)
         self.optimizer = optimizer
         self.lr_fn = lr_fn
@@ -124,16 +147,27 @@ class ImageTrainStep:
 
     def forward_backward(self, img, labels):
         """Forward in train mode, this rank's share of the loss and its
-        backward: ``(loss, logits)``, the gradients left in ``p.grad``."""
+        backward, one micro-batch after another: ``(loss, logits)``, the
+        gradients summed in ``p.grad``."""
         for p in self.params:
             p.grad = None
         self.model.train()
-        logits = self.model(_nchw(self.normalize(img)))
-        loss = cross_entropy_loss(logits, labels, self.label_smoothing) / self.world_size
-        loss.backward()
-        return loss.detach(), logits.detach()
+        share = self.world_size * self.grad_accum
+        loss, logits = None, []
+        for sl in micro_slices(img.shape[0], self.grad_accum, "per-device"):
+            out = self.model(_nchw(self.normalize(img[sl])))
+            part = cross_entropy_loss(out, labels[sl], self.label_smoothing) / share
+            part.backward()
+            loss = part.detach() if loss is None else loss + part.detach()
+            logits.append(out.detach())
+        return loss, logits[0] if len(logits) == 1 else torch.cat(logits)
 
-    def __call__(self, img, labels):
+    def __call__(self, img, labels, gnorm_ref: Optional[float] = None):
+        guard = self.anomaly_factor is not None
+        if guard:
+            # the forward updates the running statistics (and without
+            # sync_bn the all-reduce rewrites them): a skip puts these back
+            bn_before = [b.clone() for b in self.bn_buffers]
         loss, _ = self.forward_backward(img, labels)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         if self.world_size > 1:
@@ -142,13 +176,23 @@ class ImageTrainStep:
                 torch._foreach_mul_(self.bn_buffers, 1.0 / self.world_size)
                 shared += self.bn_buffers
             _all_reduce_sum_(shared, self.group)
-        lr = self.lr_fn(self.opt_state.step)
-        self.opt_state = self.optimizer.update(self.params, grads, self.opt_state, lr)
+        applied = True
+        if guard:
+            gnorm, applied = guard_verdict(loss, grads, self.anomaly_factor,
+                                           0.0 if gnorm_ref is None else gnorm_ref)
+        if applied:
+            lr = self.lr_fn(self.opt_state.step)
+            self.opt_state = self.optimizer.update(self.params, grads, self.opt_state, lr)
+            if self.ema is not None:
+                self.update_ema()
+        else:
+            with torch.no_grad():
+                torch._foreach_copy_(self.bn_buffers, bn_before)
         for p in self.params:
             p.grad = None
-        if self.ema is not None:
-            self.update_ema()
-        return loss
+        if not guard:
+            return loss
+        return loss, gnorm, applied
 
 
 def build_train_step(model, optimizer, lr_fn: Callable[[int], float], world_size: int = 1,
@@ -160,17 +204,12 @@ def build_train_step(model, optimizer, lr_fn: Callable[[int], float], world_size
     says whether the model's BatchNorms average their statistics over the
     ranks (the model is built so); without it the step averages the
     buffers.  ``input_norm``: ``(mean, std)`` for uint8 batches;
-    ``ema_decay``: keep the weight EMA."""
-    if grad_accum != 1:
-        raise NotImplementedError("training.grad_accumulation > 1 is ROADMAP port item P2b")
-    if anomaly_factor is not None:
-        raise NotImplementedError(
-            "training.fault_tolerance.anomaly (the anomaly-step guard) is ROADMAP port item P2b"
-        )
+    ``ema_decay``: keep the weight EMA; ``grad_accum``: micro-batches a
+    step; ``anomaly_factor``: arm the guard."""
     if comm is not None and getattr(comm, "overlap", False):
         raise NotImplementedError("training.comm.overlap is ROADMAP port item P9")
     return ImageTrainStep(model, optimizer, lr_fn, world_size, group, sync_bn,
-                          label_smoothing, input_norm, ema_decay)
+                          label_smoothing, input_norm, ema_decay, grad_accum, anomaly_factor)
 
 
 def _eval_logits(model, img):

@@ -1,0 +1,93 @@
+"""``training.fault_tolerance`` parsed onto the runner (port of
+``parse_fault_tolerance``, JAX ``engine/topology.py:436-544``; the rest of
+that module is the parallelism layout, ROADMAP port item P9)."""
+from __future__ import annotations
+
+from .fault import FaultInjector
+
+__all__ = ["parse_fault_tolerance"]
+
+
+def parse_fault_tolerance(r, train_cfg: dict) -> None:
+    """Set the anomaly guard's, the watchdog's and the fault spec's
+    attributes on ``r`` from ``training.fault_tolerance`` (every part off
+    by default):
+
+    .. code-block:: yaml
+
+        training:
+            fault_tolerance:
+                anomaly:               # the anomaly-step guard
+                    enabled: true      # implied by a non-empty section
+                    grad_norm_factor: 10.0   # 0 = non-finite only
+                    window: 64         # trailing-median history length
+                    max_consecutive: 5 # then roll back to the last checkpoint
+                watchdog:              # the hung-step watchdog
+                    enabled: true
+                    factor: 10.0       # x trailing-median step time
+                    min_seconds: 60.0  # floor
+                    poll_seconds: null # default min_seconds / 4
+                    window: 32
+                    warmup: 3
+                    checkpoint_and_exit: false  # fire the PreemptionGuard
+                fault_spec: null       # injection script (PDT_FAULT_SPEC wins)
+
+    Unknown keys and out-of-range values raise the JAX package's
+    ``ValueError``s; the spec is parsed here, so a malformed one fails at
+    start-up."""
+    ft = train_cfg.get("fault_tolerance") or {}
+    unknown = set(ft) - {"anomaly", "watchdog", "fault_spec"}
+    if unknown:
+        raise ValueError(f"training.fault_tolerance: unknown key(s) {sorted(unknown)} "
+                         "(want anomaly/watchdog/fault_spec)")
+
+    an = ft.get("anomaly") or {}
+    unknown = set(an) - {"enabled", "grad_norm_factor", "window", "max_consecutive"}
+    if unknown:
+        raise ValueError(f"training.fault_tolerance.anomaly: unknown key(s) {sorted(unknown)} "
+                         "(want enabled/grad_norm_factor/window/max_consecutive)")
+    r.anomaly_enabled = bool(an) and bool(an.get("enabled", True))
+    r.anomaly_factor = float(an.get("grad_norm_factor", 10.0))
+    r.anomaly_window = int(an.get("window", 64))
+    r.anomaly_max_consec = int(an.get("max_consecutive", 5))
+    if r.anomaly_factor < 0:
+        raise ValueError("fault_tolerance.anomaly.grad_norm_factor must be >= 0 "
+                         f"(0 = non-finite-only), got {r.anomaly_factor}")
+    if r.anomaly_window < 1:
+        raise ValueError(f"fault_tolerance.anomaly.window must be >= 1, got {r.anomaly_window}")
+    if r.anomaly_max_consec < 1:
+        raise ValueError("fault_tolerance.anomaly.max_consecutive must be >= 1, got "
+                         f"{r.anomaly_max_consec}")
+
+    wd = ft.get("watchdog") or {}
+    unknown = set(wd) - {"enabled", "factor", "min_seconds", "poll_seconds", "window",
+                         "warmup", "checkpoint_and_exit"}
+    if unknown:
+        raise ValueError(f"training.fault_tolerance.watchdog: unknown key(s) {sorted(unknown)} "
+                         "(want enabled/factor/min_seconds/poll_seconds/window/warmup/"
+                         "checkpoint_and_exit)")
+    r.watchdog_enabled = bool(wd) and bool(wd.get("enabled", True))
+    r.watchdog_factor = float(wd.get("factor", 10.0))
+    r.watchdog_min_seconds = float(wd.get("min_seconds", 60.0))
+    r.watchdog_poll = float(wd["poll_seconds"]) if wd.get("poll_seconds") is not None else None
+    r.watchdog_window = int(wd.get("window", 32))
+    r.watchdog_warmup = int(wd.get("warmup", 3))
+    r.watchdog_exit = bool(wd.get("checkpoint_and_exit", False))
+    if r.watchdog_enabled:
+        if r.watchdog_factor <= 1.0:
+            raise ValueError(f"fault_tolerance.watchdog.factor must be > 1, got "
+                             f"{r.watchdog_factor}")
+        if r.watchdog_min_seconds <= 0:
+            raise ValueError(f"fault_tolerance.watchdog.min_seconds must be > 0, got "
+                             f"{r.watchdog_min_seconds}")
+        if r.watchdog_poll is not None and r.watchdog_poll <= 0:
+            raise ValueError(f"fault_tolerance.watchdog.poll_seconds must be > 0, got "
+                             f"{r.watchdog_poll}")
+        if r.watchdog_warmup < 1:
+            raise ValueError(f"fault_tolerance.watchdog.warmup must be >= 1, got "
+                             f"{r.watchdog_warmup}")
+
+    spec = ft.get("fault_spec")
+    r.fault_spec = str(spec) if spec else None
+    if r.fault_spec:
+        FaultInjector(r.fault_spec)

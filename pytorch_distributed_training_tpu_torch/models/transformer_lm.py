@@ -21,36 +21,59 @@ kernels (:mod:`..ops.flash_attention`), as the JAX model does inside its
 Training keeps f32 master parameters: each Dense casts to its compute dtype
 per call, so :meth:`TransformerLM.cast_matmul_weights_` is for serving only.
 
-``remat`` with ``remat_policy="nothing"`` is the JAX model's
-``nn.remat(DecoderBlock, policy=None)`` (``models/transformer_lm.py:268-279``):
-each block keeps only its input for the backward and runs its forward again
-there (``torch.utils.checkpoint``, non-reentrant), flash forward included.
-It applies only while autograd records: evaluation, prefill and decode run
-the blocks as they are.
+``remat`` is the JAX model's ``nn.remat(DecoderBlock, policy=...)``
+(``models/transformer_lm.py:33-53``, ``:268-279``) through
+``torch.utils.checkpoint`` (non-reentrant), one block at a time:
+
+- ``remat_policy="nothing"``: each block keeps only its input for the
+  backward and runs its whole forward again there, flash forward included;
+- ``"dots"`` (``dots_with_no_batch_dims_saveable``): the outputs of the
+  matmuls without batch dimensions are kept, everything else is run
+  again.  ``F.linear`` on the ``[B, S, E]`` stream reaches ``aten.addmm``
+  (``aten.mm`` without a bias) on the CPU and on the card, so those two
+  ops are the policy (:data:`SAVED_OPS`), given to
+  ``create_selective_checkpoint_contexts``;
+- ``"dots_saveable"``: also the batched matmuls, ``aten.bmm`` and
+  ``aten.baddbmm``, which the einsum attention's scores and output reach.
+
+The flash kernels, like the Pallas call in JAX, are no dot: under either
+policy their autograd function runs again in the backward (its output
+buffers are ``torch.empty`` calls, recomputed, never saved), so on the
+card with flash on the two policies keep the same tensors (on the CPU the
+kernels' plain twin computes with ``aten.bmm``, which ``dots_saveable``
+keeps).  Remat applies only
+while autograd records: evaluation, prefill and decode run the blocks as
+they are.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-MoE blocks and ``seq_axis`` (P9), the remat policies that save matmul
-outputs (``dots``, ``dots_saveable``: P2b), the paged cache (P4) and LoRA
-(P5).
+MoE blocks and ``seq_axis`` (P9), the paged cache (P4) and LoRA (P5).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..ops.attention import KVCache, MultiHeadAttention
 from ..ops.fused_elementwise import FusedResidualLayerNorm
 from ..ops.layers import Dense, LayerNorm
 from .vit import MLP
 
-__all__ = ["DecoderBlock", "TransformerLM"]
+__all__ = ["DecoderBlock", "SAVED_OPS", "TransformerLM"]
 
-# the names resolve_remat_policy takes (models/transformer_lm.py:33-54)
-REMAT_POLICIES = ("dots", "dots_saveable", "nothing")
+_aten = torch.ops.aten
+# remat policy (the names resolve_remat_policy takes, models/transformer_lm.py:33-54)
+# -> the aten ops whose outputs the backward keeps; None: the whole block runs again
+SAVED_OPS = {
+    "nothing": None,
+    "dots": (_aten.mm.default, _aten.addmm.default),
+    "dots_saveable": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+                      _aten.baddbmm.default),
+}
 
 
 class DecoderBlock(nn.Module):
@@ -104,14 +127,7 @@ class TransformerLM(nn.Module):
                 "seq_axis (ring/Ulysses sequence parallelism) is ROADMAP port item P9"
             )
         # unknown names raise even with remat off, as in JAX
-        if remat_policy not in REMAT_POLICIES:
-            raise ValueError(f"model.remat_policy must be one of {sorted(REMAT_POLICIES)}, "
-                             f"got {remat_policy!r}")
-        if remat and remat_policy != "nothing":
-            raise NotImplementedError(
-                f"remat_policy {remat_policy!r} (save matmul outputs, recompute the rest) is "
-                "ROADMAP port item P2b; 'nothing' (recompute the whole block) is ported"
-            )
+        self.set_remat(remat, remat_policy)
         if paged:
             raise NotImplementedError(
                 "the paged KV cache is ROADMAP port item P4 (continuous scheduler)"
@@ -128,7 +144,6 @@ class TransformerLM(nn.Module):
         self.dtype = dtype
         self.fused_tails = fused_tails
         self.flash = flash
-        self.remat = remat
         self.tok_embedding = nn.Parameter(torch.empty(vocab_size, embed_dim))
         self.pos_embedding = nn.Parameter(torch.empty(max_len, embed_dim))
         for i in range(depth):
@@ -142,6 +157,18 @@ class TransformerLM(nn.Module):
         with torch.no_grad():
             self.tok_embedding.normal_(0.0, 0.02)
             self.pos_embedding.normal_(0.0, 0.02)
+
+    def set_remat(self, remat: bool, policy: str = "nothing") -> None:
+        """Block remat on or off, under ``policy`` (a name of
+        :data:`SAVED_OPS`); the parameters are the same either way."""
+        if policy not in SAVED_OPS:
+            raise ValueError(f"model.remat_policy must be one of {sorted(SAVED_OPS)}, "
+                             f"got {policy!r}")
+        self.remat, self.remat_policy = bool(remat), policy
+        saved = SAVED_OPS[policy]
+        self._remat_context = (None if saved is None else
+                               functools.partial(create_selective_checkpoint_contexts,
+                                                 list(saved)))
 
     @property
     def blocks(self):
@@ -201,7 +228,9 @@ class TransformerLM(nn.Module):
         x = x + pe.to(self.dtype)
         recompute = self.remat and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
-            if recompute:
+            if recompute and self._remat_context is not None:
+                x = checkpoint(block, x, use_reentrant=False, context_fn=self._remat_context)
+            elif recompute:
                 x = checkpoint(block, x, use_reentrant=False)
             else:
                 x = block(x, cache, i, decode_pos)

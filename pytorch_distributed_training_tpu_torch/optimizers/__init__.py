@@ -26,7 +26,12 @@ step computes them on the device.  ``fused`` is accepted for config
 compatibility: it picks nothing here, every update is already one pass
 per operation over all parameters.
 
-LAMB (ROADMAP port item P2b) raises ``NotImplementedError``.
+- :class:`LAMB` (``:392-460``): Adam moments, the bias-corrected
+  direction with ``eps`` inside the ratio, ``u = (mu / bc1) / (sqrt(nu /
+  bc2) + eps)``, decoupled decay folded into it (``u += wd * p``), then
+  per parameter of rank >= 2 the trust ratio ``||p|| / ||u||`` (1 where
+  either norm is 0) scales ``lr``; parameters of rank <= 1 take ``p -= lr
+  * u`` with no decay.  Its state is :class:`AdamWState`, as in JAX.
 """
 from __future__ import annotations
 
@@ -35,7 +40,8 @@ from typing import Any, Dict, List, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["AdamW", "AdamWState", "LARS", "OPTIMIZERS", "SGD", "SGDState", "get_optimizer"]
+__all__ = ["AdamW", "AdamWState", "LAMB", "LARS", "OPTIMIZERS", "SGD", "SGDState",
+           "get_optimizer"]
 
 
 class SGDState(NamedTuple):
@@ -183,18 +189,64 @@ class AdamW:
         return AdamWState(mu=mu, nu=nu, step=state.step + 1)
 
 
-OPTIMIZERS = {"SGD": SGD, "LARS": LARS, "AdamW": AdamW}
+class LAMB:
+    """Layer-wise Adaptive Moments (You et al., 2019), see the module
+    docstring; the norms of a step are one ``torch._foreach_norm`` pass
+    each over the adapted parameters and their directions."""
 
-_NOT_YET = {
-    "LAMB": "LAMB is ROADMAP port item P2b",
-}
+    def __init__(self, lr: float, betas=(0.9, 0.999), eps: float = 1e-6,
+                 weight_decay: float = 0.0):
+        self.lr = float(lr)
+        self.b1, self.b2 = float(betas[0]), float(betas[1])
+        self.eps = float(eps)
+        self.weight_decay = float(weight_decay)
+
+    def init(self, params: List[torch.Tensor]) -> AdamWState:
+        return AdamWState(mu=[torch.zeros_like(p) for p in params],
+                          nu=[torch.zeros_like(p) for p in params], step=0)
+
+    @torch.no_grad()
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+               state: AdamWState, lr=None) -> AdamWState:
+        """Apply one step to ``params`` in place; returns the new state."""
+        lr = _f32(self.lr if lr is None else lr)
+        t = np.float32(state.step + 1)
+        bc1 = float(np.float32(1.0) - np.float32(self.b1) ** t)
+        bc2 = float(np.float32(1.0) - np.float32(self.b2) ** t)
+        mu, nu = state.mu, state.nu
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
+        denom = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        u = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(u, denom)
+        del denom
+        adapt = [i for i, p in enumerate(params) if not _is_excluded(p)]
+        plain = [i for i, p in enumerate(params) if _is_excluded(p)]
+        if plain:
+            torch._foreach_add_([params[i] for i in plain], [u[i] for i in plain], alpha=-lr)
+        if adapt:
+            ps, us = [params[i] for i in adapt], [u[i] for i in adapt]
+            if self.weight_decay != 0.0:
+                torch._foreach_add_(us, ps, alpha=self.weight_decay)
+            p_norm = torch.stack(torch._foreach_norm(ps))
+            u_norm = torch.stack(torch._foreach_norm(us))
+            trust = torch.where((p_norm > 0) & (u_norm > 0), p_norm / u_norm,
+                                torch.ones_like(p_norm))
+            torch._foreach_mul_(us, list((lr * trust).unbind()))
+            torch._foreach_sub_(ps, us)
+        return AdamWState(mu=mu, nu=nu, step=state.step + 1)
+
+
+OPTIMIZERS = {"SGD": SGD, "LARS": LARS, "AdamW": AdamW, "LAMB": LAMB}
 
 
 def get_optimizer(cfg: Dict[str, Any]):
     """The optimizer *class* for ``cfg['name']`` (reference: :204)."""
     name = cfg["name"]
-    if name in _NOT_YET:
-        raise NotImplementedError(f"optimizer {name!r}: {_NOT_YET[name]}")
     if name not in OPTIMIZERS:
         raise KeyError(f"unknown optimizer '{name}' (have: {sorted(OPTIMIZERS)})")
     return OPTIMIZERS[name]

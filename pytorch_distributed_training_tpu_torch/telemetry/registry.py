@@ -1,10 +1,11 @@
 """Metrics registry: counters, gauges, bounded reservoir histograms.
 
 Port of the JAX package's ``telemetry/registry.py``, cut to what
-:class:`..serving.metrics.ServingMetrics` and the data pipeline use (the
-process-wide registry of :func:`get_registry` holds the loader's
-``data_corrupt_samples``, ``worker_respawns`` and
-``data_pool_outstanding``).  Standard library only.
+:class:`..serving.metrics.ServingMetrics`, the data pipeline and the fault
+layer use (the process-wide registry of :func:`get_registry` holds the
+loader's ``data_corrupt_samples``, ``worker_respawns`` and
+``data_pool_outstanding``, and the recovery counters of
+:mod:`..engine.fault`).  Standard library only.
 
 Histograms keep an Algorithm-R reservoir (a uniform sample of everything
 observed) plus EXACT count, sum, min and max, so percentiles stay stable
@@ -20,7 +21,8 @@ import threading
 import zlib
 from typing import Dict, List, Optional
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "get_registry"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "get_registry",
+           "reset_registry"]
 
 
 class Counter:
@@ -36,6 +38,10 @@ class Counter:
     def inc(self, n: int = 1) -> None:
         with self._lock:
             self._value += int(n)
+
+    def _reset(self) -> None:
+        with self._lock:
+            self._value = 0
 
     @property
     def value(self) -> int:
@@ -56,6 +62,9 @@ class Gauge:
     def set(self, value: float) -> None:
         with self._lock:
             self._value = float(value)
+
+    def _reset(self) -> None:
+        self.set(0.0)
 
     @property
     def value(self) -> float:
@@ -98,6 +107,12 @@ class Histogram:
         self._max: Optional[float] = None
         self._rng = random.Random(0x5EED ^ zlib.crc32(name.encode()))
         self._lock = threading.Lock()
+
+    def _reset(self) -> None:
+        with self._lock:
+            self._sample, self._count, self._sum = [], 0, 0.0
+            self._min = self._max = None
+            self._rng = random.Random(0x5EED ^ zlib.crc32(self.name.encode()))
 
     def observe(self, value: float) -> None:
         v = float(value)
@@ -172,6 +187,14 @@ class MetricsRegistry:
     def gauges(self) -> Dict[str, float]:
         return {g.name: g.value for g in self._of(Gauge)}
 
+    def reset(self) -> None:
+        """Zero every instrument, each kept registered (call sites hold
+        ``registry.counter(name)``)."""
+        with self._lock:
+            insts = list(self._instruments.values())
+        for inst in insts:
+            inst._reset()
+
 
 _REGISTRY = MetricsRegistry()
 
@@ -179,3 +202,8 @@ _REGISTRY = MetricsRegistry()
 def get_registry() -> MetricsRegistry:
     """The process-wide registry (JAX ``telemetry/registry.py:271``)."""
     return _REGISTRY
+
+
+def reset_registry() -> None:
+    """Zero the process-wide registry (JAX ``telemetry/registry.py:281``)."""
+    _REGISTRY.reset()

@@ -334,6 +334,7 @@ def test_every_step_unreadable_raises_the_newest_error(tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [("async", True), ("max_inflight", 2),
+                                       # ported (P2b): retried saves and loads
                                        ("retry", {"attempts": 3}),
                                        ("emergency_drain_timeout_s", 10.0)])
 def test_unported_checkpoint_keys_raise_p10(key, value, tmp_path):
@@ -341,6 +342,11 @@ def test_unported_checkpoint_keys_raise_p10(key, value, tmp_path):
     cfg["training"]["checkpoint"] = {"dir": str(tmp_path), key: value}
     runner = Runner(num_nodes=1, rank=0, seed=0, dist_url="", multiprocessing=False,
                     logger_queue=None, global_cfg=cfg, device="cpu")
+    if key == "retry":
+        runner()
+        assert runner.checkpointer.retry.attempts == 3 and runner.checkpointer.retries == 0
+        assert runner.checkpointer.all_steps()
+        return
     with pytest.raises(NotImplementedError, match=f"training.checkpoint.{key}: .*P10"):
         runner()
     assert not os.listdir(tmp_path)

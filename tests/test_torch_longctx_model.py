@@ -124,20 +124,24 @@ def test_remat_leaves_decode_unchanged(params):
 @pytest.mark.parametrize(
     "remat,policy,exc,match",
     [(True, "nothing", None, None), (False, "dots", None, None),
-     (True, "dots", NotImplementedError, "P2b"),
-     (True, "dots_saveable", NotImplementedError, "P2b"),
+     # ported (P2b): the policies that save dots build
+     pytest.param(True, "dots", None, None, id="True-dots-NotImplementedError-P2b"),
+     pytest.param(True, "dots_saveable", None, None,
+                  id="True-dots_saveable-NotImplementedError-P2b"),
      (False, "everything", ValueError, "remat_policy must be one of"),
      (True, "everything", ValueError, "remat_policy must be one of")],
 )
 def test_remat_policy_names(remat, policy, exc, match):
     """``resolve_remat_policy``'s names: unknown ones raise even with remat
-    off; the policies that save dots are P2b."""
+    off; ``nothing``, ``dots`` and ``dots_saveable`` build
+    (``tests/test_torch_remat_dots.py`` runs them)."""
     def build():
         return TransformerLM(VOCAB, max_len=SEQ, embed_dim=EMBED, depth=1, num_heads=HEADS,
                              remat=remat, remat_policy=policy)
 
     if exc is None:
-        assert build().remat is remat
+        model = build()
+        assert model.remat is remat and model.remat_policy == policy
     else:
         with pytest.raises(exc, match=match):
             build()

@@ -242,10 +242,11 @@ def test_unported_step_options_raise(setup):
     class _Comm:
         overlap = True
 
-    for kwargs, item in ((dict(grad_accum=2), "P2b"), (dict(anomaly_factor=4.0), "P2b"),
-                         (dict(comm=_Comm()), "P9")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_train_step(model, opt, lambda s: 0.1, **kwargs)
+    # ported (P2b): grad accumulation and the guard build
+    step = build_train_step(model, opt, lambda s: 0.1, grad_accum=2, anomaly_factor=4.0)
+    assert step.grad_accum == 2 and step.anomaly_factor == 4.0
+    with pytest.raises(NotImplementedError, match="P9"):
+        build_train_step(model, opt, lambda s: 0.1, comm=_Comm())
 
 
 # --------------------------------------------------------------------- #
@@ -386,7 +387,8 @@ def test_runner_trains_and_validates_on_cpu():
      # ported (P3b-1): it runs, and counts each of 7 validation samples once
      # over two batches of 4 (the second wrap-padded)
      pytest.param("validation", "exact", True, None, "exact", id="validation-exact-True-P3b"),
-     pytest.param("training", "grad_accumulation", 2, NotImplementedError, "P2b",
+     # ported (P2b): two micro-batches of 2 a step
+     pytest.param("training", "grad_accumulation", 2, None, "grad_accumulation",
                   id="training-grad_accumulation-2-P2b")],
 )
 def test_runner_rejects_unported_image_keys(section, key, value, raises, match):
@@ -404,6 +406,8 @@ def test_runner_rejects_unported_image_keys(section, key, value, raises, match):
             assert [v["n"] for v in runner.val_log] == [7, 7]
         elif match == "space_to_depth":
             assert tuple(runner.model.conv1.weight.shape) == (64, 12, 4, 4)
+        elif match == "grad_accumulation":
+            assert runner.train_step.grad_accum == 2 and runner.train_step.opt_state.step == 3
         elif match == "bn_stat_dtype":
             assert all(m.low_stats and m.running_var.dtype == torch.float32
                        for m in runner.model.modules() if hasattr(m, "low_stats"))

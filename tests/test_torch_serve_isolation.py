@@ -63,3 +63,27 @@ def test_serving_cli_imports_no_jax():
     loaded = json.loads(out.strip().splitlines()[-1])
     assert "pytorch_distributed_training_tpu_torch.serving.engine" in loaded
     assert not [m for m in loaded if _banned(m)]
+
+
+def test_trainer_and_fault_layer_import_no_jax():
+    """The training CLI and the fault layer (``engine/fault.py``,
+    ``watchdog.py``, ``topology.py``, ``utils/retry.py``: their JAX
+    counterparts import no JAX either, and the port keeps its own copies)."""
+    mods = ["pytorch_distributed_training_tpu_torch.train_distributed",
+            "pytorch_distributed_training_tpu_torch.engine.fault",
+            "pytorch_distributed_training_tpu_torch.engine.watchdog",
+            "pytorch_distributed_training_tpu_torch.engine.topology",
+            "pytorch_distributed_training_tpu_torch.utils.retry"]
+    for m in mods[1:]:
+        assert (PORT / (m.split(".", 1)[1].replace(".", "/") + ".py")).is_file(), m
+    code = ("import importlib, json, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+        check=True,
+    ).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    assert set(mods) <= set(loaded)
+    assert not [m for m in loaded if _banned(m)]

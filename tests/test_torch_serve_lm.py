@@ -245,10 +245,16 @@ def test_sampled_generate_is_reproducible(params):
 @pytest.mark.parametrize(
     "kwargs,item",
     [({"moe_experts": 2}, "P9"), ({"seq_axis": "sequence"}, "P9"),
-     ({"remat": True, "remat_policy": "dots"}, "P2"), ({"paged": True}, "P4"),
-     ({"lora_rank": 4}, "P5")],
+     # ported (P2b): the dots policy builds
+     pytest.param({"remat": True, "remat_policy": "dots"}, None, id="kwargs2-P2"),
+     ({"paged": True}, "P4"), ({"lora_rank": 4}, "P5")],
 )
 def test_unported_model_options_raise(kwargs, item):
+    if item is None:
+        model = TransformerLM(VOCAB, max_len=MAXLEN, embed_dim=EMBED, depth=1, num_heads=HEADS,
+                              **kwargs)
+        assert model.remat and model.remat_policy == kwargs["remat_policy"]
+        return
     with pytest.raises(NotImplementedError, match=item):
         TransformerLM(VOCAB, max_len=MAXLEN, embed_dim=EMBED, depth=1, num_heads=HEADS, **kwargs)
 

@@ -150,12 +150,13 @@ def test_model_flash_flag_and_remat():
     assert m.flash and m.blocks[0].attn.flash
     assert not TransformerLM(VOCAB, max_len=SEQ, embed_dim=EMBED, depth=1,
                              num_heads=HEADS).blocks[0].attn.flash
-    # block remat (policy "nothing") is ported; the policies that save dots are P2b
+    # block remat (policy "nothing") and the policies that save dots (P2b) build
     assert TransformerLM(VOCAB, max_len=SEQ, embed_dim=EMBED, depth=1, num_heads=HEADS,
                          remat=True).remat
-    with pytest.raises(NotImplementedError, match="P2b"):
-        TransformerLM(VOCAB, max_len=SEQ, embed_dim=EMBED, depth=1, num_heads=HEADS, remat=True,
-                      remat_policy="dots")
+    for policy in ("dots", "dots_saveable"):
+        m = TransformerLM(VOCAB, max_len=SEQ, embed_dim=EMBED, depth=1, num_heads=HEADS,
+                          remat=True, remat_policy=policy)
+        assert m.remat and m.remat_policy == policy
 
 
 def test_decode_cache_keeps_the_einsum_under_flash(params):
