@@ -10,6 +10,9 @@
                                        # (with --profile: and its step's breakdown)
     python3 chip_smoke.py --resnet     # phases 1, 2 and 13 to 17 only: the ResNet
                                        # path (with --profile: its steps' breakdowns)
+    python3 chip_smoke.py --accum-faults  # phases 1, 2, 18 and 19 only
+    python3 chip_smoke.py --serve      # phases 1, 2, 5 and 20 only: serving (with
+                                       # --profile: decode ticks, sync and async)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -147,6 +150,33 @@ Phases, in order; any failure raises and the script exits non-zero:
     parameters, BatchNorm buffers, momentum, EMA and losses of steps 3-5
     equal the straight run's bit for bit.  Prints the bytes of a step on
     disk, the save and restore ms and a sidecar.
+18. the LM at the source batch: ``configs/train-lm-1024-accum.yml`` (batch 64
+    as 8 micro-batches over a written token file, ``remat: dots``, the guard
+    armed), its f32 checks, the four remat forms, LAMB against AdamW;
+19. fault tolerance: ResNet-50 f32 under ``nan_batch``, a rollback,
+    ``ckpt_fail``, ``kill_worker`` and ``stall_step``, bitwise;
+20. the serving scheduler's main path, ``configs/serve-lm-1024-sched.yml``
+    (full width, bf16, the continuous scheduler over the paged KV pool):
+    (a) ``InferenceEngine.from_config``, ``warmup()``, 32 requests with
+    seeded prompt lengths in [1, 512] and ``max_new_tokens`` in [1, 32],
+    every 4th sharing a 256-token prefix: every request generates its cap
+    in range, ``retired == admitted == 32``, prefix hits > 0, and K3 and
+    K4 each launch exactly 16 x (prefill calls + decode steps) as the
+    scheduler counts them, no flash and no CE launch; (b) depth 2, f32,
+    TF32 off: 8 greedy requests through the batcher engine and the
+    scheduler engine on the same weights give identical tokens (and at
+    bf16, full depth, the share of identical tokens is printed); (c)
+    ``async_depth`` 2 against 0 on (a)'s requests, greedy and sampled,
+    bitwise; (d) on 8 requests: ``serve_device_lost`` restarts once and the
+    replayed streams equal the clean run's, ``serve_nan`` and
+    ``serve_raise`` fail only their request, the others equal; the restart
+    ms; (e) the runner trains ``configs/train-lm-1024.yml`` cut to depth 2
+    for 2 steps with a checkpoint, the phase adds a step whose payload
+    carries an EMA of the two, and an engine restored through
+    ``serving.checkpoint`` gives the greedy tokens of one built from those
+    EMA weights in memory; (f) readings beside the card: TTFT p50/p99,
+    tokens/s, slot occupancy, block utilisation, prefix-hit rate and host
+    ms a tick, sync, async and through the batcher.
 
 The line before the last lists every TPU kernel (K1a ... K4) with the CUDA
 kernel that stands for it, its launches on the path that runs it (and on
@@ -177,6 +207,10 @@ SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz: covers any host en
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "configs",
                       "serve-lm-1024.yml")
+SCHED_CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "configs",
+                            "serve-lm-1024-sched.yml")
+# phase 20 (e): the port training checkpoint that serving restores
+SERVE_CKPT_DIR = os.path.join(_HERE, "run", "chip_smoke", "serve_ckpt")
 TRAIN_CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "configs",
                             "train-lm-1024.yml")
 LONGCTX_CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "configs",
@@ -2473,6 +2507,355 @@ def phase_accum_and_faults(torch, modules) -> dict:
     return {"lm_accum": by_tpu_kernel(counts)}
 
 
+# --------------------------------------------------------------------- #
+# phase 20: the serving scheduler
+
+
+def sched_requests(np, vocab: int, n: int = 32, seed: int = 20):
+    """Phase 20's requests: prompt lengths in [1, 512], caps in [1, 32];
+    every 4th prompt is a shared 256-token prefix and a tail of 1-256."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, 256)
+    prompts, caps = [], []
+    for i in range(n):
+        if i % 4 == 0:
+            p = np.concatenate([prefix, rng.integers(0, vocab, int(rng.integers(1, 257)))])
+        else:
+            p = rng.integers(0, vocab, int(rng.integers(1, 513)))
+        prompts.append(p.astype(np.int32))
+        caps.append(int(rng.integers(1, 33)))
+    return prompts, caps
+
+
+def serve_trace(submit, prompts, caps, keys, timeout: float = 600.0):
+    """Submit every request at once; returns (results, TTFT ms of each,
+    wall s).  The first token's time is the host's, in ``on_token``."""
+    first, sent, futs = {}, {}, []
+    t0 = time.perf_counter()
+    for i, (p, c, k) in enumerate(zip(prompts, caps, keys)):
+        sent[i] = time.perf_counter()
+        futs.append(submit(p, max_new_tokens=c, key=k,
+                           on_token=lambda tok, i=i: first.setdefault(i, time.perf_counter())))
+    results = [f.result(timeout=timeout) for f in futs]
+    wall = time.perf_counter() - t0
+    return results, [(first[i] - sent[i]) * 1e3 for i in range(len(futs))], wall
+
+
+def batcher_trace(engine, prompts, caps, timeout: float = 600.0):
+    """The batcher's counterpart of :func:`serve_trace`: its first token
+    comes with the whole result, so its TTFT is its latency."""
+    done, sent, futs = {}, {}, []
+    t0 = time.perf_counter()
+    for i, (p, c) in enumerate(zip(prompts, caps)):
+        sent[i] = time.perf_counter()
+        fut = engine.submit(p, max_new_tokens=c)
+        fut.add_done_callback(lambda f, i=i: done.setdefault(i, time.perf_counter()))
+        futs.append(fut)
+    results = [f.result(timeout=timeout) for f in futs]
+    wall = time.perf_counter() - t0
+    return results, [(done[i] - sent[i]) * 1e3 for i in range(len(futs))], wall
+
+
+def sched_on(engine, **kw):
+    """A scheduler over ``engine``'s model with the config's pool; ``kw``
+    overrides (``temperature``, ``async_depth``, ``start``, ...)."""
+    from pytorch_distributed_training_tpu_torch.serving import ContinuousScheduler
+
+    sc = engine.scheduler
+    args = dict(slots=sc.slots_n, block_size=sc._block_size, num_blocks=sc._num_blocks,
+                prefix_cache=sc._prefix_cache, batch_buckets=engine.batch_buckets,
+                seq_buckets=engine.seq_buckets, max_new_tokens=engine.max_new_tokens,
+                temperature=0.0, eos_id=None)
+    args.update(kw)
+    return ContinuousScheduler(engine.model, **args)
+
+
+def tokens_of(results):
+    return [r["tokens"].tolist() for r in results]
+
+
+def trace_readings(what: str, results, ttft, wall, snap, smi: str) -> dict:
+    gen = sum(r["gen_len"] for r in results)
+    row = dict(ttft_ms_p50=statistics.median(ttft),
+               ttft_ms_p99=sorted(ttft)[min(len(ttft) - 1, int(0.99 * len(ttft)))],
+               tokens_per_s=gen / wall, wall_s=wall, generated=gen)
+    for key in ("decode_tokens_per_sec", "prefill_tokens_per_sec", "slot_occupancy_mean",
+                "block_util_mean", "block_util_max", "prefix_hit_rate", "tick_host_ms_p50",
+                "tick_host_ms_mean", "decode_dispatch_gap_ms_p50", "latency_ms_p50",
+                "latency_ms_p99", "batches"):
+        if key in snap:
+            row[key] = snap[key]
+    say(f"  reading {what} ({smi}): " + json.dumps(row))
+    return row
+
+
+def drive_ticks(torch, sched, futs, limit: int = 400):
+    """Tick a hand-driven scheduler until every future is done; the ms of
+    each tick (synchronised), the pool's accounting checked each time."""
+    ticks = []
+    while any(not f.done() for f in futs):
+        t0 = time.perf_counter()
+        sched.tick()
+        torch.cuda.synchronize()
+        ticks.append((time.perf_counter() - t0) * 1e3)
+        sched._kv.check_invariants()
+        if len(ticks) > limit:
+            raise AssertionError("scheduler failed to drain")
+    return ticks
+
+
+def phase_serve_resilience(torch, engine, prompts, caps, keys) -> dict:
+    """Phase 20 (d): 8 requests, all admitted at tick 1, under each fault
+    against the same requests run clean."""
+    from pytorch_distributed_training_tpu_torch.engine import fault
+    from pytorch_distributed_training_tpu_torch.serving import PoisonedRequestError
+    from pytorch_distributed_training_tpu_torch.telemetry.spans import get_recorder
+
+    restart_ms = []
+
+    def run(spec):
+        fault.install(spec)
+        try:
+            sched = sched_on(engine, start=False)
+            rebuild = sched._rebuild_and_requeue
+
+            def timed_rebuild():
+                # the restart's span closes on the host before the card has
+                # zeroed the new pool: read it here with the device work in
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rebuild()
+                torch.cuda.synchronize()
+                restart_ms.append((time.perf_counter() - t0) * 1e3)
+
+            sched._rebuild_and_requeue = timed_rebuild
+            futs = [sched.submit(p, max_new_tokens=c, key=k)
+                    for p, c, k in zip(prompts, caps, keys)]
+            ticks = drive_ticks(torch, sched, futs)
+            sched.close()
+        finally:
+            fault.install(None)
+        # every request released its blocks: what is left is the prefix
+        # cache's alone
+        kv = sched._kv
+        if any(n != 1 for n in kv._ref.values()) or set(kv._ref) != set(kv._cache.values()):
+            raise AssertionError(f"{spec}: blocks held past the run")
+        return sched, futs, ticks
+
+    _, ref_futs, clean_ticks = run(None)
+    ref = [f.result()["tokens"].tolist() for f in ref_futs]
+    out = {}
+    # device loss at tick 5: one restart, every stream replayed to the same tokens
+    sched, futs, ticks = run("serve_device_lost@5")
+    got = [f.result()["tokens"].tolist() for f in futs]
+    snap = sched.metrics.snapshot()
+    if sched._supervisor.restarts() != 1 or got != ref:
+        raise AssertionError(f"serve_device_lost: restarts {sched._supervisor.restarts()}, "
+                             f"streams equal {got == ref}")
+    if snap.get("replay_parity_mismatch", 0):
+        raise AssertionError(f"replay_parity_mismatch {snap['replay_parity_mismatch']}")
+    span_ms = [r["ms"] for r in get_recorder().recent() if r["kind"] == "serving_restart"]
+    out["device_lost"] = dict(restart_ms=restart_ms[-1], restart_host_span_ms=span_ms[-1],
+                              fault_tick_ms=ticks[4], replay_tick_ms=ticks[5],
+                              clean_tick_ms=clean_ticks[4:6],
+                              replayed_tokens=snap["replayed_tokens"])
+    say(f"  (d) serve_device_lost@5: 1 restart, {snap['replayed_tokens']} tokens replayed, "
+        f"streams equal; restart {restart_ms[-1]} ms (synchronised; host span "
+        f"{span_ms[-1]} ms), fault tick {ticks[4]} ms, "
+        f"replay tick {ticks[5]} ms (clean ticks 5-6: {clean_ticks[4:6]} ms)")
+    # NaN in the slot of a request still decoding at tick 4; raise in another
+    long = [i for i, c in enumerate(caps) if c >= 8]
+    for kind, tick, slot in (("serve_nan", 4, long[0]), ("serve_raise", 3, long[-1])):
+        sched, futs, _ = run(f"{kind}@{tick}:{slot}")
+        failed = [i for i, f in enumerate(futs) if f.exception() is not None]
+        if failed != [slot] or not isinstance(futs[slot].exception(), PoisonedRequestError):
+            raise AssertionError(f"{kind}: failed {failed}, want [{slot}]")
+        rest = [(i, f.result()["tokens"].tolist()) for i, f in enumerate(futs) if i != slot]
+        if any(t != ref[i] for i, t in rest) or sched._supervisor.restarts():
+            raise AssertionError(f"{kind}: the other streams differ from the clean run")
+        out[kind] = dict(slot=slot, probes=sched.metrics.snapshot().get("poison_probes", 0))
+        say(f"  (d) {kind}@{tick}:{slot}: only request {slot} failed "
+            f"({type(futs[slot].exception()).__name__}), 7 streams equal the clean run, "
+            f"{out[kind]['probes']} probes")
+    return out
+
+
+def phase_serve_ckpt(torch, np) -> dict:
+    """Phase 20 (e): a port training checkpoint served through
+    ``serving.checkpoint``."""
+    import shutil
+
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg, get_serve_cfg
+    from pytorch_distributed_training_tpu_torch.engine import Runner
+    from pytorch_distributed_training_tpu_torch.engine.checkpoint import Checkpointer
+    from pytorch_distributed_training_tpu_torch.serving import InferenceEngine
+
+    shutil.rmtree(SERVE_CKPT_DIR, ignore_errors=True)
+    cfg = get_cfg(TRAIN_CONFIG)
+    cfg["model"]["depth"] = 2
+    cfg["training"].update(train_iters=2, print_interval=1, val_interval=100,
+                           checkpoint={"dir": SERVE_CKPT_DIR, "interval": 1})
+    cfg["dataset"]["n_samples"] = 2 * cfg["training"]["batch_size"]
+    t0 = time.perf_counter()
+    runner = Runner(num_nodes=1, rank=0, seed=0, dist_url="", multiprocessing=False,
+                    logger_queue=None, global_cfg=cfg, device="cuda")
+    runner()
+    train_s = time.perf_counter() - t0
+    # the runner keeps an EMA on the image task only (as the JAX package's
+    # engine/topology.py:351): the phase writes the EMA of its two steps'
+    # weights (decay 0.9) into a third step, as an image run's payload holds it
+    ck = Checkpointer(SERVE_CKPT_DIR)
+    steps = ck.all_steps()
+    load = [torch.load(os.path.join(SERVE_CKPT_DIR, str(s), "state.pt"), map_location="cpu",
+                       weights_only=True) for s in steps[-2:]]
+    names = [n for n, _ in runner.model.named_parameters()]
+    ema = {n: 0.9 * load[0]["model"][n] + 0.1 * load[1]["model"][n] for n in names}
+    ck.save(steps[-1] + 1, {"iter": steps[-1] + 1, "model": load[1]["model"],
+                            "optimizer": load[1]["optimizer"], "ema": ema})
+    scfg = get_serve_cfg(SCHED_CONFIG)
+    scfg["model"]["depth"] = 2
+    prompts, caps = sched_requests(np, scfg["dataset"]["n_classes"], n=8, seed=21)
+    keys = [(1, i) for i in range(8)]
+    out = []
+    for how in ("checkpoint", "memory"):
+        c = json.loads(json.dumps(scfg))
+        state = None
+        if how == "checkpoint":
+            c["serving"]["checkpoint"] = SERVE_CKPT_DIR
+        else:
+            state = {**load[1]["model"], **ema}
+        with InferenceEngine.from_config(c, state_dict=state) as eng:
+            out.append(tokens_of(serve_trace(eng.submit, prompts, caps, keys)[0]))
+    if out[0] != out[1]:
+        raise AssertionError("serving.checkpoint: greedy tokens differ from the in-memory EMA")
+    raw = {**load[1]["model"]}
+    with InferenceEngine.from_config(json.loads(json.dumps(scfg)), state_dict=raw) as eng:
+        raw_tokens = tokens_of(serve_trace(eng.submit, prompts, caps, keys)[0])
+    size = os.path.getsize(os.path.join(SERVE_CKPT_DIR, str(steps[-1] + 1), "state.pt"))
+    say(f"  (e) trained 2 steps (depth 2) in {train_s:.1f} s, steps {ck.all_steps()}, "
+        f"{size} bytes a step; served from serving.checkpoint (EMA, iter {steps[-1] + 1}): "
+        f"8 greedy streams equal the in-memory EMA engine's; raw weights' streams differ: "
+        f"{out[0] != raw_tokens}")
+    shutil.rmtree(SERVE_CKPT_DIR, ignore_errors=True)
+    return dict(train_s=train_s, bytes=size)
+
+
+def phase_serve_sched(torch, np, modules, fe, smi: str, profile: bool) -> dict:
+    """Phase 20; returns the launch counts of (a)."""
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_serve_cfg
+    from pytorch_distributed_training_tpu_torch.serving import InferenceEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_serve_cfg(SCHED_CONFIG)
+    serve, depth = cfg["serving"], cfg["model"]["depth"]
+    vocab = cfg["dataset"]["n_classes"]
+    # (a) the main path
+    t0 = time.perf_counter()
+    engine = InferenceEngine.from_config(cfg)
+    sc = engine.scheduler
+    pool_bytes = sum(t.numel() * t.element_size() for t in sc._pool.keys + sc._pool.values)
+    say(f"  (a) engine built in {time.perf_counter() - t0:.1f} s on {engine.device}; pool "
+        f"{sc._num_blocks} x {sc._block_size} rows, {pool_bytes / 2**20:.1f} MiB")
+    warm = engine.warmup()
+    say(f"  warmup: {warm['warmup_ms']:.0f} ms over {warm['pairs']:.0f} bucket pairs")
+    prompts, caps = sched_requests(np, vocab)
+    keys = [(serve["seed"], 20, i) for i in range(len(prompts))]
+    for m in modules:
+        m.reset_launch_counts()
+    calls0 = sc.calls()
+    torch.cuda.reset_peak_memory_stats()
+    res, ttft, wall = serve_trace(engine.submit, prompts, caps, keys)
+    counts = all_counts(modules)
+    calls = {k: v - calls0[k] for k, v in sc.calls().items()}
+    snap = engine.snapshot()
+    for r, c in zip(res, caps):
+        t = r["tokens"]
+        if r["gen_len"] != c or t.shape != (c,) or t.min() < 0 or t.max() >= vocab:
+            raise AssertionError(f"request: gen_len {r['gen_len']} (cap {c}), tokens {t}")
+    if not snap["retired"] == snap["admitted"] == len(prompts):
+        raise AssertionError(f"retired {snap['retired']}, admitted {snap['admitted']}")
+    if not snap.get("prefix_hit_blocks"):
+        raise AssertionError("the prefix cache never hit")
+    n_calls = sum(calls.values())
+    want = {k: depth * n_calls for k in fe.KERNELS}
+    check_launches("serving scheduler", counts, want)
+    say(f"  (a) 32 requests: retired = admitted = 32, prefix-hit blocks "
+        f"{snap['prefix_hit_blocks']}; calls {calls}; launches "
+        f"{ {k: counts[k] for k in fe.KERNELS} } = {depth} x {n_calls}; no other kernel; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    readings = {"sync": trace_readings("scheduler sync", res, ttft, wall, snap, smi)}
+    sync_tokens = tokens_of(res)
+
+    # (b) greedy identity with the batcher: depth 2, f32, TF32 off
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    small = []
+    for path in (CONFIG, SCHED_CONFIG):
+        c = get_serve_cfg(path)
+        c["model"]["depth"], c["serving"]["dtype"] = 2, "float32"
+        small.append(c)
+    with InferenceEngine.from_config(small[0]) as eb:
+        with InferenceEngine.from_config(small[1], state_dict=eb.model.state_dict()) as es:
+            b8 = [tokens_of(batcher_trace(eb, prompts[:8], caps[:8])[0]),
+                  tokens_of(serve_trace(es.submit, prompts[:8], caps[:8], keys[:8])[0])]
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    if b8[0] != b8[1]:
+        raise AssertionError("f32 depth 2: the scheduler's greedy tokens differ from the batcher's")
+    with InferenceEngine.from_config(get_serve_cfg(CONFIG),
+                                     state_dict=engine.model.state_dict()) as eb:
+        eb.warmup()
+        bres, blat, bwall = batcher_trace(eb, prompts, caps)
+        bsnap = eb.snapshot()
+    same = sum(a == b for x, y in zip(tokens_of(bres), sync_tokens) for a, b in zip(x, y))
+    share = same / sum(caps)
+    say(f"  (b) f32 depth 2, TF32 off: 8 greedy streams through the batcher and the scheduler "
+        f"identical; bf16 full depth: {same} of {sum(caps)} tokens identical ({share})")
+    readings["batcher"] = trace_readings("batcher (serve-lm-1024.yml, same trace)", bres,
+                                         blat, bwall, bsnap, smi)
+    readings["bf16_identical_share"] = share
+
+    # (c) async against sync, greedy and sampled
+    streams = {}
+    for temp in (0.0, 0.8):
+        for depth_a in (0, 2):
+            if temp == 0.0 and depth_a == 0:
+                streams[(temp, 0)] = sync_tokens
+                continue
+            sched = sched_on(engine, temperature=temp, async_depth=depth_a)
+            r, t, w = serve_trace(sched.submit, prompts, caps, keys)
+            streams[(temp, depth_a)] = tokens_of(r)
+            if temp == 0.0:
+                readings["async2"] = trace_readings("scheduler async_depth 2", r, t, w,
+                                                    sched.metrics.snapshot(), smi)
+            sched.close()
+        if streams[(temp, 0)] != streams[(temp, 2)]:
+            raise AssertionError(f"async_depth 2 differs from sync at temperature {temp}")
+    say("  (c) async_depth 2 against 0 on (a)'s 32 requests: bitwise equal, greedy and sampled")
+
+    # (d) resilience; (e) P7a
+    readings["resilience"] = phase_serve_resilience(torch, engine, prompts[:8], caps[:8],
+                                                    keys[:8])
+    readings["checkpoint"] = phase_serve_ckpt(torch, np)
+    if profile:
+        say("== profile (phase 20: 16 decode ticks, 8 slots, sync and async_depth 2)")
+        for depth_a in (0, 2):
+            sched = sched_on(engine, async_depth=depth_a, start=False)
+            for p, k in zip(prompts[:8], keys[:8]):
+                sched.submit(p, key=k)
+            sched.tick()
+            sched.tick()
+            profile_window(torch, f"decode ticks async_depth {depth_a}",
+                           lambda s=sched: [s.tick() for _ in range(16)], 10)
+            sched.close()
+    engine.close()
+    engine = None
+    torch.cuda.empty_cache()
+    readings["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 20 took {readings['phase_s']:.1f} s")
+    say("serving_sched: " + json.dumps(readings))
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true")
@@ -2482,6 +2865,8 @@ def main(argv=None) -> int:
                         help="phases 1, 2 and 13 to 17 only (no result line)")
     parser.add_argument("--accum-faults", action="store_true",
                         help="phases 1, 2, 18 and 19 only (no result line)")
+    parser.add_argument("--serve", action="store_true",
+                        help="phases 1, 2, 5 and 20 only (no result line)")
     args = parser.parse_args(argv)
 
     import torch
@@ -2532,6 +2917,16 @@ def main(argv=None) -> int:
         return 0
     if args.accum_faults:
         phase_accum_and_faults(torch, modules)
+        say(f"total {time.perf_counter() - t_start:.1f} s")
+        say(smi)
+        return 0
+
+    if args.serve:
+        say("== phase 5: main path (serving batcher, full width)")
+        phase_main_path(torch, fe, np, modules)
+        torch.cuda.empty_cache()
+        say("== phase 20: main path (serving scheduler, full width)")
+        phase_serve_sched(torch, np, modules, fe, smi, args.profile)
         say(f"total {time.perf_counter() - t_start:.1f} s")
         say(smi)
         return 0
@@ -2615,6 +3010,9 @@ def main(argv=None) -> int:
     paths["f32_runner"] = by_tpu_kernel(phase_f32_runner_and_profile(torch, modules, args.profile))
     paths.update(phase_resnet(torch, modules, tf32_defaults, args.profile))
     paths.update(phase_accum_and_faults(torch, modules))
+    say("== phase 20: main path (serving scheduler, full width)")
+    paths["serving_sched"] = by_tpu_kernel(phase_serve_sched(torch, np, modules, fe, smi,
+                                                             args.profile))
 
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "ffma_bound_ms")

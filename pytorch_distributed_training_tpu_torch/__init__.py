@@ -5,8 +5,9 @@ layout and names, imports torch (never JAX, nor anything of the JAX
 package), and replaces each Pallas TPU kernel on a ported path with a
 kernel written by hand for Hopper (``csrc/``, bound in :mod:`.kernels`).
 
-Ported so far: the LM serving batcher path (``python -m
-pytorch_distributed_training_tpu_torch.serving``), LM training at plain
+Ported so far: LM serving, through the batcher or the continuous
+scheduler over the paged KV pool, from random or checkpointed weights
+(``python -m pytorch_distributed_training_tpu_torch.serving``), LM training at plain
 data parallelism and on one card at long context, and ResNet training at
 data parallelism on synthetic images (``python -m
 pytorch_distributed_training_tpu_torch.train_distributed``).  Entry points

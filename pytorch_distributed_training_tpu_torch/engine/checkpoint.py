@@ -1,7 +1,7 @@
 """Checkpoint and resume of the training runner, in the port's own format.
 
 The JAX package checkpoints through orbax (``engine/checkpoint.py``),
-which the port cannot read without JAX (ROADMAP P7).  The port writes its
+which the port cannot read without JAX (ROADMAP P7b).  The port writes its
 own: under ``training.checkpoint.dir``
 
 - ``<step>/state.pt``: one ``torch.save`` payload, the state after
@@ -55,7 +55,7 @@ from ..utils.retry import Retry
 from . import fault
 
 __all__ = ["Checkpointer", "UNPORTED_CHECKPOINT_KEYS", "capture_training_state",
-           "restore_training_state"]
+           "load_serving_state", "restore_training_state"]
 
 # key -> (the value that asks for nothing unported, why it raises)
 UNPORTED_CHECKPOINT_KEYS = {
@@ -117,6 +117,44 @@ def restore_training_state(payload: Dict[str, Any], model, train_step) -> int:
                 t.copy_(by_name[name])
     train_step.opt_state = opt._replace(step=int(saved["step"]))
     return int(payload["iter"])
+
+
+def load_serving_state(directory: str, logger: Optional[logging.Logger] = None):
+    """The newest step's inference weights: ``(state_dict, step)`` (JAX
+    ``:1183``).
+
+    Serving has no optimizer: only the model's ``state_dict`` is kept,
+    read with ``map_location="cpu"``, and when the run kept a weight EMA
+    (``payload["ema"]``) its tensors replace the raw parameters, the
+    weights the runner validates with.  A step directory without the
+    port's ``state.pt`` is an orbax checkpoint of the JAX package, which
+    the port cannot read (``NotImplementedError``, ROADMAP port item P7b).
+    """
+    directory = os.path.abspath(os.path.expanduser(directory))
+    steps = Checkpointer(directory).all_steps()
+    if not steps:
+        raise FileNotFoundError(
+            f"no checkpoint found under {directory} — train with training.checkpoint.dir "
+            "pointing there first, or serve with serving.checkpoint unset (random-init "
+            "smoke mode)")
+    step = steps[-1]
+    path = os.path.join(directory, str(step), _STATE_FILE)
+    if not os.path.exists(path):
+        raise NotImplementedError(
+            f"checkpoint step {step} under {directory} has no {_STATE_FILE}: an orbax "
+            "checkpoint of the JAX package; restoring one is ROADMAP port item P7b")
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    state = dict(payload["model"])
+    if payload.get("ema"):
+        unknown = sorted(set(payload["ema"]) - set(state))
+        if unknown:
+            raise ValueError(f"checkpoint EMA names parameters the model lacks: {unknown[:4]}")
+        state.update(payload["ema"])
+        if logger:
+            logger.info("Serving the EMA params from %s (iter %d)", directory, step)
+    if logger:
+        logger.info("Restored serving params from %s (iter %d)", directory, step)
+    return state, int(step)
 
 
 class Checkpointer:

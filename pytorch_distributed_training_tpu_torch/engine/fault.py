@@ -25,6 +25,21 @@ have yet, so no fault is accepted and then never fired.  Ported:
                        absorb them)
     restore_fail@A[:N] the same for checkpoint-restore attempts
 
+Serving kinds (the step is the continuous scheduler's tick, 1-based;
+:mod:`..serving.scheduler` consults the injector once a tick, JAX
+``:59-80``):
+
+    serve_nan@T[:S]    NaN the key-pool row of the request in slot S
+                       (default 0) at tick T: the finite guard must evict
+                       exactly that request
+    serve_raise@T[:S]  the request in slot S raises from the decode
+                       dispatch at tick T: the poison bisect must isolate it
+    serve_device_lost@T
+                       raise :class:`DeviceLostError` at tick T: the
+                       supervisor must restart and replay every request
+    serve_hang@T[:SEC] sleep SEC (default 1.0) inside tick T: the tick
+                       watchdog must fire and turn it into a restart
+
 The step-keyed kinds are one-shot: consumed when they fire, so a rollback
 that replays step K does not trip them again.  The recovery counters
 (``skipped_steps``, ``rollbacks``, ``ckpt_retries``, ``worker_respawns``,
@@ -45,6 +60,7 @@ from ..telemetry.registry import get_registry, reset_registry
 
 __all__ = [
     "ENV_VAR",
+    "DeviceLostError",
     "FaultInjectionError",
     "FaultInjector",
     "UNPORTED_FAULT_KINDS",
@@ -72,7 +88,6 @@ _POINT_KINDS = {
     "ckpt_async_fail": "ckpt_async_write",
 }
 _P10 = "ROADMAP port item P10 (reliability)"
-_P4 = "ROADMAP port item P4 (continuous scheduler)"
 _P6 = "ROADMAP port item P6 (fleet tier)"
 # kind -> why its recovery path is not in the port yet
 UNPORTED_FAULT_KINDS = {
@@ -80,8 +95,6 @@ UNPORTED_FAULT_KINDS = {
     "sdc_flip": f"the integrity sentinel (engine/integrity.py) is {_P10}",
     "ckpt_corrupt": f"the checkpoint integrity manifest is {_P10}",
     "ckpt_async_fail": f"asynchronous checkpoint writes are {_P10}",
-    **{k: f"the serving supervisor (serving/scheduler.py) is {_P4}"
-       for k in ("serve_nan", "serve_raise", "serve_device_lost", "serve_hang")},
     **{k: f"the router, autoscaler and disaggregation are {_P6}"
        for k in ("replica_down", "replica_hang", "autoscale_hang", "kv_transfer_stall",
                  "kv_transfer_corrupt", "prefill_replica_down")},
@@ -92,6 +105,12 @@ class FaultInjectionError(OSError):
     """An injected I/O failure: an ``OSError``, so it lands in the default
     retry allowlist (:class:`..utils.retry.Retry`) as the transient
     filesystem errors it stands for do."""
+
+
+class DeviceLostError(FaultInjectionError):
+    """Injected stand-in for losing the card mid-dispatch: the serving
+    supervisor takes it (and CUDA's runtime errors) as no one request's
+    fault, so it restarts and replays instead of bisecting."""
 
 
 class FaultInjector:

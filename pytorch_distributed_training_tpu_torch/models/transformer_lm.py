@@ -9,7 +9,14 @@ mirror the flax tree (``block{i}.ln1``, ``block{i}.attn.qkv``, ...; see
 Decode mode is chosen per call, not by cloning: passing a
 :class:`..ops.attention.KVCache` makes a call a prefill (no
 ``decode_pos``) or one decode step (``decode_pos`` [B], one token per row);
-the cache is written in place and returned with the logits.
+the cache is written in place and returned with the logits.  Passing a
+:class:`..ops.attention.PagedKVCache` (:meth:`TransformerLM.new_pool`)
+makes it a paged call (JAX ``:193-200``, ``:220-223``, ``:243-248``):
+``decode_pos`` is then [B, S] per-token global positions (-1: padding; the
+position embedding is read at the position clipped to ``[0, max_len)``)
+and ``block_tables`` [B, T] maps each row's logical blocks to pool blocks,
+so one code path serves cold prefill, prefix-hit chunked prefill and S = 1
+decode.  The parameters are the same in every mode.
 
 ``fused_tails`` runs the residual-add + ln2 pair and fc1's bias + GELU of
 every block as the two hand-written kernels of
@@ -46,7 +53,7 @@ while autograd records: evaluation, prefill and decode run the blocks as
 they are.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-MoE blocks and ``seq_axis`` (P9), the paged cache (P4) and LoRA (P5).
+MoE blocks and ``seq_axis`` (P9) and LoRA (P5).
 """
 from __future__ import annotations
 
@@ -58,7 +65,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-from ..ops.attention import KVCache, MultiHeadAttention
+from ..ops.attention import KVCache, MultiHeadAttention, PagedKVCache
 from ..ops.fused_elementwise import FusedResidualLayerNorm
 from ..ops.layers import Dense, LayerNorm
 from .vit import MLP
@@ -88,8 +95,8 @@ class DecoderBlock(nn.Module):
         self.ln2 = (FusedResidualLayerNorm if fused_tails else LayerNorm)(dim, dtype)
         self.mlp = MLP(dim, int(dim * mlp_ratio), dim, dtype, fused_tails)
 
-    def forward(self, x, cache: Optional[KVCache] = None, layer: int = 0, decode_pos=None):
-        attn_out = self.attn(self.ln1(x), cache, layer, decode_pos)
+    def forward(self, x, cache=None, layer: int = 0, decode_pos=None, block_tables=None):
+        attn_out = self.attn(self.ln1(x), cache, layer, decode_pos, block_tables)
         if self.fused_tails:
             x, y = self.ln2(x, attn_out)
         else:
@@ -128,10 +135,6 @@ class TransformerLM(nn.Module):
             )
         # unknown names raise even with remat off, as in JAX
         self.set_remat(remat, remat_policy)
-        if paged:
-            raise NotImplementedError(
-                "the paged KV cache is ROADMAP port item P4 (continuous scheduler)"
-            )
         if lora_rank > 0:
             raise NotImplementedError("LoRA factors are ROADMAP port item P5")
         if embed_dim % num_heads != 0:
@@ -144,6 +147,8 @@ class TransformerLM(nn.Module):
         self.dtype = dtype
         self.fused_tails = fused_tails
         self.flash = flash
+        # `paged` is the JAX flag, taken for its signature: a PagedKVCache
+        # passed to a call selects the mode, and carries the pool's size
         self.tok_embedding = nn.Parameter(torch.empty(vocab_size, embed_dim))
         self.pos_embedding = nn.Parameter(torch.empty(max_len, embed_dim))
         for i in range(depth):
@@ -208,7 +213,16 @@ class TransformerLM(nn.Module):
             self.embed_dim // self.num_heads, self.dtype, device,
         )
 
-    def trunk(self, tokens, cache: Optional[KVCache] = None, decode_pos=None):
+    def new_pool(self, num_blocks: int, block_size: int, device=None) -> PagedKVCache:
+        """A zeroed paged pool of ``num_blocks`` blocks of ``block_size``
+        rows a layer, in the compute dtype."""
+        device = self.tok_embedding.device if device is None else device
+        return PagedKVCache.zeros(
+            self.depth, num_blocks, block_size, self.num_heads,
+            self.embed_dim // self.num_heads, self.dtype, device,
+        )
+
+    def trunk(self, tokens, cache=None, decode_pos=None, block_tables=None):
         """Embeddings and blocks: the residual stream ``[B, S, E]`` before
         the final LayerNorm and head."""
         b, s = tokens.shape
@@ -216,7 +230,12 @@ class TransformerLM(nn.Module):
         # each row's gradient in a fixed order (indexing's scatter-add on the
         # CPU does not), so a resumed run repeats a straight one bit for bit
         x = F.embedding(tokens, self.tok_embedding).to(self.dtype)
-        if decode_pos is not None:
+        if isinstance(cache, PagedKVCache):
+            if decode_pos is None or block_tables is None:
+                raise ValueError("paged mode needs positions and block_tables")
+            # per-token positions; padding (-1) reads row 0, its output unused
+            pe = self.pos_embedding[decode_pos.clamp(0, self.max_len - 1)]
+        elif decode_pos is not None:
             if cache is None:
                 raise ValueError("decode_pos given without a KV cache")
             # one new token per row at its own position
@@ -233,13 +252,13 @@ class TransformerLM(nn.Module):
             elif recompute:
                 x = checkpoint(block, x, use_reentrant=False)
             else:
-                x = block(x, cache, i, decode_pos)
+                x = block(x, cache, i, decode_pos, block_tables)
         return x
 
     def logits(self, x):
         """Final LayerNorm and the f32 head over stream rows ``x``."""
         return self.head(self.ln(x))
 
-    def forward(self, tokens, cache: Optional[KVCache] = None, decode_pos=None):
-        logits = self.logits(self.trunk(tokens, cache, decode_pos))
+    def forward(self, tokens, cache=None, decode_pos=None, block_tables=None):
+        logits = self.logits(self.trunk(tokens, cache, decode_pos, block_tables))
         return logits if cache is None else (logits, cache)

@@ -8,7 +8,11 @@ Port of ``pytorch_distributed_training_tpu/ops/attention.py``:
 - the flash path (``impl="flash"``): the hand-written kernels of
   :mod:`.flash_attention` (K2a forward, the K2c backward), masked with
   ``-1e30``;
-- one decode step against a contiguous KV cache (:func:`decode_attention`).
+- one decode step against a contiguous KV cache (:func:`decode_attention`);
+- the paged path (:func:`paged_attention`, JAX ``:357-437``): prefill,
+  prefix-hit chunked prefill and single-token decode against a shared
+  block pool (:class:`PagedKVCache`) addressed through block tables, in
+  plain torch as the JAX package's is plain jnp (no Pallas kernel).
 
 Choosing flash: the JAX package runs its kernel when the step is inside
 ``shard_map`` (``ops/attention.py:34-55``), which is where its training
@@ -24,8 +28,7 @@ as the JAX module's (``ops/attention.py:269-275``): checkpoints converted
 from the JAX tree keep their meaning.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ring and Ulysses sequence parallelism (P9), the paged cache (P4),
-LoRA factors (P5).
+item: ring and Ulysses sequence parallelism (P9), LoRA factors (P5).
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ from torch import nn
 from .flash_attention import SUPPORTED_HEAD_DIMS, flash_attention, flash_shapes_ok
 from .layers import Dense
 
-__all__ = ["KVCache", "MultiHeadAttention", "decode_attention", "dot_product_attention"]
+__all__ = ["KVCache", "MultiHeadAttention", "PagedKVCache", "decode_attention",
+           "dot_product_attention", "paged_attention"]
 
 
 def dot_product_attention(q, k, v, causal: bool = False, sm_scale: Optional[float] = None,
@@ -90,6 +94,84 @@ class KVCache:
         )
 
 
+class PagedKVCache:
+    """Per-layer key and value pools ``[num_blocks * block_size + 1, H, hd]``.
+
+    The JAX module's ``k_pool``/``v_pool`` cache variables made explicit,
+    in the compute dtype: block ``t`` of the pool holds rows ``[t * bs,
+    (t + 1) * bs)``, and the host's :class:`..serving.kv_pool.PagedKVPool`
+    decides which request owns which block.  The one row past the end is a
+    sink: torch's scatter has no ``mode="drop"``, so the padding positions
+    of a call (position -1) write there, never into a real row (row 0
+    included).  No block table reaches it, so nothing reads it.  Written in
+    place by every paged call.
+    """
+
+    def __init__(self, keys: List[torch.Tensor], values: List[torch.Tensor], block_size: int,
+                 num_blocks: int):
+        if block_size <= 0 or num_blocks <= 0:
+            raise ValueError(f"paged mode needs kv_block_size/kv_num_blocks > 0, "
+                             f"got {block_size}/{num_blocks}")
+        self.keys = keys
+        self.values = values
+        self.block_size = int(block_size)
+        self.num_blocks = int(num_blocks)
+
+    @property
+    def pool_rows(self) -> int:
+        """Rows that blocks address (the sink row not counted)."""
+        return self.num_blocks * self.block_size
+
+    @classmethod
+    def zeros(cls, depth: int, num_blocks: int, block_size: int, heads: int, head_dim: int,
+              dtype, device) -> "PagedKVCache":
+        pool = cls([], [], block_size, num_blocks)  # checks the size before allocating
+        shape = (num_blocks * block_size + 1, heads, head_dim)
+        pool.keys = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(depth)]
+        pool.values = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(depth)]
+        return pool
+
+
+def paged_attention(q, k, v, k_pool, v_pool, positions, block_tables, block_size: int):
+    """Block-table gather attention against one layer's shared pool.
+
+    ``positions`` [B, S] int64: each token's global position in its request
+    (-1: a padding column).  ``block_tables`` [B, T] int64: the physical
+    block holding logical block ``t`` of row ``b``.  This call's k/v are
+    scattered at their physical rows first (padding to the sink row), then
+    each row's whole logical sequence is gathered back through its table
+    and keys are masked to ``key_pos <= q_pos``.  So one path serves cold
+    prefill, prefix-hit chunked prefill (the suffix reads the shared
+    prefix blocks) and S = 1 decode.  Dead gathered rows (past a row's
+    length, or a padded table entry aliasing block 0) get -inf scores and
+    zeroed values: ``0 * NaN`` would otherwise carry a NaN left in a
+    recycled block into a row that never wrote it.  Scores, softmax and the
+    weighted sum run in f32, as the JAX einsums do.
+    """
+    b, s, heads, head_dim = q.shape
+    sink = k_pool.shape[0] - 1
+    valid = positions >= 0
+    safe = positions.clamp(min=0)
+    blk = torch.gather(block_tables, 1, safe // block_size)  # [B, S]
+    phys = torch.where(valid, blk * block_size + safe % block_size, sink).reshape(-1)
+    k_pool[phys] = k.reshape(b * s, heads, head_dim).to(k_pool.dtype)
+    v_pool[phys] = v.reshape(b * s, heads, head_dim).to(v_pool.dtype)
+    length = block_tables.shape[1] * block_size
+    offs = torch.arange(block_size, device=q.device)
+    rows = ((block_tables * block_size)[:, :, None] + offs).reshape(b, length)
+    ck, cv = k_pool[rows], v_pool[rows]  # [B, L, H, hd], in logical order
+    scale = 1.0 / math.sqrt(head_dim)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), ck.float()) * scale
+    # [B, S, L]; a padding query keeps key 0 live, so its softmax stays finite
+    live = torch.arange(length, device=q.device)[None, None, :] <= safe[:, :, None]
+    logits = logits.masked_fill(~live[:, None], float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    # causal: a key live for any query of the row is live for its last one
+    cv = torch.where(live.any(dim=1)[:, :, None, None], cv.float(), 0.0)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, cv)
+    return out.to(q.dtype)
+
+
 def decode_attention(q, k, v, cached_key, cached_value, decode_pos=None, live_len=None):
     """Prefill or one decode step against a layer's KV cache.
 
@@ -130,7 +212,10 @@ class MultiHeadAttention(nn.Module):
     """QKV-projected multi-head attention (the JAX module's dense paths).
 
     ``flash``: run the cache-less forward through the flash kernels where
-    the sequence length allows (see the module docstring).
+    the sequence length allows (see the module docstring).  ``paged`` is
+    the JAX module's flag, taken for its signature: the mode is chosen per
+    call, by passing a :class:`PagedKVCache` with per-token positions and
+    block tables.
     """
 
     def __init__(self, dim: int, num_heads: int, causal: bool = False, dtype=torch.float32,
@@ -142,10 +227,6 @@ class MultiHeadAttention(nn.Module):
         if seq_axis is not None:
             raise NotImplementedError(
                 "ring/Ulysses sequence parallelism is ROADMAP port item P9"
-            )
-        if paged:
-            raise NotImplementedError(
-                "the paged KV cache is ROADMAP port item P4 (continuous scheduler)"
             )
         if lora_rank > 0:
             raise NotImplementedError("LoRA factors are ROADMAP port item P5")
@@ -159,13 +240,20 @@ class MultiHeadAttention(nn.Module):
         self.qkv = Dense(dim, 3 * dim, dtype)
         self.proj = Dense(dim, dim, dtype)
 
-    def forward(self, x, cache: Optional[KVCache] = None, layer: int = 0, decode_pos=None):
+    def forward(self, x, cache=None, layer: int = 0, decode_pos=None, block_tables=None):
         b, s, dim = x.shape
         head_dim = dim // self.num_heads
         # heads-major: the flat 3*dim output factors as (H, 3, hd)
         qkv = self.qkv(x).reshape(b, s, self.num_heads, 3, head_dim)
         q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
-        if cache is not None:
+        if isinstance(cache, PagedKVCache):
+            if not self.causal:
+                raise ValueError("paged decode requires causal attention")
+            if decode_pos is None or block_tables is None:
+                raise ValueError("paged mode needs positions and block_tables")
+            out = paged_attention(q, k, v, cache.keys[layer], cache.values[layer], decode_pos,
+                                  block_tables, cache.block_size)
+        elif cache is not None:
             if not self.causal:
                 raise ValueError("decode mode requires causal attention")
             out = decode_attention(

@@ -5,7 +5,11 @@
         [--requests 32] [--device cuda|cpu] [--log-dir DIR]
 
 Builds an :class:`.engine.InferenceEngine` from the config on ``--device``
-(default ``cuda``; with no card it fails rather than run on the CPU), fires
+(default ``cuda``; with no card it fails rather than run on the CPU): the
+batcher, or the continuous scheduler over the paged KV pool with
+``serving.scheduler.enabled``
+(``configs/serve-lm-1024-sched.yml``), from ``serving.checkpoint`` when it
+is set.  SIGTERM drains the engine (JAX ``__main__.py:59-63``).  Fires
 ``--requests`` random prompts of lengths within the seq buckets at it,
 waits on every future, and logs p50/p99 latency, queue depth and tokens/s.
 The final line is one JSON object, ``{"serving": snapshot}``, whose
@@ -16,6 +20,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 import sys
 import tempfile
 from functools import partial
@@ -53,11 +58,16 @@ def main(argv=None) -> int:
         partial(get_train_logger, args.log_dir, "serve"), "spawn"
     )
     logger = listener.get_logger()
+    previous = signal.getsignal(signal.SIGTERM)
     try:
         with InferenceEngine.from_config(cfg, device=args.device, logger=logger) as engine:
+            # SIGTERM -> a graceful drain; signal handlers install from the
+            # main thread, so here
+            engine.install_drain_handler()
             logger.info(
-                "engine up on %s: batch_buckets=%s seq_buckets=%s",
+                "engine up on %s: batch_buckets=%s seq_buckets=%s path=%s",
                 engine.device, engine.batch_buckets, engine.seq_buckets,
+                "scheduler" if engine.scheduler is not None else "batcher",
             )
             prompts = _synthetic_prompts(
                 engine.vocab_size, engine.seq_buckets[-1], args.requests, args.seed
@@ -71,6 +81,7 @@ def main(argv=None) -> int:
         print(json.dumps({"serving": snap}))
         return 0
     finally:
+        signal.signal(signal.SIGTERM, previous)
         listener.stop()
 
 

@@ -1,7 +1,10 @@
-"""Autoregressive generation over the TransformerLM KV cache.
+"""Autoregressive generation over the TransformerLM KV caches.
 
-Port of ``build_generate_fn`` of the JAX package's ``serving/decode.py``.
-Two phases, timed apart by the engine:
+Port of the JAX package's ``serving/decode.py``: ``build_generate_fn``
+(the batcher's whole-batch path over a contiguous cache) and
+``build_paged_fns`` (the continuous scheduler's calls over the paged pool).
+
+``build_generate_fn``, two phases, timed apart by the engine:
 
 - ``prefill``: one pass over the right-padded prompt batch fills cache rows
   ``[0, S)`` and samples generated token 0 from each row's logits at its
@@ -15,12 +18,27 @@ Two phases, timed apart by the engine:
   row is done.  Without an ``eos_id`` that is known on the host, so the
   loop never waits on the device for it.
 
-Sampling: greedy ``argmax`` at temperature 0 (first maximum on ties, as
-``jnp.argmax``).  Otherwise each row draws from ``softmax(logits / T)``
-with its own ``torch.Generator``, seeded from the call's seed and the row
-index: a row's stream depends only on its own generator and logits, and
-repeats for a seed.  It cannot match the JAX package's, which folds PRNG
-keys per token.
+``build_paged_fns`` (JAX ``:289-430``): ``prefill``, ``decode_step``,
+``decode_step_fed`` and ``init_pool`` over a
+:class:`..ops.attention.PagedKVCache` that every call writes in place.
+Every input is fixed-width (inactive rows ride along at position -1), and
+each call returns one device tensor ``[2, B]``: the sampled tokens and a
+per-row flag that every logit the row sampled from is finite (the serving
+NaN guard), so the host reads both in one copy.  ``verify`` and
+``copy_rows`` serve only speculative decoding (ROADMAP port item P5).
+
+Sampling, one rule for both paths (:func:`token_seeds`,
+:func:`sample_tokens`): greedy ``argmax`` at temperature 0 (first maximum
+on ties, as ``jnp.argmax``).  Otherwise generated token ``i`` of a request
+whose key is ``k`` (a tuple of non-negative ints) is
+``argmax(logits / T + g)``, ``g`` a Gumbel draw over the vocabulary made by
+a counter-based hash of the 64 bits that ``SeedSequence(k + [i])`` gives
+and of each vocabulary index.  A draw depends only on the key, ``i`` and
+the row's logits, never on the batch it rides in, so the scheduler (rows
+re-batched every step, async or sync, replayed after a restart) repeats
+the whole-batch path.  Row ``r`` of a batcher call with seed ``s`` has key
+``s + [r]``.  The stream cannot equal the JAX package's, which folds PRNG
+keys.
 """
 from __future__ import annotations
 
@@ -31,7 +49,59 @@ import torch
 
 from ..ops.attention import KVCache
 
-__all__ = ["GenerateFn", "build_generate_fn"]
+__all__ = ["GenerateFn", "PagedFns", "build_generate_fn", "build_paged_fns", "sample_tokens",
+           "token_seeds"]
+
+_MASK32 = 0xFFFFFFFF
+
+
+def token_seeds(keys: Sequence[Optional[Sequence[int]]], index: Sequence[int]) -> np.ndarray:
+    """``[B, 2]`` int64: the two 32-bit words of ``SeedSequence(key +
+    [index])`` for each row (zeros for a row whose key is ``None``)."""
+    out = np.zeros((len(keys), 2), np.int64)
+    for r, (key, i) in enumerate(zip(keys, index)):
+        if key is not None:
+            entropy = [int(x) for x in key] + [int(i)]
+            out[r] = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
+    return out
+
+
+def _mul32(x, c: int):
+    """``x * c mod 2^32`` for int64 ``x`` in ``[0, 2^32)`` without int64
+    overflow: the product is taken in two 16-bit halves of ``x``."""
+    lo = (x & 0xFFFF) * c
+    hi = (((x >> 16) * c) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _mix32(x):
+    """A 32-bit integer finaliser (lowbias32): every input bit reaches every
+    output bit."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def gumbel(seeds: torch.Tensor, vocab: int) -> torch.Tensor:
+    """``[B, vocab]`` f32 standard Gumbel draws, a counter-based hash of each
+    row's two seed words (``seeds`` [B, 2] int64) and the vocabulary index;
+    the same numbers on any device up to the rounding of ``log``."""
+    v = torch.arange(vocab, dtype=torch.int64, device=seeds.device)
+    h = _mix32(_mul32(v[None, :], 0x9E3779B1) ^ seeds[:, :1])
+    h = _mix32(h ^ seeds[:, 1:])
+    u = ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))  # in (0, 1)
+    return -torch.log(-torch.log(u))
+
+
+def sample_tokens(logits: torch.Tensor, temperature: float,
+                  seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[B]`` int64: greedy ``argmax`` at temperature 0 (first maximum),
+    else the Gumbel-max draw of each row with its seed words."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    return torch.argmax(logits.float() / temperature + gumbel(seeds, logits.shape[-1]), dim=-1)
 
 
 class _Carry(NamedTuple):
@@ -40,7 +110,7 @@ class _Carry(NamedTuple):
     out: torch.Tensor  # [B, max_new] generated tokens, 0 past gen_len
     done: torch.Tensor  # [B] bool
     gen_len: torch.Tensor  # [B]
-    generators: Optional[List[torch.Generator]]
+    keys: Optional[List[List[int]]]  # each row's sampling key; None when greedy
 
 
 class GenerateFn:
@@ -62,24 +132,17 @@ class GenerateFn:
     def device(self) -> torch.device:
         return self.model.tok_embedding.device
 
-    def _generators(self, seed, batch: int) -> Optional[List[torch.Generator]]:
+    def _row_keys(self, seed, batch: int) -> Optional[List[List[int]]]:
         if self.temperature == 0.0:
             return None
         entropy = [int(s) for s in np.atleast_1d(seed)]
-        gens = []
-        for row in range(batch):
-            state = np.random.SeedSequence(entropy + [row]).generate_state(1, np.uint64)[0]
-            gens.append(torch.Generator(device=self.device).manual_seed(int(state)))
-        return gens
+        return [entropy + [row] for row in range(batch)]
 
-    def _sample(self, logits, generators):
-        if generators is None:
-            return torch.argmax(logits, dim=-1)
-        probs = torch.softmax(logits.float() / self.temperature, dim=-1)
-        return torch.cat([
-            torch.multinomial(probs[r], 1, generator=g)
-            for r, g in enumerate(generators)
-        ])
+    def _sample(self, logits, keys, index: int):
+        seeds = None
+        if keys is not None:
+            seeds = torch.from_numpy(token_seeds(keys, [index] * len(keys))).to(self.device)
+        return sample_tokens(logits, self.temperature, seeds)
 
     def _hit_eos(self, tok):
         if self.eos_id is None:
@@ -101,16 +164,16 @@ class GenerateFn:
         cache = self.model.new_cache(b, dev)
         x = self.model.trunk(tok_d, cache)
         last = self.model.logits(x[torch.arange(b, device=dev), plen - 1])  # [B, V]
-        generators = self._generators(seed, b)
-        tok = self._sample(last, generators)
+        keys = self._row_keys(seed, b)
+        tok = self._sample(last, keys, 0)
         out = torch.zeros((b, self.max_new_tokens), dtype=torch.long, device=dev)
         out[:, 0] = tok
         gen_len = torch.ones((b,), dtype=torch.long, device=dev)
-        return _Carry(cache, tok, out, self._hit_eos(tok), gen_len, generators)
+        return _Carry(cache, tok, out, self._hit_eos(tok), gen_len, keys)
 
     @torch.inference_mode()
     def decode(self, prompt_len, carry: _Carry):
-        cache, prev, out, done, gen_len, generators = carry
+        cache, prev, out, done, gen_len, keys = carry
         max_len = self.model.max_len
         plen_host = np.asarray(prompt_len, dtype=np.int64)
         plen = torch.as_tensor(plen_host, device=self.device)
@@ -126,7 +189,7 @@ class GenerateFn:
             step_pos = torch.clamp(pos, max=max_len - 1)
             cache.live_len = min(int(plen_host.max()) + i - 1, max_len - 1) + 1
             logits, cache = self.model(prev[:, None], cache, step_pos)
-            tok = self._sample(logits[:, 0], generators)
+            tok = self._sample(logits[:, 0], keys, i)
             out[:, i] = torch.where(done, torch.zeros_like(tok), tok)
             gen_len += (~done).long()
             done = done | self._hit_eos(tok) | (pos + 1 >= max_len)
@@ -149,3 +212,105 @@ def build_generate_fn(model, max_new_tokens: int, temperature: float = 0.0,
     if temperature < 0.0:
         raise ValueError(f"temperature must be >= 0, got {temperature}")
     return GenerateFn(model, max_new_tokens, float(temperature), eos_id)
+
+
+class PagedFns:
+    """The paged calls of the continuous scheduler (JAX ``_PagedFns``).
+
+    ``prefill(pool, tokens, positions, block_tables, last_col, keys,
+    gen_index)``: scatter the suffix K/V into ``pool`` and sample each
+    row's token ``gen_index[r]`` from the logits at column ``last_col[r]``
+    (only that column goes through the final LayerNorm and the head).
+    ``decode_step(pool, prev_tok, pos, block_tables, keys, gen_index)``:
+    one single-token step for every slot.  ``decode_step_fed(pool,
+    prev_tok, fresh_mask, fresh_tok, pos, block_tables, keys, gen_index)``:
+    the async pipeline's twin; ``prev_tok`` is the previous step's token
+    row on the device, and the rows the host knows better are spliced in
+    with ``where(fresh_mask, fresh_tok, prev_tok)``.  Host inputs are numpy
+    arrays (``keys``: one key or ``None`` a row), packed into one host
+    array and copied to the device in one non-blocking copy, so a call
+    never waits for the device.  Each returns ``[2, B]`` int64 on the
+    device: tokens, then the finite flags (only active rows' flags mean
+    anything: padding rows read stale rows).  ``init_pool()``: the zeroed
+    pool.  ``calls`` counts the calls of each kind (the port has no
+    compile count).
+    """
+
+    def __init__(self, model, block_size: int, num_blocks: int, temperature: float):
+        self.model = model
+        self.block_size = int(block_size)
+        self.num_blocks = int(num_blocks)
+        self.temperature = float(temperature)
+        self.calls = {"prefill": 0, "decode_step": 0, "decode_step_fed": 0}
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.tok_embedding.device
+
+    def init_pool(self):
+        return self.model.new_pool(self.num_blocks, self.block_size)
+
+    def _upload(self, *arrays):
+        """One host-to-device copy of int64 ``arrays``; views of each."""
+        flat = np.concatenate([np.asarray(a, np.int64).reshape(-1) for a in arrays])
+        dev = torch.from_numpy(flat).to(self.device, non_blocking=True)
+        out, at = [], 0
+        for a in arrays:
+            n = int(np.prod(np.shape(a)))
+            out.append(dev[at:at + n].view(np.shape(a)))
+            at += n
+        return out
+
+    def _seeds(self, keys, gen_index):
+        if self.temperature == 0.0:
+            return np.zeros((len(keys), 2), np.int64)
+        return token_seeds(keys, gen_index)
+
+    def _sample(self, logits, seeds):
+        tok = sample_tokens(logits, self.temperature, seeds)
+        return torch.stack([tok, torch.isfinite(logits).all(dim=-1).long()])
+
+    @torch.inference_mode()
+    def prefill(self, pool, tokens, positions, block_tables, last_col, keys, gen_index):
+        self.calls["prefill"] += 1
+        tok, pos, tables, last, seeds = self._upload(
+            tokens, positions, block_tables, last_col, self._seeds(keys, gen_index))
+        x = self.model.trunk(tok, pool, pos, tables)
+        rows = torch.arange(x.shape[0], device=x.device)
+        return self._sample(self.model.logits(x[rows, last]), seeds)
+
+    def _step(self, pool, prev, pos, tables, seeds):
+        x = self.model.trunk(prev[:, None], pool, pos[:, None], tables)
+        return self._sample(self.model.logits(x[:, 0]), seeds)
+
+    @torch.inference_mode()
+    def decode_step(self, pool, prev_tok, pos, block_tables, keys, gen_index):
+        self.calls["decode_step"] += 1
+        prev, pos, tables, seeds = self._upload(
+            prev_tok, pos, block_tables, self._seeds(keys, gen_index))
+        return self._step(pool, prev, pos, tables, seeds)
+
+    @torch.inference_mode()
+    def decode_step_fed(self, pool, prev_tok, fresh_mask, fresh_tok, pos, block_tables, keys,
+                        gen_index):
+        self.calls["decode_step_fed"] += 1
+        mask, fresh, pos, tables, seeds = self._upload(
+            fresh_mask, fresh_tok, pos, block_tables, self._seeds(keys, gen_index))
+        prev = torch.where(mask.bool(), fresh, prev_tok)
+        return self._step(pool, prev, pos, tables, seeds)
+
+
+def build_paged_fns(model, block_size: int, num_blocks: int,
+                    temperature: float = 0.0) -> PagedFns:
+    """The paged call set over a pool of ``num_blocks`` x ``block_size``
+    rows a layer.  Shapes are the scheduler's contract: ``tokens`` and
+    ``positions`` [B, S] (global positions, -1 padding), ``block_tables``
+    [B, T] covering each row's whole reserved footprint, ``last_col``,
+    ``gen_index`` [B].  No ``eos_id``: the host stops requests, as in JAX."""
+    if block_size < 1:
+        raise ValueError(f"block_size must be >= 1, got {block_size}")
+    if num_blocks < 1:
+        raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
+    if temperature < 0.0:
+        raise ValueError(f"temperature must be >= 0, got {temperature}")
+    return PagedFns(model, block_size, num_blocks, temperature)

@@ -1,10 +1,23 @@
-"""InferenceEngine: a TransformerLM served through a dynamic batcher.
+"""InferenceEngine: a TransformerLM served by a batcher or a continuous
+scheduler.
 
-Port of the JAX package's ``serving/engine.py``, LM batcher path: build the
-model from a ``serve-*.yml`` config's ``model:`` section, put its weights
-on the device once, and serve requests through :class:`.batcher.DynamicBatcher`.
-Every batch is padded UP to a (batch bucket, seq bucket) pair, so the set
-of shapes the device sees is the bucket grid whatever the traffic.
+Port of the JAX package's ``serving/engine.py``, LM paths: build the
+model from a ``serve-*.yml`` config's ``model:`` section, its weights from
+``serving.checkpoint`` (the port's own training checkpoint,
+:func:`..engine.checkpoint.load_serving_state`; EMA weights when the run
+kept them) or random from ``serving.seed``, put them on the device once,
+and serve requests through :class:`.batcher.DynamicBatcher` or, with
+``serving.scheduler.enabled``, through
+:class:`.scheduler.ContinuousScheduler` over the paged KV pool (JAX
+``:141``, ``:213-266``).  Every device call is padded UP to a (batch
+bucket, seq bucket) pair, so the set of shapes the device sees is the
+bucket grid whatever the traffic.
+
+``serving.scheduler``: ``enabled``, ``slots``, ``block_size``,
+``num_blocks``, ``prefix_cache``, ``async_depth``.  ``serving.resilience``
+(the scheduler's supervisor; it requires the scheduler, JAX
+``:268-274``): ``max_restarts``, ``poison_bisect``, ``drain_deadline_ms``,
+``watchdog``.  Unknown keys raise.
 
 Compute runs in ``serving.dtype`` (bf16 by default) with f32 logits.  The
 Dense weights are rounded to the compute dtype once at build
@@ -16,12 +29,14 @@ reports instead how often each hand-written kernel launched
 (``launches_<kernel>``).
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``serving.checkpoint`` (P7), ``scheduler`` and ``resilience`` (P4),
-``quant``, ``lora`` and ``speculative`` (P5), classification models (P8).
+item: ``quant``, ``lora`` and ``speculative`` (P5), orbax checkpoints of
+the JAX package (P7b), classification models (P8).
 """
 from __future__ import annotations
 
 import logging
+import signal
+import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -29,43 +44,40 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..engine.checkpoint import load_serving_state
 from ..models import get_model
 from ..ops import fused_elementwise
 from .batcher import DynamicBatcher, Request
 from .decode import build_generate_fn
 from .metrics import ServingMetrics
+from .scheduler import ContinuousScheduler
 
 __all__ = ["InferenceEngine"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 _NOT_YET = {
-    "checkpoint": "restoring a checkpoint is ROADMAP port item P7",
-    "scheduler": "the continuous scheduler is ROADMAP port item P4",
-    "resilience": "serving resilience (a scheduler feature) is ROADMAP port item P4",
     "quant": "int8 decode is ROADMAP port item P5",
     "lora": "multi-LoRA serving is ROADMAP port item P5",
     "speculative": "speculative decoding is ROADMAP port item P5",
 }
 
 
+_SCHEDULER_KEYS = ("enabled", "slots", "block_size", "num_blocks", "prefix_cache",
+                   "async_depth")
+
+
 def _reject_unported(serve: Dict[str, Any]) -> None:
     """Raise for a ``serving`` key that asks for an unported feature.  As in
-    the JAX engine, a mode block counts only with ``enabled: true``; a
-    checkpoint path or a resilience block always asks."""
+    the JAX engine, a mode block counts only with ``enabled: true``."""
     for key, why in _NOT_YET.items():
-        val = serve.get(key)
-        if key in ("checkpoint", "resilience"):
-            wanted = bool(val)
-        else:
-            wanted = bool((val or {}).get("enabled", False))
-        if wanted:
+        if bool((serve.get(key) or {}).get("enabled", False)):
             raise NotImplementedError(f"serving.{key}: {why}")
 
 
 class InferenceEngine:
     """Serve a :class:`..models.transformer_lm.TransformerLM` through a
-    dynamic batcher.
+    dynamic batcher, or a continuous scheduler (``scheduler``).
 
     ``submit(prompt)`` takes a 1-D int token prompt and returns a future
     resolving to ``{"tokens": int32 [gen_len], "gen_len": int}``.
@@ -90,6 +102,8 @@ class InferenceEngine:
         temperature: float = 0.0,
         eos_id: Optional[int] = None,
         seed: int = 0,
+        scheduler: Optional[Dict[str, Any]] = None,
+        resilience: Optional[Dict[str, Any]] = None,
         logger: Optional[logging.Logger] = None,
     ):
         self.device = resolve_device(device)
@@ -111,21 +125,55 @@ class InferenceEngine:
                 f"largest seq bucket {self.seq_buckets[-1]} + max_new_tokens "
                 f"{self.max_new_tokens} = {worst} exceeds model max_len {model.max_len}"
             )
+        sched_cfg = dict(scheduler or {})
+        unknown = sorted(set(sched_cfg) - set(_SCHEDULER_KEYS))
+        if unknown:
+            raise ValueError(f"unknown serving.scheduler keys: {unknown}")
+        use_sched = bool(sched_cfg.get("enabled", False))
+        if resilience is not None and not use_sched:
+            raise ValueError(
+                "serving.resilience requires serving.scheduler.enabled: the batcher path "
+                "has no supervisor (poison bisect, hot restart and replay all live in the "
+                "continuous scheduler)"
+            )
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).cast_matmul_weights_().eval()
-        self._generate = build_generate_fn(
-            self.model, self.max_new_tokens, temperature=temperature, eos_id=eos_id
-        )
         self.seed = int(seed)
         self._batch_counter = 0  # flush thread only
         self.metrics = ServingMetrics()
-        self.batcher = DynamicBatcher(
-            self._run_batch, max_batch_size, max_delay_ms,
-            deadline_ms=deadline_ms, max_backlog=max_backlog,
-            on_timeout=lambda: self.metrics.incr("timeouts"),
-            on_shed=lambda: self.metrics.incr("sheds"),
-        )
+        self.scheduler: Optional[ContinuousScheduler] = None
+        self.batcher: Optional[DynamicBatcher] = None
+        if use_sched:
+            self.scheduler = ContinuousScheduler(
+                self.model,
+                slots=int(sched_cfg.get("slots", 8)),
+                block_size=int(sched_cfg.get("block_size", 16)),
+                num_blocks=int(sched_cfg.get("num_blocks", 64)),
+                prefix_cache=bool(sched_cfg.get("prefix_cache", True)),
+                batch_buckets=self.batch_buckets,
+                seq_buckets=self.seq_buckets,
+                max_new_tokens=self.max_new_tokens,
+                temperature=temperature,
+                eos_id=eos_id,
+                deadline_ms=deadline_ms,
+                max_backlog=max_backlog,
+                metrics=self.metrics,
+                seed=self.seed,
+                resilience=resilience,
+                async_depth=int(sched_cfg.get("async_depth", 0)),
+                logger=self.logger,
+            )
+        else:
+            self._generate = build_generate_fn(
+                self.model, self.max_new_tokens, temperature=temperature, eos_id=eos_id
+            )
+            self.batcher = DynamicBatcher(
+                self._run_batch, max_batch_size, max_delay_ms,
+                deadline_ms=deadline_ms, max_backlog=max_backlog,
+                on_timeout=lambda: self.metrics.incr("timeouts"),
+                on_shed=lambda: self.metrics.incr("sheds"),
+            )
 
     # ------------------------------------------------------------------ #
 
@@ -135,10 +183,10 @@ class InferenceEngine:
         """Build from a ``serve-*.yml`` config on ``device`` (default
         ``cuda``; raises ``RuntimeError`` when no card is present).
 
-        Without ``state_dict`` (and without ``serving.checkpoint``, which is
-        not ported yet) the weights are random, drawn with flax's
-        initializers' distributions from ``torch.Generator`` seeded with
-        ``serving.seed``.
+        The weights: ``state_dict`` when given, else ``serving.checkpoint``
+        (the newest step of a port training checkpoint, its EMA weights
+        when it kept them), else random, drawn with flax's initializers'
+        distributions from ``torch.Generator`` seeded with ``serving.seed``.
         """
         device = resolve_device(device)
         logger = logger or logging.getLogger(__name__)
@@ -160,7 +208,11 @@ class InferenceEngine:
             model_name, num_classes=cfg["dataset"]["n_classes"],
             dtype=_DTYPES[dtype_name], **model_cfg,
         )
-        if state_dict is None:
+        ckpt_dir = serve.get("checkpoint")
+        if state_dict is None and ckpt_dir:
+            state_dict, step = load_serving_state(ckpt_dir, logger)
+            logger.info("Serving %s from checkpoint iter %d", model_name, step)
+        elif state_dict is None:
             logger.warning(
                 "serving.checkpoint not set: serving RANDOM-INIT %s weights "
                 "(smoke/bench mode only)", model_name,
@@ -185,18 +237,22 @@ class InferenceEngine:
             temperature=float(serve.get("temperature", 0.0)),
             eos_id=serve.get("eos_id"),
             seed=seed,
+            scheduler=serve.get("scheduler"),
+            resilience=serve.get("resilience"),
             logger=logger,
         )
 
     # ------------------------------------------------------------------ #
 
     def submit(self, payload, deadline_ms: Optional[float] = None,
-               max_new_tokens: Optional[int] = None):
+               max_new_tokens: Optional[int] = None, on_token=None, key=None):
         """Validate + enqueue one prompt; returns its result future.
 
         ``max_new_tokens`` caps this request below ``serving.max_new_tokens``
-        (the result is truncated host-side; the batch still pays the full
-        decode).
+        (on the batcher path the result is truncated host-side and the
+        batch still pays the full decode; the scheduler retires the slot at
+        the cap).  ``on_token`` (stream each token) and ``key`` (the
+        request's sampling key) need the scheduler.
         """
         prompt = np.asarray(payload)
         if prompt.ndim != 1 or prompt.size < 1:
@@ -216,16 +272,29 @@ class InferenceEngine:
             raise ValueError(
                 f"max_new_tokens must be in [1, {self.max_new_tokens}], got {max_new_tokens}"
             )
+        if self.scheduler is not None:
+            return self.scheduler.submit(prompt, deadline_ms=deadline_ms,
+                                         max_new_tokens=max_new_tokens, on_token=on_token,
+                                         key=key)
+        if on_token is not None or key is not None:
+            raise ValueError(
+                "on_token / per-request key require serving.scheduler.enabled (the batcher "
+                "path samples whole batches and resolves futures only at the end)"
+            )
         return self.batcher.submit(
             prompt.astype(np.int32), deadline_ms=deadline_ms,
             max_new=(int(max_new_tokens) if max_new_tokens else None),
         )
 
     def depth(self) -> int:
+        if self.scheduler is not None:
+            return self.scheduler.depth()
         return self.batcher.depth()
 
     def health(self) -> Dict[str, Any]:
         """Readiness/liveness snapshot for orchestration probes."""
+        if self.scheduler is not None:
+            return self.scheduler.health()
         return {"ready": True, "live": True, "queue_depth": self.batcher.depth()}
 
     def kernel_launches(self) -> Dict[str, int]:
@@ -240,36 +309,83 @@ class InferenceEngine:
         return snap
 
     def warmup(self) -> Dict[str, float]:
-        """Run one prefill + decode through every (batch, seq) bucket pair.
+        """Run one prefill through every (batch, seq) bucket pair and the
+        decode calls.
 
         Nothing is compiled per shape here, but the first calls still pay
         one-time costs (the kernels' build and load, the CUDA libraries'
         handles and workspaces) that would otherwise land in the first
-        requests' latency.  Returns ``{"warmup_ms", "pairs"}``.
+        requests' latency.  On the scheduler's path every position is -1,
+        so every write goes to the pool's sink row and the live pool is
+        untouched.  Returns ``{"warmup_ms", "pairs"}``.
         """
         t0 = time.perf_counter()
         pairs = 0
         for bb in self.batch_buckets:
             for sb in self.seq_buckets:
-                self._generate(
-                    np.zeros((bb, sb), np.int32), np.ones((bb,), np.int32), seed=0
-                )
+                if self.scheduler is not None:
+                    self._warmup_prefill(bb, sb)
+                else:
+                    self._generate(
+                        np.zeros((bb, sb), np.int32), np.ones((bb,), np.int32), seed=0
+                    )
                 pairs += 1
+        if self.scheduler is not None:
+            self._warmup_decode()
         ms = (time.perf_counter() - t0) * 1000.0
         self.metrics.set_gauge("warmup_ms", ms)
         self.logger.info("engine warmup: %d bucket pair(s) in %.0f ms", pairs, ms)
         return {"warmup_ms": ms, "pairs": float(pairs)}
 
-    def drain(self) -> float:
-        """Stop admitting, finish what is queued, close.  Returns wall ms.
-        The batcher path has no admission gate beyond ``close()``'s
-        synchronous flush, so drain is close, timed."""
+    def _warmup_prefill(self, bb: int, sb: int) -> None:
+        sched = self.scheduler
+        out = sched._fns.prefill(
+            sched._pool, np.zeros((bb, sb), np.int64), np.full((bb, sb), -1, np.int64),
+            np.zeros((bb, sched.table_blocks), np.int64), np.zeros((bb,), np.int64),
+            [None] * bb, np.zeros((bb,), np.int64))
+        out.cpu()
+
+    def _warmup_decode(self) -> None:
+        sched = self.scheduler
+        w, t = sched.slots_n, sched.table_blocks
+        args = (np.full((w,), -1, np.int64), np.zeros((w, t), np.int64), [None] * w,
+                np.zeros((w,), np.int64))
+        sched._fns.decode_step(sched._pool, np.zeros((w,), np.int64), *args).cpu()
+        if sched._async_depth:
+            sched._fns.decode_step_fed(sched._pool, sched._zero_carry(),
+                                       np.zeros((w,), np.int64), np.zeros((w,), np.int64),
+                                       *args).cpu()
+
+    def drain(self, deadline_ms: Optional[float] = None) -> float:
+        """Stop admitting, finish what is queued and in flight, close.
+        Returns wall ms.  On the scheduler path the drain is bounded by
+        ``deadline_ms`` (default ``serving.resilience.drain_deadline_ms``);
+        the batcher path has no admission gate beyond ``close()``'s
+        synchronous flush, so there drain is close, timed."""
+        if self.scheduler is not None:
+            return self.scheduler.drain(deadline_ms)
         t0 = time.monotonic()
         self.batcher.close()
         return (time.monotonic() - t0) * 1000.0
 
+    def install_drain_handler(self, signum=None) -> None:
+        """Route SIGTERM (or ``signum``) to a graceful :meth:`drain` (JAX
+        ``:645``).  The handler only starts a daemon thread: a drain joins
+        the scheduler thread, which a signal handler must not do inline.
+        Call from the main thread, as ``signal.signal`` requires."""
+        signum = signal.SIGTERM if signum is None else signum
+
+        def _handler(sig, frame):
+            self.logger.warning("signal %s received - draining serving engine", sig)
+            threading.Thread(target=self.drain, name="serving-drain", daemon=True).start()
+
+        signal.signal(signum, _handler)
+
     def close(self) -> None:
-        self.batcher.close()
+        if self.scheduler is not None:
+            self.scheduler.close()
+        else:
+            self.batcher.close()
 
     def __enter__(self):
         return self

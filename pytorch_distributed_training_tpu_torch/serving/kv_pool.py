@@ -1,0 +1,327 @@
+"""Paged KV-cache pool: block allocator, prefix cache, admission control.
+
+The port's own copy of the JAX package's ``serving/kv_pool.py`` (host
+bookkeeping only, standard library): the device memory is one pool of
+``num_blocks`` blocks of ``block_size`` token rows per layer
+(:class:`..ops.attention.PagedKVCache`), and each in-flight request owns a
+list of physical block ids covering its prompt plus its whole generation
+budget (the vLLM construction, Kwon et al. SOSP'23), so the
+iteration-level scheduler (:mod:`.scheduler`) keeps admitting requests
+while long generations run.
+
+Admission control instead of OOM: :meth:`PagedKVPool.admit` reserves a
+request's whole worst-case footprint (``ceil((prompt + max_new) /
+block_size)`` blocks, less prefix-cache reuse) up front and returns
+``None`` when the pool cannot cover it: the request waits in the queue,
+the pool never over-commits and a running request is never killed for
+memory.
+
+Prefix caching: a finished prefill registers its full prompt blocks under
+a chained key of their exact token contents (seeded by ``namespace``), so
+a later request whose prompt shares a block-aligned prefix reuses those
+blocks without recomputing them (refcounted; shared blocks are read-only
+because the paged attention's scatter covers only suffix positions).  The
+last prompt token is always recomputed (its logits give the first token),
+so reuse is capped at ``(prompt_len - 1) // block_size`` blocks.  Cache
+entries hold their own reference; when the allocator runs dry, the least
+recently used entries whose only holder is the cache are evicted.
+
+No locks: all mutation happens on the scheduler's one loop thread.
+Counters (admitted, prefix hits, evictions) are the scheduler's.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import List, Optional, Sequence, Tuple
+
+__all__ = ["Admission", "BlockAllocator", "PagedKVPool"]
+
+
+class BlockAllocator:
+    """Free-list allocator over ``num_blocks`` physical block ids."""
+
+    def __init__(self, num_blocks: int, block_size: int):
+        if num_blocks < 1:
+            raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        # LIFO recycling: recently-freed blocks are re-issued first, which
+        # keeps the working set of pool rows small
+        self._free: List[int] = list(range(self.num_blocks - 1, -1, -1))
+        self._allocated: set = set()
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """``n`` block ids, or ``None`` when the free list cannot cover it
+        (all-or-nothing: a partial grant could deadlock two waiters)."""
+        if n < 0:
+            raise ValueError(f"alloc count must be >= 0, got {n}")
+        if n > len(self._free):
+            return None
+        out = [self._free.pop() for _ in range(n)]
+        self._allocated.update(out)
+        return out
+
+    def free(self, block_ids: Sequence[int]) -> None:
+        for b in block_ids:
+            if b not in self._allocated:
+                raise ValueError(f"double free of block {b}")
+            self._allocated.discard(b)
+            self._free.append(b)
+
+
+class Admission:
+    """One admitted request's block reservation.
+
+    ``block_ids`` covers the whole worst-case sequence in logical order;
+    the first ``n_shared`` entries are refcounted prefix-cache blocks
+    (read-only), holding positions ``[0, cached_len)``.
+    """
+
+    __slots__ = ("block_ids", "n_shared", "cached_len")
+
+    def __init__(self, block_ids: List[int], n_shared: int, block_size: int):
+        self.block_ids = block_ids
+        self.n_shared = n_shared
+        self.cached_len = n_shared * block_size
+
+
+class PagedKVPool:
+    """Allocator + refcounts + prefix cache over one block pool."""
+
+    def __init__(
+        self, num_blocks: int, block_size: int, prefix_cache: bool = True
+    ):
+        self._alloc = BlockAllocator(num_blocks, block_size)
+        self.prefix_cache = bool(prefix_cache)
+        self._ref: dict = {}  # block id -> holders (requests + cache)
+        # chained-content key -> block id, in LRU order (see _chain_keys)
+        self._cache: "OrderedDict[tuple, int]" = OrderedDict()
+        self.prefix_evictions = 0
+
+    @property
+    def num_blocks(self) -> int:
+        return self._alloc.num_blocks
+
+    @property
+    def block_size(self) -> int:
+        return self._alloc.block_size
+
+    @property
+    def blocks_in_use(self) -> int:
+        return self._alloc.num_blocks - self._alloc.num_free
+
+    def blocks_needed(self, prompt_len: int, max_new: int) -> int:
+        bs = self.block_size
+        return -(-(prompt_len + max_new) // bs)
+
+    # ------------------------------------------------------------------ #
+
+    def _chain_keys(self, prompt: Sequence[int], namespace=None):
+        """(key, block_index) for each reusable FULL prompt block: the key
+        chains the exact token contents of every block up to this one, so
+        equal keys imply bitwise-equal cached K/V.  Capped below the last
+        prompt token — its logits must always be recomputed.
+
+        ``namespace`` seeds the chain: two requests share cached blocks
+        only when BOTH their namespace and their token prefix match.  The
+        multi-LoRA scheduler (ROADMAP port item P5) passes the adapter id here — identical
+        prompts under different adapters produce different K/V (the
+        adapter delta feeds the qkv projection), so cross-tenant reuse
+        would be silent corruption, not a cache hit."""
+        bs = self.block_size
+        key: tuple = (namespace,)
+        for i in range((len(prompt) - 1) // bs):
+            key = (key, tuple(int(t) for t in prompt[i * bs : (i + 1) * bs]))
+            yield key, i
+
+    def lookup_prefix(
+        self, prompt: Sequence[int], namespace=None
+    ) -> List[int]:
+        """Longest cached chain of full prompt blocks (no refs taken)."""
+        if not self.prefix_cache:
+            return []
+        out: List[int] = []
+        for key, _ in self._chain_keys(prompt, namespace):
+            blk = self._cache.get(key)
+            if blk is None:
+                break
+            self._cache.move_to_end(key)
+            out.append(blk)
+        return out
+
+    def admit(
+        self,
+        prompt: Sequence[int],
+        max_new: int,
+        namespace=None,
+        extra_blocks: int = 0,
+    ) -> Optional[Admission]:
+        """Reserve the request's full footprint; ``None`` = wait.
+
+        The shared prefix (if any) is refcounted rather than copied; the
+        remaining blocks come from the free list, evicting LRU prefix-cache
+        entries if that is what it takes.  A request whose footprint
+        exceeds the whole pool raises — waiting would never help.
+
+        ``extra_blocks`` private scratch blocks are appended after the
+        footprint (the speculative fork's spare block rides here so its
+        lifetime and refcount accounting are the admission's own).
+        """
+        if extra_blocks < 0:
+            raise ValueError(f"extra_blocks must be >= 0, got {extra_blocks}")
+        total = self.blocks_needed(len(prompt), max_new) + extra_blocks
+        if total > self.num_blocks:
+            raise ValueError(
+                f"request needs {total} blocks but the pool only has "
+                f"{self.num_blocks} (prompt {len(prompt)} + max_new "
+                f"{max_new} @ block_size {self.block_size})"
+            )
+        shared = self.lookup_prefix(prompt, namespace)
+        fresh = self._alloc_with_evict(total - len(shared))
+        if fresh is None:
+            return None
+        if any(b not in self._ref for b in shared):
+            # the LRU sweep reclaimed a block of the chain just looked up
+            # (the JAX module raises KeyError here): give the fresh blocks
+            # back and admit again against the shorter chain that is left
+            self._alloc.free(fresh)
+            return self.admit(prompt, max_new, namespace, extra_blocks)
+        for b in shared:
+            self._ref[b] += 1
+        for b in fresh:
+            self._ref[b] = 1
+        return Admission(shared + fresh, len(shared), self.block_size)
+
+    def register_prefix(
+        self, prompt: Sequence[int], admission: Admission, namespace=None
+    ) -> None:
+        """Publish this prefill's full prompt blocks for future reuse.
+        First-writer-wins: a chain link another request already registered
+        keeps its block (ours stays private and is freed at release)."""
+        if not self.prefix_cache:
+            return
+        for key, i in self._chain_keys(prompt, namespace):
+            if key in self._cache:
+                continue
+            blk = admission.block_ids[i]
+            self._cache[key] = blk
+            self._ref[blk] += 1  # the cache's own reference
+
+    def cached_chain(
+        self, prompt: Sequence[int], namespace=None
+    ) -> List[Tuple[tuple, int]]:
+        """Longest cached chain as ``(chain_key, block_id)`` pairs.
+
+        The KV-transfer exporter's view (ROADMAP port item P6): the
+        keys travel with the block payloads so the importing pool can
+        publish them under identical content addresses — equal keys
+        imply bitwise-equal K/V, which is what makes a transferred
+        prefix interchangeable with a locally-computed one.  Touches
+        LRU recency like :meth:`lookup_prefix` (an exported block is a
+        hot block); takes no references — the cache's own ref keeps the
+        blocks alive for the duration of the host-side copy because
+        extraction happens synchronously on the scheduler thread."""
+        out: List[Tuple[tuple, int]] = []
+        if not self.prefix_cache:
+            return out
+        for key, _ in self._chain_keys(prompt, namespace):
+            blk = self._cache.get(key)
+            if blk is None:
+                break
+            self._cache.move_to_end(key)
+            out.append((key, blk))
+        return out
+
+    def is_cached(self, key: tuple) -> bool:
+        """Whether a chain key is already published (first-writer-wins:
+        the importer skips blocks some local prefill beat it to)."""
+        return key in self._cache
+
+    def adopt_block(self, key: tuple) -> Optional[int]:
+        """Allocate one block to hold a TRANSFERRED cache entry.
+
+        The cache holds the only reference (exactly the state a
+        registered-then-released local prefill leaves behind), so the
+        adopted block competes in the same LRU eviction order as native
+        entries.  ``None`` when the pool cannot free a block even after
+        LRU eviction, or when prefix caching is disabled — the importer
+        stops the chain there and the decode side recomputes the rest."""
+        if not self.prefix_cache:
+            return None
+        if key in self._cache:
+            raise ValueError(
+                f"chain key already cached (check is_cached first): {key!r}"
+            )
+        got = self._alloc_with_evict(1)
+        if got is None:
+            return None
+        blk = got[0]
+        self._ref[blk] = 1
+        self._cache[key] = blk
+        return blk
+
+    def release(self, admission: Admission) -> None:
+        """Drop the request's references; zero-ref blocks recycle."""
+        for b in admission.block_ids:
+            self._ref[b] -= 1
+            if self._ref[b] == 0:
+                del self._ref[b]
+                self._alloc.free([b])
+
+    def check_invariants(self) -> None:
+        """Assert the pool's accounting is consistent (test hook).
+
+        Called by the resilience tests after every tick across fault
+        scenarios — an eviction or restart path that leaks a block or a
+        refcount shows up here immediately instead of as a slow pool
+        exhaustion.  Raises ``AssertionError`` on the first violation.
+        """
+        allocated = self._alloc._allocated
+        free = set(self._alloc._free)
+        assert not (allocated & free), (
+            f"blocks both allocated and free: {sorted(allocated & free)}"
+        )
+        assert len(free) == len(self._alloc._free), "duplicate free-list entries"
+        everything = allocated | free
+        expected = set(range(self.num_blocks))
+        assert everything == expected, (
+            f"lost blocks: {sorted(expected - everything)}"
+        )
+        assert set(self._ref) == allocated, (
+            f"refcount/allocation mismatch: refs without allocation "
+            f"{sorted(set(self._ref) - allocated)}, allocation without refs "
+            f"{sorted(allocated - set(self._ref))}"
+        )
+        assert all(v >= 1 for v in self._ref.values()), (
+            f"non-positive refcounts: "
+            f"{ {b: v for b, v in self._ref.items() if v < 1} }"
+        )
+        cached = set(self._cache.values())
+        assert cached <= set(self._ref), (
+            f"cache entries pointing at unallocated blocks: "
+            f"{sorted(cached - set(self._ref))}"
+        )
+
+    def _alloc_with_evict(self, n: int) -> Optional[List[int]]:
+        if n == 0:
+            return []
+        got = self._alloc.alloc(n)
+        if got is not None:
+            return got
+        # reclaim LRU cache entries whose ONLY holder is the cache itself
+        for key in list(self._cache):
+            if self._alloc.num_free >= n:
+                break
+            blk = self._cache[key]
+            if self._ref.get(blk) == 1:
+                del self._cache[key]
+                del self._ref[blk]
+                self._alloc.free([blk])
+                self.prefix_evictions += 1
+        return self._alloc.alloc(n)

@@ -1,7 +1,13 @@
-"""Serving metrics of the batcher path: latency, throughput, batch shape.
+"""Serving metrics: latency, throughput, batch shape, scheduler state.
 
-Port of the JAX package's ``serving/metrics.py`` for the whole-batch path
-(the continuous scheduler's instruments come with ROADMAP port item P4).
+Port of the JAX package's ``serving/metrics.py``: the whole-batch path's
+``record_batch`` and the continuous scheduler's instruments (JAX
+``:188-290``): per retired request, prefill call and decode step, the
+slot occupancy and block utilisation of each decode iteration, each tick's
+host ms and the gap between back-to-back decode dispatches, queue depth
+and the health snapshot (``health_*`` gauges).  The scheduler mirrors its
+counters into the process registry as ``serving_<name>``; per-replica
+names are ROADMAP port item P6.
 
 Latency is recorded per REQUEST (enqueue -> result), so batching delay is
 included: the number a client observes.  Throughput counts generated tokens
@@ -37,6 +43,12 @@ class ServingMetrics:
         self._latency_ms = self._registry.histogram("latency_ms", _RESERVOIR)
         self._batch_size = self._registry.histogram("batch_size", _RESERVOIR)
         self._gen_len = self._registry.histogram("gen_len", _RESERVOIR)
+        # the scheduler's: slot occupancy and block utilisation (fractions)
+        # a decode iteration, host ms a tick, ms between decode dispatches
+        self._slot_occ = self._registry.histogram("slot_occupancy", _RESERVOIR)
+        self._block_util = self._registry.histogram("block_util", _RESERVOIR)
+        self._tick_host_ms = self._registry.histogram("tick_host_ms", _RESERVOIR)
+        self._dispatch_gap_ms = self._registry.histogram("decode_dispatch_gap_ms", _RESERVOIR)
         self._items = 0  # guarded by: self._lock
         self._first_t: Optional[float] = None  # guarded by: self._lock
         self._last_t: Optional[float] = None  # guarded by: self._lock
@@ -85,8 +97,64 @@ class ServingMetrics:
             if gen_lens:
                 self._decode_tokens += int(sum(gen_lens)) - n_req
 
+    # the continuous scheduler's instruments: requests retire one by one,
+    # device time accrues a prefill call or a decode step at a time
+
+    def record_request(self, enqueued_at: float, gen_len: int) -> None:
+        """One retired request: its latency from enqueue and its length."""
+        now = time.monotonic()
+        self._latency_ms.observe((now - enqueued_at) * 1000.0)
+        self._gen_len.observe(int(gen_len))
+        with self._lock:
+            self._items += int(gen_len)
+            if self._first_t is None:
+                self._first_t = now
+            self._last_t = now
+
+    def record_prefill(self, prompt_tokens: int, n_requests: int, prefill_s: float) -> None:
+        """One prefill call: suffix tokens consumed and token 0 of each row."""
+        with self._lock:
+            self._prefill_tokens += int(prompt_tokens) + int(n_requests)
+            self._prefill_s += float(prefill_s)
+
+    def record_decode(self, n_tokens: int, decode_s: float) -> None:
+        """One decode step (or drain): the tokens it delivered."""
+        with self._lock:
+            self._decode_tokens += int(n_tokens)
+            self._decode_s += float(decode_s)
+
+    def record_iteration(self, active_slots: int, total_slots: int, blocks_in_use: int,
+                         total_blocks: int) -> None:
+        """The scheduler's state at one decode iteration."""
+        self._slot_occ.observe(active_slots / max(total_slots, 1))
+        self._block_util.observe(blocks_in_use / max(total_blocks, 1))
+
+    def record_tick(self, host_ms: float) -> None:
+        """One tick's host ms: its wall time less the time it waited on the
+        device's results."""
+        self._tick_host_ms.observe(float(host_ms))
+
+    def record_dispatch_gap(self, gap_ms: float) -> None:
+        """Host ms between two decode dispatches of back-to-back ticks."""
+        self._dispatch_gap_ms.observe(float(gap_ms))
+
+    def observe_depth(self, depth: int) -> None:
+        with self._lock:
+            self._max_depth = max(self._max_depth, depth)
+
+    def record_health(self, health: Dict[str, object]) -> None:
+        """Mirror a health snapshot's numbers and flags into ``health_*``
+        gauges (a ``None`` is left out)."""
+        for key, val in health.items():
+            if isinstance(val, bool):
+                self._registry.gauge(f"health_{key}").set(1.0 if val else 0.0)
+            elif isinstance(val, (int, float)):
+                self._registry.gauge(f"health_{key}").set(float(val))
+
     def snapshot(self) -> Dict[str, float]:
-        """p50/p99 latency, items/sec, batch occupancy, phase rates."""
+        """p50/p99 latency, items/sec, batch occupancy, phase rates; on the
+        scheduler's path also slot occupancy, block utilisation, tick and
+        dispatch-gap ms and the prefix-hit rate."""
         lat = self._latency_ms.snapshot()
         sizes = self._batch_size.snapshot()
         gen = self._gen_len.snapshot()
@@ -125,6 +193,24 @@ class ServingMetrics:
             out["prefill_tokens_per_sec"] = float(prefill_tokens / prefill_s)
         if decode_s > 0 and decode_tokens:
             out["decode_tokens_per_sec"] = float(decode_tokens / decode_s)
+        occ, util = self._slot_occ.snapshot(), self._block_util.snapshot()
+        if occ["count"]:
+            out["slot_occupancy_mean"] = float(occ["mean"])
+        if util["count"]:
+            out["block_util_mean"] = float(util["mean"])
+            out["block_util_max"] = float(util["max"])
+        for name, hist in (("tick_host_ms", self._tick_host_ms),
+                           ("decode_dispatch_gap_ms", self._dispatch_gap_ms)):
+            h = hist.snapshot()
+            if h["count"]:
+                out[f"{name}_p50"] = float(h["p50"])
+                out[f"{name}_p99"] = float(h["p99"])
+                out[f"{name}_mean"] = float(h["mean"])
+        counters = self._registry.counters()
+        hits = counters.get("prefix_hit_blocks", 0)
+        misses = counters.get("prefix_miss_blocks", 0)
+        if hits + misses:
+            out["prefix_hit_rate"] = float(hits / (hits + misses))
         out.update(self._registry.gauges())
         return out
 

@@ -1,0 +1,1107 @@
+"""Iteration-level (continuous) batching over the paged KV pool.
+
+Port of the core of the JAX package's ``serving/scheduler.py``
+(``ContinuousScheduler``, ``:132``).  The batcher path
+(:class:`.batcher.DynamicBatcher`) holds the card for a whole batch until
+its longest generation ends.  Here the decode loop is a host-driven step
+loop over a fixed-width slot array (Orca, Yu et al. OSDI'22) over a paged
+cache (:mod:`.kv_pool`): between single-token steps finished rows retire
+and their slots refill from the queue with freshly prefilled requests.
+
+Every device call has a fixed shape: a prefill pads (rows, suffix tokens)
+up to the (batch, seq) bucket grid, and the decode step is one ``[slots,
+1]`` call, inactive slots riding along at position -1 (their scatter goes
+to the pool's sink row and their token is ignored).
+
+Degradation: a request still queued past its ``deadline_ms`` fails with
+``TimeoutError`` (admitted requests run to completion), and past
+``max_backlog`` a submit is shed with :class:`.batcher.OverloadedError`,
+after the expired entries are swept out of the count.  Counters go to
+:class:`.metrics.ServingMetrics` and are mirrored into the process
+registry as ``serving_*``.
+
+Fault tolerance (:mod:`.resilience`): a failed tick goes to the
+:class:`.resilience.ServingSupervisor`, which evicts the one poisoned
+request (poison bisect over ``_decode_probe``, or the finite flags for a
+NaN emitter) or hot-restarts: a fresh zeroed pool and a fresh
+:class:`.kv_pool.PagedKVPool`, every in-flight request replayed
+token-identically (``_replay``).  Nothing is compiled, so a restart costs
+the pool's allocation and the replay.  ``drain()`` bounds a SIGTERM
+shutdown and ``health()`` is the readiness/liveness snapshot; a tick
+watchdog (:class:`..engine.watchdog.StepWatchdog`) turns a hung tick into a
+diagnosed restart.  The ``serve_*`` kinds of :mod:`..engine.fault` drive
+all of it.
+
+The async decode pipeline (``async_depth > 0``): the sync loop reads each
+step's tokens back before it dispatches the next, so the card idles
+through the host's bookkeeping.  With a depth the sampled-token carry
+stays on the card (``decode_step_fed`` feeds its own output back) and up
+to ``async_depth`` dispatched steps stay undrained; per-request
+``dispatched`` counters keep the host state exact, and the drained stream
+is bitwise the sync path's.
+
+Sampling keys: a request's key is ``(seed, seq_no)`` by default, as JAX's
+``fold_in(base_rng, seq_no)``; ``submit(key=...)`` takes it explicitly
+(the counterpart of JAX's ``rng=``).  Generated token ``i`` is drawn with
+``SeedSequence(key + [i])`` (:mod:`.decode`), whatever the batch.
+
+For tests: ``start=False`` and :meth:`tick` by hand (one tick = admit +
+prefill + one decode step), so a scripted trace repeats exactly.
+
+Not ported, each raising ``NotImplementedError`` naming its ROADMAP item:
+``quant``, ``lora`` and ``speculative`` (P5); the kv-transfer verbs, the
+fleet identity (``replica_id``, ``heartbeat_path``,
+``liveness_timeout_s``) and ``replay_tokens`` (P6).
+"""
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..engine import fault
+from ..engine.watchdog import StepWatchdog
+from ..telemetry.registry import get_registry
+from ..telemetry.spans import span
+from .batcher import OverloadedError
+from .decode import build_paged_fns
+from .kv_pool import PagedKVPool
+from .metrics import ServingMetrics
+from .resilience import HungTickError, PoisonedRequestError, ServingSupervisor
+
+__all__ = ["ContinuousScheduler"]
+
+_P5 = "ROADMAP port item P5"
+_P6 = "ROADMAP port item P6 (fleet tier)"
+
+
+class _PagedRequest:
+    """One request's slot-side state: prompt, reservation, token stream."""
+
+    __slots__ = (
+        "prompt", "max_new", "future", "enqueued_at", "deadline", "on_token", "key",
+        "admission", "slot", "tokens", "poison", "dispatched",
+    )
+
+    def __init__(self, prompt, max_new, deadline, on_token, key):
+        self.prompt = prompt  # 1-D np.int32
+        self.max_new = max_new
+        self.future: Future = Future()
+        self.enqueued_at = time.monotonic()
+        self.deadline = deadline  # absolute monotonic, None = forever
+        self.on_token = on_token
+        self.key = key  # the sampling key, a tuple of ints
+        self.admission = None  # set when a slot admits us
+        self.slot = -1
+        self.tokens: List[int] = []
+        self.poison = None  # fault-injection marker ("raise")
+        # async pipeline: generated tokens determined so far, drained into
+        # ``tokens`` or still in flight; the host derives every dispatch
+        # input (position, sampling index) from it.  dispatched >=
+        # len(tokens), equal in sync mode and whenever nothing of this row
+        # is in flight
+        self.dispatched = 0
+
+    @property
+    def gen_idx(self) -> int:
+        """Generated-token count so far == index of the NEXT token."""
+        return len(self.tokens)
+
+
+class ContinuousScheduler:
+    """Slot array + block pool + host step loop.
+
+    ``model`` is a :class:`..models.transformer_lm.TransformerLM` already
+    on its device (its weights cast, in eval mode); the pool lives beside
+    it.  ``submit(prompt)`` returns a future resolved with the batcher's
+    result shape ``{"tokens": int32 [gen_len], "gen_len": int}``;
+    ``on_token`` streams each token as the host sees it (on the scheduler
+    thread: keep it cheap).
+    """
+
+    def __init__(
+        self,
+        model,
+        *,
+        slots: int = 8,
+        block_size: int = 16,
+        num_blocks: int = 64,
+        prefix_cache: bool = True,
+        batch_buckets: Sequence[int],
+        seq_buckets: Sequence[int],
+        max_new_tokens: int,
+        temperature: float = 0.0,
+        eos_id: Optional[int] = None,
+        deadline_ms: Optional[float] = None,
+        max_backlog: Optional[int] = None,
+        metrics: Optional[ServingMetrics] = None,
+        seed: int = 0,
+        resilience: Optional[Dict[str, Any]] = None,
+        async_depth: int = 0,
+        logger: Optional[logging.Logger] = None,
+        start: bool = True,
+        quant: bool = False,
+        lora=None,
+        speculative=None,
+        replica_id: Optional[int] = None,
+        heartbeat_path: Optional[str] = None,
+        liveness_timeout_s: Optional[float] = None,
+    ):
+        for name, val, item in (("quant", quant, _P5), ("lora", lora, _P5),
+                                ("speculative", speculative, _P5),
+                                ("replica_id", replica_id, _P6),
+                                ("heartbeat_path", heartbeat_path, _P6),
+                                ("liveness_timeout_s", liveness_timeout_s, _P6)):
+            if val is not None and val is not False:
+                raise NotImplementedError(f"scheduler {name}: {item}")
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if deadline_ms is not None and deadline_ms <= 0:
+            raise ValueError(f"deadline_ms must be > 0, got {deadline_ms}")
+        if max_backlog is not None and max_backlog < 1:
+            raise ValueError(f"max_backlog must be >= 1, got {max_backlog}")
+        self.slots_n = int(slots)
+        self.batch_buckets = sorted({int(b) for b in batch_buckets})
+        self.seq_buckets = sorted({int(s) for s in seq_buckets})
+        if not self.batch_buckets or not self.seq_buckets:
+            raise ValueError("scheduler needs batch_buckets and seq_buckets")
+        self.max_new_tokens = int(max_new_tokens)
+        worst = self.seq_buckets[-1] + self.max_new_tokens
+        if worst > model.max_len:
+            raise ValueError(
+                f"largest seq bucket {self.seq_buckets[-1]} + max_new_tokens "
+                f"{self.max_new_tokens} = {worst} exceeds model max_len {model.max_len}"
+            )
+        self.eos_id = eos_id
+        self.deadline_ms = deadline_ms
+        self.max_backlog = max_backlog
+        self.logger = logger or logging.getLogger(__name__)
+        self.metrics = metrics or ServingMetrics()
+        self.vocab_size = model.vocab_size
+        self._async_depth = int(async_depth)
+        if self._async_depth < 0:
+            raise ValueError(f"async_depth must be >= 0, got {async_depth}")
+
+        # kept for the hot restart, which rebuilds the pool and the host pool
+        self._block_size = int(block_size)
+        self._num_blocks = int(num_blocks)
+        self._prefix_cache = bool(prefix_cache)
+        self._kv = PagedKVPool(num_blocks, block_size, prefix_cache)
+        # every block table is padded to the worst-case footprint, so the
+        # decode call's shape never depends on a request's length
+        self.table_blocks = self._kv.blocks_needed(self.seq_buckets[-1], self.max_new_tokens)
+        if self.table_blocks > self._kv.num_blocks:
+            raise ValueError(
+                f"worst-case request needs {self.table_blocks} blocks but num_blocks is "
+                f"{self._kv.num_blocks}; grow the pool or shrink seq_buckets/max_new_tokens"
+            )
+        self._fns = build_paged_fns(model, block_size, num_blocks, temperature=temperature)
+        self._temperature = float(temperature)
+        self._pool = self._fns.init_pool()
+        self._seed = int(seed)
+        self._seq_no = 0  # guarded by: self._cond
+
+        # the scheduler thread's working set: only _admit, _fail_inflight
+        # and drain touch it across threads, under the condition
+        self._slots: List[Optional[_PagedRequest]] = [None] * self.slots_n  # confined: _loop
+        self._queue: "deque[_PagedRequest]" = deque()  # guarded by: self._cond
+        self._cond = threading.Condition()
+        self._closed = False  # guarded by: self._cond
+        self._draining = False  # guarded by: self._cond
+        self._drain_deadline: Optional[float] = None  # guarded by: self._cond
+        self._last_tick: Optional[float] = None  # guarded by: self._cond
+        self._hang_info = None  # guarded by: self._cond
+        self._die_exc: Optional[BaseException] = None  # guarded by: self._cond
+        self._dead = False  # guarded by: self._cond
+        self._tick_started_at: Optional[float] = None  # guarded by: self._cond
+        # prefix-cache block tallies for the registry gauges
+        self._hit_blocks = 0
+        self._miss_blocks = 0
+        self._tick_no = 0  # confined: _loop
+        self._tick_phase = ""  # confined: _loop
+        # async pipeline: (out_dev, rows) per dispatched, undrained step;
+        # _carry_tok is the last dispatch's token row on the device
+        self._inflight: deque = deque()  # confined: _loop
+        self._carry_tok = None  # confined: _loop
+        self._last_dispatch: Optional[tuple] = None  # confined: _loop
+        self._tick_block_s = 0.0  # confined: _loop
+
+        res = dict(resilience or {})
+        wd = dict(res.pop("watchdog", None) or {})
+        self.drain_deadline_ms = res.pop("drain_deadline_ms", None)
+        if self.drain_deadline_ms is not None:
+            self.drain_deadline_ms = float(self.drain_deadline_ms)
+            if self.drain_deadline_ms <= 0:
+                raise ValueError(f"drain_deadline_ms must be > 0, got {self.drain_deadline_ms}")
+        self._supervisor = ServingSupervisor(
+            self,
+            max_restarts=int(res.pop("max_restarts", 2)),
+            poison_bisect=bool(res.pop("poison_bisect", True)),
+            logger=self.logger,
+        )
+        if res:
+            raise ValueError(f"unknown serving.resilience keys: {sorted(res)}")
+        wd_enabled = bool(wd.pop("enabled", False))
+        wd_kwargs = dict(factor=float(wd.pop("factor", 10.0)),
+                         min_seconds=float(wd.pop("min_seconds", 60.0)),
+                         warmup=int(wd.pop("warmup", 3)),
+                         poll_seconds=wd.pop("poll_seconds", None))
+        if wd:
+            raise ValueError(f"unknown serving.resilience.watchdog keys: {sorted(wd)}")
+        self._watchdog: Optional[StepWatchdog] = None
+        if wd_enabled:
+            self._watchdog = StepWatchdog(on_hang=self._on_tick_hang, logger=self.logger,
+                                          **wd_kwargs)
+
+        self._thread: Optional[threading.Thread] = None
+        if start:
+            self._thread = threading.Thread(
+                target=self._loop, name="serving-scheduler", daemon=True
+            )
+            self._thread.start()
+
+    # ------------------------------------------------------------------ #
+    # client side
+
+    def submit(
+        self,
+        prompt,
+        deadline_ms: Optional[float] = None,
+        max_new_tokens: Optional[int] = None,
+        on_token: Optional[Callable[[int], None]] = None,
+        key: Optional[Sequence[int]] = None,
+        replay_tokens: Optional[Sequence[int]] = None,
+    ) -> Future:
+        """Enqueue one prompt; the future resolves at retirement.
+
+        ``max_new_tokens`` caps this request below the scheduler-wide
+        budget (its slot retires at the cap); ``key`` (non-negative ints)
+        sets the request's sampling key, default ``(seed, seq_no)``.
+        """
+        if replay_tokens:
+            raise NotImplementedError(f"replay_tokens (fleet fail-over): {_P6}")
+        prompt = np.asarray(prompt)
+        if prompt.ndim != 1 or prompt.size < 1:
+            raise ValueError(
+                f"prompt must be a non-empty 1-D token sequence, got shape {prompt.shape}"
+            )
+        if not np.issubdtype(prompt.dtype, np.integer):
+            raise ValueError(f"prompt must hold integer tokens, got {prompt.dtype}")
+        if prompt.size > self.seq_buckets[-1]:
+            raise ValueError(
+                f"prompt length {prompt.size} exceeds largest seq bucket {self.seq_buckets[-1]}"
+            )
+        # an out-of-range id would index past the embedding table on the card
+        if prompt.min() < 0 or prompt.max() >= self.vocab_size:
+            raise ValueError(f"prompt tokens must lie in [0, {self.vocab_size})")
+        prompt = prompt.astype(np.int32)
+        mnt = self.max_new_tokens if max_new_tokens is None else int(max_new_tokens)
+        if not 1 <= mnt <= self.max_new_tokens:
+            raise ValueError(f"max_new_tokens must be in [1, {self.max_new_tokens}], got {mnt}")
+        dl = deadline_ms if deadline_ms is not None else self.deadline_ms
+        if dl is not None and dl <= 0:
+            raise ValueError(f"deadline_ms must be > 0, got {dl}")
+        if key is not None:
+            key = tuple(int(k) for k in key)
+            if not key or min(key) < 0:
+                raise ValueError(f"key must be non-negative ints, got {key}")
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("scheduler is closed")
+            if self._draining:
+                raise RuntimeError("scheduler is draining; not accepting new requests")
+            # sweep expired entries first, so live requests are never shed
+            # to protect doomed ones
+            self._sweep_expired_locked()
+            if self.max_backlog is not None and len(self._queue) >= self.max_backlog:
+                self._bump("sheds")
+                raise OverloadedError(
+                    f"serving backlog full ({self.max_backlog} waiting); request shed"
+                )
+            if key is None:
+                key = (self._seed, self._seq_no)
+                self._seq_no += 1
+            req = _PagedRequest(
+                prompt, mnt, deadline=(time.monotonic() + dl / 1000.0) if dl else None,
+                on_token=on_token, key=key,
+            )
+            self._queue.append(req)
+            self.metrics.observe_depth(len(self._queue))
+            self._cond.notify_all()
+        return req.future
+
+    def depth(self) -> int:
+        """Requests queued but not yet admitted to a slot."""
+        with self._cond:
+            return len(self._queue)
+
+    def active(self) -> int:
+        """Slots currently decoding."""
+        with self._cond:
+            return sum(1 for s in self._slots if s is not None)
+
+    def calls(self) -> Dict[str, int]:
+        """Paged calls so far, by kind (prefill, decode_step,
+        decode_step_fed): each runs every block once."""
+        return dict(self._fns.calls)
+
+    def drain(self, deadline_ms: Optional[float] = None) -> float:
+        """Graceful shutdown: stop admitting, finish the queued and
+        in-flight work, close.  Returns wall ms.  Past ``deadline_ms``
+        (default ``resilience.drain_deadline_ms``; None: unbounded) the
+        next tick fails what remains with ``TimeoutError``.  Safe from any
+        thread; idempotent."""
+        t0 = time.monotonic()
+        dl = deadline_ms if deadline_ms is not None else self.drain_deadline_ms
+        with self._cond:
+            if self._closed:
+                return 0.0
+            self._draining = True
+            if dl is not None:
+                self._drain_deadline = t0 + dl / 1000.0
+            self._cond.notify_all()
+        if self._thread is None:
+            while self.tick():
+                pass
+        else:
+            with self._cond:
+                while not self._closed and (
+                    self._queue or any(s is not None for s in self._slots)
+                ):
+                    # the loop thread does the work and enforces the deadline
+                    self._cond.wait(timeout=0.01)
+        self.close()
+        return (time.monotonic() - t0) * 1000.0
+
+    def health(self) -> Dict[str, Any]:
+        """Readiness/liveness snapshot for orchestration probes: ``ready``
+        means accepting submissions, ``live`` worth keeping (False once the
+        restart budget is spent or the scheduler was killed).  Mirrored
+        into the metrics' ``health_*`` gauges."""
+        now = time.monotonic()
+        with self._cond:
+            depth = len(self._queue)
+            active = sum(1 for s in self._slots if s is not None)
+            closed, draining = self._closed, self._draining
+            last, dead = self._last_tick, self._dead
+        exhausted = self._supervisor.exhausted()
+        snap = {
+            "ready": not (closed or draining or exhausted or dead),
+            "live": not (exhausted or dead),
+            "queue_depth": depth,
+            "active_slots": active,
+            "slots": self.slots_n,
+            "engine_restarts": self._supervisor.restarts(),
+            "restart_budget": self._supervisor.max_restarts,
+            "last_tick_age_s": (now - last) if last is not None else None,
+            "draining": draining,
+            "closed": closed,
+        }
+        self.metrics.record_health(snap)
+        return snap
+
+    def hard_kill(self, exc: BaseException) -> None:
+        """Fail every queued and in-flight request with ``exc`` and close,
+        at the scheduler thread's next tick boundary.  Safe from any
+        thread; idempotent."""
+        with self._cond:
+            if self._closed or self._die_exc is not None:
+                return
+            self._die_exc = exc
+            self._cond.notify_all()
+
+    def export_kv_prefix(self, *args, **kwargs):
+        raise NotImplementedError(f"kv transfer: {_P6}")
+
+    export_kv_refs = import_kv_blocks = export_kv_prefix
+
+    def close(self) -> None:
+        """Drain queue and in-flight slots, then stop the loop."""
+        with self._cond:
+            if self._closed:
+                return
+            self._closed = True
+            self._cond.notify_all()
+        if self._thread is not None:
+            self._thread.join()
+        else:
+            # start=False: drain here
+            while self.tick():
+                pass
+        if self._watchdog is not None:
+            self._watchdog.close()
+        self._report_unfired_faults()
+
+    def _report_unfired_faults(self) -> None:
+        """Count and log each injected serve fault still armed at close, so
+        every injected fault ends as fired or reported unfired."""
+        for kind, steps in fault.get_injector().pending().items():
+            if not kind.startswith("serve_"):
+                continue
+            fault.bump(f"fault_unfired_{kind}", len(steps))
+            self.logger.warning(
+                "scheduler closed with injected %s fault(s) still armed for tick(s) %s "
+                "- the engine never reached them", kind, steps,
+            )
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # ------------------------------------------------------------------ #
+    # scheduler side: everything below runs on one thread (the loop, or a
+    # test driving tick() by hand), which is what lets kv_pool go lock-free
+
+    def tick(self) -> bool:
+        """One iteration: admit + prefill, then one decode step.  Returns
+        True if any work happened.  A failing tick goes to the
+        supervisor, which evicts the poisoned request or hot-restarts."""
+        with self._cond:
+            self._tick_started_at = time.monotonic()
+            die = self._die_exc
+        if die is not None:
+            try:
+                self._die(die)
+            finally:
+                with self._cond:
+                    self._tick_started_at = None
+            return True
+        self._tick_no += 1
+        self._tick_phase = "setup"
+        if self._watchdog is not None:
+            self._watchdog.step_started(self._tick_no)
+        try:
+            try:
+                # host ms of a tick: its wall time less the time it waited
+                # on device readbacks (the decode paths add those waits)
+                self._tick_block_s = 0.0
+                t_tick0 = time.perf_counter()
+                did = self._tick_inner()
+                if did:
+                    self.metrics.record_tick(max(
+                        time.perf_counter() - t_tick0 - self._tick_block_s, 0.0) * 1000.0)
+            finally:
+                if self._watchdog is not None:
+                    self._watchdog.step_finished()
+                with self._cond:
+                    self._last_tick = time.monotonic()
+                    self._tick_started_at = None
+            with self._cond:
+                hang, self._hang_info = self._hang_info, None
+            if hang is not None and hang[0] == self._tick_no:
+                raise HungTickError(
+                    f"scheduler tick {hang[0]} ran {hang[1]:.2f}s "
+                    f"(watchdog limit {hang[2]:.2f}s)"
+                )
+            return did
+        except Exception as exc:
+            self.logger.exception(
+                "scheduler tick %d failed in phase %r; invoking supervisor",
+                self._tick_no, self._tick_phase,
+            )
+            # settle the async ring first: probes and replays assume the
+            # sync path's host state (a no-op in sync mode)
+            self.flush_async()
+            return self._supervisor.handle_tick_failure(exc)
+
+    def _tick_inner(self) -> bool:
+        with self._cond:
+            expired = (
+                self._draining
+                and self._drain_deadline is not None
+                and time.monotonic() >= self._drain_deadline
+                and (bool(self._queue) or any(s is not None for s in self._slots))
+            )
+        if expired:
+            self._bump("drain_expired")
+            self._fail_inflight(
+                TimeoutError("graceful drain exceeded its deadline; failing the remaining "
+                             "requests")
+            )
+            return True
+        self._tick_phase = "admit"
+        newly = self._admit()
+        self._tick_phase = "prefill"
+        if newly:
+            self._prefill(newly)
+        self._tick_phase = "inject"
+        self._consult_injector()
+        n_active = self.active()
+        if n_active:
+            self._tick_phase = "decode"
+            if self._async_depth:
+                self._decode_step_async()
+            else:
+                self._decode_step()
+        self._publish_pool_gauges()
+        return bool(newly) or n_active > 0
+
+    def _bump(self, name: str, n: int = 1) -> None:
+        """Engine-local and process-wide: the snapshot shows this engine's
+        counts, the telemetry registry ``serving_<name>``."""
+        self.metrics.incr(name, n)
+        get_registry().counter(f"serving_{name}").inc(n)
+
+    def _publish_pool_gauges(self) -> None:
+        """Block utilisation and prefix-hit rate in the process registry."""
+        reg = get_registry()
+        util = self._kv.blocks_in_use / max(self._kv.num_blocks, 1)
+        reg.gauge("serving_block_util").set(util)
+        total = self._hit_blocks + self._miss_blocks
+        if total:
+            reg.gauge("serving_prefix_hit_rate").set(self._hit_blocks / total)
+
+    def _expire(self, req: _PagedRequest, now: float) -> bool:
+        if req.deadline is None or now < req.deadline:
+            return False
+        self._bump("timeouts")
+        if not req.future.done():
+            req.future.set_exception(TimeoutError(
+                f"serving request exceeded its deadline after {now - req.enqueued_at:.3f}s "
+                "in queue"))
+        return True
+
+    def _sweep_expired_locked(self) -> None:
+        now = time.monotonic()
+        if any(r.deadline is not None and now >= r.deadline for r in self._queue):
+            self._queue = deque(r for r in self._queue if not self._expire(r, now))
+
+    def _admit(self) -> List[_PagedRequest]:
+        """Fill free slots from the queue head (first come, first served: a
+        head request the pool cannot cover blocks those behind it, counted
+        as ``admission_waits``)."""
+        newly: List[_PagedRequest] = []
+        with self._cond:
+            self._sweep_expired_locked()
+            free = [i for i, s in enumerate(self._slots) if s is None]
+            # one prefill call a tick: at most the largest batch bucket
+            max_admit = min(len(free), self.batch_buckets[-1])
+            while self._queue and len(newly) < max_admit:
+                req = self._queue[0]
+                adm = self._kv.admit(req.prompt.tolist(), req.max_new)
+                if adm is None:
+                    self._bump("admission_waits")
+                    break
+                self._queue.popleft()
+                req.admission = adm
+                req.slot = free[len(newly)]
+                self._slots[req.slot] = req
+                newly.append(req)
+                self._bump("admitted")
+                cacheable = (req.prompt.size - 1) // self._kv.block_size
+                self._hit_blocks += adm.n_shared
+                self._miss_blocks += cacheable - adm.n_shared
+                if adm.n_shared:
+                    self._bump("prefix_hit_blocks", adm.n_shared)
+                if cacheable - adm.n_shared:
+                    self._bump("prefix_miss_blocks", cacheable - adm.n_shared)
+        return newly
+
+    def _bucket_for(self, n: int, buckets: Sequence[int], kind: str) -> int:
+        for b in buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"{kind} {n} exceeds largest bucket {buckets[-1]}")
+
+    def _prefill(self, newly: List[_PagedRequest]) -> None:
+        """Fresh admissions go through one bucketed prefill; requests
+        re-admitted by a hot restart carry their stream and replay."""
+        fresh = [r for r in newly if not r.tokens]
+        replay = [r for r in newly if r.tokens]
+        if fresh:
+            self._prefill_fresh(fresh)
+        if replay:
+            self._replay(replay)
+
+    def _prefill_call(self, reqs: List[_PagedRequest], kind: str):
+        """One bucketed prefill of ``reqs``' suffixes past their cached
+        prefix (positions ``cached_len .. prompt_len - 1``); returns the
+        host copy ``[2, bb]`` (tokens, finite) and the suffix lengths."""
+        suffix = [r.prompt.size - r.admission.cached_len for r in reqs]
+        bb = self._bucket_for(len(reqs), self.batch_buckets, f"{kind} rows")
+        sb = self._bucket_for(max(suffix), self.seq_buckets, f"{kind} suffix")
+        tokens = np.zeros((bb, sb), np.int64)
+        positions = np.full((bb, sb), -1, np.int64)
+        tables = np.zeros((bb, self.table_blocks), np.int64)
+        last_col = np.zeros((bb,), np.int64)
+        keys: List[Optional[tuple]] = [None] * bb
+        for i, req in enumerate(reqs):
+            cl = req.admission.cached_len
+            tokens[i, : suffix[i]] = req.prompt[cl:]
+            positions[i, : suffix[i]] = np.arange(cl, req.prompt.size)
+            ids = req.admission.block_ids
+            tables[i, : len(ids)] = ids
+            last_col[i] = suffix[i] - 1
+            keys[i] = req.key
+        out = self._fns.prefill(self._pool, tokens, positions, tables, last_col, keys,
+                                np.zeros((bb,), np.int64))
+        rb0 = time.perf_counter()
+        res = out.cpu().numpy()
+        self._tick_block_s += time.perf_counter() - rb0
+        return res, suffix
+
+    def _prefill_fresh(self, newly: List[_PagedRequest]) -> None:
+        """One bucketed prefill over this tick's fresh admissions; a prefix
+        hit feeds only the suffix past ``cached_len``."""
+        t0 = time.perf_counter()
+        res, suffix = self._prefill_call(newly, "admitted")
+        t1 = time.perf_counter()
+        for i, req in enumerate(newly):
+            if not res[1, i]:
+                # this prompt gave non-finite logits: evict it, and keep its
+                # blocks out of the prefix cache
+                self._evict_poisoned(req, cause=None, trigger="non-finite prefill logits")
+                continue
+            # the blocks are filled: publish them before the request can
+            # retire and release them
+            self._kv.register_prefix(req.prompt.tolist(), req.admission)
+            self._push_token(req, int(res[0, i]))
+        self.metrics.record_prefill(prompt_tokens=int(sum(suffix)), n_requests=len(newly),
+                                    prefill_s=t1 - t0)
+
+    def _replay(self, reqs: List[_PagedRequest]) -> None:
+        """Rebuild restarted requests' KV state: the prompt through the
+        bucketed prefill, then the delivered tokens fed again through the
+        same decode call that produced them.  Every resampled token is
+        checked against the delivered stream and never delivered again
+        (``on_token`` does not refire)."""
+        res, _ = self._prefill_call(reqs, "replayed")
+        live: List[_PagedRequest] = []
+        for i, req in enumerate(reqs):
+            if not res[1, i]:
+                self._evict_poisoned(req, cause=None, trigger="non-finite replay prefill logits")
+                continue
+            self._kv.register_prefix(req.prompt.tolist(), req.admission)
+            self._verify_replay(req, 0, int(res[0, i]))
+            live.append(req)
+        # feed generated tokens 0..K-2 back, checking tokens 1..K-1
+        max_gen = max((r.gen_idx for r in live), default=0)
+        for k in range(1, max_gen):
+            step_reqs = [r for r in live if r.gen_idx > k]
+            if not step_reqs:
+                break
+            W = self.slots_n
+            prev = np.zeros((W,), np.int64)
+            pos = np.full((W,), -1, np.int64)
+            tables = np.zeros((W, self.table_blocks), np.int64)
+            gi = np.zeros((W,), np.int64)
+            keys: List[Optional[tuple]] = [None] * W
+            for req in step_reqs:
+                i = req.slot
+                prev[i] = req.tokens[k - 1]
+                pos[i] = req.prompt.size + k - 1
+                ids = req.admission.block_ids
+                tables[i, : len(ids)] = ids
+                gi[i] = k
+                keys[i] = req.key
+            res = self._fns.decode_step(self._pool, prev, pos, tables, keys, gi).cpu().numpy()
+            for req in step_reqs:
+                if not res[1, req.slot]:
+                    self._evict_poisoned(req, cause=None,
+                                         trigger="non-finite replay decode logits")
+                    live.remove(req)
+                    continue
+                self._verify_replay(req, k, int(res[0, req.slot]))
+        for req in live:
+            self._bump("replayed_tokens", req.gen_idx)
+
+    def _verify_replay(self, req: _PagedRequest, idx: int, tok: int) -> None:
+        """The resample must equal what the client already holds; a
+        mismatch is counted and logged, the delivered stream kept."""
+        if tok != req.tokens[idx]:
+            self._bump("replay_parity_mismatch")
+            self.logger.error(
+                "replay divergence: slot %d generated token %d resampled as %d but %d was "
+                "delivered (keeping the delivered stream)", req.slot, idx, tok, req.tokens[idx],
+            )
+
+    # ------------------------------------------------------------------ #
+    # fault injection (the serve_* kinds), consulted once a tick after
+    # admission, so the slot targets exist
+
+    def _consult_injector(self) -> None:
+        inj = fault.get_injector()
+        if not inj.active:
+            return
+        t = self._tick_no
+        sec = inj.take("serve_hang", t)
+        if sec is not None:
+            fault.bump("injected_serve_hangs")
+            self.logger.warning("fault injection: hanging tick %d for %.2fs", t, sec)
+            time.sleep(sec)
+        slot = inj.take("serve_raise", t)
+        if slot is not None:
+            req = self._slot_target(int(slot), "serve_raise")
+            if req is not None:
+                fault.bump("injected_serve_raises")
+                req.poison = "raise"
+        slot = inj.take("serve_nan", t)
+        if slot is not None:
+            req = self._slot_target(int(slot), "serve_nan")
+            if req is not None:
+                fault.bump("injected_serve_nans")
+                self._corrupt_pool_rows(req)
+        if inj.take("serve_device_lost", t) is not None:
+            fault.bump("injected_serve_device_lost")
+            raise fault.DeviceLostError(f"injected device loss at serving tick {t}")
+
+    def _slot_target(self, slot: int, kind: str) -> Optional[_PagedRequest]:
+        req = self._slots[slot] if 0 <= slot < self.slots_n else None
+        if req is None:
+            self.logger.warning("fault injection: %s@%d targets empty slot %d; dropped",
+                                kind, self._tick_no, slot)
+        return req
+
+    @torch.inference_mode()
+    def _corrupt_pool_rows(self, req: _PagedRequest) -> None:
+        """NaN the key-pool row of ``req``'s last written position, in
+        every layer.  Its block lies past the prefix-cache registration cap,
+        so it is the request's own.  Only keys: a NaN key makes the owner's
+        scores NaN (the position is live for it) while any other reader,
+        a later request on the recycled block included, masks it to -inf."""
+        bs = self._kv.block_size
+        p = req.prompt.size + max(req.gen_idx, 1) - 2
+        row = req.admission.block_ids[p // bs] * bs + p % bs
+        for k in self._pool.keys:
+            k[row] = float("nan")
+
+    # ------------------------------------------------------------------ #
+    # decode
+
+    def _decode_arrays(self, reqs: List[_PagedRequest]):
+        """Fixed-width decode inputs with ``reqs`` live and every other slot
+        riding along at position -1."""
+        W = self.slots_n
+        prev = np.zeros((W,), np.int64)
+        pos = np.full((W,), -1, np.int64)
+        tables = np.zeros((W, self.table_blocks), np.int64)
+        gen_idx = np.zeros((W,), np.int64)
+        keys: List[Optional[tuple]] = [None] * W
+        for req in reqs:
+            i = req.slot
+            prev[i] = req.tokens[-1]
+            # prev = generated token gen_idx-1 at position prompt_len +
+            # gen_idx - 1; feeding it samples token gen_idx
+            pos[i] = req.prompt.size + req.gen_idx - 1
+            ids = req.admission.block_ids
+            tables[i, : len(ids)] = ids
+            gen_idx[i] = req.gen_idx
+            keys[i] = req.key
+        return prev, pos, tables, keys, gen_idx
+
+    def _poison_shim(self, reqs: List[_PagedRequest]) -> None:
+        """The injected per-request dispatch failure (``serve_raise``); the
+        message names no slot: attribution is the bisect's job."""
+        for req in reqs:
+            if req.poison == "raise":
+                raise fault.FaultInjectionError(
+                    f"injected decode-dispatch failure (tick {self._tick_no})")
+
+    def _decode_step(self) -> None:
+        """One single-token step for every occupied slot."""
+        t0 = time.perf_counter()
+        active = [req for req in self._slots if req is not None]
+        self._poison_shim(active)
+        args = self._decode_arrays(active)
+        self._note_dispatch_gap()
+        # the span marks the tick as productive serving work
+        with span("decode_step", step=self._tick_no, active=len(active)):
+            out = self._fns.decode_step(self._pool, *args)
+        rb0 = time.perf_counter()
+        res = out.cpu().numpy()
+        t1 = time.perf_counter()
+        self._tick_block_s += t1 - rb0
+        for req in active:
+            if not res[1, req.slot]:
+                # the finite guard: evict the NaN emitter; the other rows'
+                # logits are untouched (disjoint block tables)
+                self._evict_poisoned(req, cause=None, trigger="non-finite decode logits")
+                continue
+            self._push_token(req, int(res[0, req.slot]))
+        self.metrics.record_decode(n_tokens=len(active), decode_s=t1 - t0)
+        self.metrics.record_iteration(
+            active_slots=len(active), total_slots=self.slots_n,
+            blocks_in_use=self._kv.blocks_in_use, total_blocks=self._kv.num_blocks,
+        )
+
+    def _decode_probe(self, reqs: List[_PagedRequest]) -> None:
+        """Repeat the decode dispatch for a subset of the active slots (the
+        bisect's primitive).  The inputs are the failed step's, so the
+        scatter writes the same rows again and the draws repeat."""
+        self._poison_shim(reqs)
+        out = self._fns.decode_step(self._pool, *self._decode_arrays(reqs))
+        out.cpu()  # surface an asynchronous launch error inside the probe
+
+    # ------------------------------------------------------------------ #
+    # async decode pipeline (serving.scheduler.async_depth > 0)
+
+    def _note_dispatch_gap(self) -> None:
+        """Host ms between decode dispatches of back-to-back ticks (an idle
+        queue between two dispatches is not host overhead)."""
+        now = time.perf_counter()
+        if self._last_dispatch is not None and self._tick_no - self._last_dispatch[0] <= 1:
+            self.metrics.record_dispatch_gap((now - self._last_dispatch[1]) * 1000.0)
+        self._last_dispatch = (self._tick_no, now)
+
+    def _decode_step_async(self) -> None:
+        """Dispatch step k without waiting for step k-1's readback.
+
+        The token carry stays on the card (``decode_step_fed``), rows the
+        host just (re)filled spliced in with ``fresh_mask``; at most
+        ``async_depth`` steps stay undrained.  ``dispatched`` gives every
+        position and sampling index, so the drained stream is bitwise the
+        sync path's.  Lag, bounded by the depth: retirement and the finite
+        guard see tokens late, so a row may run past EOS (never past
+        ``max_new``, which is host-exact); those writes land inside its
+        own footprint and their tokens are dropped at drain.
+        """
+        active = [req for req in self._slots if req is not None]
+        self._poison_shim(active)
+        disp = [r for r in active if r.dispatched < r.max_new]
+        if disp:
+            W = self.slots_n
+            fresh_mask = np.zeros((W,), np.int64)
+            fresh_tok = np.zeros((W,), np.int64)
+            pos = np.full((W,), -1, np.int64)
+            tables = np.zeros((W, self.table_blocks), np.int64)
+            gen_idx = np.zeros((W,), np.int64)
+            keys: List[Optional[tuple]] = [None] * W
+            rows = []
+            for req in disp:
+                i = req.slot
+                d = req.dispatched
+                if d == req.gen_idx:
+                    # nothing of this row is in flight: its last token is
+                    # host-known and overrides the stale carry
+                    fresh_mask[i] = 1
+                    fresh_tok[i] = req.tokens[-1]
+                pos[i] = req.prompt.size + d - 1
+                ids = req.admission.block_ids
+                tables[i, : len(ids)] = ids
+                gen_idx[i] = d
+                keys[i] = req.key
+                rows.append((req, i, d))
+            prev = self._carry_tok if self._carry_tok is not None else self._zero_carry()
+            self._note_dispatch_gap()
+            with span("decode_step", step=self._tick_no, active=len(disp)):
+                out = self._fns.decode_step_fed(self._pool, prev, fresh_mask, fresh_tok, pos,
+                                                tables, keys, gen_idx)
+            for req in disp:
+                req.dispatched += 1
+            self._carry_tok = out[0]
+            self._inflight.append((out, rows))
+            self.metrics.record_iteration(
+                active_slots=len(disp), total_slots=self.slots_n,
+                blocks_in_use=self._kv.blocks_in_use, total_blocks=self._kv.num_blocks,
+            )
+        # drain one tick behind dispatch; with nothing left to dispatch,
+        # drain everything
+        target = self._async_depth if disp else 0
+        pushed = 0
+        t0 = time.perf_counter()
+        while len(self._inflight) > target:
+            pushed += self._drain_entry(self._inflight.popleft())
+        t1 = time.perf_counter()
+        self._tick_block_s += t1 - t0
+        if pushed:
+            self.metrics.record_decode(n_tokens=pushed, decode_s=t1 - t0)
+
+    def _zero_carry(self):
+        """The first dispatch's carry: every dispatched row is fresh, so
+        these zeros are never sampled from."""
+        return torch.zeros((self.slots_n,), dtype=torch.int64, device=self._fns.device)
+
+    def _drain_entry(self, entry) -> int:
+        """Read one ring entry back and apply it.  Rows whose request left
+        its slot or whose stream was rolled back since dispatch are
+        dropped.  Returns the tokens pushed."""
+        out, rows = entry
+        res = out.cpu().numpy()
+        pushed = 0
+        for req, slot, idx in rows:
+            if req.admission is None or idx != req.gen_idx:
+                continue
+            if not res[1, slot]:
+                self._evict_poisoned(req, cause=None, trigger="non-finite decode logits")
+                continue
+            self._push_token(req, int(res[0, slot]))
+            pushed += 1
+        return pushed
+
+    def flush_async(self) -> None:
+        """Drain what the ring can still deliver, drop the rest, and roll
+        every live row's dispatch counter back to its host-known stream.
+        ``tick`` calls it before the supervisor; a no-op in sync mode."""
+        while self._inflight:
+            entry = self._inflight.popleft()
+            try:
+                self._drain_entry(entry)
+            except Exception:
+                # the device state behind the remaining entries is part of
+                # the same failure: drop them; the rollback makes
+                # re-dispatch exact
+                self.logger.warning("async ring drain failed mid-recovery; discarding %d "
+                                    "remaining in-flight step(s)", len(self._inflight))
+                self._inflight.clear()
+                break
+        self._carry_tok = None
+        self._last_dispatch = None
+        for req in self._slots:
+            if req is not None:
+                req.dispatched = req.gen_idx
+
+    # ------------------------------------------------------------------ #
+    # retirement and recovery
+
+    def _push_token(self, req: _PagedRequest, tok: int) -> None:
+        req.tokens.append(tok)
+        if req.dispatched < len(req.tokens):
+            req.dispatched = len(req.tokens)
+        if req.on_token is not None:
+            try:
+                req.on_token(tok)
+            except Exception:  # a client callback must not kill the loop
+                self.logger.exception("on_token callback raised; ignoring")
+        if (self.eos_id is not None and tok == self.eos_id) or req.gen_idx >= req.max_new:
+            self._retire(req)
+
+    def _retire(self, req: _PagedRequest) -> None:
+        self._slots[req.slot] = None
+        self._kv.release(req.admission)
+        req.admission = None
+        # count first: a client woken by its future reads a snapshot that
+        # already holds its own request
+        self._bump("retired")
+        self.metrics.record_request(req.enqueued_at, gen_len=len(req.tokens))
+        if self._kv.prefix_evictions:
+            # move the pool's eviction tally into the counters
+            self._bump("prefix_evictions", self._kv.prefix_evictions)
+            self._kv.prefix_evictions = 0
+        if not req.future.done():
+            req.future.set_result({"tokens": np.asarray(req.tokens, np.int32),
+                                   "gen_len": len(req.tokens)})
+
+    def _evict_poisoned(self, req: _PagedRequest, *, cause: Optional[BaseException],
+                        trigger: str) -> None:
+        """Fail one request with a diagnosed :class:`PoisonedRequestError`
+        and free its reservation; every other slot keeps decoding."""
+        err = PoisonedRequestError(
+            f"request in slot {req.slot} poisoned the engine at tick {self._tick_no} "
+            f"({trigger}) after {req.gen_idx} generated tokens"
+        )
+        err.__cause__ = cause
+        self._slots[req.slot] = None
+        self._kv.release(req.admission)
+        req.admission = None
+        self._bump("requests_poisoned")
+        self.logger.error("%s", err)
+        if not req.future.done():
+            req.future.set_exception(err)
+
+    def _die(self, exc: BaseException) -> None:
+        """A :meth:`hard_kill` on the scheduler thread: fail every queued and
+        in-flight request with ``exc`` and close."""
+        self.logger.error("scheduler hard-killed: %s", exc)
+        with self._cond:
+            self._die_exc = None
+            self._dead = True
+            self._closed = True
+            self._cond.notify_all()
+        self._fail_inflight(exc)
+
+    def _fail_inflight(self, exc: BaseException) -> None:
+        """Fail every in-flight request (their pool state is unknown) and
+        every queued one rather than retry them into the same error."""
+        self._inflight.clear()
+        self._carry_tok = None
+        with self._cond:
+            doomed = [s for s in self._slots if s is not None]
+            doomed.extend(self._queue)
+            self._queue.clear()
+            self._slots = [None] * self.slots_n
+        if doomed:
+            self._bump("failed_inflight", len(doomed))
+        for req in doomed:
+            if req.admission is not None:
+                self._kv.release(req.admission)
+                req.admission = None
+            if not req.future.done():
+                req.future.set_exception(exc)
+
+    def _rebuild_and_requeue(self) -> None:
+        """Hot restart: a fresh zeroed pool and host pool, every in-flight
+        request pushed back onto the queue head (order kept) to be
+        replayed; queued requests ride along.  Nothing is compiled."""
+        self._inflight.clear()
+        self._carry_tok = None
+        self._last_dispatch = None
+        with self._cond:
+            inflight = [s for s in self._slots if s is not None]
+            self._slots = [None] * self.slots_n
+            for req in reversed(inflight):
+                # the reservation indexes the dead pool: drop it without a
+                # release; allocator and prefix cache are rebuilt below
+                req.admission = None
+                req.slot = -1
+                req.dispatched = req.gen_idx
+                self._queue.appendleft(req)
+        self._pool = None  # free the old pool before the new one is allocated
+        self._kv = PagedKVPool(self._num_blocks, self._block_size, self._prefix_cache)
+        self._pool = self._fns.init_pool()
+        if self._watchdog is not None:
+            # the replayed ticks start cold: re-enter the warm-up
+            self._watchdog.reset()
+
+    def _on_tick_hang(self, step: int, elapsed: float, limit: float) -> None:
+        # on the watchdog's thread: record the diagnosis; the scheduler
+        # thread raises HungTickError when the tick returns
+        with self._cond:
+            self._hang_info = (int(step), float(elapsed), float(limit))
+        self._bump("serve_watchdog_fires")
+
+    # ------------------------------------------------------------------ #
+
+    def _next_wakeup_locked(self) -> float:
+        """Sleep bound while head-of-line blocked: until the nearest queued
+        (or drain) deadline, at most 50 ms."""
+        now = time.monotonic()
+        deadlines = [r.deadline for r in self._queue if r.deadline is not None]
+        if self._draining and self._drain_deadline is not None:
+            deadlines.append(self._drain_deadline)
+        if not deadlines:
+            return 0.05
+        return min(0.05, max(min(deadlines) - now, 0.001))
+
+    def _loop(self) -> None:
+        while True:
+            with self._cond:
+                while not (self._closed or self._die_exc is not None or self._queue
+                           or any(s is not None for s in self._slots)):
+                    self._cond.wait()
+                if (self._closed and not self._queue
+                        and all(s is None for s in self._slots)):
+                    return
+            try:
+                did = self.tick()
+            except BaseException as exc:  # the supervisor itself failed
+                self.logger.exception("scheduler tick failed beyond recovery")
+                self._fail_inflight(exc)
+                did = True
+            with self._cond:
+                self._cond.notify_all()  # drain()/close() watchers
+                if not did and not self._closed and self._queue:
+                    # head-of-line blocked on admission with nothing
+                    # decoding: sleep until a deadline can expire or the
+                    # state changes (so a waiting request expires at its
+                    # deadline, not at the next submit)
+                    self._cond.wait(timeout=self._next_wakeup_locked())

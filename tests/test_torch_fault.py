@@ -138,8 +138,12 @@ def test_poison_batches_as_jax():
 @pytest.mark.parametrize("kind,spec,item", [
     ("kill_peer", "kill_peer@3", "P10"), ("sdc_flip", "sdc_flip@2:0", "P10"),
     ("ckpt_corrupt", "ckpt_corrupt@1", "P10"), ("ckpt_async_fail", "ckpt_async_fail@0:2", "P10"),
-    ("serve_nan", "serve_nan@1", "P4"), ("serve_raise", "serve_raise@1", "P4"),
-    ("serve_device_lost", "serve_device_lost@1", "P4"), ("serve_hang", "serve_hang@1", "P4"),
+    # ported (P4): the serving supervisor takes them
+    pytest.param("serve_nan", "serve_nan@1", None, id="serve_nan-serve_nan@1-P4"),
+    pytest.param("serve_raise", "serve_raise@1", None, id="serve_raise-serve_raise@1-P4"),
+    pytest.param("serve_device_lost", "serve_device_lost@1", None,
+                 id="serve_device_lost-serve_device_lost@1-P4"),
+    pytest.param("serve_hang", "serve_hang@1", None, id="serve_hang-serve_hang@1-P4"),
     ("replica_down", "replica_down@1", "P6"), ("replica_hang", "replica_hang@1", "P6"),
     ("autoscale_hang", "autoscale_hang@1", "P6"),
     ("kv_transfer_stall", "kv_transfer_stall@1", "P6"),
@@ -147,12 +151,23 @@ def test_poison_batches_as_jax():
     ("prefill_replica_down", "prefill_replica_down@1", "P6"),
 ])
 def test_unported_kind_raises_its_item(kind, spec, item):
-    with pytest.raises(NotImplementedError, match=item) as e:
-        fault.check_ported(fault.FaultInjector("nan_batch@1;" + spec))
-    assert repr(kind) in str(e.value)
+    if item is None:
+        injector = fault.FaultInjector("nan_batch@1;" + spec)
+        fault.check_ported(injector)
+        assert kind in injector.kinds() and kind not in fault.UNPORTED_FAULT_KINDS
+        # JAX's semantics: one-shot at its tick, a slot or seconds argument
+        arg = {"serve_nan": 0.0, "serve_raise": 0.0, "serve_hang": 1.0}.get(kind, 1.0)
+        assert injector.take(kind, 1) == jfault.FaultInjector(spec).take(kind, 1) == arg
+        assert injector.take(kind, 1) is None
+    else:
+        with pytest.raises(NotImplementedError, match=item) as e:
+            fault.check_ported(fault.FaultInjector("nan_batch@1;" + spec))
+        assert repr(kind) in str(e.value)
     assert set(fault.UNPORTED_FAULT_KINDS) == (
         set(jfault._STEP_KINDS) | set(jfault._POINT_KINDS)) - {
-        "nan_batch", "kill_worker", "stall_step", "ckpt_fail", "restore_fail"}
+        "nan_batch", "kill_worker", "stall_step", "ckpt_fail", "restore_fail", "serve_nan",
+        "serve_raise", "serve_device_lost", "serve_hang"}
+    assert issubclass(fault.DeviceLostError, fault.FaultInjectionError)
 
 
 @pytest.mark.parametrize("spec", ["nan_batch@1;kill_worker@2:1;stall_step@3:0.5",

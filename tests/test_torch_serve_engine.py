@@ -171,13 +171,43 @@ def test_engine_rejects_bad_prompts(cpu_engine, payload, match):
 
 @pytest.mark.parametrize(
     "serving,item",
-    [({"checkpoint": "run/ckpt"}, "P7"), ({"scheduler": {"enabled": True}}, "P4"),
+    # ported (P7a): a port training checkpoint serves
+    [pytest.param({"checkpoint": "run/ckpt"}, None, id="serving0-P7"),
+     # ported (P4): the continuous scheduler, and its supervisor
+     pytest.param({"scheduler": {"enabled": True}}, None, id="serving1-P4"),
      ({"quant": {"enabled": True}}, "P5"), ({"lora": {"enabled": True}}, "P5"),
-     ({"speculative": {"enabled": True}}, "P5"), ({"resilience": {"max_restarts": 1}}, "P4")],
+     ({"speculative": {"enabled": True}}, "P5"),
+     pytest.param({"resilience": {"max_restarts": 1}}, None, id="serving5-P4")],
 )
-def test_unported_serving_modes_raise(serving, item):
-    with pytest.raises(NotImplementedError, match=item):
-        InferenceEngine.from_config(_cfg(**serving), device="cpu")
+def test_unported_serving_modes_raise(serving, item, tmp_path):
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            InferenceEngine.from_config(_cfg(**serving), device="cpu")
+        return
+    from pytorch_distributed_training_tpu_torch.engine.checkpoint import Checkpointer
+
+    serving = dict(serving)
+    state = None
+    if "checkpoint" in serving:
+        source = InferenceEngine.from_config(_cfg(seed=5), device="cpu")
+        source.close()
+        state = {k: v.float() for k, v in source.model.state_dict().items()}
+        serving["checkpoint"] = str(tmp_path / "ckpt")
+        Checkpointer(serving["checkpoint"]).save(
+            0, {"iter": 0, "model": state, "optimizer": None, "ema": None})
+    if "resilience" in serving:
+        # as in JAX, the supervisor lives in the scheduler: alone it raises
+        with pytest.raises(ValueError, match="requires serving.scheduler.enabled"):
+            InferenceEngine.from_config(_cfg(**serving), device="cpu")
+        serving["scheduler"] = {"enabled": True}
+    with InferenceEngine.from_config(_cfg(**serving), device="cpu") as engine:
+        assert engine.submit(np.array([5])).result(timeout=60)["gen_len"] == 6
+        assert (engine.scheduler is not None) == ("scheduler" in serving)
+        if "resilience" in serving:
+            assert engine.health()["restart_budget"] == 1
+        if state is not None:
+            for k, v in engine.model.state_dict().items():
+                assert torch.equal(v.float(), state[k]), k
 
 
 def test_disabled_mode_blocks_are_accepted():

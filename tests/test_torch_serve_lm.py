@@ -29,6 +29,7 @@ from pytorch_distributed_training_tpu_torch.models import (
 )
 from pytorch_distributed_training_tpu_torch.ops.attention import (
     MultiHeadAttention,
+    PagedKVCache,
     dot_product_attention,
 )
 from pytorch_distributed_training_tpu_torch.ops.layers import LayerNorm
@@ -247,13 +248,20 @@ def test_sampled_generate_is_reproducible(params):
     [({"moe_experts": 2}, "P9"), ({"seq_axis": "sequence"}, "P9"),
      # ported (P2b): the dots policy builds
      pytest.param({"remat": True, "remat_policy": "dots"}, None, id="kwargs2-P2"),
-     ({"paged": True}, "P4"), ({"lora_rank": 4}, "P5")],
+     # ported (P4): the paged model builds and makes its pool
+     pytest.param({"paged": True}, None, id="kwargs3-P4"),
+     ({"lora_rank": 4}, "P5")],
 )
 def test_unported_model_options_raise(kwargs, item):
     if item is None:
         model = TransformerLM(VOCAB, max_len=MAXLEN, embed_dim=EMBED, depth=1, num_heads=HEADS,
                               **kwargs)
-        assert model.remat and model.remat_policy == kwargs["remat_policy"]
+        if "remat" in kwargs:
+            assert model.remat and model.remat_policy == kwargs["remat_policy"]
+        else:
+            pool = model.new_pool(3, 4)
+            assert pool.block_size == 4 and pool.num_blocks == 3
+            assert pool.keys[0].shape == (3 * 4 + 1, HEADS, EMBED // HEADS)
         return
     with pytest.raises(NotImplementedError, match=item):
         TransformerLM(VOCAB, max_len=MAXLEN, embed_dim=EMBED, depth=1, num_heads=HEADS, **kwargs)
@@ -270,5 +278,8 @@ def test_flash_and_paged_attention_raise():
     q = torch.zeros(1, 4, 2, 8)
     with pytest.raises(ValueError, match="S >= 128"):
         dot_product_attention(q, q, q, impl="flash")
-    with pytest.raises(NotImplementedError, match="P4"):
-        MultiHeadAttention(16, 2, causal=True, paged=True)
+    # paged is ported (P4): it builds, and a paged call needs its positions
+    mha = MultiHeadAttention(16, 2, causal=True, paged=True)
+    pool = PagedKVCache.zeros(1, 2, 4, 2, 8, torch.float32, "cpu")
+    with pytest.raises(ValueError, match="positions and block_tables"):
+        mha(torch.zeros(1, 1, 16), pool, 0)
