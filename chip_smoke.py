@@ -11,8 +11,9 @@
     python3 chip_smoke.py --resnet     # phases 1, 2 and 13 to 17 only: the ResNet
                                        # path (with --profile: its steps' breakdowns)
     python3 chip_smoke.py --accum-faults  # phases 1, 2, 18 and 19 only
-    python3 chip_smoke.py --serve      # phases 1, 2, 5 and 20 only: serving (with
-                                       # --profile: decode ticks, sync and async)
+    python3 chip_smoke.py --serve      # phases 1, 2, 5, 20 and 21 only: serving (with
+                                       # --profile: decode ticks, sync and async, and
+                                       # of each decode mode)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -176,7 +177,26 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``serving.checkpoint`` gives the greedy tokens of one built from those
     EMA weights in memory; (f) readings beside the card: TTFT p50/p99,
     tokens/s, slot occupancy, block utilisation, prefix-hit rate and host
-    ms a tick, sync, async and through the batcher.
+    ms a tick, sync, async and through the batcher;
+21. the scheduler's decode modes, each built by ``InferenceEngine.from_config``
+    from ``configs/serve-lm-1024-sched.yml`` with the keys of JAX
+    ``config/serve-lm.yml``'s commented example: (a) ``quant``; (b)
+    ``lora`` rank 8, tenant-a (seed 0) and tenant-b (seed 1); (c)
+    ``speculative`` k 4 with the target drafting for itself; (d) the same
+    with ``draft: {depth: 1}``, ``draft_seed`` 0, ``min_acceptance`` 0.2.
+    Gates at f32, depth 2, TF32 off, on 8 of phase 20's requests: (a) the
+    card's int8 greedy streams equal the port's own on the CPU; (b) with
+    adapters cycling tenant-a, base, tenant-b, each tenant's streams equal
+    a merged-weights (W + A B) engine's and base rows the plain engine's,
+    and a tenant stream differs from base (the factors scaled x30, as the
+    JAX oracle does, if the random delta flips none); (c) streams equal
+    plain greedy with acceptance 1.0; (d) streams equal plain greedy.
+    Readings at bf16, full depth, on phase 20's 32 requests: every request
+    its cap, K3 and K4 each launched exactly 16 x the target's paged calls
+    + the draft's depth x its own (the ``serving_modes`` counts of the
+    kernels line), and tokens/s, TTFT, host ms a tick against phase 20's;
+    int8 and scale bytes and dequant launches a tick; prefix hits across
+    tenants; acceptance, the floor warning and the draft pool's MiB.
 
 The line before the last lists every TPU kernel (K1a ... K4) with the CUDA
 kernel that stands for it, its launches on the path that runs it (and on
@@ -319,6 +339,21 @@ FLOPS_PER_ELEMENT = {"add_layernorm": 8, "bias_gelu": 6}
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+_PHASE_CLOCK = []  # (name, start) of the phase in progress
+
+
+def phase(title) -> None:
+    """Close the phase in progress with its wall time, and open ``title``
+    (``None``: open none)."""
+    now = time.perf_counter()
+    if _PHASE_CLOCK:
+        name, t0 = _PHASE_CLOCK.pop()
+        say(f"  ({name} took {now - t0:.1f} s)")
+    if title is not None:
+        _PHASE_CLOCK.append((title.split(":")[0], now))
+        say(f"== {title}")
 
 
 def bound_of(nbytes: float, flops: float, flops_per_s: float):
@@ -2045,20 +2080,20 @@ def phase_checkpoint(torch, modules) -> dict:
 
 def phase_resnet(torch, modules, tf32_defaults, profile: bool) -> dict:
     """Phases 13 to 17; returns the launch counts by path."""
-    say("== phase 13: ResNet-50 training step at full width, card vs CPU")
+    phase("phase 13: ResNet-50 training step at full width, card vs CPU")
     paths = {"resnet_step": by_tpu_kernel(phase_resnet_step_vs_cpu(torch, modules))}
-    say("== phase 14: main path (training runner, ResNet-50, config/test-sync.yml)")
+    phase("phase 14: main path (training runner, ResNet-50, config/test-sync.yml)")
     for dtype, path in (("float32", "resnet"), ("bfloat16", "resnet_bf16")):
         runner, counts, _ = phase_resnet_runner(torch, modules, dtype, tf32_defaults, profile)
         paths[path] = by_tpu_kernel(counts)
         del runner
-    say("== phase 15: main path (ResNet-50 through the process loader, exact validation)")
+    phase("phase 15: main path (ResNet-50 through the process loader, exact validation)")
     paths["resnet_process_exact"] = by_tpu_kernel(
         phase_resnet_process_exact(torch, modules, tf32_defaults, profile))
-    say("== phase 16: main path (training runner, config/ResNet50-lars8k.yml: LARS, poly, "
+    phase("phase 16: main path (training runner, config/ResNet50-lars8k.yml: LARS, poly, "
         "bf16; then s2d, bf16 statistics, EMA)")
     paths.update(phase_lars(torch, modules, tf32_defaults, profile))
-    say("== phase 17: checkpoint, resume and preemption (config/test-sync.yml, f32, EMA)")
+    phase("phase 17: checkpoint, resume and preemption (config/test-sync.yml, f32, EMA)")
     phase_checkpoint(torch, modules)
     return paths
 
@@ -2499,10 +2534,10 @@ def phase_faults(torch) -> dict:
 
 def phase_accum_and_faults(torch, modules) -> dict:
     """Phases 18 and 19; returns the launch counts by path."""
-    say("== phase 18: main path (training runner, configs/train-lm-1024-accum.yml: batch 64 "
+    phase("phase 18: main path (training runner, configs/train-lm-1024-accum.yml: batch 64 "
         "as 8 micro-batches, tokens file, remat dots, guard armed)")
     counts = phase_lm_accum(torch, modules)
-    say("== phase 19: fault tolerance (config/test-sync.yml, ResNet-50, f32, injected faults)")
+    phase("phase 19: fault tolerance (config/test-sync.yml, ResNet-50, f32, injected faults)")
     phase_faults(torch)
     return {"lm_accum": by_tpu_kernel(counts)}
 
@@ -2527,14 +2562,16 @@ def sched_requests(np, vocab: int, n: int = 32, seed: int = 20):
     return prompts, caps
 
 
-def serve_trace(submit, prompts, caps, keys, timeout: float = 600.0):
+def serve_trace(submit, prompts, caps, keys, timeout: float = 600.0, adapters=None):
     """Submit every request at once; returns (results, TTFT ms of each,
-    wall s).  The first token's time is the host's, in ``on_token``."""
+    wall s).  The first token's time is the host's, in ``on_token``.
+    ``adapters``: each request's LoRA adapter (``None``: the base model)."""
     first, sent, futs = {}, {}, []
     t0 = time.perf_counter()
     for i, (p, c, k) in enumerate(zip(prompts, caps, keys)):
         sent[i] = time.perf_counter()
-        futs.append(submit(p, max_new_tokens=c, key=k,
+        extra = {} if adapters is None else {"adapter": adapters[i]}
+        futs.append(submit(p, max_new_tokens=c, key=k, **extra,
                            on_token=lambda tok, i=i: first.setdefault(i, time.perf_counter())))
     results = [f.result(timeout=timeout) for f in futs]
     wall = time.perf_counter() - t0
@@ -2740,8 +2777,9 @@ def phase_serve_ckpt(torch, np) -> dict:
     return dict(train_s=train_s, bytes=size)
 
 
-def phase_serve_sched(torch, np, modules, fe, smi: str, profile: bool) -> dict:
-    """Phase 20; returns the launch counts of (a)."""
+def phase_serve_sched(torch, np, modules, fe, smi: str, profile: bool):
+    """Phase 20; returns the launch counts of (a), and (a)'s trace with its
+    readings and streams for phase 21."""
     from pytorch_distributed_training_tpu_torch.config_parsing import get_serve_cfg
     from pytorch_distributed_training_tpu_torch.serving import InferenceEngine
 
@@ -2853,7 +2891,212 @@ def phase_serve_sched(torch, np, modules, fe, smi: str, profile: bool) -> dict:
     readings["phase_s"] = time.perf_counter() - t_phase
     say(f"  phase 20 took {readings['phase_s']:.1f} s")
     say("serving_sched: " + json.dumps(readings))
-    return counts
+    return counts, dict(prompts=prompts, caps=caps, keys=keys, tokens=sync_tokens,
+                        readings=readings["sync"])
+
+
+# phase 21: the scheduler's decode modes
+
+# each mode's keys: JAX config/serve-lm.yml's commented example
+MODE_KEYS = {
+    "quant": {"quant": {"enabled": True}},
+    "lora": {"lora": {"enabled": True, "rank": 8,
+                      "adapters": [{"name": "tenant-a", "seed": 0},
+                                   {"name": "tenant-b", "seed": 1}]}},
+    "self_draft": {"speculative": {"enabled": True, "k": 4, "min_acceptance": 0.2}},
+    "draft": {"speculative": {"enabled": True, "k": 4, "draft": {"depth": 1}, "draft_seed": 0,
+                              "min_acceptance": 0.2}},
+}
+# the mixed trace of (b): tenant-a, base and tenant-b rows in every decode batch
+ADAPTER_CYCLE = ("tenant-a", None, "tenant-b")
+# (b): the JAX oracle's scale of the factors (tests/test_serving.py:1035-1045)
+# when the random delta flips no token
+LORA_SCALE = 30.0
+
+
+def mode_cfg(mode=None, depth=None, dtype=None) -> dict:
+    """``configs/serve-lm-1024-sched.yml`` with ``mode``'s keys, cut to
+    ``depth`` and served in ``dtype`` where given."""
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_serve_cfg
+
+    cfg = get_serve_cfg(SCHED_CONFIG)
+    if mode is not None:
+        cfg["serving"].update(json.loads(json.dumps(MODE_KEYS[mode])))
+    if depth is not None:
+        cfg["model"]["depth"] = depth
+    if dtype is not None:
+        cfg["serving"]["dtype"] = dtype
+    return cfg
+
+
+def mode_gates(torch, plain: dict) -> dict:
+    """Phase 21's gates: f32, full width, depth 2, TF32 off, 8 requests of
+    phase 20's trace (with (b)'s adapters cycling)."""
+    from pytorch_distributed_training_tpu_torch.serving import InferenceEngine
+
+    p8, c8, k8 = plain["prompts"][:8], plain["caps"][:8], plain["keys"][:8]
+    mixed = [ADAPTER_CYCLE[i % 3] for i in range(8)]
+
+    def engine(mode=None, **kw):
+        return InferenceEngine.from_config(mode_cfg(mode, depth=2, dtype="float32"), **kw)
+
+    def run(e, adapters=None):
+        return tokens_of(serve_trace(e.submit, p8, c8, k8, adapters=adapters)[0])
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        with engine() as e:
+            base = run(e)
+        # (a) the card's int8 streams against the port's own on the CPU
+        with engine("quant") as e:
+            card = run(e)
+        with engine("quant", device="cpu") as e:
+            cpu = run(e)
+        if card != cpu:
+            raise AssertionError("(a) int8: the card's greedy streams differ from the CPU's")
+        out["quant_same_as_plain"] = sum(a == b for x, y in zip(card, base) for a, b in zip(x, y))
+        say(f"  (a) gate: 8 int8 greedy streams on the card equal the CPU's "
+            f"({out['quant_same_as_plain']} of {sum(c8)} tokens equal the plain engine's)")
+        # (b) each tenant against a merged-weights engine, base rows against plain
+        for scale in (1.0, LORA_SCALE):
+            # a fresh engine each time: its prefix cache holds no K/V of
+            # other factors
+            with engine("lora") as e:
+                with torch.no_grad():
+                    for name, p in e.model.named_parameters():
+                        if "_lora_" in name:
+                            p.mul_(scale)
+                got = run(e, mixed)
+                state = {k: v.detach().clone() for k, v in e.model.state_dict().items()}
+                reg = e.lora_registry
+            if any(got[i] != base[i] for i in range(8) if mixed[i] is not None):
+                break
+        for name in ("tenant-a", "tenant-b"):
+            with engine(state_dict=reg.merged_params(state, name)) as m:
+                ref = run(m)
+            if any(got[i] != ref[i] for i in range(8) if mixed[i] == name):
+                raise AssertionError(f"(b) {name}: streams differ from the merged-weights engine")
+        if any(got[i] != base[i] for i in range(8) if mixed[i] is None):
+            raise AssertionError("(b) base rows differ from the plain engine")
+        flipped = sum(got[i] != base[i] for i in range(8) if mixed[i] is not None)
+        if not flipped:
+            raise AssertionError("(b) no tenant stream differs from the base model's")
+        out["lora_scale"], out["lora_rows_flipped"] = scale, flipped
+        say(f"  (b) gate: tenant rows equal their merged-weights (W + A B) engines, base rows "
+            f"the plain engine; factors x{scale}, {flipped} of 5 tenant streams differ from base")
+        # (c), (d): greedy streams equal plain greedy
+        for mode in ("self_draft", "draft"):
+            with engine(mode) as e:
+                got = run(e)
+                snap = e.snapshot()
+            if got != base:
+                raise AssertionError(f"({mode}) streams differ from plain greedy")
+            rate = snap["spec_acceptance_rate"]
+            if mode == "self_draft" and rate != 1.0:
+                raise AssertionError(f"(c) self-draft acceptance {rate}, want 1.0")
+            out[f"{mode}_acceptance"] = rate
+            say(f"  ({'c' if mode == 'self_draft' else 'd'}) gate: {mode} streams equal plain "
+                f"greedy; acceptance {rate}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
+def mode_reading(torch, modules, fe, smi: str, mode: str, plain: dict,
+                 profile: bool = False) -> dict:
+    """One mode at bf16, full depth, on phase 20's 32 requests: every
+    request its cap, K3/K4 launched exactly depth x each model's paged
+    calls, and the readings beside phase 20's plain ones.  ``profile``:
+    then 8 decode ticks (4 speculative rounds) of 8 full slots under
+    ``torch.profiler``."""
+    from pytorch_distributed_training_tpu_torch.serving import InferenceEngine
+
+    prompts, caps, keys = plain["prompts"], plain["caps"], plain["keys"]
+    adapters = [ADAPTER_CYCLE[i % 3] for i in range(len(prompts))] if mode == "lora" else None
+    t0 = time.perf_counter()
+    engine = InferenceEngine.from_config(mode_cfg(mode))
+    build_s = time.perf_counter() - t0
+    with engine:
+        engine.warmup()
+        sc = engine.scheduler
+        for m in modules:
+            m.reset_launch_counts()
+        calls0 = sc.calls()
+        res, ttft, wall = serve_trace(engine.submit, prompts, caps, keys, adapters=adapters)
+        counts = all_counts(modules)
+        calls = {k: v - calls0[k] for k, v in sc.calls().items()}
+        snap = engine.snapshot()
+        for r, c in zip(res, caps):
+            if r["gen_len"] != c:
+                raise AssertionError(f"{mode}: gen_len {r['gen_len']} (cap {c})")
+        paged = ("prefill", "decode_step", "decode_step_fed", "verify")
+        depth = engine.model.depth
+        draft = sc._spec.draft_model if sc._spec is not None else None
+        ddepth = depth if sc._spec is not None and draft is None else getattr(draft, "depth", 0)
+        n = depth * sum(calls[k] for k in paged) + ddepth * sum(
+            calls.get(f"draft_{k}", 0) for k in paged)
+        check_launches(f"serving mode {mode}", counts, {k: n for k in fe.KERNELS})
+        row = trace_readings(f"mode {mode}", res, ttft, wall, snap, smi)
+        tokens = tokens_of(res)
+        row.update(build_s=build_s, calls=calls,
+                   launches={k: counts[k] for k in fe.KERNELS},
+                   tokens_per_s_vs_plain=row["tokens_per_s"] / plain["readings"]["tokens_per_s"],
+                   same_tokens_as_plain=sum(a == b for x, y in zip(tokens, plain["tokens"])
+                                            for a, b in zip(x, y)),
+                   generated=sum(caps))
+        if mode == "quant":
+            q = engine.quant_state
+            row.update(int8_bytes=sum(v["q"].numel() for v in q.values()),
+                       scale_bytes=sum(v["s"].numel() * 4 for v in q.values()),
+                       bf16_weight_bytes=sum(p.numel() * p.element_size()
+                                             for p in engine.model.parameters()),
+                       dequant_launches_per_tick=len(q))
+        if mode == "lora":
+            row.update(prefix_hit_blocks=snap.get("prefix_hit_blocks", 0),
+                       prefix_miss_blocks=snap.get("prefix_miss_blocks", 0),
+                       adapter_requests={a: snap.get(f"adapter_{a}_requests", 0)
+                                         for a in ("tenant-a", "tenant-b")})
+        if sc._spec is not None:
+            pool = sc._draft_pool
+            row.update(spec_acceptance_rate=snap.get("spec_acceptance_rate"),
+                       spec_rounds=snap.get("spec_rounds"),
+                       below_floor=bool(snap.get("spec_acceptance_below_floor")),
+                       draft_pool_mib=sum(t.numel() * t.element_size()
+                                          for t in pool.keys + pool.values) / 2**20)
+        if profile:
+            hand = sched_on(engine, start=False, quant=engine.quant_state,
+                            lora=engine.lora_registry, speculative=sc._spec)
+            for i, (p, k) in enumerate(zip(prompts[:8], keys[:8])):
+                hand.submit(p, key=k, **({} if adapters is None else {"adapter": adapters[i]}))
+            hand.tick()
+            hand.tick()
+            n = 4 if sc._spec is not None else 8
+            profile_window(torch, f"{mode}: {n} ticks of 8 slots",
+                           lambda: [hand.tick() for _ in range(n)], 12)
+            hand.close()
+    say(f"  {mode}: " + json.dumps({k: v for k, v in row.items()
+                                    if k in ("build_s", "calls", "launches", "same_tokens_as_plain",
+                                             "tokens_per_s_vs_plain", "int8_bytes",
+                                             "scale_bytes", "dequant_launches_per_tick",
+                                             "prefix_hit_blocks", "prefix_miss_blocks",
+                                             "spec_acceptance_rate", "below_floor",
+                                             "draft_pool_mib")}))
+    return row
+
+
+def phase_serve_modes(torch, modules, fe, smi: str, plain: dict, profile: bool) -> dict:
+    """Phase 21; returns K3/K4's launches by mode."""
+    t_phase = time.perf_counter()
+    readings = {"gates": mode_gates(torch, plain)}
+    for mode in MODE_KEYS:
+        readings[mode] = mode_reading(torch, modules, fe, smi, mode, plain, profile)
+        torch.cuda.empty_cache()
+    readings["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 21 took {readings['phase_s']:.1f} s")
+    say("serving_modes: " + json.dumps(readings))
+    return {mode: readings[mode]["launches"] for mode in MODE_KEYS}
 
 
 def main(argv=None) -> int:
@@ -2889,7 +3132,7 @@ def main(argv=None) -> int:
     tf32_defaults = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
 
     t_start = time.perf_counter()
-    say("== phase 1: the card")
+    phase("phase 1: the card")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -2898,7 +3141,7 @@ def main(argv=None) -> int:
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
 
-    say("== phase 2: build")
+    phase("phase 2: build")
     built = kernels.build()
     for name, secs in built.items():
         say(f"  built {name} in {secs:.1f} s -> {kernels.library_path(name)}")
@@ -2906,38 +3149,43 @@ def main(argv=None) -> int:
             say(f"    {line}")
 
     if args.f32_runner:
-        say("== phase 12: main path (training runner, full width, float32)")
+        phase("phase 12: main path (training runner, full width, float32)")
         phase_f32_runner_and_profile(torch, modules, args.profile)
         say(smi)
         return 0
     if args.resnet:
         phase_resnet(torch, modules, tf32_defaults, args.profile)
+        phase(None)
         say(f"total {time.perf_counter() - t_start:.1f} s")
         say(smi)
         return 0
     if args.accum_faults:
         phase_accum_and_faults(torch, modules)
+        phase(None)
         say(f"total {time.perf_counter() - t_start:.1f} s")
         say(smi)
         return 0
 
     if args.serve:
-        say("== phase 5: main path (serving batcher, full width)")
+        phase("phase 5: main path (serving batcher, full width)")
         phase_main_path(torch, fe, np, modules)
         torch.cuda.empty_cache()
-        say("== phase 20: main path (serving scheduler, full width)")
-        phase_serve_sched(torch, np, modules, fe, smi, args.profile)
+        phase("phase 20: main path (serving scheduler, full width)")
+        _, plain = phase_serve_sched(torch, np, modules, fe, smi, args.profile)
+        phase("phase 21: serving decode modes, full width")
+        phase_serve_modes(torch, modules, fe, smi, plain, args.profile)
+        phase(None)
         say(f"total {time.perf_counter() - t_start:.1f} s")
         say(smi)
         return 0
 
-    say("== phase 3: kernels against their plain twins")
+    phase("phase 3: kernels against their plain twins")
     cases = phase_kernels(torch, fe)
 
-    say("== phase 4: full-width model, card vs CPU")
+    phase("phase 4: full-width model, card vs CPU")
     phase_model_vs_cpu(torch, fe)
 
-    say("== phase 5: main path (serving batcher, full width)")
+    phase("phase 5: main path (serving batcher, full width)")
     paths = {}
     serve_counts, engine = phase_main_path(torch, fe, np, modules)
     paths["serving"] = by_tpu_kernel(serve_counts)
@@ -2947,10 +3195,10 @@ def main(argv=None) -> int:
     engine = None
     torch.cuda.empty_cache()
 
-    say("== phase 6: training kernels against their plain twins")
+    phase("phase 6: training kernels against their plain twins")
     cases.update(phase_train_kernels(torch, ce, fa))
 
-    say("== phase 7: full-width training step, card vs CPU")
+    phase("phase 7: full-width training step, card vs CPU")
     # f32 at S = 256: the resident forward (K2a) and the split backward
     # (K2d dQ, K2e dK/dV) of the JAX package, here the f32 kernels
     phase_step_vs_cpu(
@@ -2960,7 +3208,7 @@ def main(argv=None) -> int:
         want=dict(add_layernorm=2, bias_gelu=2, ce_fwd=1, ce_bwd=1, flash_fwd=2, flash_bwd=4,
                   K2a=2, K2d=2, K2e=2))
 
-    say("== phase 8: main path (training runner, full width)")
+    phase("phase 8: main path (training runner, full width)")
     depth = get_cfg(TRAIN_CONFIG)["model"]["depth"]
     runner, counts, train = phase_runner(
         torch, modules, TRAIN_CONFIG, "train-lm-1024",
@@ -2976,10 +3224,10 @@ def main(argv=None) -> int:
     runner = None
     torch.cuda.empty_cache()
 
-    say("== phase 9: long-context flash kernels against their plain twins")
+    phase("phase 9: long-context flash kernels against their plain twins")
     cases.update(phase_long_kernels(torch, fa))
 
-    say("== phase 10: long-context widths, f32 training step with remat, card vs CPU")
+    phase("phase 10: long-context widths, f32 training step with remat, card vs CPU")
     # f32 at S = 2048: K2a forward (run twice a block: remat), K2d/K2e backward
     counts, _ = phase_step_vs_cpu(
         torch, modules, "long-context-width f32 step on the card",
@@ -2988,7 +3236,7 @@ def main(argv=None) -> int:
         want=dict(ce_fwd=1, ce_bwd=1, flash_fwd=4, flash_bwd=4, K2a=4, K2d=2, K2e=2))
     paths["f32_step"] = by_tpu_kernel(counts)
 
-    say("== phase 11: main path (training runner, long context)")
+    phase("phase 11: main path (training runner, long context)")
     depth = get_cfg(LONGCTX_CONFIG)["model"]["depth"]
     # remat runs every block's forward twice a step; S = 32768 is past the
     # JAX package's resident budget, so every flash launch stands for a
@@ -3006,13 +3254,15 @@ def main(argv=None) -> int:
     runner = None
     torch.cuda.empty_cache()
 
-    say("== phase 12: main path (training runner, full width, float32)")
+    phase("phase 12: main path (training runner, full width, float32)")
     paths["f32_runner"] = by_tpu_kernel(phase_f32_runner_and_profile(torch, modules, args.profile))
     paths.update(phase_resnet(torch, modules, tf32_defaults, args.profile))
     paths.update(phase_accum_and_faults(torch, modules))
-    say("== phase 20: main path (serving scheduler, full width)")
-    paths["serving_sched"] = by_tpu_kernel(phase_serve_sched(torch, np, modules, fe, smi,
-                                                             args.profile))
+    phase("phase 20: main path (serving scheduler, full width)")
+    counts, plain = phase_serve_sched(torch, np, modules, fe, smi, args.profile)
+    paths["serving_sched"] = by_tpu_kernel(counts)
+    phase("phase 21: serving decode modes, full width")
+    serving_modes = phase_serve_modes(torch, modules, fe, smi, plain, args.profile)
 
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "ffma_bound_ms")
@@ -3025,7 +3275,11 @@ def main(argv=None) -> int:
                    launches_by_path={p: n[tpu] for p, n in paths.items()}, matched=True)
         row.update({k: cases[case][idx].get(k) for k in keys})
         row["also"] = [{k: cases[c][i].get(k) for k in keys} for c, i in ALSO.get(tpu, ())]
+        if WRAPPER_OF.get(tpu) in fe.KERNELS:
+            # K3/K4's launches on phase 21's run of each decode mode
+            row["serving_modes"] = {m: n[WRAPPER_OF[tpu]] for m, n in serving_modes.items()}
         summary.append(row)
+    phase(None)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": summary}))

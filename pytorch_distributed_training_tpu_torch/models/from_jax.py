@@ -10,7 +10,9 @@ JAX needed here) and maps it:
 
 The qkv kernel keeps its column order, heads-major ``(H, 3, hd)``: the
 port's attention factors the output the same way, so no permutation is
-needed (or correct).
+needed (or correct).  The stacked LoRA factors of a grafted tree
+(``.../attn/{qkv,proj}_lora_{a,b}``, present in every block or in none)
+map as they are: their einsum layout is the JAX one.
 
 The conversion is strict.  The expected leaves and their shapes follow from
 the tree's own dimensions (vocabulary and width from ``tok_embedding``,
@@ -74,6 +76,13 @@ def _expected_shapes(leaves: Dict[str, np.ndarray]) -> Dict[str, tuple]:
         ):
             shapes[f"{b}/{name}/kernel"] = (fan_in, fan_out)
             shapes[f"{b}/{name}/bias"] = (fan_out,)
+    lora = leaves.get("block0/attn/qkv_lora_a")
+    if lora is not None and lora.ndim == 3:
+        n, _, r = lora.shape
+        for i in range(depth):
+            for name, out in (("qkv", 3 * dim), ("proj", dim)):
+                shapes[f"block{i}/attn/{name}_lora_a"] = (n, dim, r)
+                shapes[f"block{i}/attn/{name}_lora_b"] = (n, r, out)
     return shapes
 
 

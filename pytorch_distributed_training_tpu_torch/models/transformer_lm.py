@@ -52,8 +52,14 @@ keeps).  Remat applies only
 while autograd records: evaluation, prefill and decode run the blocks as
 they are.
 
+``lora_rank``/``lora_adapters`` give every block's attention stacked LoRA
+factors (:class:`..ops.attention.MultiHeadAttention`; JAX ``:202-209``);
+a call's ``adapter_ids`` [B] picks each row's adapter (-1: the base
+model).  The base parameters are unchanged, so plain checkpoints still
+load.  :meth:`TransformerLM.clone` is flax's ``model.clone(**overrides)``.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-MoE blocks and ``seq_axis`` (P9) and LoRA (P5).
+MoE blocks and ``seq_axis`` (P9).
 """
 from __future__ import annotations
 
@@ -85,18 +91,21 @@ SAVED_OPS = {
 
 class DecoderBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, dtype=torch.float32,
-                 fused_tails: bool = False, flash: bool = False):
+                 fused_tails: bool = False, flash: bool = False, lora_rank: int = 0,
+                 lora_adapters: int = 0):
         super().__init__()
         self.fused_tails = fused_tails
         self.ln1 = LayerNorm(dim, dtype)
-        self.attn = MultiHeadAttention(dim, num_heads, causal=True, dtype=dtype, flash=flash)
+        self.attn = MultiHeadAttention(dim, num_heads, causal=True, dtype=dtype, flash=flash,
+                                       lora_rank=lora_rank, lora_adapters=lora_adapters)
         # ln1 has no add before it, and the block's last add feeds the next
         # block's ln1, so add+ln2 is the pair one kernel can fuse
         self.ln2 = (FusedResidualLayerNorm if fused_tails else LayerNorm)(dim, dtype)
         self.mlp = MLP(dim, int(dim * mlp_ratio), dim, dtype, fused_tails)
 
-    def forward(self, x, cache=None, layer: int = 0, decode_pos=None, block_tables=None):
-        attn_out = self.attn(self.ln1(x), cache, layer, decode_pos, block_tables)
+    def forward(self, x, cache=None, layer: int = 0, decode_pos=None, block_tables=None,
+                adapter_ids=None):
+        attn_out = self.attn(self.ln1(x), cache, layer, decode_pos, block_tables, adapter_ids)
         if self.fused_tails:
             x, y = self.ln2(x, attn_out)
         else:
@@ -125,8 +134,11 @@ class TransformerLM(nn.Module):
         moe_experts: int = 0,
         paged: bool = False,
         lora_rank: int = 0,
+        lora_adapters: int = 0,
     ):
         super().__init__()
+        # the arguments, for clone()
+        self._config = {k: v for k, v in locals().items() if k not in ("self", "__class__")}
         if moe_experts > 0:
             raise NotImplementedError("MoE blocks are ROADMAP port item P9")
         if seq_axis is not None:
@@ -135,8 +147,6 @@ class TransformerLM(nn.Module):
             )
         # unknown names raise even with remat off, as in JAX
         self.set_remat(remat, remat_policy)
-        if lora_rank > 0:
-            raise NotImplementedError("LoRA factors are ROADMAP port item P5")
         if embed_dim % num_heads != 0:
             raise ValueError(f"embed dim {embed_dim} not divisible by {num_heads} heads")
         self.vocab_size = vocab_size
@@ -147,6 +157,8 @@ class TransformerLM(nn.Module):
         self.dtype = dtype
         self.fused_tails = fused_tails
         self.flash = flash
+        self.lora_rank = int(lora_rank)
+        self.lora_adapters = int(lora_adapters) if lora_rank > 0 else 0
         # `paged` is the JAX flag, taken for its signature: a PagedKVCache
         # passed to a call selects the mode, and carries the pool's size
         self.tok_embedding = nn.Parameter(torch.empty(vocab_size, embed_dim))
@@ -154,14 +166,22 @@ class TransformerLM(nn.Module):
         for i in range(depth):
             self.add_module(
                 f"block{i}",
-                DecoderBlock(embed_dim, num_heads, mlp_ratio, dtype, fused_tails, flash),
+                DecoderBlock(embed_dim, num_heads, mlp_ratio, dtype, fused_tails, flash,
+                             lora_rank, lora_adapters),
             )
         self.ln = LayerNorm(embed_dim, dtype)
         self.head = Dense(embed_dim, vocab_size, torch.float32)
         # the submodules initialised themselves; the embeddings are ours
-        with torch.no_grad():
-            self.tok_embedding.normal_(0.0, 0.02)
-            self.pos_embedding.normal_(0.0, 0.02)
+        if not self.tok_embedding.is_meta:
+            with torch.no_grad():
+                self.tok_embedding.normal_(0.0, 0.02)
+                self.pos_embedding.normal_(0.0, 0.02)
+
+    def clone(self, **overrides) -> "TransformerLM":
+        """A new model of this one's arguments with ``overrides`` (flax
+        ``clone``), freshly initialised; built under ``torch.device("meta")``
+        it allocates nothing, for ``load_state_dict(..., assign=True)``."""
+        return TransformerLM(**{**self._config, **overrides})
 
     def set_remat(self, remat: bool, policy: str = "nothing") -> None:
         """Block remat on or off, under ``policy`` (a name of
@@ -222,9 +242,12 @@ class TransformerLM(nn.Module):
             self.embed_dim // self.num_heads, self.dtype, device,
         )
 
-    def trunk(self, tokens, cache=None, decode_pos=None, block_tables=None):
+    def trunk(self, tokens, cache=None, decode_pos=None, block_tables=None, adapter_ids=None):
         """Embeddings and blocks: the residual stream ``[B, S, E]`` before
         the final LayerNorm and head."""
+        if adapter_ids is not None and self.lora_rank <= 0:
+            raise ValueError("adapter_ids given but the model has no LoRA factors "
+                             "(clone with lora_rank/lora_adapters set)")
         b, s = tokens.shape
         # F.embedding, not indexing: the same rows, and a backward that sums
         # each row's gradient in a fixed order (indexing's scatter-add on the
@@ -252,13 +275,13 @@ class TransformerLM(nn.Module):
             elif recompute:
                 x = checkpoint(block, x, use_reentrant=False)
             else:
-                x = block(x, cache, i, decode_pos, block_tables)
+                x = block(x, cache, i, decode_pos, block_tables, adapter_ids)
         return x
 
     def logits(self, x):
         """Final LayerNorm and the f32 head over stream rows ``x``."""
         return self.head(self.ln(x))
 
-    def forward(self, tokens, cache=None, decode_pos=None, block_tables=None):
-        logits = self.logits(self.trunk(tokens, cache, decode_pos, block_tables))
+    def forward(self, tokens, cache=None, decode_pos=None, block_tables=None, adapter_ids=None):
+        logits = self.logits(self.trunk(tokens, cache, decode_pos, block_tables, adapter_ids))
         return logits if cache is None else (logits, cache)

@@ -27,8 +27,17 @@ The qkv projection's output factors heads-major, ``(H, 3, hd)``, exactly
 as the JAX module's (``ops/attention.py:269-275``): checkpoints converted
 from the JAX tree keep their meaning.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ring and Ulysses sequence parallelism (P9), LoRA factors (P5).
+Multi-LoRA (JAX ``:223-301``): ``lora_rank > 0`` gives the qkv and proj
+Denses stacked low-rank factors for ``lora_adapters`` adapters
+(``qkv_lora_a`` [N, dim, r], ``qkv_lora_b`` [N, r, 3 dim], ``proj_lora_a``,
+``proj_lora_b``; A normal(0.02), B zeros, so a fresh adapter is a no-op),
+and a call's ``adapter_ids`` [B] picks each row's adapter
+(:func:`.lora.lora_delta`; -1 the base model).  Each delta is added after
+its full Dense, cast to the Dense's dtype first.  The factors keep the
+JAX einsum layout and stay f32.
+
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
+ring and Ulysses sequence parallelism (P9).
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ from torch import nn
 
 from .flash_attention import SUPPORTED_HEAD_DIMS, flash_attention, flash_shapes_ok
 from .layers import Dense
+from .lora import lora_delta
 
 __all__ = ["KVCache", "MultiHeadAttention", "PagedKVCache", "decode_attention",
            "dot_product_attention", "paged_attention"]
@@ -215,12 +225,13 @@ class MultiHeadAttention(nn.Module):
     the sequence length allows (see the module docstring).  ``paged`` is
     the JAX module's flag, taken for its signature: the mode is chosen per
     call, by passing a :class:`PagedKVCache` with per-token positions and
-    block tables.
+    block tables.  ``lora_rank``/``lora_adapters``: the stacked LoRA
+    factors (see the module docstring).
     """
 
     def __init__(self, dim: int, num_heads: int, causal: bool = False, dtype=torch.float32,
                  seq_axis: Optional[str] = None, paged: bool = False, lora_rank: int = 0,
-                 flash: bool = False):
+                 flash: bool = False, lora_adapters: int = 0):
         super().__init__()
         if dim % num_heads != 0:
             raise ValueError(f"embed dim {dim} not divisible by {num_heads} heads")
@@ -228,8 +239,9 @@ class MultiHeadAttention(nn.Module):
             raise NotImplementedError(
                 "ring/Ulysses sequence parallelism is ROADMAP port item P9"
             )
-        if lora_rank > 0:
-            raise NotImplementedError("LoRA factors are ROADMAP port item P5")
+        if lora_rank > 0 and lora_adapters < 1:
+            raise ValueError(f"lora_rank {lora_rank} needs lora_adapters >= 1, "
+                             f"got {lora_adapters}")
         if flash and dim // num_heads not in SUPPORTED_HEAD_DIMS:
             raise ValueError(f"flash attention takes head dims {SUPPORTED_HEAD_DIMS}, "
                              f"got {dim // num_heads}")
@@ -239,12 +251,38 @@ class MultiHeadAttention(nn.Module):
         self.dtype = dtype
         self.qkv = Dense(dim, 3 * dim, dtype)
         self.proj = Dense(dim, dim, dtype)
+        self.lora_rank = int(lora_rank)
+        if self.lora_rank > 0:
+            n, r = int(lora_adapters), self.lora_rank
+            self.qkv_lora_a = nn.Parameter(torch.empty(n, dim, r))
+            self.qkv_lora_b = nn.Parameter(torch.empty(n, r, 3 * dim))
+            self.proj_lora_a = nn.Parameter(torch.empty(n, dim, r))
+            self.proj_lora_b = nn.Parameter(torch.empty(n, r, dim))
+            self.reset_parameters()
 
-    def forward(self, x, cache=None, layer: int = 0, decode_pos=None, block_tables=None):
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """The LoRA factors' initializers (the Denses reset themselves)."""
+        if self.lora_rank > 0:
+            with torch.no_grad():
+                for a, b in ((self.qkv_lora_a, self.qkv_lora_b),
+                             (self.proj_lora_a, self.proj_lora_b)):
+                    if not a.is_meta:
+                        a.normal_(0.0, 0.02, generator=generator)
+                        b.zero_()
+
+    def forward(self, x, cache=None, layer: int = 0, decode_pos=None, block_tables=None,
+                adapter_ids=None):
         b, s, dim = x.shape
         head_dim = dim // self.num_heads
+        if adapter_ids is not None and self.lora_rank <= 0:
+            raise ValueError("adapter_ids given but the module has no LoRA factors "
+                             "(lora_rank is 0)")
+        qkv = self.qkv(x)
+        if adapter_ids is not None:
+            qkv = qkv + lora_delta(x, self.qkv_lora_a, self.qkv_lora_b,
+                                   adapter_ids).to(qkv.dtype)
         # heads-major: the flat 3*dim output factors as (H, 3, hd)
-        qkv = self.qkv(x).reshape(b, s, self.num_heads, 3, head_dim)
+        qkv = qkv.reshape(b, s, self.num_heads, 3, head_dim)
         q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
         if isinstance(cache, PagedKVCache):
             if not self.causal:
@@ -265,4 +303,9 @@ class MultiHeadAttention(nn.Module):
         else:
             impl = "flash" if self.flash and flash_shapes_ok(s) else "xla"
             out = dot_product_attention(q, k, v, causal=self.causal, impl=impl)
-        return self.proj(out.reshape(b, s, dim))
+        out = out.reshape(b, s, dim)
+        proj = self.proj(out)
+        if adapter_ids is not None:
+            proj = proj + lora_delta(out, self.proj_lora_a, self.proj_lora_b,
+                                     adapter_ids).to(proj.dtype)
+        return proj

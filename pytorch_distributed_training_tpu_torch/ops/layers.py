@@ -30,6 +30,8 @@ def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator] = N
     the same distribution as an inverse-CDF draw at a fraction of its cost
     at full model width.
     """
+    if weight.is_meta:  # a template built on the meta device: nothing to draw
+        return weight
     fan_in = weight.shape[1]
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     with torch.no_grad():

@@ -14,6 +14,9 @@ the JAX package's serving/.
     restart, the restart budget.
   - :mod:`.decode`     — generation over the contiguous cache and the paged
     calls, and the sampling rule both share.
+  - :mod:`.lora`       — :class:`LoraRegistry`: multi-LoRA adapters grafted
+    onto one base model.
+  - :mod:`.speculative` — :class:`SpeculativeSpec` and the accept rules.
   - :mod:`.metrics`    — p50/p99 latency, queue depth, throughput, the
     scheduler's occupancy, utilisation and tick times.
 
@@ -26,9 +29,11 @@ from .batcher import DynamicBatcher, OverloadedError, Request
 from .decode import build_generate_fn, build_paged_fns
 from .engine import InferenceEngine
 from .kv_pool import PagedKVPool
+from .lora import LoraRegistry
 from .metrics import ServingMetrics
 from .resilience import EngineRestartError, HungTickError, PoisonedRequestError, ServingSupervisor
 from .scheduler import ContinuousScheduler
+from .speculative import SpeculativeSpec
 
 __all__ = [
     "ContinuousScheduler",
@@ -36,12 +41,14 @@ __all__ = [
     "EngineRestartError",
     "HungTickError",
     "InferenceEngine",
+    "LoraRegistry",
     "OverloadedError",
     "PagedKVPool",
     "PoisonedRequestError",
     "Request",
     "ServingMetrics",
     "ServingSupervisor",
+    "SpeculativeSpec",
     "build_generate_fn",
     "build_paged_fns",
 ]

@@ -65,9 +65,10 @@ def main(argv=None) -> int:
             # main thread, so here
             engine.install_drain_handler()
             logger.info(
-                "engine up on %s: batch_buckets=%s seq_buckets=%s path=%s",
+                "engine up on %s: batch_buckets=%s seq_buckets=%s path=%s modes=%s",
                 engine.device, engine.batch_buckets, engine.seq_buckets,
                 "scheduler" if engine.scheduler is not None else "batcher",
+                ",".join(m for m, on in engine.serving_modes.items() if on) or "plain",
             )
             prompts = _synthetic_prompts(
                 engine.vocab_size, engine.seq_buckets[-1], args.requests, args.seed

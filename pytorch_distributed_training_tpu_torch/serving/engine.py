@@ -19,6 +19,24 @@ bucket grid whatever the traffic.
 ``:268-274``): ``max_restarts``, ``poison_bisect``, ``drain_deadline_ms``,
 ``watchdog``.  Unknown keys raise.
 
+The decode modes (JAX ``:86-260``), each counted only with ``enabled:
+true``:
+
+- ``serving.quant`` (``enabled``): the decode steps read int8 weights
+  (:mod:`..ops.quant`), quantized from the f32 master weights before the
+  cast; on the batcher path too;
+- ``serving.lora`` (``enabled``, ``rank``, ``adapters``: names or
+  ``{name, seed}``): a :class:`.lora.LoraRegistry` grafted onto the
+  model; ``submit(..., adapter=name)``;
+- ``serving.speculative`` (``enabled``, ``k``, ``draft``, ``draft_seed``,
+  ``min_acceptance``): draft-model speculative decoding.  ``draft``
+  overrides fields of the base model (before any LoRA graft) for the
+  draft, drawn from a ``torch.Generator`` seeded with ``draft_seed``;
+  without it the target drafts for itself.  ``min_acceptance`` is the
+  snapshot's warning floor.
+
+LoRA and speculative decoding need the scheduler, as in the JAX package.
+
 Compute runs in ``serving.dtype`` (bf16 by default) with f32 logits.  The
 Dense weights are rounded to the compute dtype once at build
 (:meth:`..models.transformer_lm.TransformerLM.cast_matmul_weights_`), the
@@ -29,8 +47,8 @@ reports instead how often each hand-written kernel launched
 (``launches_<kernel>``).
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``quant``, ``lora`` and ``speculative`` (P5), orbax checkpoints of
-the JAX package (P7b), classification models (P8).
+item: orbax checkpoints of the JAX package (P7b), classification models
+(P8).
 """
 from __future__ import annotations
 
@@ -47,32 +65,20 @@ from .. import resolve_device
 from ..engine.checkpoint import load_serving_state
 from ..models import get_model
 from ..ops import fused_elementwise
+from ..ops.quant import is_quantized_leaf, quantize_tree
 from .batcher import DynamicBatcher, Request
 from .decode import build_generate_fn
+from .lora import LoraRegistry
 from .metrics import ServingMetrics
 from .scheduler import ContinuousScheduler
+from .speculative import SpeculativeSpec
 
 __all__ = ["InferenceEngine"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
-_NOT_YET = {
-    "quant": "int8 decode is ROADMAP port item P5",
-    "lora": "multi-LoRA serving is ROADMAP port item P5",
-    "speculative": "speculative decoding is ROADMAP port item P5",
-}
-
-
 _SCHEDULER_KEYS = ("enabled", "slots", "block_size", "num_blocks", "prefix_cache",
                    "async_depth")
-
-
-def _reject_unported(serve: Dict[str, Any]) -> None:
-    """Raise for a ``serving`` key that asks for an unported feature.  As in
-    the JAX engine, a mode block counts only with ``enabled: true``."""
-    for key, why in _NOT_YET.items():
-        if bool((serve.get(key) or {}).get("enabled", False)):
-            raise NotImplementedError(f"serving.{key}: {why}")
 
 
 class InferenceEngine:
@@ -104,6 +110,9 @@ class InferenceEngine:
         seed: int = 0,
         scheduler: Optional[Dict[str, Any]] = None,
         resilience: Optional[Dict[str, Any]] = None,
+        quant: Optional[Dict[str, Any]] = None,
+        lora: Optional[Dict[str, Any]] = None,
+        speculative: Optional[Dict[str, Any]] = None,
         logger: Optional[logging.Logger] = None,
     ):
         self.device = resolve_device(device)
@@ -136,15 +145,71 @@ class InferenceEngine:
                 "has no supervisor (poison bisect, hot restart and replay all live in the "
                 "continuous scheduler)"
             )
+        # the decode modes, each block's keys checked as JAX does
+        quant_cfg = dict(quant or {})
+        use_quant = bool(quant_cfg.pop("enabled", False))
+        if quant_cfg:
+            raise ValueError(f"unknown serving.quant keys: {sorted(quant_cfg)}")
+        lora_cfg = dict(lora or {})
+        use_lora = bool(lora_cfg.pop("enabled", False))
+        lora_rank = int(lora_cfg.pop("rank", 8))
+        lora_adapters = lora_cfg.pop("adapters", None)
+        if lora_cfg:
+            raise ValueError(f"unknown serving.lora keys: {sorted(lora_cfg)}")
+        spec_cfg = dict(speculative or {})
+        use_spec = bool(spec_cfg.pop("enabled", False))
+        spec_k = int(spec_cfg.pop("k", 4))
+        spec_draft = spec_cfg.pop("draft", None)
+        spec_draft_seed = int(spec_cfg.pop("draft_seed", 0))
+        spec_min_acceptance = float(spec_cfg.pop("min_acceptance", 0.0))
+        if spec_cfg:
+            raise ValueError(f"unknown serving.speculative keys: {sorted(spec_cfg)}")
+        if not 0.0 <= spec_min_acceptance <= 1.0:
+            raise ValueError("serving.speculative.min_acceptance must be in [0, 1], "
+                             f"got {spec_min_acceptance}")
+        if (use_lora or use_spec) and not use_sched:
+            raise ValueError(
+                "serving.lora and serving.speculative require serving.scheduler.enabled: "
+                "adapter multiplexing and draft verification live in the continuous "
+                "scheduler's paged calls")
+        self.serving_modes = {"quant": use_quant, "lora": use_lora, "speculative": use_spec}
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
-        self.model = model.to(self.device).cast_matmul_weights_().eval()
+        base_model = model
+        self.lora_registry: Optional[LoraRegistry] = None
+        if use_lora:
+            self.lora_registry = LoraRegistry(lora_rank, lora_adapters)
+            model = self.lora_registry.graft(model)
+            self.logger.info("multi-LoRA serving: rank %d, adapters %s",
+                             self.lora_registry.rank, self.lora_registry.names)
+        model = model.to(self.device)
+        # int8 decode: quantized from the f32 master weights, before the
+        # cast rounds them (the JAX package quantizes its f32 params)
+        self.quant_state = None
+        if use_quant:
+            self.quant_state = {n: v for n, v in quantize_tree(model.state_dict()).items()
+                                if is_quantized_leaf(v)}
+        self.model = model.cast_matmul_weights_().eval()
         self.seed = int(seed)
         self._batch_counter = 0  # flush thread only
         self.metrics = ServingMetrics()
+        self.metrics.spec_min_acceptance = spec_min_acceptance
         self.scheduler: Optional[ContinuousScheduler] = None
         self.batcher: Optional[DynamicBatcher] = None
         if use_sched:
+            spec = None
+            if use_spec:
+                draft = None
+                if spec_draft is not None:
+                    # the base model (never the LoRA graft: a draft's miss
+                    # costs only acceptance) with the config's overrides,
+                    # random from draft_seed; a trained draft waits for one
+                    with torch.device("meta"):
+                        draft = base_model.clone(**dict(spec_draft))
+                    draft = draft.to_empty(device="cpu")
+                    draft.reset_parameters(torch.Generator().manual_seed(spec_draft_seed))
+                    draft = draft.to(self.device).cast_matmul_weights_().eval()
+                spec = SpeculativeSpec(spec_k, draft)
             self.scheduler = ContinuousScheduler(
                 self.model,
                 slots=int(sched_cfg.get("slots", 8)),
@@ -163,10 +228,14 @@ class InferenceEngine:
                 resilience=resilience,
                 async_depth=int(sched_cfg.get("async_depth", 0)),
                 logger=self.logger,
+                quant=self.quant_state if use_quant else False,
+                lora=self.lora_registry,
+                speculative=spec,
             )
         else:
             self._generate = build_generate_fn(
-                self.model, self.max_new_tokens, temperature=temperature, eos_id=eos_id
+                self.model, self.max_new_tokens, temperature=temperature, eos_id=eos_id,
+                quant=self.quant_state,
             )
             self.batcher = DynamicBatcher(
                 self._run_batch, max_batch_size, max_delay_ms,
@@ -191,7 +260,6 @@ class InferenceEngine:
         device = resolve_device(device)
         logger = logger or logging.getLogger(__name__)
         serve = cfg["serving"]
-        _reject_unported(serve)
         dtype_name = serve.get("dtype", "bfloat16")
         if dtype_name not in _DTYPES:
             raise ValueError(
@@ -204,10 +272,14 @@ class InferenceEngine:
                 f"serving {model_name!r}: classification serving is ROADMAP port item P8"
             )
         seed = int(serve.get("seed", 0))
-        model = get_model(
-            model_name, num_classes=cfg["dataset"]["n_classes"],
-            dtype=_DTYPES[dtype_name], **model_cfg,
-        )
+        # allocated uninitialised: every parameter is drawn or loaded below,
+        # so the constructors' own init would be thrown away
+        with torch.device("meta"):
+            model = get_model(
+                model_name, num_classes=cfg["dataset"]["n_classes"],
+                dtype=_DTYPES[dtype_name], **model_cfg,
+            )
+        model = model.to_empty(device="cpu")
         ckpt_dir = serve.get("checkpoint")
         if state_dict is None and ckpt_dir:
             state_dict, step = load_serving_state(ckpt_dir, logger)
@@ -239,20 +311,25 @@ class InferenceEngine:
             seed=seed,
             scheduler=serve.get("scheduler"),
             resilience=serve.get("resilience"),
+            quant=serve.get("quant"),
+            lora=serve.get("lora"),
+            speculative=serve.get("speculative"),
             logger=logger,
         )
 
     # ------------------------------------------------------------------ #
 
     def submit(self, payload, deadline_ms: Optional[float] = None,
-               max_new_tokens: Optional[int] = None, on_token=None, key=None):
+               max_new_tokens: Optional[int] = None, on_token=None, key=None,
+               adapter: Optional[str] = None):
         """Validate + enqueue one prompt; returns its result future.
 
         ``max_new_tokens`` caps this request below ``serving.max_new_tokens``
         (on the batcher path the result is truncated host-side and the
         batch still pays the full decode; the scheduler retires the slot at
-        the cap).  ``on_token`` (stream each token) and ``key`` (the
-        request's sampling key) need the scheduler.
+        the cap).  ``on_token`` (stream each token), ``key`` (the request's
+        sampling key) and ``adapter`` (a ``serving.lora`` adapter's name)
+        need the scheduler.
         """
         prompt = np.asarray(payload)
         if prompt.ndim != 1 or prompt.size < 1:
@@ -275,11 +352,11 @@ class InferenceEngine:
         if self.scheduler is not None:
             return self.scheduler.submit(prompt, deadline_ms=deadline_ms,
                                          max_new_tokens=max_new_tokens, on_token=on_token,
-                                         key=key)
-        if on_token is not None or key is not None:
+                                         key=key, adapter=adapter)
+        if on_token is not None or key is not None or adapter is not None:
             raise ValueError(
-                "on_token / per-request key require serving.scheduler.enabled (the batcher "
-                "path samples whole batches and resolves futures only at the end)"
+                "on_token / per-request key / adapter require serving.scheduler.enabled (the "
+                "batcher path samples whole batches and resolves futures only at the end)"
             )
         return self.batcher.submit(
             prompt.astype(np.int32), deadline_ms=deadline_ms,
@@ -355,6 +432,31 @@ class InferenceEngine:
             sched._fns.decode_step_fed(sched._pool, sched._zero_carry(),
                                        np.zeros((w,), np.int64), np.zeros((w,), np.int64),
                                        *args).cpu()
+        if sched._spec is not None:
+            self._warmup_speculative()
+
+    def _warmup_speculative(self) -> None:
+        """The speculative round's other calls: the target's ``verify`` and
+        ``copy_rows`` (every row out of range: the sink row), and the
+        draft's prefill at every bucket pair and its decode step."""
+        sched = self.scheduler
+        w, t, k = sched.slots_n, sched.table_blocks, sched._spec.k
+        aids = np.full((w,), -1, np.int64)
+        sched._fns.verify(sched._pool, np.zeros((w, k + 1), np.int64),
+                          np.full((w, k + 1), -1, np.int64), np.zeros((w, t), np.int64),
+                          aids).cpu()
+        oob = np.full((w * sched._block_size,), sched._pool.pool_rows, np.int64)
+        sched._fns.copy_rows(sched._pool, oob, oob)
+        for bb in self.batch_buckets:
+            for sb in self.seq_buckets:
+                sched._draft_fns.prefill(
+                    sched._draft_pool, np.zeros((bb, sb), np.int64),
+                    np.full((bb, sb), -1, np.int64), np.zeros((bb, t), np.int64),
+                    np.zeros((bb,), np.int64), [None] * bb, np.zeros((bb,), np.int64),
+                    np.full((bb,), -1, np.int64)).cpu()
+        sched._draft_fns.decode_step(sched._draft_pool, np.zeros((w,), np.int64),
+                                     np.full((w,), -1, np.int64), np.zeros((w, t), np.int64),
+                                     [None] * w, np.zeros((w,), np.int64), aids).cpu()
 
     def drain(self, deadline_ms: Optional[float] = None) -> float:
         """Stop admitting, finish what is queued and in flight, close.

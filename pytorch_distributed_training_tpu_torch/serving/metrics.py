@@ -9,6 +9,14 @@ and the health snapshot (``health_*`` gauges).  The scheduler mirrors its
 counters into the process registry as ``serving_<name>``; per-replica
 names are ROADMAP port item P6.
 
+The decode modes (JAX ``:89-120``, ``:370-390``): a request retired under
+a LoRA adapter also lands in that tenant's ``adapter_<name>_*``
+instruments; speculative rounds count ``spec_rounds``, ``spec_proposed``
+and ``spec_accepted``, and the snapshot derives ``spec_acceptance_rate``
+from them.  Below ``spec_min_acceptance`` (``serving.speculative.
+min_acceptance``; 0 disables it) the snapshot adds
+``spec_acceptance_below_floor`` and logs a warning once.
+
 Latency is recorded per REQUEST (enqueue -> result), so batching delay is
 included: the number a client observes.  Throughput counts generated tokens
 over the window from the first to the last flushed batch.  Prefill answers
@@ -21,6 +29,7 @@ lengths land in reservoir histograms of a private
 """
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from typing import Dict, List, Optional
@@ -57,6 +66,26 @@ class ServingMetrics:
         self._decode_tokens = 0  # guarded by: self._lock
         self._prefill_s = 0.0  # guarded by: self._lock
         self._decode_s = 0.0  # guarded by: self._lock
+        # per-adapter (latency, gen_len) histograms, made at first use
+        self._adapter_hists: Dict[str, tuple] = {}  # guarded by: self._lock
+        self.spec_min_acceptance = 0.0
+        self._spec_floor_warned = False  # guarded by: self._lock
+
+    @staticmethod
+    def adapter_name(adapter: str, name: str) -> str:
+        """Registry name of adapter-scoped instrument ``name``."""
+        return f"adapter_{adapter}_{name}"
+
+    def _adapter_instruments(self, adapter: str):
+        with self._lock:
+            pair = self._adapter_hists.get(adapter)
+            if pair is None:
+                pair = (self._registry.histogram(self.adapter_name(adapter, "latency_ms"),
+                                                 _RESERVOIR),
+                        self._registry.histogram(self.adapter_name(adapter, "gen_len"),
+                                                 _RESERVOIR))
+                self._adapter_hists[adapter] = pair
+            return pair
 
     def incr(self, name: str, n: int = 1) -> None:
         """Bump a named degradation counter (``timeouts``, ``sheds``)."""
@@ -100,11 +129,18 @@ class ServingMetrics:
     # the continuous scheduler's instruments: requests retire one by one,
     # device time accrues a prefill call or a decode step at a time
 
-    def record_request(self, enqueued_at: float, gen_len: int) -> None:
-        """One retired request: its latency from enqueue and its length."""
+    def record_request(self, enqueued_at: float, gen_len: int,
+                       adapter: Optional[str] = None) -> None:
+        """One retired request: its latency from enqueue and its length,
+        also in its LoRA ``adapter``'s own instruments when it has one."""
         now = time.monotonic()
         self._latency_ms.observe((now - enqueued_at) * 1000.0)
         self._gen_len.observe(int(gen_len))
+        if adapter is not None:
+            lat_h, gen_h = self._adapter_instruments(adapter)
+            lat_h.observe((now - enqueued_at) * 1000.0)
+            gen_h.observe(int(gen_len))
+            self._registry.counter(self.adapter_name(adapter, "requests")).inc()
         with self._lock:
             self._items += int(gen_len)
             if self._first_t is None:
@@ -211,6 +247,34 @@ class ServingMetrics:
         misses = counters.get("prefix_miss_blocks", 0)
         if hits + misses:
             out["prefix_hit_rate"] = float(hits / (hits + misses))
+        # the draft proposals the target kept (the bonus token is not counted)
+        proposed = counters.get("spec_proposed", 0)
+        if proposed:
+            rate = float(counters.get("spec_accepted", 0) / proposed)
+            out["spec_acceptance_rate"] = rate
+            floor = float(self.spec_min_acceptance or 0.0)
+            if floor > 0.0 and rate < floor:
+                out["spec_acceptance_below_floor"] = 1.0
+                with self._lock:
+                    warn, self._spec_floor_warned = not self._spec_floor_warned, True
+                if warn:
+                    logging.getLogger(__name__).warning(
+                        "speculative acceptance rate %.1f%% is below the configured "
+                        "serving.speculative.min_acceptance floor %.1f%%: draft verification "
+                        "costs decode latency instead of saving it; disable "
+                        "serving.speculative or use a stronger draft", 100.0 * rate,
+                        100.0 * floor)
+        with self._lock:
+            adapter_hists = dict(self._adapter_hists)
+        for name, (lat_h, gen_h) in sorted(adapter_hists.items()):
+            a_lat, a_gen = lat_h.snapshot(), gen_h.snapshot()
+            if a_lat["count"]:
+                pre = self.adapter_name(name, "latency_ms")
+                out[f"{pre}_p50"] = float(a_lat["p50"])
+                out[f"{pre}_p99"] = float(a_lat["p99"])
+                out[f"{pre}_mean"] = float(a_lat["mean"])
+            if a_gen["count"]:
+                out[self.adapter_name(name, "gen_tokens")] = int(a_gen["sum"])
         out.update(self._registry.gauges())
         return out
 

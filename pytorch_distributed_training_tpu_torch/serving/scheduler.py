@@ -45,13 +45,34 @@ Sampling keys: a request's key is ``(seed, seq_no)`` by default, as JAX's
 (the counterpart of JAX's ``rng=``).  Generated token ``i`` is drawn with
 ``SeedSequence(key + [i])`` (:mod:`.decode`), whatever the batch.
 
+The decode modes (JAX ``:141-330``, ``:1713-1870``), each off by default:
+
+- ``quant``: the decode steps read int8 weights
+  (:func:`..ops.quant.quantize_tree`); prefill and verify keep the plain
+  ones.  ``True`` quantizes the model's weights as they stand; an engine
+  that serves in bf16 passes the mapping it made from the f32 master
+  weights before the cast, so ``q`` and ``s`` are the JAX package's.
+- ``lora``: a :class:`.lora.LoraRegistry` over a model grafted with its
+  factors; ``submit(adapter=name)`` routes a request through that
+  adapter, batched with every other tenant's rows.  The adapter id
+  (``-1``: the base model) namespaces the prefix cache: the same prompt
+  under two adapters has different K/V.
+- ``speculative``: a :class:`.speculative.SpeculativeSpec`.  Each tick's
+  decode becomes one round: ``k + 1`` greedy single-token steps of the
+  draft over its own pool (prefix cache off; the last step writes the
+  last proposal's K/V), the boundary block copied into the request's
+  private spare block (``extra_blocks``), one ``verify`` of the target
+  over the ``k + 1`` columns on the forked table, :func:`.speculative.
+  greedy_accept`, and the commit by swapping the spare in.  Greedy only,
+  and not with ``async_depth``.  The argmax and the finite check of the
+  verify logits run on the card before the one host copy.
+
 For tests: ``start=False`` and :meth:`tick` by hand (one tick = admit +
 prefill + one decode step), so a scripted trace repeats exactly.
 
 Not ported, each raising ``NotImplementedError`` naming its ROADMAP item:
-``quant``, ``lora`` and ``speculative`` (P5); the kv-transfer verbs, the
-fleet identity (``replica_id``, ``heartbeat_path``,
-``liveness_timeout_s``) and ``replay_tokens`` (P6).
+the kv-transfer verbs, the fleet identity (``replica_id``,
+``heartbeat_path``, ``liveness_timeout_s``) and ``replay_tokens`` (P6).
 """
 from __future__ import annotations
 
@@ -60,13 +81,14 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..engine import fault
 from ..engine.watchdog import StepWatchdog
+from ..ops.quant import quantize_tree
 from ..telemetry.registry import get_registry
 from ..telemetry.spans import span
 from .batcher import OverloadedError
@@ -74,10 +96,10 @@ from .decode import build_paged_fns
 from .kv_pool import PagedKVPool
 from .metrics import ServingMetrics
 from .resilience import HungTickError, PoisonedRequestError, ServingSupervisor
+from .speculative import greedy_accept
 
 __all__ = ["ContinuousScheduler"]
 
-_P5 = "ROADMAP port item P5"
 _P6 = "ROADMAP port item P6 (fleet tier)"
 
 
@@ -86,7 +108,8 @@ class _PagedRequest:
 
     __slots__ = (
         "prompt", "max_new", "future", "enqueued_at", "deadline", "on_token", "key",
-        "admission", "slot", "tokens", "poison", "dispatched",
+        "admission", "slot", "tokens", "poison", "dispatched", "adapter", "adapter_name",
+        "draft_admission",
     )
 
     def __init__(self, prompt, max_new, deadline, on_token, key):
@@ -101,6 +124,9 @@ class _PagedRequest:
         self.slot = -1
         self.tokens: List[int] = []
         self.poison = None  # fault-injection marker ("raise")
+        self.adapter = -1  # LoRA adapter id; -1 = the base model
+        self.adapter_name: Optional[str] = None
+        self.draft_admission = None  # speculative mode: the draft pool's blocks
         # async pipeline: generated tokens determined so far, drained into
         # ``tokens`` or still in flight; the host derives every dispatch
         # input (position, sampling index) from it.  dispatched >=
@@ -146,20 +172,17 @@ class ContinuousScheduler:
         async_depth: int = 0,
         logger: Optional[logging.Logger] = None,
         start: bool = True,
-        quant: bool = False,
+        quant: Union[bool, Dict[str, Any]] = False,
         lora=None,
         speculative=None,
         replica_id: Optional[int] = None,
         heartbeat_path: Optional[str] = None,
         liveness_timeout_s: Optional[float] = None,
     ):
-        for name, val, item in (("quant", quant, _P5), ("lora", lora, _P5),
-                                ("speculative", speculative, _P5),
-                                ("replica_id", replica_id, _P6),
-                                ("heartbeat_path", heartbeat_path, _P6),
-                                ("liveness_timeout_s", liveness_timeout_s, _P6)):
-            if val is not None and val is not False:
-                raise NotImplementedError(f"scheduler {name}: {item}")
+        for name, val in (("replica_id", replica_id), ("heartbeat_path", heartbeat_path),
+                          ("liveness_timeout_s", liveness_timeout_s)):
+            if val is not None:
+                raise NotImplementedError(f"scheduler {name}: {_P6}")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if max_new_tokens < 1:
@@ -189,6 +212,24 @@ class ContinuousScheduler:
         self._async_depth = int(async_depth)
         if self._async_depth < 0:
             raise ValueError(f"async_depth must be >= 0, got {async_depth}")
+        self._lora = lora
+        self._spec = speculative
+        if lora is not None and getattr(model, "lora_adapters", 0) < 1:
+            raise ValueError("a LoRA registry was given but the model has no stacked factors: "
+                             "pass the registry's grafted model")
+        if speculative is not None and float(temperature) != 0.0:
+            raise ValueError(
+                "speculative decoding requires temperature 0.0: the greedy accept rule is "
+                "exact only against the argmax stream (the sampled rule is "
+                "serving/speculative.py's sampled_accept, not wired to the scheduler)")
+        if speculative is not None and self._async_depth:
+            raise ValueError(
+                "async_depth and speculative decoding are mutually exclusive: a round's "
+                "accept/reject must see every verify result before the next round is "
+                "proposed, so there is nothing to pipeline")
+        # a speculative request reserves one private spare block beyond its
+        # footprint: the copy-on-write target of each round's boundary block
+        self._extra_blocks = 1 if speculative is not None else 0
 
         # kept for the hot restart, which rebuilds the pool and the host pool
         self._block_size = int(block_size)
@@ -198,14 +239,27 @@ class ContinuousScheduler:
         # every block table is padded to the worst-case footprint, so the
         # decode call's shape never depends on a request's length
         self.table_blocks = self._kv.blocks_needed(self.seq_buckets[-1], self.max_new_tokens)
-        if self.table_blocks > self._kv.num_blocks:
+        if self.table_blocks + self._extra_blocks > self._kv.num_blocks:
             raise ValueError(
-                f"worst-case request needs {self.table_blocks} blocks but num_blocks is "
-                f"{self._kv.num_blocks}; grow the pool or shrink seq_buckets/max_new_tokens"
+                f"worst-case request needs {self.table_blocks + self._extra_blocks} blocks but "
+                f"num_blocks is {self._kv.num_blocks}; grow the pool or shrink "
+                "seq_buckets/max_new_tokens"
             )
-        self._fns = build_paged_fns(model, block_size, num_blocks, temperature=temperature)
+        if quant is True:
+            quant = quantize_tree(model.state_dict())
+        self._quant = quant or None  # the int8 state_dict the decode steps read
+        self._fns = build_paged_fns(model, block_size, num_blocks, temperature=temperature,
+                                    quant=self._quant)
         self._temperature = float(temperature)
         self._pool = self._fns.init_pool()
+        self._draft_fns = self._draft_pool = self._dkv = None
+        if speculative is not None:
+            # no draft model: the target drafts for itself (acceptance 1.0)
+            draft = speculative.draft_model if speculative.draft_model is not None else model
+            self._draft_lora = getattr(draft, "lora_adapters", 0) > 0
+            # the draft is greedy whatever the engine's temperature
+            self._draft_fns = build_paged_fns(draft, block_size, num_blocks, temperature=0.0)
+            self._build_draft()
         self._seed = int(seed)
         self._seq_no = 0  # guarded by: self._cond
 
@@ -279,12 +333,15 @@ class ContinuousScheduler:
         on_token: Optional[Callable[[int], None]] = None,
         key: Optional[Sequence[int]] = None,
         replay_tokens: Optional[Sequence[int]] = None,
+        adapter: Optional[str] = None,
     ) -> Future:
         """Enqueue one prompt; the future resolves at retirement.
 
         ``max_new_tokens`` caps this request below the scheduler-wide
         budget (its slot retires at the cap); ``key`` (non-negative ints)
-        sets the request's sampling key, default ``(seed, seq_no)``.
+        sets the request's sampling key, default ``(seed, seq_no)``;
+        ``adapter`` names a registered LoRA adapter (``None``: the base
+        model).
         """
         if replay_tokens:
             raise NotImplementedError(f"replay_tokens (fleet fail-over): {_P6}")
@@ -313,6 +370,12 @@ class ContinuousScheduler:
             key = tuple(int(k) for k in key)
             if not key or min(key) < 0:
                 raise ValueError(f"key must be non-negative ints, got {key}")
+        aid = -1
+        if adapter is not None:
+            if self._lora is None:
+                raise ValueError("adapter= requires serving.lora.enabled (no adapter registry "
+                                 "on this engine)")
+            aid = self._lora.id_of(adapter)
         with self._cond:
             if self._closed:
                 raise RuntimeError("scheduler is closed")
@@ -333,6 +396,7 @@ class ContinuousScheduler:
                 prompt, mnt, deadline=(time.monotonic() + dl / 1000.0) if dl else None,
                 on_token=on_token, key=key,
             )
+            req.adapter, req.adapter_name = aid, adapter
             self._queue.append(req)
             self.metrics.observe_depth(len(self._queue))
             self._cond.notify_all()
@@ -350,8 +414,12 @@ class ContinuousScheduler:
 
     def calls(self) -> Dict[str, int]:
         """Paged calls so far, by kind (prefill, decode_step,
-        decode_step_fed): each runs every block once."""
-        return dict(self._fns.calls)
+        decode_step_fed, verify: each runs every block of the target once;
+        copy_rows), and the draft's as ``draft_<kind>``."""
+        out = dict(self._fns.calls)
+        if self._draft_fns is not None:
+            out.update({f"draft_{k}": v for k, v in self._draft_fns.calls.items()})
+        return out
 
     def drain(self, deadline_ms: Optional[float] = None) -> float:
         """Graceful shutdown: stop admitting, finish the queued and
@@ -539,7 +607,9 @@ class ContinuousScheduler:
         n_active = self.active()
         if n_active:
             self._tick_phase = "decode"
-            if self._async_depth:
+            if self._spec is not None:
+                self._spec_decode_step()
+            elif self._async_depth:
                 self._decode_step_async()
             else:
                 self._decode_step()
@@ -588,10 +658,23 @@ class ContinuousScheduler:
             max_admit = min(len(free), self.batch_buckets[-1])
             while self._queue and len(newly) < max_admit:
                 req = self._queue[0]
-                adm = self._kv.admit(req.prompt.tolist(), req.max_new)
+                # the adapter id namespaces the prefix cache: the same prompt
+                # under two adapters has different K/V
+                adm = self._kv.admit(req.prompt.tolist(), req.max_new, namespace=req.adapter,
+                                     extra_blocks=self._extra_blocks)
                 if adm is None:
                     self._bump("admission_waits")
                     break
+                if self._spec is not None:
+                    # all or nothing across both pools: holding the target's
+                    # blocks while waiting on the draft's could deadlock two
+                    # half-admitted requests
+                    dadm = self._dkv.admit(req.prompt.tolist(), req.max_new)
+                    if dadm is None:
+                        self._kv.release(adm)
+                        self._bump("admission_waits")
+                        break
+                    req.draft_admission = dadm
                 self._queue.popleft()
                 req.admission = adm
                 req.slot = free[len(newly)]
@@ -613,15 +696,30 @@ class ContinuousScheduler:
                 return b
         raise ValueError(f"{kind} {n} exceeds largest bucket {buckets[-1]}")
 
+    def _table_ids(self, req: _PagedRequest) -> List[int]:
+        """The request's logical block table: its footprint blocks in
+        order.  In speculative mode the admission ends in the private spare
+        block, which is never in the table: verify reaches it through the
+        forked table and the commit swaps it in (inside ``block_ids``, so
+        release and refcounts stay exact)."""
+        ids = req.admission.block_ids
+        return ids[: len(ids) - self._extra_blocks] if self._extra_blocks else ids
+
     def _prefill(self, newly: List[_PagedRequest]) -> None:
         """Fresh admissions go through one bucketed prefill; requests
-        re-admitted by a hot restart carry their stream and replay."""
+        re-admitted by a hot restart carry their stream and replay.  In
+        speculative mode the draft's pool gets every prompt too."""
         fresh = [r for r in newly if not r.tokens]
         replay = [r for r in newly if r.tokens]
         if fresh:
             self._prefill_fresh(fresh)
         if replay:
             self._replay(replay)
+        if self._spec is not None:
+            # requests the prefill's finite guard evicted released both pools
+            live = [r for r in newly if r.admission is not None]
+            if live:
+                self._draft_prefill(live)
 
     def _prefill_call(self, reqs: List[_PagedRequest], kind: str):
         """One bucketed prefill of ``reqs``' suffixes past their cached
@@ -634,17 +732,19 @@ class ContinuousScheduler:
         positions = np.full((bb, sb), -1, np.int64)
         tables = np.zeros((bb, self.table_blocks), np.int64)
         last_col = np.zeros((bb,), np.int64)
+        aids = np.full((bb,), -1, np.int64)
         keys: List[Optional[tuple]] = [None] * bb
         for i, req in enumerate(reqs):
             cl = req.admission.cached_len
             tokens[i, : suffix[i]] = req.prompt[cl:]
             positions[i, : suffix[i]] = np.arange(cl, req.prompt.size)
-            ids = req.admission.block_ids
+            ids = self._table_ids(req)
             tables[i, : len(ids)] = ids
             last_col[i] = suffix[i] - 1
+            aids[i] = req.adapter
             keys[i] = req.key
         out = self._fns.prefill(self._pool, tokens, positions, tables, last_col, keys,
-                                np.zeros((bb,), np.int64))
+                                np.zeros((bb,), np.int64), aids)
         rb0 = time.perf_counter()
         res = out.cpu().numpy()
         self._tick_block_s += time.perf_counter() - rb0
@@ -664,10 +764,36 @@ class ContinuousScheduler:
                 continue
             # the blocks are filled: publish them before the request can
             # retire and release them
-            self._kv.register_prefix(req.prompt.tolist(), req.admission)
+            self._kv.register_prefix(req.prompt.tolist(), req.admission, namespace=req.adapter)
             self._push_token(req, int(res[0, i]))
         self.metrics.record_prefill(prompt_tokens=int(sum(suffix)), n_requests=len(newly),
                                     prefill_s=t1 - t0)
+
+    def _draft_prefill(self, reqs: List[_PagedRequest]) -> None:
+        """Each admitted request's whole prompt into the draft's pool (no
+        prefix cache there, so the target's hits cannot shorten it).  Its
+        token is not read: rounds start from the committed stream.  A
+        replayed request's generated tokens are not written to the draft's
+        pool: those rows read as zeros, which can lower the acceptance rate
+        but never change the committed stream."""
+        bb = self._bucket_for(len(reqs), self.batch_buckets, "draft rows")
+        sb = self._bucket_for(max(r.prompt.size for r in reqs), self.seq_buckets, "draft prompt")
+        tokens = np.zeros((bb, sb), np.int64)
+        positions = np.full((bb, sb), -1, np.int64)
+        tables = np.zeros((bb, self.table_blocks), np.int64)
+        last_col = np.zeros((bb,), np.int64)
+        aids = np.full((bb,), -1, np.int64)
+        for i, req in enumerate(reqs):
+            n = req.prompt.size
+            tokens[i, :n] = req.prompt
+            positions[i, :n] = np.arange(n)
+            dids = req.draft_admission.block_ids
+            tables[i, : len(dids)] = dids
+            last_col[i] = n - 1
+            if self._draft_lora:
+                aids[i] = req.adapter
+        self._draft_fns.prefill(self._draft_pool, tokens, positions, tables, last_col,
+                                [None] * bb, np.zeros((bb,), np.int64), aids)
 
     def _replay(self, reqs: List[_PagedRequest]) -> None:
         """Rebuild restarted requests' KV state: the prompt through the
@@ -681,7 +807,7 @@ class ContinuousScheduler:
             if not res[1, i]:
                 self._evict_poisoned(req, cause=None, trigger="non-finite replay prefill logits")
                 continue
-            self._kv.register_prefix(req.prompt.tolist(), req.admission)
+            self._kv.register_prefix(req.prompt.tolist(), req.admission, namespace=req.adapter)
             self._verify_replay(req, 0, int(res[0, i]))
             live.append(req)
         # feed generated tokens 0..K-2 back, checking tokens 1..K-1
@@ -695,16 +821,19 @@ class ContinuousScheduler:
             pos = np.full((W,), -1, np.int64)
             tables = np.zeros((W, self.table_blocks), np.int64)
             gi = np.zeros((W,), np.int64)
+            aids = np.full((W,), -1, np.int64)
             keys: List[Optional[tuple]] = [None] * W
             for req in step_reqs:
                 i = req.slot
                 prev[i] = req.tokens[k - 1]
                 pos[i] = req.prompt.size + k - 1
-                ids = req.admission.block_ids
+                ids = self._table_ids(req)
                 tables[i, : len(ids)] = ids
                 gi[i] = k
+                aids[i] = req.adapter
                 keys[i] = req.key
-            res = self._fns.decode_step(self._pool, prev, pos, tables, keys, gi).cpu().numpy()
+            res = self._fns.decode_step(self._pool, prev, pos, tables, keys, gi,
+                                        aids).cpu().numpy()
             for req in step_reqs:
                 if not res[1, req.slot]:
                     self._evict_poisoned(req, cause=None,
@@ -786,6 +915,7 @@ class ContinuousScheduler:
         pos = np.full((W,), -1, np.int64)
         tables = np.zeros((W, self.table_blocks), np.int64)
         gen_idx = np.zeros((W,), np.int64)
+        aids = np.full((W,), -1, np.int64)
         keys: List[Optional[tuple]] = [None] * W
         for req in reqs:
             i = req.slot
@@ -793,11 +923,12 @@ class ContinuousScheduler:
             # prev = generated token gen_idx-1 at position prompt_len +
             # gen_idx - 1; feeding it samples token gen_idx
             pos[i] = req.prompt.size + req.gen_idx - 1
-            ids = req.admission.block_ids
+            ids = self._table_ids(req)
             tables[i, : len(ids)] = ids
             gen_idx[i] = req.gen_idx
+            aids[i] = req.adapter
             keys[i] = req.key
-        return prev, pos, tables, keys, gen_idx
+        return prev, pos, tables, keys, gen_idx, aids
 
     def _poison_shim(self, reqs: List[_PagedRequest]) -> None:
         """The injected per-request dispatch failure (``serve_raise``); the
@@ -875,6 +1006,7 @@ class ContinuousScheduler:
             pos = np.full((W,), -1, np.int64)
             tables = np.zeros((W, self.table_blocks), np.int64)
             gen_idx = np.zeros((W,), np.int64)
+            aids = np.full((W,), -1, np.int64)
             keys: List[Optional[tuple]] = [None] * W
             rows = []
             for req in disp:
@@ -886,16 +1018,17 @@ class ContinuousScheduler:
                     fresh_mask[i] = 1
                     fresh_tok[i] = req.tokens[-1]
                 pos[i] = req.prompt.size + d - 1
-                ids = req.admission.block_ids
+                ids = self._table_ids(req)
                 tables[i, : len(ids)] = ids
                 gen_idx[i] = d
+                aids[i] = req.adapter
                 keys[i] = req.key
                 rows.append((req, i, d))
             prev = self._carry_tok if self._carry_tok is not None else self._zero_carry()
             self._note_dispatch_gap()
             with span("decode_step", step=self._tick_no, active=len(disp)):
                 out = self._fns.decode_step_fed(self._pool, prev, fresh_mask, fresh_tok, pos,
-                                                tables, keys, gen_idx)
+                                                tables, keys, gen_idx, aids)
             for req in disp:
                 req.dispatched += 1
             self._carry_tok = out[0]
@@ -961,6 +1094,142 @@ class ContinuousScheduler:
                 req.dispatched = req.gen_idx
 
     # ------------------------------------------------------------------ #
+    # speculative decoding (serving.speculative)
+
+    @torch.inference_mode()
+    def _spec_decode_step(self) -> None:
+        """One speculative round for every occupied slot, in place of the
+        single-token step (JAX ``:1713-1870``): ``k + 1`` greedy draft steps
+        on the draft's pool (the last only writes the last proposal's K/V),
+        one ``verify`` on forked block tables, the accept rule on the host,
+        then the commit by swap.  Emits 1 to ``k + 1`` tokens a request, each
+        the target's argmax, so the stream is plain greedy decode's.
+
+        The fork: the round's verify writes positions ``P .. P + ke`` (``P``
+        the last committed token's).  Blocks past ``bi = P // block_size``
+        hold nothing committed yet; block ``bi`` holds committed rows ``[bi
+        * bs, P)``, so those are copied into the request's spare block and
+        verify runs with ``table[bi] := spare``.  The commit swaps the spare
+        in; the old block becomes the next round's spare, untouched until
+        then.  Rows a rejected proposal wrote past the commit point do no
+        harm: every verify scatters its columns before it gathers, and
+        positions past a row's coverage are masked.
+        """
+        t0 = time.perf_counter()
+        active = [req for req in self._slots if req is not None]
+        self._poison_shim(active)
+        W, k, bs = self.slots_n, self._spec.k, self._kv.block_size
+        # no proposal past a request's budget: no write past its footprint
+        k_eff = {r.slot: min(k, r.max_new - r.gen_idx) for r in active}
+        with span("decode_step", step=self._tick_no, active=len(active)):
+            draft_tok = np.zeros((W, k), np.int64)
+            for j in range(k + 1):
+                # step j feeds the committed tail (j = 0) or proposal j - 1
+                # at position P + j and proposes token j
+                prev = np.zeros((W,), np.int64)
+                pos = np.full((W,), -1, np.int64)
+                dtables = np.zeros((W, self.table_blocks), np.int64)
+                gi = np.zeros((W,), np.int64)
+                aids = np.full((W,), -1, np.int64)
+                rows = [r for r in active if j <= k_eff[r.slot]]
+                if not rows:
+                    break
+                for req in rows:
+                    i = req.slot
+                    prev[i] = req.tokens[-1] if j == 0 else draft_tok[i, j - 1]
+                    pos[i] = req.prompt.size + req.gen_idx - 1 + j
+                    dids = req.draft_admission.block_ids
+                    dtables[i, : len(dids)] = dids
+                    gi[i] = req.gen_idx + j
+                    if self._draft_lora:
+                        aids[i] = req.adapter
+                out = self._draft_fns.decode_step(self._draft_pool, prev, pos, dtables,
+                                                  [None] * W, gi, aids)
+                if j < k:
+                    rb0 = time.perf_counter()
+                    draft_tok[:, j] = out[0].cpu().numpy()
+                    self._tick_block_s += time.perf_counter() - rb0
+
+            # the fork, and one target call over [committed tail, proposals]
+            sink = self._kv.num_blocks * bs  # out of range: copy_rows skips it
+            src = np.full((W, bs), sink, np.int64)
+            dst = np.full((W, bs), sink, np.int64)
+            ver_tok = np.zeros((W, k + 1), np.int64)
+            ver_pos = np.full((W, k + 1), -1, np.int64)
+            vtables = np.zeros((W, self.table_blocks), np.int64)
+            aids = np.full((W,), -1, np.int64)
+            offs = np.arange(bs)
+            for req in active:
+                i, ke = req.slot, k_eff[req.slot]
+                p = req.prompt.size + req.gen_idx - 1
+                bi, off = divmod(p, bs)
+                ids = self._table_ids(req)
+                spare = req.admission.block_ids[-1]
+                src[i, :off] = ids[bi] * bs + offs[:off]
+                dst[i, :off] = spare * bs + offs[:off]
+                ver_tok[i, 0] = req.tokens[-1]
+                ver_tok[i, 1:1 + ke] = draft_tok[i, :ke]
+                ver_pos[i, : ke + 1] = np.arange(p, p + ke + 1)
+                vtables[i, : len(ids)] = ids
+                vtables[i, bi] = spare
+                aids[i] = req.adapter
+            self._fns.copy_rows(self._pool, src.reshape(-1), dst.reshape(-1))
+            # verify takes the plain weights, quant mode too: the target's
+            # scores are the accuracy anchor
+            logits = self._fns.verify(self._pool, ver_tok, ver_pos, vtables, aids)
+            picked = torch.stack([logits.argmax(dim=-1),
+                                  torch.isfinite(logits).all(dim=-1).long()])
+            rb0 = time.perf_counter()
+            picked = picked.cpu().numpy()  # [2, W, k + 1]: argmax, finite
+            self._tick_block_s += time.perf_counter() - rb0
+
+        t1 = time.perf_counter()
+        emitted = proposed = accepted = 0
+        for req in active:
+            i, ke = req.slot, k_eff[req.slot]
+            if not picked[1, i, : ke + 1].all():
+                self._evict_poisoned(req, cause=None, trigger="non-finite verify logits")
+                continue
+            n_acc, emit = greedy_accept(draft_tok[i, :ke], picked[0, i, : ke + 1])
+            if n_acc == ke and req.gen_idx + len(emit) > req.max_new:
+                emit = emit[:-1]  # no room for the bonus under the cap
+            proposed += ke
+            accepted += n_acc
+            # commit by swap: the forked block becomes real, the displaced
+            # one the next round's spare
+            bi = (req.prompt.size + req.gen_idx - 1) // bs
+            ids = req.admission.block_ids
+            ids[bi], ids[-1] = ids[-1], ids[bi]
+            for tok in emit:
+                self._push_token(req, int(tok))
+                emitted += 1
+                if req.admission is None:
+                    break  # retired mid-round (EOS or its cap)
+        self._bump("spec_rounds")
+        if proposed:
+            self._bump("spec_proposed", proposed)
+        if accepted:
+            self._bump("spec_accepted", accepted)
+        self.metrics.record_decode(n_tokens=emitted, decode_s=t1 - t0)
+        self.metrics.record_iteration(
+            active_slots=len(active), total_slots=self.slots_n,
+            blocks_in_use=self._kv.blocks_in_use, total_blocks=self._kv.num_blocks,
+        )
+
+    def _build_draft(self) -> None:
+        """(Re)build the draft's side: a zeroed pool of its own and a host
+        pool with the prefix cache off (draft blocks are private to their
+        request)."""
+        self._draft_pool = None  # free the old pool before the new one is allocated
+        self._dkv = PagedKVPool(self._num_blocks, self._block_size, prefix_cache=False)
+        self._draft_pool = self._draft_fns.init_pool()
+
+    def _release_draft(self, req: _PagedRequest) -> None:
+        if req.draft_admission is not None:
+            self._dkv.release(req.draft_admission)
+            req.draft_admission = None
+
+    # ------------------------------------------------------------------ #
     # retirement and recovery
 
     def _push_token(self, req: _PagedRequest, tok: int) -> None:
@@ -979,10 +1248,12 @@ class ContinuousScheduler:
         self._slots[req.slot] = None
         self._kv.release(req.admission)
         req.admission = None
+        self._release_draft(req)
         # count first: a client woken by its future reads a snapshot that
         # already holds its own request
         self._bump("retired")
-        self.metrics.record_request(req.enqueued_at, gen_len=len(req.tokens))
+        self.metrics.record_request(req.enqueued_at, gen_len=len(req.tokens),
+                                    adapter=req.adapter_name)
         if self._kv.prefix_evictions:
             # move the pool's eviction tally into the counters
             self._bump("prefix_evictions", self._kv.prefix_evictions)
@@ -1003,6 +1274,7 @@ class ContinuousScheduler:
         self._slots[req.slot] = None
         self._kv.release(req.admission)
         req.admission = None
+        self._release_draft(req)
         self._bump("requests_poisoned")
         self.logger.error("%s", err)
         if not req.future.done():
@@ -1035,6 +1307,7 @@ class ContinuousScheduler:
             if req.admission is not None:
                 self._kv.release(req.admission)
                 req.admission = None
+            self._release_draft(req)
             if not req.future.done():
                 req.future.set_exception(exc)
 
@@ -1052,12 +1325,16 @@ class ContinuousScheduler:
                 # the reservation indexes the dead pool: drop it without a
                 # release; allocator and prefix cache are rebuilt below
                 req.admission = None
+                req.draft_admission = None
                 req.slot = -1
                 req.dispatched = req.gen_idx
                 self._queue.appendleft(req)
         self._pool = None  # free the old pool before the new one is allocated
         self._kv = PagedKVPool(self._num_blocks, self._block_size, self._prefix_cache)
         self._pool = self._fns.init_pool()
+        if self._spec is not None:
+            # the draft restarts with the target: requests prefill both again
+            self._build_draft()
         if self._watchdog is not None:
             # the replayed ticks start cold: re-enter the warm-up
             self._watchdog.reset()

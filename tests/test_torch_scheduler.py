@@ -231,13 +231,29 @@ def test_background_loop_and_closed(lm):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"quant": True}, "P5"), ({"lora": object()}, "P5"), ({"speculative": object()}, "P5"),
+    # ported (P5): each decode mode builds and serves
+    pytest.param({"quant": True}, None, id="kwargs0-P5"),
+    pytest.param({"lora": "registry"}, None, id="kwargs1-P5"),
+    pytest.param({"speculative": "spec"}, None, id="kwargs2-P5"),
     ({"replica_id": 0}, "P6"), ({"heartbeat_path": "hb"}, "P6"),
     ({"liveness_timeout_s": 1.0}, "P6"),
 ])
 def test_unported_scheduler_features_raise(lm, kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _sched(lm[2], **kwargs)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            _sched(lm[2], **kwargs)
+        return
+    from pytorch_distributed_training_tpu_torch.serving import LoraRegistry, SpeculativeSpec
+
+    model, submit = lm[2], {}
+    if "lora" in kwargs:
+        kwargs = {"lora": LoraRegistry(4, ["tenant-a"])}
+        model, submit = kwargs["lora"].graft(model).eval(), {"adapter": "tenant-a"}
+    elif "speculative" in kwargs:
+        kwargs = {"speculative": SpeculativeSpec(2)}
+    sched = _sched(model, **kwargs)
+    res = _results(sched, [np.asarray([5, 9, 13], np.int32)], [submit])
+    assert res[0]["gen_len"] == 6
 
 
 def test_validation_and_unported_verbs(lm):

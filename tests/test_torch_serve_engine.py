@@ -175,8 +175,11 @@ def test_engine_rejects_bad_prompts(cpu_engine, payload, match):
     [pytest.param({"checkpoint": "run/ckpt"}, None, id="serving0-P7"),
      # ported (P4): the continuous scheduler, and its supervisor
      pytest.param({"scheduler": {"enabled": True}}, None, id="serving1-P4"),
-     ({"quant": {"enabled": True}}, "P5"), ({"lora": {"enabled": True}}, "P5"),
-     ({"speculative": {"enabled": True}}, "P5"),
+     # ported (P5): the decode modes
+     pytest.param({"quant": {"enabled": True}}, None, id="serving2-P5"),
+     pytest.param({"lora": {"enabled": True, "adapters": ["tenant-a"]}}, None,
+                  id="serving3-P5"),
+     pytest.param({"speculative": {"enabled": True, "k": 2}}, None, id="serving4-P5"),
      pytest.param({"resilience": {"max_restarts": 1}}, None, id="serving5-P4")],
 )
 def test_unported_serving_modes_raise(serving, item, tmp_path):
@@ -195,14 +198,18 @@ def test_unported_serving_modes_raise(serving, item, tmp_path):
         serving["checkpoint"] = str(tmp_path / "ckpt")
         Checkpointer(serving["checkpoint"]).save(
             0, {"iter": 0, "model": state, "optimizer": None, "ema": None})
-    if "resilience" in serving:
-        # as in JAX, the supervisor lives in the scheduler: alone it raises
-        with pytest.raises(ValueError, match="requires serving.scheduler.enabled"):
+    if "resilience" in serving or "lora" in serving or "speculative" in serving:
+        # as in JAX, the supervisor, the adapters and the draft live in the
+        # scheduler: alone they raise
+        with pytest.raises(ValueError, match="requires? serving.scheduler.enabled"):
             InferenceEngine.from_config(_cfg(**serving), device="cpu")
         serving["scheduler"] = {"enabled": True}
     with InferenceEngine.from_config(_cfg(**serving), device="cpu") as engine:
-        assert engine.submit(np.array([5])).result(timeout=60)["gen_len"] == 6
+        adapter = "tenant-a" if "lora" in serving else None
+        assert engine.submit(np.array([5]), adapter=adapter).result(timeout=60)["gen_len"] == 6
         assert (engine.scheduler is not None) == ("scheduler" in serving)
+        for mode in ("quant", "lora", "speculative"):
+            assert engine.serving_modes[mode] == (mode in serving)
         if "resilience" in serving:
             assert engine.health()["restart_budget"] == 1
         if state is not None:

@@ -250,7 +250,8 @@ def test_sampled_generate_is_reproducible(params):
      pytest.param({"remat": True, "remat_policy": "dots"}, None, id="kwargs2-P2"),
      # ported (P4): the paged model builds and makes its pool
      pytest.param({"paged": True}, None, id="kwargs3-P4"),
-     ({"lora_rank": 4}, "P5")],
+     # ported (P5): the stacked LoRA factors
+     pytest.param({"lora_rank": 4, "lora_adapters": 2}, None, id="kwargs4-P5")],
 )
 def test_unported_model_options_raise(kwargs, item):
     if item is None:
@@ -258,6 +259,17 @@ def test_unported_model_options_raise(kwargs, item):
                               **kwargs)
         if "remat" in kwargs:
             assert model.remat and model.remat_policy == kwargs["remat_policy"]
+        elif "lora_rank" in kwargs:
+            # stacked factors, B zero: a fresh adapter is the base model
+            assert model.block0.attn.qkv_lora_a.shape == (2, EMBED, 4)
+            tokens = torch.arange(6).view(2, 3)
+            with torch.no_grad():
+                torch.testing.assert_close(model(tokens, adapter_ids=torch.tensor([1, -1])),
+                                           model(tokens), rtol=0, atol=0)
+            # as in JAX, a rank needs an adapter count
+            with pytest.raises(ValueError, match="lora_adapters"):
+                TransformerLM(VOCAB, max_len=MAXLEN, embed_dim=EMBED, depth=1,
+                              num_heads=HEADS, lora_rank=4)
         else:
             pool = model.new_pool(3, 4)
             assert pool.block_size == 4 and pool.num_blocks == 3
