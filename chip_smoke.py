@@ -14,6 +14,9 @@
     python3 chip_smoke.py --serve      # phases 1, 2, 5, 20 and 21 only: serving (with
                                        # --profile: decode ticks, sync and async, and
                                        # of each decode mode)
+    python3 chip_smoke.py --vit        # phases 1, 2, 17, 22 and 23 only: ViT-B16 training
+                                       # and classification serving (with --profile:
+                                       # the ViT step by op class)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -47,7 +50,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``F.cross_entropy``, ``F.scaled_dot_product_attention``, timed here
    only): K1a/K1b at [16384, 32768] and [65536, 8192] f32, ResNet's [64,
    1000] f32, the LARS recipe's [256, 1000] bf16, and [37, 1000] in bf16
-   and f32 with an out-of-range label; flash forward/backward at B 8,
+   and f32 with an out-of-range label, ViT-B16's [256, 1000] f32;
+   flash forward/backward at B 8,
    H 16, S 2048, D 64 bf16 causal (the backward also as its dK/dV and dQ
    launches apart), plus D = 128 bf16 causal at [1, 8, 4096, 128], a
    non-causal case, bf16 causal at [2, 4, 384, 128] and [2, 4, 640, 64] (3
@@ -197,6 +201,26 @@ Phases, in order; any failure raises and the script exits non-zero:
     kernels line), and tokens/s, TTFT, host ms a tick against phase 20's;
     int8 and scale bytes and dequant launches a tick; prefix hits across
     tenants; acceptance, the floor warning and the draft pool's MiB.
+22. ViT-B16: (a) one f32 training step at full width (TF32 off, batch 2)
+    on the card against the CPU, both against a plain float64 twin; the
+    card's logits and gradients within 3x the CPU's f32 error from float64
+    (as phase 13), 1 K1a and 1 K1b; (b) the runner on ``config/ViT-B16.yml``
+    (batch 256, bf16, ``device_normalize``, AdamW, cosine warmup) over a
+    seeded JPEG tree it writes (PIL in ``worker_mode: thread``: the card's
+    host has no libjpeg), 8 steps and 2 validation batches: step ms
+    loader-fed and device-resident, images/s, peak memory; (c)
+    ``model.pretrained`` of a torchvision-layout ViT-B16 it writes from a
+    seed, the parameters before step 1 equal to its own mapping bit for
+    bit; (d) exactly 1 K1a + 1 K1b ([256, 1000] f32) a step and 1 K1a a
+    validation batch (with ``--profile``: the device-resident step's time
+    by op class, the f32 attention einsums named);
+23. classification serving: (a) the serving CLI on
+    ``config/serve-resnet50.yml`` as it is and on a copy with ``model.name:
+    ViT-B16``; (b) each engine warmed up, 128 uint8 requests at once:
+    images/s, latency p50/p99, batch fill, host ms a batch, no
+    hand-written kernel launched; (c) ResNet-50 served from phase 17's
+    checkpoint (with an EMA) at f32, TF32 off, within 1e-5 of the largest
+    logit of the runner's own eval of the EMA weights.
 
 The line before the last lists every TPU kernel (K1a ... K4) with the CUDA
 kernel that stands for it, its launches on the path that runs it (and on
@@ -236,6 +260,10 @@ TRAIN_CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "co
 LONGCTX_CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "configs",
                               "train-lm-longctx.yml")
 RESNET_CONFIG = os.path.join(_HERE, "config", "test-sync.yml")
+# phases 22 and 23: the ViT-B16 recipe and the classification serving config
+VIT_CONFIG = os.path.join(_HERE, "config", "ViT-B16.yml")
+SERVE_RESNET_CONFIG = os.path.join(_HERE, "config", "serve-resnet50.yml")
+VIT_DIR = os.path.join(_HERE, "run", "chip_smoke", "vit")
 LARS_CONFIG = os.path.join(_HERE, "config", "ResNet50-lars8k.yml")
 # phase 16's cuts of the LARS recipe: the per-card share of batch 8192 at 32
 # cards; 8 steps with a 3-step warmup, so warmup, hand-over and decay all run
@@ -289,8 +317,8 @@ TPU_KERNELS = {
 # other cases reported beside a row's own: the other main paths' CE shapes,
 # flash at D = 128 and the f32 flash kernels, K2c's two launches apart, and
 # K3/K4 at serving's prefill and decode shapes
-ALSO = {"K1a": [("ce_fwd", 0), ("ce_fwd", 4), ("ce_fwd", 5)],
-        "K1b": [("ce_bwd", 0), ("ce_bwd", 4), ("ce_bwd", 5)],
+ALSO = {"K1a": [("ce_fwd", 0), ("ce_fwd", 4), ("ce_fwd", 5), ("ce_fwd", 6)],
+        "K1b": [("ce_bwd", 0), ("ce_bwd", 4), ("ce_bwd", 5), ("ce_bwd", 6)],
         "K2a": [("flash_fwd", 1), ("long_fwd", 2), ("flash_fwd", 3)],
         "K2c": [("flash_dkv", 0), ("flash_dq", 0), ("flash_bwd", 1)],
         "K2b": [("long_fwd", 1)], "K2f": [("long_dq", 1)], "K2g": [("long_dkv", 1)],
@@ -887,10 +915,12 @@ def phase_train_kernels(torch, ce, fa):
     checks = []
     # --- K1a / K1b: the main paths' [16384, 32768] (phase 8) and [65536,
     # 8192] (phase 11) f32, then ragged rows, then ResNet's [64, 1000] f32
-    # (phase 14) and the LARS recipe's [256, 1000] bf16 (phase 16)
+    # (phase 14), the LARS recipe's [256, 1000] bf16 (phase 16) and ViT-B16's
+    # [256, 1000] f32 (phase 22: its head is f32)
     for r, c, dtype in ((16384, 32768, torch.float32), (65536, 8192, torch.float32),
                         (37, 1000, torch.bfloat16), (37, 1000, torch.float32),
-                        (64, 1000, torch.float32), (256, 1000, torch.bfloat16)):
+                        (64, 1000, torch.float32), (256, 1000, torch.bfloat16),
+                        (256, 1000, torch.float32)):
         x = (torch.randn(r, c, generator=gen, device=dev) * 2.0).to(dtype)
         labels = torch.randint(0, c, (r,), generator=gen, device=dev)
         main = r != 37
@@ -3099,6 +3129,512 @@ def phase_serve_modes(torch, modules, fe, smi: str, plain: dict, profile: bool) 
     return {mode: readings[mode]["launches"] for mode in MODE_KEYS}
 
 
+# --------------------------------------------------------------------- #
+# phase 22: ViT-B16 training; phase 23: classification serving
+
+# phase 22 (b)'s cuts of config/ViT-B16.yml: a seeded JPEG tree in place of
+# the ImageNet root (2 training and 2 validation batches of the config's
+# 256), 8 steps, validation at the 8th
+VIT_STEPS, VIT_CLASSES_IN_TREE = 8, 8
+VIT_BATCH_TOL_FLOOR = 1e-5  # phase 22 (a): the least limit, norm-relative
+SERVE_STREAM = 128  # phase 23 (b): requests a burst
+SERVE_CKPT_TOL = 1e-5  # phase 23 (c): engine vs runner, of the largest logit
+
+
+def vit_reference_f64(torch, sd: dict, x, heads: int):
+    """A plain float64 ViT of the port's ``state_dict`` ``sd`` (already
+    float64) on ``[N, 3, H, W]`` ``x``: the conv patches, row-major; the
+    class token and position table; pre-LN blocks (two-pass LayerNorm, eps
+    1e-6), heads-major qkv, softmax attention, exact GELU; the head on the
+    class token.  Independent of the port's modules, for phase 22 (a)."""
+    import torch.nn.functional as F
+
+    def ln(y, name):
+        mu = y.mean(-1, keepdim=True)
+        var = ((y - mu) ** 2).mean(-1, keepdim=True)
+        return (y - mu) / torch.sqrt(var + 1e-6) * sd[name + ".weight"] + sd[name + ".bias"]
+
+    def dense(y, name):
+        return F.linear(y, sd[name + ".weight"], sd[name + ".bias"])
+
+    patch = sd["patch_embed.weight"].shape[-1]
+    t = F.conv2d(x, sd["patch_embed.weight"], sd["patch_embed.bias"], stride=patch)
+    t = torch.cat([sd["cls_token"].expand(x.shape[0], -1, -1), t.flatten(2).transpose(1, 2)], 1)
+    t = t + sd["pos_embedding"]
+    depth = len({k.split(".")[0] for k in sd if k.startswith("block")})
+    for i in range(depth):
+        b = f"block{i}."
+        qkv = dense(ln(t, b + "ln1"), b + "attn.qkv")
+        qkv = qkv.unflatten(-1, (heads, 3, qkv.shape[-1] // (3 * heads)))
+        q, k, v = qkv.unbind(3)
+        att = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+        out = torch.einsum("bhqk,bkhd->bqhd", att.softmax(-1), v).flatten(2)
+        t = t + dense(out, b + "attn.proj")
+        t = t + dense(F.gelu(dense(ln(t, b + "ln2"), b + "mlp.fc1")), b + "mlp.fc2")
+    return dense(ln(t[:, 0], "ln"), "head")
+
+
+def phase_vit_step_vs_cpu(torch, modules, batch: int = 2, seed: int = 22) -> dict:
+    """Phase 22 (a): ViT-B16 at full width (224^2, 1000 classes), f32 with
+    TF32 off, one image-DP step's forward and backward on the card against
+    the same weights and batch on the CPU, and both against a plain float64
+    twin (:func:`vit_reference_f64`).  As phase 13 sets its limits: the
+    card's logits and each gradient must lie as close to float64 as the
+    CPU's f32 ones do, within 3x the CPU's error (norm-relative, at least
+    ``VIT_BATCH_TOL_FLOOR``), and all gradients together within 2x; the
+    loss within rtol 1e-5 of the CPU's; exactly 1 K1a and 1 K1b on the card."""
+    import torch.nn.functional as F
+
+    from pytorch_distributed_training_tpu_torch import optimizers
+    from pytorch_distributed_training_tpu_torch.engine import build_train_step
+    from pytorch_distributed_training_tpu_torch.models import get_model
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu = get_model("ViT-B16", num_classes=1000)
+        cpu.reset_parameters(torch.Generator().manual_seed(seed))
+        gpu = get_model("ViT-B16", num_classes=1000)
+        gpu.load_state_dict(cpu.state_dict())
+        gpu = gpu.to("cuda", memory_format=torch.channels_last)
+        gen = torch.Generator().manual_seed(seed + 1)
+        img = torch.randn(batch, 224, 224, 3, generator=gen)
+        labels = torch.randint(0, 1000, (batch,), generator=gen)
+        out = {}
+        for where, model, x, y in (("cpu", cpu, img, labels),
+                                   ("card", gpu, img.cuda(), labels.cuda())):
+            for m in modules:
+                m.reset_launch_counts()
+            opt = optimizers.AdamW(lr=1e-3, weight_decay=0.05)
+            step = build_train_step(model, opt, lambda s: 1e-3)
+            t0 = time.perf_counter()
+            loss, logits = step.forward_backward(x, y)
+            out[where] = (loss.item(), logits.cpu(),
+                          {n: p.grad.cpu() for n, p in model.named_parameters()})
+            say(f"  {where}: forward and backward in {time.perf_counter() - t0:.2f} s")
+        counts = all_counts(modules)
+        check_launches("ViT-B16 step on the card", counts, dict(ce_fwd=1, ce_bwd=1))
+        sd = {n: p.detach().double().requires_grad_(True) for n, p in cpu.named_parameters()}
+        t0 = time.perf_counter()
+        y64 = vit_reference_f64(torch, sd, img.double().permute(0, 3, 1, 2), heads=12)
+        l64 = F.cross_entropy(y64, labels)
+        l64.backward()
+        say(f"  float64 twin: forward and backward in {time.perf_counter() - t0:.2f} s")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    (l_cpu, y_cpu, g_cpu), (l_card, y_card, g_card) = out["cpu"], out["card"]
+    say(f"  loss card {l_card!r} cpu {l_cpu!r} float64 {l64.item()!r}")
+    if abs(l_card - l_cpu) > 1e-5 * abs(l_cpu):
+        raise AssertionError("loss: card and CPU differ by more than rtol 1e-5")
+    e_card, e_cpu = norm_relative(y_card, y64.detach()), norm_relative(y_cpu, y64.detach())
+    numbers = dict(logits=dict(card=e_card, cpu=e_cpu, card_vs_cpu=norm_relative(y_card, y_cpu)))
+    if not torch.isfinite(y_card).all() or e_card > max(3 * e_cpu, VIT_BATCH_TOL_FLOOR):
+        raise AssertionError(f"logits from float64: card {e_card}, CPU f32 {e_cpu}")
+    ratios = []
+    for n, g64 in ((n, t.grad) for n, t in sd.items()):
+        ec, eu = norm_relative(g_card[n], g64), norm_relative(g_cpu[n], g64)
+        if not torch.isfinite(g_card[n]).all() or ec > max(VIT_BATCH_TOL_FLOOR, 3 * eu):
+            raise AssertionError(f"grad {n}: card {ec} from float64, CPU f32 {eu}")
+        ratios.append((ec / max(eu, 1e-300), n, ec, eu))
+    flat = [torch.cat([g[n].double().reshape(-1) for n in sd]) for g in (g_cpu, g_card)]
+    flat64 = torch.cat([t.grad.reshape(-1) for t in sd.values()])
+    a_cpu, a_card = norm_relative(flat[0], flat64), norm_relative(flat[1], flat64)
+    if a_card > max(2 * a_cpu, VIT_BATCH_TOL_FLOOR):
+        raise AssertionError(f"gradients: card {a_card} from float64 over all, CPU {a_cpu}")
+    worst = max(ratios)
+    numbers.update(grads=dict(card=a_card, cpu=a_cpu), worst_ratio=worst)
+    say(f"  logits [{batch}, 1000] from float64 (norm-relative): card {e_card:.4g}, CPU f32 "
+        f"{e_cpu:.4g}; {len(sd)} gradients, all of them: card {a_card:.4g}, CPU f32 "
+        f"{a_cpu:.4g}; worst card/CPU ratio {worst[0]:.3g} at {worst[1]} ({worst[2]:.3g} vs "
+        f"{worst[3]:.3g}); launches {counts}")
+    say("vit_step: " + json.dumps(numbers))
+    del cpu, gpu, sd
+    torch.cuda.empty_cache()
+    return counts
+
+
+def torchvision_vit_b16(torch, seed: int) -> dict:
+    """A ``state_dict`` in torchvision's ``vit_b_16`` layout (its names,
+    shapes and packed ``[q; k; v]`` ``in_proj``), random from ``seed``:
+    Dense weights normal(0, 0.02), biases normal(0, 0.01), LayerNorm
+    weights around 1, 1000 classes."""
+    gen = torch.Generator().manual_seed(seed)
+    e, depth = 768, 12
+
+    def w(*shape, std=0.02, mean=0.0):
+        return torch.randn(*shape, generator=gen) * std + mean
+
+    sd = {"conv_proj.weight": w(e, 3, 16, 16), "conv_proj.bias": w(e, std=0.01),
+          "class_token": w(1, 1, e), "encoder.pos_embedding": w(1, 197, e)}
+    for i in range(depth):
+        pre = f"encoder.layers.encoder_layer_{i}."
+        for ln in ("ln_1", "ln_2"):
+            sd[pre + ln + ".weight"] = w(e, std=0.1, mean=1.0)
+            sd[pre + ln + ".bias"] = w(e, std=0.01)
+        sd[pre + "self_attention.in_proj_weight"] = w(3 * e, e)
+        sd[pre + "self_attention.in_proj_bias"] = w(3 * e, std=0.01)
+        sd[pre + "self_attention.out_proj.weight"] = w(e, e)
+        sd[pre + "self_attention.out_proj.bias"] = w(e, std=0.01)
+        sd[pre + "mlp.0.weight"], sd[pre + "mlp.0.bias"] = w(4 * e, e), w(4 * e, std=0.01)
+        sd[pre + "mlp.3.weight"], sd[pre + "mlp.3.bias"] = w(e, 4 * e), w(e, std=0.01)
+    sd["encoder.ln.weight"], sd["encoder.ln.bias"] = w(e, std=0.1, mean=1.0), w(e, std=0.01)
+    sd["heads.head.weight"], sd["heads.head.bias"] = w(1000, e), w(1000, std=0.01)
+    return sd
+
+
+def torchvision_vit_mapped(torch, sd: dict, heads: int = 12) -> dict:
+    """``sd`` in the port's names, mapped here and not by the port: the
+    in_proj rows ``[which, head, d]`` reordered to ``[head, which, d]``."""
+    out = {"patch_embed.weight": sd["conv_proj.weight"], "patch_embed.bias": sd["conv_proj.bias"],
+           "cls_token": sd["class_token"], "pos_embedding": sd["encoder.pos_embedding"],
+           "ln.weight": sd["encoder.ln.weight"], "ln.bias": sd["encoder.ln.bias"],
+           "head.weight": sd["heads.head.weight"], "head.bias": sd["heads.head.bias"]}
+    names = {"ln_1": "ln1", "ln_2": "ln2", "self_attention.out_proj": "attn.proj",
+             "mlp.0": "mlp.fc1", "mlp.3": "mlp.fc2"}
+    for key, t in sd.items():
+        if not key.startswith("encoder.layers."):
+            continue
+        layer, rest = key[len("encoder.layers.encoder_layer_"):].split(".", 1)
+        sub, leaf = rest.rsplit(".", 1)
+        if sub == "self_attention":  # in_proj_weight / in_proj_bias
+            e = t.shape[0] // 3
+            t = t.reshape(3, heads, e // heads, -1).transpose(0, 1).reshape(t.shape)
+            out[f"block{layer}.attn.qkv.{leaf[len('in_proj_'):]}"] = t
+        else:
+            out[f"block{layer}.{names[sub]}.{leaf}"] = t
+    return out
+
+
+def vit_forward_flop(model) -> float:
+    """Model FLOP of one image's forward: 2 x the multiply-adds of the
+    patch conv, of every Dense over every token, of the attention's two
+    products, and of the head."""
+    e, s = model.embed_dim, model.pos_embedding.shape[1]
+    patch = 2 * e * 3 * model.patch_size ** 2 * (s - 1)
+    block = 2 * s * 12 * e * e + 2 * 2 * s * s * e  # qkv 3E^2, proj E^2, MLP 8E^2
+    return float(patch + model.depth * block + 2 * e * model.num_classes)
+
+
+# a device-resident step's kernel time by the aten op that launched it
+VIT_PROFILE_CLASSES = (
+    ("attention einsums (aten::bmm, f32)", ("aten::bmm",)),
+    ("Dense GEMMs (aten::addmm/mm: bf16, the head f32)", ("aten::addmm", "aten::mm")),
+    ("patch conv (cuDNN)", ("aten::cudnn_convolution", "aten::convolution_backward")),
+    ("softmax", ("aten::_softmax", "aten::_softmax_backward_data")),
+)
+
+
+def profile_vit_step(torch, step, img, labels, label: str) -> dict:
+    """``--profile``: one device-resident step after a warm one; the device
+    time of the kernels each op class of :data:`VIT_PROFILE_CLASSES`
+    launched (the rest: elementwise, reductions, copies, the optimizer's
+    and EMA's ``_foreach`` passes, K1), then the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(e, total=False):
+        names = (("device_time_total", "cuda_time_total") if total
+                 else ("self_device_time_total", "self_cuda_time_total"))
+        return next((getattr(e, n) for n in names if getattr(e, n, None)), 0)
+
+    step(img, labels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(img, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    busy_ms = sum(device_us(e) for e in kernels) / 1e3
+    by_op = {e.key: device_us(e, total=True) / 1e3 for e in events
+             if e.device_type == DeviceType.CPU}
+    classes = {name: sum(by_op.get(op, 0.0) for op in ops) for name, ops in VIT_PROFILE_CLASSES}
+    classes["the rest"] = busy_ms - sum(classes.values())
+    say(f"  profile {label}: wall {wall_ms} ms, device kernel time {busy_ms} ms, busy share "
+        f"{busy_ms / wall_ms}, kernel launches {sum(e.count for e in kernels)}")
+    for name, ms in classes.items():
+        say(f"    {ms:9.3f} ms  {ms / busy_ms:.4f}  {name}")
+    for e in sorted(kernels, key=lambda e: -device_us(e))[:15]:
+        say(f"    {device_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
+    return dict(wall_ms=wall_ms, device_ms=busy_ms, busy=busy_ms / wall_ms,
+                classes_ms=classes)
+
+
+def phase_vit_runner(torch, modules, tf32_defaults, profile: bool):
+    """Phase 22 (b)-(d): the runner on ``config/ViT-B16.yml`` (AdamW, cosine
+    with linear warmup, bf16, ``device_normalize``, batch 256 a card, 16
+    loader workers) with only these cuts, made in memory: a seeded JPEG
+    tree (ImageNet's typical 500 x 375, ``VIT_CLASSES_IN_TREE`` classes)
+    under ``run/chip_smoke/vit`` in place of the ImageNet root, loaded by
+    PIL in ``worker_mode: thread`` (the card's host has no libjpeg for the
+    native decoder); ``VIT_STEPS`` steps, validation at the last on 2
+    batches.  (c) ``model.pretrained`` names a torchvision-layout ViT-B16
+    ``state_dict`` the phase writes from a seed; before the first step the
+    runner's parameters must equal it as this script maps it, bit for bit.
+    (d) per step exactly 1 K1a + 1 K1b ([256, 1000] f32: the head is f32),
+    per validation batch 1 K1a.  Prints step ms (loader-fed and
+    device-resident), images/s, model FLOP and peak memory; with
+    ``profile`` the device-resident step's breakdown.  Returns the launch
+    counts and the numbers."""
+    import math
+    import shutil
+    from functools import partial
+
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg, get_train_logger
+    from pytorch_distributed_training_tpu_torch.engine import Runner
+    from pytorch_distributed_training_tpu_torch.logger import MultiProcessLoggerListener
+    from pytorch_distributed_training_tpu_torch.tools.image_folder import write_image_folder
+
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+    cfg = get_cfg(VIT_CONFIG)
+    batch = cfg["training"]["batch_size"]
+    shutil.rmtree(VIT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    per_class = 2 * batch // VIT_CLASSES_IN_TREE
+    tree = write_image_folder(os.path.join(VIT_DIR, "imagenet"), classes=VIT_CLASSES_IN_TREE,
+                              train=per_class, val=per_class, seed=22)
+    tv = torchvision_vit_b16(torch, seed=23)
+    weights = os.path.join(VIT_DIR, "vit_b_16_torchvision.pt")
+    torch.save(tv, weights)
+    want = torchvision_vit_mapped(torch, tv)
+    say(f"  wrote {2 * per_class * VIT_CLASSES_IN_TREE} JPEGs and a torchvision-layout "
+        f"ViT-B16 state_dict ({os.path.getsize(weights)} bytes) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg["dataset"]["root"] = tree
+    cfg["training"].update(train_iters=VIT_STEPS, print_interval=1, val_interval=VIT_STEPS,
+                           worker_mode="thread")
+    cfg["model"]["pretrained"] = weights
+    marks, losses, pre = [], [], {}
+
+    def on_iter(runner):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), all_counts(modules)))
+        losses.append(float(runner.last_loss))
+
+    listener = MultiProcessLoggerListener(
+        partial(get_train_logger, os.path.join(_HERE, "run", "chip_smoke"), "vit-b16"), "spawn")
+    runner = Runner(num_nodes=1, rank=0, seed=0, dist_url="", multiprocessing=False,
+                    logger_queue=listener.queue, global_cfg=cfg, device="cuda", on_iter=on_iter)
+
+    def first_step(inputs, labels):
+        if not pre:  # (c): the weights the first step starts from
+            got = {n: p.detach().cpu() for n, p in runner.model.named_parameters()}
+            pre["missing"] = sorted(set(want) ^ set(got))
+            pre["differ"] = [n for n in want if n in got and not torch.equal(got[n], want[n])]
+        return Runner.train_iter(runner, inputs, labels)
+
+    runner.train_iter = first_step
+    for m in modules:
+        m.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        runner()
+    finally:
+        listener.stop()
+    final = all_counts(modules)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if not pre or pre["missing"] or pre["differ"]:
+        raise AssertionError(f"model.pretrained before step 1: {pre or 'no step ran'}")
+    say(f"  (c) before step 1 the runner's {len(want)} parameters equal the torchvision "
+        f"state_dict mapped here, bit for bit")
+    if runner.is_lm or type(runner.model).__name__ != "ViT":
+        raise AssertionError(f"config/ViT-B16.yml built {type(runner.model).__name__}")
+    if len(losses) != VIT_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training losses: {losses}")
+    if len(runner.val_log) != 1 or not math.isfinite(runner.val_log[0]["loss"]):
+        raise AssertionError(f"validation: {runner.val_log}")
+    prev = {k: 0 for k in final}
+    for i, (_, counts) in enumerate(marks):
+        check_launches(f"step {i}", {k: counts[k] - prev[k] for k in final},
+                       dict(ce_fwd=1, ce_bwd=1))
+        prev = counts
+    val_batches = len(runner.val_loader)
+    check_launches(f"validation ({val_batches} batches)", {k: final[k] - prev[k] for k in final},
+                   dict(ce_fwd=val_batches))
+    step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
+    # fed by the loader the steps come unevenly (two staged batches, then a
+    # wait on the loader): the mean gives the sustained rate
+    med_ms, mean_ms = statistics.median(step_ms), statistics.fmean(step_ms)
+    flop = 3 * vit_forward_flop(runner.model)
+    loader = runner.train_loader
+    load_ms = loader_ms(loader)
+    inp, lab = next(iter(loader))
+    loader.close()
+    img, labels = runner._to_device(inp, lab)
+    dev_ms = device_step_ms(torch, runner.train_step, img, labels)
+    lrs = [r["lr"] for r in runner.train_log]
+    say(f"  loader: {loader.worker_mode} mode, {loader.num_workers} worker(s), "
+        f"{loader.output_dtype} batches ({np.dtype(inp.dtype).name} {inp.nbytes + lab.nbytes} "
+        f"bytes a batch); alone {load_ms} ms a batch of {batch}")
+    say(f"  losses {losses}; lr {lrs}; validation {runner.val_log[0]}")
+    say(f"  step ms (steps 1-{VIT_STEPS - 1}, host clock, loader-fed, synced): {step_ms}; "
+        f"median {med_ms}, mean {mean_ms}; images/s (from the mean) {batch / mean_ms * 1e3}")
+    say(f"  device-resident step {dev_ms} ms, {batch / dev_ms * 1e3} images/s; model FLOP an "
+        f"image (train: 3 x forward) {flop:.4g}, {flop * batch / dev_ms / 1e9:.2f} TFLOP/s, "
+        f"{flop * batch / (dev_ms / 1e3) / BF16_FLOPS:.4f} of 989 (bf16)")
+    say(f"  launches a step {{'ce_fwd': 1, 'ce_bwd': 1}} ([{batch}, 1000] f32), validation "
+        f"{{'ce_fwd': {val_batches}}}; peak device memory {peak_gib} GiB")
+    numbers = dict(step_ms=step_ms, median_step_ms=med_ms, mean_step_ms=mean_ms,
+                   images_per_s=batch / mean_ms * 1e3,
+                   device_step_ms=dev_ms, device_images_per_s=batch / dev_ms * 1e3,
+                   loader_ms=load_ms, model_flop_per_image=flop / 3, peak_gib=peak_gib,
+                   losses=losses, lr=lrs, val=runner.val_log[0], pretrained_equal=len(want))
+    if profile:
+        say("== profile (ViT-B16 bf16 train step, device-resident)")
+        numbers["profile"] = profile_vit_step(torch, runner.train_step, img, labels,
+                                              "ViT-B16 bf16 step")
+    say("vit_runner: " + json.dumps(numbers))
+    del runner, img
+    torch.cuda.empty_cache()
+    return final, numbers
+
+
+def phase_vit(torch, modules, tf32_defaults, profile: bool) -> dict:
+    """Phase 22; returns the launch counts by path."""
+    paths = {"vit_step": by_tpu_kernel(phase_vit_step_vs_cpu(torch, modules))}
+    counts, _ = phase_vit_runner(torch, modules, tf32_defaults, profile)
+    paths["vit"] = by_tpu_kernel(counts)
+    return paths
+
+
+def phase_vit_and_serving(torch, modules, tf32_defaults, smi: str, profile: bool) -> dict:
+    """Phases 22 and 23; returns phase 22's launch counts by path (phase 23
+    launches no hand-written kernel)."""
+    phase("phase 22: ViT-B16, card vs CPU, then config/ViT-B16.yml on the runner "
+          "(pretrained)")
+    paths = phase_vit(torch, modules, tf32_defaults, profile)
+    phase("phase 23: classification serving (config/serve-resnet50.yml: ResNet-50, ViT-B16; "
+          "phase 17's checkpoint)")
+    phase_serve_classify(torch, modules, smi)
+    return paths
+
+
+def serve_cli(config: str, requests: int, log_dir: str) -> dict:
+    """``python -m pytorch_distributed_training_tpu_torch.serving`` run in
+    this process: its last line's snapshot."""
+    import io
+
+    from pytorch_distributed_training_tpu_torch.serving.__main__ import main as serve_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve_main(["--config", config, "--requests", str(requests), "--log-dir", log_dir])
+    if rc != 0:
+        raise AssertionError(f"serving CLI on {config}: exit {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])["serving"]
+
+
+def phase_serve_classify(torch, modules, smi: str) -> dict:
+    """Phase 23: classification serving on the batcher.  (a) The serving
+    CLI on ``config/serve-resnet50.yml`` as it is (ResNet-50, bf16, bucket
+    8, uint8 normalised on the card, random weights from ``serving.seed``)
+    and on a copy with ``model.name: ViT-B16``, 16 requests each.  (b) Each
+    engine from the same config, warmed up, then ``SERVE_STREAM`` seeded
+    uint8 requests submitted at once: every result a label in range and
+    1000 finite f32 logits, no hand-written kernel launched (classification
+    runs no CE or flash); images/s, latency p50/p99, batch fill (mean batch
+    over the bucket) and host ms a batch.  (c) ResNet-50 served from phase
+    17's checkpoint (``run/chip_smoke/ckpt/a``, with an EMA) at f32, TF32
+    off: the engine's logits on 8 seeded images within ``SERVE_CKPT_TOL``
+    of the largest of the runner's own eval of the EMA weights (the runner
+    resumed from that checkpoint, ``_eval_weights``)."""
+    import numpy as np
+    import yaml
+
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg, get_serve_cfg
+    from pytorch_distributed_training_tpu_torch.data.datasets import IMAGENET_MEAN, IMAGENET_STD
+    from pytorch_distributed_training_tpu_torch.engine import Runner
+    from pytorch_distributed_training_tpu_torch.engine.steps import _eval_logits, input_normalizer
+    from pytorch_distributed_training_tpu_torch.serving import InferenceEngine
+
+    t_phase = time.perf_counter()
+    log_dir = os.path.join(_HERE, "run", "chip_smoke", "serve-classify")
+    vit_cfg = get_serve_cfg(SERVE_RESNET_CONFIG)
+    vit_cfg["model"]["name"] = "ViT-B16"
+    vit_path = os.path.join(VIT_DIR, "serve-vit-b16.yml")
+    os.makedirs(VIT_DIR, exist_ok=True)
+    with open(vit_path, "w") as f:
+        yaml.safe_dump(vit_cfg, f)
+    readings = {}
+    for name, path in (("resnet50", SERVE_RESNET_CONFIG), ("vit_b16", vit_path)):
+        snap = serve_cli(path, 16, log_dir)
+        if snap["requests"] != 16 or snap["items"] != 16:
+            raise AssertionError(f"(a) {name} CLI: {snap}")
+        say(f"  (a) {name}: the serving CLI answered 16 requests, batch mean "
+            f"{snap['batch_size_mean']}, {snap.get('items_per_sec')} images/s (cold)")
+        cfg = get_serve_cfg(path)
+        rng = np.random.default_rng(23)
+        reqs = rng.integers(0, 256, (SERVE_STREAM, 224, 224, 3), dtype=np.uint8)
+        for m in modules:
+            m.reset_launch_counts()
+        with InferenceEngine.from_config(cfg) as engine:
+            warm = engine.warmup()
+            t0 = time.perf_counter()
+            results = [f.result(timeout=600) for f in [engine.submit(r) for r in reqs]]
+            wall = time.perf_counter() - t0
+            snap = engine.snapshot()
+        check_launches(f"(b) {name} serving", all_counts(modules), {})
+        bad = [i for i, r in enumerate(results)
+               if not 0 <= r["label"] < 1000 or r["logits"].shape != (1000,)
+               or r["logits"].dtype != np.float32 or not np.isfinite(r["logits"]).all()]
+        if bad or snap["requests"] != SERVE_STREAM:
+            raise AssertionError(f"(b) {name}: bad results {bad[:4]}, snapshot {snap}")
+        bucket = engine.batch_buckets[-1]
+        readings[name] = dict(
+            images_per_s=SERVE_STREAM / wall, items_per_sec=snap.get("items_per_sec"),
+            latency_ms_p50=snap["latency_ms_p50"], latency_ms_p99=snap["latency_ms_p99"],
+            batches=snap["batches"], batch_fill=snap["batch_size_mean"] / bucket,
+            batch_host_ms_p50=snap["batch_host_ms_p50"],
+            batch_host_ms_p99=snap["batch_host_ms_p99"], warmup_ms=warm["warmup_ms"])
+        say(f"  (b) {name}, {SERVE_STREAM} requests at once, bucket {bucket}: "
+            + json.dumps(readings[name]) + f"  [{smi}]")
+        del engine
+        torch.cuda.empty_cache()
+
+    # (c) phase 17's checkpoint, served, against the runner's eval of its EMA
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        ckpt = os.path.join(CKPT_DIR, "a")
+        train = get_cfg(RESNET_CONFIG)
+        train["training"].update(train_iters=6, print_interval=1, dtype="float32",
+                                 ema={"decay": 0.999}, checkpoint={"dir": ckpt, "interval": 3})
+        train["dataset"]["n_samples"] = 2 * train["training"]["batch_size"]
+        runner = Runner(num_nodes=1, rank=0, seed=0, dist_url="", multiprocessing=False,
+                        logger_queue=None, global_cfg=train, device="cuda")
+        runner()  # resumes at the checkpoint's last step: nothing left to train
+        if runner.iter != 6 or runner.train_step.ema is None:
+            raise AssertionError(f"(c) runner resumed at {runner.iter}")
+        imgs = np.random.default_rng(24).integers(0, 256, (8, 224, 224, 3), dtype=np.uint8)
+        norm = input_normalizer((IMAGENET_MEAN, IMAGENET_STD))
+        with runner._eval_weights(), torch.no_grad():
+            want = _eval_logits(runner.model, norm(torch.from_numpy(imgs).cuda())).float().cpu()
+        serve = get_serve_cfg(SERVE_RESNET_CONFIG)
+        serve["serving"].update(checkpoint=ckpt, dtype="float32")
+        with InferenceEngine.from_config(serve) as engine:
+            got = torch.from_numpy(np.stack(
+                [f.result(timeout=600)["logits"] for f in [engine.submit(i) for i in imgs]]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    err = relative_to_largest(got, want)
+    labels_equal = bool((got.argmax(-1) == want.argmax(-1)).all())
+    readings["ckpt_ema"] = dict(max_err_of_largest=err, labels_equal=labels_equal,
+                                limit=SERVE_CKPT_TOL)
+    say(f"  (c) ResNet-50 served from {ckpt} (step 5, EMA) at f32, TF32 off, 8 images: max "
+        f"|engine - runner eval of the EMA| / max |runner| = {err:.3g} (limit "
+        f"{SERVE_CKPT_TOL}); labels equal {labels_equal}")
+    if not torch.isfinite(got).all() or err > SERVE_CKPT_TOL:
+        raise AssertionError(f"(c) checkpointed ResNet-50: {readings['ckpt_ema']}")
+    readings["phase_s"] = time.perf_counter() - t_phase
+    say("serve_classify: " + json.dumps(readings))
+    del runner
+    torch.cuda.empty_cache()
+    return readings
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true")
@@ -3110,6 +3646,8 @@ def main(argv=None) -> int:
                         help="phases 1, 2, 18 and 19 only (no result line)")
     parser.add_argument("--serve", action="store_true",
                         help="phases 1, 2, 5 and 20 only (no result line)")
+    parser.add_argument("--vit", action="store_true",
+                        help="phases 1, 2, 17, 22 and 23 only (no result line)")
     args = parser.parse_args(argv)
 
     import torch
@@ -3161,6 +3699,16 @@ def main(argv=None) -> int:
         return 0
     if args.accum_faults:
         phase_accum_and_faults(torch, modules)
+        phase(None)
+        say(f"total {time.perf_counter() - t_start:.1f} s")
+        say(smi)
+        return 0
+
+    if args.vit:
+        # phase 23 (c) serves phase 17's checkpoint
+        phase("phase 17: checkpoint, resume and preemption (config/test-sync.yml, f32, EMA)")
+        phase_checkpoint(torch, modules)
+        phase_vit_and_serving(torch, modules, tf32_defaults, smi, args.profile)
         phase(None)
         say(f"total {time.perf_counter() - t_start:.1f} s")
         say(smi)
@@ -3263,6 +3811,7 @@ def main(argv=None) -> int:
     paths["serving_sched"] = by_tpu_kernel(counts)
     phase("phase 21: serving decode modes, full width")
     serving_modes = phase_serve_modes(torch, modules, fe, smi, plain, args.profile)
+    paths.update(phase_vit_and_serving(torch, modules, tf32_defaults, smi, args.profile))
 
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "ffma_bound_ms")

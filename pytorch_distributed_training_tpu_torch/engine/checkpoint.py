@@ -124,8 +124,10 @@ def load_serving_state(directory: str, logger: Optional[logging.Logger] = None):
     ``:1183``).
 
     Serving has no optimizer: only the model's ``state_dict`` is kept,
-    read with ``map_location="cpu"``, and when the run kept a weight EMA
-    (``payload["ema"]``) its tensors replace the raw parameters, the
+    read with ``map_location="cpu"`` (for a ResNet with its BatchNorm
+    running statistics, JAX ``:1183-1243``'s ``batch_stats``), and when
+    the run kept a weight EMA (``payload["ema"]``) its tensors replace the
+    raw parameters, the running statistics staying the model's: the
     weights the runner validates with.  A step directory without the
     port's ``state.pt`` is an orbax checkpoint of the JAX package, which
     the port cannot read (``NotImplementedError``, ROADMAP port item P7b).

@@ -3,7 +3,8 @@
 ``Runner(...)()`` builds everything from a training config and runs the
 reference's iteration loop.  The model family picks the path, as the JAX
 package's ``engine/paths.py`` does: ``TransformerLM`` trains on the LM
-path, a ResNet on the image path.
+path, every other name (the ResNets and the ViTs) on the image path (JAX
+``engine/topology.py:67``).
 
 - datasets (``dataset.*``), the sampler (shuffled, ``drop_last`` for
   training; in order and wrap-padded for validation; sharded by rank when
@@ -25,9 +26,18 @@ path, a ResNet on the image path.
   - image: a ResNet whose BatchNorms average their statistics over the
     ranks when ``training.sync_bn`` is set and the world has more than one
     rank (JAX ``engine/topology.py:81``: at world size 1 the statistics
-    are local), in ``channels_last`` on the card; of the ``model:`` keys
-    only ``space_to_depth`` (the packed stem) and ``bn_stat_dtype``
-    (``bfloat16`` statistics) are read;
+    are local), or a ViT (no BatchNorm; its position table sized from
+    ``dataset.image_size``), in ``channels_last`` on the card; a ResNet
+    also takes ``space_to_depth`` (the packed stem) and ``bn_stat_dtype``
+    (``bfloat16`` statistics);
+  - the ``model:`` keys are parsed by :func:`.topology.parse_model` (JAX
+    ``topology.py:55-90``); the keys left reach the constructor, so an
+    unknown one raises;
+  - ``model.pretrained``: a torch ``state_dict`` (a torchvision ResNet or
+    ``VisionTransformer``, or the LM twin, :mod:`..models.torch_port`)
+    loaded over the initial weights, strictly, before the train step
+    copies them into the EMA (JAX ``runner.py:536-610``,
+    ``paths.py:265-269``);
 - the optimizer and LR schedule from ``training.optimizer`` /
   ``training.lr_schedule``;
 - the train and eval steps of :mod:`.sp_steps` (LM) or :mod:`.steps`
@@ -127,7 +137,7 @@ from .checkpoint import Checkpointer, capture_training_state, restore_training_s
 from .preemption import PreemptionGuard
 from .sp_steps import build_lm_eval_step, build_lm_train_step
 from .steps import build_eval_step, build_eval_step_exact, build_train_step
-from .topology import parse_fault_tolerance
+from .topology import parse_fault_tolerance, parse_model
 from .watchdog import StepWatchdog
 
 __all__ = ["Runner", "UNPORTED_TRAINING_KEYS", "apply_remat_alias"]
@@ -305,9 +315,8 @@ class Runner:
         if not 0.0 <= self.label_smoothing < 1.0:
             raise ValueError(f"label_smoothing must be in [0, 1), got {self.label_smoothing}")
 
-        model_cfg = dict(cfg["model"])
-        model_name = model_cfg.pop("name")
-        self.is_lm = not is_resnet(model_name)
+        model_cfg = parse_model(self, cfg)
+        model_name = self.model_name
         apply_remat_alias(train_cfg, model_cfg, model_name)
         # JAX engine/topology.py:347-352
         ema_cfg = train_cfg.get("ema")
@@ -327,7 +336,7 @@ class Runner:
         if self.is_lm:
             self._build_lm_model(model_name, model_cfg, train_dataset)
         else:
-            self._build_image_model(model_name, model_cfg)
+            self._build_image_model(model_name, model_cfg, ds_kwargs["image_size"])
 
         # reference parity (train_distributed.py:194): batch_size is per
         # process, one process per card
@@ -614,30 +623,84 @@ class Runner:
         model_cfg.setdefault("max_len", self.seq_len)
         self.model = get_model(model_name, num_classes=self.global_cfg["dataset"]["n_classes"],
                                dtype=self.compute_dtype, flash=True, **model_cfg)
+        if self.pretrained:
+            self._apply_pretrained_lm()
         self.model.to(self.device).train()
         self.logger.info("Model %s: %.1f M parameters, compute %s, flash attention on%s",
                          model_name, sum(p.numel() for p in self.model.parameters()) / 1e6,
                          str(self.compute_dtype).replace("torch.", ""),
                          f", remat ({self.model.remat_policy})" if self.model.remat else "")
 
-    def _build_image_model(self, model_name: str, model_cfg: dict) -> None:
+    def _build_image_model(self, model_name: str, model_cfg: dict, image_size: int) -> None:
+        from ..models import ViT
+
         self.unit, self.items_per_sample = "img", 1
         # JAX engine/topology.py:81: synchronized statistics only across ranks
         self.sync_bn = bool(self.global_cfg["training"]["sync_bn"]) and self.distributed
-        bn_stat = model_cfg.get("bn_stat_dtype")
-        if bn_stat is not None and bn_stat not in _DTYPES:
-            raise ValueError(f"model.bn_stat_dtype must be 'float32' or 'bfloat16', "
-                             f"got {bn_stat!r}")
+        kwargs = dict(model_cfg)
+        if not is_resnet(model_name):
+            # a ViT: flax sizes its position table from the init batch's images
+            kwargs.setdefault("image_size", image_size)
         self.model = get_model(model_name, num_classes=self.global_cfg["dataset"]["n_classes"],
-                               dtype=self.compute_dtype, sync_bn=self.sync_bn,
-                               space_to_depth=bool(model_cfg.get("space_to_depth", False)),
-                               bn_stat_dtype=_DTYPES.get(bn_stat))
+                               dtype=self.compute_dtype, sync_bn=self.sync_bn, **kwargs)
+        if self.pretrained:
+            self._apply_pretrained_image()
         layout = torch.channels_last if self.device.type == "cuda" else torch.contiguous_format
         self.model.to(self.device, memory_format=layout).train()
-        self.logger.info("Model %s: %.1f M parameters, compute %s, BatchNorm statistics %s",
-                         model_name, sum(p.numel() for p in self.model.parameters()) / 1e6,
+        self.logger.info("Model %s: %.1f M parameters, compute %s, %s", model_name,
+                         sum(p.numel() for p in self.model.parameters()) / 1e6,
                          str(self.compute_dtype).replace("torch.", ""),
-                         "synchronized over the ranks" if self.sync_bn else "local")
+                         "no BatchNorm" if isinstance(self.model, ViT) else
+                         "BatchNorm statistics " + ("synchronized over the ranks" if self.sync_bn
+                                                    else "local"))
+
+    # ------------------------------------------------- pretrained ingestion
+    def _load_torch_state_dict(self) -> dict:
+        """``model.pretrained`` read as a torch ``state_dict`` mapping (JAX
+        ``runner.py:536-555``)."""
+        path = self.pretrained
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"model.pretrained: checkpoint '{path}' does not exist")
+        state_dict = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(state_dict, dict) and "state_dict" in state_dict:
+            state_dict = state_dict["state_dict"]  # harness checkpoints nest it
+        if not isinstance(state_dict, dict):
+            raise ValueError(f"model.pretrained: '{path}' does not contain a state_dict "
+                             f"mapping (got {type(state_dict).__name__})")
+        return state_dict
+
+    def _apply_pretrained_image(self) -> None:
+        """The model's parameters (and a ResNet's running statistics) from
+        a torchvision checkpoint (JAX ``runner.py:557-597``)."""
+        from ..models import ResNet, ViT
+        from ..models.torch_port import (import_torch_resnet_state_dict,
+                                         import_torch_vit_state_dict)
+
+        if not isinstance(self.model, (ResNet, ViT)):
+            # the family check before the (possibly multi-GB) torch.load
+            raise ValueError(f"model.pretrained: only the ResNet and ViT families have a "
+                             f"torchvision state_dict layout (got model.name: {self.model_name})")
+        state_dict = self._load_torch_state_dict()
+        template = self.model.state_dict()
+        if isinstance(self.model, ResNet):
+            loaded = import_torch_resnet_state_dict(template, state_dict)
+        else:
+            loaded = import_torch_vit_state_dict(template, state_dict,
+                                                 num_heads=self.model.num_heads)
+        self.model.load_state_dict(loaded, strict=True)
+        self.logger.info("Initialized %s from pretrained torch checkpoint %s", self.model_name,
+                         self.pretrained)
+
+    def _apply_pretrained_lm(self) -> None:
+        """The LM's parameters from a torch-twin checkpoint (JAX
+        ``runner.py:599-610``)."""
+        from ..models.torch_port import import_torch_lm_state_dict
+
+        loaded = import_torch_lm_state_dict(self.model.state_dict(),
+                                            self._load_torch_state_dict())
+        self.model.load_state_dict(loaded, strict=True)
+        self.logger.info("Initialized %s from pretrained torch checkpoint %s", self.model_name,
+                         self.pretrained)
 
     # ------------------------------------------------------------- hot loop
     def _stage(self, inp: np.ndarray, label: np.ndarray):

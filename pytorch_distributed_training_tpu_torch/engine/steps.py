@@ -24,6 +24,9 @@ compiled ``shard_map`` program; here each rank is one process on one card:
    rounds it (:meth:`ImageTrainStep.update_ema`).  The EMA starts as a
    copy of the f32 parameters (JAX ``engine/paths.py:269-275``).
 
+A model without BatchNorm (the ViTs) has no buffers to average, copy
+back or sync: those lists are empty and their passes are skipped.
+
 ``input_norm = (mean, std)`` takes a uint8 NHWC batch and normalises it
 on the card before the permute, as ``x.float() * scale + bias`` with the
 native host kernel's f32 ``scale = 1 / (255 std)`` and ``bias = -mean /
@@ -172,7 +175,7 @@ class ImageTrainStep:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         if self.world_size > 1:
             shared = grads + [loss.reshape(1)]
-            if not self.sync_bn:
+            if not self.sync_bn and self.bn_buffers:
                 torch._foreach_mul_(self.bn_buffers, 1.0 / self.world_size)
                 shared += self.bn_buffers
             _all_reduce_sum_(shared, self.group)
@@ -185,7 +188,7 @@ class ImageTrainStep:
             self.opt_state = self.optimizer.update(self.params, grads, self.opt_state, lr)
             if self.ema is not None:
                 self.update_ema()
-        else:
+        elif self.bn_buffers:
             with torch.no_grad():
                 torch._foreach_copy_(self.bn_buffers, bn_before)
         for p in self.params:

@@ -1,11 +1,54 @@
-"""``training.fault_tolerance`` parsed onto the runner (port of
-``parse_fault_tolerance``, JAX ``engine/topology.py:436-544``; the rest of
-that module is the parallelism layout, ROADMAP port item P9)."""
+"""The ``model:`` section and ``training.fault_tolerance`` parsed onto the
+runner (port of ``parse_topology``'s model keys, JAX
+``engine/topology.py:55-90``, and of ``parse_fault_tolerance``,
+``:436-544``; the rest of that module is the parallelism layout, ROADMAP
+port item P9)."""
 from __future__ import annotations
 
+import torch
+
+from ..models import is_resnet
 from .fault import FaultInjector
 
-__all__ = ["parse_fault_tolerance"]
+__all__ = ["parse_fault_tolerance", "parse_model"]
+
+_BN_STAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def parse_model(r, cfg: dict) -> dict:
+    """Set ``model_name``, ``pretrained``, ``is_lm`` and ``is_moe`` on ``r``
+    from ``cfg["model"]`` and return the keys left for the constructor.
+
+    As JAX ``topology.py:55-90``: the LM path is ``model.name:
+    TransformerLM`` and nothing else; ``pretrained`` is popped (a path to a
+    torch ``state_dict``, refused with MoE); the ResNet-only keys
+    ``space_to_depth`` and ``bn_stat_dtype`` are validated before the
+    LM/image split, with the JAX package's messages, and handed on (the
+    statistics' dtype as a torch dtype) only when set.  Where the JAX image
+    path ignores every other key, the port passes them to ``get_model`` on
+    both paths, so an unknown key raises instead of being dropped."""
+    model_cfg = dict(cfg["model"])
+    model_name = model_cfg.pop("name")
+    r.model_name = model_name
+    r.pretrained = model_cfg.pop("pretrained", None)
+    r.is_lm = model_name.lower() == "transformerlm"
+    r.is_moe = r.is_lm and int(model_cfg.get("moe_experts", 0) or 0) > 0
+    if r.pretrained and r.is_moe:
+        # the torch-twin LM layout has no expert tensors
+        raise ValueError("model.pretrained does not support MoE models "
+                         "(no torch-twin layout for expert weights)")
+    s2d = bool(model_cfg.pop("space_to_depth", False))
+    bn_stat = model_cfg.pop("bn_stat_dtype", None)
+    if bn_stat is not None and bn_stat not in _BN_STAT_DTYPES:
+        raise ValueError(f"model.bn_stat_dtype must be 'float32' or 'bfloat16', got {bn_stat!r}")
+    if (s2d or bn_stat) and not is_resnet(model_name):
+        raise ValueError(f"model.space_to_depth / bn_stat_dtype are only wired for the ResNet "
+                         f"family (got model.name: {model_name})")
+    if s2d:
+        model_cfg["space_to_depth"] = True
+    if bn_stat:
+        model_cfg["bn_stat_dtype"] = _BN_STAT_DTYPES[bn_stat]
+    return model_cfg
 
 
 def parse_fault_tolerance(r, train_cfg: dict) -> None:

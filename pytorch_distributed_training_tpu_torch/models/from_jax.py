@@ -29,6 +29,16 @@ kernel transposed, BatchNorm ``scale``/``bias``/``mean``/``var`` ->
 port's ``ResNet`` of the tree's own topology (block type, blocks a stage,
 classes, and the space-to-depth stem when ``conv1``'s kernel is 4x4), so
 any leaf left over or missing raises ``ValueError``.
+
+:func:`vit_state_dict_from_jax` maps a JAX ``ViT``'s ``params``: the
+patch conv's kernel HWIO -> OIHW, every Dense kernel ``[in, out]`` ->
+``[out, in]``, ``scale`` -> ``weight``, ``cls_token``/``pos_embedding``
+as they are; the flat flax names (``block{i}/attn/qkv``, ...) are the
+port's module names (``block{i}.attn.qkv``).  The qkv kernel keeps its
+heads-major column order, as for the LM.  The expected keys and shapes
+are those of the port's ``ViT`` of the tree's own topology (width, patch,
+depth, MLP width, classes and position-table length), so a leaf left
+over, missing or of another shape raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -37,7 +47,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["lm_state_dict_from_jax", "resnet_state_dict_from_jax"]
+__all__ = ["lm_state_dict_from_jax", "resnet_state_dict_from_jax", "vit_state_dict_from_jax"]
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -165,4 +175,42 @@ def resnet_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     extra = sorted(set(state) - set(shapes))
     if missing or extra:
         raise ValueError(f"JAX variables: missing {missing}, left over {extra}")
+    return state
+
+
+def vit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``ViT`` state_dict for a JAX ``ViT`` ``params`` tree."""
+    from .vit import ViT
+
+    leaves = _flatten(params)
+    for name in ("patch_embed/kernel", "pos_embedding", "block0/mlp/fc1/kernel",
+                 "head/kernel"):
+        if name not in leaves:
+            raise ValueError(f"JAX params: missing leaf {name!r}")
+    patch, _, _, dim = leaves["patch_embed/kernel"].shape
+    grid = int(round((leaves["pos_embedding"].shape[1] - 1) ** 0.5))
+    hidden = leaves["block0/mlp/fc1/kernel"].shape[1]
+    depth = len({p.split("/")[0] for p in leaves if p.startswith("block")})
+    with torch.device("meta"):
+        # the heads do not change a shape: any divisor of the width will do
+        template = ViT(leaves["head/kernel"].shape[1], patch_size=patch, embed_dim=dim,
+                       depth=depth, num_heads=1, mlp_ratio=hidden / dim,
+                       image_size=grid * patch)
+    shapes = {k: tuple(v.shape) for k, v in template.state_dict().items()}
+    state = {}
+    for path, arr in leaves.items():
+        *mod, leaf = path.split("/")
+        if leaf == "kernel":
+            arr, leaf = (arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T), "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        key = ".".join(mod + [leaf])
+        if key in shapes and arr.shape != shapes[key]:
+            raise ValueError(f"JAX params: {path} maps to {key} of shape {arr.shape}, "
+                             f"expected {shapes[key]}")
+        state[key] = torch.tensor(np.ascontiguousarray(arr))
+    missing = sorted(set(shapes) - set(state))
+    extra = sorted(set(state) - set(shapes))
+    if missing or extra:
+        raise ValueError(f"JAX params: missing {missing}, left over {extra}")
     return state

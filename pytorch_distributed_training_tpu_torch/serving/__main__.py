@@ -10,8 +10,11 @@ batcher, or the continuous scheduler over the paged KV pool with
 ``serving.scheduler.enabled``
 (``configs/serve-lm-1024-sched.yml``), from ``serving.checkpoint`` when it
 is set.  SIGTERM drains the engine (JAX ``__main__.py:59-63``).  Fires
-``--requests`` random prompts of lengths within the seq buckets at it,
-waits on every future, and logs p50/p99 latency, queue depth and tokens/s.
+``--requests`` random prompts of lengths within the seq buckets at it (a
+classifier, e.g. ``config/serve-resnet50.yml``: random uint8 images of
+``dataset.image_size``, float32 with ``serving.normalize: false``; JAX
+``__main__.py:36-39``), waits on every future, and logs p50/p99 latency,
+queue depth and tokens/s (images/s).
 The final line is one JSON object, ``{"serving": snapshot}``, whose
 snapshot carries each hand-written kernel's launch count.
 """
@@ -32,17 +35,23 @@ from ..logger import MultiProcessLoggerListener
 from .engine import InferenceEngine
 
 
-def _synthetic_prompts(vocab: int, max_prompt: int, n: int, seed: int):
+def _synthetic_payloads(engine: InferenceEngine, n: int, seed: int):
     rng = np.random.default_rng(seed)
+    if engine.is_lm:
+        for _ in range(n):
+            ln = int(rng.integers(1, engine.seq_buckets[-1] + 1))
+            yield rng.integers(0, engine.vocab_size, ln).astype(np.int32)
+        return
+    size = engine.image_size
     for _ in range(n):
-        ln = int(rng.integers(1, max_prompt + 1))
-        yield rng.integers(0, vocab, ln).astype(np.int32)
+        img = rng.integers(0, 256, (size, size, 3)).astype(np.uint8)
+        yield img if engine._input_dtype == np.uint8 else img.astype(np.float32) / 255.0
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m pytorch_distributed_training_tpu_torch.serving",
-        description="serve a TransformerLM against a synthetic request stream",
+        description="serve a TransformerLM or a classifier against a synthetic request stream",
     )
     parser.add_argument("--config", required=True, help="serve-*.yml path")
     parser.add_argument("--requests", type=int, default=32)
@@ -65,15 +74,14 @@ def main(argv=None) -> int:
             # main thread, so here
             engine.install_drain_handler()
             logger.info(
-                "engine up on %s: batch_buckets=%s seq_buckets=%s path=%s modes=%s",
-                engine.device, engine.batch_buckets, engine.seq_buckets,
+                "engine up on %s: task=%s batch_buckets=%s seq_buckets=%s path=%s modes=%s",
+                engine.device, "lm" if engine.is_lm else "image", engine.batch_buckets,
+                engine.seq_buckets if engine.is_lm else "-",
                 "scheduler" if engine.scheduler is not None else "batcher",
                 ",".join(m for m, on in engine.serving_modes.items() if on) or "plain",
             )
-            prompts = _synthetic_prompts(
-                engine.vocab_size, engine.seq_buckets[-1], args.requests, args.seed
-            )
-            futures = [engine.submit(p) for p in prompts]
+            futures = [engine.submit(p)
+                       for p in _synthetic_payloads(engine, args.requests, args.seed)]
             for fut in futures:
                 fut.result(timeout=300)
             engine.metrics.log_summary(logger)

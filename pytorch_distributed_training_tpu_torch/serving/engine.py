@@ -1,7 +1,7 @@
 """InferenceEngine: a TransformerLM served by a batcher or a continuous
-scheduler.
+scheduler, or a ResNet or ViT classifier served by the batcher.
 
-Port of the JAX package's ``serving/engine.py``, LM paths: build the
+Port of the JAX package's ``serving/engine.py``: build the
 model from a ``serve-*.yml`` config's ``model:`` section, its weights from
 ``serving.checkpoint`` (the port's own training checkpoint,
 :func:`..engine.checkpoint.load_serving_state`; EMA weights when the run
@@ -46,9 +46,22 @@ There is no compile count: nothing is compiled per shape.  The snapshot
 reports instead how often each hand-written kernel launched
 (``launches_<kernel>``).
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: orbax checkpoints of the JAX package (P7b), classification models
-(P8).
+Classification (JAX ``:179-190``, ``:315-345``, ``:633-643``,
+``:757-772``): a ResNet or a ViT (``model.name`` other than
+``TransformerLM``) on the :class:`.batcher.DynamicBatcher` path only;
+``quant``, ``lora``, ``speculative`` and ``scheduler`` are LM-only and
+raise ``ValueError``.  ``submit(image)`` takes one ``[image_size,
+image_size, 3]`` image (``dataset.image_size``, 224 by default): uint8,
+normalised on the device with the ImageNet constants
+(:func:`..engine.steps.input_normalizer`), or with ``serving.normalize:
+false`` float32 as it is.  A batch is padded up to its bucket with zero
+images, runs once in eval mode (a ResNet on its running statistics, in
+``channels_last`` on the card) and resolves each future to ``{"label":
+int, "logits": float32 [n_classes]}``.  ``snapshot()`` adds the host ms a
+batch (``batch_host_ms_*``).
+
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
+orbax checkpoints of the JAX package (P7b).
 """
 from __future__ import annotations
 
@@ -62,8 +75,10 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..data.datasets import IMAGENET_MEAN, IMAGENET_STD
 from ..engine.checkpoint import load_serving_state
-from ..models import get_model
+from ..engine.steps import input_normalizer
+from ..models import TransformerLM, get_model, is_resnet
 from ..ops import fused_elementwise
 from ..ops.quant import is_quantized_leaf, quantize_tree
 from .batcher import DynamicBatcher, Request
@@ -83,10 +98,14 @@ _SCHEDULER_KEYS = ("enabled", "slots", "block_size", "num_blocks", "prefix_cache
 
 class InferenceEngine:
     """Serve a :class:`..models.transformer_lm.TransformerLM` through a
-    dynamic batcher, or a continuous scheduler (``scheduler``).
+    dynamic batcher, or a continuous scheduler (``scheduler``); or a
+    classifier through the batcher.
 
     ``submit(prompt)`` takes a 1-D int token prompt and returns a future
-    resolving to ``{"tokens": int32 [gen_len], "gen_len": int}``.
+    resolving to ``{"tokens": int32 [gen_len], "gen_len": int}``; for a
+    classifier ``submit(image)`` resolves to ``{"label", "logits"}``
+    (``image_size`` its side, ``input_norm`` the ``(mean, std)`` that
+    uint8 images are normalised with, ``None`` for float32 input).
 
     ``state_dict`` (optional) is loaded strictly into ``model`` before it
     moves to ``device``; without it the model's own parameters serve.
@@ -113,27 +132,32 @@ class InferenceEngine:
         quant: Optional[Dict[str, Any]] = None,
         lora: Optional[Dict[str, Any]] = None,
         speculative: Optional[Dict[str, Any]] = None,
+        image_size: int = 224,
+        input_norm=None,
         logger: Optional[logging.Logger] = None,
     ):
         self.device = resolve_device(device)
         self.logger = logger or logging.getLogger(__name__)
+        self.is_lm = isinstance(model, TransformerLM)
         self.max_new_tokens = int(max_new_tokens)
-        self.vocab_size = model.vocab_size
+        self.vocab_size = model.vocab_size if self.is_lm else None
+        self.image_size = int(image_size)
         self.batch_buckets = sorted({int(b) for b in batch_buckets})
         self.seq_buckets = sorted({int(s) for s in seq_buckets})
-        if not self.seq_buckets:
-            raise ValueError("LM serving needs at least one seq bucket")
         if not self.batch_buckets or self.batch_buckets[-1] < max_batch_size:
             raise ValueError(
                 f"largest batch bucket {self.batch_buckets} must hold "
                 f"max_batch_size {max_batch_size}"
             )
-        worst = self.seq_buckets[-1] + self.max_new_tokens
-        if worst > model.max_len:
-            raise ValueError(
-                f"largest seq bucket {self.seq_buckets[-1]} + max_new_tokens "
-                f"{self.max_new_tokens} = {worst} exceeds model max_len {model.max_len}"
-            )
+        if self.is_lm:
+            if not self.seq_buckets:
+                raise ValueError("LM serving needs at least one seq bucket")
+            worst = self.seq_buckets[-1] + self.max_new_tokens
+            if worst > model.max_len:
+                raise ValueError(
+                    f"largest seq bucket {self.seq_buckets[-1]} + max_new_tokens "
+                    f"{self.max_new_tokens} = {worst} exceeds model max_len {model.max_len}"
+                )
         sched_cfg = dict(scheduler or {})
         unknown = sorted(set(sched_cfg) - set(_SCHEDULER_KEYS))
         if unknown:
@@ -167,6 +191,12 @@ class InferenceEngine:
         if not 0.0 <= spec_min_acceptance <= 1.0:
             raise ValueError("serving.speculative.min_acceptance must be in [0, 1], "
                              f"got {spec_min_acceptance}")
+        if not self.is_lm:
+            if use_quant or use_lora or use_spec:
+                raise ValueError("serving.quant/lora/speculative are LM-only")
+            if use_sched:
+                raise ValueError("serving.scheduler is LM-only: a classifier is served by "
+                                 "the dynamic batcher")
         if (use_lora or use_spec) and not use_sched:
             raise ValueError(
                 "serving.lora and serving.speculative require serving.scheduler.enabled: "
@@ -175,6 +205,22 @@ class InferenceEngine:
         self.serving_modes = {"quant": use_quant, "lora": use_lora, "speculative": use_spec}
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
+        self.seed = int(seed)
+        self.metrics = ServingMetrics()
+        self.scheduler: Optional[ContinuousScheduler] = None
+        if not self.is_lm:
+            layout = (torch.channels_last if self.device.type == "cuda"
+                      else torch.contiguous_format)
+            self.model = model.to(self.device, memory_format=layout).eval()
+            self._normalize = input_normalizer(input_norm)
+            self._input_dtype = np.uint8 if input_norm is not None else np.float32
+            self.batcher = DynamicBatcher(
+                self._run_batch, max_batch_size, max_delay_ms,
+                deadline_ms=deadline_ms, max_backlog=max_backlog,
+                on_timeout=lambda: self.metrics.incr("timeouts"),
+                on_shed=lambda: self.metrics.incr("sheds"),
+            )
+            return
         base_model = model
         self.lora_registry: Optional[LoraRegistry] = None
         if use_lora:
@@ -190,11 +236,8 @@ class InferenceEngine:
             self.quant_state = {n: v for n, v in quantize_tree(model.state_dict()).items()
                                 if is_quantized_leaf(v)}
         self.model = model.cast_matmul_weights_().eval()
-        self.seed = int(seed)
         self._batch_counter = 0  # flush thread only
-        self.metrics = ServingMetrics()
         self.metrics.spec_min_acceptance = spec_min_acceptance
-        self.scheduler: Optional[ContinuousScheduler] = None
         self.batcher: Optional[DynamicBatcher] = None
         if use_sched:
             spec = None
@@ -254,8 +297,12 @@ class InferenceEngine:
 
         The weights: ``state_dict`` when given, else ``serving.checkpoint``
         (the newest step of a port training checkpoint, its EMA weights
-        when it kept them), else random, drawn with flax's initializers'
-        distributions from ``torch.Generator`` seeded with ``serving.seed``.
+        when it kept them, a ResNet's running statistics with them), else
+        random, drawn with the initializers' distributions from
+        ``torch.Generator`` seeded with ``serving.seed`` (a ResNet's
+        running statistics reset to mean 0, variance 1).  A classifier
+        takes ``dataset.image_size`` (224) and ``serving.normalize``
+        (true: uint8 images, normalised with the ImageNet constants).
         """
         device = resolve_device(device)
         logger = logger or logging.getLogger(__name__)
@@ -267,10 +314,10 @@ class InferenceEngine:
             )
         model_cfg = dict(cfg["model"])
         model_name = model_cfg.pop("name")
-        if model_name.lower() != "transformerlm":
-            raise NotImplementedError(
-                f"serving {model_name!r}: classification serving is ROADMAP port item P8"
-            )
+        is_lm = model_name.lower() == "transformerlm"
+        image_size = int(cfg["dataset"].get("image_size", 224))
+        if not is_lm and not is_resnet(model_name):
+            model_cfg.setdefault("image_size", image_size)  # a ViT's position table
         seed = int(serve.get("seed", 0))
         # allocated uninitialised: every parameter is drawn or loaded below,
         # so the constructors' own init would be thrown away
@@ -291,6 +338,9 @@ class InferenceEngine:
             )
             model.reset_parameters(torch.Generator().manual_seed(seed))
         max_batch = int(serve.get("max_batch_size", 8))
+        input_norm = None
+        if not is_lm and serve.get("normalize", True):
+            input_norm = (IMAGENET_MEAN, IMAGENET_STD)
         return cls(
             model,
             state_dict=state_dict,
@@ -314,6 +364,8 @@ class InferenceEngine:
             quant=serve.get("quant"),
             lora=serve.get("lora"),
             speculative=serve.get("speculative"),
+            image_size=image_size,
+            input_norm=input_norm,
             logger=logger,
         )
 
@@ -329,8 +381,21 @@ class InferenceEngine:
         batch still pays the full decode; the scheduler retires the slot at
         the cap).  ``on_token`` (stream each token), ``key`` (the request's
         sampling key) and ``adapter`` (a ``serving.lora`` adapter's name)
-        need the scheduler.
+        need the scheduler.  A classifier takes one image and none of these.
         """
+        if not self.is_lm:
+            if (max_new_tokens is not None or on_token is not None or key is not None
+                    or adapter is not None):
+                raise ValueError("max_new_tokens/on_token/key/adapter are LM-only")
+            img = np.asarray(payload)
+            want = (self.image_size, self.image_size, 3)
+            if img.shape != want:
+                raise ValueError(f"image payload must have shape {want}, got {img.shape}")
+            if self._input_dtype == np.uint8 and img.dtype != np.uint8:
+                raise ValueError(f"image payload must be uint8 (serving.normalize: true), got "
+                                 f"{img.dtype}")
+            return self.batcher.submit(img.astype(self._input_dtype, copy=False),
+                                       deadline_ms=deadline_ms)
         prompt = np.asarray(payload)
         if prompt.ndim != 1 or prompt.size < 1:
             raise ValueError(
@@ -392,23 +457,31 @@ class InferenceEngine:
         Nothing is compiled per shape here, but the first calls still pay
         one-time costs (the kernels' build and load, the CUDA libraries'
         handles and workspaces) that would otherwise land in the first
-        requests' latency.  On the scheduler's path every position is -1,
+        requests' latency.  A classifier runs one zero batch a batch
+        bucket (its "pairs").  On the scheduler's path every position is -1,
         so every write goes to the pool's sink row and the live pool is
         untouched.  Returns ``{"warmup_ms", "pairs"}``.
         """
         t0 = time.perf_counter()
         pairs = 0
-        for bb in self.batch_buckets:
-            for sb in self.seq_buckets:
-                if self.scheduler is not None:
-                    self._warmup_prefill(bb, sb)
-                else:
-                    self._generate(
-                        np.zeros((bb, sb), np.int32), np.ones((bb,), np.int32), seed=0
-                    )
+        if not self.is_lm:
+            # one zero batch a batch bucket (JAX _warmup_classify)
+            for bb in self.batch_buckets:
+                self._logits(np.zeros((bb, self.image_size, self.image_size, 3),
+                                      self._input_dtype)).cpu()
                 pairs += 1
-        if self.scheduler is not None:
-            self._warmup_decode()
+        else:
+            for bb in self.batch_buckets:
+                for sb in self.seq_buckets:
+                    if self.scheduler is not None:
+                        self._warmup_prefill(bb, sb)
+                    else:
+                        self._generate(
+                            np.zeros((bb, sb), np.int32), np.ones((bb,), np.int32), seed=0
+                        )
+                    pairs += 1
+            if self.scheduler is not None:
+                self._warmup_decode()
         ms = (time.perf_counter() - t0) * 1000.0
         self.metrics.set_gauge("warmup_ms", ms)
         self.logger.info("engine warmup: %d bucket pair(s) in %.0f ms", pairs, ms)
@@ -507,7 +580,38 @@ class InferenceEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @torch.no_grad()
+    def _logits(self, img: np.ndarray) -> torch.Tensor:
+        """f32 logits on the device of an ``[N, H, W, 3]`` host batch: up in
+        one copy, normalised on the device, the model in eval mode."""
+        x = torch.from_numpy(img).to(self.device)
+        return self.model(self._normalize(x).permute(0, 3, 1, 2)).float()
+
+    def _run_images(self, requests: List[Request]) -> List[Any]:
+        """One padded classification batch (JAX ``_run_images``)."""
+        depth = self.batcher.depth()
+        t0 = time.perf_counter()
+        bb = self._bucket_for(len(requests), self.batch_buckets, "batch size")
+        img = np.zeros((bb, self.image_size, self.image_size, 3), self._input_dtype)
+        for i, req in enumerate(requests):
+            img[i] = req.payload
+        on_device = self._logits(img)
+        t_wait = time.perf_counter()
+        logits = on_device.cpu().numpy()  # the one wait on the device
+        t_done = time.perf_counter()
+        results = [{"label": int(logits[i].argmax()), "logits": logits[i]}
+                   for i in range(len(requests))]
+        t_end = time.perf_counter()
+        # the host's own ms: the batch's wall time less its wait for the
+        # logits (the input's copy up is counted as host time)
+        host_ms = ((t_wait - t0) + (t_end - t_done)) * 1e3
+        self.metrics.record_batch([r.enqueued_at for r in requests], len(results), depth,
+                                  host_ms=host_ms)
+        return results
+
     def _run_batch(self, requests: List[Request]) -> List[Any]:
+        if not self.is_lm:
+            return self._run_images(requests)
         depth = self.batcher.depth()
         lens = [req.payload.size for req in requests]
         bb = self._bucket_for(len(requests), self.batch_buckets, "batch size")

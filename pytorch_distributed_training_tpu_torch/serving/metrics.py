@@ -4,7 +4,8 @@ Port of the JAX package's ``serving/metrics.py``: the whole-batch path's
 ``record_batch`` and the continuous scheduler's instruments (JAX
 ``:188-290``): per retired request, prefill call and decode step, the
 slot occupancy and block utilisation of each decode iteration, each tick's
-host ms and the gap between back-to-back decode dispatches, queue depth
+host ms and the gap between back-to-back decode dispatches, queue depth,
+the classification batcher's host ms a batch
 and the health snapshot (``health_*`` gauges).  The scheduler mirrors its
 counters into the process registry as ``serving_<name>``; per-replica
 names are ROADMAP port item P6.
@@ -58,6 +59,9 @@ class ServingMetrics:
         self._block_util = self._registry.histogram("block_util", _RESERVOIR)
         self._tick_host_ms = self._registry.histogram("tick_host_ms", _RESERVOIR)
         self._dispatch_gap_ms = self._registry.histogram("decode_dispatch_gap_ms", _RESERVOIR)
+        # the batcher path's host ms a batch (its wall time less the wait
+        # on the device's results)
+        self._batch_host_ms = self._registry.histogram("batch_host_ms", _RESERVOIR)
         self._items = 0  # guarded by: self._lock
         self._first_t: Optional[float] = None  # guarded by: self._lock
         self._last_t: Optional[float] = None  # guarded by: self._lock
@@ -103,11 +107,15 @@ class ServingMetrics:
         prompt_tokens: int = 0,
         prefill_s: float = 0.0,
         decode_s: float = 0.0,
+        host_ms: Optional[float] = None,
     ) -> None:
         """One flushed batch: per-request enqueue stamps, generated tokens
-        (``n_items``), generated length per request, REAL prompt tokens
-        (not the padded bucket area) and the two phases' wall times."""
+        (``n_items``; images on the classification path), generated length
+        per request, REAL prompt tokens (not the padded bucket area), the
+        two phases' wall times and the batch's host ms."""
         now = time.monotonic()
+        if host_ms is not None:
+            self._batch_host_ms.observe(float(host_ms))
         for t0 in enqueued_ats:
             self._latency_ms.observe((now - t0) * 1000.0)
         self._batch_size.observe(len(enqueued_ats))
@@ -236,7 +244,8 @@ class ServingMetrics:
             out["block_util_mean"] = float(util["mean"])
             out["block_util_max"] = float(util["max"])
         for name, hist in (("tick_host_ms", self._tick_host_ms),
-                           ("decode_dispatch_gap_ms", self._dispatch_gap_ms)):
+                           ("decode_dispatch_gap_ms", self._dispatch_gap_ms),
+                           ("batch_host_ms", self._batch_host_ms)):
             h = hist.snapshot()
             if h["count"]:
                 out[f"{name}_p50"] = float(h["p50"])

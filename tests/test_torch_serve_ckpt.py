@@ -109,7 +109,9 @@ def test_no_checkpoint_and_orbax_raise(tmp_path):
     (tmp_path / "orbax" / "3" / "_CHECKPOINT_METADATA").write_text("{}")
     with pytest.raises(NotImplementedError, match="P7b"):
         load_serving_state(str(tmp_path / "orbax"))
+    # ported (P8): a classifier reaches the checkpoint too, and the empty
+    # directory raises as for the LM
     cfg = _serve_cfg(False, str(tmp_path))
     cfg["model"] = {"name": "ResNet18"}
-    with pytest.raises(NotImplementedError, match="P8"):
+    with pytest.raises(FileNotFoundError, match="train with training.checkpoint.dir"):
         InferenceEngine.from_config(cfg, device="cpu")

@@ -281,8 +281,13 @@ def test_unported_model_options_raise(kwargs, item):
 
 @pytest.mark.parametrize("name,item", [("ViT-B16", "P8"), ("ViT-S16", "P8")])
 def test_unported_models_raise(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        get_model(name, num_classes=10)
+    # ported (P8): the ViTs build, on the meta device here; a name the zoo
+    # lacks still raises
+    with torch.device("meta"):
+        model = get_model(name, num_classes=10)
+    assert model.head.weight.shape == (10, model.embed_dim) and model.patch_size == 16
+    with pytest.raises(KeyError, match="unknown model"):
+        get_model(name + "x", num_classes=10)
 
 
 def test_flash_and_paged_attention_raise():
