@@ -17,6 +17,7 @@
     python3 chip_smoke.py --vit        # phases 1, 2, 17, 22 and 23 only: ViT-B16 training
                                        # and classification serving (with --profile:
                                        # the ViT step by op class)
+    python3 chip_smoke.py --fleet      # phases 1, 2 and 24 only: the fleet tier
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -221,6 +222,24 @@ Phases, in order; any failure raises and the script exits non-zero:
     hand-written kernel launched; (c) ResNet-50 served from phase 17's
     checkpoint (with an EMA) at f32, TF32 off, within 1e-5 of the largest
     logit of the runner's own eval of the EMA weights.
+24. the fleet tier, ``configs/serve-lm-1024-fleet.yml``: (a) gates at
+    depth 2, f32, TF32 off, on 8 of phase 20's requests at cap 32: the
+    streams of ``ServingFleet.from_config``'s 2 replicas equal one
+    scheduler's on the same model and keys, greedy and at temperature 0.8;
+    replica 0 hard-killed mid-stream, every stream still equals it,
+    ``on_token`` once a token, ``replay_parity_mismatch`` 0; a prefix's
+    blocks exported and imported into another scheduler hold the K/V rows
+    of a recompute byte for byte and give its tokens; a corrupted block is
+    rejected by its CRC and the suffix recomputed; a prefill replica killed
+    mid-transfer (``prefill_replica_down``) falls back to a recompute.  (b)
+    Readings at bf16, full width, on phase 20's 32 requests: one scheduler
+    on the fleet's model, then 2 replicas behind the router (K3 and K4
+    each launched exactly 16 x the paged calls summed over the replicas):
+    tokens/s, TTFT, host ms a tick per replica; ``add_replica``'s
+    ``scale_up_ready_ms`` and pool bytes; the disaggregated fleet (1
+    prefill replica) with its directory and a block's bytes, export and
+    import ms; replica 0 killed mid-trace: ms to the survivor's first new
+    token, replayed tokens, any bf16 ``replay_parity_mismatch``.
 
 The line before the last lists every TPU kernel (K1a ... K4) with the CUDA
 kernel that stands for it, its launches on the path that runs it (and on
@@ -233,6 +252,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import logging
 import json
 import os
 import statistics
@@ -3635,6 +3655,407 @@ def phase_serve_classify(torch, modules, smi: str) -> dict:
     return readings
 
 
+# --------------------------------------------------------------------- #
+# phase 24: the fleet tier
+
+FLEET_CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "configs",
+                            "serve-lm-1024-fleet.yml")
+FLEET_DIR = os.path.join(_HERE, "run", "chip_smoke", "fleet")
+
+
+def fleet_cfg(depth=None, dtype=None, temperature=None) -> dict:
+    """``configs/serve-lm-1024-fleet.yml``, cut in memory; heartbeats under
+    ``run/chip_smoke/fleet``."""
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_serve_cfg
+
+    cfg = get_serve_cfg(FLEET_CONFIG)
+    if depth is not None:
+        cfg["model"]["depth"] = depth
+    if dtype is not None:
+        cfg["serving"]["dtype"] = dtype
+    if temperature is not None:
+        cfg["serving"]["temperature"] = temperature
+    cfg["serving"]["fleet"]["heartbeat_dir"] = os.path.join(FLEET_DIR, "hb")
+    return cfg
+
+
+def timed_trace(submit, prompts, caps, keys, timeout: float = 600.0):
+    """Every request at once; (futures, each request's [(time, token)], the
+    send times).  The tokens' times are the host's, in ``on_token``."""
+    times = {i: [] for i in range(len(prompts))}
+    sent, futs = {}, []
+    for i, (p, c, k) in enumerate(zip(prompts, caps, keys)):
+        sent[i] = time.perf_counter()
+        futs.append(submit(p, max_new_tokens=c, key=k,
+                           on_token=lambda tok, i=i: times[i].append((time.perf_counter(), tok))))
+    return futs, times, sent
+
+
+def trace_done(futs, times, sent, t0, timeout: float = 600.0):
+    """(results, TTFT ms of each, wall s) of a :func:`timed_trace`; every
+    streamed token delivered once, in order, equal to the result."""
+    results = [f.result(timeout=timeout) for f in futs]
+    wall = time.perf_counter() - t0
+    for i, r in enumerate(results):
+        if [t for _, t in times[i]] != r["tokens"].tolist():
+            raise AssertionError(f"request {i}: on_token stream differs from the result")
+    return results, [(times[i][0][0] - sent[i]) * 1e3 for i in range(len(futs))], wall
+
+
+def tick_totals(reps):
+    """Each replica's (ticks, host ms) so far; two readings bracket a run."""
+    out = []
+    for r in reps:
+        h = r.metrics._tick_host_ms.snapshot()
+        out.append((h["count"], h.get("sum", 0.0)))
+    return out
+
+
+def tick_ms_between(before, after) -> list:
+    """Each replica's mean host ms a tick between two :func:`tick_totals`."""
+    return [(s1 - s0) / (n1 - n0) if n1 > n0 else None
+            for (n0, s0), (n1, s1) in zip(before, after)]
+
+
+def replica_counts(reps, name: str) -> int:
+    return sum(r.metrics.snapshot().get(name, 0) for r in reps)
+
+
+def kill_mid_stream(fleet, prompts, caps, keys, victim: int = 0, min_done: int = 2,
+                    min_left: int = 4):
+    """Drive the trace through ``fleet`` and hard-kill replica ``victim`` once
+    one of its requests has streamed ``min_done`` tokens and has
+    ``min_left`` to go.
+    Returns (results, the failed-over requests, ms from the kill to the
+    victim's death and to the first token a survivor streamed for them)."""
+    from pytorch_distributed_training_tpu_torch.serving import ReplicaDownError
+
+    router = fleet.router
+    sched = fleet.replicas[victim].scheduler
+    t0 = time.perf_counter()
+    futs, times, sent = timed_trace(fleet.submit, prompts, caps, keys)
+    index = {tuple(k): i for i, k in enumerate(keys)}
+    deadline = time.monotonic() + 120
+    while True:
+        with router._lock:
+            on_victim = [index[fr.key] for fr in router._outstanding
+                         if any(a.replica_idx == victim for a in fr.assignments)]
+        if any(min_done <= len(times[i]) <= caps[i] - min_left for i in on_victim):
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError("no request of the victim reached mid-stream")
+        time.sleep(0.0005)
+    t_kill = time.perf_counter()
+    at_kill = {i: len(times[i]) for i in on_victim}
+    sched.hard_kill(ReplicaDownError(f"chip_smoke: replica {victim} dies mid-stream"))
+    while not sched.health()["closed"]:
+        time.sleep(0.0002)
+    t_dead = time.perf_counter()
+    results, ttft, wall = trace_done(futs, times, sent, t0)
+    moved = [i for i in on_victim
+             if at_kill[i] < caps[i] and any(t > t_dead for t, _ in times[i])]
+    firsts = [min(t for t, _ in times[i] if t > t_dead) for i in moved]
+    return (results, moved, (t_dead - t_kill) * 1e3,
+            (min(firsts) - t_kill) * 1e3 if firsts else None, ttft, wall)
+
+
+def fleet_gates(torch, np, prompts, caps) -> dict:
+    """Phase 24 (a): f32, depth 2, TF32 off; raises on any failure."""
+    from pytorch_distributed_training_tpu_torch.engine import fault
+    from pytorch_distributed_training_tpu_torch.serving import (
+        DisaggFleet,
+        ServingFleet,
+        kv_transfer,
+    )
+
+    out = {}
+    prompts, caps = prompts[:8], [32] * 8  # every request long enough to be killed mid-stream
+    keys = [(0, 24, i) for i in range(8)]
+    for temp in (0.0, 0.8):
+        fleet = ServingFleet.from_config(fleet_cfg(2, "float32", temp))
+        ref_eng = fleet.replica_factory(50)  # one scheduler on the fleet's model
+        want = tokens_of(serve_trace(ref_eng.submit, prompts, caps, keys)[0])
+        got = tokens_of(serve_trace(fleet.submit, prompts, caps, keys)[0])
+        if got != want:
+            raise AssertionError(f"temperature {temp}: fleet streams differ from one scheduler's")
+        reps = fleet.replicas
+        fault.reset_counters()
+        base = replica_counts(reps, "replayed_tokens")
+        res, moved, dead_ms, first_ms, _, _ = kill_mid_stream(fleet, prompts, caps, keys)
+        killed = tokens_of(res)
+        c = fault.counters()
+        mism = replica_counts(reps, "replay_parity_mismatch")
+        if killed != want or mism or c.get("serving_fleet_parity_mismatch", 0) or not moved:
+            raise AssertionError(
+                f"temperature {temp}: kill replica 0: streams equal {killed == want}, "
+                f"replay_parity_mismatch {mism}, failed over {moved}")
+        out[f"t{temp}"] = dict(failed_over=len(moved), failovers=c.get("serving_fleet_failovers"),
+                               replayed=replica_counts(reps, "replayed_tokens") - base,
+                               dead_ms=dead_ms, first_new_token_ms=first_ms)
+        say(f"  (a) temperature {temp}: 8 fleet streams = one scheduler's; replica 0 killed "
+            f"mid-stream: {len(moved)} requests failed over, "
+            f"{out[f't{temp}']['replayed']} tokens replayed, streams equal, on_token once a "
+            f"token, replay_parity_mismatch 0")
+        ref_eng.close()
+        if temp:
+            fleet.close()
+        else:
+            greedy = fleet, ref_eng  # its model serves the transfer gate below
+
+    # transfer against recompute on the greedy fleet's model, hand-ticked
+    fleet, eng = greedy
+    prompt = next(p for p in prompts if p.size > 3 * 16)
+    src, dst, ref, mid = (sched_on(eng, start=False) for _ in range(4))
+
+    def serve(s, p):
+        fut = s.submit(p, max_new_tokens=32, key=(0, 24, 99))
+        drive_ticks(torch, s, [fut])
+        return fut.result()["tokens"].tolist()
+
+    def verb(s, fut):
+        s.tick()
+        return fut.result(timeout=60)
+
+    expected = serve(src, prompt)
+    payloads = verb(src, src.export_kv_prefix(prompt, namespace=-1))
+    res = verb(dst, dst.import_kv_blocks(payloads))
+    if res["accepted"] != len(payloads) or res["rejected"] or not payloads:
+        raise AssertionError(f"import: {res} of {len(payloads)} blocks")
+    if serve(ref, prompt) != expected:
+        raise AssertionError("recompute differs")
+    bs = dst._kv.block_size
+    n_rows = dst._kv.num_blocks * bs
+    rows = {}
+    for name, s in (("dst", dst), ("ref", ref)):
+        leaves = dict(kv_transfer.pool_row_leaves(s._pool, n_rows))
+        rows[name] = [{n: leaves[n][s._kv._cache[p.key] * bs:(s._kv._cache[p.key] + 1) * bs]
+                       .cpu().view(torch.uint8) for n in leaves} for p in payloads]
+    if not all(torch.equal(a[n], b[n]) for a, b in zip(rows["dst"], rows["ref"]) for n in a):
+        raise AssertionError("imported K/V rows differ from the recomputed ones")
+    if serve(dst, prompt) != expected or dst._hit_blocks != len(payloads):
+        raise AssertionError("decoding over imported blocks differs from a recompute")
+    bad = verb(src, src.export_kv_prefix(prompt, namespace=-1))
+    kv_transfer.corrupt_payload(bad[1])
+    res = verb(mid, mid.import_kv_blocks(bad))
+    if (res["accepted"], res["rejected"]) != (1, 1) or serve(mid, prompt) != expected:
+        raise AssertionError(f"corrupt payload: {res}")
+    out["transfer"] = dict(blocks=len(payloads), bytes_a_block=payloads[0].nbytes)
+    say(f"  (a) {len(payloads)} blocks exported and imported: K/V rows bytewise equal to a "
+        f"recompute, same 32 tokens; a corrupted block 1: CRC reject, block 0 kept, the "
+        f"suffix recomputed, same tokens")
+    for s in (src, dst, ref, mid):
+        s.close()
+    fleet.close()
+
+    # the prefill replica dies mid-transfer: recompute
+    fault.install("prefill_replica_down@1:0")
+    fault.reset_counters()
+    try:
+        disagg = DisaggFleet.from_config(fleet_cfg(2, "float32"))
+        got = disagg.submit(prompt, max_new_tokens=32, key=(0, 24, 99)).result(timeout=300)
+        disagg.close()
+    finally:
+        fault.install(None)
+    c = fault.counters()
+    if (got["tokens"].tolist() != expected or not c.get("serving_disagg_transfer_recomputes")
+            or c.get("serving_disagg_prefill_replicas_down") != 1):
+        raise AssertionError(f"prefill_replica_down: counters {c}")
+    say("  (a) prefill replica killed mid-transfer: local recompute, same 32 tokens")
+    return out
+
+
+def phase_fleet(torch, np, modules, fe, smi: str):
+    """Phase 24; returns the launch counts of the fleet's main path."""
+    from pytorch_distributed_training_tpu_torch.engine import fault
+    from pytorch_distributed_training_tpu_torch.serving import DisaggFleet, ServingFleet
+    from pytorch_distributed_training_tpu_torch.serving import kv_transfer as kvt
+
+    t_phase = time.perf_counter()
+    cfg = fleet_cfg()
+    depth, vocab = cfg["model"]["depth"], cfg["dataset"]["n_classes"]
+    prompts, caps = sched_requests(np, vocab)  # phase 20's 32 requests
+    keys = [(0, 24, i) for i in range(len(prompts))]
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        readings = {"gates": fleet_gates(torch, np, prompts, caps)}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    say(f"  (a) gates took {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) full width, bf16: the fleet, and one scheduler on its model
+    t0 = time.perf_counter()
+    fleet = ServingFleet.from_config(cfg)
+    reps = fleet.replicas
+    weights = sum(p.numel() * p.element_size() for p in reps[0].model.parameters())
+    pool = sum(t.numel() * t.element_size()
+               for t in reps[0].scheduler._pool.keys + reps[0].scheduler._pool.values)
+    if reps[0].model is not reps[1].model:
+        raise AssertionError("the replicas do not share one model")
+    for r in reps:
+        r.warmup()
+    say(f"  (b) fleet of {len(reps)} built and warmed in {time.perf_counter() - t0:.1f} s: one "
+        f"model ({weights / 2**20:.1f} MiB), {pool / 2**20:.1f} MiB of pool a replica")
+    one = fleet.replica_factory(90)  # one scheduler on the same model, not routed
+    one.warmup()
+    res, ttft, wall = serve_trace(one.submit, prompts, caps, keys)
+    readings["one_scheduler"] = trace_readings("one scheduler (same model)", res, ttft, wall,
+                                               one.snapshot(), smi)
+    one_tokens = tokens_of(res)
+    one.close()
+
+    # the main path: 32 requests through the router and 2 replicas
+    for m in modules:
+        m.reset_launch_counts()
+    calls0 = [r.scheduler.calls() for r in reps]
+    ticks0 = tick_totals(reps)
+    t0 = time.perf_counter()
+    futs, times, sent = timed_trace(fleet.submit, prompts, caps, keys)
+    res, ttft, wall = trace_done(futs, times, sent, t0)
+    counts = all_counts(modules)
+    n_calls = sum(v - c0[k] for r, c0 in zip(reps, calls0) for k, v in r.scheduler.calls().items())
+    for r, c in zip(res, caps):
+        t = r["tokens"]
+        if r["gen_len"] != c or t.shape != (c,) or t.min() < 0 or t.max() >= vocab:
+            raise AssertionError(f"request: gen_len {r['gen_len']} (cap {c}), tokens {t}")
+    check_launches("fleet", counts, {k: depth * n_calls for k in fe.KERNELS})
+    snap = fleet.snapshot()
+    fleet_tokens = tokens_of(res)
+    per = {f"r{i}": {k: s.get(k) for k in ("requests", "tick_host_ms_p50", "tick_host_ms_mean",
+                                           "prefix_hit_blocks", "slot_occupancy_mean")}
+           for i, s in enumerate(snap["replicas"].values())}
+    readings["fleet"] = trace_readings("fleet of 2 (router, affinity)", res, ttft, wall,
+                                       snap["fleet"], smi)
+    readings["fleet"]["replicas"] = per
+    readings["fleet"]["tick_host_ms_mean_by_replica"] = tick_ms_between(ticks0, tick_totals(reps))
+    readings["fleet"]["affinity_hits"] = fault.counters().get("serving_fleet_affinity_hits", 0)
+    same = sum(a == b for x, y in zip(fleet_tokens, one_tokens) for a, b in zip(x, y))
+    readings["fleet"]["tokens_equal_one_scheduler"] = same / sum(caps)
+    say(f"  (b) 32 requests through 2 replicas: launches "
+        f"{ {k: counts[k] for k in fe.KERNELS} } = {depth} x {n_calls} paged calls summed over "
+        f"the replicas; per replica {json.dumps(per)}; {same} of {sum(caps)} tokens equal the "
+        f"one scheduler's (bf16)")
+
+    # scale up by one replica: construction + warmup
+    idx = fleet.add_replica()
+    new = fleet.replicas[idx]
+    readings["scale_up"] = dict(
+        scale_up_ready_ms=new.metrics.snapshot()["scale_up_ready_ms"],
+        pool_bytes=sum(t.numel() * t.element_size()
+                       for t in new.scheduler._pool.keys + new.scheduler._pool.values))
+    say(f"  (b) add_replica: replica {idx} ready in {readings['scale_up']['scale_up_ready_ms']:.1f}"
+        f" ms, its pool {readings['scale_up']['pool_bytes']} bytes")
+
+    # disaggregation over the same fleet: one prefill replica, on a trace of
+    # phase 20's shape that no replica has cached yet
+    fault.reset_counters()
+    d_prompts, d_caps = sched_requests(np, vocab, seed=24)
+    disagg = DisaggFleet(fleet, disagg=cfg["serving"]["disagg"])
+    xfer_ms = []  # each transfer's export-to-import ms, from the coordinator's debug line
+
+    class _Transfers(logging.Handler):
+        def emit(self, record):
+            if record.msg.startswith("kv transfer %d:"):
+                xfer_ms.append(float(record.args[-1]))
+
+    handler = _Transfers(logging.DEBUG)
+    disagg.logger.addHandler(handler)
+    disagg.logger.setLevel(logging.DEBUG)
+    prefill = disagg.prefill_replicas[0]
+    prefill.warmup()
+    for m in modules:
+        m.reset_launch_counts()
+    all_reps = fleet.replicas + [prefill]
+    calls0 = [r.scheduler.calls() for r in all_reps]
+    res, ttft, wall = serve_trace(disagg.submit, d_prompts, d_caps, keys)
+    for r, c in zip(res, d_caps):
+        if r["gen_len"] != c or r["tokens"].min() < 0 or r["tokens"].max() >= vocab:
+            raise AssertionError(f"disaggregated request: gen_len {r['gen_len']} (cap {c})")
+    dcounts = all_counts(modules)
+    d_calls = sum(v - c0[k] for r, c0 in zip(all_reps, calls0)
+                  for k, v in r.scheduler.calls().items())
+    check_launches("disaggregated fleet", dcounts, {k: depth * d_calls for k in fe.KERNELS})
+    disagg.logger.removeHandler(handler)
+    disagg.logger.setLevel(logging.NOTSET)
+    dsnap = disagg.snapshot()
+    c = fault.counters()
+    readings["disagg"] = trace_readings("disaggregated (1 prefill + 3 decode)", res, ttft, wall,
+                                        dsnap["fleet"], smi)
+    readings["disagg"].update(
+        directory=dsnap["disagg"]["directory"], transfers=dsnap["disagg"]["transfers"],
+        transfer_recomputes=c.get("serving_disagg_transfer_recomputes", 0),
+        deadline_degrades=c.get("serving_disagg_deadline_degrades", 0),
+        imported_blocks=sum(s.get("kv_transfer_blocks", 0)
+                            for s in dsnap["replicas"].values()),
+        transfer_ms=dict(n=len(xfer_ms), p50=statistics.median(xfer_ms) if xfer_ms else None,
+                         max=max(xfer_ms, default=None), sum=sum(xfer_ms)))
+    if not readings["disagg"]["imported_blocks"]:
+        raise AssertionError("disaggregated: no block was imported")
+    # one block's costs, on idle replicas: export (gather, copy to the
+    # host, CRC) on the prefill replica, import (copy up, scatter) on a
+    # decode replica that holds nothing of it
+    src = prefill.scheduler
+    long_prompt = max(prompts, key=lambda p: p.size)  # not in the disaggregated trace
+    prefill.submit(long_prompt, max_new_tokens=1).result(timeout=300)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refs = kvt.extract_block_refs(src._kv, src._pool, long_prompt, namespace=-1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    payloads = kvt.materialize_payloads(refs)
+    t2 = time.perf_counter()
+    ok = all(kvt.verify_payload(p) for p in payloads)
+    t3 = time.perf_counter()
+    fresh = fleet.replica_factory(91)
+    fresh.warmup()
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    res_imp = fresh.scheduler.import_kv_blocks(payloads).result(timeout=300)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    nb = len(payloads)
+    if not ok or res_imp["accepted"] != nb:
+        raise AssertionError(f"block costs: verify {ok}, import {res_imp}")
+    readings["disagg"]["block"] = dict(
+        blocks=nb, bytes_a_block=payloads[0].nbytes, gather_ms_a_block=(t1 - t0) * 1e3 / nb,
+        copy_and_crc_ms_a_block=(t2 - t1) * 1e3 / nb, crc_ms_a_block=(t3 - t2) * 1e3 / nb,
+        import_ms_a_block=(t5 - t4) * 1e3 / nb,
+        import_host_ms=fresh.metrics.snapshot().get("kv_transfer_ms_p50"))
+    fresh.close()
+    say(f"  (b) disaggregated: launches {depth} x {d_calls} paged calls (prefill replica "
+        f"included); " + json.dumps(readings["disagg"]))
+    disagg.prefill_replicas.clear()  # closed below with the fleet
+    prefill.close()
+
+    # failover at bf16: replica 0 killed mid-trace
+    fault.reset_counters()
+    live = [fleet.replicas[i] for i in fleet.router.live_indices()]
+    base = replica_counts(live, "replayed_tokens")
+    res, moved, dead_ms, first_ms, ttft, wall = kill_mid_stream(fleet, prompts, caps, keys,
+                                                                min_done=8)
+    c = fault.counters()
+    killed = tokens_of(res)
+    readings["failover"] = dict(
+        failed_over=len(moved), failovers=c.get("serving_fleet_failovers", 0),
+        kill_to_dead_ms=dead_ms, kill_to_first_new_token_ms=first_ms,
+        replayed_tokens=replica_counts(live, "replayed_tokens") - base,
+        replay_parity_mismatch=replica_counts(live, "replay_parity_mismatch"),
+        fleet_parity_mismatch=c.get("serving_fleet_parity_mismatch", 0),
+        streams_equal_unkilled=sum(a == b for a, b in zip(killed, fleet_tokens)),
+        tokens_per_s=sum(r["gen_len"] for r in res) / wall)
+    if not moved:
+        raise AssertionError("failover: no request failed over")
+    say("  (b) failover: " + json.dumps(readings["failover"]))
+    disagg.close()
+    torch.cuda.empty_cache()
+    readings["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 24 took {readings['phase_s']:.1f} s")
+    say("fleet: " + json.dumps(readings))
+    return counts
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true")
@@ -3648,6 +4069,8 @@ def main(argv=None) -> int:
                         help="phases 1, 2, 5 and 20 only (no result line)")
     parser.add_argument("--vit", action="store_true",
                         help="phases 1, 2, 17, 22 and 23 only (no result line)")
+    parser.add_argument("--fleet", action="store_true",
+                        help="phases 1, 2 and 24 only (no result line)")
     args = parser.parse_args(argv)
 
     import torch
@@ -3709,6 +4132,14 @@ def main(argv=None) -> int:
         phase("phase 17: checkpoint, resume and preemption (config/test-sync.yml, f32, EMA)")
         phase_checkpoint(torch, modules)
         phase_vit_and_serving(torch, modules, tf32_defaults, smi, args.profile)
+        phase(None)
+        say(f"total {time.perf_counter() - t_start:.1f} s")
+        say(smi)
+        return 0
+
+    if args.fleet:
+        phase("phase 24: the fleet tier (router, failover, disaggregation), full width")
+        phase_fleet(torch, np, modules, fe, smi)
         phase(None)
         say(f"total {time.perf_counter() - t_start:.1f} s")
         say(smi)
@@ -3812,6 +4243,8 @@ def main(argv=None) -> int:
     phase("phase 21: serving decode modes, full width")
     serving_modes = phase_serve_modes(torch, modules, fe, smi, plain, args.profile)
     paths.update(phase_vit_and_serving(torch, modules, tf32_defaults, smi, args.profile))
+    phase("phase 24: the fleet tier (router, failover, disaggregation), full width")
+    paths["fleet"] = by_tpu_kernel(phase_fleet(torch, np, modules, fe, smi))
 
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "ffma_bound_ms")

@@ -40,6 +40,30 @@ Serving kinds (the step is the continuous scheduler's tick, 1-based;
     serve_hang@T[:SEC] sleep SEC (default 1.0) inside tick T: the tick
                        watchdog must fire and turn it into a restart
 
+Fleet kinds (JAX ``:89-130``): the step is the fleet router's monitor poll
+(:mod:`..serving.router`), the autoscaler's poll
+(:mod:`..serving.autoscaler`) or the disaggregation coordinator's transfer
+ordinal (:mod:`..serving.disagg`), each 1-based:
+
+    replica_down@P[:R] hard-kill replica R (default 0) at router poll P:
+                       the router must fail its requests over to a
+                       survivor, token for token
+    replica_hang@P[:SEC]
+                       wedge replica 0's scheduler thread for SEC (default
+                       1.0) at poll P: only its heartbeat's age shows it
+    autoscale_hang@P[:SEC]
+                       sleep SEC (default 1.0) in the autoscaler's poll P,
+                       before it reads its signals
+    kv_transfer_stall@N[:SEC]
+                       sleep SEC (default 1.0) in transfer N's export: the
+                       coordinator's deadline must degrade it to a recompute
+    kv_transfer_corrupt@N
+                       flip a byte of transfer N's first payload after its
+                       CRC: the importer must reject it
+    prefill_replica_down@N[:R]
+                       hard-kill prefill replica R (default 0) as transfer
+                       N begins: the decode side recomputes
+
 The step-keyed kinds are one-shot: consumed when they fire, so a rollback
 that replays step K does not trip them again.  The recovery counters
 (``skipped_steps``, ``rollbacks``, ``ckpt_retries``, ``worker_respawns``,
@@ -88,16 +112,12 @@ _POINT_KINDS = {
     "ckpt_async_fail": "ckpt_async_write",
 }
 _P10 = "ROADMAP port item P10 (reliability)"
-_P6 = "ROADMAP port item P6 (fleet tier)"
 # kind -> why its recovery path is not in the port yet
 UNPORTED_FAULT_KINDS = {
     "kill_peer": f"peer-death detection (engine/elastic.py) is {_P10}",
     "sdc_flip": f"the integrity sentinel (engine/integrity.py) is {_P10}",
     "ckpt_corrupt": f"the checkpoint integrity manifest is {_P10}",
     "ckpt_async_fail": f"asynchronous checkpoint writes are {_P10}",
-    **{k: f"the router, autoscaler and disaggregation are {_P6}"
-       for k in ("replica_down", "replica_hang", "autoscale_hang", "kv_transfer_stall",
-                 "kv_transfer_corrupt", "prefill_replica_down")},
 }
 
 

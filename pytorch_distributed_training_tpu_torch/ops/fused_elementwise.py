@@ -42,6 +42,7 @@ directly (serving's path: the same launches, no autograd bookkeeping).
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -190,6 +191,9 @@ def fused_add_layernorm(x, delta, scale, bias, eps: float = 1e-6, out_dtype=None
     return _add_layernorm(x, delta, scale, bias, eps, out_dtype)
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def _add_layernorm(x, delta, scale, bias, eps, out_dtype):
     """The kernel's wrapper: plain twin on the CPU, launch or raise on CUDA."""
     if x.is_cpu:
@@ -223,7 +227,8 @@ def _add_layernorm(x, delta, scale, bias, eps, out_dtype):
         _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype],
     )
     kernels.check(err, name)
-    fused_add_layernorm.launches += 1
+    with _COUNT_LOCK:  # replicas launch from several threads
+        fused_add_layernorm.launches += 1
     return s, y
 
 
@@ -306,7 +311,8 @@ def _bias_gelu(u, bias):
         _DTYPE_CODES[u.dtype],
     )
     kernels.check(err, name)
-    fused_bias_gelu.launches += 1
+    with _COUNT_LOCK:  # replicas launch from several threads
+        fused_bias_gelu.launches += 1
     return y
 
 

@@ -34,7 +34,10 @@ of :func:`..ops.quant.quantize_tree`) makes ``decode_step``,
 ``decode_step_fed`` and the batcher's ``decode`` run over
 ``q * s``, dequantized at each call into the Denses' dtypes
 (``torch.func.functional_call`` swaps them in); ``prefill`` and
-``verify`` keep the plain weights, as in the JAX package.
+``verify`` keep the plain weights, as in the JAX package.  The swap acts
+on a private copy of the module tree (:func:`private_modules`) that
+shares every tensor with the model, so a fleet's replicas, which serve
+one model from several threads, never see each other's swapped weights.
 
 Sampling, one rule for both paths (:func:`token_seeds`,
 :func:`sample_tokens`): greedy ``argmax`` at temperature 0 (first maximum
@@ -51,6 +54,7 @@ keys.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
@@ -60,8 +64,8 @@ from torch.func import functional_call
 from ..ops.attention import KVCache
 from ..ops.quant import dequantize_tree, is_quantized_leaf
 
-__all__ = ["GenerateFn", "PagedFns", "build_generate_fn", "build_paged_fns", "sample_tokens",
-           "token_seeds"]
+__all__ = ["GenerateFn", "PagedFns", "build_generate_fn", "build_paged_fns", "private_modules",
+           "sample_tokens", "token_seeds"]
 
 _MASK32 = 0xFFFFFFFF
 
@@ -106,6 +110,14 @@ def gumbel(seeds: torch.Tensor, vocab: int) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
+def private_modules(model: torch.nn.Module) -> torch.nn.Module:
+    """A copy of ``model``'s module tree that shares every parameter and
+    buffer with it: ``functional_call`` on the copy swaps the copy's
+    attributes, never ``model``'s, and costs no weight memory."""
+    memo = {id(t): t for t in (*model.parameters(), *model.buffers())}
+    return copy.deepcopy(model, memo)
+
+
 def quant_dtypes(model, quant) -> Dict[str, torch.dtype]:
     """The compute dtype of the Dense owning each quantized weight."""
     return {name: model.get_submodule(name.rsplit(".", 1)[0]).dtype
@@ -146,6 +158,7 @@ class GenerateFn:
         self.eos_id = eos_id
         self.quant = quant
         self._qdtypes = quant_dtypes(model, quant) if quant is not None else None
+        self._qmodel = private_modules(model) if quant is not None else None
 
     @property
     def device(self) -> torch.device:
@@ -201,7 +214,7 @@ class GenerateFn:
             deq = dequantize_tree(self.quant, self._qdtypes)
 
             def step(*args):
-                return functional_call(self.model, deq, args)
+                return functional_call(self._qmodel, deq, args)
         for i in range(1, self.max_new_tokens):
             if self.eos_id is None:
                 # done comes only from the length bound, known here
@@ -282,6 +295,7 @@ class PagedFns:
         self.has_lora = getattr(model, "lora_adapters", 0) > 0
         self.quant = quant
         self._qdtypes = quant_dtypes(model, quant) if quant is not None else None
+        self._qmodel = private_modules(model) if quant is not None else None
         self.calls = {"prefill": 0, "decode_step": 0, "decode_step_fed": 0, "verify": 0,
                       "copy_rows": 0}
 
@@ -338,7 +352,7 @@ class PagedFns:
             logits, _ = self.model(*args)
         else:
             deq = dequantize_tree(self.quant, self._qdtypes)
-            logits, _ = functional_call(self.model, deq, args)
+            logits, _ = functional_call(self._qmodel, deq, args)
         return self._sample(logits[:, 0], seeds)
 
     @torch.inference_mode()

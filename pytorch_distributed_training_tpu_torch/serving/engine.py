@@ -42,9 +42,20 @@ Dense weights are rounded to the compute dtype once at build
 (:meth:`..models.transformer_lm.TransformerLM.cast_matmul_weights_`), the
 rounding every call would otherwise repeat.
 
-There is no compile count: nothing is compiled per shape.  The snapshot
+There is no compile count (JAX ``compile_count``, ``:458``): nothing is
+compiled per shape (the kernels are built once a process).  The snapshot
 reports instead how often each hand-written kernel launched
 (``launches_<kernel>``).
+
+N replicas from one resolution (JAX ``:295``, ``:90-106``):
+:meth:`InferenceEngine.resolve_config` loads or draws the weights once and,
+for an LM, puts one :class:`ResolvedModel` on the device (grafted, int8
+state taken, matmul weights cast, the speculative draft built); every
+engine built from it serves that one model, so replicas share the weights.
+Nothing mutates the model after that.  ``replica_id``, ``heartbeat_path``,
+``heartbeat_interval_s`` and ``liveness_timeout_s`` are the fleet's
+stamps, passed to the scheduler (:mod:`.fleet`); ``submit(replay_tokens=)``
+is the router's fail-over.
 
 Classification (JAX ``:179-190``, ``:315-345``, ``:633-643``,
 ``:757-772``): a ResNet or a ViT (``model.name`` other than
@@ -69,7 +80,7 @@ import logging
 import signal
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -88,12 +99,80 @@ from .metrics import ServingMetrics
 from .scheduler import ContinuousScheduler
 from .speculative import SpeculativeSpec
 
-__all__ = ["InferenceEngine"]
+__all__ = ["InferenceEngine", "ResolvedModel"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 _SCHEDULER_KEYS = ("enabled", "slots", "block_size", "num_blocks", "prefix_cache",
                    "async_depth")
+
+
+class ResolvedModel(NamedTuple):
+    """An LM prepared for serving once, for every engine built from it: on
+    its device, LoRA-grafted under ``serving.lora``, its matmul weights
+    cast, in eval mode; the int8 state of the f32 master weights under
+    ``serving.quant``; the speculative draft under ``serving.speculative``
+    with a ``draft``."""
+
+    model: torch.nn.Module
+    quant_state: Optional[Dict[str, Any]]
+    lora_registry: Optional[LoraRegistry]
+    draft: Optional[torch.nn.Module]
+
+
+def _decode_modes(quant, lora, speculative) -> Dict[str, Any]:
+    """The three decode-mode blocks, each key checked as JAX does."""
+    quant_cfg = dict(quant or {})
+    out = {"quant": bool(quant_cfg.pop("enabled", False))}
+    if quant_cfg:
+        raise ValueError(f"unknown serving.quant keys: {sorted(quant_cfg)}")
+    lora_cfg = dict(lora or {})
+    out.update(lora=bool(lora_cfg.pop("enabled", False)),
+               lora_rank=int(lora_cfg.pop("rank", 8)),
+               lora_adapters=lora_cfg.pop("adapters", None))
+    if lora_cfg:
+        raise ValueError(f"unknown serving.lora keys: {sorted(lora_cfg)}")
+    spec_cfg = dict(speculative or {})
+    out.update(speculative=bool(spec_cfg.pop("enabled", False)),
+               spec_k=int(spec_cfg.pop("k", 4)),
+               spec_draft=spec_cfg.pop("draft", None),
+               spec_draft_seed=int(spec_cfg.pop("draft_seed", 0)),
+               spec_min_acceptance=float(spec_cfg.pop("min_acceptance", 0.0)))
+    if spec_cfg:
+        raise ValueError(f"unknown serving.speculative keys: {sorted(spec_cfg)}")
+    if not 0.0 <= out["spec_min_acceptance"] <= 1.0:
+        raise ValueError("serving.speculative.min_acceptance must be in [0, 1], "
+                         f"got {out['spec_min_acceptance']}")
+    return out
+
+
+def _resolve_lm(model, device, modes: Dict[str, Any], use_sched: bool, logger) -> ResolvedModel:
+    """The LM's one preparation for serving (see :class:`ResolvedModel`)."""
+    base_model = model
+    registry = None
+    if modes["lora"]:
+        registry = LoraRegistry(modes["lora_rank"], modes["lora_adapters"])
+        model = registry.graft(model)
+        logger.info("multi-LoRA serving: rank %d, adapters %s", registry.rank, registry.names)
+    model = model.to(device)
+    # int8 decode: quantized from the f32 master weights, before the cast
+    # rounds them (the JAX package quantizes its f32 params)
+    quant_state = None
+    if modes["quant"]:
+        quant_state = {n: v for n, v in quantize_tree(model.state_dict()).items()
+                       if is_quantized_leaf(v)}
+    model = model.cast_matmul_weights_().eval()
+    draft = None
+    if use_sched and modes["speculative"] and modes["spec_draft"] is not None:
+        # the base model (never the LoRA graft: a draft's miss costs only
+        # acceptance) with the config's overrides, random from draft_seed;
+        # a trained draft waits for one
+        with torch.device("meta"):
+            draft = base_model.clone(**dict(modes["spec_draft"]))
+        draft = draft.to_empty(device="cpu")
+        draft.reset_parameters(torch.Generator().manual_seed(modes["spec_draft_seed"]))
+        draft = draft.to(device).cast_matmul_weights_().eval()
+    return ResolvedModel(model, quant_state, registry, draft)
 
 
 class InferenceEngine:
@@ -109,6 +188,8 @@ class InferenceEngine:
 
     ``state_dict`` (optional) is loaded strictly into ``model`` before it
     moves to ``device``; without it the model's own parameters serve.
+    ``model`` may be a :class:`ResolvedModel` (from :meth:`resolve_config`),
+    served as it is by every engine given it.
     """
 
     def __init__(
@@ -135,9 +216,24 @@ class InferenceEngine:
         image_size: int = 224,
         input_norm=None,
         logger: Optional[logging.Logger] = None,
+        replica_id: Optional[int] = None,
+        heartbeat_path: Optional[str] = None,
+        heartbeat_interval_s: float = 0.5,
+        liveness_timeout_s: Optional[float] = None,
     ):
         self.device = resolve_device(device)
         self.logger = logger or logging.getLogger(__name__)
+        resolved = model if isinstance(model, ResolvedModel) else None
+        if resolved is not None:
+            if state_dict is not None:
+                raise ValueError("a ResolvedModel carries its weights: pass no state_dict")
+            model = resolved.model
+            if model.tok_embedding.device.type != self.device.type:
+                raise ValueError(f"the ResolvedModel lies on {model.tok_embedding.device}, "
+                                 f"not on {self.device}")
+        # the fleet's stamps: the replica's registry names and heartbeat
+        self.replica_id = replica_id
+        self.heartbeat_path = heartbeat_path
         self.is_lm = isinstance(model, TransformerLM)
         self.max_new_tokens = int(max_new_tokens)
         self.vocab_size = model.vocab_size if self.is_lm else None
@@ -169,28 +265,8 @@ class InferenceEngine:
                 "has no supervisor (poison bisect, hot restart and replay all live in the "
                 "continuous scheduler)"
             )
-        # the decode modes, each block's keys checked as JAX does
-        quant_cfg = dict(quant or {})
-        use_quant = bool(quant_cfg.pop("enabled", False))
-        if quant_cfg:
-            raise ValueError(f"unknown serving.quant keys: {sorted(quant_cfg)}")
-        lora_cfg = dict(lora or {})
-        use_lora = bool(lora_cfg.pop("enabled", False))
-        lora_rank = int(lora_cfg.pop("rank", 8))
-        lora_adapters = lora_cfg.pop("adapters", None)
-        if lora_cfg:
-            raise ValueError(f"unknown serving.lora keys: {sorted(lora_cfg)}")
-        spec_cfg = dict(speculative or {})
-        use_spec = bool(spec_cfg.pop("enabled", False))
-        spec_k = int(spec_cfg.pop("k", 4))
-        spec_draft = spec_cfg.pop("draft", None)
-        spec_draft_seed = int(spec_cfg.pop("draft_seed", 0))
-        spec_min_acceptance = float(spec_cfg.pop("min_acceptance", 0.0))
-        if spec_cfg:
-            raise ValueError(f"unknown serving.speculative keys: {sorted(spec_cfg)}")
-        if not 0.0 <= spec_min_acceptance <= 1.0:
-            raise ValueError("serving.speculative.min_acceptance must be in [0, 1], "
-                             f"got {spec_min_acceptance}")
+        modes = _decode_modes(quant, lora, speculative)
+        use_quant, use_lora, use_spec = modes["quant"], modes["lora"], modes["speculative"]
         if not self.is_lm:
             if use_quant or use_lora or use_spec:
                 raise ValueError("serving.quant/lora/speculative are LM-only")
@@ -206,7 +282,7 @@ class InferenceEngine:
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         self.seed = int(seed)
-        self.metrics = ServingMetrics()
+        self.metrics = ServingMetrics(replica_id)
         self.scheduler: Optional[ContinuousScheduler] = None
         if not self.is_lm:
             layout = (torch.channels_last if self.device.type == "cuda"
@@ -221,38 +297,24 @@ class InferenceEngine:
                 on_shed=lambda: self.metrics.incr("sheds"),
             )
             return
-        base_model = model
-        self.lora_registry: Optional[LoraRegistry] = None
-        if use_lora:
-            self.lora_registry = LoraRegistry(lora_rank, lora_adapters)
-            model = self.lora_registry.graft(model)
-            self.logger.info("multi-LoRA serving: rank %d, adapters %s",
-                             self.lora_registry.rank, self.lora_registry.names)
-        model = model.to(self.device)
-        # int8 decode: quantized from the f32 master weights, before the
-        # cast rounds them (the JAX package quantizes its f32 params)
-        self.quant_state = None
-        if use_quant:
-            self.quant_state = {n: v for n, v in quantize_tree(model.state_dict()).items()
-                                if is_quantized_leaf(v)}
-        self.model = model.cast_matmul_weights_().eval()
+        if resolved is None:
+            resolved = _resolve_lm(model, self.device, modes, use_sched, self.logger)
+        elif ((resolved.lora_registry is not None) != use_lora
+              or (resolved.quant_state is not None) != use_quant
+              or (resolved.draft is not None) != (
+                  use_sched and use_spec and modes["spec_draft"] is not None)):
+            raise ValueError("the ResolvedModel was prepared for other serving.lora/quant/"
+                             "speculative settings")
+        self.lora_registry = resolved.lora_registry
+        self.quant_state = resolved.quant_state
+        self.model = resolved.model
         self._batch_counter = 0  # flush thread only
-        self.metrics.spec_min_acceptance = spec_min_acceptance
+        self.metrics.spec_min_acceptance = modes["spec_min_acceptance"]
         self.batcher: Optional[DynamicBatcher] = None
         if use_sched:
             spec = None
             if use_spec:
-                draft = None
-                if spec_draft is not None:
-                    # the base model (never the LoRA graft: a draft's miss
-                    # costs only acceptance) with the config's overrides,
-                    # random from draft_seed; a trained draft waits for one
-                    with torch.device("meta"):
-                        draft = base_model.clone(**dict(spec_draft))
-                    draft = draft.to_empty(device="cpu")
-                    draft.reset_parameters(torch.Generator().manual_seed(spec_draft_seed))
-                    draft = draft.to(self.device).cast_matmul_weights_().eval()
-                spec = SpeculativeSpec(spec_k, draft)
+                spec = SpeculativeSpec(modes["spec_k"], resolved.draft)
             self.scheduler = ContinuousScheduler(
                 self.model,
                 slots=int(sched_cfg.get("slots", 8)),
@@ -274,6 +336,10 @@ class InferenceEngine:
                 quant=self.quant_state if use_quant else False,
                 lora=self.lora_registry,
                 speculative=spec,
+                replica_id=replica_id,
+                heartbeat_path=heartbeat_path,
+                heartbeat_interval_s=heartbeat_interval_s,
+                liveness_timeout_s=liveness_timeout_s,
             )
         else:
             self._generate = build_generate_fn(
@@ -293,7 +359,19 @@ class InferenceEngine:
     def from_config(cls, cfg: Dict[str, Any], device=None, logger=None,
                     state_dict=None) -> "InferenceEngine":
         """Build from a ``serve-*.yml`` config on ``device`` (default
-        ``cuda``; raises ``RuntimeError`` when no card is present).
+        ``cuda``; raises ``RuntimeError`` when no card is present): one
+        :meth:`resolve_config` and one engine."""
+        model, kwargs = cls.resolve_config(cfg, device=device, logger=logger,
+                                           state_dict=state_dict)
+        return cls(model, **kwargs)
+
+    @classmethod
+    def resolve_config(cls, cfg: Dict[str, Any], device=None, logger=None,
+                       state_dict=None) -> Tuple[Any, Dict[str, Any]]:
+        """A ``serve-*.yml`` config resolved into ``(model, kwargs)`` for
+        the constructor, so that several engines (a fleet's replicas) pay
+        for the weights once: an LM comes as a :class:`ResolvedModel` on
+        ``device``, a classifier as its module with its weights loaded.
 
         The weights: ``state_dict`` when given, else ``serving.checkpoint``
         (the newest step of a port training checkpoint, its EMA weights
@@ -337,13 +415,19 @@ class InferenceEngine:
                 "(smoke/bench mode only)", model_name,
             )
             model.reset_parameters(torch.Generator().manual_seed(seed))
+        if state_dict is not None:
+            model.load_state_dict(state_dict, strict=True)
+        if is_lm:
+            sched = serve.get("scheduler") or {}
+            model = _resolve_lm(
+                model, device, _decode_modes(serve.get("quant"), serve.get("lora"),
+                                             serve.get("speculative")),
+                bool(sched.get("enabled", False)), logger)
         max_batch = int(serve.get("max_batch_size", 8))
         input_norm = None
         if not is_lm and serve.get("normalize", True):
             input_norm = (IMAGENET_MEAN, IMAGENET_STD)
-        return cls(
-            model,
-            state_dict=state_dict,
+        return model, dict(
             device=device,
             batch_buckets=serve.get("batch_buckets", [max_batch]),
             seq_buckets=serve.get("seq_buckets", [16]),
@@ -373,20 +457,22 @@ class InferenceEngine:
 
     def submit(self, payload, deadline_ms: Optional[float] = None,
                max_new_tokens: Optional[int] = None, on_token=None, key=None,
-               adapter: Optional[str] = None):
+               adapter: Optional[str] = None, replay_tokens=None):
         """Validate + enqueue one prompt; returns its result future.
 
         ``max_new_tokens`` caps this request below ``serving.max_new_tokens``
         (on the batcher path the result is truncated host-side and the
         batch still pays the full decode; the scheduler retires the slot at
         the cap).  ``on_token`` (stream each token), ``key`` (the request's
-        sampling key) and ``adapter`` (a ``serving.lora`` adapter's name)
-        need the scheduler.  A classifier takes one image and none of these.
+        sampling key), ``adapter`` (a ``serving.lora`` adapter's name) and
+        ``replay_tokens`` (the stream a failed-over request already
+        delivered, with its original ``key``) need the scheduler.  A
+        classifier takes one image and none of these.
         """
         if not self.is_lm:
             if (max_new_tokens is not None or on_token is not None or key is not None
-                    or adapter is not None):
-                raise ValueError("max_new_tokens/on_token/key/adapter are LM-only")
+                    or adapter is not None or replay_tokens):
+                raise ValueError("max_new_tokens/on_token/key/adapter/replay_tokens are LM-only")
             img = np.asarray(payload)
             want = (self.image_size, self.image_size, 3)
             if img.shape != want:
@@ -417,11 +503,12 @@ class InferenceEngine:
         if self.scheduler is not None:
             return self.scheduler.submit(prompt, deadline_ms=deadline_ms,
                                          max_new_tokens=max_new_tokens, on_token=on_token,
-                                         key=key, adapter=adapter)
-        if on_token is not None or key is not None or adapter is not None:
+                                         key=key, adapter=adapter, replay_tokens=replay_tokens)
+        if on_token is not None or key is not None or adapter is not None or replay_tokens:
             raise ValueError(
-                "on_token / per-request key / adapter require serving.scheduler.enabled (the "
-                "batcher path samples whole batches and resolves futures only at the end)"
+                "on_token / per-request key / adapter / replay_tokens require "
+                "serving.scheduler.enabled (the batcher path samples whole batches and "
+                "resolves futures only at the end)"
             )
         return self.batcher.submit(
             prompt.astype(np.int32), deadline_ms=deadline_ms,

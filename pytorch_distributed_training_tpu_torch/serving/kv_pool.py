@@ -218,7 +218,7 @@ class PagedKVPool:
     ) -> List[Tuple[tuple, int]]:
         """Longest cached chain as ``(chain_key, block_id)`` pairs.
 
-        The KV-transfer exporter's view (ROADMAP port item P6): the
+        The KV-transfer exporter's view (:mod:`.kv_transfer`): the
         keys travel with the block payloads so the importing pool can
         publish them under identical content addresses — equal keys
         imply bitwise-equal K/V, which is what makes a transferred
@@ -265,6 +265,16 @@ class PagedKVPool:
         self._ref[blk] = 1
         self._cache[key] = blk
         return blk
+
+    def unadopt_block(self, key: tuple) -> None:
+        """Undo :meth:`adopt_block` when the block's rows could not be
+        written: the key leaves the cache, so no request reads the block,
+        and the block is freed once nothing else holds it."""
+        blk = self._cache.pop(key)
+        self._ref[blk] -= 1
+        if self._ref[blk] == 0:
+            del self._ref[blk]
+            self._alloc.free([blk])
 
     def release(self, admission: Admission) -> None:
         """Drop the request's references; zero-ref blocks recycle."""

@@ -6,9 +6,14 @@ Port of the JAX package's ``serving/metrics.py``: the whole-batch path's
 slot occupancy and block utilisation of each decode iteration, each tick's
 host ms and the gap between back-to-back decode dispatches, queue depth,
 the classification batcher's host ms a batch
-and the health snapshot (``health_*`` gauges).  The scheduler mirrors its
-counters into the process registry as ``serving_<name>``; per-replica
-names are ROADMAP port item P6.
+the health snapshot (``health_*`` gauges), the KV blocks a replica
+imported (``kv_transfer_*``) and a scaled-up replica's time to warm
+(``scale_up_ready_ms``).  The scheduler mirrors its counters into the
+process registry under :meth:`ServingMetrics.global_name`:
+``serving_<name>``, or ``serving_r<id>_<name>`` for a fleet replica
+(JAX ``:24-25``, ``:136-141``), so N replicas in one process do not share
+a name.  :func:`aggregate_snapshots` folds the replicas' snapshots into
+the fleet's (JAX ``:441``).
 
 The decode modes (JAX ``:89-120``, ``:370-390``): a request retired under
 a LoRA adapter also lands in that tenant's ``adapter_<name>_*``
@@ -37,7 +42,7 @@ from typing import Dict, List, Optional
 
 from ..telemetry.registry import MetricsRegistry
 
-__all__ = ["ServingMetrics"]
+__all__ = ["ServingMetrics", "aggregate_snapshots"]
 
 # big enough that p99 of a uniform sample is a tight estimate, small enough
 # to cap memory at a few KB per engine
@@ -47,7 +52,8 @@ _RESERVOIR = 2048
 class ServingMetrics:
     """Thread-safe accumulator; ``record_batch`` runs on the flush thread."""
 
-    def __init__(self):
+    def __init__(self, replica_id: Optional[int] = None):
+        self.replica_id = replica_id
         self._lock = threading.Lock()
         self._registry = MetricsRegistry()
         self._latency_ms = self._registry.histogram("latency_ms", _RESERVOIR)
@@ -62,6 +68,8 @@ class ServingMetrics:
         # the batcher path's host ms a batch (its wall time less the wait
         # on the device's results)
         self._batch_host_ms = self._registry.histogram("batch_host_ms", _RESERVOIR)
+        # the host ms of each KV-block import a replica serviced
+        self._kv_transfer_ms = self._registry.histogram("kv_transfer_ms", _RESERVOIR)
         self._items = 0  # guarded by: self._lock
         self._first_t: Optional[float] = None  # guarded by: self._lock
         self._last_t: Optional[float] = None  # guarded by: self._lock
@@ -94,6 +102,14 @@ class ServingMetrics:
     def incr(self, name: str, n: int = 1) -> None:
         """Bump a named degradation counter (``timeouts``, ``sheds``)."""
         self._registry.counter(name).inc(n)
+
+    def global_name(self, name: str) -> str:
+        """The process-registry name of instrument ``name``:
+        ``serving_<name>`` without a replica id, ``serving_r<id>_<name>``
+        with one."""
+        if self.replica_id is None:
+            return f"serving_{name}"
+        return f"serving_r{self.replica_id}_{name}"
 
     def set_gauge(self, name: str, value: float) -> None:
         self._registry.gauge(name).set(value)
@@ -182,6 +198,21 @@ class ServingMetrics:
         """Host ms between two decode dispatches of back-to-back ticks."""
         self._dispatch_gap_ms.observe(float(gap_ms))
 
+    def record_scale_up_ready(self, ms: float) -> None:
+        """Wall ms from a scaled-up replica's construction to warm (a gauge:
+        the snapshot carries it)."""
+        self._registry.gauge("scale_up_ready_ms").set(float(ms))
+
+    def record_kv_transfer(self, *, nbytes: int, seconds: float, blocks: int) -> None:
+        """One serviced KV-block import: the bytes and blocks that landed
+        and its host time (a rejected payload is the scheduler's
+        ``kv_transfer_rejects``)."""
+        if nbytes:
+            self._registry.counter("kv_transfer_bytes").inc(int(nbytes))
+        if blocks:
+            self._registry.counter("kv_transfer_blocks").inc(int(blocks))
+        self._kv_transfer_ms.observe(float(seconds) * 1000.0)
+
     def observe_depth(self, depth: int) -> None:
         with self._lock:
             self._max_depth = max(self._max_depth, depth)
@@ -243,6 +274,10 @@ class ServingMetrics:
         if util["count"]:
             out["block_util_mean"] = float(util["mean"])
             out["block_util_max"] = float(util["max"])
+        xfer = self._kv_transfer_ms.snapshot()
+        if xfer["count"]:
+            out["kv_transfer_ms_p50"] = float(xfer["p50"])
+            out["kv_transfer_ms_p99"] = float(xfer["p99"])
         for name, hist in (("tick_host_ms", self._tick_host_ms),
                            ("decode_dispatch_gap_ms", self._dispatch_gap_ms),
                            ("batch_host_ms", self._batch_host_ms)):
@@ -295,3 +330,48 @@ class ServingMetrics:
         )
         logger.info("%s metrics: %s", prefix, parts)
         return snap
+
+
+# --------------------------------------------------------------------- #
+# the fleet's view
+
+# additive fields (every counter not classified otherwise sums too)
+_AGG_SUM = ("requests", "batches", "items", "gen_tokens")
+# fields where the fleet takes its worst replica: a percentile of merged
+# samples cannot be recovered from per-replica percentiles, the max bounds it
+_AGG_MAX = (
+    "latency_ms_p50", "latency_ms_p99", "max_queue_depth", "block_util_max",
+    "kv_transfer_ms_p50", "kv_transfer_ms_p99", "tick_host_ms_p50", "tick_host_ms_p99",
+    "decode_dispatch_gap_ms_p50", "decode_dispatch_gap_ms_p99", "scale_up_ready_ms",
+)
+
+
+def aggregate_snapshots(snapshots: Dict[str, Dict[str, float]]) -> Dict[str, float]:
+    """Fold per-replica :meth:`ServingMetrics.snapshot` dicts into one.
+
+    Counts and token totals sum, and so do rates (the replicas serve at
+    once); latency percentiles take the max over replicas (a bound); the
+    prefix-hit rate is recomputed from the summed block counters; means,
+    other rates and ``health_*`` gauges stay in the per-replica snapshots.
+    """
+    out: Dict[str, float] = {"replicas": len(snapshots)}
+    sums: Dict[str, float] = {}
+    maxes: Dict[str, float] = {}
+    for snap in snapshots.values():
+        for key, val in snap.items():
+            if not isinstance(val, (int, float)) or isinstance(val, bool):
+                continue
+            if key in _AGG_MAX:
+                maxes[key] = max(maxes.get(key, val), val)
+            elif key.endswith("_per_sec") or key in _AGG_SUM or (
+                not key.startswith("health_")
+                and not key.endswith(("_mean", "_p50", "_p99", "_rate"))
+            ):
+                sums[key] = sums.get(key, 0) + val
+    out.update(sums)
+    out.update(maxes)
+    hits = sums.get("prefix_hit_blocks", 0)
+    misses = sums.get("prefix_miss_blocks", 0)
+    if hits + misses:
+        out["prefix_hit_rate"] = float(hits / (hits + misses))
+    return out

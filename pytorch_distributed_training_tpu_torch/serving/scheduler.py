@@ -67,16 +67,35 @@ The decode modes (JAX ``:141-330``, ``:1713-1870``), each off by default:
   and not with ``async_depth``.  The argmax and the finite check of the
   verify logits run on the card before the one host copy.
 
+The fleet hooks (JAX ``:167-219``, ``:430-493``, ``:592-730``,
+``:882-938``), for :mod:`.router`, :mod:`.fleet` and :mod:`.disagg`:
+
+- ``replica_id`` names the replica's process-registry counters
+  (``serving_r<id>_*``, :meth:`.metrics.ServingMetrics.global_name`);
+- ``heartbeat_path``: the scheduler thread itself rewrites this file at
+  most every ``heartbeat_interval_s`` (each tick, and while idle), never a
+  side thread, so a wedged scheduler goes stale to an outside reader;
+- ``liveness_timeout_s``: ``health()`` reports ``stalled`` (and not
+  ``live``) when the thread has had work and made no progress that long;
+- ``submit(replay_tokens=..., key=...)`` admits a request with its
+  stream so far: the hot restart's replay re-derives its K/V through the
+  same calls, checks every token (``replay_parity_mismatch``) and never
+  fires ``on_token`` for them; it needs the original ``key``;
+- ``export_kv_prefix``, ``export_kv_refs`` and ``import_kv_blocks``
+  (:mod:`.kv_transfer`) queue work that the scheduler thread runs at its
+  next tick boundary (the tick's ``kv_transfer`` phase), resolving a
+  future, so pool reads and writes stay on one thread;
+- ``hard_kill`` and ``inject_hang`` (the ``replica_down`` and
+  ``replica_hang`` faults) take effect at the next tick boundary.
+
 For tests: ``start=False`` and :meth:`tick` by hand (one tick = admit +
 prefill + one decode step), so a scripted trace repeats exactly.
-
-Not ported, each raising ``NotImplementedError`` naming its ROADMAP item:
-the kv-transfer verbs, the fleet identity (``replica_id``,
-``heartbeat_path``, ``liveness_timeout_s``) and ``replay_tokens`` (P6).
 """
 from __future__ import annotations
 
+import json
 import logging
+import os
 import threading
 import time
 from collections import deque
@@ -91,6 +110,7 @@ from ..engine.watchdog import StepWatchdog
 from ..ops.quant import quantize_tree
 from ..telemetry.registry import get_registry
 from ..telemetry.spans import span
+from . import kv_transfer
 from .batcher import OverloadedError
 from .decode import build_paged_fns
 from .kv_pool import PagedKVPool
@@ -99,8 +119,6 @@ from .resilience import HungTickError, PoisonedRequestError, ServingSupervisor
 from .speculative import greedy_accept
 
 __all__ = ["ContinuousScheduler"]
-
-_P6 = "ROADMAP port item P6 (fleet tier)"
 
 
 class _PagedRequest:
@@ -177,12 +195,9 @@ class ContinuousScheduler:
         speculative=None,
         replica_id: Optional[int] = None,
         heartbeat_path: Optional[str] = None,
+        heartbeat_interval_s: float = 0.5,
         liveness_timeout_s: Optional[float] = None,
     ):
-        for name, val in (("replica_id", replica_id), ("heartbeat_path", heartbeat_path),
-                          ("liveness_timeout_s", liveness_timeout_s)):
-            if val is not None:
-                raise NotImplementedError(f"scheduler {name}: {_P6}")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if max_new_tokens < 1:
@@ -207,7 +222,17 @@ class ContinuousScheduler:
         self.deadline_ms = deadline_ms
         self.max_backlog = max_backlog
         self.logger = logger or logging.getLogger(__name__)
-        self.metrics = metrics or ServingMetrics()
+        self.metrics = metrics or ServingMetrics(replica_id)
+        self.replica_id = replica_id
+        self.heartbeat_path = heartbeat_path
+        if heartbeat_interval_s <= 0:
+            raise ValueError(f"heartbeat_interval_s must be > 0, got {heartbeat_interval_s}")
+        self._hb_interval = float(heartbeat_interval_s)
+        if liveness_timeout_s is not None and liveness_timeout_s <= 0:
+            raise ValueError(f"liveness_timeout_s must be > 0, got {liveness_timeout_s}")
+        self._liveness_timeout_s = (float(liveness_timeout_s)
+                                    if liveness_timeout_s is not None else None)
+        self._last_beat = 0.0  # confined: _loop (and the constructor)
         self.vocab_size = model.vocab_size
         self._async_depth = int(async_depth)
         if self._async_depth < 0:
@@ -267,6 +292,9 @@ class ContinuousScheduler:
         # and drain touch it across threads, under the condition
         self._slots: List[Optional[_PagedRequest]] = [None] * self.slots_n  # confined: _loop
         self._queue: "deque[_PagedRequest]" = deque()  # guarded by: self._cond
+        # the kv-transfer verbs' queue: (verb, argument, future), run on the
+        # scheduler thread at its next tick boundary
+        self._xfer_q: deque = deque()  # guarded by: self._cond
         self._cond = threading.Condition()
         self._closed = False  # guarded by: self._cond
         self._draining = False  # guarded by: self._cond
@@ -275,6 +303,7 @@ class ContinuousScheduler:
         self._hang_info = None  # guarded by: self._cond
         self._die_exc: Optional[BaseException] = None  # guarded by: self._cond
         self._dead = False  # guarded by: self._cond
+        self._hang_sec: Optional[float] = None  # guarded by: self._cond
         self._tick_started_at: Optional[float] = None  # guarded by: self._cond
         # prefix-cache block tallies for the registry gauges
         self._hit_blocks = 0
@@ -315,6 +344,7 @@ class ContinuousScheduler:
             self._watchdog = StepWatchdog(on_hang=self._on_tick_hang, logger=self.logger,
                                           **wd_kwargs)
 
+        self._beat(force=True)  # the file exists from birth: no start-up grace race
         self._thread: Optional[threading.Thread] = None
         if start:
             self._thread = threading.Thread(
@@ -341,10 +371,11 @@ class ContinuousScheduler:
         budget (its slot retires at the cap); ``key`` (non-negative ints)
         sets the request's sampling key, default ``(seed, seq_no)``;
         ``adapter`` names a registered LoRA adapter (``None``: the base
-        model).
+        model).  ``replay_tokens``: the tokens the client already holds;
+        admission replays them (:meth:`_replay`), checks each one and does
+        not stream them again, and decoding goes on from there.  It needs
+        the original ``key``: another key would draw another stream.
         """
-        if replay_tokens:
-            raise NotImplementedError(f"replay_tokens (fleet fail-over): {_P6}")
         prompt = np.asarray(prompt)
         if prompt.ndim != 1 or prompt.size < 1:
             raise ValueError(
@@ -376,6 +407,17 @@ class ContinuousScheduler:
                 raise ValueError("adapter= requires serving.lora.enabled (no adapter registry "
                                  "on this engine)")
             aid = self._lora.id_of(adapter)
+        replay = [int(t) for t in replay_tokens] if replay_tokens else []
+        if replay:
+            if key is None:
+                raise ValueError(
+                    "replay_tokens needs the original submission's key: another key draws "
+                    "another stream, and every replayed token would count as "
+                    "replay_parity_mismatch")
+            if len(replay) >= mnt:
+                raise ValueError(
+                    f"replay_tokens ({len(replay)}) must be shorter than max_new_tokens "
+                    f"({mnt}): a finished request has nothing left to decode")
         with self._cond:
             if self._closed:
                 raise RuntimeError("scheduler is closed")
@@ -397,6 +439,9 @@ class ContinuousScheduler:
                 on_token=on_token, key=key,
             )
             req.adapter, req.adapter_name = aid, adapter
+            if replay:
+                req.tokens = replay
+                req.dispatched = len(replay)
             self._queue.append(req)
             self.metrics.observe_depth(len(self._queue))
             self._cond.notify_all()
@@ -452,18 +497,31 @@ class ContinuousScheduler:
     def health(self) -> Dict[str, Any]:
         """Readiness/liveness snapshot for orchestration probes: ``ready``
         means accepting submissions, ``live`` worth keeping (False once the
-        restart budget is spent or the scheduler was killed).  Mirrored
-        into the metrics' ``health_*`` gauges."""
+        restart budget is spent, the scheduler was killed or, with
+        ``liveness_timeout_s``, the thread has had work and made no progress
+        for that long: ``stalled``; an idle scheduler never stalls).
+        Mirrored into the metrics' ``health_*`` gauges."""
         now = time.monotonic()
         with self._cond:
             depth = len(self._queue)
             active = sum(1 for s in self._slots if s is not None)
             closed, draining = self._closed, self._draining
             last, dead = self._last_tick, self._dead
+            started = self._tick_started_at
         exhausted = self._supervisor.exhausted()
+        stalled = False
+        if self._liveness_timeout_s is not None:
+            # a tick in progress is busy from its start (a hung call never
+            # updates _last_tick); otherwise only pending work makes an old
+            # tick suspicious
+            busy = started is not None or depth > 0 or active > 0
+            ref = started if started is not None else last
+            if busy and ref is not None:
+                stalled = (now - ref) > self._liveness_timeout_s
         snap = {
-            "ready": not (closed or draining or exhausted or dead),
-            "live": not (exhausted or dead),
+            "ready": not (closed or draining or exhausted or dead or stalled),
+            "live": not (exhausted or dead or stalled),
+            "stalled": stalled,
             "queue_depth": depth,
             "active_slots": active,
             "slots": self.slots_n,
@@ -486,10 +544,52 @@ class ContinuousScheduler:
             self._die_exc = exc
             self._cond.notify_all()
 
-    def export_kv_prefix(self, *args, **kwargs):
-        raise NotImplementedError(f"kv transfer: {_P6}")
+    def inject_hang(self, seconds: float) -> None:
+        """Wedge the scheduler thread for ``seconds`` at its next tick
+        boundary (the ``replica_hang`` fault): no progress and no
+        heartbeat, which only an outside reader of the heartbeat's age (or
+        ``health()``'s liveness clock) can see."""
+        with self._cond:
+            if self._closed:
+                return
+            self._hang_sec = float(seconds)
+            self._cond.notify_all()
 
-    export_kv_refs = import_kv_blocks = export_kv_prefix
+    def _queue_xfer(self, verb: str, arg) -> Future:
+        fut: Future = Future()
+        with self._cond:
+            if self._closed or self._dead:
+                raise RuntimeError(f"cannot {verb.split('_')[0]} KV blocks: scheduler is closed")
+            self._xfer_q.append((verb, arg, fut))
+            self._cond.notify_all()
+        return fut
+
+    def export_kv_prefix(self, prompt: Sequence[int], namespace=None,
+                         stall_s: Optional[float] = None) -> Future:
+        """The cached prefix blocks of ``prompt`` as CRC-sealed
+        payloads (:class:`.kv_transfer.BlockPayload`, possibly none), gathered and
+        copied to the host on the scheduler thread at its next tick
+        boundary.  ``stall_s`` (the ``kv_transfer_stall`` fault) sleeps
+        there before resolving."""
+        arr = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        return self._queue_xfer("export", (arr, namespace, stall_s))
+
+    def export_kv_refs(self, prompt: Sequence[int], namespace=None,
+                       stall_s: Optional[float] = None) -> Future:
+        """The same blocks as refs (:class:`.kv_transfer.BlockRef`): only the
+        gather runs on the scheduler thread; the caller copies them to the
+        host (:func:`.kv_transfer.materialize_payloads`) on its own."""
+        arr = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        return self._queue_xfer("export_refs", (arr, namespace, stall_s))
+
+    def import_kv_blocks(self, payloads) -> Future:
+        """Adopt transferred blocks into the prefix cache; resolves to
+        ``{"accepted", "rejected", "bytes"}``.  In chain order: a checksum
+        mismatch rejects the block and stops the chain, a key already
+        cached is skipped (a local prefill beat the transfer), a full pool
+        stops the chain.  A bad payload never raises: the request
+        recomputes what did not land."""
+        return self._queue_xfer("import", list(payloads))
 
     def close(self) -> None:
         """Drain queue and in-flight slots, then stop the loop."""
@@ -512,7 +612,7 @@ class ContinuousScheduler:
         """Count and log each injected serve fault still armed at close, so
         every injected fault ends as fired or reported unfired."""
         for kind, steps in fault.get_injector().pending().items():
-            if not kind.startswith("serve_"):
+            if not kind.startswith(("serve_", "replica_")):
                 continue
             fault.bump(f"fault_unfired_{kind}", len(steps))
             self.logger.warning(
@@ -537,6 +637,12 @@ class ContinuousScheduler:
         with self._cond:
             self._tick_started_at = time.monotonic()
             die = self._die_exc
+            hang, self._hang_sec = self._hang_sec, None
+        if hang is not None:
+            # the simulated wedge sleeps before the heartbeat, so the file
+            # goes stale as it would under a stuck device call
+            self.logger.warning("fault injection: replica scheduler wedged for %.2fs", hang)
+            time.sleep(hang)
         if die is not None:
             try:
                 self._die(die)
@@ -544,6 +650,7 @@ class ContinuousScheduler:
                 with self._cond:
                     self._tick_started_at = None
             return True
+        self._beat()
         self._tick_no += 1
         self._tick_phase = "setup"
         if self._watchdog is not None:
@@ -597,6 +704,8 @@ class ContinuousScheduler:
                              "requests")
             )
             return True
+        self._tick_phase = "kv_transfer"
+        did_xfer = self._service_kv_transfers()
         self._tick_phase = "admit"
         newly = self._admit()
         self._tick_phase = "prefill"
@@ -614,22 +723,119 @@ class ContinuousScheduler:
             else:
                 self._decode_step()
         self._publish_pool_gauges()
-        return bool(newly) or n_active > 0
+        return bool(newly) or n_active > 0 or did_xfer
 
     def _bump(self, name: str, n: int = 1) -> None:
         """Engine-local and process-wide: the snapshot shows this engine's
-        counts, the telemetry registry ``serving_<name>``."""
+        counts, the telemetry registry ``serving_<name>`` (a fleet
+        replica's ``serving_r<id>_<name>``)."""
         self.metrics.incr(name, n)
-        get_registry().counter(f"serving_{name}").inc(n)
+        get_registry().counter(self.metrics.global_name(name)).inc(n)
+
+    def _beat(self, force: bool = False) -> None:
+        """Rewrite the heartbeat file, at most every ``heartbeat_interval_s``
+        (a temporary file and ``os.replace``; the mtime is the clock).  A
+        failed write is logged and the replica looks stale, the safe side."""
+        if self.heartbeat_path is None:
+            return
+        now = time.monotonic()
+        if not force and now - self._last_beat < self._hb_interval:
+            return
+        self._last_beat = now
+        tmp = self.heartbeat_path + ".tmp"
+        try:
+            with open(tmp, "w") as f:
+                json.dump({"replica_id": self.replica_id, "pid": os.getpid(),
+                           "tick": self._tick_no}, f)
+            os.replace(tmp, self.heartbeat_path)
+        except OSError:
+            self.logger.exception("heartbeat write failed; continuing")
 
     def _publish_pool_gauges(self) -> None:
-        """Block utilisation and prefix-hit rate in the process registry."""
+        """Block utilisation and prefix-hit rate in the process registry
+        (the router's placement reads the former)."""
         reg = get_registry()
         util = self._kv.blocks_in_use / max(self._kv.num_blocks, 1)
-        reg.gauge("serving_block_util").set(util)
+        reg.gauge(self.metrics.global_name("block_util")).set(util)
         total = self._hit_blocks + self._miss_blocks
         if total:
-            reg.gauge("serving_prefix_hit_rate").set(self._hit_blocks / total)
+            reg.gauge(self.metrics.global_name("prefix_hit_rate")).set(self._hit_blocks / total)
+
+    # ------------------------------------------------------------------ #
+    # the kv-transfer verbs, on the scheduler thread
+
+    def _service_kv_transfers(self) -> bool:
+        did = False
+        while True:
+            with self._cond:
+                if not self._xfer_q:
+                    return did
+                verb, arg, fut = self._xfer_q.popleft()
+            did = True
+            try:
+                if verb == "export":
+                    res = self._export_kv(*arg, materialize=True)
+                elif verb == "export_refs":
+                    res = self._export_kv(*arg, materialize=False)
+                else:
+                    res = self._import_kv(arg)
+            except Exception as exc:
+                # the verb failed, not the engine: an export only reads the
+                # pool, a failed import gives back the blocks it adopted
+                if not fut.done():
+                    fut.set_exception(exc)
+            else:
+                if not fut.done():
+                    fut.set_result(res)
+
+    def _export_kv(self, prompt, namespace, stall_s, materialize: bool):
+        refs = kv_transfer.extract_block_refs(self._kv, self._pool, prompt, namespace=namespace)
+        out = kv_transfer.materialize_payloads(refs) if materialize else refs
+        if refs:
+            self._bump("kv_transfer_exported_blocks", len(refs))
+        if stall_s is not None:
+            self.logger.warning("fault injection: kv transfer export stalled %.2fs", stall_s)
+            time.sleep(float(stall_s))
+        return out
+
+    def _import_kv(self, payloads):
+        t0 = time.perf_counter()
+        n_rows = self._kv.num_blocks * self._kv.block_size
+        accepted, rejected, nbytes = [], 0, 0
+        for p in payloads:
+            why = ("checksum" if not kv_transfer.verify_payload(p)
+                   else kv_transfer.payload_mismatch(p, self._pool, self._kv.block_size))
+            if why is not None:
+                rejected += 1
+                self._bump("kv_transfer_rejects")
+                self.logger.warning(
+                    "kv transfer: reject of block %d (%s); dropping the rest of the chain, "
+                    "the request recomputes it", p.index, why)
+                break
+            if self._kv.is_cached(p.key):
+                continue
+            blk = self._kv.adopt_block(p.key)
+            if blk is None:
+                break  # the pool is full even after eviction: a partial import
+            accepted.append((blk, p))
+            nbytes += p.nbytes
+        if accepted:
+            try:
+                kv_transfer.scatter_payloads(self._pool, n_rows, accepted)
+            except BaseException:
+                # a key must never name a block that was not written
+                for _, p in accepted:
+                    self._kv.unadopt_block(p.key)
+                raise
+        if accepted or rejected:
+            self.metrics.record_kv_transfer(nbytes=nbytes, seconds=time.perf_counter() - t0,
+                                            blocks=len(accepted))
+            reg = get_registry()
+            if nbytes:
+                reg.counter(self.metrics.global_name("kv_transfer_bytes")).inc(nbytes)
+            if accepted:
+                reg.counter(self.metrics.global_name("kv_transfer_blocks")).inc(len(accepted))
+        return {"accepted": len(accepted), "rejected": rejected, "bytes": nbytes}
 
     def _expire(self, req: _PagedRequest, now: float) -> bool:
         if req.deadline is None or now < req.deadline:
@@ -1284,6 +1490,9 @@ class ContinuousScheduler:
         """A :meth:`hard_kill` on the scheduler thread: fail every queued and
         in-flight request with ``exc`` and close."""
         self.logger.error("scheduler hard-killed: %s", exc)
+        self._bump("replica_down")
+        # flags first: once _dead shows, the transfer verbs refuse new work,
+        # so none lands in a queue that nobody services
         with self._cond:
             self._die_exc = None
             self._dead = True
@@ -1301,6 +1510,13 @@ class ContinuousScheduler:
             doomed.extend(self._queue)
             self._queue.clear()
             self._slots = [None] * self.slots_n
+            doomed_xfer = list(self._xfer_q)
+            self._xfer_q.clear()
+        # pending transfers die with the state they index; the disagg
+        # coordinator takes the failure and recomputes
+        for _verb, _arg, xfut in doomed_xfer:
+            if not xfut.done():
+                xfut.set_exception(exc)
         if doomed:
             self._bump("failed_inflight", len(doomed))
         for req in doomed:
@@ -1359,15 +1575,32 @@ class ContinuousScheduler:
             return 0.05
         return min(0.05, max(min(deadlines) - now, 0.001))
 
+    def _idle_locked(self) -> bool:
+        return not (self._closed or self._die_exc is not None
+                    or self._hang_sec is not None or self._queue or self._xfer_q
+                    or any(s is not None for s in self._slots))
+
     def _loop(self) -> None:
         while True:
             with self._cond:
-                while not (self._closed or self._die_exc is not None or self._queue
-                           or any(s is not None for s in self._slots)):
-                    self._cond.wait()
-                if (self._closed and not self._queue
+                idle = self._idle_locked()
+                if idle and self.heartbeat_path is None:
+                    while self._idle_locked():
+                        self._cond.wait()
+                    idle = False
+                elif idle:
+                    # a bounded wait, so an idle healthy replica keeps
+                    # beating: stale must mean wedged, not quiet
+                    self._cond.wait(timeout=max(self._hb_interval / 2.0, 0.01))
+                    idle = self._idle_locked()
+                if (not idle and self._closed and not self._queue and not self._xfer_q
                         and all(s is None for s in self._slots)):
                     return
+            if idle:
+                # the heartbeat's file write runs outside the lock, so a
+                # slow disk never stalls submit, health() or the verbs
+                self._beat()
+                continue
             try:
                 did = self.tick()
             except BaseException as exc:  # the supervisor itself failed

@@ -144,11 +144,10 @@ def test_poison_batches_as_jax():
     pytest.param("serve_device_lost", "serve_device_lost@1", None,
                  id="serve_device_lost-serve_device_lost@1-P4"),
     pytest.param("serve_hang", "serve_hang@1", None, id="serve_hang-serve_hang@1-P4"),
-    ("replica_down", "replica_down@1", "P6"), ("replica_hang", "replica_hang@1", "P6"),
-    ("autoscale_hang", "autoscale_hang@1", "P6"),
-    ("kv_transfer_stall", "kv_transfer_stall@1", "P6"),
-    ("kv_transfer_corrupt", "kv_transfer_corrupt@1", "P6"),
-    ("prefill_replica_down", "prefill_replica_down@1", "P6"),
+    # ported (P6): the router, the autoscaler and the disagg coordinator take them
+    *[pytest.param(k, f"{k}@1", None, id=f"{k}-{k}@1-P6")
+      for k in ("replica_down", "replica_hang", "autoscale_hang", "kv_transfer_stall",
+                "kv_transfer_corrupt", "prefill_replica_down")],
 ])
 def test_unported_kind_raises_its_item(kind, spec, item):
     if item is None:
@@ -156,7 +155,8 @@ def test_unported_kind_raises_its_item(kind, spec, item):
         fault.check_ported(injector)
         assert kind in injector.kinds() and kind not in fault.UNPORTED_FAULT_KINDS
         # JAX's semantics: one-shot at its tick, a slot or seconds argument
-        arg = {"serve_nan": 0.0, "serve_raise": 0.0, "serve_hang": 1.0}.get(kind, 1.0)
+        arg = {"serve_nan": 0.0, "serve_raise": 0.0, "serve_hang": 1.0, "replica_down": 0.0,
+               "prefill_replica_down": 0.0}.get(kind, 1.0)
         assert injector.take(kind, 1) == jfault.FaultInjector(spec).take(kind, 1) == arg
         assert injector.take(kind, 1) is None
     else:
@@ -166,7 +166,8 @@ def test_unported_kind_raises_its_item(kind, spec, item):
     assert set(fault.UNPORTED_FAULT_KINDS) == (
         set(jfault._STEP_KINDS) | set(jfault._POINT_KINDS)) - {
         "nan_batch", "kill_worker", "stall_step", "ckpt_fail", "restore_fail", "serve_nan",
-        "serve_raise", "serve_device_lost", "serve_hang"}
+        "serve_raise", "serve_device_lost", "serve_hang", "replica_down", "replica_hang",
+        "autoscale_hang", "kv_transfer_stall", "kv_transfer_corrupt", "prefill_replica_down"}
     assert issubclass(fault.DeviceLostError, fault.FaultInjectionError)
 
 

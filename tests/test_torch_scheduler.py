@@ -235,10 +235,12 @@ def test_background_loop_and_closed(lm):
     pytest.param({"quant": True}, None, id="kwargs0-P5"),
     pytest.param({"lora": "registry"}, None, id="kwargs1-P5"),
     pytest.param({"speculative": "spec"}, None, id="kwargs2-P5"),
-    ({"replica_id": 0}, "P6"), ({"heartbeat_path": "hb"}, "P6"),
-    ({"liveness_timeout_s": 1.0}, "P6"),
+    # ported (P6): the fleet's stamps build and serve
+    pytest.param({"replica_id": 0}, None, id="kwargs3-P6"),
+    pytest.param({"heartbeat_path": "hb"}, None, id="kwargs4-P6"),
+    pytest.param({"liveness_timeout_s": 1.0}, None, id="kwargs5-P6"),
 ])
-def test_unported_scheduler_features_raise(lm, kwargs, item):
+def test_unported_scheduler_features_raise(lm, kwargs, item, tmp_path):
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             _sched(lm[2], **kwargs)
@@ -251,9 +253,17 @@ def test_unported_scheduler_features_raise(lm, kwargs, item):
         model, submit = kwargs["lora"].graft(model).eval(), {"adapter": "tenant-a"}
     elif "speculative" in kwargs:
         kwargs = {"speculative": SpeculativeSpec(2)}
+    elif "heartbeat_path" in kwargs:
+        kwargs = {"heartbeat_path": str(tmp_path / "hb.json")}
     sched = _sched(model, **kwargs)
     res = _results(sched, [np.asarray([5, 9, 13], np.int32)], [submit])
     assert res[0]["gen_len"] == 6
+    if "replica_id" in kwargs:
+        assert get_registry().counters().get("serving_r0_retired", 0) >= 1
+    elif "heartbeat_path" in kwargs:
+        assert json.loads((tmp_path / "hb.json").read_text())["replica_id"] is None
+    elif "liveness_timeout_s" in kwargs:
+        assert sched.health()["stalled"] is False
 
 
 def test_validation_and_unported_verbs(lm):
@@ -263,10 +273,15 @@ def test_validation_and_unported_verbs(lm):
     with pytest.raises(ValueError, match="worst-case"):
         _sched(pm, num_blocks=2)
     sched = _sched(pm)
-    for verb in (sched.export_kv_prefix, sched.export_kv_refs, sched.import_kv_blocks):
-        with pytest.raises(NotImplementedError, match="P6"):
-            verb([1, 2])
-    with pytest.raises(NotImplementedError, match="P6"):
+    # ported (P6): the transfer verbs resolve at the next tick, nothing
+    # cached yet; a replay needs the original key
+    futs = [verb(arg) for verb, arg in ((sched.export_kv_prefix, [1, 2]),
+                                        (sched.export_kv_refs, [1, 2]),
+                                        (sched.import_kv_blocks, []))]
+    sched.tick()
+    assert [f.result(timeout=5) for f in futs] == [
+        [], [], {"accepted": 0, "rejected": 0, "bytes": 0}]
+    with pytest.raises(ValueError, match="key"):
         sched.submit(np.asarray([1, 2]), replay_tokens=[3])
     for bad, match in (([VOCAB], r"\[0, 61\)"), ([0.5], "integer")):
         with pytest.raises(ValueError, match=match):
