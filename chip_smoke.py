@@ -18,6 +18,8 @@
                                        # and classification serving (with --profile:
                                        # the ViT step by op class)
     python3 chip_smoke.py --fleet      # phases 1, 2 and 24 only: the fleet tier
+    python3 chip_smoke.py --moe        # phases 1, 2 and 25 only: the MoE LM (with
+                                       # --profile: its step's device time by class)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -238,8 +240,32 @@ Phases, in order; any failure raises and the script exits non-zero:
     tokens/s, TTFT, host ms a tick per replica; ``add_replica``'s
     ``scale_up_ready_ms`` and pool bytes; the disaggregated fleet (1
     prefill replica) with its directory and a block's bytes, export and
-    import ms; replica 0 killed mid-trace: ms to the survivor's first new
-    token, replayed tokens, any bf16 ``replay_parity_mismatch``.
+    import ms; through the fleet's and the disaggregated readings no live
+    replica is marked down, and each replica's largest heartbeat age is
+    printed beside the config's 2 s limit; replica 0 killed mid-trace: ms
+    to the survivor's first new token, replayed tokens, any bf16
+    ``replay_parity_mismatch``.
+25. the Mixture-of-Experts LM: (a) a MoE LM at full width, depth 2 (one
+    dense block, one MoE block of 8 experts, top 2), f32 with TF32 off,
+    batch 2 x 256, on the card against the CPU on the same weights, one
+    backward of the runner's step objective (``TPLMTrainStep.micro_loss``,
+    CE + every MoE block's aux term): logits
+    and every gradient within 1e-4 of their largest magnitude, the loss
+    with its aux term and the aux term within rtol 1e-5, the chosen experts
+    (top 2, in order) identical, the smallest top-1/top-2 and top-2/top-3
+    probability gaps printed; three wrong variants on the card (gates not
+    renormalised, a capacity counted without k, no aux term) must each
+    fall outside; (b) the runner on ``configs/train-lm-moe.yml``
+    (``config/TransformerLM-moe.yml`` at expert-parallel degree 1: 8
+    experts on the card, d 1024, depth 16, every 2nd block MoE, bf16,
+    batch 64 as 8 micro-batches of 8, block remat, fused tails) for a
+    warm-up and 3 timed steps and one validation of 2 batches; exact
+    launch counts a step (K1a/K1b 8, K2a/K2c 8 x 32, K3/K4 8 x 16: the 8
+    dense blocks only) and a validation batch; step ms, tokens/s, peak
+    memory, MFU on the executed products (dispatch and combine included)
+    and on the active parameters; (c) with ``--profile``, one step's device
+    time by class: expert ``bmm``s, dispatch and combine ``bmm``s, routing
+    (one-hot, cumsum, scatter, top-k, softmax), the flash kernels, the head.
 
 The line before the last lists every TPU kernel (K1a ... K4) with the CUDA
 kernel that stands for it, its launches on the path that runs it (and on
@@ -1338,12 +1364,13 @@ def phase_long_kernels(torch, fa):
 
 
 def phase_runner(torch, modules, config: str, name: str, per_step: dict,
-                 per_val_batch: dict, steps: int = 6, dtype=None, edit=None):
-    """Phases 8, 11, 12 and 18: the training runner on ``config`` (its
+                 per_val_batch: dict, steps: int = 6, dtype=None, edit=None, step_flops=None):
+    """Phases 8, 11, 12, 18 and 25: the training runner on ``config`` (its
     ``training.dtype`` replaced by ``dtype`` if given, then ``edit(cfg)``'s
     cuts) for ``steps`` steps and one validation of 2 batches, with exact
     launch counts per step and per validation batch (keys missing from the
-    dicts count 0)."""
+    dicts count 0).  MFU counts ``step_flops(model, batch, seq)``, by
+    default :func:`train_step_flops`."""
     import math
 
     from functools import partial
@@ -1397,7 +1424,7 @@ def phase_runner(torch, modules, config: str, name: str, per_step: dict,
     batch, seq = cfg["training"]["batch_size"], cfg["dataset"]["seq_len"]
     med_ms = statistics.median(step_ms)
     n_params = sum(p.numel() for p in runner.model.parameters())
-    flops = train_step_flops(runner.model, batch, seq)
+    flops = (step_flops or train_step_flops)(runner.model, batch, seq)
     say(f"  {n_params / 1e6:.1f} M parameters; losses {losses}; validation {runner.val_log[0]}")
     say(f"  step ms (steps 1-{steps - 1}, host clock, synced): {step_ms}; median {med_ms}")
     say(f"  tokens/s {batch * seq / med_ms * 1e3}; model FLOP a step {flops:.4g}; "
@@ -3679,6 +3706,35 @@ def fleet_cfg(depth=None, dtype=None, temperature=None) -> dict:
     return cfg
 
 
+@contextlib.contextmanager
+def heartbeat_ages(reps, period: float = 0.02):
+    """While the block runs, the largest age in s of each replica's
+    heartbeat file, as the router reads it (its mtime against the wall
+    clock), sampled every ``period`` s by a side thread: ``{replica_id:
+    age}``."""
+    import threading
+
+    ages, stop = {}, threading.Event()
+
+    def watch():
+        while not stop.wait(period):
+            now = time.time()
+            for r in reps:
+                try:
+                    age = now - os.stat(r.heartbeat_path).st_mtime
+                except (OSError, TypeError):  # not written yet, or no heartbeat
+                    continue
+                ages[r.replica_id] = max(ages.get(r.replica_id, 0.0), age)
+
+    t = threading.Thread(target=watch, daemon=True)
+    t.start()
+    try:
+        yield ages
+    finally:
+        stop.set()
+        t.join()
+
+
 def timed_trace(submit, prompts, caps, keys, timeout: float = 600.0):
     """Every request at once; (futures, each request's [(time, token)], the
     send times).  The tokens' times are the host's, in ``on_token``."""
@@ -3910,9 +3966,11 @@ def phase_fleet(torch, np, modules, fe, smi: str):
         m.reset_launch_counts()
     calls0 = [r.scheduler.calls() for r in reps]
     ticks0 = tick_totals(reps)
+    down0 = fault.counters().get("serving_fleet_replicas_down", 0)
     t0 = time.perf_counter()
-    futs, times, sent = timed_trace(fleet.submit, prompts, caps, keys)
-    res, ttft, wall = trace_done(futs, times, sent, t0)
+    with heartbeat_ages(reps) as hb_fleet:
+        futs, times, sent = timed_trace(fleet.submit, prompts, caps, keys)
+        res, ttft, wall = trace_done(futs, times, sent, t0)
     counts = all_counts(modules)
     n_calls = sum(v - c0[k] for r, c0 in zip(reps, calls0) for k, v in r.scheduler.calls().items())
     for r, c in zip(res, caps):
@@ -3930,6 +3988,9 @@ def phase_fleet(torch, np, modules, fe, smi: str):
     readings["fleet"]["replicas"] = per
     readings["fleet"]["tick_host_ms_mean_by_replica"] = tick_ms_between(ticks0, tick_totals(reps))
     readings["fleet"]["affinity_hits"] = fault.counters().get("serving_fleet_affinity_hits", 0)
+    readings["fleet"]["heartbeat_age_max_s"] = hb_fleet
+    readings["fleet"]["replicas_down"] = (fault.counters().get("serving_fleet_replicas_down", 0)
+                                          - down0)
     same = sum(a == b for x, y in zip(fleet_tokens, one_tokens) for a, b in zip(x, y))
     readings["fleet"]["tokens_equal_one_scheduler"] = same / sum(caps)
     say(f"  (b) 32 requests through 2 replicas: launches "
@@ -3968,7 +4029,8 @@ def phase_fleet(torch, np, modules, fe, smi: str):
         m.reset_launch_counts()
     all_reps = fleet.replicas + [prefill]
     calls0 = [r.scheduler.calls() for r in all_reps]
-    res, ttft, wall = serve_trace(disagg.submit, d_prompts, d_caps, keys)
+    with heartbeat_ages(all_reps) as hb_disagg:
+        res, ttft, wall = serve_trace(disagg.submit, d_prompts, d_caps, keys)
     for r, c in zip(res, d_caps):
         if r["gen_len"] != c or r["tokens"].min() < 0 or r["tokens"].max() >= vocab:
             raise AssertionError(f"disaggregated request: gen_len {r['gen_len']} (cap {c})")
@@ -3989,9 +4051,17 @@ def phase_fleet(torch, np, modules, fe, smi: str):
         imported_blocks=sum(s.get("kv_transfer_blocks", 0)
                             for s in dsnap["replicas"].values()),
         transfer_ms=dict(n=len(xfer_ms), p50=statistics.median(xfer_ms) if xfer_ms else None,
-                         max=max(xfer_ms, default=None), sum=sum(xfer_ms)))
+                         max=max(xfer_ms, default=None), sum=sum(xfer_ms)),
+        heartbeat_age_max_s=hb_disagg, replicas_down=c.get("serving_fleet_replicas_down", 0))
     if not readings["disagg"]["imported_blocks"]:
         raise AssertionError("disaggregated: no block was imported")
+    limit = cfg["serving"]["fleet"]["heartbeat_timeout_s"]
+    for name in ("fleet", "disagg"):
+        if readings[name]["replicas_down"]:
+            raise AssertionError(
+                f"{name} reading: {readings[name]['replicas_down']} live replica(s) marked down "
+                f"(largest heartbeat ages {readings[name]['heartbeat_age_max_s']} s, limit "
+                f"{limit} s)")
     # one block's costs, on idle replicas: export (gather, copy to the
     # host, CRC) on the prefill replica, import (copy up, scatter) on a
     # decode replica that holds nothing of it
@@ -4056,6 +4126,289 @@ def phase_fleet(torch, np, modules, fe, smi: str):
 
 
 
+# --------------------------------------------------------------------- #
+# phase 25: the Mixture-of-Experts LM
+
+MOE_CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "configs",
+                          "train-lm-moe.yml")
+# phase 25 (a), card against CPU at f32, TF32 off (phase 7's limits): the
+# loss and the aux term within rtol 1e-5, the logits and every gradient
+# within 1e-4 of their largest magnitude
+MOE_LOSS_RTOL = 1e-5
+MOE_LIMIT = 1e-4
+
+
+def moe_objective(torch, model, tokens, labels) -> dict:
+    """One forward and backward of the objective the runner trains a MoE LM
+    with, :meth:`engine.tp_steps.TPLMTrainStep.micro_loss` over the whole
+    batch (mean CE + every MoE block's aux term), with the logits (the
+    head's output) and the MoE routers' logits captured."""
+    from pytorch_distributed_training_tpu_torch import optimizers
+    from pytorch_distributed_training_tpu_torch.engine.tp_steps import build_tp_lm_train_step
+
+    step = build_tp_lm_train_step(model, optimizers.SGD(lr=0.0, momentum=0.0), lambda i: 0.0)
+    step.aux = torch.zeros((), device=tokens.device)
+    routed, head = [], []
+    hooks = [b.moe.router.register_forward_hook(lambda m, a, out: routed.append(out.detach()))
+             for b in model.blocks if b.is_moe]
+    hooks.append(model.head.register_forward_hook(lambda m, a, out: head.append(out.detach())))
+    model.zero_grad(set_to_none=True)
+    try:
+        loss = step.micro_loss(tokens, labels, labels.numel())
+        loss.backward()
+    finally:
+        for h in hooks:
+            h.remove()
+    return dict(logits=head[0].cpu(), aux=step.aux.item(), loss=loss.item(),
+                routed=[r.cpu() for r in routed],
+                grads=[p.grad.detach().cpu() for p in model.parameters()])
+
+
+def moe_readings(got: dict, want: dict) -> dict:
+    return dict(logits=relative_to_largest(got["logits"], want["logits"]),
+                loss=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+                aux=abs(got["aux"] - want["aux"]) / abs(want["aux"]),
+                grad=max(relative_to_largest(g, w) for g, w in zip(got["grads"], want["grads"])))
+
+
+def moe_within(r: dict) -> bool:
+    return (r["logits"] <= MOE_LIMIT and r["grad"] <= MOE_LIMIT and r["loss"] <= MOE_LOSS_RTOL
+            and r["aux"] <= MOE_LOSS_RTOL)
+
+
+def phase_moe_vs_cpu(torch, modules, batch: int = 2, seq: int = 256, seed: int = 25) -> dict:
+    """Phase 25 (a): a MoE LM at full width (d 1024, 16 heads, vocab 32768;
+    8 experts, top 2, capacity factor 1.25, aux weight 0.01), depth 2 (block
+    0 dense with fused tails, block 1 MoE), f32 with TF32 off, batch 2 x
+    256: the card's logits, loss with aux, aux and every gradient of the
+    step's objective (:func:`moe_objective`) against the CPU's on the same
+    weights and batch, within limits that three wrong
+    variants on the card must fail (gates not renormalised over the top 2,
+    a capacity counted without k, the aux term left out); the chosen experts
+    (top 2, in order) identical, with the smallest top-1/top-2 and
+    top-2/top-3 probability gaps printed; exactly 1 K1a, 1 K1b, 2 K2a, 2
+    K2d, 2 K2e and 1 each of K3/K4 (the dense block only)."""
+    import math
+
+    from pytorch_distributed_training_tpu_torch.models import TransformerLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(vocab_size=32768, max_len=2048, embed_dim=1024, depth=2, num_heads=16,
+              fused_tails=True, flash=True, moe_experts=8, moe_top_k=2,
+              moe_capacity_factor=1.25, moe_aux_weight=0.01, moe_every=2)
+    cpu = TransformerLM(**kw)
+    cpu.reset_parameters(torch.Generator().manual_seed(seed))
+    gpu = TransformerLM(**kw)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.cuda()
+    gen = torch.Generator().manual_seed(seed + 1)
+    tokens = torch.randint(0, kw["vocab_size"], (batch, seq), generator=gen)
+    labels = torch.randint(0, kw["vocab_size"], (batch, seq), generator=gen)
+    want = moe_objective(torch, cpu, tokens, labels)
+    for m in modules:
+        m.reset_launch_counts()
+    got = moe_objective(torch, gpu, tokens.cuda(), labels.cuda())
+    counts = all_counts(modules)
+    check_launches("MoE step vs CPU", counts,
+                   dict(add_layernorm=1, bias_gelu=1, ce_fwd=1, ce_bwd=1, flash_fwd=2,
+                        flash_bwd=4, K2a=2, K2d=2, K2e=2))
+    probs = torch.softmax(want["routed"][0], -1).sort(-1, descending=True).values
+    gaps = dict(top1_top2=(probs[..., 0] - probs[..., 1]).min().item(),
+                top2_top3=(probs[..., 1] - probs[..., 2]).min().item())
+    same_experts = all(torch.equal(torch.topk(g, 2).indices, torch.topk(w, 2).indices)
+                       for g, w in zip(got["routed"], want["routed"]))
+    sound = moe_readings(got, want)
+    say(f"  card vs CPU: {sound}; loss card {got['loss']!r} cpu {want['loss']!r}, aux card "
+        f"{got['aux']!r} cpu {want['aux']!r}; chosen experts identical: {same_experts}; "
+        f"smallest probability gaps {gaps}; launches {counts}")
+    moe = gpu.block1.moe
+    cap = moe.capacity(seq)
+    route = moe.route
+
+    def raw_gates(x):
+        probs_, gate, expert, place, keep = route(x)
+        return probs_, probs_.gather(-1, expert), expert, place, keep
+
+    variants = {}
+    for name, attr, value in (
+            ("gates not renormalised", "route", raw_gates),
+            ("capacity without k", "capacity",
+             lambda s: max(1, math.ceil(moe.capacity_factor * s / moe.num_experts))),
+            ("no aux term", None, None)):
+        if attr is not None:
+            setattr(moe, attr, value)
+        else:
+            gpu.moe_aux_weight = 0.0
+        try:
+            variants[name] = moe_readings(moe_objective(torch, gpu, tokens.cuda(), labels.cuda()),
+                                          want)
+        finally:
+            if attr is not None:
+                delattr(moe, attr)
+            else:
+                gpu.moe_aux_weight = kw["moe_aux_weight"]
+        say(f"  wrong variant {name}: {variants[name]} -> "
+            f"{'within' if moe_within(variants[name]) else 'outside'}")
+    if not same_experts:
+        raise AssertionError(f"MoE routing: the card chose other experts than the CPU ({gaps})")
+    if not moe_within(sound):
+        raise AssertionError(f"MoE step: card vs CPU outside its limits: {sound}")
+    inside = [n for n, r in variants.items() if moe_within(r)]
+    if inside:
+        raise AssertionError(f"MoE step: wrong variants within the limits: {inside}")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return dict(card_vs_cpu=sound, loss_card=got["loss"], loss_cpu=want["loss"],
+                aux_card=got["aux"], aux_cpu=want["aux"], capacity=cap, gaps=gaps,
+                variants=variants, counts=counts)
+
+
+def moe_step_flops(model, batch: int, seq: int) -> dict:
+    """Model FLOP of one training step (3 x forward, the recompute not
+    counted), two ways: ``executed``, every product that runs at its shape
+    (the dense matmuls, attention's causal half, and in each MoE block the
+    dispatch and combine products over ``E x C`` places a group and the
+    experts over all of those places, empty ones too); ``active``, 2 x the
+    parameters a token meets (its top k experts, not the others) plus the
+    same attention."""
+    d, tokens = model.embed_dim, batch * seq
+    dense = sum(p.numel() for n, p in model.named_parameters()
+                if n.endswith(".weight") and p.dim() == 2)
+    attn = 2 * 2 * d * model.depth * batch * seq * (seq + 1) // 2
+    executed = active = 2 * dense * tokens + attn
+    for block in model.blocks:
+        if block.is_moe:
+            moe = block.moe
+            e, _, h = moe.wi.shape
+            places = e * moe.capacity(seq)
+            executed += batch * (2 * 2 * seq * places * d + 2 * 2 * places * d * h)
+            active += 2 * tokens * moe.top_k * 2 * d * h
+    return dict(executed=3.0 * executed, active=3.0 * active)
+
+
+# --profile: the MoE step's device time by class.  Each op's own kernels
+# (self device time), so no kernel counts twice; a bmm with the group size
+# (S) among its shapes is a dispatch or combine product (or its gradient),
+# any other bmm an expert product; an mm/addmm with the vocabulary among
+# its shapes is the head's, any other a dense layer's (attention, the dense
+# blocks' MLPs, the routers)
+MOE_ROUTING_OPS = ("aten::cumsum", "aten::one_hot", "aten::scatter", "aten::scatter_",
+                   "aten::topk", "aten::_softmax", "aten::_softmax_backward_data",
+                   "aten::gather", "aten::sort", "aten::value_selecting_reduction_backward")
+
+
+def profile_moe_step(torch, runner, seq: int) -> dict:
+    """``--profile``: one MoE training step after a warm one, its device time
+    in the classes of phase 25 (c) and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def self_us(e):
+        return next((getattr(e, n) for n in ("self_device_time_total", "self_cuda_time_total")
+                     if getattr(e, n, None)), 0)
+
+    inp, lab = next(iter(runner.train_loader))
+    tokens, labels = runner._to_device(inp, lab)
+    runner.train_step(tokens, labels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        runner.train_step(tokens, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and self_us(e) > 0]
+    busy_ms = sum(self_us(e) for e in kernels) / 1e3
+    vocab = runner.model.vocab_size
+    classes = {"expert bmms": 0.0, "dispatch and combine bmms": 0.0,
+               "routing (one-hot, cumsum, scatter, top-k, softmax)": 0.0,
+               "attention (flash kernels)": 0.0, "head (vocab GEMMs, CE kernels)": 0.0,
+               "dense GEMMs (qkv, proj, fc1, fc2, routers)": 0.0,
+               "copies and casts (aten::copy_)": 0.0}
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.device_type != DeviceType.CPU or not self_us(e):
+            continue
+        dims = {n for shape in (e.input_shapes or []) for n in (shape or [])}
+        ms = self_us(e) / 1e3
+        if e.key == "aten::bmm":
+            classes["dispatch and combine bmms" if seq in dims else "expert bmms"] += ms
+        elif e.key in MOE_ROUTING_OPS:
+            classes["routing (one-hot, cumsum, scatter, top-k, softmax)"] += ms
+        elif e.key in ("aten::mm", "aten::addmm"):
+            classes["head (vocab GEMMs, CE kernels)" if vocab in dims
+                    else "dense GEMMs (qkv, proj, fc1, fc2, routers)"] += ms
+        elif e.key == "aten::copy_":
+            classes["copies and casts (aten::copy_)"] += ms
+    for e in kernels:
+        if "flash" in e.key:
+            classes["attention (flash kernels)"] += self_us(e) / 1e3
+        elif e.key.startswith("ce_"):
+            classes["head (vocab GEMMs, CE kernels)"] += self_us(e) / 1e3
+    classes["the rest"] = busy_ms - sum(classes.values())
+    say(f"  profile MoE train step: wall {wall_ms} ms, device kernel time {busy_ms} ms, busy "
+        f"share {busy_ms / wall_ms}, kernel launches {sum(e.count for e in kernels)}")
+    for name, ms in classes.items():
+        say(f"    {ms:9.3f} ms  {ms / busy_ms:.4f}  {name}")
+    for e in sorted(kernels, key=lambda e: -self_us(e))[:15]:
+        say(f"    {self_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
+    return dict(wall_ms=wall_ms, device_ms=busy_ms, busy=busy_ms / wall_ms, classes_ms=classes)
+
+
+def phase_moe(torch, modules, profile: bool) -> dict:
+    """Phase 25: (a) :func:`phase_moe_vs_cpu`; (b) the runner on
+    ``configs/train-lm-moe.yml`` (full width, 8 experts, bf16, batch 64 as
+    8 micro-batches of 8, block remat) for 1 warm-up and 3 timed steps and
+    one validation of 2 batches: per step exactly 8 K1a and 8 K1b, 8 x 2 x
+    16 K2a and K2c launches (every block's forward run again by the
+    recompute), 8 x 2 x 8 each of K3/K4 (the dense blocks only); per
+    validation batch 1 K1a, 16 K2a and 8 each of K3/K4; step ms, tokens/s,
+    MFU on both FLOP counts of :func:`moe_step_flops`, peak memory, the aux
+    term (matmul TF32 off, torch's default, as in (a): the f32 head and
+    router run as FP32 GEMMs); (c) with ``profile``,
+    :func:`profile_moe_step`.  Returns the runner's launch counts."""
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
+
+    t_phase = time.perf_counter()
+    gate = phase_moe_vs_cpu(torch, modules)
+    cfg = get_cfg(MOE_CONFIG)
+    depth, n = cfg["model"]["depth"], cfg["training"]["grad_accumulation"]
+    every = cfg["model"]["moe_every"]
+    dense = sum(1 for i in range(depth) if i % every != every - 1)
+    batch, seq = cfg["training"]["batch_size"], cfg["dataset"]["seq_len"]
+    runner, counts, run = phase_runner(
+        torch, modules, MOE_CONFIG, "train-lm-moe", steps=4,
+        step_flops=lambda model, b, s: moe_step_flops(model, b, s)["executed"],
+        per_step=dict(ce_fwd=n, ce_bwd=n, flash_fwd=n * 2 * depth, flash_bwd=n * 2 * depth,
+                      K2a=n * 2 * depth, K2c=n * 2 * depth, add_layernorm=n * 2 * dense,
+                      bias_gelu=n * 2 * dense),
+        per_val_batch=dict(ce_fwd=1, flash_fwd=depth, K2a=depth, add_layernorm=dense,
+                           bias_gelu=dense))
+    if runner.path != "gspmd" or runner.train_step.grad_accum != n or not runner.model.remat:
+        raise AssertionError("phase 25 did not run the accumulated MoE step with block remat")
+    flops = moe_step_flops(runner.model, batch, seq)
+    step_s = run["median_step_ms"] / 1e3
+    run.update(aux=float(runner.train_step.aux), dense_blocks=dense, moe_blocks=depth - dense,
+               model_flop_executed=flops["executed"], model_flop_active=flops["active"],
+               mfu_executed=flops["executed"] / step_s / BF16_FLOPS,
+               mfu_active=flops["active"] / step_s / BF16_FLOPS)
+    say(f"  {run['moe_blocks']} MoE blocks of {depth}, {n} micro-batches of {batch // n} x "
+        f"{seq}: aux objective {run['aux']} of loss {run['losses'][-1]}; model FLOP a step "
+        f"executed {flops['executed']:.4g} (MFU {run['mfu_executed']}), active "
+        f"{flops['active']:.4g} (MFU {run['mfu_active']}) at 989 TFLOP/s")
+    numbers = dict(gate=gate, runner=run)
+    if profile:
+        say("== profile (MoE train step)")
+        numbers["profile"] = profile_moe_step(torch, runner, seq)
+    del runner
+    torch.cuda.empty_cache()
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 25 took {numbers['phase_s']:.1f} s")
+    say("moe: " + json.dumps(numbers))
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true")
@@ -4071,6 +4424,8 @@ def main(argv=None) -> int:
                         help="phases 1, 2, 17, 22 and 23 only (no result line)")
     parser.add_argument("--fleet", action="store_true",
                         help="phases 1, 2 and 24 only (no result line)")
+    parser.add_argument("--moe", action="store_true",
+                        help="phases 1, 2 and 25 only (no result line)")
     args = parser.parse_args(argv)
 
     import torch
@@ -4140,6 +4495,14 @@ def main(argv=None) -> int:
     if args.fleet:
         phase("phase 24: the fleet tier (router, failover, disaggregation), full width")
         phase_fleet(torch, np, modules, fe, smi)
+        phase(None)
+        say(f"total {time.perf_counter() - t_start:.1f} s")
+        say(smi)
+        return 0
+
+    if args.moe:
+        phase("phase 25: the Mixture-of-Experts LM (expert-parallel degree 1), full width")
+        phase_moe(torch, modules, args.profile)
         phase(None)
         say(f"total {time.perf_counter() - t_start:.1f} s")
         say(smi)
@@ -4245,6 +4608,8 @@ def main(argv=None) -> int:
     paths.update(phase_vit_and_serving(torch, modules, tf32_defaults, smi, args.profile))
     phase("phase 24: the fleet tier (router, failover, disaggregation), full width")
     paths["fleet"] = by_tpu_kernel(phase_fleet(torch, np, modules, fe, smi))
+    phase("phase 25: the Mixture-of-Experts LM (expert-parallel degree 1), full width")
+    paths["moe"] = by_tpu_kernel(phase_moe(torch, modules, args.profile))
 
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "ffma_bound_ms")

@@ -41,7 +41,14 @@ path, every other name (the ResNets and the ViTs) on the image path (JAX
 - the optimizer and LR schedule from ``training.optimizer`` /
   ``training.lr_schedule``;
 - the train and eval steps of :mod:`.sp_steps` (LM) or :mod:`.steps`
-  (image), on the image path with the weight EMA of ``training.ema.decay``
+  (image); a MoE LM (``model.moe_experts`` > 0) takes the GSPMD path's
+  step, :mod:`.tp_steps` (JAX ``engine/paths.py:290-310``: CE plus every
+  MoE block's aux term, validation pure CE), at tensor (= expert)
+  parallelism 1, after the JAX package's MoE layout checks and its
+  refusal of the anomaly guard and ``comm.overlap`` on that path
+  (:func:`.topology.check_moe`, :func:`.topology.check_gspmd_path`); the
+  CPU tests are ``tests/test_torch_moe.py``, the card's run
+  ``python3 chip_smoke.py --moe``; on the image path with the weight EMA of ``training.ema.decay``
   (in (0, 1); the LM path refuses it, as JAX ``engine/topology.py:347-352``
   does), validation then running on the EMA weights with the raw
   BatchNorm running statistics (JAX ``runner.py:1257-1262``);
@@ -93,7 +100,8 @@ per local card (or one on the CPU) per node, as the reference does.
 
 Not ported yet: every config key asking for one raises
 ``NotImplementedError`` naming its ROADMAP item (:data:`UNPORTED_TRAINING_KEYS`):
-sequence/tensor/pipeline/expert parallelism, ZeRO and ``comm`` (P9),
+sequence/tensor/pipeline/expert parallelism (MoE itself is ported, at
+expert-parallel degree 1), ZeRO and ``comm`` (P9),
 telemetry, integrity, elastic recovery and the checkpoint keys of
 :data:`.checkpoint.UNPORTED_CHECKPOINT_KEYS` (P10).
 TensorBoard is absent (P10): the log file and the console carry the
@@ -137,7 +145,8 @@ from .checkpoint import Checkpointer, capture_training_state, restore_training_s
 from .preemption import PreemptionGuard
 from .sp_steps import build_lm_eval_step, build_lm_train_step
 from .steps import build_eval_step, build_eval_step_exact, build_train_step
-from .topology import parse_fault_tolerance, parse_model
+from .topology import check_gspmd_path, parse_fault_tolerance, parse_model
+from .tp_steps import build_tp_lm_train_step
 from .watchdog import StepWatchdog
 
 __all__ = ["Runner", "UNPORTED_TRAINING_KEYS", "apply_remat_alias"]
@@ -161,9 +170,11 @@ UNPORTED_TRAINING_KEYS = {
 PREFETCH_DEPTH = 2
 
 
-def _reject_unported(train_cfg: Dict[str, Any]) -> None:
+def _reject_unported(train_cfg: Dict[str, Any], gspmd: bool = False) -> None:
     for key, why in UNPORTED_TRAINING_KEYS.items():
         val = train_cfg.get(key)
+        if key == "comm" and gspmd:
+            continue  # the GSPMD path refuses comm.overlap with the JAX message
         if key.endswith("parallelism"):
             wanted = val is not None and int(val) > 1
         elif key == "comm":
@@ -299,7 +310,9 @@ class Runner:
                          self.world_size, self.current_rank, self.device, where)
         cfg = self.global_cfg
         train_cfg = cfg["training"]
-        _reject_unported(train_cfg)
+        model_cfg = parse_model(self, cfg)
+        model_name = self.model_name
+        _reject_unported(train_cfg, gspmd=self.is_moe)
         parse_fault_tolerance(self, train_cfg)
         self.grad_accum = int(train_cfg.get("grad_accumulation", 1))
         if self.grad_accum < 1:
@@ -315,8 +328,10 @@ class Runner:
         if not 0.0 <= self.label_smoothing < 1.0:
             raise ValueError(f"label_smoothing must be in [0, 1), got {self.label_smoothing}")
 
-        model_cfg = parse_model(self, cfg)
-        model_name = self.model_name
+        # JAX engine/paths.py:290-310: a MoE LM takes the GSPMD path
+        self.path = "gspmd" if self.is_moe else "ring-sp" if self.is_lm else "image-dp"
+        if self.path == "gspmd":
+            check_gspmd_path(self, train_cfg)
         apply_remat_alias(train_cfg, model_cfg, model_name)
         # JAX engine/topology.py:347-352
         ema_cfg = train_cfg.get("ema")
@@ -372,14 +387,20 @@ class Runner:
                         if self.device.type == "cuda" else None)
         self.exact_eval = bool(cfg.get("validation", {}).get("exact", False))
         anomaly_factor = self.anomaly_factor if self.anomaly_enabled else None
+        if self.is_lm and self.exact_eval:
+            self.logger.warning("validation.exact applies to the image eval path; LM "
+                                "validation keeps the per-batch meter semantics")
         if self.is_lm:
-            if self.exact_eval:
-                self.logger.warning("validation.exact applies to the image eval path; LM "
-                                    "validation keeps the per-batch meter semantics")
-            self.train_step = build_lm_train_step(
-                self.model, self.optimizer, self.scheduler.lr_fn, world_size=self.world_size,
-                grad_accum=self.grad_accum, label_smoothing=self.label_smoothing,
-                anomaly_factor=anomaly_factor)
+            if self.path == "gspmd":
+                self.train_step = build_tp_lm_train_step(
+                    self.model, self.optimizer, self.scheduler.lr_fn,
+                    world_size=self.world_size, grad_accum=self.grad_accum,
+                    label_smoothing=self.label_smoothing)
+            else:
+                self.train_step = build_lm_train_step(
+                    self.model, self.optimizer, self.scheduler.lr_fn,
+                    world_size=self.world_size, grad_accum=self.grad_accum,
+                    label_smoothing=self.label_smoothing, anomaly_factor=anomaly_factor)
             self.eval_step = build_lm_eval_step(self.model, world_size=self.world_size)
         else:
             self.train_step = build_train_step(
@@ -626,10 +647,13 @@ class Runner:
         if self.pretrained:
             self._apply_pretrained_lm()
         self.model.to(self.device).train()
-        self.logger.info("Model %s: %.1f M parameters, compute %s, flash attention on%s",
-                         model_name, sum(p.numel() for p in self.model.parameters()) / 1e6,
+        m = self.model
+        moe = (f", MoE in {sum(b.is_moe for b in m.blocks)} of {m.depth} blocks "
+               f"({m.moe_experts} experts, {self.path} path)" if self.is_moe else "")
+        self.logger.info("Model %s: %.1f M parameters, compute %s, flash attention on%s%s",
+                         model_name, sum(p.numel() for p in m.parameters()) / 1e6,
                          str(self.compute_dtype).replace("torch.", ""),
-                         f", remat ({self.model.remat_policy})" if self.model.remat else "")
+                         f", remat ({m.remat_policy})" if m.remat else "", moe)
 
     def _build_image_model(self, model_name: str, model_cfg: dict, image_size: int) -> None:
         from ..models import ViT

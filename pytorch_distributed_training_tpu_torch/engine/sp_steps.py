@@ -125,6 +125,12 @@ class LMTrainStep:
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.opt_state = optimizer.init(self.params)
 
+    def micro_loss(self, tokens, labels, global_tokens: int):
+        """One micro-batch's partial objective (:func:`lm_loss_local`); its
+        logits are freed before the caller's backward."""
+        logits = self.model(tokens)
+        return lm_loss_local(logits, labels, global_tokens, self.label_smoothing)
+
     def __call__(self, tokens, labels, gnorm_ref: Optional[float] = None):
         b_local, s_len = tokens.shape
         global_tokens = b_local * s_len * self.world_size
@@ -132,9 +138,7 @@ class LMTrainStep:
             p.grad = None
         loss = None
         for sl in micro_slices(b_local, self.grad_accum, "per-shard"):
-            logits = self.model(tokens[sl])
-            part = lm_loss_local(logits, labels[sl], global_tokens, self.label_smoothing)
-            del logits
+            part = self.micro_loss(tokens[sl], labels[sl], global_tokens)
             part.backward()
             loss = part.detach() if loss is None else loss + part.detach()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]

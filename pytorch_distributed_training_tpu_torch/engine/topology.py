@@ -1,23 +1,65 @@
 """The ``model:`` section and ``training.fault_tolerance`` parsed onto the
 runner (port of ``parse_topology``'s model keys, JAX
-``engine/topology.py:55-90``, and of ``parse_fault_tolerance``,
-``:436-544``; the rest of that module is the parallelism layout, ROADMAP
-port item P9)."""
+``engine/topology.py:55-90``, its MoE checks, ``:142-153`` and
+``:273-282``, and of ``parse_fault_tolerance``, ``:436-544``; the rest of
+that module is the parallelism layout, ROADMAP port item P9), and the
+refusals of the GSPMD path that MoE models take (JAX
+``engine/paths.py:48-73``, ``:156-157``)."""
 from __future__ import annotations
+
+import inspect
 
 import torch
 
-from ..models import is_resnet
+from ..models import TransformerLM, is_resnet
 from .fault import FaultInjector
 
-__all__ = ["parse_fault_tolerance", "parse_model"]
+__all__ = ["check_gspmd_path", "check_moe", "parse_fault_tolerance", "parse_model"]
+
+_LM_DEFAULTS = {k: v.default for k, v in inspect.signature(TransformerLM).parameters.items()}
+
+
+def check_moe(cfg: dict) -> bool:
+    """Whether the config asks for a MoE LM, after the JAX package's checks
+    of its layout, with its messages: no pipeline, experts that
+    ``training.tensor_parallelism`` divides, and ``model.moe_every`` in
+    ``[1, depth]`` (the constructor's defaults where a key is unset)."""
+    model_cfg, train_cfg = cfg["model"], cfg.get("training") or {}
+    experts = int(model_cfg.get("moe_experts", 0) or 0)
+    if model_cfg["name"].lower() != "transformerlm" or experts <= 0:
+        return False
+    if int(train_cfg.get("pipeline_parallelism", 1)) > 1:
+        raise ValueError("model.moe_experts does not compose with pipeline_parallelism")
+    tensor_par = int(train_cfg.get("tensor_parallelism", 1))
+    if experts % tensor_par != 0:
+        raise ValueError(f"model.moe_experts ({experts}) must be divisible by "
+                         f"training.tensor_parallelism ({tensor_par}) for an even expert split")
+    every = int(model_cfg.get("moe_every", _LM_DEFAULTS["moe_every"]))
+    depth = int(model_cfg.get("depth", _LM_DEFAULTS["depth"]))
+    if not 1 <= every <= depth:
+        raise ValueError(f"model.moe_every ({every}) must be in [1, depth={depth}] "
+                         "(moe_every > depth would make no block MoE)")
+    return True
+
+
+def check_gspmd_path(r, train_cfg: dict) -> None:
+    """What the GSPMD path refuses (JAX ``paths.py:156-157``), with the JAX
+    messages: the anomaly guard and ``training.comm.overlap``."""
+    if getattr(r, "anomaly_enabled", False):
+        raise ValueError("training.fault_tolerance.anomaly is not wired for the gspmd execution "
+                         "path (supported: image-dp, ring-sp)")
+    if bool((train_cfg.get("comm") or {}).get("overlap", False)):
+        raise ValueError("training.comm.overlap is not wired for the gspmd execution path "
+                         "(supported: image-dp, ring-sp, and ring-sp with zero stage 1) — the "
+                         "GSPMD partitioner schedules its own communication overlap there")
 
 _BN_STAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def parse_model(r, cfg: dict) -> dict:
-    """Set ``model_name``, ``pretrained``, ``is_lm`` and ``is_moe`` on ``r``
-    from ``cfg["model"]`` and return the keys left for the constructor.
+    """Set ``model_name``, ``pretrained``, ``is_lm`` and ``is_moe`` (by
+    :func:`check_moe`, with its checks) on ``r`` from ``cfg["model"]`` and
+    return the keys left for the constructor.
 
     As JAX ``topology.py:55-90``: the LM path is ``model.name:
     TransformerLM`` and nothing else; ``pretrained`` is popped (a path to a
@@ -32,7 +74,7 @@ def parse_model(r, cfg: dict) -> dict:
     r.model_name = model_name
     r.pretrained = model_cfg.pop("pretrained", None)
     r.is_lm = model_name.lower() == "transformerlm"
-    r.is_moe = r.is_lm and int(model_cfg.get("moe_experts", 0) or 0) > 0
+    r.is_moe = check_moe(cfg)
     if r.pretrained and r.is_moe:
         # the torch-twin LM layout has no expert tensors
         raise ValueError("model.pretrained does not support MoE models "

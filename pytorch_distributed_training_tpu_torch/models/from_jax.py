@@ -6,7 +6,11 @@ JAX needed here) and maps it:
 
 - ``tok_embedding`` and ``pos_embedding`` as they are;
 - ``.../{ln1,ln2,ln}/scale`` -> ``weight``, ``bias`` -> ``bias``;
-- every ``kernel`` ``[in, out]`` -> a ``weight`` ``[out, in]``.
+- every ``kernel`` ``[in, out]`` -> a ``weight`` ``[out, in]``, the MoE
+  router's (``block{i}/moe/router/kernel``) too;
+- a MoE block's stacked experts ``block{i}/moe/{wi,bi,wo,bo}`` as they
+  are: the port keeps the JAX layout (``wi [E, d, h]``, ``wo [E, h, d]``),
+  which its batched products take without a transpose.
 
 The qkv kernel keeps its column order, heads-major ``(H, 3, hd)``: the
 port's attention factors the output the same way, so no permutation is
@@ -16,7 +20,8 @@ map as they are: their einsum layout is the JAX one.
 
 The conversion is strict.  The expected leaves and their shapes follow from
 the tree's own dimensions (vocabulary and width from ``tok_embedding``,
-depth from the ``block{i}`` count, MLP width from ``block0``'s fc1); a
+depth from the ``block{i}`` count, MLP width from ``block0``'s fc1 or
+experts, the expert count from each MoE block's router); a
 missing leaf, an extra leaf or a wrong shape raises ``ValueError``.
 
 :func:`resnet_state_dict_from_jax` does the same for a JAX ``ResNet``'s
@@ -62,12 +67,18 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def _expected_shapes(leaves: Dict[str, np.ndarray]) -> Dict[str, tuple]:
-    for name in ("tok_embedding", "pos_embedding", "block0/mlp/fc1/kernel"):
+    for name in ("tok_embedding", "pos_embedding"):
         if name not in leaves:
             raise ValueError(f"JAX params: missing leaf {name!r}")
     vocab, dim = leaves["tok_embedding"].shape
     max_len = leaves["pos_embedding"].shape[0]
-    hidden = leaves["block0/mlp/fc1/kernel"].shape[1]
+    # the MLP width from block0's fc1, or its experts' wi when every block routes
+    if "block0/mlp/fc1/kernel" in leaves:
+        hidden = leaves["block0/mlp/fc1/kernel"].shape[1]
+    elif "block0/moe/wi" in leaves:
+        hidden = leaves["block0/moe/wi"].shape[2]
+    else:
+        raise ValueError("JAX params: missing leaf 'block0/mlp/fc1/kernel'")
     depth = len({p.split("/")[0] for p in leaves if p.startswith("block")})
     shapes = {
         "tok_embedding": (vocab, dim),
@@ -80,10 +91,17 @@ def _expected_shapes(leaves: Dict[str, np.ndarray]) -> Dict[str, tuple]:
         for ln in ("ln1", "ln2"):
             shapes[f"{b}/{ln}/scale"] = (dim,)
             shapes[f"{b}/{ln}/bias"] = (dim,)
-        for name, fan_in, fan_out in (
-            ("attn/qkv", dim, 3 * dim), ("attn/proj", dim, dim),
-            ("mlp/fc1", dim, hidden), ("mlp/fc2", hidden, dim),
-        ):
+        router = leaves.get(f"{b}/moe/router/kernel")
+        if router is not None:
+            experts = router.shape[-1]
+            dense = (("attn/qkv", dim, 3 * dim), ("attn/proj", dim, dim),
+                     ("moe/router", dim, experts))
+            shapes.update({f"{b}/moe/wi": (experts, dim, hidden), f"{b}/moe/bi": (experts, hidden),
+                           f"{b}/moe/wo": (experts, hidden, dim), f"{b}/moe/bo": (experts, dim)})
+        else:
+            dense = (("attn/qkv", dim, 3 * dim), ("attn/proj", dim, dim),
+                     ("mlp/fc1", dim, hidden), ("mlp/fc2", hidden, dim))
+        for name, fan_in, fan_out in dense:
             shapes[f"{b}/{name}/kernel"] = (fan_in, fan_out)
             shapes[f"{b}/{name}/bias"] = (fan_out,)
     lora = leaves.get("block0/attn/qkv_lora_a")

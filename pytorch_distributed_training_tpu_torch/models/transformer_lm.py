@@ -58,8 +58,23 @@ a call's ``adapter_ids`` [B] picks each row's adapter (-1: the base
 model).  The base parameters are unchanged, so plain checkpoints still
 load.  :meth:`TransformerLM.clone` is flax's ``model.clone(**overrides)``.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-MoE blocks and ``seq_axis`` (P9).
+``moe_experts`` > 0 makes every ``moe_every``-th block (the first at
+block ``moe_every - 1``) a Mixture-of-Experts block (JAX ``:69-72``,
+``:115``, ``:169-173``, ``:281-296``): its MLP is :class:`..ops.moe.MoEMLP`
+(top-``moe_top_k`` routing, ``moe_capacity_factor``, stacked experts) and
+its ln2 stays plain; the dense blocks keep the fused tails.  A MoE block
+returns its aux statistics beside the stream, an output that crosses
+``torch.utils.checkpoint`` (so block remat and the ``dots`` policies keep
+it; the expert products are ``bmm``s, recomputed under ``dots`` and kept
+under ``dots_saveable``); ``forward(tokens, moe_stats=True)`` returns
+``(logits, stats)`` and :meth:`TransformerLM.moe_aux` forms the weighted
+aux objective.  Serving refuses a MoE model with the JAX message, "decode
+mode does not support MoE blocks yet" (``:216-217``): a KV cache, a paged
+pool, or a call with either.  The CPU tests are
+``tests/test_torch_moe.py``; on the card ``python3 chip_smoke.py --moe``.
+
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
+``seq_axis`` (P9).
 """
 from __future__ import annotations
 
@@ -74,6 +89,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from ..ops.attention import KVCache, MultiHeadAttention, PagedKVCache
 from ..ops.fused_elementwise import FusedResidualLayerNorm
 from ..ops.layers import Dense, LayerNorm
+from ..ops.moe import MoEMLP, moe_aux
 from .vit import MLP
 
 __all__ = ["DecoderBlock", "SAVED_OPS", "TransformerLM"]
@@ -90,18 +106,31 @@ SAVED_OPS = {
 
 
 class DecoderBlock(nn.Module):
+    """A pre-LN block; with ``moe_experts`` > 0 its MLP is a routed
+    :class:`..ops.moe.MoEMLP` and ``forward`` returns ``(x, stats)``, the
+    layer's aux statistics as an output of their own (so they cross
+    ``torch.utils.checkpoint`` like any activation)."""
+
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, dtype=torch.float32,
                  fused_tails: bool = False, flash: bool = False, lora_rank: int = 0,
-                 lora_adapters: int = 0):
+                 lora_adapters: int = 0, moe_experts: int = 0, moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.25):
         super().__init__()
-        self.fused_tails = fused_tails
+        self.is_moe = moe_experts > 0
+        # JAX :115: a MoE block keeps its ln2 plain (its MLP has no fc1 tail)
+        self.fused_tails = fused_tails and not self.is_moe
         self.ln1 = LayerNorm(dim, dtype)
         self.attn = MultiHeadAttention(dim, num_heads, causal=True, dtype=dtype, flash=flash,
                                        lora_rank=lora_rank, lora_adapters=lora_adapters)
         # ln1 has no add before it, and the block's last add feeds the next
         # block's ln1, so add+ln2 is the pair one kernel can fuse
-        self.ln2 = (FusedResidualLayerNorm if fused_tails else LayerNorm)(dim, dtype)
-        self.mlp = MLP(dim, int(dim * mlp_ratio), dim, dtype, fused_tails)
+        self.ln2 = (FusedResidualLayerNorm if self.fused_tails else LayerNorm)(dim, dtype)
+        hidden = int(dim * mlp_ratio)
+        if self.is_moe:
+            self.moe = MoEMLP(dim, moe_experts, moe_top_k, moe_capacity_factor, hidden, dim,
+                              dtype)
+        else:
+            self.mlp = MLP(dim, hidden, dim, dtype, fused_tails)
 
     def forward(self, x, cache=None, layer: int = 0, decode_pos=None, block_tables=None,
                 adapter_ids=None):
@@ -111,6 +140,9 @@ class DecoderBlock(nn.Module):
         else:
             x = x + attn_out
             y = self.ln2(x)
+        if self.is_moe:
+            out, stats = self.moe(y)
+            return x + out, stats
         return x + self.mlp(y)
 
 
@@ -132,6 +164,10 @@ class TransformerLM(nn.Module):
         remat: bool = False,
         remat_policy: str = "nothing",
         moe_experts: int = 0,
+        moe_top_k: int = 2,
+        moe_capacity_factor: float = 1.25,
+        moe_aux_weight: float = 0.01,
+        moe_every: int = 2,
         paged: bool = False,
         lora_rank: int = 0,
         lora_adapters: int = 0,
@@ -139,8 +175,8 @@ class TransformerLM(nn.Module):
         super().__init__()
         # the arguments, for clone()
         self._config = {k: v for k, v in locals().items() if k not in ("self", "__class__")}
-        if moe_experts > 0:
-            raise NotImplementedError("MoE blocks are ROADMAP port item P9")
+        if moe_experts > 0 and moe_every < 1:
+            raise ValueError(f"moe_every must be >= 1, got {moe_every}")
         if seq_axis is not None:
             raise NotImplementedError(
                 "seq_axis (ring/Ulysses sequence parallelism) is ROADMAP port item P9"
@@ -159,15 +195,21 @@ class TransformerLM(nn.Module):
         self.flash = flash
         self.lora_rank = int(lora_rank)
         self.lora_adapters = int(lora_adapters) if lora_rank > 0 else 0
+        self.moe_experts, self.moe_every = int(moe_experts), int(moe_every)
+        self.moe_aux_weight = float(moe_aux_weight)
         # `paged` is the JAX flag, taken for its signature: a PagedKVCache
         # passed to a call selects the mode, and carries the pool's size
         self.tok_embedding = nn.Parameter(torch.empty(vocab_size, embed_dim))
         self.pos_embedding = nn.Parameter(torch.empty(max_len, embed_dim))
         for i in range(depth):
+            # JAX :281-296: every moe_every-th block routes, the first at
+            # block moe_every - 1
+            is_moe = moe_experts > 0 and i % moe_every == moe_every - 1
             self.add_module(
                 f"block{i}",
                 DecoderBlock(embed_dim, num_heads, mlp_ratio, dtype, fused_tails, flash,
-                             lora_rank, lora_adapters),
+                             lora_rank, lora_adapters, moe_experts if is_moe else 0,
+                             moe_top_k, moe_capacity_factor),
             )
         self.ln = LayerNorm(embed_dim, dtype)
         self.head = Dense(embed_dim, vocab_size, torch.float32)
@@ -225,8 +267,20 @@ class TransformerLM(nn.Module):
                     module.bias.data = module.bias.data.to(module.dtype)
         return self
 
+    def _refuse_decode(self) -> None:
+        # JAX :216-217: serving (the batcher's cache, the paged pool) is dense
+        if self.moe_experts > 0:
+            raise ValueError("decode mode does not support MoE blocks yet")
+
+    def moe_aux(self, stats, n_tokens: int):
+        """The aux objective: every MoE block's weighted term
+        (:func:`..ops.moe.moe_aux`) from its ``stats`` over ``n_tokens``
+        tokens, summed; 0 for a dense model."""
+        return sum(moe_aux(st, n_tokens, self.moe_aux_weight, self.moe_experts) for st in stats)
+
     def new_cache(self, batch: int, device=None) -> KVCache:
         """A zeroed KV cache of capacity ``max_len`` for ``batch`` rows."""
+        self._refuse_decode()
         device = self.tok_embedding.device if device is None else device
         return KVCache.zeros(
             self.depth, batch, self.max_len, self.num_heads,
@@ -236,15 +290,20 @@ class TransformerLM(nn.Module):
     def new_pool(self, num_blocks: int, block_size: int, device=None) -> PagedKVCache:
         """A zeroed paged pool of ``num_blocks`` blocks of ``block_size``
         rows a layer, in the compute dtype."""
+        self._refuse_decode()
         device = self.tok_embedding.device if device is None else device
         return PagedKVCache.zeros(
             self.depth, num_blocks, block_size, self.num_heads,
             self.embed_dim // self.num_heads, self.dtype, device,
         )
 
-    def trunk(self, tokens, cache=None, decode_pos=None, block_tables=None, adapter_ids=None):
+    def trunk(self, tokens, cache=None, decode_pos=None, block_tables=None, adapter_ids=None,
+              moe_stats: bool = False):
         """Embeddings and blocks: the residual stream ``[B, S, E]`` before
-        the final LayerNorm and head."""
+        the final LayerNorm and head; with ``moe_stats`` also the list of
+        the MoE blocks' aux statistics, in block order."""
+        if cache is not None:
+            self._refuse_decode()
         if adapter_ids is not None and self.lora_rank <= 0:
             raise ValueError("adapter_ids given but the model has no LoRA factors "
                              "(clone with lora_rank/lora_adapters set)")
@@ -269,6 +328,7 @@ class TransformerLM(nn.Module):
             pe = self.pos_embedding[:s][None]
         x = x + pe.to(self.dtype)
         recompute = self.remat and cache is None and torch.is_grad_enabled()
+        stats = []
         for i, block in enumerate(self.blocks):
             if recompute and self._remat_context is not None:
                 x = checkpoint(block, x, use_reentrant=False, context_fn=self._remat_context)
@@ -276,12 +336,21 @@ class TransformerLM(nn.Module):
                 x = checkpoint(block, x, use_reentrant=False)
             else:
                 x = block(x, cache, i, decode_pos, block_tables, adapter_ids)
-        return x
+            if block.is_moe:
+                x, st = x
+                stats.append(st)
+        return (x, stats) if moe_stats else x
 
     def logits(self, x):
         """Final LayerNorm and the f32 head over stream rows ``x``."""
         return self.head(self.ln(x))
 
-    def forward(self, tokens, cache=None, decode_pos=None, block_tables=None, adapter_ids=None):
+    def forward(self, tokens, cache=None, decode_pos=None, block_tables=None, adapter_ids=None,
+                moe_stats: bool = False):
+        """Logits ``[B, S, V]`` (with a cache: ``(logits, cache)``; with
+        ``moe_stats``: ``(logits, stats)``, see :meth:`trunk`)."""
+        if moe_stats:
+            x, stats = self.trunk(tokens, moe_stats=True)
+            return self.logits(x), stats
         logits = self.logits(self.trunk(tokens, cache, decode_pos, block_tables, adapter_ids))
         return logits if cache is None else (logits, cache)

@@ -22,10 +22,12 @@ from torch import nn
 __all__ = ["Dense", "LayerNorm", "lecun_normal_", "layer_norm"]
 
 
-def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator] = None):
+def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator] = None,
+                  fan_in: Optional[int] = None):
     """flax ``lecun_normal`` for a torch ``[out, in]`` weight (or a conv's
     ``[out, in, kh, kw]``, fan-in ``in * kh * kw``): a normal truncated at
-    two standard deviations, scaled to variance ``1/fan_in``.
+    two standard deviations, scaled to variance ``1/fan_in``.  ``fan_in``
+    overrides the count for other layouts.
 
     Rejection sampling (redraw what falls outside, about 4.6% a round) gives
     the same distribution as an inverse-CDF draw at a fraction of its cost
@@ -33,7 +35,7 @@ def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator] = N
     """
     if weight.is_meta:  # a template built on the meta device: nothing to draw
         return weight
-    fan_in = weight[0].numel()
+    fan_in = weight[0].numel() if fan_in is None else fan_in
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     with torch.no_grad():
         weight.normal_(0.0, 1.0, generator=generator)

@@ -73,8 +73,10 @@ The fleet hooks (JAX ``:167-219``, ``:430-493``, ``:592-730``,
 - ``replica_id`` names the replica's process-registry counters
   (``serving_r<id>_*``, :meth:`.metrics.ServingMetrics.global_name`);
 - ``heartbeat_path``: the scheduler thread itself rewrites this file at
-  most every ``heartbeat_interval_s`` (each tick, and while idle), never a
-  side thread, so a wedged scheduler goes stale to an outside reader;
+  most every ``heartbeat_interval_s`` (at each phase of a tick, before
+  each block of a forward, after each kv-transfer verb, and while idle),
+  never a side thread, so a wedged scheduler goes stale to an outside
+  reader while a slow tick that makes progress does not;
 - ``liveness_timeout_s``: ``health()`` reports ``stalled`` (and not
   ``live``) when the thread has had work and made no progress that long;
 - ``submit(replay_tokens=..., key=...)`` admits a request with its
@@ -119,6 +121,27 @@ from .resilience import HungTickError, PoisonedRequestError, ServingSupervisor
 from .speculative import greedy_accept
 
 __all__ = ["ContinuousScheduler"]
+
+# the ticking scheduler's beat, for the hook below: one forward of a
+# one-process fleet's replica under load can outlast the staleness limit,
+# so a healthy replica beats between the model's blocks too
+_ticking = threading.local()
+
+
+def _beat_between_blocks(module, args) -> None:
+    beat = getattr(_ticking, "beat", None)
+    if beat is not None:
+        beat()
+
+
+def _hook_block_beats(model) -> None:
+    """Once a model (replicas share one): every block's forward first
+    beats the heartbeat of the scheduler ticking on the calling thread."""
+    if getattr(model, "_block_beats_hooked", False):
+        return
+    for block in getattr(model, "blocks", ()):
+        block.register_forward_pre_hook(_beat_between_blocks)
+    model._block_beats_hooked = True
 
 
 class _PagedRequest:
@@ -345,6 +368,8 @@ class ContinuousScheduler:
                                           **wd_kwargs)
 
         self._beat(force=True)  # the file exists from birth: no start-up grace race
+        if heartbeat_path is not None:
+            _hook_block_beats(model)
         self._thread: Optional[threading.Thread] = None
         if start:
             self._thread = threading.Thread(
@@ -657,6 +682,7 @@ class ContinuousScheduler:
             self._watchdog.step_started(self._tick_no)
         try:
             try:
+                _ticking.beat = self._beat
                 # host ms of a tick: its wall time less the time it waited
                 # on device readbacks (the decode paths add those waits)
                 self._tick_block_s = 0.0
@@ -668,6 +694,7 @@ class ContinuousScheduler:
             finally:
                 if self._watchdog is not None:
                     self._watchdog.step_finished()
+                _ticking.beat = None
                 with self._cond:
                     self._last_tick = time.monotonic()
                     self._tick_started_at = None
@@ -704,18 +731,18 @@ class ContinuousScheduler:
                              "requests")
             )
             return True
-        self._tick_phase = "kv_transfer"
+        self._enter_phase("kv_transfer")
         did_xfer = self._service_kv_transfers()
-        self._tick_phase = "admit"
+        self._enter_phase("admit")
         newly = self._admit()
-        self._tick_phase = "prefill"
+        self._enter_phase("prefill")
         if newly:
             self._prefill(newly)
-        self._tick_phase = "inject"
+        self._enter_phase("inject")
         self._consult_injector()
         n_active = self.active()
         if n_active:
-            self._tick_phase = "decode"
+            self._enter_phase("decode")
             if self._spec is not None:
                 self._spec_decode_step()
             elif self._async_depth:
@@ -731,6 +758,13 @@ class ContinuousScheduler:
         replica's ``serving_r<id>_<name>``)."""
         self.metrics.incr(name, n)
         get_registry().counter(self.metrics.global_name(name)).inc(n)
+
+    def _enter_phase(self, phase: str) -> None:
+        """Name the tick's phase and beat: progress through a tick keeps the
+        heartbeat fresh (a one-process fleet's ticks slow down together
+        under host load, each phase far less than the whole tick)."""
+        self._tick_phase = phase
+        self._beat()
 
     def _beat(self, force: bool = False) -> None:
         """Rewrite the heartbeat file, at most every ``heartbeat_interval_s``
@@ -787,6 +821,7 @@ class ContinuousScheduler:
             else:
                 if not fut.done():
                     fut.set_result(res)
+            self._beat()
 
     def _export_kv(self, prompt, namespace, stall_s, materialize: bool):
         refs = kv_transfer.extract_block_refs(self._kv, self._pool, prompt, namespace=namespace)

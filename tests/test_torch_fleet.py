@@ -257,6 +257,54 @@ def test_heartbeat_staleness_marks_down_and_fails_over(lm, tmp_path):
     assert fault.counters()["serving_fleet_replicas_down"] == 1
 
 
+@pytest.mark.parametrize("slow", ["phases", "blocks"])
+def test_slow_tick_keeps_beating(lm, tmp_path, slow):
+    """A tick slower than the staleness limit that makes progress (a
+    one-process fleet's replica under host load) keeps the heartbeat
+    fresh: the scheduler beats at every phase of a tick and before every
+    block of a forward, so the router marks no live replica down.  Against
+    a limit of 0.25 s, each of 5 phases takes 0.1 s more, or each block
+    0.15 s more (a forward of 2 blocks 0.3 s more)."""
+    pm = lm[2]
+    r0 = _replica(pm, 0, heartbeat_path=str(tmp_path / "r0.json"), heartbeat_interval_s=0.01)
+    router = _router([r0], base=(15,), heartbeat_timeout_s=0.25)
+    fut = router.submit(_prompts(seed=13, lens=(6,))[0])
+
+    def slowed(fn):
+        def run(*args, **kw):
+            time.sleep(0.1)
+            return fn(*args, **kw)
+        return run
+
+    phases = ("_service_kv_transfers", "_admit", "_prefill", "_consult_injector", "_decode_step")
+    hooks = []
+    if slow == "phases":
+        for name in phases:
+            setattr(r0, name, slowed(getattr(r0, name)))
+    else:
+        hooks = [b.register_forward_pre_hook(lambda m, a: time.sleep(0.15)) for b in pm.blocks]
+    tick = threading.Thread(target=r0.tick)
+    t0 = time.monotonic()
+    tick.start()
+    stale = False
+    while tick.is_alive():
+        stale = stale or router._is_stale(r0)
+        time.sleep(0.01)
+    tick.join()
+    took = time.monotonic() - t0
+    for h in hooks:
+        h.remove()
+    for name in phases if slow == "phases" else ():
+        delattr(r0, name)
+    router._poll_once()
+    assert took > 1.5 * router.heartbeat_timeout_s  # one beat a tick would have gone stale
+    assert not stale and not router.health()["replicas"][0]["routed_down"]
+    _drive([r0], [fut])
+    router.shutdown()
+    assert fut.result()["gen_len"] == REPLICA["max_new_tokens"]
+    assert fault.counters().get("serving_fleet_replicas_down", 0) == 0
+
+
 @pytest.mark.chaos
 def test_replica_hang_injector_goes_stale_and_fails_over(lm, tmp_path):
     """``replica_hang@P:SEC`` wedges replica 0 inside its next tick, before

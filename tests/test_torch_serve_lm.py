@@ -245,7 +245,8 @@ def test_sampled_generate_is_reproducible(params):
 
 @pytest.mark.parametrize(
     "kwargs,item",
-    [({"moe_experts": 2}, "P9"), ({"seq_axis": "sequence"}, "P9"),
+    [# ported (P9, MoE): the model builds and serving refuses it, as JAX does
+     pytest.param({"moe_experts": 2}, None, id="kwargs0-P9"), ({"seq_axis": "sequence"}, "P9"),
      # ported (P2b): the dots policy builds
      pytest.param({"remat": True, "remat_policy": "dots"}, None, id="kwargs2-P2"),
      # ported (P4): the paged model builds and makes its pool
@@ -255,9 +256,26 @@ def test_sampled_generate_is_reproducible(params):
 )
 def test_unported_model_options_raise(kwargs, item):
     if item is None:
-        model = TransformerLM(VOCAB, max_len=MAXLEN, embed_dim=EMBED, depth=1, num_heads=HEADS,
+        model = TransformerLM(VOCAB, max_len=MAXLEN, embed_dim=EMBED,
+                              depth=2 if "moe_experts" in kwargs else 1, num_heads=HEADS,
                               **kwargs)
-        if "remat" in kwargs:
+        if "moe_experts" in kwargs:
+            assert model.block1.is_moe and model.block1.moe.wi.shape == (2, EMBED, 4 * EMBED)
+            with pytest.raises(ValueError) as want:
+                JaxLM(vocab_size=VOCAB, max_len=MAXLEN, embed_dim=EMBED, depth=2,
+                      num_heads=HEADS, moe_experts=2, decode=True).init(
+                    jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32))
+            assert str(want.value) == "decode mode does not support MoE blocks yet"
+            tokens = np.ones((2, 4), np.int32)
+            # the batcher's cache, the scheduler's paged pool, a call with a cache
+            for serve in (lambda: build_generate_fn(model, 2)(tokens, np.full(2, 4, np.int32)),
+                          lambda: model.new_pool(3, 4), lambda: model.new_cache(2),
+                          lambda: model(torch.ones(2, 4, dtype=torch.long),
+                                        model.clone(moe_experts=0).new_cache(2))):
+                with pytest.raises(ValueError) as got:
+                    serve()
+                assert str(got.value) == str(want.value)
+        elif "remat" in kwargs:
             assert model.remat and model.remat_policy == kwargs["remat_policy"]
         elif "lora_rank" in kwargs:
             # stacked factors, B zero: a fresh adapter is the base model
