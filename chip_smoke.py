@@ -20,6 +20,8 @@
     python3 chip_smoke.py --fleet      # phases 1, 2 and 24 only: the fleet tier
     python3 chip_smoke.py --moe        # phases 1, 2 and 25 only: the MoE LM (with
                                        # --profile: its step's device time by class)
+    python3 chip_smoke.py --sp         # phases 1, 2 and 26 only: flash_attention_lse,
+                                       # ring and Ulysses attention on virtual ranks
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -267,6 +269,25 @@ Phases, in order; any failure raises and the script exits non-zero:
     time by class: expert ``bmm``s, dispatch and combine ``bmm``s, routing
     (one-hot, cumsum, scatter, top-k, softmax), the flash kernels, the head.
 
+26. sequence parallelism at ``config/TransformerLM-sp.yml``'s shapes (B 2,
+    S 32768, 8 heads of 64, a ring of 4): (a) ``flash_attention_lse`` on
+    the ring's block, [2, 8192, 8, 64] bf16 in, f32 dots, f32 o, causal and
+    not, with a seeded cotangent on lse: one K2a forward and one K2d + K2e
+    backward through autograd, equal to its kernels' f32 outputs bit for
+    bit, those within the f32 flash limits of the twin; the backward without
+    the lse cotangent and the bf16 kernels' arithmetic must fall outside;
+    each launch timed beside its 3xTF32 bound, the twin and SDPA's f32
+    (efficient) forward and backward, with the ``out_f32`` upcasts' cost;
+    (b) ring attention over S = 32768 as 4 virtual ranks of 8192 in one
+    process (``parallel.sequence.loopback``), causal, forward and backward,
+    held against the whole sequence's bf16 ``flash_attention`` (o, dq, dk,
+    dv), launches exactly 4 causal + 6 full forwards (K2a) and 10 backward
+    pairs (K2d, K2e); (c) Ulysses likewise, 4 bf16 flash calls over [2,
+    32768, 2, 64] (K2b, K2f, K2g); each part's wall time beside the whole
+    sequence's, with the card's name and power limit.  NCCL refuses two
+    ranks on one card, so the multi-rank SP step itself runs only on gloo
+    ranks on the CPU (``tests/test_torch_sp_step.py``).
+
 The line before the last lists every TPU kernel (K1a ... K4) with the CUDA
 kernel that stands for it, its launches on the path that runs it (and on
 every path, ``launches_by_path``), its error
@@ -365,9 +386,12 @@ TPU_KERNELS = {
 # K3/K4 at serving's prefill and decode shapes
 ALSO = {"K1a": [("ce_fwd", 0), ("ce_fwd", 4), ("ce_fwd", 5), ("ce_fwd", 6)],
         "K1b": [("ce_bwd", 0), ("ce_bwd", 4), ("ce_bwd", 5), ("ce_bwd", 6)],
-        "K2a": [("flash_fwd", 1), ("long_fwd", 2), ("flash_fwd", 3)],
+        "K2a": [("flash_fwd", 1), ("long_fwd", 2), ("flash_fwd", 3), ("lse_fwd", 0),
+                ("lse_fwd", 1)],
         "K2c": [("flash_dkv", 0), ("flash_dq", 0), ("flash_bwd", 1)],
         "K2b": [("long_fwd", 1)], "K2f": [("long_dq", 1)], "K2g": [("long_dkv", 1)],
+        # phase 26 (a): flash_attention_lse's f32 dots on bf16 input, causal and not
+        "K2d": [("lse_dq", 0), ("lse_dq", 1)], "K2e": [("lse_dkv", 0), ("lse_dkv", 1)],
         "K3": [("add_layernorm", 1), ("add_layernorm", 2)],
         "K4": [("bias_gelu", 1), ("bias_gelu", 2)]}
 # the port's wrappers whose launches stand for K1a/K1b/K3/K4 (flash is
@@ -4409,6 +4433,282 @@ def phase_moe(torch, modules, profile: bool) -> dict:
     return counts
 
 
+# phase 26: the sequence-parallel attention of config/TransformerLM-sp.yml:
+# batch 2 a card, seq 32768, 8 heads of 64, a ring of 4 ranks
+SP_SHAPE = (2, 32768, 8, 64)
+SP_RING = 4
+# (b) and (c) against the whole sequence's bf16 flash: the ring combines
+# f32-dot blocks in f32, the reference takes bf16 dots over the whole
+# sequence, so the two differ by bf16 roundings of p and of each block's
+# gradients (summed in bf16 across the ring's blocks, as JAX's AD sums
+# them): about two bf16 ulps elementwise, and a norm limit for each tensor
+# as a whole (at [1, 2048, 4, 64] on the CPU twins the ring read 2.1e-3 to
+# 3.5e-3 of each tensor's norm, and half of the elementwise limit)
+SP_TOL = dict(atol=1e-2, rtol=2e-2)
+SP_NORM_LIMIT = {"o": 1e-2, "dq": 1e-2, "dk": 1e-2, "dv": 1e-2}
+
+
+def sp_fold(x):
+    """``[B, S, H, ...]`` to the kernels' ``[BH, S, ...]``."""
+    b, s_len, h = x.shape[:3]
+    return x.transpose(1, 2).reshape(b * h, s_len, *x.shape[3:])
+
+
+def sp_unfold(x, b: int, h: int):
+    return x.reshape(b, h, *x.shape[1:]).transpose(1, 2)
+
+
+def sp_lse_gate(torch, fa, q, k, v, do, g_lse, causal: bool, label: str) -> tuple:
+    """Phase 26 (a) at one mask: ``flash_attention_lse`` with f32 dots on
+    bf16 inputs, through autograd with cotangents on o and lse, must launch
+    exactly one forward (K2a) and one split backward (K2d + K2e) and equal
+    its own kernels' f32 outputs (o, lse; dq, dk, dv before their one
+    rounding to bf16) bit for bit; those are held against the f32 twin
+    within the f32 flash limits, and two wrong variants must fall outside:
+    the backward without the lse cotangent in delta, and the bf16 kernels'
+    arithmetic (bf16 dots, the twin of ``out_f32=False``).  Returns
+    (checks, the f32 tensors for timing)."""
+    b, s_len, h, d = q.shape
+    scale = 1.0 / d ** 0.5
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fa.reset_launch_counts()
+    o, lse = fa.flash_attention_lse(*leaves, causal=causal)
+    torch.autograd.backward((o, lse), (do, g_lse))
+    got = {**fa.launch_counts(), **fa.tpu_launch_counts()}
+    check_launches(f"flash_attention_lse {label}", got,
+                   {"flash_fwd": 1, "flash_bwd": 2, "K2a": 1, "K2d": 1, "K2e": 1})
+    qf, kf, vf = (sp_fold(x).float() for x in (q, k, v))
+    dof, glf = sp_fold(do), sp_fold(g_lse)
+    o32, lse32 = fa.flash_forward(qf, kf, vf, causal, scale)
+    delta = (dof * o32).sum(-1) - glf
+    grads32 = fa.flash_backward(qf, kf, vf, dof, lse32, delta, causal, scale)
+    same = (torch.equal(sp_unfold(o32, b, h), o) and torch.equal(sp_unfold(lse32, b, h), lse)
+            and all(torch.equal(sp_unfold(g, b, h).to(x.dtype), x.grad)
+                    for g, x in zip(grads32, leaves)))
+    if not same:
+        raise AssertionError(f"flash_attention_lse {label}: the entry point differs from its "
+                             "kernels' outputs")
+    o_t, lse_t = fa.flash_fwd_plain(qf, kf, vf, causal, scale)
+    delta_t = (dof * o_t).sum(-1) - glf
+    twin = fa.flash_bwd_plain(qf, kf, vf, dof, lse_t, delta_t, causal, scale)
+    tol, limit = FLASH_TOL_LONG["float32"], FLASH_NORM_LIMIT["float32"]
+    checks = [(f"flash_attention_lse lse {label}", readings(lse32, lse_t, atol=1e-5, rtol=1e-5),
+               None, True)]
+    for what, a, c in zip(("o", "dq", "dk", "dv"), (o32, *grads32), (o_t, *twin)):
+        checks.append((f"flash_attention_lse {what} {label}", readings(a, c, **tol),
+                       limit[what], True))
+    # g_lse left out of delta: dq and dk move, dv (P^T dO) does not
+    no_fold = fa.flash_bwd_plain(qf, kf, vf, dof, lse_t, delta_t + glf, causal, scale)
+    for what, a, c in zip(("dq", "dk", "dv"), no_fold, twin):
+        checks.append((f"flash_attention_lse {what} {label}, g_lse left out of delta",
+                       readings(a, c, **tol), limit[what], False if what != "dv" else None))
+    # bf16 dots: what the bf16 kernels compute on the same inputs
+    qb, kb, vb = (sp_fold(x).contiguous() for x in (q, k, v))
+    o_b, lse_b = fa.flash_fwd_plain(qb, kb, vb, causal, scale)
+    wrong = fa.flash_bwd_plain(qb, kb, vb, dof.to(q.dtype), lse_b,
+                               (dof * o_b.float()).sum(-1) - glf, causal, scale)
+    for what, a, c in zip(("o", "dq", "dk", "dv"), (o_b, *wrong), (o_t, *twin)):
+        checks.append((f"flash_attention_lse {what} {label}, bf16 dots",
+                       readings(a, c, **tol), limit[what], False))
+    return checks, (qf, kf, vf, dof, lse_t, delta_t, o_t, twin, o32, lse32, grads32)
+
+
+def sp_loopback(torch, loops, do):
+    """Run the 4 virtual ranks' generators of one attention in one process
+    and differentiate: (o, dq, dk, dv) over the whole sequence."""
+    from pytorch_distributed_training_tpu_torch.parallel import loopback
+
+    leaves, gens = loops
+    o = torch.cat(loopback(gens), 1)
+    o.backward(do)
+    return [o.detach()] + [torch.cat([x.grad for x in xs], 1) for xs in leaves]
+
+
+def sp_rank_loops(torch, q, k, v, n: int, kind: str):
+    """Each virtual rank's ``[B, S/n, H, D]`` leaves and its generator:
+    the ring with ``impl=None`` (flash on the card, as the model picks it)
+    or Ulysses with the flash kernels."""
+    from pytorch_distributed_training_tpu_torch.parallel.sequence import (
+        ring_attention_loop,
+        ulysses_attention_loop,
+    )
+
+    sl = q.shape[1] // n
+    leaves = [[x[:, r * sl:(r + 1) * sl].clone().requires_grad_(True) for r in range(n)]
+              for x in (q, k, v)]
+    if kind == "ring":
+        gens = [ring_attention_loop(leaves[0][r], leaves[1][r], leaves[2][r], n, r, True)
+                for r in range(n)]
+    else:
+        gens = [ulysses_attention_loop(leaves[0][r], leaves[1][r], leaves[2][r], n, True,
+                                       impl="flash") for r in range(n)]
+    return leaves, gens
+
+
+def phase_sequence_parallel(torch, modules, smi: str) -> dict:
+    """Phase 26: (a) :func:`sp_lse_gate` at the ring's block shape of
+    ``config/TransformerLM-sp.yml``, [2, 8192, 8, 64] bf16, causal and not,
+    each launch timed beside its bound (f32 at the 3xTF32 rate), the twin
+    and SDPA in f32 on the upcast inputs, with the cost of the ``out_f32``
+    copies; (b) ring attention at the full shape, S = 32768 as 4 virtual
+    ranks of 8192 in one process (``parallel.sequence.loopback``), causal,
+    forward and backward, against the whole sequence's bf16
+    ``flash_attention`` (o, dq, dk, dv), with exactly 4 causal and 6 full
+    f32-dot forwards (K2a) and their 10 split backward pairs (K2d, K2e);
+    (c) Ulysses likewise, each virtual rank's bf16 flash over [2, 32768, 2,
+    64] (4 K2b, 4 K2f, 4 K2g).  The path's launches are those of (b)'s and
+    (c)'s runs alone.  Returns them, and (a)'s rows by kernel."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    fa = modules[2]
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    b, s_len, h, d = SP_SHAPE
+    n, bf16, scale = SP_RING, torch.bfloat16, 1.0 / SP_SHAPE[3] ** 0.5
+    sl = s_len // n
+    rows = {"lse_fwd": [], "lse_dq": [], "lse_dkv": []}
+    numbers = {"card": smi}
+
+    def err(a, c):
+        return (a.float() - c.float()).abs().max().item()
+
+    # (a)
+    checks = []
+    for causal in (True, False):
+        mask = "causal" if causal else "full"
+        q, k, v = (torch.randn(b, sl, h, d, generator=gen, device=dev).to(bf16)
+                   for _ in range(3))
+        do = torch.randn(b, sl, h, d, generator=gen, device=dev)
+        g_lse = torch.randn(b, sl, h, generator=gen, device=dev)
+        label = f"[{b}, {sl}, {h}, {d}] bf16, f32 dots, {mask}"
+        found, kept = sp_lse_gate(torch, fa, q, k, v, do, g_lse, causal, label)
+        checks += found
+        qf, kf, vf, dof, lse_t, delta_t, o_t, twin, o32, lse32, grads32 = kept
+        q4, k4, v4 = (x.view(b, h, sl, d).detach().requires_grad_(True) for x in (qf, kf, vf))
+        lib_fwd = lib_bwd = None
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):  # f32: no flash backend
+            try:
+                o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+                lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q4.detach(), k4.detach(), v4.detach(), is_causal=causal), flush)
+                lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+                    o4, (q4, k4, v4), dof.view(b, h, sl, d), retain_graph=True), flush)
+                del o4
+            except RuntimeError as exc:  # no fused SDPA backend for this shape
+                say(f"  SDPA {label}: {exc}")
+        del q4, k4, v4
+        plain_bwd = time_ms(torch, lambda: fa.flash_bwd_plain(
+            qf, kf, vf, dof, lse_t, delta_t, causal, scale), flush, 5, 1)
+        for name, part, kernel, plain_ms, e, lib in (
+                ("lse_fwd", None, lambda: fa.flash_forward(qf, kf, vf, causal, scale),
+                 time_ms(torch, lambda: fa.flash_fwd_plain(qf, kf, vf, causal, scale), flush,
+                         5, 1), max(err(o32, o_t), err(lse32, lse_t)), lib_fwd),
+                ("lse_dq", "dq", lambda: fa.flash_backward_dq(qf, kf, vf, dof, lse_t, delta_t,
+                                                              causal, scale),
+                 plain_bwd, err(grads32[0], twin[0]), lib_bwd),
+                ("lse_dkv", "dkv", lambda: fa.flash_backward_dkv(qf, kf, vf, dof, lse_t,
+                                                                 delta_t, causal, scale),
+                 plain_bwd, max(err(grads32[1], twin[1]), err(grads32[2], twin[2])), lib_bwd)):
+            rows[name].append(dict(
+                shape=[b, h, sl, d], dtype="bfloat16 in, float32 dots", causal=causal,
+                tpu_kernel={"lse_fwd": "K2a", "lse_dq": "K2d", "lse_dkv": "K2e"}[name],
+                max_abs_err=e, ms=time_ms(torch, kernel, flush),
+                call_ms=call_ms(torch, kernel), plain_ms=plain_ms, library_ms=lib,
+                **flash_bound(fa, b * h, sl, d, torch.float32, causal, part=part)))
+        # the out_f32 path's own copies: q, k, v upcast once a call, dq, dk,
+        # dv rounded to bf16 once; beside them the three kernels and the
+        # entry point's forward and backward as autograd runs them
+        folded = [sp_fold(x).contiguous() for x in (q, k, v)]
+        entry = [x.clone().requires_grad_(True) for x in (q, k, v)]
+
+        def fwd_bwd():
+            o, lse = fa.flash_attention_lse(*entry, causal=causal)
+            torch.autograd.backward((o, lse), (do, g_lse))
+
+        cost = dict(upcast_ms=time_ms(torch, lambda: [x.float() for x in folded], flush),
+                    downcast_ms=time_ms(torch, lambda: [g.to(bf16) for g in grads32], flush),
+                    kernels_ms=sum(rows[r][-1]["ms"] for r in rows),
+                    entry_fwd_bwd_ms=time_ms(torch, fwd_bwd, flush, 10, 2))
+        numbers[f"a_{mask}"] = cost
+        say(f"  (a) {label}: " + " ".join(f"{k}={v}" for k, v in cost.items()))
+        del q, k, v, do, g_lse, kept, found, entry, folded
+        torch.cuda.empty_cache()
+    judge(checks)
+    for name, cases in rows.items():
+        for c in cases:
+            say(f"  {name} ({c['tpu_kernel']}) {c['shape']} {c['dtype']} "
+                f"{'causal' if c['causal'] else 'full'}: kernel_ms={c['ms']} "
+                f"plain_ms={c['plain_ms']} library_ms={c['library_ms']} "
+                f"bound_ms={c['bound_ms']} ({c['bound_by']}) {shares(c)} "
+                f"call_ms={c['call_ms']} max_abs_err={c['max_abs_err']}")
+
+    # (b) and (c): the whole sequence's bf16 flash is the reference
+    q, k, v, do = (torch.randn(b, s_len, h, d, generator=gen, device=dev).to(bf16)
+                   for _ in range(4))
+    whole = [x.clone().requires_grad_(True) for x in (q, k, v)]
+
+    def whole_run():
+        for x in whole:
+            x.grad = None
+        o = fa.flash_attention(*whole, causal=True)
+        o.backward(do)
+        return [o.detach()] + [x.grad for x in whole]
+
+    want = whole_run()
+    path = {}
+    want_counts = {
+        "ring": {"flash_fwd": n * (n + 1) // 2, "flash_bwd": n * (n + 1),
+                 "K2a": n * (n + 1) // 2, "K2d": n * (n + 1) // 2, "K2e": n * (n + 1) // 2},
+        "ulysses": {"flash_fwd": n, "flash_bwd": 2 * n, "K2b": n, "K2f": n, "K2g": n}}
+    checks = []
+    for kind in ("ring", "ulysses"):
+        loops = sp_rank_loops(torch, q, k, v, n, kind)
+        for m in modules:
+            m.reset_launch_counts()
+        got = sp_loopback(torch, loops, do)
+        torch.cuda.synchronize()
+        counts = all_counts(modules)
+        check_launches(f"{kind} attention, {n} virtual ranks", counts, want_counts[kind])
+        path = {key: path.get(key, 0) + val for key, val in counts.items()}
+        label = f"{kind}, [{b}, {s_len}, {h}, {d}] bf16 as {n} ranks of {sl}, causal"
+        for what, a, c in zip(("o", "dq", "dk", "dv"), got, want):
+            checks.append((f"{label}: {what} against the whole sequence's flash",
+                           readings(a, c, **SP_TOL), SP_NORM_LIMIT[what], True))
+        bitwise = all(torch.equal(a, c) for a, c in zip(got, want))
+        del got
+        # wall time of one forward and backward of the 4 ranks, then of the
+        # whole sequence's flash
+        times = {}
+        for what, fn in ((kind, lambda: sp_loopback(torch, sp_rank_loops(torch, q, k, v, n, kind),
+                                                    do)),
+                         ("whole", whole_run)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[f"{what}_fwd_bwd_ms"] = (time.perf_counter() - t0) * 1e3
+        numbers[kind] = dict(bitwise_equal_whole=bitwise, **times)
+        say(f"  ({'b' if kind == 'ring' else 'c'}) {label}: launches {counts_line(counts)}; "
+            f"bitwise equal to the whole sequence's flash: {bitwise}; "
+            + " ".join(f"{key}={val}" for key, val in times.items()))
+        del loops
+        torch.cuda.empty_cache()
+    judge(checks)
+    del q, k, v, do, whole, want, flush
+    torch.cuda.empty_cache()
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 26 took {numbers['phase_s']:.1f} s; {smi}")
+    say("sp: " + json.dumps(numbers))
+    return path, rows
+
+
+def counts_line(counts: dict) -> str:
+    return ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true")
@@ -4426,6 +4726,8 @@ def main(argv=None) -> int:
                         help="phases 1, 2 and 24 only (no result line)")
     parser.add_argument("--moe", action="store_true",
                         help="phases 1, 2 and 25 only (no result line)")
+    parser.add_argument("--sp", action="store_true",
+                        help="phases 1, 2 and 26 only (no result line)")
     args = parser.parse_args(argv)
 
     import torch
@@ -4503,6 +4805,14 @@ def main(argv=None) -> int:
     if args.moe:
         phase("phase 25: the Mixture-of-Experts LM (expert-parallel degree 1), full width")
         phase_moe(torch, modules, args.profile)
+        phase(None)
+        say(f"total {time.perf_counter() - t_start:.1f} s")
+        say(smi)
+        return 0
+
+    if args.sp:
+        phase("phase 26: sequence parallelism (flash_attention_lse, ring, Ulysses), full shape")
+        phase_sequence_parallel(torch, modules, smi)
         phase(None)
         say(f"total {time.perf_counter() - t_start:.1f} s")
         say(smi)
@@ -4610,6 +4920,10 @@ def main(argv=None) -> int:
     paths["fleet"] = by_tpu_kernel(phase_fleet(torch, np, modules, fe, smi))
     phase("phase 25: the Mixture-of-Experts LM (expert-parallel degree 1), full width")
     paths["moe"] = by_tpu_kernel(phase_moe(torch, modules, args.profile))
+    phase("phase 26: sequence parallelism (flash_attention_lse, ring, Ulysses), full shape")
+    sp_counts, sp_rows = phase_sequence_parallel(torch, modules, smi)
+    paths["sp"] = by_tpu_kernel(sp_counts)
+    cases.update(sp_rows)
 
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "ffma_bound_ms")

@@ -98,10 +98,24 @@ gets its address, world size and rank from the caller (NCCL on the card,
 gloo on the CPU).  With ``multiprocessing`` the runner spawns one process
 per local card (or one on the CPU) per node, as the reference does.
 
+``training.sequence_parallelism`` n > 1 on the LM (JAX ``engine/paths.py``
+``_build_ring_sp``, ``topology.py:221-266``): the ranks form a ``(data,
+sequence)`` layout of process groups (:class:`..parallel.mesh.SPLayout`,
+sequence groups of n consecutive ranks), the samplers are keyed by the
+data rank so a sequence group's ranks see one sample set, each rank
+stages its ``[B, S/n]`` columns of the host-shifted batch, the model's
+attention runs ``model.seq_impl`` (``ring``, the default, or ``ulysses``)
+over the sequence group, and the step sums the gradients over the whole
+world (:mod:`.sp_steps`); the global batch is ``batch_size`` x data ranks,
+and the throughput counts each token once.  The CPU tests are
+``tests/test_torch_sp_step.py``; on the card ``python3 chip_smoke.py
+--sp`` holds the ring on virtual ranks.
+
 Not ported yet: every config key asking for one raises
 ``NotImplementedError`` naming its ROADMAP item (:data:`UNPORTED_TRAINING_KEYS`):
-sequence/tensor/pipeline/expert parallelism (MoE itself is ported, at
-expert-parallel degree 1), ZeRO and ``comm`` (P9),
+tensor/pipeline/expert parallelism (MoE itself is ported, at
+expert-parallel degree 1), sequence parallelism beside any of them or
+ZeRO, ZeRO and ``comm`` (P9),
 telemetry, integrity, elastic recovery and the checkpoint keys of
 :data:`.checkpoint.UNPORTED_CHECKPOINT_KEYS` (P10).
 TensorBoard is absent (P10): the log file and the console carry the
@@ -138,6 +152,7 @@ from ..data import (
 from ..metrics import AverageMeter
 from ..models import get_model, is_resnet
 from ..optimizers import get_optimizer
+from ..parallel import SEQUENCE_AXIS, SPLayout
 from ..schedulers import get_scheduler
 from ..utils import make_deterministic
 from . import fault
@@ -145,7 +160,14 @@ from .checkpoint import Checkpointer, capture_training_state, restore_training_s
 from .preemption import PreemptionGuard
 from .sp_steps import build_lm_eval_step, build_lm_train_step
 from .steps import build_eval_step, build_eval_step_exact, build_train_step
-from .topology import check_gspmd_path, parse_fault_tolerance, parse_model
+from .topology import (
+    check_gspmd_path,
+    check_sequence_parallel,
+    parse_fault_tolerance,
+    parse_model,
+    parse_sequence_parallel,
+    ring_path,
+)
 from .tp_steps import build_tp_lm_train_step
 from .watchdog import StepWatchdog
 
@@ -156,7 +178,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # training.<key> -> why it raises; a key counts when it is set and truthy
 # (a parallelism degree counts above 1)
 UNPORTED_TRAINING_KEYS = {
-    "sequence_parallelism": "sequence parallelism is ROADMAP port item P9",
+    "sequence_parallelism": ("sequence parallelism beside tensor or pipeline parallelism, "
+                             "ZeRO or MoE is ROADMAP port item P9"),
     "tensor_parallelism": "tensor parallelism is ROADMAP port item P9",
     "pipeline_parallelism": "pipeline parallelism is ROADMAP port item P9",
     "expert_parallelism": "expert parallelism is ROADMAP port item P9",
@@ -170,11 +193,14 @@ UNPORTED_TRAINING_KEYS = {
 PREFETCH_DEPTH = 2
 
 
-def _reject_unported(train_cfg: Dict[str, Any], gspmd: bool = False) -> None:
+def _reject_unported(train_cfg: Dict[str, Any], gspmd: bool = False,
+                     ring: bool = False) -> None:
     for key, why in UNPORTED_TRAINING_KEYS.items():
         val = train_cfg.get(key)
         if key == "comm" and gspmd:
             continue  # the GSPMD path refuses comm.overlap with the JAX message
+        if key == "sequence_parallelism" and ring:
+            continue  # ported: ring and Ulysses attention over the sequence group
         if key.endswith("parallelism"):
             wanted = val is not None and int(val) > 1
         elif key == "comm":
@@ -312,7 +338,8 @@ class Runner:
         train_cfg = cfg["training"]
         model_cfg = parse_model(self, cfg)
         model_name = self.model_name
-        _reject_unported(train_cfg, gspmd=self.is_moe)
+        parse_sequence_parallel(self, train_cfg)
+        _reject_unported(train_cfg, gspmd=self.is_moe, ring=ring_path(self, train_cfg))
         parse_fault_tolerance(self, train_cfg)
         self.grad_accum = int(train_cfg.get("grad_accumulation", 1))
         if self.grad_accum < 1:
@@ -348,15 +375,17 @@ class Runner:
                                     split="train", **ds_kwargs)
         val_dataset = get_dataset(cfg["dataset"]["name"], cfg["dataset"].get("root", ""),
                                   split="val", **ds_kwargs)
+        self._build_layout(train_dataset)
         if self.is_lm:
             self._build_lm_model(model_name, model_cfg, train_dataset)
         else:
             self._build_image_model(model_name, model_cfg, ds_kwargs["image_size"])
 
         # reference parity (train_distributed.py:194): batch_size is per
-        # process, one process per card
+        # process, one process per card; a sequence group's ranks share
+        # their batch, each holding its columns
         self.host_batch = int(train_cfg["batch_size"])
-        self.global_batch = self.host_batch * self.world_size
+        self.global_batch = self.host_batch * self.data_size
         optimizer_params = dict(train_cfg["optimizer"])
         optimizer_cls = get_optimizer(optimizer_params)
         optimizer_params.pop("name")
@@ -365,11 +394,12 @@ class Runner:
         self.scheduler = get_scheduler(self.optimizer, train_cfg["lr_schedule"])
 
         seed = self.seed if self.seed is not None else 0
+        # keyed by the data rank: the ranks of a sequence group see one sample set
         train_sampler = DistributedShardSampler(
-            len(train_dataset), self.world_size, self.current_rank, shuffle=True,
+            len(train_dataset), self.data_size, self.data_rank, shuffle=True,
             drop_last=True, seed=seed)
         val_sampler = DistributedShardSampler(
-            len(val_dataset), self.world_size, self.current_rank, shuffle=False, seed=seed)
+            len(val_dataset), self.data_size, self.data_rank, shuffle=False, seed=seed)
         # JAX runner.py:264-274: uint8 batches, normalised on the card
         self.device_normalize = bool(train_cfg.get("device_normalize", False))
         if self.device_normalize and (self.is_lm
@@ -638,10 +668,38 @@ class Runner:
         dist.all_reduce(flag, op=dist.ReduceOp.SUM)
         return bool(flag.item() > 0)
 
+    def _build_layout(self, train_dataset) -> None:
+        """The ``(data, sequence)`` layout of the ranks (:mod:`..parallel.mesh`)
+        on the ring path, after JAX's checks (:func:`.topology.check_sequence_parallel`);
+        else one data rank a process.  A rank's columns of each LM batch
+        are ``self._columns``; labels are shifted on the host before the
+        slice, since the shift crosses shard boundaries (JAX
+        ``sp_steps.py:21-23``)."""
+        self.layout, self._columns = None, None
+        self.data_rank, self.data_size = self.current_rank, self.world_size
+        if self.seq_par <= 1:
+            return
+        seq_len = int(train_dataset[0][0].shape[0])
+        check_sequence_parallel(self, seq_len, self.world_size)
+        self.layout = SPLayout(self.world_size, self.current_rank, self.seq_par)
+        lay = self.layout
+        self.data_rank, self.data_size = lay.data_idx, lay.n_data
+        s_local = seq_len // lay.n_seq
+        self._columns = slice(lay.seq_idx * s_local, (lay.seq_idx + 1) * s_local)
+        self.logger.info("Sequence parallelism: data x sequence = %d x %d, rank %d at (%d, %d), "
+                         "%d of %d tokens a sample", lay.n_data, lay.n_seq, self.current_rank,
+                         lay.data_idx, lay.seq_idx, s_local, seq_len)
+
     def _build_lm_model(self, model_name: str, model_cfg: dict, train_dataset) -> None:
         self.seq_len = int(train_dataset[0][0].shape[0])
         self.unit, self.items_per_sample = "tok", self.seq_len
         model_cfg.setdefault("max_len", self.seq_len)
+        if self.layout is not None:
+            # JAX topology.py:256-266 names the mesh axis; here it is the group
+            if model_cfg.get("seq_axis", SEQUENCE_AXIS) != SEQUENCE_AXIS:
+                raise ValueError(f"model.seq_axis must be {SEQUENCE_AXIS!r}, got "
+                                 f"{model_cfg['seq_axis']!r}")
+            model_cfg["seq_axis"] = self.layout.seq_exchange
         self.model = get_model(model_name, num_classes=self.global_cfg["dataset"]["n_classes"],
                                dtype=self.compute_dtype, flash=True, **model_cfg)
         if self.pretrained:
@@ -650,10 +708,11 @@ class Runner:
         m = self.model
         moe = (f", MoE in {sum(b.is_moe for b in m.blocks)} of {m.depth} blocks "
                f"({m.moe_experts} experts, {self.path} path)" if self.is_moe else "")
-        self.logger.info("Model %s: %.1f M parameters, compute %s, flash attention on%s%s",
+        sp = f", {m.seq_impl} attention over the sequence group" if self.layout else ""
+        self.logger.info("Model %s: %.1f M parameters, compute %s, flash attention on%s%s%s",
                          model_name, sum(p.numel() for p in m.parameters()) / 1e6,
                          str(self.compute_dtype).replace("torch.", ""),
-                         f", remat ({m.remat_policy})" if m.remat else "", moe)
+                         f", remat ({m.remat_policy})" if m.remat else "", moe, sp)
 
     def _build_image_model(self, model_name: str, model_cfg: dict, image_size: int) -> None:
         from ..models import ViT
@@ -730,11 +789,14 @@ class Runner:
     def _stage(self, inp: np.ndarray, label: np.ndarray):
         """Start one host batch's way to the device: tokens (int64), NHWC
         images (uint8 as they come, else float32) and int64 labels."""
+        label = np.asarray(label, dtype=np.int64)
         if self.is_lm:
             inp = np.asarray(inp, dtype=np.int64)
+            if self._columns is not None:
+                inp = np.ascontiguousarray(inp[:, self._columns])
+                label = np.ascontiguousarray(label[:, self._columns])
         elif np.asarray(inp).dtype != np.uint8:
             inp = np.asarray(inp, dtype=np.float32)
-        label = np.asarray(label, dtype=np.int64)
         if self._stager is not None:
             return self._stager.put(inp, label)
         return torch.from_numpy(inp), torch.from_numpy(label)

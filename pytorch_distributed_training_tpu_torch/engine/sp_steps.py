@@ -1,17 +1,24 @@
-"""LM training and evaluation steps at plain data parallelism.
+"""LM training and evaluation steps, data and sequence parallel.
 
-Port of ``engine/sp_steps.py`` at ``sequence_parallelism: 1``, the LM path
-``engine/paths.py:184-205`` builds.  The JAX step is one compiled
-``shard_map`` program whose objective is the ``psum`` of every shard's
-partial loss; here each rank is one process on one card:
+Port of ``engine/sp_steps.py``, the LM path ``engine/paths.py:184-205``
+builds.  The JAX step is one compiled ``shard_map`` program over a (data,
+sequence) mesh whose objective is the ``psum`` of every shard's partial
+loss; here each rank is one process on one card, holding ``[B_local, S/n]``
+tokens (n = ``sequence_parallelism``; the whole sequence at n = 1) and a
+model whose attention runs over its sequence group (ring or Ulysses,
+:mod:`..parallel.sequence`):
 
 1. forward through the model (flash attention, the fused tails);
 2. the local partial loss, ``mean CE x local tokens / global tokens``
-   (:func:`lm_loss_local`), through the fused CE kernels;
-3. backward, then one all-reduce (sum) of the flattened gradients over
-   ``torch.distributed`` (NCCL on the card, gloo on the CPU) -- the sum of
+   (:func:`lm_loss_local`; global tokens ``B_local x S/n x world size``),
+   through the fused CE kernels;
+3. backward (the ring's K/V cotangents travel back to their owners through
+   the exchanges' backward), then one all-reduce (sum) of the flattened
+   gradients over the whole world, data and sequence ranks alike
+   (``torch.distributed``: NCCL on the card, gloo on the CPU) -- the sum of
    the partials' gradients is the gradient of the global mean, exactly what
-   differentiating the JAX ``psum`` gives; world size 1 skips it;
+   differentiating the JAX ``psum`` over (data, sequence) gives; world size
+   1 skips it;
 4. the optimizer update in place, at ``lr_fn(step)``.
 
 The loss returned is the global mean (the partials all-reduced), a device
@@ -162,7 +169,8 @@ def build_lm_train_step(model, optimizer, lr_fn: Callable[[int], float], world_s
                         group=None, grad_accum: int = 1, label_smoothing: float = 0.0,
                         anomaly_factor: Optional[float] = None, comm=None,
                         zero1: bool = False) -> LMTrainStep:
-    """The plain-DP LM training step (see the module docstring)."""
+    """The LM training step, data and sequence parallel (see the module
+    docstring)."""
     if comm is not None and getattr(comm, "overlap", False):
         raise NotImplementedError("training.comm.overlap is ROADMAP port item P9")
     if zero1:
@@ -174,7 +182,8 @@ def build_lm_train_step(model, optimizer, lr_fn: Callable[[int], float], world_s
 def build_lm_eval_step(model, world_size: int = 1, group=None):
     """``eval_step(tokens, labels) -> (loss, acc1, acc5)``: mean CE per
     token and next-token top-1/top-5 accuracy in percent, summed (loss) and
-    averaged (accuracies) over ranks, as ``sp_steps.py:268-314``."""
+    averaged (accuracies) over all ranks, the (data, sequence) axes of
+    ``sp_steps.py:268-314``."""
 
     @torch.no_grad()
     def eval_step(tokens, labels):

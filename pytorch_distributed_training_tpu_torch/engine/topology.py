@@ -1,9 +1,10 @@
 """The ``model:`` section and ``training.fault_tolerance`` parsed onto the
 runner (port of ``parse_topology``'s model keys, JAX
 ``engine/topology.py:55-90``, its MoE checks, ``:142-153`` and
-``:273-282``, and of ``parse_fault_tolerance``, ``:436-544``; the rest of
-that module is the parallelism layout, ROADMAP port item P9), and the
-refusals of the GSPMD path that MoE models take (JAX
+``:273-282``, its sequence-parallel checks, ``:100-120`` and
+``:221-266``, and of ``parse_fault_tolerance``, ``:436-544``; the rest of
+that module is the tensor and pipeline layouts, ROADMAP port item P9), and
+the refusals of the GSPMD path that MoE models take (JAX
 ``engine/paths.py:48-73``, ``:156-157``)."""
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import torch
 from ..models import TransformerLM, is_resnet
 from .fault import FaultInjector
 
-__all__ = ["check_gspmd_path", "check_moe", "parse_fault_tolerance", "parse_model"]
+__all__ = ["check_gspmd_path", "check_moe", "check_sequence_parallel", "parse_fault_tolerance",
+           "parse_model", "parse_sequence_parallel", "ring_path"]
 
 _LM_DEFAULTS = {k: v.default for k, v in inspect.signature(TransformerLM).parameters.items()}
 
@@ -52,6 +54,39 @@ def check_gspmd_path(r, train_cfg: dict) -> None:
         raise ValueError("training.comm.overlap is not wired for the gspmd execution path "
                          "(supported: image-dp, ring-sp, and ring-sp with zero stage 1) — the "
                          "GSPMD partitioner schedules its own communication overlap there")
+
+
+def parse_sequence_parallel(r, train_cfg: dict) -> None:
+    """Set ``r.seq_par`` from ``training.sequence_parallelism`` (default 1),
+    refused off the LM with the JAX message (``topology.py:100``,
+    ``:115-119``).  Run after :func:`parse_model`."""
+    r.seq_par = int(train_cfg.get("sequence_parallelism", 1) or 1)
+    if r.seq_par > 1 and not r.is_lm:
+        raise ValueError("training.sequence_parallelism / tensor_parallelism / "
+                         "pipeline_parallelism require model.name: TransformerLM")
+
+
+def ring_path(r, train_cfg: dict) -> bool:
+    """Whether the run shards the sequence over a ring of ranks: JAX
+    ``topology.py:256-266`` sets ``seq_axis`` for ``sequence_parallelism``
+    > 1 with no tensor or pipeline parallelism, no ZeRO and no MoE (those
+    combinations stay ROADMAP port item P9)."""
+    return (r.seq_par > 1 and int(train_cfg.get("tensor_parallelism", 1) or 1) == 1
+            and int(train_cfg.get("pipeline_parallelism", 1) or 1) == 1
+            and not train_cfg.get("zero") and not r.is_moe)
+
+
+def check_sequence_parallel(r, seq_len: int, world_size: int) -> None:
+    """JAX ``topology.py:221-252`` for the ring path: ``n`` divides the ranks
+    (one a card; JAX: the local device count) and the dataset's sequence."""
+    n = r.seq_par
+    if n < 1 or world_size % n != 0:
+        raise ValueError(f"training.sequence_parallelism ({n}) must divide the number of "
+                         f"ranks ({world_size})")
+    if seq_len % n != 0:
+        raise ValueError(f"dataset.seq_len ({seq_len}) must be divisible by "
+                         f"training.sequence_parallelism ({n})")
+
 
 _BN_STAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

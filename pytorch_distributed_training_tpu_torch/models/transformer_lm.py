@@ -73,8 +73,16 @@ mode does not support MoE blocks yet" (``:216-217``): a KV cache, a paged
 pool, or a call with either.  The CPU tests are
 ``tests/test_torch_moe.py``; on the card ``python3 chip_smoke.py --moe``.
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
-``seq_axis`` (P9).
+``seq_axis`` (JAX ``:150-156``, ``:253-264``) makes the model one rank's
+shard of a sequence-parallel model: its tokens are this rank's ``[B,
+S/n]`` columns, the position embeddings start at ``seq_idx * S/n``, and
+every block's attention runs ``seq_impl`` (``"ring"`` or ``"ulysses"``)
+over the sequence group (:class:`..ops.attention.MultiHeadAttention`); a
+global sequence past ``max_len`` raises, as JAX does.  ``seq_axis`` is the
+sequence group's exchange (:attr:`..parallel.mesh.SPLayout.seq_exchange`,
+which the runner passes); the JAX axis name ``"sequence"`` builds, and
+raises at a sharded forward.  The parameters are the same, so
+:mod:`.from_jax` maps them unchanged.
 """
 from __future__ import annotations
 
@@ -90,6 +98,7 @@ from ..ops.attention import KVCache, MultiHeadAttention, PagedKVCache
 from ..ops.fused_elementwise import FusedResidualLayerNorm
 from ..ops.layers import Dense, LayerNorm
 from ..ops.moe import MoEMLP, moe_aux
+from ..parallel.mesh import resolve_seq_axis
 from .vit import MLP
 
 __all__ = ["DecoderBlock", "SAVED_OPS", "TransformerLM"]
@@ -114,14 +123,15 @@ class DecoderBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, dtype=torch.float32,
                  fused_tails: bool = False, flash: bool = False, lora_rank: int = 0,
                  lora_adapters: int = 0, moe_experts: int = 0, moe_top_k: int = 2,
-                 moe_capacity_factor: float = 1.25):
+                 moe_capacity_factor: float = 1.25, seq_axis=None, seq_impl: str = "ring"):
         super().__init__()
         self.is_moe = moe_experts > 0
         # JAX :115: a MoE block keeps its ln2 plain (its MLP has no fc1 tail)
         self.fused_tails = fused_tails and not self.is_moe
         self.ln1 = LayerNorm(dim, dtype)
         self.attn = MultiHeadAttention(dim, num_heads, causal=True, dtype=dtype, flash=flash,
-                                       lora_rank=lora_rank, lora_adapters=lora_adapters)
+                                       lora_rank=lora_rank, lora_adapters=lora_adapters,
+                                       seq_axis=seq_axis, seq_impl=seq_impl)
         # ln1 has no add before it, and the block's last add feeds the next
         # block's ln1, so add+ln2 is the pair one kernel can fuse
         self.ln2 = (FusedResidualLayerNorm if self.fused_tails else LayerNorm)(dim, dtype)
@@ -160,7 +170,8 @@ class TransformerLM(nn.Module):
         dtype=torch.float32,
         fused_tails: bool = False,
         flash: bool = False,
-        seq_axis: Optional[str] = None,
+        seq_axis=None,
+        seq_impl: str = "ring",
         remat: bool = False,
         remat_policy: str = "nothing",
         moe_experts: int = 0,
@@ -177,10 +188,6 @@ class TransformerLM(nn.Module):
         self._config = {k: v for k, v in locals().items() if k not in ("self", "__class__")}
         if moe_experts > 0 and moe_every < 1:
             raise ValueError(f"moe_every must be >= 1, got {moe_every}")
-        if seq_axis is not None:
-            raise NotImplementedError(
-                "seq_axis (ring/Ulysses sequence parallelism) is ROADMAP port item P9"
-            )
         # unknown names raise even with remat off, as in JAX
         self.set_remat(remat, remat_policy)
         if embed_dim % num_heads != 0:
@@ -193,6 +200,7 @@ class TransformerLM(nn.Module):
         self.dtype = dtype
         self.fused_tails = fused_tails
         self.flash = flash
+        self.seq_axis, self.seq_impl = seq_axis, seq_impl
         self.lora_rank = int(lora_rank)
         self.lora_adapters = int(lora_adapters) if lora_rank > 0 else 0
         self.moe_experts, self.moe_every = int(moe_experts), int(moe_every)
@@ -209,7 +217,7 @@ class TransformerLM(nn.Module):
                 f"block{i}",
                 DecoderBlock(embed_dim, num_heads, mlp_ratio, dtype, fused_tails, flash,
                              lora_rank, lora_adapters, moe_experts if is_moe else 0,
-                             moe_top_k, moe_capacity_factor),
+                             moe_top_k, moe_capacity_factor, seq_axis, seq_impl),
             )
         self.ln = LayerNorm(embed_dim, dtype)
         self.head = Dense(embed_dim, vocab_size, torch.float32)
@@ -322,6 +330,13 @@ class TransformerLM(nn.Module):
                 raise ValueError("decode_pos given without a KV cache")
             # one new token per row at its own position
             pe = self.pos_embedding[decode_pos][:, None]
+        elif self.seq_axis is not None and cache is None:
+            # shard i holds global positions [i s, (i + 1) s) (JAX :253-264)
+            group = resolve_seq_axis(self.seq_axis)
+            if s * group.size > self.max_len:
+                raise ValueError(f"global sequence {s * group.size} (= {s} local x "
+                                 f"{group.size} shards) exceeds max_len {self.max_len}")
+            pe = self.pos_embedding[group.rank * s:(group.rank + 1) * s][None]
         else:
             if s > self.max_len:
                 raise ValueError(f"sequence {s} exceeds max_len {self.max_len}")

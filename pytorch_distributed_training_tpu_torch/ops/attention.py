@@ -36,8 +36,16 @@ and a call's ``adapter_ids`` [B] picks each row's adapter
 its full Dense, cast to the Dense's dtype first.  The factors keep the
 JAX einsum layout and stay f32.
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
-ring and Ulysses sequence parallelism (P9).
+Sequence parallelism (JAX ``:280-287``): with ``seq_axis`` set the
+module's input is this rank's ``[B, S/n, E]`` shard of the sequence and
+the cache-less forward runs ``seq_impl``, ``"ring"``
+(:func:`..parallel.sequence.ring_attention`, the default) or
+``"ulysses"`` (:func:`..parallel.sequence.ulysses_attention`), over the
+sequence group whose exchange ``seq_axis`` is
+(:attr:`..parallel.mesh.SPLayout.seq_exchange`).  ``flash`` picks each one's flash path under the gate above (the
+ring on its local length, Ulysses on the whole sequence), the plain one
+otherwise.  The decode and paged modes refuse ``seq_axis`` with the JAX
+messages (``:311-312``, ``:375-376``).
 """
 from __future__ import annotations
 
@@ -47,6 +55,8 @@ from typing import List, Optional
 import torch
 from torch import nn
 
+from ..parallel.mesh import resolve_seq_axis
+from ..parallel.sequence import ring_attention, ulysses_attention
 from .flash_attention import SUPPORTED_HEAD_DIMS, flash_attention, flash_shapes_ok
 from .layers import Dense
 from .lora import lora_delta
@@ -230,15 +240,11 @@ class MultiHeadAttention(nn.Module):
     """
 
     def __init__(self, dim: int, num_heads: int, causal: bool = False, dtype=torch.float32,
-                 seq_axis: Optional[str] = None, paged: bool = False, lora_rank: int = 0,
-                 flash: bool = False, lora_adapters: int = 0):
+                 seq_axis=None, paged: bool = False, lora_rank: int = 0,
+                 flash: bool = False, lora_adapters: int = 0, seq_impl: str = "ring"):
         super().__init__()
         if dim % num_heads != 0:
             raise ValueError(f"embed dim {dim} not divisible by {num_heads} heads")
-        if seq_axis is not None:
-            raise NotImplementedError(
-                "ring/Ulysses sequence parallelism is ROADMAP port item P9"
-            )
         if lora_rank > 0 and lora_adapters < 1:
             raise ValueError(f"lora_rank {lora_rank} needs lora_adapters >= 1, "
                              f"got {lora_adapters}")
@@ -248,6 +254,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.causal = causal
         self.flash = flash
+        self.seq_axis, self.seq_impl = seq_axis, seq_impl
         self.dtype = dtype
         self.qkv = Dense(dim, 3 * dim, dtype)
         self.proj = Dense(dim, dim, dtype)
@@ -284,6 +291,10 @@ class MultiHeadAttention(nn.Module):
         # heads-major: the flat 3*dim output factors as (H, 3, hd)
         qkv = qkv.reshape(b, s, self.num_heads, 3, head_dim)
         q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+        if cache is not None and self.seq_axis is not None:
+            # JAX :311-312, :375-376
+            mode = "paged decode" if isinstance(cache, PagedKVCache) else "decode mode"
+            raise ValueError(f"{mode} is single-shard (seq_axis must be None)")
         if isinstance(cache, PagedKVCache):
             if not self.causal:
                 raise ValueError("paged decode requires causal attention")
@@ -300,12 +311,25 @@ class MultiHeadAttention(nn.Module):
             )
         elif decode_pos is not None:
             raise ValueError("decode_pos given without a KV cache")
-        else:
+        elif self.seq_axis is None:
             impl = "flash" if self.flash and flash_shapes_ok(s) else "xla"
             out = dot_product_attention(q, k, v, causal=self.causal, impl=impl)
+        else:
+            out = self._sequence_parallel(q, k, v)
         out = out.reshape(b, s, dim)
         proj = self.proj(out)
         if adapter_ids is not None:
             proj = proj + lora_delta(out, self.proj_lora_a, self.proj_lora_b,
                                      adapter_ids).to(proj.dtype)
         return proj
+
+    def _sequence_parallel(self, q, k, v):
+        """Ring or Ulysses attention over the sequence group (JAX ``:284-289``)."""
+        group = resolve_seq_axis(self.seq_axis)
+        if self.seq_impl == "ring":
+            impl = "flash" if self.flash and flash_shapes_ok(q.shape[1]) else "xla"
+            return ring_attention(q, k, v, group, causal=self.causal, impl=impl)
+        if self.seq_impl == "ulysses":
+            impl = "flash" if self.flash and flash_shapes_ok(q.shape[1] * group.size) else "xla"
+            return ulysses_attention(q, k, v, group, causal=self.causal, impl=impl)
+        raise ValueError(f"unknown seq_impl {self.seq_impl!r}")

@@ -44,9 +44,14 @@ __all__ = ["DistributedBatchNorm"]
 
 
 def _world_size(group) -> int:
+    """The ranks the statistics average over: an explicit group's size (a
+    process group of its own, as threads over one store build), else the
+    default group's, 1 without one."""
+    if group is not None:
+        return group.size()
     if not (dist.is_available() and dist.is_initialized()):
         return 1
-    return dist.get_world_size(group)
+    return dist.get_world_size()
 
 
 class _AllReduceSum(torch.autograd.Function):

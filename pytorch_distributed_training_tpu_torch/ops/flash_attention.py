@@ -46,9 +46,19 @@ Port of ``pytorch_distributed_training_tpu/ops/flash_attention.py``:
   and dO split once into TF32 planes) and streams 32-row K and V tiles;
   S, dP and dQ += dS K are ``mma.sync`` in 3xTF32, dS straight from the
   accumulator registers, each tile's dS K summed apart.
-- :func:`flash_attention`: ``[B, S, H, D] -> [B, S, H, D]`` with heads folded
-  into the batch (``:895-921``), a ``torch.autograd.Function`` whose
-  forward and backward are the wrappers above.
+- :func:`flash_attention_lse`: ``(o, lse)`` of ``[B, S, H, D]`` inputs with
+  heads folded into the batch (``:878-921``), a ``torch.autograd.Function``
+  whose forward and backward are the wrappers above, exact for cotangents
+  on both outputs: an lse cotangent shifts the backward's delta,
+  ``delta = rowsum(dO * O) - g_lse`` (``:757-764``), and the kernels are
+  unchanged.  ``out_f32`` (its default, what ring attention calls) takes
+  f32 dots on any input dtype and keeps o in f32: bf16 inputs are upcast
+  once a call and run the 3xTF32 kernels, and dq, dk, dv are rounded to
+  the input dtype once, at the end (a kernel that widens bf16 tiles in
+  shared memory would spare the copies).  :func:`flash_attention` is its
+  core with ``out_f32=False`` (``:853-875``): o in the input dtype, bf16
+  dots on bf16 inputs.  :func:`flash_lse_plain` is the entry point's plain
+  twin, forward and backward.
 
 Numerics follow the JAX kernels: bf16 inputs go into the tensor cores as
 bf16 with f32 accumulation, the scale multiplies ``s`` after the dot, and
@@ -97,6 +107,7 @@ __all__ = [
     "SUPPORTED_HEAD_DIMS",
     "TPU_KERNELS",
     "flash_attention",
+    "flash_attention_lse",
     "flash_backward",
     "flash_backward_dkv",
     "flash_backward_dq",
@@ -105,6 +116,7 @@ __all__ = [
     "flash_flops",
     "flash_forward",
     "flash_fwd_plain",
+    "flash_lse_plain",
     "flash_shapes_ok",
     "launch_counts",
     "reset_launch_counts",
@@ -135,23 +147,28 @@ def flash_shapes_ok(s_len: int) -> bool:
     return s_len >= 128 and s_len % 128 == 0
 
 
-def tpu_kernels(s_len: int, d: int, dtype) -> dict:
-    """The TPU kernels the JAX package's ``flash_attention`` launches for
-    folded inputs ``[BH, S, D]`` all of ``dtype``: ``{"forward": ...,
+def tpu_kernels(s_len: int, d: int, dtype, bf16_dots: Optional[bool] = None) -> dict:
+    """The TPU kernels the JAX package's ``flash_attention_lse`` launches
+    for folded inputs ``[BH, S, D]`` all of ``dtype``: ``{"forward": ...,
     "dq": ..., "dkv": ...}``.  The gates' shape rules, without their
     environment overrides:
 
     - ``_resident_ok`` (``:114-120``): K/V resident while 2 S D 4 <= 8 MiB
       (K2a, and a resident backward), streamed beyond (K2b, K2f + K2g);
-    - bf16 dots (``:910-914``): all inputs bf16;
+    - ``bf16_dots`` (``:910-914``): whether the kernels take bf16 dots,
+      which JAX does for all-bf16 inputs with o in their dtype
+      (``out_f32=False``); ``None`` reads the dtype alone, which is what
+      :func:`flash_attention` runs, and an ``out_f32`` call passes False;
     - ``_fused_bwd_ok`` as on the TPU (``interpret=False``, ``:123-142``):
       bf16 dots and 2 S D (itemsize + 4) <= 8 MiB fuse the backward (K2c);
       otherwise it is split (K2d + K2e).
     """
     if 2 * s_len * d * 4 > _VMEM_BYTES:
         return {"forward": "K2b", "dq": "K2f", "dkv": "K2g"}
+    if bf16_dots is None:
+        bf16_dots = dtype == torch.bfloat16
     itemsize = torch.empty((), dtype=dtype).element_size()
-    if dtype == torch.bfloat16 and 2 * s_len * d * (itemsize + 4) <= _VMEM_BYTES:
+    if bf16_dots and 2 * s_len * d * (itemsize + 4) <= _VMEM_BYTES:
         return {"forward": "K2a", "dq": "K2c", "dkv": "K2c"}
     return {"forward": "K2a", "dq": "K2d", "dkv": "K2e"}
 
@@ -291,8 +308,10 @@ def _check_cuda(name: str, *ts) -> None:
 
 
 def _counted(q, part: str) -> None:
+    # the kernels take bf16 dots exactly when their inputs are bf16: an
+    # out_f32 call reaches them with its inputs upcast (flash_attention_lse)
     _, s_len, d = q.shape
-    _tpu_launches[tpu_kernels(s_len, d, q.dtype)[part]] += 1
+    _tpu_launches[tpu_kernels(s_len, d, q.dtype, q.dtype == torch.bfloat16)[part]] += 1
 
 
 def flash_forward(q, k, v, causal: bool, scale: float):
@@ -374,39 +393,103 @@ def flash_backward(q, k, v, dout, lse, delta, causal: bool, scale: float):
 flash_backward.launches = 0
 
 
+def _upcast(out_f32: bool, *ts):
+    """With ``out_f32``, the inputs in f32: f32 dots on any input dtype
+    (JAX ``:910-914``), one copy of each, made once a call."""
+    if not out_f32:
+        return ts
+    return tuple(t if t.dtype == torch.float32 else t.float() for t in ts)
+
+
+def _delta(do, o, dlse):
+    """``rowsum(dO * O) - g_lse`` in f32, one elementwise pass outside the
+    kernels as in JAX (``:757-764``): d(lse)/d(s) = p, so an lse cotangent
+    shifts delta, ``ds = p * (dp - (delta - g_lse))``."""
+    delta = (do.float() * o.float()).sum(-1)
+    return delta if dlse is None else delta - dlse.float()
+
+
 class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = flash_forward(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return o
+    """``(o, lse)`` of folded ``q, k, v``; differentiable for cotangents on
+    both outputs.  With ``out_f32`` the kernels run on the inputs upcast to
+    f32 and o stays f32; dq, dk and dv are rounded to the inputs' dtype
+    once, at the end (JAX's ``_out_struct(q.shape, q.dtype)``)."""
 
     @staticmethod
-    def backward(ctx, do):
+    def forward(ctx, q, k, v, causal, scale, out_f32):
+        ctx.set_materialize_grads(False)
+        dtype = q.dtype
+        q, k, v = _upcast(out_f32, q, k, v)
+        o, lse = flash_forward(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale, ctx.dtype = causal, scale, dtype
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
-        # one f32 elementwise pass outside the kernels, as in JAX (:761-764)
-        delta = (do.float() * o.float()).sum(-1)
+        do = torch.zeros_like(o) if do is None else do.to(o.dtype).contiguous()
+        delta = _delta(do, o, dlse)
         dq, dk, dv = flash_backward(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+        dq, dk, dv = (g.to(ctx.dtype) for g in (dq, dk, dv))
+        return dq, dk, dv, None, None, None
+
+
+def _scale(d: int, sm_scale) -> float:
+    return float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(d)
+
+
+def _fold(x):
+    b, s_len, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, s_len, d)
+
+
+def _unfold(x, b: int, h: int):
+    """``[BH, S, ...]`` back to ``[B, S, H, ...]``."""
+    return x.reshape(b, h, *x.shape[1:]).transpose(1, 2)
+
+
+def flash_attention_lse(q, k, v, causal: bool = False, sm_scale: Optional[float] = None,
+                        out_f32: bool = True):
+    """``(o [B, S, H, D], lse [B, S, H] f32)`` of ``q, k, v [B, S, H, D]``
+    (JAX ``:878-921``): the per-row logsumexp that blockwise and ring
+    attention combine partial results with, differentiable for cotangents
+    on both outputs.  ``out_f32`` (the default) takes f32 dots on any input
+    dtype and returns o in f32, so a cross-block combine does not round
+    each partial; with False o is in the input dtype and all-bf16 inputs
+    take bf16 dots (what :func:`flash_attention` calls)."""
+    b, s_len, h, d = q.shape
+    scale = _scale(d, sm_scale)
+    qf, kf, vf = _fold(q), _fold(k), _fold(v)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        o, lse = _FlashAttention.apply(qf, kf, vf, bool(causal), scale, bool(out_f32))
+    else:
+        o, lse = flash_forward(*_upcast(out_f32, qf, kf, vf), bool(causal), scale)
+    return _unfold(o, b, h), _unfold(lse, b, h)
 
 
 def flash_attention(q, k, v, causal: bool = False, sm_scale: Optional[float] = None):
     """Flash attention ``q, k, v [B, S, H, D] -> [B, S, H, D]``, scale
-    ``1/sqrt(D)`` unless given; differentiable in q, k and v."""
+    ``1/sqrt(D)`` unless given; differentiable in q, k and v.  The core of
+    :func:`flash_attention_lse` with ``out_f32=False`` (JAX ``:853-875``)."""
+    return flash_attention_lse(q, k, v, causal, sm_scale, out_f32=False)[0]
+
+
+def flash_lse_plain(q, k, v, do, dlse, causal: bool, sm_scale: Optional[float] = None,
+                    out_f32: bool = True):
+    """The plain twin of :func:`flash_attention_lse` forward and backward:
+    ``(o, lse, dq, dk, dv)`` of ``q, k, v [B, S, H, D]`` with cotangents
+    ``do`` on o and ``dlse`` [B, S, H] on lse (``None``: zero), through
+    :func:`flash_fwd_plain` and :func:`flash_bwd_plain` with the same
+    upcast, delta fold and final rounding as the kernels' path."""
     b, s_len, h, d = q.shape
-    scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(d)
-
-    def fold(x):
-        return x.transpose(1, 2).reshape(b * h, s_len, d)
-
-    qf, kf, vf = fold(q), fold(k), fold(v)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        o = _FlashAttention.apply(qf, kf, vf, bool(causal), scale)
-    else:
-        o = flash_forward(qf, kf, vf, bool(causal), scale)[0]
-    return o.reshape(b, h, s_len, d).transpose(1, 2)
+    scale = _scale(d, sm_scale)
+    qf, kf, vf = _upcast(out_f32, _fold(q), _fold(k), _fold(v))
+    o, lse = flash_fwd_plain(qf, kf, vf, causal, scale)
+    dof = _fold(do).to(o.dtype)
+    dlsef = None if dlse is None else dlse.transpose(1, 2).reshape(b * h, s_len)
+    grads = flash_bwd_plain(qf, kf, vf, dof, lse, _delta(dof, o, dlsef), causal, scale)
+    return (_unfold(o, b, h), _unfold(lse, b, h), *(_unfold(g.to(q.dtype), b, h) for g in grads))
 
 
 # every kernel wrapper of this module, by the name its launch count goes by

@@ -37,6 +37,15 @@ from pytorch_distributed_training_tpu_torch.engine import Runner, fault
 from pytorch_distributed_training_tpu_torch.models import resnet_state_dict_from_jax
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _clean():
     for mod in (fault, jfault):

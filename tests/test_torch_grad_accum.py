@@ -55,6 +55,15 @@ SGD_KW = dict(lr=0.05, momentum=0.9, weight_decay=1e-4)
 IMAGE_SGD = dict(lr=0.001, momentum=0.9, weight_decay=1e-4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def lm():
     jm = JaxLM(vocab_size=VOCAB, max_len=SEQ, embed_dim=EMBED, depth=DEPTH, num_heads=HEADS)

@@ -41,6 +41,16 @@ from pytorch_distributed_training_tpu_torch.models import (
 )
 from pytorch_distributed_training_tpu_torch.ops.batch_norm import DistributedBatchNorm
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # --------------------------------------------------------------------- #
 # BatchNorm
 

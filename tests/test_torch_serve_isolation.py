@@ -66,14 +66,18 @@ def test_serving_cli_imports_no_jax():
 
 
 def test_trainer_and_fault_layer_import_no_jax():
-    """The training CLI and the fault layer (``engine/fault.py``,
+    """The training CLI, the fault layer (``engine/fault.py``,
     ``watchdog.py``, ``topology.py``, ``utils/retry.py``: their JAX
-    counterparts import no JAX either, and the port keeps its own copies)."""
+    counterparts import no JAX either, and the port keeps its own copies)
+    and the sequence-parallel layer (``parallel/mesh.py``,
+    ``parallel/sequence.py``)."""
     mods = ["pytorch_distributed_training_tpu_torch.train_distributed",
             "pytorch_distributed_training_tpu_torch.engine.fault",
             "pytorch_distributed_training_tpu_torch.engine.watchdog",
             "pytorch_distributed_training_tpu_torch.engine.topology",
-            "pytorch_distributed_training_tpu_torch.utils.retry"]
+            "pytorch_distributed_training_tpu_torch.utils.retry",
+            "pytorch_distributed_training_tpu_torch.parallel.mesh",
+            "pytorch_distributed_training_tpu_torch.parallel.sequence"]
     for m in mods[1:]:
         assert (PORT / (m.split(".", 1)[1].replace(".", "/") + ".py")).is_file(), m
     code = ("import importlib, json, sys\n"

@@ -246,7 +246,10 @@ def test_sampled_generate_is_reproducible(params):
 @pytest.mark.parametrize(
     "kwargs,item",
     [# ported (P9, MoE): the model builds and serving refuses it, as JAX does
-     pytest.param({"moe_experts": 2}, None, id="kwargs0-P9"), ({"seq_axis": "sequence"}, "P9"),
+     pytest.param({"moe_experts": 2}, None, id="kwargs0-P9"),
+     # ported (P9, sequence parallelism): the model builds and serving
+     # refuses a sharded sequence with the JAX messages
+     pytest.param({"seq_axis": "sequence"}, None, id="kwargs1-P9"),
      # ported (P2b): the dots policy builds
      pytest.param({"remat": True, "remat_policy": "dots"}, None, id="kwargs2-P2"),
      # ported (P4): the paged model builds and makes its pool
@@ -275,6 +278,15 @@ def test_unported_model_options_raise(kwargs, item):
                 with pytest.raises(ValueError) as got:
                     serve()
                 assert str(got.value) == str(want.value)
+        elif "seq_axis" in kwargs:
+            tokens = torch.ones(2, 4, dtype=torch.long)
+            pos, tables = torch.zeros(2, 4, dtype=torch.long), torch.zeros(2, 1, dtype=torch.long)
+            for call, want in ((lambda: model(tokens, model.new_cache(2)), "decode mode"),
+                               (lambda: model(tokens, model.new_pool(3, 4), pos, tables),
+                                "paged decode")):
+                with pytest.raises(ValueError) as got:
+                    call()
+                assert str(got.value) == f"{want} is single-shard (seq_axis must be None)"
         elif "remat" in kwargs:
             assert model.remat and model.remat_policy == kwargs["remat_policy"]
         elif "lora_rank" in kwargs:

@@ -12,9 +12,10 @@ small gradient shows at up to ~1e-5 of it); eval loss rtol 1e-5 and the
 accuracies exactly (the same argmax on both sides).
 """
 import json
-import socket
 import subprocess
 import sys
+import threading
+from datetime import timedelta
 from pathlib import Path
 
 import jax
@@ -22,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 import yaml
 
 from pytorch_distributed_training_tpu import optimizers as jopt
@@ -46,6 +48,15 @@ from pytorch_distributed_training_tpu_torch.models import TransformerLM, lm_stat
 from pytorch_distributed_training_tpu_torch.train_distributed import main as cli_main
 
 VOCAB, SEQ, EMBED, DEPTH, HEADS = 64, 128, 128, 2, 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 # --------------------------------------------------------------------- #
@@ -277,55 +288,46 @@ def test_unported_step_options_raise(lm_setup):
 # two gloo ranks against one rank on the full batch
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _rank(rank: int, world: int, store, spec, state, opt_kwargs, batches) -> dict:
+    """One rank of a gloo world (a thread, its process group over
+    ``store``), the port only, SGD with momentum so that the parameters
+    compare linearly in the gradients: its losses and final state."""
+    group = dist.ProcessGroupGloo(store, rank, world, timedelta(seconds=60))
+    model = TransformerLM(**spec)
+    model.load_state_dict(state)
+    opt = topt.SGD(**opt_kwargs)
+    step = build_lm_train_step(model, opt, tsched.get_scheduler(opt, _SCHED).lr_fn,
+                               world_size=world, group=group)
+    losses = []
+    for tokens, labels in batches:
+        half = tokens.shape[0] // world
+        losses.append(float(step(tokens[rank * half:(rank + 1) * half],
+                                 labels[rank * half:(rank + 1) * half])))
+    return {"losses": losses, "state": model.state_dict()}
 
 
-# one rank of a gloo world: the port only (no JAX in the child), SGD with
-# momentum so that the parameters compare linearly in the gradients
-_RANK = """
-import sys, torch, torch.distributed as dist
-from pytorch_distributed_training_tpu_torch import optimizers, schedulers
-from pytorch_distributed_training_tpu_torch.engine import build_lm_train_step
-from pytorch_distributed_training_tpu_torch.models import TransformerLM
-rank, world, port, path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
-inp = torch.load(path + "/in.pt")
-dist.init_process_group("gloo", init_method="tcp://127.0.0.1:" + port, world_size=world,
-                        rank=rank)
-model = TransformerLM(**inp["model"])
-model.load_state_dict(inp["state"])
-opt = optimizers.SGD(**inp["opt"])
-step = build_lm_train_step(model, opt, schedulers.get_scheduler(opt, inp["sched"]).lr_fn,
-                           world_size=world)
-losses = []
-for tokens, labels in inp["batches"]:
-    half = tokens.shape[0] // world
-    losses.append(float(step(tokens[rank * half:(rank + 1) * half],
-                             labels[rank * half:(rank + 1) * half])))
-if rank == 0:
-    torch.save({"losses": losses, "state": model.state_dict()}, path + "/rank0.pt")
-dist.destroy_process_group()
-"""
-
-
-def test_two_gloo_ranks_equal_one_rank_full_batch(lm_setup, tmp_path):
+def test_two_gloo_ranks_equal_one_rank_full_batch(lm_setup):
     _, params, batches = lm_setup
     spec = dict(vocab_size=VOCAB, max_len=SEQ, embed_dim=EMBED, depth=DEPTH, num_heads=HEADS,
                 fused_tails=True, flash=True)
     opt_kwargs = dict(lr=0.05, momentum=0.9, weight_decay=1e-4)
     tb = [(torch.from_numpy(i).long(), torch.from_numpy(t).long()) for i, t in batches[:2]]
-    torch.save({"model": spec, "state": lm_state_dict_from_jax(params), "opt": opt_kwargs,
-                "sched": _SCHED, "batches": tb}, tmp_path / "in.pt")
-    repo = Path(__file__).resolve().parent.parent
-    port = str(_free_port())
-    procs = [subprocess.Popen([sys.executable, "-c", _RANK, str(r), "2", port, str(tmp_path)],
-                              cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for r in range(2)]
-    outs = [p.communicate(timeout=120)[0] for p in procs]
-    assert [p.returncode for p in procs] == [0, 0], outs
-    got = torch.load(tmp_path / "rank0.pt")
+    state = lm_state_dict_from_jax(params)
+    store, outs, errors = dist.HashStore(), {}, []
+
+    def run(rank):
+        try:
+            outs[rank] = _rank(rank, 2, store, spec, state, opt_kwargs, tb)
+        except BaseException as err:  # re-raised below, in the test's thread
+            errors.append(err)
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors and len(outs) == 2, errors
+    got = outs[0]
     model = TransformerLM(**spec)
     model.load_state_dict(lm_state_dict_from_jax(params))
     opt = topt.SGD(**opt_kwargs)
@@ -388,7 +390,10 @@ def test_runner_trains_and_validates_on_cpu():
                   r"anomaly: unknown key\(s\) \['factor'\]", id="fault_tolerance-value3-P2b"),
      pytest.param("fault_tolerance", {"fault_spec": "sdc_flip@1"}, NotImplementedError, "P10",
                   id="fault_tolerance-sdc_flip-P10"),
-     pytest.param("sequence_parallelism", 2, NotImplementedError, "P9",
+     # ported (P9, ring and Ulysses): at one rank a ring of 2 cannot form,
+     # refused as the JAX package refuses it
+     pytest.param("sequence_parallelism", 2, ValueError,
+                  r"training.sequence_parallelism \(2\) must divide the number of ranks \(1\)",
                   id="sequence_parallelism-2-P9"),
      pytest.param("zero", 1, NotImplementedError, "P9", id="zero-1-P9"),
      pytest.param("comm", {"overlap": True}, NotImplementedError, "P9", id="comm-value6-P9"),
