@@ -22,10 +22,14 @@
                                        # --profile: its step's device time by class)
     python3 chip_smoke.py --sp         # phases 1, 2 and 26 only: flash_attention_lse,
                                        # ring and Ulysses attention on virtual ranks
+    python3 chip_smoke.py --tp         # phases 1, 2 and 27 only: Megatron tensor and
+                                       # expert parallelism, 4 gloo ranks on the card
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
+1. the card (``nvidia-smi`` name and power limit), the torch/CUDA versions
+   and gloo's ``all_reduce`` of CUDA bf16 tensors over two ranks (phase
+   27's exchanges; it raises if gloo refuses bf16);
 2. build every hand-written kernel from ``csrc/`` with nvcc for sm_90a
    (one nvcc per library, all started together), with ptxas's registers
    and spills for each kernel;
@@ -288,6 +292,31 @@ Phases, in order; any failure raises and the script exits non-zero:
     ranks on one card, so the multi-rank SP step itself runs only on gloo
     ranks on the CPU (``tests/test_torch_sp_step.py``).
 
+27. Megatron tensor parallelism and expert parallelism at degree 4, as 4
+    gloo ranks, each a process of its own on the one card (NCCL refuses two
+    ranks on one device): (a) f32, TF32 off, full width (d 1024, 16 heads,
+    vocab 32768), depth 2, batch 2 x 256, seeded full weights with random
+    biases: dense at T = 4 and MoE at EP = 4 (8 experts, 2 a rank) each take
+    2 SGD steps, held against the one-rank step on the card: the losses
+    within rtol 1e-6, every gathered gradient within 1e-5 and every
+    gathered parameter within 1e-6 of its largest magnitude (the limits of
+    ``tests/test_torch_tensor_parallel.py``), which a row-parallel bias
+    added on every rank and a *reduce* with an all-reducing backward must
+    fail; each rank's launches exact.  (b) bf16: the runner on
+    ``configs/train-lm-tp.yml`` and ``configs/train-lm-moe-ep.yml``
+    (``tensor_parallelism: 4`` kept, batch 64 as 8 micro-batches, block
+    remat; at 2 blocks in the whole script's run, which 16 blocks' ~11 min
+    through gloo would carry past its limit, at 16 with ``--tp``), 1 + 3
+    steps and one validation batch through ``Runner(num_nodes=4,
+    rank=r, device="cuda", dist_backend="gloo")``: each rank's launches
+    exact a step and in the validation, with their shapes (K1a/K1b
+    [16384, 32768], the flash pair at [8, 2048, 4, 64], K3 [16384, 1024]
+    after the reduce, K4 on the fc1 slice [16384, 1024]); step ms, tokens/s,
+    each process's peak memory and the share of the step the gloo
+    exchanges take, beside the card's name and power limit.  These cross
+    the host through gloo: they describe no NCCL run and no multi-card
+    speed.
+
 The line before the last lists every TPU kernel (K1a ... K4) with the CUDA
 kernel that stands for it, its launches on the path that runs it (and on
 every path, ``launches_by_path``), its error
@@ -301,6 +330,7 @@ import argparse
 import contextlib
 import logging
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2493,8 +2523,9 @@ def phase_lm_accum(torch, modules) -> dict:
         per_step=dict(ce_fwd=n, ce_bwd=n, flash_fwd=n * per_micro, flash_bwd=n * 2 * depth,
                       K2a=n * per_micro, K2c=n * 2 * depth, add_layernorm=n * per_micro,
                       bias_gelu=n * per_micro),
-        per_val_batch=dict(ce_fwd=1, flash_fwd=depth, K2a=depth, add_layernorm=depth,
-                           bias_gelu=depth))
+        # validation runs a batch as the step's n micro-batches
+        per_val_batch=dict(ce_fwd=n, flash_fwd=n * depth, K2a=n * depth,
+                           add_layernorm=n * depth, bias_gelu=n * depth))
     if runner.model.remat_policy != "dots" or runner.train_step.grad_accum != n or not (
             runner.anomaly_enabled and runner._consec_anomalies == 0):
         raise AssertionError("phase 18 did not run the accumulated, dots, guarded path")
@@ -4387,7 +4418,8 @@ def phase_moe(torch, modules, profile: bool) -> dict:
     one validation of 2 batches: per step exactly 8 K1a and 8 K1b, 8 x 2 x
     16 K2a and K2c launches (every block's forward run again by the
     recompute), 8 x 2 x 8 each of K3/K4 (the dense blocks only); per
-    validation batch 1 K1a, 16 K2a and 8 each of K3/K4; step ms, tokens/s,
+    validation batch (run as the step's 8 micro-batches) 8 K1a, 8 x 16 K2a
+    and 8 x 8 each of K3/K4; step ms, tokens/s,
     MFU on both FLOP counts of :func:`moe_step_flops`, peak memory, the aux
     term (matmul TF32 off, torch's default, as in (a): the f32 head and
     router run as FP32 GEMMs); (c) with ``profile``,
@@ -4407,8 +4439,8 @@ def phase_moe(torch, modules, profile: bool) -> dict:
         per_step=dict(ce_fwd=n, ce_bwd=n, flash_fwd=n * 2 * depth, flash_bwd=n * 2 * depth,
                       K2a=n * 2 * depth, K2c=n * 2 * depth, add_layernorm=n * 2 * dense,
                       bias_gelu=n * 2 * dense),
-        per_val_batch=dict(ce_fwd=1, flash_fwd=depth, K2a=depth, add_layernorm=dense,
-                           bias_gelu=dense))
+        per_val_batch=dict(ce_fwd=n, flash_fwd=n * depth, K2a=n * depth,
+                           add_layernorm=n * dense, bias_gelu=n * dense))
     if runner.path != "gspmd" or runner.train_step.grad_accum != n or not runner.model.remat:
         raise AssertionError("phase 25 did not run the accumulated MoE step with block remat")
     flops = moe_step_flops(runner.model, batch, seq)
@@ -4705,6 +4737,495 @@ def phase_sequence_parallel(torch, modules, smi: str) -> dict:
     return path, rows
 
 
+# phase 27: Megatron tensor parallelism and expert parallelism at degree 4,
+# four gloo ranks as processes on the one card (NCCL takes one rank a card)
+TP_CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "configs",
+                         "train-lm-tp.yml")
+EP_CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "configs",
+                         "train-lm-moe-ep.yml")
+TP_DIR = os.path.join(_HERE, "run", "chip_smoke", "tp")
+TP_RANKS = 4
+# (a)'s model: full width, depth 2 (block 1 a MoE block of 8 experts in
+# the MoE case), f32, a batch of 2 x 256
+TP_GATE_KW = dict(vocab_size=32768, max_len=2048, embed_dim=1024, depth=2, num_heads=16,
+                  fused_tails=True, flash=True)
+TP_GATE_MOE_KW = dict(moe_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+                      moe_aux_weight=0.01, moe_every=2)
+TP_GATE_SGD = dict(lr=0.01, momentum=0.9)
+TP_GATE_BATCH, TP_GATE_SEQ, TP_GATE_STEPS = 2, 256, 2
+# (a)'s limits are tests/test_torch_tensor_parallel.py's, where T ranks held
+# against one rank in f32 measured losses equal to 1e-7, parameters after two
+# steps 1.1e-7 and gradients 2.2e-6 of their largest magnitude: the losses
+# within rtol 1e-6, every gathered gradient within 1e-5 and every gathered
+# parameter within 1e-6 of its largest magnitude
+TP_LOSS_RTOL, TP_GRAD_LIMIT, TP_PARAM_LIMIT = 1e-6, 1e-5, 1e-6
+
+
+def tp_probe_gloo(torch) -> str:
+    """Phase 1: gloo's ``all_reduce`` of CUDA bf16 tensors over two ranks
+    (threads of this process), the dtype the port's copy and reduce take on
+    the bf16 stream.  Raises if gloo refuses bf16 or sums wrong."""
+    import threading
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    store, got, errors = dist.HashStore(), {}, []
+
+    def rank(r):
+        try:
+            pg = dist.ProcessGroupGloo(store, r, 2, timedelta(seconds=60))
+            t = torch.full((1024,), float(r + 1), dtype=torch.bfloat16, device="cuda")
+            pg.allreduce([t]).wait()
+            torch.cuda.synchronize()
+            got[r] = t
+        except BaseException as err:  # raised below, in the phase's thread
+            errors.append(err)
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    if errors or len(got) != 2:
+        raise AssertionError(f"gloo all_reduce of CUDA bf16 tensors: {errors}")
+    for t in got.values():
+        if t.dtype != torch.bfloat16 or not bool((t == 3.0).all()):
+            raise AssertionError(f"gloo all_reduce of CUDA bf16 tensors summed {t[:4]}")
+    return "bfloat16"
+
+
+def tp_gate_weights(torch, kind: str, seed: int) -> dict:
+    """(a)'s full weights, on the CPU: flax's init from ``seed``, then
+    every bias drawn at 0.02 and every LayerNorm scale at 1 + 0.1 n, so
+    that a row-parallel bias counted ``T`` times moves the first forward."""
+    from pytorch_distributed_training_tpu_torch.models import TransformerLM
+
+    kw = dict(TP_GATE_KW, **(TP_GATE_MOE_KW if kind == "moe" else {}))
+    model = TransformerLM(**kw)
+    gen = torch.Generator().manual_seed(seed)
+    model.reset_parameters(gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.normal_(0.0, 0.02, generator=gen)
+            elif ".ln" in name and name.endswith("weight"):
+                p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def tp_gate_batch(torch, seed: int = 27):
+    gen = torch.Generator().manual_seed(seed)
+    shape = (TP_GATE_BATCH, TP_GATE_SEQ)
+    return (torch.randint(0, TP_GATE_KW["vocab_size"], shape, generator=gen),
+            torch.randint(0, TP_GATE_KW["vocab_size"], shape, generator=gen))
+
+
+def tp_gate_steps(torch, kind: str, full: dict, tokens, labels, tg=None) -> dict:
+    """``TP_GATE_STEPS`` SGD steps of the GSPMD-path step on the card from
+    ``full`` (this rank's slices of it under ``tg``): the losses, every
+    step's gradients before the update and the parameters after, gathered
+    over the model group (a collective on every rank), on the CPU."""
+    from pytorch_distributed_training_tpu_torch import optimizers
+    from pytorch_distributed_training_tpu_torch.engine.tp_steps import build_tp_lm_train_step
+    from pytorch_distributed_training_tpu_torch.models import TransformerLM
+    from pytorch_distributed_training_tpu_torch.parallel.tensor import gather_param, shard_dim
+
+    kw = dict(TP_GATE_KW, **(TP_GATE_MOE_KW if kind == "moe" else {}))
+    model = TransformerLM(**kw, tensor_group=tg)
+    model.load_full_state_dict(full)
+    model.cuda()
+    step = build_tp_lm_train_step(model, optimizers.SGD(**TP_GATE_SGD),
+                                  lambda i: TP_GATE_SGD["lr"])
+    names = [n for n, _ in model.named_parameters()]
+    grads = []
+    update = step.optimizer.update
+
+    def record(params, gs, state, lr):
+        grads.append({n: gather_param(g, shard_dim(n), tg).cpu() if tg is not None
+                      else g.cpu() for n, g in zip(names, gs)})
+        return update(params, gs, state, lr)
+
+    step.optimizer.update = record
+    losses = [float(step(tokens.cuda(), labels.cuda())) for _ in range(TP_GATE_STEPS)]
+    after = {k: v.cpu() for k, v in model.full_state_dict().items()}
+    return dict(losses=losses, grads=grads, after=after)
+
+
+def tp_gate_readings(got: dict, want: dict) -> dict:
+    return dict(
+        loss=max(abs(g - w) / abs(w) for g, w in zip(got["losses"], want["losses"])),
+        grad=max(relative_to_largest(gs[n], ws[n])
+                 for gs, ws in zip(got["grads"], want["grads"]) for n in ws),
+        param=max(relative_to_largest(got["after"][n], w) for n, w in want["after"].items()))
+
+
+def tp_gate_within(r: dict) -> bool:
+    return (r["loss"] <= TP_LOSS_RTOL and r["grad"] <= TP_GRAD_LIMIT
+            and r["param"] <= TP_PARAM_LIMIT)
+
+
+def tp_bias_on_every_rank(torch):
+    """A wrong row-parallel Dense: the bias added before the reduce, on
+    every rank (so ``T`` times)."""
+    import torch.nn.functional as F
+
+    from pytorch_distributed_training_tpu_torch.ops import layers
+
+    plain = layers.Dense.forward
+
+    def forward(self, x):
+        if self.split != "row":
+            return plain(self, x)
+        d = self.dtype
+        return layers.reduce_from_model(
+            F.linear(x.to(d), self.weight.to(d), self.bias.to(d)), self.tensor_group)
+
+    return layers.Dense, "forward", forward
+
+
+def tp_reduce_all_reducing_backward(torch):
+    """A wrong *reduce*: ``torch.distributed.nn.functional.all_reduce``,
+    whose backward all-reduces again."""
+    from torch.distributed.nn.functional import all_reduce
+
+    from pytorch_distributed_training_tpu_torch.ops import layers
+
+    return layers, "reduce_from_model", lambda x, tg: all_reduce(x, group=tg.group)
+
+
+TP_VARIANTS = {"row bias on every rank": tp_bias_on_every_rank,
+               "reduce with an all-reducing backward": tp_reduce_all_reducing_backward}
+
+
+def tp_kernel_shapes(modules) -> tuple:
+    """Wrap the kernel wrappers (their module attributes and their
+    ``KERNELS`` entries) to record the shapes and dtypes they are called
+    with; a wrapper counts its launches on its own name, so the wrap holds
+    the count while it is in place.  Returns the record and a function that
+    puts the originals back, counts included."""
+    fe, ce, fa = modules
+    seen, undo = {}, []
+    for mod, name, key in ((ce, "fused_ce_forward", "K1a"), (ce, "fused_ce_backward", "K1b"),
+                           (fa, "flash_forward", "K2a (q folded [B*H, S, D])"),
+                           (fa, "flash_backward", "K2c (q folded [B*H, S, D])"),
+                           (fe, "fused_add_layernorm", "K3"), (fe, "fused_bias_gelu", "K4")):
+        plain = getattr(mod, name)
+
+        def wrapped(first, *args, _plain=plain, _key=key, **kw):
+            seen.setdefault(_key, set()).add(f"{list(first.shape)} {first.dtype}".replace(
+                "torch.", ""))
+            return _plain(first, *args, **kw)
+
+        wrapped.launches = plain.launches
+        setattr(mod, name, wrapped)
+        entry = next(k for k, fn in mod.KERNELS.items() if fn is plain)
+        mod.KERNELS[entry] = wrapped
+        undo.append((mod, name, entry, plain, wrapped))
+
+    def restore():
+        for mod, name, entry, plain, wrapped in undo:
+            plain.launches = wrapped.launches
+            setattr(mod, name, plain)
+            mod.KERNELS[entry] = plain
+
+    return seen, restore
+
+
+def tp_exchange_timer(torch) -> dict:
+    """Time every all-reduce of the model group's copy and reduce
+    (``parallel.tensor._all_reduce``), synchronised before and after so
+    that only the exchange is counted (gloo copies through the host)."""
+    from pytorch_distributed_training_tpu_torch.parallel import tensor
+
+    plain, clock = tensor._all_reduce, dict(seconds=0.0, calls=0, bytes=0)
+
+    def timed(t, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain(t, group)
+        torch.cuda.synchronize()
+        clock["seconds"] += time.perf_counter() - t0
+        clock["calls"] += 1
+        clock["bytes"] += t.numel() * t.element_size()
+        return out
+
+    tensor._all_reduce = timed
+    return clock
+
+
+def tp_runner_readings(torch, modules, config: str, rank: int, port: int,
+                       edit=None) -> dict:
+    """(b) on one rank: the runner on ``config`` (then ``edit(cfg)``'s cuts)
+    for 4 steps (1 warm-up, 3 timed) and one validation batch, its launches
+    a step and in the
+    validation, their shapes, the step ms, the model group's exchange ms a
+    step and the peak memory of this process."""
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
+    from pytorch_distributed_training_tpu_torch.engine import Runner
+
+    cfg = get_cfg(config)
+    steps = 4
+    cfg["training"].update(train_iters=steps, print_interval=1, val_interval=steps)
+    cfg["dataset"]["n_samples"] = cfg["training"]["batch_size"]  # 1 validation batch
+    if edit is not None:
+        edit(cfg)
+    clock = tp_exchange_timer(torch)
+    shapes, restore = tp_kernel_shapes(modules)
+    marks = []
+
+    def on_iter(runner):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), all_counts(modules), clock["seconds"]))
+
+    for m in modules:
+        m.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = Runner(num_nodes=TP_RANKS, rank=rank, seed=0, dist_url=f"tcp://127.0.0.1:{port}",
+                    multiprocessing=False, logger_queue=None, global_cfg=cfg, device="cuda",
+                    dist_backend="gloo", on_iter=on_iter)
+    runner()
+    wall = time.perf_counter() - t0
+    restore()
+    final = all_counts(modules)
+    prev, per_step = {k: 0 for k in final}, []
+    for _, counts, _ in marks:
+        per_step.append({k: counts[k] - prev[k] for k in final})
+        prev = counts
+    step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
+    exchange_ms = [(b[2] - a[2]) * 1e3 for a, b in zip(marks, marks[1:])]
+    return dict(rank=rank, path=runner.path, n_data=runner.data_size,
+                model_idx=runner.layout.model_idx, grad_accum=runner.train_step.grad_accum,
+                remat=runner.model.remat, step_ms=step_ms, exchange_ms=exchange_ms,
+                exchange_calls=clock["calls"], exchange_bytes=clock["bytes"],
+                per_step=per_step, validation={k: final[k] - prev[k] for k in final},
+                final=final, shapes={k: sorted(v) for k, v in shapes.items()},
+                losses=[r["loss"] for r in runner.train_log], val=runner.val_log,
+                aux=float(getattr(runner.train_step, "aux", 0.0) or 0.0),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, wall_s=wall,
+                params_m=sum(p.numel() for p in runner.model.parameters()) / 1e6)
+
+
+def tp_worker(rank: int, task: str, port: int, depth=None) -> None:
+    """One of phase 27's ranks, a process of its own on ``cuda:0``: ``gate``
+    runs (a)'s cases in turn over one gloo process group, ``tp`` and ``ep``
+    run (b) on their config (its depth cut to ``depth`` if given).  Writes
+    its results under ``TP_DIR``."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.ops import flash_attention as fa
+    from pytorch_distributed_training_tpu_torch.ops import fused_ce as ce
+    from pytorch_distributed_training_tpu_torch.ops import fused_elementwise as fe
+
+    modules = (fe, ce, fa)
+    torch.cuda.set_device(0)
+    if task != "gate":
+        edit = None if depth is None else (lambda c: c["model"].update(depth=depth))
+        out = tp_runner_readings(torch, modules, TP_CONFIG if task == "tp" else EP_CONFIG,
+                                 rank, port, edit=edit)
+        with open(os.path.join(TP_DIR, f"{task}.rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        return
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from pytorch_distributed_training_tpu_torch.parallel import TPLayout
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=TP_RANKS, rank=rank, timeout=timedelta(seconds=600))
+    try:
+        tg = TPLayout(TP_RANKS, rank, TP_RANKS).tensor_group
+        tokens, labels = tp_gate_batch(torch)
+        results, launches = {}, {}
+        cases = [("dense", None), ("moe", None)] + [("dense", v) for v in TP_VARIANTS]
+        for kind, variant in cases:
+            full = torch.load(os.path.join(TP_DIR, f"full_{kind}.pt"), weights_only=True)
+            undo = None
+            if variant is not None:
+                owner, attr, wrong = TP_VARIANTS[variant](torch)
+                undo = (owner, attr, getattr(owner, attr))
+                setattr(owner, attr, wrong)
+            for m in modules:
+                m.reset_launch_counts()
+            try:
+                results[variant or kind] = tp_gate_steps(torch, kind, full, tokens, labels, tg)
+            finally:
+                if undo is not None:
+                    setattr(*undo)
+            launches[variant or kind] = all_counts(modules)
+        if rank == 0:
+            torch.save(results, os.path.join(TP_DIR, "gate.pt"))
+        with open(os.path.join(TP_DIR, f"gate.rank{rank}.json"), "w") as f:
+            json.dump(launches, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_spawn(torch, task: str, depth=None) -> float:
+    """Run ``tp_worker`` on ``TP_RANKS`` spawned processes and wait for all;
+    a rank that fails ends the others and raises here.  Returns the wall s."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    mp.start_processes(tp_worker, args=(task, port, depth), nprocs=TP_RANKS, join=True,
+                       start_method="spawn")
+    return time.perf_counter() - t0
+
+
+def phase_tp_gate(torch, modules) -> dict:
+    """Phase 27 (a): dense at T = 4 and MoE at EP = 4 (2 experts a rank),
+    full width, depth 2, f32 with TF32 off, batch 2 x 256: each takes
+    ``TP_GATE_STEPS`` SGD steps on four gloo ranks (processes on the card)
+    from the same seeded full weights and batch as the one-rank step on the
+    card; the loss, every gathered gradient before each update and every
+    gathered parameter after held to ``TP_*`` limits, which two wrong dense
+    variants must fail (:data:`TP_VARIANTS`); each rank's launches exact
+    (every rank runs every kernel on its own slice: K2a/K2d/K2e at [2, 256,
+    4, 64] f32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(TP_DIR, exist_ok=True)
+    tokens, labels = tp_gate_batch(torch)
+    want, one_launches = {}, {}
+    for i, kind in enumerate(("dense", "moe")):
+        full = tp_gate_weights(torch, kind, seed=27 + i)
+        torch.save(full, os.path.join(TP_DIR, f"full_{kind}.pt"))
+        for m in modules:
+            m.reset_launch_counts()
+        want[kind] = tp_gate_steps(torch, kind, full, tokens, labels)
+        one_launches[kind] = all_counts(modules)
+    torch.cuda.empty_cache()
+    wall = tp_spawn(torch, "gate")
+    got = torch.load(os.path.join(TP_DIR, "gate.pt"), weights_only=True)
+    ranks = [json.load(open(os.path.join(TP_DIR, f"gate.rank{r}.json")))
+             for r in range(TP_RANKS)]
+    steps, depth = TP_GATE_STEPS, TP_GATE_KW["depth"]
+    for kind in want:
+        dense = depth if kind == "dense" else 1
+        # per rank, as the one rank: one K1 pair, a flash forward and split
+        # backward a block, K3/K4 in the dense blocks, a step
+        per_run = dict(ce_fwd=steps, ce_bwd=steps, flash_fwd=steps * depth,
+                       flash_bwd=2 * steps * depth, K2a=steps * depth, K2d=steps * depth,
+                       K2e=steps * depth, add_layernorm=steps * dense,
+                       bias_gelu=steps * dense)
+        check_launches(f"one rank {kind}", one_launches[kind], per_run)
+        for r, launches in enumerate(ranks):
+            check_launches(f"rank {r} {kind}", launches[kind], per_run)
+    sound = {kind: tp_gate_readings(got[kind], want[kind]) for kind in want}
+    variants = {v: tp_gate_readings(got[v], want["dense"]) for v in TP_VARIANTS}
+    for kind, r in sound.items():
+        say(f"  {kind} T = {TP_RANKS} vs one rank: {r} (losses {got[kind]['losses']} vs "
+            f"{want[kind]['losses']}) -> {'within' if tp_gate_within(r) else 'OUTSIDE'}")
+    for v, r in variants.items():
+        say(f"  wrong variant {v}: {r} -> {'within' if tp_gate_within(r) else 'outside'}")
+    say(f"  four ranks' wall {wall:.1f} s (spawn, build, 4 runs of {steps} steps)")
+    bad = [k for k, r in sound.items() if not tp_gate_within(r)]
+    if bad:
+        raise AssertionError(f"tensor parallelism on the card outside its limits: {bad}")
+    inside = [v for v, r in variants.items() if tp_gate_within(r)]
+    if inside:
+        raise AssertionError(f"tensor parallelism: wrong variants within the limits: {inside}")
+    return dict(sound=sound, variants=variants, launches=ranks[0], wall_s=wall)
+
+
+def phase_tp_runner(torch, task: str, config: str, smi: str, depth=None) -> dict:
+    """Phase 27 (b) on ``config`` (its depth cut to ``depth`` if given):
+    four gloo processes on the card through the runner
+    (:func:`tp_runner_readings`); each rank's launches exact a
+    step (K1a/K1b n, K2a/K2c n x 2 x depth, K3/K4 n x 2 x dense blocks:
+    block remat runs each forward twice) and in the validation batch (run
+    as n micro-batches); every loss finite and equal on the ranks.  Prints
+    the step ms, tokens/s, each process's peak memory, the exchanges'
+    share of the step and each rank's launches with their shapes beside the
+    card.  Returns the four ranks' launch counts summed."""
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
+
+    cfg, cut = get_cfg(config), depth
+    if cut is not None:
+        cfg["model"]["depth"] = cut
+    depth, n = cfg["model"]["depth"], cfg["training"]["grad_accumulation"]
+    every = cfg["model"].get("moe_every", 0)
+    dense = sum(1 for i in range(depth)
+                if not (cfg["model"].get("moe_experts") and i % every == every - 1))
+    batch, seq = cfg["training"]["batch_size"], cfg["dataset"]["seq_len"]
+    wall = tp_spawn(torch, task, cut)
+    ranks = [json.load(open(os.path.join(TP_DIR, f"{task}.rank{r}.json")))
+             for r in range(TP_RANKS)]
+    per_step = dict(ce_fwd=n, ce_bwd=n, flash_fwd=n * 2 * depth, flash_bwd=n * 2 * depth,
+                    K2a=n * 2 * depth, K2c=n * 2 * depth, add_layernorm=n * 2 * dense,
+                    bias_gelu=n * 2 * dense)
+    per_val = dict(ce_fwd=n, flash_fwd=n * depth, K2a=n * depth, add_layernorm=n * dense,
+                   bias_gelu=n * dense)
+    for got in ranks:
+        if got["path"] != "gspmd" or got["grad_accum"] != n or not got["remat"]:
+            raise AssertionError(f"rank {got['rank']} did not run the accumulated GSPMD step "
+                                 "with block remat")
+        for i, counts in enumerate(got["per_step"]):
+            check_launches(f"rank {got['rank']} step {i}", counts, per_step)
+        check_launches(f"rank {got['rank']} validation", got["validation"], per_val)
+        if got["losses"] != ranks[0]["losses"] or not all(
+                math.isfinite(x) for x in got["losses"]) or len(got["losses"]) != 4:
+            raise AssertionError(f"rank {got['rank']} losses {got['losses']}, rank 0's "
+                                 f"{ranks[0]['losses']}")
+    step_ms = ranks[0]["step_ms"]
+    med = statistics.median(step_ms)
+    share = [sum(r["exchange_ms"]) / sum(r["step_ms"]) for r in ranks]
+    say(f"  {smi}: {task} {os.path.basename(config)} at depth {depth}, "
+        f"{ranks[0]['params_m']:.1f} M parameters a "
+        f"rank, {n} micro-batches of {batch // n} x {seq}, data x model = "
+        f"{ranks[0]['n_data']} x {TP_RANKS} (gloo processes on one card)")
+    say(f"  losses {ranks[0]['losses']}; validation {ranks[0]['val']}; aux {ranks[0]['aux']}")
+    say(f"  step ms (steps 1-3, host clock, synced): {step_ms}; median {med}; tokens/s "
+        f"{batch * seq / med * 1e3} (one data rank)")
+    say(f"  gloo exchanges (copy/reduce all-reduces, synced): {ranks[0]['exchange_calls']} calls, "
+        f"{ranks[0]['exchange_bytes'] / 2**30:.2f} GiB a rank in the run; ms a step by rank "
+        f"{[r['exchange_ms'] for r in ranks]}; share of the step by rank {share}")
+    say(f"  peak device memory by process (GiB): {[r['peak_gib'] for r in ranks]}; wall "
+        f"{wall:.1f} s")
+    for got in ranks:
+        say(f"  rank {got['rank']} launches a step {got['per_step'][-1]}, validation "
+            f"{got['validation']}; shapes {got['shapes']}")
+    total = {k: sum(r["final"][k] for r in ranks) for k in ranks[0]["final"]}
+    say(f"{task}: " + json.dumps(dict(depth=depth, step_ms=step_ms, median_step_ms=med,
+                                      tokens_per_s=batch * seq / med * 1e3,
+                                      exchange_share=share,
+                                      peak_gib=[r["peak_gib"] for r in ranks],
+                                      losses=ranks[0]["losses"], val=ranks[0]["val"],
+                                      wall_s=wall, card=smi)))
+    return total
+
+
+# phase 27 (b)'s depth in the whole script's run: at the configs' 16 blocks
+# each config's 4 steps take ~5 min through gloo (~52-58 s a step, 87-91%
+# of it exchanges, on an H100 80GB HBM3 at 700 W), which would carry the script past its
+# 1200 s limit, so the default run cuts (b) to 2 blocks (the MoE config: 1
+# dense, 1 MoE); ``--tp`` runs the full depth
+TP_DEFAULT_RUN_DEPTH = 2
+
+
+def phase_tensor_parallel(torch, modules, smi: str, depth=None) -> dict:
+    """Phase 27: (a) :func:`phase_tp_gate`; (b) :func:`phase_tp_runner` on
+    ``configs/train-lm-tp.yml`` and ``configs/train-lm-moe-ep.yml`` (at
+    ``depth`` blocks if given).  Returns the launch counts of (b) summed
+    over the ranks, by path."""
+    t_phase = time.perf_counter()
+    gate = phase_tp_gate(torch, modules)
+    say("tp_gate: " + json.dumps(gate))
+    paths = {"tp": by_tpu_kernel(phase_tp_runner(torch, "tp", TP_CONFIG, smi, depth)),
+             "ep": by_tpu_kernel(phase_tp_runner(torch, "ep", EP_CONFIG, smi, depth))}
+    say(f"  phase 27 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def counts_line(counts: dict) -> str:
     return ", ".join(f"{k} {v}" for k, v in counts.items() if v)
 
@@ -4728,6 +5249,8 @@ def main(argv=None) -> int:
                         help="phases 1, 2 and 25 only (no result line)")
     parser.add_argument("--sp", action="store_true",
                         help="phases 1, 2 and 26 only (no result line)")
+    parser.add_argument("--tp", action="store_true",
+                        help="phases 1, 2 and 27 only (no result line)")
     args = parser.parse_args(argv)
 
     import torch
@@ -4758,6 +5281,10 @@ def main(argv=None) -> int:
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
+    # phase 27's ranks exchange through gloo: its copy and reduce all-reduce
+    # the bf16 stream in bf16
+    say(f"gloo all_reduce of CUDA tensors, 2 ranks: takes {tp_probe_gloo(torch)} "
+        "(the port's copy/reduce dtype on the bf16 stream)")
 
     phase("phase 2: build")
     built = kernels.build()
@@ -4813,6 +5340,14 @@ def main(argv=None) -> int:
     if args.sp:
         phase("phase 26: sequence parallelism (flash_attention_lse, ring, Ulysses), full shape")
         phase_sequence_parallel(torch, modules, smi)
+        phase(None)
+        say(f"total {time.perf_counter() - t_start:.1f} s")
+        say(smi)
+        return 0
+
+    if args.tp:
+        phase("phase 27: tensor and expert parallelism at degree 4, full width")
+        phase_tensor_parallel(torch, modules, smi)
         phase(None)
         say(f"total {time.perf_counter() - t_start:.1f} s")
         say(smi)
@@ -4924,6 +5459,9 @@ def main(argv=None) -> int:
     sp_counts, sp_rows = phase_sequence_parallel(torch, modules, smi)
     paths["sp"] = by_tpu_kernel(sp_counts)
     cases.update(sp_rows)
+    phase("phase 27: tensor and expert parallelism at degree 4, full width, (b) at depth "
+          f"{TP_DEFAULT_RUN_DEPTH}")
+    paths.update(phase_tensor_parallel(torch, modules, smi, TP_DEFAULT_RUN_DEPTH))
 
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "ffma_bound_ms")

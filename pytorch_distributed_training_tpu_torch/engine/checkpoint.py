@@ -25,6 +25,13 @@ newest step that does not load falls back to the one before it, with a
 warning; only when every step fails does the newest step's error raise
 (JAX ``:793-839``).
 
+A tensor-parallel run (a model with a ``tensor_group``) saves **full
+leaves**, parameters and optimizer slots alike, gathered over the model
+group on every rank and written once by rank 0, and restores by slicing
+(:mod:`..parallel.tensor`): the payload is the one-rank run's, as JAX's
+global arrays carry no layout, so it resumes at any tensor parallelism,
+restores at 1 and serves on one card.
+
 Config keys (JAX ``:275-306``): ``dir`` (required to enable), ``interval``
 (1000), ``max_to_keep`` (3), ``resume`` (True), ``retry`` (``attempts``
 3, ``backoff`` 0.25, ``max_backoff`` 8.0, ``jitter`` 0.25,
@@ -51,6 +58,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 import torch.distributed as dist
 
+from ..parallel.tensor import gather_param, shard_dim, shard_param
 from ..utils.retry import Retry
 from . import fault
 
@@ -79,20 +87,32 @@ def capture_training_state(model, train_step, iteration: int) -> Dict[str, Any]:
     iteration."""
     names = _param_names(model)
     opt = train_step.opt_state
-    slots = {field: dict(zip(names, getattr(opt, field)))
-             for field in opt._fields if field != "step"}
+    tg = getattr(model, "tensor_group", None)
+
+    def full(leaves):
+        if tg is None:
+            return dict(zip(names, leaves))
+        return {n: gather_param(t, shard_dim(n), tg) for n, t in zip(names, leaves)}
+
+    slots = {field: full(getattr(opt, field)) for field in opt._fields if field != "step"}
     ema = getattr(train_step, "ema", None)
-    return {"iter": int(iteration), "model": model.state_dict(),
+    state = model.state_dict() if tg is None else model.full_state_dict()
+    return {"iter": int(iteration), "model": state,
             "optimizer": {"type": type(opt).__name__, "step": int(opt.step), "slots": slots},
-            "ema": None if ema is None else dict(zip(names, ema))}
+            "ema": None if ema is None else full(ema)}
 
 
 def restore_training_state(payload: Dict[str, Any], model, train_step) -> int:
     """Copy ``payload`` into ``model`` and ``train_step`` in place (their
     devices and memory formats kept); returns the saved iteration.  A
     payload of another model, optimizer or EMA setting raises
-    ``ValueError``."""
-    model.load_state_dict(payload["model"], strict=True)
+    ``ValueError``.  A tensor-parallel model takes its slices of the full
+    leaves."""
+    tg = getattr(model, "tensor_group", None)
+    if tg is None:
+        model.load_state_dict(payload["model"], strict=True)
+    else:
+        model.load_full_state_dict(payload["model"])
     names = _param_names(model)
     opt = train_step.opt_state
     saved = payload["optimizer"]
@@ -114,7 +134,10 @@ def restore_training_state(payload: Dict[str, Any], model, train_step) -> int:
             if sorted(by_name) != sorted(names):
                 raise ValueError("checkpoint parameter names differ from the model's")
             for t, name in zip(tensors, names):
-                t.copy_(by_name[name])
+                saved_t = by_name[name]
+                if tg is not None:
+                    saved_t = shard_param(saved_t, shard_dim(name), tg.size, tg.rank)
+                t.copy_(saved_t)
     train_step.opt_state = opt._replace(step=int(saved["step"]))
     return int(payload["iter"])
 

@@ -111,11 +111,30 @@ and the throughput counts each token once.  The CPU tests are
 ``tests/test_torch_sp_step.py``; on the card ``python3 chip_smoke.py
 --sp`` holds the ring on virtual ranks.
 
+``training.tensor_parallelism`` T > 1 on the LM (JAX ``_build_gspmd``,
+``paths.py:140-181``, ``topology.py:149-154``, ``:221-245``): the GSPMD
+path, after its checks (:func:`.topology.check_tensor_parallel`, with the
+JAX messages); the ranks form a ``(data, model)`` layout
+(:class:`..parallel.mesh.TPLayout`, model groups of T consecutive ranks),
+the model is this rank's Megatron shard over its model group (a MoE
+model's experts split over the same group: T is the expert-parallel
+degree), the samplers are keyed by the data rank so a model group's ranks
+see one batch, and the step and the validation reduce over the data group
+(:mod:`.tp_steps`); the global batch is ``batch_size`` x data ranks.  A
+checkpoint holds full leaves (:mod:`.checkpoint`).  LARS and LAMB take
+per-leaf norms of whole leaves and are refused beside T > 1 (ROADMAP P9).
+``Runner(num_nodes=W, rank=r, multiprocessing=False, device="cuda",
+dist_backend="gloo")`` puts W ranks on ``cuda:0``, the caller's choice
+(NCCL takes one rank a card).  The CPU tests are
+``tests/test_torch_tensor_parallel.py``; on the card ``python3
+chip_smoke.py --tp``.  ``training.expert_parallelism`` is no key of the
+JAX package (the expert-parallel degree is ``tensor_parallelism``): the
+runner leaves it unread, as the JAX runner does.
+
 Not ported yet: every config key asking for one raises
 ``NotImplementedError`` naming its ROADMAP item (:data:`UNPORTED_TRAINING_KEYS`):
-tensor/pipeline/expert parallelism (MoE itself is ported, at
-expert-parallel degree 1), sequence parallelism beside any of them or
-ZeRO, ZeRO and ``comm`` (P9),
+pipeline parallelism, sequence parallelism beside tensor or pipeline
+parallelism, ZeRO or MoE, ZeRO and ``comm`` (P9),
 telemetry, integrity, elastic recovery and the checkpoint keys of
 :data:`.checkpoint.UNPORTED_CHECKPOINT_KEYS` (P10).
 TensorBoard is absent (P10): the log file and the console carry the
@@ -152,7 +171,7 @@ from ..data import (
 from ..metrics import AverageMeter
 from ..models import get_model, is_resnet
 from ..optimizers import get_optimizer
-from ..parallel import SEQUENCE_AXIS, SPLayout
+from ..parallel import SEQUENCE_AXIS, SPLayout, TPLayout
 from ..schedulers import get_scheduler
 from ..utils import make_deterministic
 from . import fault
@@ -163,9 +182,10 @@ from .steps import build_eval_step, build_eval_step_exact, build_train_step
 from .topology import (
     check_gspmd_path,
     check_sequence_parallel,
+    check_tensor_parallel,
     parse_fault_tolerance,
     parse_model,
-    parse_sequence_parallel,
+    parse_parallelism,
     ring_path,
 )
 from .tp_steps import build_tp_lm_train_step
@@ -180,9 +200,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 UNPORTED_TRAINING_KEYS = {
     "sequence_parallelism": ("sequence parallelism beside tensor or pipeline parallelism, "
                              "ZeRO or MoE is ROADMAP port item P9"),
-    "tensor_parallelism": "tensor parallelism is ROADMAP port item P9",
     "pipeline_parallelism": "pipeline parallelism is ROADMAP port item P9",
-    "expert_parallelism": "expert parallelism is ROADMAP port item P9",
     "zero": "ZeRO sharding is ROADMAP port item P9",
     "comm": "training.comm (bucketed overlap, ZeRO-1) is ROADMAP port item P9",
     "telemetry": "the telemetry layer is ROADMAP port item P10",
@@ -338,8 +356,17 @@ class Runner:
         train_cfg = cfg["training"]
         model_cfg = parse_model(self, cfg)
         model_name = self.model_name
-        parse_sequence_parallel(self, train_cfg)
-        _reject_unported(train_cfg, gspmd=self.is_moe, ring=ring_path(self, train_cfg))
+        parse_parallelism(self, train_cfg)
+        ring = ring_path(self, train_cfg)
+        # JAX engine/paths.py:290-310: a MoE LM and a tensor-parallel LM take
+        # the GSPMD path (sequence parallelism beside them stays P9)
+        gspmd = self.is_lm and (self.is_moe or self.tensor_par > 1)
+        _reject_unported(train_cfg, gspmd=gspmd, ring=ring)
+        opt_name = str(train_cfg["optimizer"]["name"])
+        if self.tensor_par > 1 and opt_name.lower() in ("lars", "lamb"):
+            raise NotImplementedError(f"training.optimizer {opt_name} takes norms of whole "
+                                      "leaves: beside tensor_parallelism it is ROADMAP port "
+                                      "item P9")
         parse_fault_tolerance(self, train_cfg)
         self.grad_accum = int(train_cfg.get("grad_accumulation", 1))
         if self.grad_accum < 1:
@@ -355,8 +382,7 @@ class Runner:
         if not 0.0 <= self.label_smoothing < 1.0:
             raise ValueError(f"label_smoothing must be in [0, 1), got {self.label_smoothing}")
 
-        # JAX engine/paths.py:290-310: a MoE LM takes the GSPMD path
-        self.path = "gspmd" if self.is_moe else "ring-sp" if self.is_lm else "image-dp"
+        self.path = "gspmd" if gspmd else "ring-sp" if self.is_lm else "image-dp"
         if self.path == "gspmd":
             check_gspmd_path(self, train_cfg)
         apply_remat_alias(train_cfg, model_cfg, model_name)
@@ -421,17 +447,23 @@ class Runner:
             self.logger.warning("validation.exact applies to the image eval path; LM "
                                 "validation keeps the per-batch meter semantics")
         if self.is_lm:
+            # the step's reduce: the data group under tensor parallelism, else
+            # the whole world (data and sequence ranks)
+            tp = isinstance(self.layout, TPLayout)
+            world, group = ((self.data_size, self.layout.data_group) if tp
+                            else (self.world_size, None))
             if self.path == "gspmd":
                 self.train_step = build_tp_lm_train_step(
                     self.model, self.optimizer, self.scheduler.lr_fn,
-                    world_size=self.world_size, grad_accum=self.grad_accum,
+                    world_size=world, group=group, grad_accum=self.grad_accum,
                     label_smoothing=self.label_smoothing)
             else:
                 self.train_step = build_lm_train_step(
                     self.model, self.optimizer, self.scheduler.lr_fn,
-                    world_size=self.world_size, grad_accum=self.grad_accum,
+                    world_size=world, grad_accum=self.grad_accum,
                     label_smoothing=self.label_smoothing, anomaly_factor=anomaly_factor)
-            self.eval_step = build_lm_eval_step(self.model, world_size=self.world_size)
+            self.eval_step = build_lm_eval_step(self.model, world_size=world, group=group,
+                                                micro_batches=self.grad_accum)
         else:
             self.train_step = build_train_step(
                 self.model, self.optimizer, self.scheduler.lr_fn, world_size=self.world_size,
@@ -670,13 +702,23 @@ class Runner:
 
     def _build_layout(self, train_dataset) -> None:
         """The ``(data, sequence)`` layout of the ranks (:mod:`..parallel.mesh`)
-        on the ring path, after JAX's checks (:func:`.topology.check_sequence_parallel`);
-        else one data rank a process.  A rank's columns of each LM batch
-        are ``self._columns``; labels are shifted on the host before the
-        slice, since the shift crosses shard boundaries (JAX
-        ``sp_steps.py:21-23``)."""
+        on the ring path, after JAX's checks (:func:`.topology.check_sequence_parallel`),
+        or the ``(data, model)`` layout under tensor parallelism
+        (:func:`.topology.check_tensor_parallel`); else one data rank a
+        process.  A rank's columns of each LM batch are ``self._columns``;
+        labels are shifted on the host before the slice, since the shift
+        crosses shard boundaries (JAX ``sp_steps.py:21-23``)."""
         self.layout, self._columns = None, None
         self.data_rank, self.data_size = self.current_rank, self.world_size
+        if self.tensor_par > 1:
+            check_tensor_parallel(self, self.global_cfg["model"], self.world_size)
+            self.layout = lay = TPLayout(self.world_size, self.current_rank, self.tensor_par)
+            self.data_rank, self.data_size = lay.data_idx, lay.n_data
+            self.logger.info("Tensor parallelism: data x model = %d x %d, rank %d at (%d, %d)%s",
+                             lay.n_data, lay.n_model, self.current_rank, lay.data_idx,
+                             lay.model_idx, ", experts split over the model group"
+                             if self.is_moe else "")
+            return
         if self.seq_par <= 1:
             return
         seq_len = int(train_dataset[0][0].shape[0])
@@ -694,7 +736,9 @@ class Runner:
         self.seq_len = int(train_dataset[0][0].shape[0])
         self.unit, self.items_per_sample = "tok", self.seq_len
         model_cfg.setdefault("max_len", self.seq_len)
-        if self.layout is not None:
+        if isinstance(self.layout, TPLayout):
+            model_cfg["tensor_group"] = self.layout.tensor_group
+        elif self.layout is not None:
             # JAX topology.py:256-266 names the mesh axis; here it is the group
             if model_cfg.get("seq_axis", SEQUENCE_AXIS) != SEQUENCE_AXIS:
                 raise ValueError(f"model.seq_axis must be {SEQUENCE_AXIS!r}, got "
@@ -708,7 +752,9 @@ class Runner:
         m = self.model
         moe = (f", MoE in {sum(b.is_moe for b in m.blocks)} of {m.depth} blocks "
                f"({m.moe_experts} experts, {self.path} path)" if self.is_moe else "")
-        sp = f", {m.seq_impl} attention over the sequence group" if self.layout else ""
+        sp = (f", {m.seq_impl} attention over the sequence group"
+              if isinstance(self.layout, SPLayout) else
+              f", tensor parallel over {self.tensor_par} ranks" if self.layout else "")
         self.logger.info("Model %s: %.1f M parameters, compute %s, flash attention on%s%s%s",
                          model_name, sum(p.numel() for p in m.parameters()) / 1e6,
                          str(self.compute_dtype).replace("torch.", ""),
@@ -779,9 +825,10 @@ class Runner:
         ``runner.py:599-610``)."""
         from ..models.torch_port import import_torch_lm_state_dict
 
-        loaded = import_torch_lm_state_dict(self.model.state_dict(),
-                                            self._load_torch_state_dict())
-        self.model.load_state_dict(loaded, strict=True)
+        with torch.device("meta"):  # the full model's names and shapes
+            template = self.model.clone(tensor_group=None).state_dict()
+        self.model.load_full_state_dict(
+            import_torch_lm_state_dict(template, self._load_torch_state_dict()))
         self.logger.info("Initialized %s from pretrained torch checkpoint %s", self.model_name,
                          self.pretrained)
 

@@ -179,19 +179,30 @@ def build_lm_train_step(model, optimizer, lr_fn: Callable[[int], float], world_s
                        anomaly_factor)
 
 
-def build_lm_eval_step(model, world_size: int = 1, group=None):
+def build_lm_eval_step(model, world_size: int = 1, group=None, micro_batches: int = 1):
     """``eval_step(tokens, labels) -> (loss, acc1, acc5)``: mean CE per
     token and next-token top-1/top-5 accuracy in percent, summed (loss) and
-    averaged (accuracies) over all ranks, the (data, sequence) axes of
-    ``sp_steps.py:268-314``."""
+    averaged (accuracies) over the ``world_size`` ranks of ``group``, the
+    (data, sequence) axes of ``sp_steps.py:268-314`` (on the GSPMD path the
+    data group: a model group's ranks hold the same tokens).
+
+    ``micro_batches`` N runs the local batch as N equal slices in turn (the
+    runner passes ``training.grad_accumulation``), so validation's logits
+    are a micro-batch's, as training's are: the mean of the slices' equal
+    shares is the batch's mean, reassociated."""
 
     @torch.no_grad()
     def eval_step(tokens, labels):
-        logits = model(tokens)
-        vocab = logits.shape[-1]
-        flat_logits, flat_labels = logits.reshape(-1, vocab), labels.reshape(-1)
-        loss = lm_loss_local(logits, labels, flat_labels.numel() * world_size)
-        acc1, acc5 = accuracy(flat_logits, flat_labels, topk=(1, 5))
+        slices = micro_slices(tokens.shape[0], micro_batches, "per-shard")
+        loss = acc1 = acc5 = 0.0
+        for sl in slices:
+            logits = model(tokens[sl])
+            vocab = logits.shape[-1]
+            flat_logits, flat_labels = logits.reshape(-1, vocab), labels[sl].reshape(-1)
+            loss = loss + lm_loss_local(logits, labels[sl], labels.numel() * world_size)
+            a1, a5 = accuracy(flat_logits, flat_labels, topk=(1, 5))
+            acc1, acc5 = acc1 + a1 / len(slices), acc5 + a5 / len(slices)
+            del logits, flat_logits
         if world_size > 1:
             out = torch.stack([loss.float(), acc1, acc5])
             dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)

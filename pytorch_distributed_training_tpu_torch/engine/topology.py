@@ -1,11 +1,11 @@
 """The ``model:`` section and ``training.fault_tolerance`` parsed onto the
 runner (port of ``parse_topology``'s model keys, JAX
 ``engine/topology.py:55-90``, its MoE checks, ``:142-153`` and
-``:273-282``, its sequence-parallel checks, ``:100-120`` and
+``:273-282``, its sequence- and tensor-parallel checks, ``:100-120`` and
 ``:221-266``, and of ``parse_fault_tolerance``, ``:436-544``; the rest of
-that module is the tensor and pipeline layouts, ROADMAP port item P9), and
-the refusals of the GSPMD path that MoE models take (JAX
-``engine/paths.py:48-73``, ``:156-157``)."""
+that module is the pipeline layout and ZeRO, ROADMAP port item P9), and
+the checks and refusals of the GSPMD path that tensor-parallel and MoE
+models take (JAX ``engine/paths.py:48-73``, ``:156-164``)."""
 from __future__ import annotations
 
 import inspect
@@ -15,8 +15,8 @@ import torch
 from ..models import TransformerLM, is_resnet
 from .fault import FaultInjector
 
-__all__ = ["check_gspmd_path", "check_moe", "check_sequence_parallel", "parse_fault_tolerance",
-           "parse_model", "parse_sequence_parallel", "ring_path"]
+__all__ = ["check_gspmd_path", "check_moe", "check_sequence_parallel", "check_tensor_parallel",
+           "parse_fault_tolerance", "parse_model", "parse_parallelism", "ring_path"]
 
 _LM_DEFAULTS = {k: v.default for k, v in inspect.signature(TransformerLM).parameters.items()}
 
@@ -56,12 +56,14 @@ def check_gspmd_path(r, train_cfg: dict) -> None:
                          "GSPMD partitioner schedules its own communication overlap there")
 
 
-def parse_sequence_parallel(r, train_cfg: dict) -> None:
-    """Set ``r.seq_par`` from ``training.sequence_parallelism`` (default 1),
-    refused off the LM with the JAX message (``topology.py:100``,
+def parse_parallelism(r, train_cfg: dict) -> None:
+    """Set ``r.seq_par`` and ``r.tensor_par`` from
+    ``training.sequence_parallelism`` and ``training.tensor_parallelism``
+    (default 1), refused off the LM with the JAX message (``topology.py:100-101``,
     ``:115-119``).  Run after :func:`parse_model`."""
     r.seq_par = int(train_cfg.get("sequence_parallelism", 1) or 1)
-    if r.seq_par > 1 and not r.is_lm:
+    r.tensor_par = int(train_cfg.get("tensor_parallelism", 1) or 1)
+    if (r.seq_par > 1 or r.tensor_par > 1) and not r.is_lm:
         raise ValueError("training.sequence_parallelism / tensor_parallelism / "
                          "pipeline_parallelism require model.name: TransformerLM")
 
@@ -71,9 +73,25 @@ def ring_path(r, train_cfg: dict) -> bool:
     ``topology.py:256-266`` sets ``seq_axis`` for ``sequence_parallelism``
     > 1 with no tensor or pipeline parallelism, no ZeRO and no MoE (those
     combinations stay ROADMAP port item P9)."""
-    return (r.seq_par > 1 and int(train_cfg.get("tensor_parallelism", 1) or 1) == 1
+    return (r.seq_par > 1 and r.tensor_par == 1
             and int(train_cfg.get("pipeline_parallelism", 1) or 1) == 1
             and not train_cfg.get("zero") and not r.is_moe)
+
+
+def check_tensor_parallel(r, model_cfg: dict, world_size: int) -> None:
+    """JAX ``topology.py:221-245`` and ``paths.py:159-164`` for the GSPMD
+    path at ``T = training.tensor_parallelism`` > 1: ``T`` divides the ranks
+    (one a card; JAX: the local device count) and the heads, so the column
+    split lands on whole heads.  The experts are checked by
+    :func:`check_moe`."""
+    t = r.tensor_par
+    num_heads = int(model_cfg.get("num_heads", _LM_DEFAULTS["num_heads"]))
+    if t < 1 or world_size % t != 0:
+        raise ValueError(f"training.tensor_parallelism ({t}) must divide the number of "
+                         f"ranks ({world_size})")
+    if num_heads % t != 0:
+        raise ValueError(f"model.num_heads ({num_heads}) must be divisible by "
+                         f"training.tensor_parallelism ({t})")
 
 
 def check_sequence_parallel(r, seq_len: int, world_size: int) -> None:

@@ -52,6 +52,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from ..parallel.tensor import shard_state_dict
+
 __all__ = ["lm_state_dict_from_jax", "resnet_state_dict_from_jax", "vit_state_dict_from_jax"]
 
 
@@ -114,8 +116,10 @@ def _expected_shapes(leaves: Dict[str, np.ndarray]) -> Dict[str, tuple]:
     return shapes
 
 
-def lm_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's ``TransformerLM`` state_dict for a JAX ``params`` tree."""
+def lm_state_dict_from_jax(params: Mapping, tensor_group=None) -> Dict[str, torch.Tensor]:
+    """The port's ``TransformerLM`` state_dict for a JAX ``params`` tree;
+    with ``tensor_group`` this rank's slices of it (the rule of
+    :func:`..parallel.tensor.param_role`), for a tensor-parallel model."""
     leaves = _flatten(params)
     shapes = _expected_shapes(leaves)
     missing = sorted(set(shapes) - set(leaves))
@@ -134,7 +138,7 @@ def lm_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         elif leaf == "scale":
             leaf = "weight"
         state[".".join(mod + [leaf])] = torch.tensor(np.ascontiguousarray(arr))
-    return state
+    return shard_state_dict(state, tensor_group)
 
 
 def _resnet_key(path: str) -> str:

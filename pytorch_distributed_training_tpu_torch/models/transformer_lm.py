@@ -83,6 +83,19 @@ sequence group's exchange (:attr:`..parallel.mesh.SPLayout.seq_exchange`,
 which the runner passes); the JAX axis name ``"sequence"`` builds, and
 raises at a sharded forward.  The parameters are the same, so
 :mod:`.from_jax` maps them unchanged.
+
+``tensor_group`` (a :class:`..parallel.tensor.TensorGroup` of ``T`` ranks,
+:attr:`..parallel.mesh.TPLayout.tensor_group`; JAX ``engine/paths.py``'s
+GSPMD path) makes the model one rank's shard of a Megatron tensor-parallel
+model: each block's qkv and fc1 are column-parallel, proj and fc2
+row-parallel, its attention holds ``H / T`` heads, and a MoE block holds
+``E / T`` experts (expert parallelism over the same group); embeddings,
+LayerNorms, routers and the head stay whole.  Every leaf is drawn whole, as
+the one-rank model draws it, and sliced (:mod:`..parallel.tensor`), so a
+T-rank model starts from the one-rank model's weights of the same seed, as
+JAX's global init does; :meth:`TransformerLM.load_full_state_dict` slices a
+full ``state_dict`` into it, :meth:`TransformerLM.full_state_dict` gathers
+one back.  Serving refuses it (decode, the paged pool).
 """
 from __future__ import annotations
 
@@ -99,6 +112,7 @@ from ..ops.fused_elementwise import FusedResidualLayerNorm
 from ..ops.layers import Dense, LayerNorm
 from ..ops.moe import MoEMLP, moe_aux
 from ..parallel.mesh import resolve_seq_axis
+from ..parallel.tensor import gather_state_dict, shard_state_dict
 from .vit import MLP
 
 __all__ = ["DecoderBlock", "SAVED_OPS", "TransformerLM"]
@@ -123,7 +137,8 @@ class DecoderBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, dtype=torch.float32,
                  fused_tails: bool = False, flash: bool = False, lora_rank: int = 0,
                  lora_adapters: int = 0, moe_experts: int = 0, moe_top_k: int = 2,
-                 moe_capacity_factor: float = 1.25, seq_axis=None, seq_impl: str = "ring"):
+                 moe_capacity_factor: float = 1.25, seq_axis=None, seq_impl: str = "ring",
+                 tensor_group=None):
         super().__init__()
         self.is_moe = moe_experts > 0
         # JAX :115: a MoE block keeps its ln2 plain (its MLP has no fc1 tail)
@@ -131,16 +146,17 @@ class DecoderBlock(nn.Module):
         self.ln1 = LayerNorm(dim, dtype)
         self.attn = MultiHeadAttention(dim, num_heads, causal=True, dtype=dtype, flash=flash,
                                        lora_rank=lora_rank, lora_adapters=lora_adapters,
-                                       seq_axis=seq_axis, seq_impl=seq_impl)
+                                       seq_axis=seq_axis, seq_impl=seq_impl,
+                                       tensor_group=tensor_group)
         # ln1 has no add before it, and the block's last add feeds the next
         # block's ln1, so add+ln2 is the pair one kernel can fuse
         self.ln2 = (FusedResidualLayerNorm if self.fused_tails else LayerNorm)(dim, dtype)
         hidden = int(dim * mlp_ratio)
         if self.is_moe:
             self.moe = MoEMLP(dim, moe_experts, moe_top_k, moe_capacity_factor, hidden, dim,
-                              dtype)
+                              dtype, tensor_group)
         else:
-            self.mlp = MLP(dim, hidden, dim, dtype, fused_tails)
+            self.mlp = MLP(dim, hidden, dim, dtype, fused_tails, tensor_group)
 
     def forward(self, x, cache=None, layer: int = 0, decode_pos=None, block_tables=None,
                 adapter_ids=None):
@@ -182,6 +198,7 @@ class TransformerLM(nn.Module):
         paged: bool = False,
         lora_rank: int = 0,
         lora_adapters: int = 0,
+        tensor_group=None,
     ):
         super().__init__()
         # the arguments, for clone()
@@ -201,6 +218,7 @@ class TransformerLM(nn.Module):
         self.fused_tails = fused_tails
         self.flash = flash
         self.seq_axis, self.seq_impl = seq_axis, seq_impl
+        self.tensor_group = tensor_group
         self.lora_rank = int(lora_rank)
         self.lora_adapters = int(lora_adapters) if lora_rank > 0 else 0
         self.moe_experts, self.moe_every = int(moe_experts), int(moe_every)
@@ -217,7 +235,7 @@ class TransformerLM(nn.Module):
                 f"block{i}",
                 DecoderBlock(embed_dim, num_heads, mlp_ratio, dtype, fused_tails, flash,
                              lora_rank, lora_adapters, moe_experts if is_moe else 0,
-                             moe_top_k, moe_capacity_factor, seq_axis, seq_impl),
+                             moe_top_k, moe_capacity_factor, seq_axis, seq_impl, tensor_group),
             )
         self.ln = LayerNorm(embed_dim, dtype)
         self.head = Dense(embed_dim, vocab_size, torch.float32)
@@ -252,7 +270,15 @@ class TransformerLM(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """flax's initializers: normal(0.02) embeddings, lecun-normal
         kernels, zero biases, unit LayerNorm scales; drawn in a fixed module
-        order from ``generator``."""
+        order from ``generator``.  A tensor-parallel model draws the full
+        model and keeps its slices."""
+        if self.tensor_group is not None:
+            with torch.device("meta"):
+                full = self.clone(tensor_group=None)
+            full.to_empty(device=self.tok_embedding.device)
+            full.reset_parameters(generator)
+            self.load_full_state_dict(full.state_dict())
+            return
         with torch.no_grad():
             self.tok_embedding.normal_(0.0, 0.02, generator=generator)
             self.pos_embedding.normal_(0.0, 0.02, generator=generator)
@@ -275,10 +301,22 @@ class TransformerLM(nn.Module):
                     module.bias.data = module.bias.data.to(module.dtype)
         return self
 
+    def load_full_state_dict(self, state) -> None:
+        """Load the full model's ``state_dict`` (strict): a tensor-parallel
+        model keeps its slices of it."""
+        self.load_state_dict(shard_state_dict(state, self.tensor_group), strict=True)
+
+    def full_state_dict(self) -> dict:
+        """The full model's ``state_dict``: a tensor-parallel model gathers
+        its leaves over the model group (a collective on every rank)."""
+        return gather_state_dict(self.state_dict(), self.tensor_group)
+
     def _refuse_decode(self) -> None:
         # JAX :216-217: serving (the batcher's cache, the paged pool) is dense
         if self.moe_experts > 0:
             raise ValueError("decode mode does not support MoE blocks yet")
+        if self.tensor_group is not None:
+            raise ValueError("decode and paged modes are single-shard (tensor_group must be None)")
 
     def moe_aux(self, stats, n_tokens: int):
         """The aux objective: every MoE block's weighted term

@@ -51,15 +51,18 @@ class MLP(nn.Module):
 
     ``fused_tails`` makes fc1's bias add and GELU one kernel
     (:class:`..ops.fused_elementwise.FusedDenseGelu`); the parameters are
-    the same either way.
+    the same either way.  ``tensor_group`` makes fc1 column-parallel and
+    fc2 row-parallel (Megatron's MLP: each rank holds ``hidden / T`` of the
+    hidden units; :mod:`..parallel.tensor`).
     """
 
     def __init__(self, dim: int, hidden: int, out: int, dtype=torch.float32,
-                 fused_tails: bool = False):
+                 fused_tails: bool = False, tensor_group=None):
         super().__init__()
         self.fused_tails = fused_tails
-        self.fc1 = (FusedDenseGelu if fused_tails else Dense)(dim, hidden, dtype)
-        self.fc2 = Dense(hidden, out, dtype)
+        self.fc1 = (FusedDenseGelu if fused_tails else Dense)(dim, hidden, dtype, tensor_group,
+                                                              "column")
+        self.fc2 = Dense(hidden, out, dtype, tensor_group, "row")
 
     def forward(self, x):
         if self.fused_tails:

@@ -46,6 +46,15 @@ sequence group whose exchange ``seq_axis`` is
 ring on its local length, Ulysses on the whole sequence), the plain one
 otherwise.  The decode and paged modes refuse ``seq_axis`` with the JAX
 messages (``:311-312``, ``:375-376``).
+
+Tensor parallelism (JAX ``parallel/tensor.py:23-25``): with a
+``tensor_group`` of ``T`` ranks, qkv is column-parallel and proj
+row-parallel (:class:`.layers.Dense`), and the module holds ``H / T``
+heads.  The qkv output is heads-major, ``(H, 3, hd)``, so a contiguous
+column slice holds whole heads with their q, k and v, and the cache-less
+forward runs at ``[B, S, H / T, hd]`` (the flash kernels with ``flash``).
+The decode, paged and LoRA modes refuse a tensor group (the JAX serving
+path has no tensor parallelism).
 """
 from __future__ import annotations
 
@@ -241,23 +250,32 @@ class MultiHeadAttention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, causal: bool = False, dtype=torch.float32,
                  seq_axis=None, paged: bool = False, lora_rank: int = 0,
-                 flash: bool = False, lora_adapters: int = 0, seq_impl: str = "ring"):
+                 flash: bool = False, lora_adapters: int = 0, seq_impl: str = "ring",
+                 tensor_group=None):
         super().__init__()
         if dim % num_heads != 0:
             raise ValueError(f"embed dim {dim} not divisible by {num_heads} heads")
+        if tensor_group is not None:
+            if num_heads % tensor_group.size != 0:
+                raise ValueError(f"{num_heads} heads do not split over a tensor group of "
+                                 f"{tensor_group.size}")
+            if lora_rank > 0 or seq_axis is not None:
+                raise ValueError("tensor parallelism takes no LoRA factors and no seq_axis")
         if lora_rank > 0 and lora_adapters < 1:
             raise ValueError(f"lora_rank {lora_rank} needs lora_adapters >= 1, "
                              f"got {lora_adapters}")
         if flash and dim // num_heads not in SUPPORTED_HEAD_DIMS:
             raise ValueError(f"flash attention takes head dims {SUPPORTED_HEAD_DIMS}, "
                              f"got {dim // num_heads}")
-        self.num_heads = num_heads
+        self.tensor_group = tensor_group
+        # this rank's heads
+        self.num_heads = num_heads // (tensor_group.size if tensor_group is not None else 1)
         self.causal = causal
         self.flash = flash
         self.seq_axis, self.seq_impl = seq_axis, seq_impl
         self.dtype = dtype
-        self.qkv = Dense(dim, 3 * dim, dtype)
-        self.proj = Dense(dim, dim, dtype)
+        self.qkv = Dense(dim, 3 * dim, dtype, tensor_group, "column")
+        self.proj = Dense(dim, dim, dtype, tensor_group, "row")
         self.lora_rank = int(lora_rank)
         if self.lora_rank > 0:
             n, r = int(lora_adapters), self.lora_rank
@@ -279,8 +297,11 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x, cache=None, layer: int = 0, decode_pos=None, block_tables=None,
                 adapter_ids=None):
-        b, s, dim = x.shape
-        head_dim = dim // self.num_heads
+        b, s, _ = x.shape
+        head_dim = self.proj.weight.shape[1] // self.num_heads
+        if self.tensor_group is not None and (cache is not None or decode_pos is not None):
+            raise ValueError("decode and paged modes are single-shard (tensor_group must be "
+                             "None)")
         if adapter_ids is not None and self.lora_rank <= 0:
             raise ValueError("adapter_ids given but the module has no LoRA factors "
                              "(lora_rank is 0)")
@@ -316,7 +337,7 @@ class MultiHeadAttention(nn.Module):
             out = dot_product_attention(q, k, v, causal=self.causal, impl=impl)
         else:
             out = self._sequence_parallel(q, k, v)
-        out = out.reshape(b, s, dim)
+        out = out.reshape(b, s, self.num_heads * head_dim)
         proj = self.proj(out)
         if adapter_ids is not None:
             proj = proj + lora_delta(out, self.proj_lora_a, self.proj_lora_b,

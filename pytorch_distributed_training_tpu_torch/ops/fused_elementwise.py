@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import kernels
+from ..parallel.tensor import copy_to_model
 from .layers import Dense
 
 __all__ = [
@@ -370,10 +371,14 @@ class FusedDenseGelu(Dense):
     Same parameters as the Dense it replaces (``weight`` [out, in], the
     flax ``kernel`` transposed; ``bias`` [out]).  The matmul is a plain
     torch product in ``dtype``; the bias is rounded to ``dtype`` before the
-    kernel adds it, as the JAX module does.
+    kernel adds it, as the JAX module does.  With a ``tensor_group`` it is
+    fc1's column form (``split="column"``): the input passes *copy*, and the
+    kernel runs on this rank's ``[rows, out / T]`` columns with its slice of
+    the bias.
     """
 
     def forward(self, x):
         d = self.dtype
+        x = copy_to_model(x, self.tensor_group)
         u = F.linear(x.to(d), self.weight.to(d))
         return fused_bias_gelu(u, self.bias.to(d))

@@ -40,6 +40,25 @@ Initialisation is flax's: the router a Dense (lecun-normal kernel, zero
 bias); ``wi``/``wo`` lecun-normal over the stacked leaf, whose leading
 ``E`` flax counts as receptive field, so the fan-in is ``E * d`` (``E *
 h`` for ``wo``); zero biases.
+
+**Expert parallelism** over a ``tensor_group`` of ``T`` ranks (JAX
+``parallel/tensor.py``: the stacked leaves ``P(model)``, tokens ``P(data,
+None)``): rank ``m`` keeps experts ``[m E/T, (m+1) E/T)`` (drawn whole,
+then sliced) and their dispatch and combine places ``[m E/T C, (m+1) E/T
+C)``.  The router stays replicated, and routing, the capacity (over all
+``E``), the drop order and ``stats`` are exactly the one-rank layer's:
+every rank of a model group holds the same tokens, so it routes them
+alike.  It runs its local expert ``bmm``s and *reduce*
+(:func:`..parallel.tensor.reduce_from_model`) sums the partial combines.
+No all-to-all is needed: an all-to-all carries tokens to the rank that owns
+their expert, and here every rank already holds every token (the data
+axis, not the model axis, splits the batch); GSPMD derives the same local
+products from those shardings.  In the backward each rank sees only its own
+experts' part of the gradient of the layer's input and of the gates, so both
+pass *copy* (:func:`..parallel.tensor.copy_to_model`) on their way in: the
+input before the dispatch product, the gates before the combine scatter.
+The router's own input (and the aux term's path) is whole on every rank and
+takes no copy.
 """
 from __future__ import annotations
 
@@ -50,6 +69,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor import copy_to_model, reduce_from_model, shard_param
 from .layers import Dense, lecun_normal_
 
 __all__ = ["MoEMLP", "moe_aux"]
@@ -69,22 +89,33 @@ class MoEMLP(nn.Module):
     docstring)."""
 
     def __init__(self, dim: int, num_experts: int, top_k: int, capacity_factor: float,
-                 hidden: int, out: int, dtype=torch.float32):
+                 hidden: int, out: int, dtype=torch.float32, tensor_group=None):
         super().__init__()
         if not 1 <= top_k <= num_experts:
             raise ValueError(f"top_k ({top_k}) must be in [1, num_experts={num_experts}]")
         self.num_experts, self.top_k = int(num_experts), int(top_k)
         self.capacity_factor = float(capacity_factor)
         self.dtype = dtype
+        self.tensor_group = None
         self.router = Dense(dim, num_experts, torch.float32)
         self.wi = nn.Parameter(torch.empty(num_experts, dim, hidden))
         self.bi = nn.Parameter(torch.zeros(num_experts, hidden))
         self.wo = nn.Parameter(torch.empty(num_experts, hidden, out))
         self.bo = nn.Parameter(torch.zeros(num_experts, out))
         self.reset_parameters()
+        if tensor_group is not None:
+            n, r = tensor_group.size, tensor_group.rank
+            if num_experts % n != 0:
+                raise ValueError(f"{num_experts} experts do not split over a tensor group of {n}")
+            for name in ("wi", "bi", "wo", "bo"):
+                setattr(self, name, nn.Parameter(shard_param(getattr(self, name).data, 0, n, r)))
+            self.tensor_group = tensor_group
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """The stacked leaves' initializers (the router resets itself)."""
+        if self.tensor_group is not None:
+            raise RuntimeError("an expert-parallel MoEMLP holds a slice of the experts: reset "
+                               "the full model (TransformerLM.reset_parameters) instead")
         e, d, h = self.wi.shape
         lecun_normal_(self.wi, generator, fan_in=e * d)
         lecun_normal_(self.wo, generator, fan_in=e * h)
@@ -119,25 +150,29 @@ class MoEMLP(nn.Module):
             raise ValueError(f"MoEMLP expects [groups, group_size, d] inputs, got "
                              f"{tuple(x.shape)}")
         g, s, d = x.shape
-        E, dt = self.num_experts, self.dtype
+        E, dt, tg = self.num_experts, self.dtype, self.tensor_group
         cap = self.capacity(s)
         probs, gate, expert, place, keep = self.route(x)
         slot = expert * cap + place.clamp(max=cap - 1)
         keepf = keep.to(torch.float32)
         dispatch = x.new_zeros((g, s, E * cap), dtype=dt).scatter_(-1, slot, keepf.to(dt))
         combine = torch.zeros(g, s, E * cap, dtype=torch.float32, device=x.device).scatter(
-            -1, slot, gate * keepf).to(dt)
+            -1, slot, copy_to_model(gate, tg) * keepf).to(dt)
         stats = torch.stack([
             F.one_hot(expert[..., 0].reshape(-1), E).to(torch.float32).sum(0),
             probs.reshape(-1, E).sum(0),
         ])
+        n_local = self.wi.shape[0]  # E, or E / T experts on this rank
+        if n_local != E:
+            places = slice(tg.rank * n_local * cap, (tg.rank + 1) * n_local * cap)
+            dispatch, combine = dispatch[..., places], combine[..., places]
 
         # [G, E*C, d] -> [E, G*C, d]: the experts' rows, group-major
-        xe = torch.bmm(dispatch.transpose(1, 2), x.to(dt))
-        xe = xe.view(g, E, cap, d).transpose(0, 1).reshape(E, g * cap, d)
+        xe = torch.bmm(dispatch.transpose(1, 2), copy_to_model(x, tg).to(dt))
+        xe = xe.view(g, n_local, cap, d).transpose(0, 1).reshape(n_local, g * cap, d)
         h = F.gelu(torch.bmm(xe, self.wi.to(dt)) + self.bi.to(dt)[:, None, :],
                    approximate="tanh")
         ye = torch.bmm(h, self.wo.to(dt)) + self.bo.to(dt)[:, None, :]
-        ye = ye.view(E, g, cap, -1).transpose(0, 1).reshape(g, E * cap, -1)
+        ye = ye.view(n_local, g, cap, -1).transpose(0, 1).reshape(g, n_local * cap, -1)
         # an empty place's bias is harmless: its combine weight is 0
-        return torch.bmm(combine, ye), stats
+        return reduce_from_model(torch.bmm(combine, ye), tg), stats
