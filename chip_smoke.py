@@ -24,12 +24,16 @@
                                        # ring and Ulysses attention on virtual ranks
     python3 chip_smoke.py --tp         # phases 1, 2 and 27 only: Megatron tensor and
                                        # expert parallelism, 4 gloo ranks on the card
+    python3 chip_smoke.py --zero       # phases 1, 2 and 28 only: ZeRO-1/2/3, 4 gloo
+                                       # ranks on the card, (b) at full depth
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. the card (``nvidia-smi`` name and power limit), the torch/CUDA versions
-   and gloo's ``all_reduce`` of CUDA bf16 tensors over two ranks (phase
-   27's exchanges; it raises if gloo refuses bf16);
+1. the card (``nvidia-smi`` name and power limit), the torch/CUDA versions,
+   gloo's ``all_reduce`` of CUDA bf16 tensors over two ranks (phase 27's
+   exchanges; it raises if gloo refuses bf16) and gloo's reduce-scatter and
+   all-gather of CUDA f32 and bf16 tensors through the port's ZeRO
+   exchanges (phase 28's; it raises if gloo refuses one or sums wrong);
 2. build every hand-written kernel from ``csrc/`` with nvcc for sm_90a
    (one nvcc per library, all started together), with ptxas's registers
    and spills for each kernel;
@@ -240,9 +244,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     of a recompute byte for byte and give its tokens; a corrupted block is
     rejected by its CRC and the suffix recomputed; a prefill replica killed
     mid-transfer (``prefill_replica_down``) falls back to a recompute.  (b)
-    Readings at bf16, full width, on phase 20's 32 requests: one scheduler
-    on the fleet's model, then 2 replicas behind the router (K3 and K4
-    each launched exactly 16 x the paged calls summed over the replicas):
+    Readings at bf16, full width (4 blocks in the whole script's run, 16
+    with ``--fleet``), on phase 20's 32 requests: one scheduler on the
+    fleet's model, then 2 replicas behind the router (K3 and K4 each
+    launched exactly depth x the paged calls summed over the replicas):
     tokens/s, TTFT, host ms a tick per replica; ``add_replica``'s
     ``scale_up_ready_ms`` and pool bytes; the disaggregated fleet (1
     prefill replica) with its directory and a block's bytes, export and
@@ -263,11 +268,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     renormalised, a capacity counted without k, no aux term) must each
     fall outside; (b) the runner on ``configs/train-lm-moe.yml``
     (``config/TransformerLM-moe.yml`` at expert-parallel degree 1: 8
-    experts on the card, d 1024, depth 16, every 2nd block MoE, bf16,
-    batch 64 as 8 micro-batches of 8, block remat, fused tails) for a
-    warm-up and 3 timed steps and one validation of 2 batches; exact
-    launch counts a step (K1a/K1b 8, K2a/K2c 8 x 32, K3/K4 8 x 16: the 8
-    dense blocks only) and a validation batch; step ms, tokens/s, peak
+    experts on the card, d 1024, depth 16 (4 in the whole script's run, 16
+    with ``--moe``), every 2nd block MoE, bf16, batch 64 as 8 micro-batches
+    of 8, block remat, fused tails) for a warm-up and 3 timed steps and one
+    validation of 2 batches; exact launch counts a step (at 16 blocks:
+    K1a/K1b 8, K2a/K2c 8 x 32, K3/K4 8 x 16, the 8 dense blocks only) and a
+    validation batch; step ms, tokens/s, peak
     memory, MFU on the executed products (dispatch and combine included)
     and on the active parameters; (c) with ``--profile``, one step's device
     time by class: expert ``bmm``s, dispatch and combine ``bmm``s, routing
@@ -305,9 +311,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     fail; each rank's launches exact.  (b) bf16: the runner on
     ``configs/train-lm-tp.yml`` and ``configs/train-lm-moe-ep.yml``
     (``tensor_parallelism: 4`` kept, batch 64 as 8 micro-batches, block
-    remat; at 2 blocks in the whole script's run, which 16 blocks' ~11 min
-    through gloo would carry past its limit, at 16 with ``--tp``), 1 + 3
-    steps and one validation batch through ``Runner(num_nodes=4,
+    remat; at 2 blocks and 1 + 1 steps in the whole script's run, which 16
+    blocks' ~11 min through gloo would carry past its limit, at 16 and 1 +
+    3 steps with ``--tp``) and one validation batch through ``Runner(num_nodes=4,
     rank=r, device="cuda", dist_backend="gloo")``: each rank's launches
     exact a step and in the validation, with their shapes (K1a/K1b
     [16384, 32768], the flash pair at [8, 2048, 4, 64], K3 [16384, 1024]
@@ -316,6 +322,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     exchanges take, beside the card's name and power limit.  These cross
     the host through gloo: they describe no NCCL run and no multi-card
     speed.
+28. ZeRO-1/2/3 over the data group, as 4 gloo processes on the card: (a)
+    f32, TF32 off, full width, depth 2, a rank's batch 2 x 256, seeded full
+    weights with random biases (the expert banks' too): ZeRO-1, ZeRO-2 (2
+    micro-batches) and ZeRO-3
+    at data 4 x model 1, and ZeRO-3 at data 2 x model 2 with the MoE block,
+    2 SGD-momentum steps each, held against the one-rank step on the card
+    over the whole batch within phase 27's limits (each rank's momentum
+    slice against its elements of the one-rank momentum within the
+    gradients' limit); each rank keeping its local gradient slice, stale
+    shards after the update and slices taken one rank over must fail; each
+    rank's launches exact and its state bytes the rule's.  (b) bf16: the
+    runner on ``configs/train-lm-fsdp.yml`` (ZeRO-3 over 4 data ranks, batch
+    64 as 8 micro-batches, block remat; 2 blocks in the whole script's run,
+    16 with ``--zero``), 1 + 3 steps and one validation batch: launches
+    exact a step and in the validation, losses equal on the ranks; step ms,
+    global tokens/s, the exchanges' calls, bytes and share of the step,
+    each process's peak memory; then one step each of the runner's steps
+    at stages 0, 1 and 2 on the config's model: each rank's bytes of
+    parameters, gradients and AdamW moments at stages 0-3 equal to the
+    rule's.  (a) and (b) run in one spawn of four processes.  Gloo through
+    the host on one card, as in 27.
 
 The line before the last lists every TPU kernel (K1a ... K4) with the CUDA
 kernel that stands for it, its launches on the path that runs it (and on
@@ -3975,14 +4002,21 @@ def fleet_gates(torch, np, prompts, caps) -> dict:
     return out
 
 
-def phase_fleet(torch, np, modules, fe, smi: str):
-    """Phase 24; returns the launch counts of the fleet's main path."""
+# phase 24 (b)'s depth in the whole script's run, cut so that the script
+# with phase 28 stays inside its time (a run of it took 1,179.4 s on an H100
+# 80GB HBM3 at 700 W at the config's 16 blocks); ``--fleet`` runs 16
+FLEET_DEFAULT_RUN_DEPTH = 4
+
+
+def phase_fleet(torch, np, modules, fe, smi: str, depth=None):
+    """Phase 24 ((b) at ``depth`` blocks if given); returns the launch
+    counts of the fleet's main path."""
     from pytorch_distributed_training_tpu_torch.engine import fault
     from pytorch_distributed_training_tpu_torch.serving import DisaggFleet, ServingFleet
     from pytorch_distributed_training_tpu_torch.serving import kv_transfer as kvt
 
     t_phase = time.perf_counter()
-    cfg = fleet_cfg()
+    cfg = fleet_cfg(depth)
     depth, vocab = cfg["model"]["depth"], cfg["dataset"]["n_classes"]
     prompts, caps = sched_requests(np, vocab)  # phase 20's 32 requests
     keys = [(0, 24, i) for i in range(len(prompts))]
@@ -4411,15 +4445,22 @@ def profile_moe_step(torch, runner, seq: int) -> dict:
     return dict(wall_ms=wall_ms, device_ms=busy_ms, busy=busy_ms / wall_ms, classes_ms=classes)
 
 
-def phase_moe(torch, modules, profile: bool) -> dict:
+# phase 25 (b)'s depth in the whole script's run, cut so that the script
+# with phase 28 stays inside its time (a run of it took 1,182.9 s on an H100
+# 80GB HBM3 at 700 W with 16 blocks here); ``--moe`` runs the config's 16
+MOE_DEFAULT_RUN_DEPTH = 4
+
+
+def phase_moe(torch, modules, profile: bool, depth=None) -> dict:
     """Phase 25: (a) :func:`phase_moe_vs_cpu`; (b) the runner on
-    ``configs/train-lm-moe.yml`` (full width, 8 experts, bf16, batch 64 as
+    ``configs/train-lm-moe.yml`` (its depth cut to ``depth`` if given;
+    full width, 8 experts, bf16, batch 64 as
     8 micro-batches of 8, block remat) for 1 warm-up and 3 timed steps and
     one validation of 2 batches: per step exactly 8 K1a and 8 K1b, 8 x 2 x
-    16 K2a and K2c launches (every block's forward run again by the
-    recompute), 8 x 2 x 8 each of K3/K4 (the dense blocks only); per
-    validation batch (run as the step's 8 micro-batches) 8 K1a, 8 x 16 K2a
-    and 8 x 8 each of K3/K4; step ms, tokens/s,
+    depth K2a and K2c launches (every block's forward run again by the
+    recompute), 8 x 2 x the dense blocks each of K3/K4; per validation
+    batch (run as the step's 8 micro-batches) 8 K1a, 8 x depth K2a and 8 x
+    the dense blocks each of K3/K4; step ms, tokens/s,
     MFU on both FLOP counts of :func:`moe_step_flops`, peak memory, the aux
     term (matmul TF32 off, torch's default, as in (a): the f32 head and
     router run as FP32 GEMMs); (c) with ``profile``,
@@ -4428,13 +4469,16 @@ def phase_moe(torch, modules, profile: bool) -> dict:
 
     t_phase = time.perf_counter()
     gate = phase_moe_vs_cpu(torch, modules)
-    cfg = get_cfg(MOE_CONFIG)
+    cfg, cut = get_cfg(MOE_CONFIG), depth
+    if cut is not None:
+        cfg["model"]["depth"] = cut
     depth, n = cfg["model"]["depth"], cfg["training"]["grad_accumulation"]
     every = cfg["model"]["moe_every"]
     dense = sum(1 for i in range(depth) if i % every != every - 1)
     batch, seq = cfg["training"]["batch_size"], cfg["dataset"]["seq_len"]
     runner, counts, run = phase_runner(
         torch, modules, MOE_CONFIG, "train-lm-moe", steps=4,
+        edit=None if cut is None else (lambda c: c["model"].update(depth=cut)),
         step_flops=lambda model, b, s: moe_step_flops(model, b, s)["executed"],
         per_step=dict(ce_fwd=n, ce_bwd=n, flash_fwd=n * 2 * depth, flash_bwd=n * 2 * depth,
                       K2a=n * 2 * depth, K2c=n * 2 * depth, add_layernorm=n * 2 * dense,
@@ -4955,17 +4999,16 @@ def tp_exchange_timer(torch) -> dict:
 
 
 def tp_runner_readings(torch, modules, config: str, rank: int, port: int,
-                       edit=None) -> dict:
+                       edit=None, steps: int = 4) -> dict:
     """(b) on one rank: the runner on ``config`` (then ``edit(cfg)``'s cuts)
-    for 4 steps (1 warm-up, 3 timed) and one validation batch, its launches
-    a step and in the
+    for ``steps`` steps (1 warm-up, the rest timed) and one validation
+    batch, its launches a step and in the
     validation, their shapes, the step ms, the model group's exchange ms a
     step and the peak memory of this process."""
     from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
     from pytorch_distributed_training_tpu_torch.engine import Runner
 
     cfg = get_cfg(config)
-    steps = 4
     cfg["training"].update(train_iters=steps, print_interval=1, val_interval=steps)
     cfg["dataset"]["n_samples"] = cfg["training"]["batch_size"]  # 1 validation batch
     if edit is not None:
@@ -5023,7 +5066,7 @@ def tp_worker(rank: int, task: str, port: int, depth=None) -> None:
     if task != "gate":
         edit = None if depth is None else (lambda c: c["model"].update(depth=depth))
         out = tp_runner_readings(torch, modules, TP_CONFIG if task == "tp" else EP_CONFIG,
-                                 rank, port, edit=edit)
+                                 rank, port, edit=edit, steps=tp_run_steps(depth))
         with open(os.path.join(TP_DIR, f"{task}.rank{rank}.json"), "w") as f:
             json.dump(out, f)
         return
@@ -5065,19 +5108,23 @@ def tp_worker(rank: int, task: str, port: int, depth=None) -> None:
         dist.destroy_process_group()
 
 
-def tp_spawn(torch, task: str, depth=None) -> float:
-    """Run ``tp_worker`` on ``TP_RANKS`` spawned processes and wait for all;
-    a rank that fails ends the others and raises here.  Returns the wall s."""
+def tp_spawn(torch, task: str, depth=None, worker=None, ports: int = 0) -> float:
+    """Run ``worker`` (``tp_worker`` by default) on ``TP_RANKS`` spawned
+    processes and wait for all; a rank that fails ends the others and raises
+    here.  The worker takes a free port, or a list of ``ports`` free ports
+    (one a process group it starts in turn).  Returns the wall s."""
     import socket
 
     import torch.multiprocessing as mp
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    free = []
+    for _ in range(max(ports, 1)):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            free.append(s.getsockname()[1])
     t0 = time.perf_counter()
-    mp.start_processes(tp_worker, args=(task, port, depth), nprocs=TP_RANKS, join=True,
-                       start_method="spawn")
+    mp.start_processes(worker or tp_worker, args=(task, free if ports else free[0], depth),
+                       nprocs=TP_RANKS, join=True, start_method="spawn")
     return time.perf_counter() - t0
 
 
@@ -5173,7 +5220,8 @@ def phase_tp_runner(torch, task: str, config: str, smi: str, depth=None) -> dict
             check_launches(f"rank {got['rank']} step {i}", counts, per_step)
         check_launches(f"rank {got['rank']} validation", got["validation"], per_val)
         if got["losses"] != ranks[0]["losses"] or not all(
-                math.isfinite(x) for x in got["losses"]) or len(got["losses"]) != 4:
+                math.isfinite(x) for x in got["losses"]) or len(
+                    got["losses"]) != tp_run_steps(cut):
             raise AssertionError(f"rank {got['rank']} losses {got['losses']}, rank 0's "
                                  f"{ranks[0]['losses']}")
     step_ms = ranks[0]["step_ms"]
@@ -5184,8 +5232,8 @@ def phase_tp_runner(torch, task: str, config: str, smi: str, depth=None) -> dict
         f"rank, {n} micro-batches of {batch // n} x {seq}, data x model = "
         f"{ranks[0]['n_data']} x {TP_RANKS} (gloo processes on one card)")
     say(f"  losses {ranks[0]['losses']}; validation {ranks[0]['val']}; aux {ranks[0]['aux']}")
-    say(f"  step ms (steps 1-3, host clock, synced): {step_ms}; median {med}; tokens/s "
-        f"{batch * seq / med * 1e3} (one data rank)")
+    say(f"  step ms (steps 1-{len(step_ms)}, host clock, synced): {step_ms}; median {med}; "
+        f"tokens/s {batch * seq / med * 1e3} (one data rank)")
     say(f"  gloo exchanges (copy/reduce all-reduces, synced): {ranks[0]['exchange_calls']} calls, "
         f"{ranks[0]['exchange_bytes'] / 2**30:.2f} GiB a rank in the run; ms a step by rank "
         f"{[r['exchange_ms'] for r in ranks]}; share of the step by rank {share}")
@@ -5202,6 +5250,14 @@ def phase_tp_runner(torch, task: str, config: str, smi: str, depth=None) -> dict
                                       losses=ranks[0]["losses"], val=ranks[0]["val"],
                                       wall_s=wall, card=smi)))
     return total
+
+
+def tp_run_steps(depth) -> int:
+    """Phase 27 (b)'s steps: 1 + 3 at the configs' depth, 1 + 1 in the whole
+    script's run (its depth cut), so that the script with phase 28 stays
+    inside its time (a run of it took 1,179.4 s on an H100 80GB HBM3 at
+    700 W with 1 + 3)."""
+    return 4 if depth is None else 2
 
 
 # phase 27 (b)'s depth in the whole script's run: at the configs' 16 blocks
@@ -5223,6 +5279,610 @@ def phase_tensor_parallel(torch, modules, smi: str, depth=None) -> dict:
     paths = {"tp": by_tpu_kernel(phase_tp_runner(torch, "tp", TP_CONFIG, smi, depth)),
              "ep": by_tpu_kernel(phase_tp_runner(torch, "ep", EP_CONFIG, smi, depth))}
     say(f"  phase 27 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+ZERO_CONFIG = os.path.join(_HERE, "pytorch_distributed_training_tpu_torch", "configs",
+                           "train-lm-fsdp.yml")
+ZERO_DIR = os.path.join(_HERE, "run", "chip_smoke", "zero")
+ZERO_RANKS = 4
+# (a)'s cases, each on 4 gloo processes: name -> (model, (data, model) ranks,
+# ZeRO stage, grad_accumulation); each rank takes a 2 x 256 batch
+ZERO_GATE_CASES = {"zero 1": ("dense", (4, 1), 1, 1), "zero 2 accum 2": ("dense", (4, 1), 2, 2),
+                   "zero 3": ("dense", (4, 1), 3, 1), "zero 3 moe 2x2": ("moe", (2, 2), 3, 1)}
+ZERO_GATE_ROWS = 2  # a rank's rows of the batch
+# phase 27's limits; a momentum buffer is a sum of gradients, held to theirs
+ZERO_MOMENTUM_LIMIT = TP_GRAD_LIMIT
+
+
+def zero_probe_gloo(torch) -> str:
+    """Phase 1: gloo's reduce-scatter and all-gather of CUDA f32 and bf16
+    tensors over two ranks (threads of this process), through the port's
+    exchanges (``parallel.tensor._reduce_scatter`` and ``_all_gather``, the
+    group's ``_reduce_scatter_base`` and ``_allgather_base``), phase 28's
+    ZeRO exchanges.  Raises if gloo refuses one or a result is wrong."""
+    import threading
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from pytorch_distributed_training_tpu_torch.parallel import tensor
+
+    taken = []
+    for dtype in (torch.float32, torch.bfloat16):
+        store, got, errors = dist.HashStore(), {}, []
+
+        def rank(r):
+            try:
+                pg = dist.ProcessGroupGloo(store, r, 2, timedelta(seconds=60))
+                inp = torch.arange(8, dtype=dtype, device="cuda") + 10 * r
+                part = torch.empty(4, dtype=dtype, device="cuda")
+                tensor._reduce_scatter(part, inp, pg)
+                whole = torch.empty(6, dtype=dtype, device="cuda")
+                tensor._all_gather(whole, torch.full((3,), float(r + 1), dtype=dtype,
+                                                     device="cuda"), pg)
+                torch.cuda.synchronize()
+                got[r] = (part.cpu().tolist(), whole.cpu().tolist())
+            except BaseException as err:  # raised below, in the phase's thread
+                errors.append(err)
+
+        threads = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        name = str(dtype).replace("torch.", "")
+        if errors or len(got) != 2:
+            raise AssertionError(f"gloo reduce-scatter/all-gather of CUDA {name}: {errors}")
+        for r, (part, whole) in got.items():
+            if (part != [10.0 + 2 * j + 8 * r for j in range(4)]
+                    or whole != [1.0, 1.0, 1.0, 2.0, 2.0, 2.0]):
+                raise AssertionError(f"gloo reduce-scatter/all-gather of CUDA {name} on rank "
+                                     f"{r}: {part}, {whole}")
+        taken.append(name)
+    return ", ".join(taken)
+
+
+def zero_gate_weights(torch, kind: str, seed: int) -> dict:
+    """(a)'s full weights: :func:`tp_gate_weights`', with the expert banks'
+    biases ``moe.bi``/``moe.bo`` drawn at 0.02 as every other bias is (the
+    name filter there leaves them at flax's zero init, so their reading of
+    max |got - want| / max |want| after two steps would compare the two
+    steps' updates, not parameters)."""
+    full = tp_gate_weights(torch, kind, seed)
+    gen = torch.Generator().manual_seed(seed + 100)
+    for name in sorted(full):
+        if name.endswith((".moe.bi", ".moe.bo")):
+            full[name] = torch.randn(full[name].shape, generator=gen) * 0.02
+    return full
+
+
+def zero_gate_batch(torch, rows: int, seed: int = 28):
+    gen = torch.Generator().manual_seed(seed)
+    shape = (rows, TP_GATE_SEQ)
+    return (torch.randint(0, TP_GATE_KW["vocab_size"], shape, generator=gen),
+            torch.randint(0, TP_GATE_KW["vocab_size"], shape, generator=gen))
+
+
+def zero_gate_steps(torch, kind: str, full: dict, tokens, labels, accum: int,
+                    layout=None, zero: int = 0) -> dict:
+    """``TP_GATE_STEPS`` SGD steps of the GSPMD-path step on the card from
+    ``full``: one rank on the whole batch, or this rank of ``layout`` (a
+    :class:`..parallel.TPLayout`) at ZeRO stage ``zero`` on its data rows.
+    Returns the losses, every step's gradients as the optimizer takes them,
+    gathered (over the data group, then the model group), the full
+    parameters after, the momentum as this rank holds it (by name) and the
+    step's state bytes, all on the CPU."""
+    from pytorch_distributed_training_tpu_torch import optimizers
+    from pytorch_distributed_training_tpu_torch.engine.tp_steps import build_tp_lm_train_step
+    from pytorch_distributed_training_tpu_torch.models import TransformerLM
+    from pytorch_distributed_training_tpu_torch.parallel.tensor import gather_param, shard_dim
+
+    kw = dict(TP_GATE_KW, **(TP_GATE_MOE_KW if kind == "moe" else {}))
+    tg = layout.tensor_group if layout is not None else None
+    zg = layout.zero_group if layout is not None and zero >= 3 else None
+    with torch.device("meta"):  # no weights drawn: ``full`` is loaded next
+        model = TransformerLM(**kw, tensor_group=tg, zero_group=zg)
+    model.to_empty(device="cuda")
+    model.load_full_state_dict(full)
+    n_data = layout.n_data if layout is not None else 1
+    step = build_tp_lm_train_step(model, optimizers.SGD(**TP_GATE_SGD),
+                                  lambda i: TP_GATE_SGD["lr"], world_size=n_data,
+                                  group=layout.data_group if layout is not None else None,
+                                  grad_accum=accum, zero=zero)
+    names = [n for n, _ in model.named_parameters()]
+    grads = []
+    update = step.optimizer.update
+
+    def record(params, gs, state, lr, **kw):
+        whole = step.zero_plan.gather_all(gs) if step.zero_plan is not None else gs
+        grads.append({n: (gather_param(g, shard_dim(n), tg) if tg is not None else g).cpu()
+                      for n, g in zip(names, whole)})
+        return update(params, gs, state, lr, **kw)
+
+    step.optimizer.update = record
+    if layout is not None:
+        rows = tokens.shape[0] // n_data
+        sl = slice(layout.data_idx * rows, (layout.data_idx + 1) * rows)
+        tokens, labels = tokens[sl], labels[sl]
+    losses = [float(step(tokens.cuda(), labels.cuda())) for _ in range(TP_GATE_STEPS)]
+    after = {k: v.cpu() for k, v in model.full_state_dict().items()}
+    momentum = {n: t.cpu() for n, t in zip(names, step.opt_state.momentum)}
+    return dict(losses=losses, grads=grads, after=after, momentum=momentum,
+                bytes=step.state_bytes())
+
+
+def zero_momentum_reading(torch, got: dict, want: dict, layout, zero: int) -> float:
+    """This rank's momentum against its elements of the one-rank momentum
+    (the model group's slice, then the rule's data slice), of the largest."""
+    from pytorch_distributed_training_tpu_torch.parallel.tensor import (shard_dim, shard_param,
+                                                                         zero_shard_dim)
+
+    worst = 0.0
+    for name, mine in got.items():
+        ref = shard_param(want[name], shard_dim(name), layout.n_model, layout.model_idx)
+        if zero >= 1:
+            ref = shard_param(ref, zero_shard_dim(name, ref.shape, layout.n_data),
+                              layout.n_data, layout.data_idx)
+        worst = max(worst, relative_to_largest(mine, ref))
+    return worst
+
+
+def zero_no_reduce(torch):
+    """A wrong reduce-scatter: each rank keeps its local gradient's slice."""
+    from pytorch_distributed_training_tpu_torch.parallel.tensor import ZeroPlan
+
+    def scatter_sum(self, fulls, idx):
+        return [self.slice(t, i).float() for t, i in zip(fulls, idx)]
+
+    return ZeroPlan, "scatter_sum", scatter_sum
+
+
+def zero_stale_shards(torch):
+    """A wrong re-gather after the update: each rank writes its own slice
+    alone, the others' stay stale."""
+    from pytorch_distributed_training_tpu_torch.parallel.tensor import ZeroPlan
+
+    def gather_into(self, fulls, parts, idx):
+        for t, part, i in zip(fulls, parts, idx):
+            self._rows(t, i)[self.dg.rank].copy_(part)
+
+    return ZeroPlan, "gather_into", gather_into
+
+
+def zero_next_rank(torch):
+    """Wrong slices: each rank takes the slice one rank over."""
+    from pytorch_distributed_training_tpu_torch.parallel.tensor import ZeroPlan, shard_param
+
+    def slice_(self, full, i):
+        return shard_param(full, self.dims[i], self.dg.size, (self.dg.rank + 1) % self.dg.size)
+
+    return ZeroPlan, "slice", slice_
+
+
+# wrong variant -> (the case it runs in, its patch)
+ZERO_VARIANTS = {"no reduce (local gradient slice)": ("zero 1", zero_no_reduce),
+                 "stale shards (no re-gather)": ("zero 1", zero_stale_shards),
+                 "slices one rank over": ("zero 3", zero_next_rank)}
+
+
+def zero_ref_key(kind: str, accum: int) -> str:
+    return f"{kind}_accum{accum}"
+
+
+def zero_gate_worker(torch, modules, rank: int, port: int) -> None:
+    """(a) on one rank: every case of :data:`ZERO_GATE_CASES` and
+    :data:`ZERO_VARIANTS` in turn over one gloo process group, each held
+    against the one-rank step this process runs on the same weights (the
+    parent's ``full_<kind>.pt``) and the whole batch; the full gradients and
+    parameters (equal on every rank) are read on rank 0, the losses and the
+    momentum slices on every rank.  Writes its readings, launches (and the
+    references') and state bytes as JSON."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from pytorch_distributed_training_tpu_torch.parallel import TPLayout
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=ZERO_RANKS, rank=rank, timeout=timedelta(seconds=600))
+    try:
+        out, refs, fulls = {"references": {}}, {}, {}
+        runs = [(c, None) for c in ZERO_GATE_CASES] + [(c, v) for v, (c, _) in
+                                                      ZERO_VARIANTS.items()]
+        for case, variant in runs:
+            kind, (n_data, t), zero, accum = ZERO_GATE_CASES[case]
+            if kind not in fulls:
+                fulls[kind] = torch.load(os.path.join(ZERO_DIR, f"full_{kind}.pt"),
+                                         weights_only=True)
+            tokens, labels = zero_gate_batch(torch, ZERO_GATE_ROWS * n_data)
+            key = zero_ref_key(kind, accum)
+            if key not in refs:  # one reference held at a time
+                for m in modules:
+                    m.reset_launch_counts()
+                refs = {key: zero_gate_steps(torch, kind, fulls[kind], tokens, labels, accum)}
+                out["references"][key] = all_counts(modules)
+            want = refs[key]
+            layout = TPLayout(ZERO_RANKS, rank, t)
+            undo = None
+            if variant is not None:
+                owner, attr, wrong = ZERO_VARIANTS[variant][1](torch)
+                undo = (owner, attr, getattr(owner, attr))
+                setattr(owner, attr, wrong)
+            for m in modules:
+                m.reset_launch_counts()
+            try:
+                got = zero_gate_steps(torch, kind, fulls[kind], tokens, labels, accum, layout,
+                                      zero)
+            finally:
+                if undo is not None:
+                    setattr(*undo)
+            r = dict(loss=max(abs(g - w) / abs(w) for g, w in zip(got["losses"],
+                                                                  want["losses"])),
+                     momentum=zero_momentum_reading(torch, got["momentum"], want["momentum"],
+                                                    layout, zero))
+            if rank == 0:
+                r.update(tp_gate_readings(got, want))
+            out[variant or case] = dict(readings=r, losses=got["losses"],
+                                        launches=all_counts(modules), bytes=got["bytes"])
+            del got
+        with open(os.path.join(ZERO_DIR, f"gate.rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def zero_gate_within(r: dict) -> bool:
+    return tp_gate_within(r) and r["momentum"] <= ZERO_MOMENTUM_LIMIT
+
+
+def zero_rule_bytes(torch, model_kw: dict, n_model: int, n_data: int, stage: int,
+                    moments: int) -> dict:
+    """A rank's bytes of f32 parameters, gradients and moments at ZeRO
+    ``stage`` by the rule (``zero_shard_dim``): a leaf's slice where the
+    stage shards that state and the rule splits the leaf, else the leaf."""
+    from pytorch_distributed_training_tpu_torch.models import TransformerLM
+    from pytorch_distributed_training_tpu_torch.parallel import TensorGroup
+    from pytorch_distributed_training_tpu_torch.parallel.tensor import zero_shard_dim
+
+    with torch.device("meta"):
+        tg = TensorGroup(None, n_model, 0) if n_model > 1 else None
+        model = TransformerLM(**model_kw, tensor_group=tg)
+    out = dict(params=0, grads=0, moments=0)
+    for name, p in model.named_parameters():
+        whole = p.numel() * 4
+        part = whole // n_data if zero_shard_dim(name, p.shape, n_data) is not None else whole
+        out["params"] += part if stage >= 3 else whole
+        out["grads"] += part if stage >= 2 else whole
+        out["moments"] += moments * (part if stage >= 1 else whole)
+    return out
+
+
+def phase_zero_gate(torch, modules, ranks: list) -> dict:
+    """Phase 28 (a)'s verdicts on the ranks' results (:func:`zero_gate_worker`):
+    ZeRO-1, ZeRO-2 (2 micro-batches) and ZeRO-3 at data 4 x model 1 and
+    ZeRO-3 at data 2 x model 2 with the MoE block, full width, depth 2, f32
+    with TF32 off, a rank's batch 2 x 256: each took ``TP_GATE_STEPS``
+    SGD-momentum steps on four gloo processes on the card from the same
+    seeded full weights as the one-rank step on the card over the whole
+    batch; the losses, every gathered gradient, every gathered parameter
+    after and each rank's momentum slice (against its elements of the
+    one-rank momentum) held to phase 27's limits (the momentum to the
+    gradients'), which three wrong variants must fail
+    (:data:`ZERO_VARIANTS`); each rank's launches (and its one-rank
+    reference's) exact and its state bytes the rule's."""
+    steps, depth = TP_GATE_STEPS, TP_GATE_KW["depth"]
+    readings = {}
+    for name in ranks[0]:
+        if name == "references":
+            continue
+        case = ZERO_VARIANTS[name][0] if name in ZERO_VARIANTS else name
+        kind, (n_data, t), zero, accum = ZERO_GATE_CASES[case]
+        dense = depth if kind == "dense" else 1
+        # a rank's run, as the one rank's: a K1 pair, an f32 flash forward and
+        # split backward a block and K3/K4 in the dense blocks, a micro-batch
+        per_run = {k: steps * accum * v for k, v in dict(
+            ce_fwd=1, ce_bwd=1, flash_fwd=depth, flash_bwd=2 * depth, K2a=depth, K2d=depth,
+            K2e=depth, add_layernorm=dense, bias_gelu=dense).items()}
+        if name not in ZERO_VARIANTS:
+            kw = dict(TP_GATE_KW, **(TP_GATE_MOE_KW if kind == "moe" else {}))
+            rule = zero_rule_bytes(torch, kw, t, n_data, zero, moments=1)
+        for r, got in enumerate(ranks):
+            check_launches(f"rank {r} one-rank {kind}",
+                           got["references"][zero_ref_key(kind, accum)], per_run)
+            check_launches(f"rank {r} {name}", got[name]["launches"], per_run)
+            if name not in ZERO_VARIANTS and got[name]["bytes"] != rule:
+                raise AssertionError(f"rank {r} {name}: state bytes {got[name]['bytes']}, the "
+                                     f"rule's {rule}")
+        readings[name] = {k: max(got[name]["readings"][k] for got in ranks
+                                 if k in got[name]["readings"])
+                          for k in ranks[0][name]["readings"]}
+    for name, r in readings.items():
+        wrong = name in ZERO_VARIANTS
+        verdict = "within" if zero_gate_within(r) else ("outside" if wrong else "OUTSIDE")
+        say(f"  {'wrong variant ' if wrong else ''}{name} vs one rank: {r} (rank 0 losses "
+            f"{ranks[0][name]['losses']}) -> {verdict}")
+    for name in ZERO_GATE_CASES:
+        say(f"  {name}: state bytes a rank {ranks[0][name]['bytes']} (the rule's)")
+    bad = [k for k, r in readings.items() if k not in ZERO_VARIANTS and not zero_gate_within(r)]
+    if bad:
+        raise AssertionError(f"ZeRO on the card outside its limits: {bad}")
+    inside = [k for k in ZERO_VARIANTS if zero_gate_within(readings[k])]
+    if inside:
+        raise AssertionError(f"ZeRO: wrong variants within the limits: {inside}")
+    return dict(readings=readings, launches=ranks[0])
+
+
+def zero_exchange_timer(torch) -> dict:
+    """Time every exchange of the step (ZeRO's reduce-scatters and
+    all-gathers, the all-reduces of the whole leaves, the loss and the TP
+    copy/reduce), synchronised before and after so that only the exchange
+    is counted (gloo copies through the host): calls, bytes and seconds."""
+    from pytorch_distributed_training_tpu_torch.engine import sp_steps, tp_steps
+    from pytorch_distributed_training_tpu_torch.parallel import tensor
+
+    clock = dict(seconds=0.0, calls=0, bytes=0)
+
+    def timed(plain, nbytes):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = plain(*args)
+            torch.cuda.synchronize()
+            clock["seconds"] += time.perf_counter() - t0
+            clock["calls"] += 1
+            clock["bytes"] += nbytes(*args)
+            return out
+        return run
+
+    size = lambda t: t.numel() * t.element_size()  # noqa: E731
+    tensor._reduce_scatter = timed(tensor._reduce_scatter, lambda out, inp, g: size(inp))
+    tensor._all_gather = timed(tensor._all_gather, lambda out, inp, g: size(out))
+    tensor._all_reduce = timed(tensor._all_reduce, lambda t, g: size(t))
+    summed = timed(sp_steps._all_reduce_sum_, lambda ts, g=None: sum(size(t) for t in ts))
+    sp_steps._all_reduce_sum_ = tp_steps._all_reduce_sum_ = summed
+    return clock
+
+
+# (b)'s state readings at stages 0-2: one step each of a batch of 4 in one
+# micro-batch; the state a rank holds depends on neither
+ZERO_BYTES_BATCH = 4
+
+
+def zero_config(depth=None, **training) -> dict:
+    """``configs/train-lm-fsdp.yml`` for (b): no checkpoint, ``depth`` blocks
+    if given, ``training`` set, a batch a data rank an epoch and one
+    validation batch."""
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
+
+    cfg = get_cfg(ZERO_CONFIG)
+    cfg["training"].pop("checkpoint")
+    if depth is not None:
+        cfg["model"]["depth"] = depth
+    cfg["training"].update(training)
+    cfg["dataset"]["n_samples"] = cfg["training"]["batch_size"] * ZERO_RANKS
+    return cfg
+
+
+def zero_stage_bytes(torch, cfg: dict, rank: int, port: int) -> dict:
+    """This rank's state bytes at ZeRO stages 0, 1 and 2 on ``cfg``'s model
+    (the runner's steps: ``build_lm_train_step`` at stage 0, the GSPMD
+    step above it, over a gloo group of the 4 ranks), each after one step of
+    ``ZERO_BYTES_BATCH`` seeded rows, the weights drawn on the card (the
+    bytes depend on neither)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from pytorch_distributed_training_tpu_torch.engine.sp_steps import build_lm_train_step
+    from pytorch_distributed_training_tpu_torch.engine.tp_steps import build_tp_lm_train_step
+    from pytorch_distributed_training_tpu_torch.models import TransformerLM
+    from pytorch_distributed_training_tpu_torch.optimizers import get_optimizer
+
+    model_kw = {k: v for k, v in cfg["model"].items() if k != "name"}
+    opt_cfg = dict(cfg["training"]["optimizer"])
+    opt_cls = get_optimizer(opt_cfg)
+    opt_cfg.pop("name")
+    gen = torch.Generator().manual_seed(28)
+    shape = (ZERO_BYTES_BATCH, cfg["dataset"]["seq_len"])
+    vocab = cfg["dataset"]["n_classes"]
+    tokens = torch.randint(0, vocab, shape, generator=gen).cuda()
+    labels = torch.randint(0, vocab, shape, generator=gen).cuda()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=ZERO_RANKS, rank=rank, timeout=timedelta(seconds=600))
+    out = {}
+    try:
+        for stage in (0, 1, 2):
+            with torch.device("meta"):
+                model = TransformerLM(vocab_size=vocab, dtype=torch.bfloat16, flash=True,
+                                      remat=True, **model_kw)
+            model.to_empty(device="cuda")
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.normal_(0.0, 0.02)
+            lr = lambda i: opt_cfg["lr"]  # noqa: E731
+            step = (build_lm_train_step(model, opt_cls(**opt_cfg), lr, world_size=ZERO_RANKS)
+                    if stage == 0 else
+                    build_tp_lm_train_step(model, opt_cls(**opt_cfg), lr,
+                                           world_size=ZERO_RANKS, group=dist.group.WORLD,
+                                           zero=stage))
+            step(tokens, labels)
+            out[stage] = step.state_bytes()
+            del step, model
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def zero_runner_readings(torch, modules, rank: int, ports: list, depth=None) -> dict:
+    """(b) on one rank: the runner on ``configs/train-lm-fsdp.yml`` (its
+    depth cut to ``depth`` if given, no checkpoint) for 4 steps (1 warm-up, 3
+    timed) and one validation batch, its launches a step and in the
+    validation, the step ms, the exchanges a step and the peak memory of
+    this process and its state bytes; then :func:`zero_stage_bytes`."""
+    from pytorch_distributed_training_tpu_torch.engine import Runner
+
+    clock = zero_exchange_timer(torch)
+    marks = []
+
+    def on_iter(runner):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), all_counts(modules), clock["seconds"],
+                      clock["calls"], clock["bytes"]))
+
+    steps = 4
+    for m in modules:
+        m.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = Runner(num_nodes=ZERO_RANKS, rank=rank, seed=0,
+                    dist_url=f"tcp://127.0.0.1:{ports[0]}", multiprocessing=False,
+                    logger_queue=None, global_cfg=zero_config(
+                        depth, train_iters=steps, print_interval=1, val_interval=steps),
+                    device="cuda", dist_backend="gloo", on_iter=on_iter)
+    runner()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    final = all_counts(modules)
+    prev, per_step = {k: 0 for k in final}, []
+    for _, counts, *_ in marks:
+        per_step.append({k: counts[k] - prev[k] for k in final})
+        prev = counts
+    diffs = lambda j: [b[j] - a[j] for a, b in zip(marks, marks[1:])]  # noqa: E731
+    out = dict(rank=rank, path=runner.path, zero=runner.train_step.zero,
+               n_data=runner.data_size, grad_accum=runner.train_step.grad_accum,
+               remat=runner.model.remat, step_ms=[s * 1e3 for s in diffs(0)],
+               exchange_ms=[s * 1e3 for s in diffs(2)], exchange_calls=diffs(3),
+               exchange_bytes=diffs(4), per_step=per_step,
+               validation={k: final[k] - prev[k] for k in final}, final=final,
+               losses=[r["loss"] for r in runner.train_log], val=runner.val_log,
+               peak_gib=peak, wall_s=wall, bytes={3: runner.train_step.state_bytes()},
+               params_m=sum(p.numel() for p in runner.model.parameters()) / 1e6)
+    runner = None
+    torch.cuda.empty_cache()
+    out["bytes"].update(zero_stage_bytes(torch, zero_config(depth), rank, ports[1]))
+    return out
+
+
+def zero_worker(rank: int, task: str, ports: list, depth=None) -> None:
+    """One of phase 28's ranks, a process of its own on ``cuda:0``: (a)
+    (:func:`zero_gate_worker`), then (b) (:func:`zero_runner_readings`).
+    Writes its results under ``ZERO_DIR``."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.ops import flash_attention as fa
+    from pytorch_distributed_training_tpu_torch.ops import fused_ce as ce
+    from pytorch_distributed_training_tpu_torch.ops import fused_elementwise as fe
+
+    modules = (fe, ce, fa)
+    torch.cuda.set_device(0)
+    zero_gate_worker(torch, modules, rank, ports[0])
+    torch.cuda.empty_cache()
+    out = zero_runner_readings(torch, modules, rank, ports[1:], depth)
+    with open(os.path.join(ZERO_DIR, f"runner.rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_zero_runner(torch, smi: str, ranks: list, depth: int, wall: float) -> dict:
+    """Phase 28 (b)'s verdicts and readings on the ranks' results
+    (:func:`zero_runner_readings`, ``configs/train-lm-fsdp.yml`` at ``depth``
+    blocks through the runner): each rank's launches exact a step (K1a/K1b
+    n, K2a/K2c n x 2 x depth, K3/K4 n x 2 x depth: block remat runs each
+    forward twice) and in the validation batch; every loss finite and equal
+    on the ranks; each rank's bytes of parameters, gradients and moments at
+    stages 0-3 the rule's.  Prints the step ms, global tokens/s, the
+    exchanges' calls, bytes and share of the step and each process's peak
+    memory beside the card.  Returns the four ranks' launch counts summed."""
+    cfg = zero_config(depth)
+    n = cfg["training"]["grad_accumulation"]
+    batch, seq = cfg["training"]["batch_size"], cfg["dataset"]["seq_len"]
+    per_step = dict(ce_fwd=n, ce_bwd=n, flash_fwd=n * 2 * depth, flash_bwd=n * 2 * depth,
+                    K2a=n * 2 * depth, K2c=n * 2 * depth, add_layernorm=n * 2 * depth,
+                    bias_gelu=n * 2 * depth)
+    per_val = dict(ce_fwd=n, flash_fwd=n * depth, K2a=n * depth, add_layernorm=n * depth,
+                   bias_gelu=n * depth)
+    model_kw = {k: v for k, v in cfg["model"].items() if k != "name"}
+    model_kw["vocab_size"] = cfg["dataset"]["n_classes"]
+    rules = {s: zero_rule_bytes(torch, model_kw, 1, ZERO_RANKS, s, moments=2)
+             for s in range(4)}
+    for got in ranks:
+        if (got["path"] != "gspmd" or got["zero"] != 3 or got["grad_accum"] != n
+                or not got["remat"] or got["n_data"] != ZERO_RANKS):
+            raise AssertionError(f"rank {got['rank']} did not run the accumulated ZeRO-3 "
+                                 "GSPMD step with block remat over 4 data ranks")
+        for i, counts in enumerate(got["per_step"]):
+            check_launches(f"rank {got['rank']} step {i}", counts, per_step)
+        check_launches(f"rank {got['rank']} validation", got["validation"], per_val)
+        if got["losses"] != ranks[0]["losses"] or not all(
+                math.isfinite(x) for x in got["losses"]) or len(got["losses"]) != 4:
+            raise AssertionError(f"rank {got['rank']} losses {got['losses']}, rank 0's "
+                                 f"{ranks[0]['losses']}")
+        for s in range(4):
+            if got["bytes"][str(s)] != rules[s]:
+                raise AssertionError(f"rank {got['rank']} stage {s}: state bytes "
+                                     f"{got['bytes'][str(s)]}, the rule's {rules[s]}")
+    step_ms = ranks[0]["step_ms"]
+    med = statistics.median(step_ms)
+    share = [sum(r["exchange_ms"]) / sum(r["step_ms"]) for r in ranks]
+    tokens_per_s = ZERO_RANKS * batch * seq / med * 1e3
+    gib = {s: {k: v / 2**30 for k, v in rules[s].items()} for s in range(4)}
+    say(f"  {smi}: train-lm-fsdp.yml at depth {depth}, ZeRO-3 over {ZERO_RANKS} data ranks "
+        f"(gloo processes on one card), {ranks[0]['params_m']:.2f} M parameters held a rank, "
+        f"{n} micro-batches of {batch // n} x {seq} a rank")
+    say(f"  losses {ranks[0]['losses']}; validation {ranks[0]['val']}")
+    say(f"  step ms (steps 1-3, host clock, synced): {step_ms}; median {med}; global tokens/s "
+        f"{tokens_per_s} ({ZERO_RANKS} data ranks)")
+    say(f"  gloo exchanges a step (reduce-scatters, all-gathers, all-reduces; synced): calls "
+        f"{ranks[0]['exchange_calls']}, GiB {[b / 2**30 for b in ranks[0]['exchange_bytes']]} "
+        f"a rank; ms by rank {[r['exchange_ms'] for r in ranks]}; share of the step by rank "
+        f"{share}")
+    say(f"  peak device memory by process (GiB): {[r['peak_gib'] for r in ranks]}; wall "
+        f"{wall:.1f} s")
+    say(f"  state a rank at ZeRO stages 0-3 (GiB of params, grads, moments; measured = the "
+        f"rule's on every rank): {gib}")
+    total = {k: sum(r["final"][k] for r in ranks) for k in ranks[0]["final"]}
+    say("zero: " + json.dumps(dict(depth=depth, step_ms=step_ms, median_step_ms=med,
+                                   tokens_per_s=tokens_per_s, exchange_share=share,
+                                   exchange_calls=ranks[0]["exchange_calls"],
+                                   exchange_bytes=ranks[0]["exchange_bytes"],
+                                   peak_gib=[r["peak_gib"] for r in ranks],
+                                   state_bytes=rules, losses=ranks[0]["losses"],
+                                   val=ranks[0]["val"], wall_s=wall, card=smi)))
+    return total
+
+
+# phase 28 (b)'s depth in the whole script's run: 16 blocks through gloo
+# would carry the script past its limit, as phase 27's would, so the default
+# run cuts (b) to 2 blocks; ``--zero`` runs the full depth
+ZERO_DEFAULT_RUN_DEPTH = 2
+
+
+def phase_zero(torch, modules, smi: str, depth=None) -> dict:
+    """Phase 28: the full weights of (a) drawn here, then one spawn of four
+    gloo processes on the card runs (a) and (b) (:func:`zero_worker`);
+    :func:`phase_zero_gate` and :func:`phase_zero_runner` (on
+    ``configs/train-lm-fsdp.yml``, at ``depth`` blocks if given) judge and
+    print.  Returns (b)'s launch counts summed over the ranks, by path."""
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
+
+    t_phase = time.perf_counter()
+    os.makedirs(ZERO_DIR, exist_ok=True)
+    for i, kind in enumerate(("dense", "moe")):
+        torch.save(zero_gate_weights(torch, kind, seed=28 + i),
+                   os.path.join(ZERO_DIR, f"full_{kind}.pt"))
+    depth = get_cfg(ZERO_CONFIG)["model"]["depth"] if depth is None else depth
+    wall = tp_spawn(torch, "zero", depth=depth, worker=zero_worker, ports=3)
+    say(f"  four ranks' wall {wall:.1f} s (spawn, (a)'s {len(ZERO_GATE_CASES)} cases and "
+        f"{len(ZERO_VARIANTS)} wrong variants of {TP_GATE_STEPS} steps, (b))")
+    read = lambda name: [json.load(open(os.path.join(ZERO_DIR, f"{name}.rank{r}.json")))  # noqa: E731
+                         for r in range(ZERO_RANKS)]
+    gate = phase_zero_gate(torch, modules, read("gate"))
+    say("zero_gate: " + json.dumps(gate["readings"]))
+    paths = {"zero": by_tpu_kernel(phase_zero_runner(torch, smi, read("runner"), depth, wall))}
+    say(f"  phase 28 took {time.perf_counter() - t_phase:.1f} s")
     return paths
 
 
@@ -5251,6 +5911,8 @@ def main(argv=None) -> int:
                         help="phases 1, 2 and 26 only (no result line)")
     parser.add_argument("--tp", action="store_true",
                         help="phases 1, 2 and 27 only (no result line)")
+    parser.add_argument("--zero", action="store_true",
+                        help="phases 1, 2 and 28 only (no result line)")
     args = parser.parse_args(argv)
 
     import torch
@@ -5285,6 +5947,9 @@ def main(argv=None) -> int:
     # the bf16 stream in bf16
     say(f"gloo all_reduce of CUDA tensors, 2 ranks: takes {tp_probe_gloo(torch)} "
         "(the port's copy/reduce dtype on the bf16 stream)")
+    # phase 28's ZeRO exchanges: reduce-scatters and all-gathers of f32 and bf16
+    say(f"gloo reduce-scatter and all-gather of CUDA tensors, 2 ranks: takes "
+        f"{zero_probe_gloo(torch)} (the port's ZeRO exchanges)")
 
     phase("phase 2: build")
     built = kernels.build()
@@ -5348,6 +6013,14 @@ def main(argv=None) -> int:
     if args.tp:
         phase("phase 27: tensor and expert parallelism at degree 4, full width")
         phase_tensor_parallel(torch, modules, smi)
+        phase(None)
+        say(f"total {time.perf_counter() - t_start:.1f} s")
+        say(smi)
+        return 0
+
+    if args.zero:
+        phase("phase 28: ZeRO-1/2/3 at 4 data ranks, full width")
+        phase_zero(torch, modules, smi)
         phase(None)
         say(f"total {time.perf_counter() - t_start:.1f} s")
         say(smi)
@@ -5451,10 +6124,13 @@ def main(argv=None) -> int:
     phase("phase 21: serving decode modes, full width")
     serving_modes = phase_serve_modes(torch, modules, fe, smi, plain, args.profile)
     paths.update(phase_vit_and_serving(torch, modules, tf32_defaults, smi, args.profile))
-    phase("phase 24: the fleet tier (router, failover, disaggregation), full width")
-    paths["fleet"] = by_tpu_kernel(phase_fleet(torch, np, modules, fe, smi))
-    phase("phase 25: the Mixture-of-Experts LM (expert-parallel degree 1), full width")
-    paths["moe"] = by_tpu_kernel(phase_moe(torch, modules, args.profile))
+    phase("phase 24: the fleet tier (router, failover, disaggregation), full width, (b) at "
+          f"depth {FLEET_DEFAULT_RUN_DEPTH}")
+    paths["fleet"] = by_tpu_kernel(phase_fleet(torch, np, modules, fe, smi,
+                                               FLEET_DEFAULT_RUN_DEPTH))
+    phase("phase 25: the Mixture-of-Experts LM (expert-parallel degree 1), full width, (b) at "
+          f"depth {MOE_DEFAULT_RUN_DEPTH}")
+    paths["moe"] = by_tpu_kernel(phase_moe(torch, modules, args.profile, MOE_DEFAULT_RUN_DEPTH))
     phase("phase 26: sequence parallelism (flash_attention_lse, ring, Ulysses), full shape")
     sp_counts, sp_rows = phase_sequence_parallel(torch, modules, smi)
     paths["sp"] = by_tpu_kernel(sp_counts)
@@ -5462,6 +6138,9 @@ def main(argv=None) -> int:
     phase("phase 27: tensor and expert parallelism at degree 4, full width, (b) at depth "
           f"{TP_DEFAULT_RUN_DEPTH}")
     paths.update(phase_tensor_parallel(torch, modules, smi, TP_DEFAULT_RUN_DEPTH))
+    phase(f"phase 28: ZeRO-1/2/3 at 4 data ranks, full width, (b) at depth "
+          f"{ZERO_DEFAULT_RUN_DEPTH}")
+    paths.update(phase_zero(torch, modules, smi, ZERO_DEFAULT_RUN_DEPTH))
 
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "ffma_bound_ms")

@@ -25,12 +25,13 @@ newest step that does not load falls back to the one before it, with a
 warning; only when every step fails does the newest step's error raise
 (JAX ``:793-839``).
 
-A tensor-parallel run (a model with a ``tensor_group``) saves **full
-leaves**, parameters and optimizer slots alike, gathered over the model
-group on every rank and written once by rank 0, and restores by slicing
-(:mod:`..parallel.tensor`): the payload is the one-rank run's, as JAX's
-global arrays carry no layout, so it resumes at any tensor parallelism,
-restores at 1 and serves on one card.
+A tensor-parallel or ZeRO run (a model with a ``tensor_group``, a step
+with a ``zero_plan``) saves **full leaves**, parameters and optimizer slots
+alike, gathered over the data group (ZeRO's slices), then over the model
+group on every rank, and written once by rank 0, and restores by slicing
+the other way (:mod:`..parallel.tensor`): the payload is the one-rank
+run's, as JAX's global arrays carry no layout, so it resumes at any tensor
+parallelism and ZeRO stage, restores at 1 and serves on one card.
 
 Config keys (JAX ``:275-306``): ``dir`` (required to enable), ``interval``
 (1000), ``max_to_keep`` (3), ``resume`` (True), ``retry`` (``attempts``
@@ -88,15 +89,19 @@ def capture_training_state(model, train_step, iteration: int) -> Dict[str, Any]:
     names = _param_names(model)
     opt = train_step.opt_state
     tg = getattr(model, "tensor_group", None)
+    plan = getattr(train_step, "zero_plan", None)  # the slots' ZeRO layout
 
     def full(leaves):
+        if plan is not None:
+            leaves = plan.gather_all(leaves)
         if tg is None:
             return dict(zip(names, leaves))
         return {n: gather_param(t, shard_dim(n), tg) for n, t in zip(names, leaves)}
 
     slots = {field: full(getattr(opt, field)) for field in opt._fields if field != "step"}
     ema = getattr(train_step, "ema", None)
-    state = model.state_dict() if tg is None else model.full_state_dict()
+    sharded = tg is not None or getattr(model, "zero_plan", None) is not None
+    state = model.full_state_dict() if sharded else model.state_dict()
     return {"iter": int(iteration), "model": state,
             "optimizer": {"type": type(opt).__name__, "step": int(opt.step), "slots": slots},
             "ema": None if ema is None else full(ema)}
@@ -106,10 +111,11 @@ def restore_training_state(payload: Dict[str, Any], model, train_step) -> int:
     """Copy ``payload`` into ``model`` and ``train_step`` in place (their
     devices and memory formats kept); returns the saved iteration.  A
     payload of another model, optimizer or EMA setting raises
-    ``ValueError``.  A tensor-parallel model takes its slices of the full
-    leaves."""
+    ``ValueError``.  A tensor-parallel or ZeRO model and step take their
+    slices of the full leaves."""
     tg = getattr(model, "tensor_group", None)
-    if tg is None:
+    plan = getattr(train_step, "zero_plan", None)
+    if tg is None and getattr(model, "zero_plan", None) is None:
         model.load_state_dict(payload["model"], strict=True)
     else:
         model.load_full_state_dict(payload["model"])
@@ -133,10 +139,12 @@ def restore_training_state(payload: Dict[str, Any], model, train_step) -> int:
         for tensors, by_name in pairs:
             if sorted(by_name) != sorted(names):
                 raise ValueError("checkpoint parameter names differ from the model's")
-            for t, name in zip(tensors, names):
+            for i, (t, name) in enumerate(zip(tensors, names)):
                 saved_t = by_name[name]
                 if tg is not None:
                     saved_t = shard_param(saved_t, shard_dim(name), tg.size, tg.rank)
+                if plan is not None:
+                    saved_t = plan.slice(saved_t, i)
                 t.copy_(saved_t)
     train_step.opt_state = opt._replace(step=int(saved["step"]))
     return int(payload["iter"])

@@ -122,7 +122,8 @@ degree), the samplers are keyed by the data rank so a model group's ranks
 see one batch, and the step and the validation reduce over the data group
 (:mod:`.tp_steps`); the global batch is ``batch_size`` x data ranks.  A
 checkpoint holds full leaves (:mod:`.checkpoint`).  LARS and LAMB take
-per-leaf norms of whole leaves and are refused beside T > 1 (ROADMAP P9).
+their norms over whole leaves (the step sums a sharded leaf's squares over
+the ranks that hold it).
 ``Runner(num_nodes=W, rank=r, multiprocessing=False, device="cuda",
 dist_backend="gloo")`` puts W ranks on ``cuda:0``, the caller's choice
 (NCCL takes one rank a card).  The CPU tests are
@@ -131,11 +132,22 @@ chip_smoke.py --tp``.  ``training.expert_parallelism`` is no key of the
 JAX package (the expert-parallel degree is ``tensor_parallelism``): the
 runner leaves it unread, as the JAX runner does.
 
+``training.zero`` (0-3, ``True`` = 1; :func:`.topology.parse_zero` with the
+JAX messages) on the LM takes the GSPMD path too (JAX ``paths.py:290-306``),
+alone, beside tensor parallelism or beside MoE: the ranks form the ``(data,
+model)`` layout (at ``tensor_parallelism`` 1 the data group is the whole
+world) and the step shards the optimizer's moments (1), the gradient
+buffers (2) and the parameters (3) over the data group (:mod:`.tp_steps`;
+at stage 3 the model is built with the data group and gathers its leaves
+at each use); checkpoints still hold full leaves.  The CPU tests are
+``tests/test_torch_zero.py``; on the card ``python3 chip_smoke.py --zero``.
+
 Not ported yet: every config key asking for one raises
 ``NotImplementedError`` naming its ROADMAP item (:data:`UNPORTED_TRAINING_KEYS`):
 pipeline parallelism, sequence parallelism beside tensor or pipeline
-parallelism, ZeRO or MoE, ZeRO and ``comm`` (P9),
-telemetry, integrity, elastic recovery and the checkpoint keys of
+parallelism, ZeRO or MoE, and ``comm`` (with ZeRO-1 beside ``comm.overlap``
+on a dense LM at ``tensor_parallelism`` 1, JAX's ``ring-sp-zero1`` path)
+(P9), telemetry, integrity, elastic recovery and the checkpoint keys of
 :data:`.checkpoint.UNPORTED_CHECKPOINT_KEYS` (P10).
 TensorBoard is absent (P10): the log file and the console carry the
 metrics.
@@ -183,6 +195,7 @@ from .topology import (
     check_gspmd_path,
     check_sequence_parallel,
     check_tensor_parallel,
+    gspmd_path,
     parse_fault_tolerance,
     parse_model,
     parse_parallelism,
@@ -201,8 +214,7 @@ UNPORTED_TRAINING_KEYS = {
     "sequence_parallelism": ("sequence parallelism beside tensor or pipeline parallelism, "
                              "ZeRO or MoE is ROADMAP port item P9"),
     "pipeline_parallelism": "pipeline parallelism is ROADMAP port item P9",
-    "zero": "ZeRO sharding is ROADMAP port item P9",
-    "comm": "training.comm (bucketed overlap, ZeRO-1) is ROADMAP port item P9",
+    "comm": "training.comm (bucketed overlap, ZeRO-1 beside it) is ROADMAP port item P9",
     "telemetry": "the telemetry layer is ROADMAP port item P10",
     "integrity": "the integrity sentinel is ROADMAP port item P10",
     "elastic": "elastic recovery is ROADMAP port item P10",
@@ -358,15 +370,10 @@ class Runner:
         model_name = self.model_name
         parse_parallelism(self, train_cfg)
         ring = ring_path(self, train_cfg)
-        # JAX engine/paths.py:290-310: a MoE LM and a tensor-parallel LM take
+        # JAX engine/paths.py:290-310: a MoE, tensor-parallel or ZeRO LM takes
         # the GSPMD path (sequence parallelism beside them stays P9)
-        gspmd = self.is_lm and (self.is_moe or self.tensor_par > 1)
+        gspmd = gspmd_path(self, train_cfg)
         _reject_unported(train_cfg, gspmd=gspmd, ring=ring)
-        opt_name = str(train_cfg["optimizer"]["name"])
-        if self.tensor_par > 1 and opt_name.lower() in ("lars", "lamb"):
-            raise NotImplementedError(f"training.optimizer {opt_name} takes norms of whole "
-                                      "leaves: beside tensor_parallelism it is ROADMAP port "
-                                      "item P9")
         parse_fault_tolerance(self, train_cfg)
         self.grad_accum = int(train_cfg.get("grad_accumulation", 1))
         if self.grad_accum < 1:
@@ -456,7 +463,7 @@ class Runner:
                 self.train_step = build_tp_lm_train_step(
                     self.model, self.optimizer, self.scheduler.lr_fn,
                     world_size=world, group=group, grad_accum=self.grad_accum,
-                    label_smoothing=self.label_smoothing)
+                    label_smoothing=self.label_smoothing, zero=self.zero)
             else:
                 self.train_step = build_lm_train_step(
                     self.model, self.optimizer, self.scheduler.lr_fn,
@@ -704,20 +711,22 @@ class Runner:
         """The ``(data, sequence)`` layout of the ranks (:mod:`..parallel.mesh`)
         on the ring path, after JAX's checks (:func:`.topology.check_sequence_parallel`),
         or the ``(data, model)`` layout under tensor parallelism
-        (:func:`.topology.check_tensor_parallel`); else one data rank a
-        process.  A rank's columns of each LM batch are ``self._columns``;
-        labels are shifted on the host before the slice, since the shift
-        crosses shard boundaries (JAX ``sp_steps.py:21-23``)."""
+        (:func:`.topology.check_tensor_parallel`) or ZeRO at more than one
+        rank; else one data rank a process.  A rank's columns of each LM
+        batch are ``self._columns``; labels are shifted on the host before
+        the slice, since the shift crosses shard boundaries (JAX
+        ``sp_steps.py:21-23``)."""
         self.layout, self._columns = None, None
         self.data_rank, self.data_size = self.current_rank, self.world_size
-        if self.tensor_par > 1:
+        if self.tensor_par > 1 or (self.zero and self.world_size > 1):
             check_tensor_parallel(self, self.global_cfg["model"], self.world_size)
             self.layout = lay = TPLayout(self.world_size, self.current_rank, self.tensor_par)
             self.data_rank, self.data_size = lay.data_idx, lay.n_data
-            self.logger.info("Tensor parallelism: data x model = %d x %d, rank %d at (%d, %d)%s",
+            self.logger.info("Tensor parallelism: data x model = %d x %d, rank %d at (%d, %d)%s%s",
                              lay.n_data, lay.n_model, self.current_rank, lay.data_idx,
                              lay.model_idx, ", experts split over the model group"
-                             if self.is_moe else "")
+                             if self.is_moe and lay.n_model > 1 else "",
+                             f", ZeRO-{self.zero} over the data group" if self.zero else "")
             return
         if self.seq_par <= 1:
             return
@@ -738,6 +747,8 @@ class Runner:
         model_cfg.setdefault("max_len", self.seq_len)
         if isinstance(self.layout, TPLayout):
             model_cfg["tensor_group"] = self.layout.tensor_group
+            if self.zero >= 3 and self.layout.n_data > 1:
+                model_cfg["zero_group"] = self.layout.zero_group
         elif self.layout is not None:
             # JAX topology.py:256-266 names the mesh axis; here it is the group
             if model_cfg.get("seq_axis", SEQUENCE_AXIS) != SEQUENCE_AXIS:
@@ -754,7 +765,9 @@ class Runner:
                f"({m.moe_experts} experts, {self.path} path)" if self.is_moe else "")
         sp = (f", {m.seq_impl} attention over the sequence group"
               if isinstance(self.layout, SPLayout) else
-              f", tensor parallel over {self.tensor_par} ranks" if self.layout else "")
+              f", tensor parallel over {self.tensor_par} ranks" if self.tensor_par > 1 else "")
+        if m.zero_plan is not None:
+            sp += f", ZeRO-3: this rank's slices of the leaves ({self.data_size} data ranks)"
         self.logger.info("Model %s: %.1f M parameters, compute %s, flash attention on%s%s%s",
                          model_name, sum(p.numel() for p in m.parameters()) / 1e6,
                          str(self.compute_dtype).replace("torch.", ""),
@@ -826,7 +839,7 @@ class Runner:
         from ..models.torch_port import import_torch_lm_state_dict
 
         with torch.device("meta"):  # the full model's names and shapes
-            template = self.model.clone(tensor_group=None).state_dict()
+            template = self.model.clone(tensor_group=None, zero_group=None).state_dict()
         self.model.load_full_state_dict(
             import_torch_lm_state_dict(template, self._load_torch_state_dict()))
         self.logger.info("Initialized %s from pretrained torch checkpoint %s", self.model_name,

@@ -41,7 +41,9 @@ skipped step leaves the parameters and the optimizer state (its step
 count too) as they were.  Deciding costs one host read a step.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``comm.overlap`` and ``zero1`` (P9).
+``comm.overlap`` and ``zero1``, the ring path's ZeRO-1 beside it (P9;
+``training.zero`` on the GSPMD path is :mod:`.tp_steps`).  The eval step
+needs nothing for ZeRO-3: the model gathers its own leaves.
 """
 from __future__ import annotations
 
@@ -66,6 +68,15 @@ def lm_loss_local(logits, labels, global_tokens: int, label_smoothing: float = 0
         logits.reshape(-1, vocab), labels.reshape(-1), label_smoothing
     )
     return local_mean * (labels.numel() / global_tokens)
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _grad(p: torch.Tensor) -> torch.Tensor:
+    """``p``'s gradient, zeros where no micro-batch reached it."""
+    return p.grad if p.grad is not None else torch.zeros_like(p)
 
 
 def _all_reduce_sum_(tensors, group=None) -> None:
@@ -116,6 +127,8 @@ class LMTrainStep:
     its step count, which also indexes ``lr_fn``.
     """
 
+    grad_bytes = 0
+
     def __init__(self, model, optimizer, lr_fn: Callable[[int], float], world_size: int = 1,
                  group=None, label_smoothing: float = 0.0, grad_accum: int = 1,
                  anomaly_factor: Optional[float] = None):
@@ -130,13 +143,42 @@ class LMTrainStep:
         self.grad_accum = int(grad_accum)
         self.anomaly_factor = None if anomaly_factor is None else float(anomaly_factor)
         self.params = [p for p in model.parameters() if p.requires_grad]
-        self.opt_state = optimizer.init(self.params)
+        self.opt_state = self.init_opt_state()
+
+    def init_opt_state(self):
+        """The optimizer's state over the parameters (their moments and step)."""
+        return self.optimizer.init(self.params)
 
     def micro_loss(self, tokens, labels, global_tokens: int):
         """One micro-batch's partial objective (:func:`lm_loss_local`); its
         logits are freed before the caller's backward."""
         logits = self.model(tokens)
         return lm_loss_local(logits, labels, global_tokens, self.label_smoothing)
+
+    def after_backward(self) -> None:
+        """Called after each micro-batch's backward (the GSPMD step's ZeRO-2
+        reduce-scatters there); nothing here."""
+
+    def reduce_grads(self, loss):
+        """The step's gradients, summed over the ranks with ``loss`` (in
+        place): one all-reduce of the flattened buffers."""
+        grads = [_grad(p) for p in self.params]
+        self.grad_bytes = _nbytes(grads)
+        if self.world_size > 1:
+            _all_reduce_sum_(grads + [loss.reshape(1)], self.group)
+        return grads
+
+    def update(self, grads, lr) -> None:
+        """The optimizer's update of the parameters, in place."""
+        self.opt_state = self.optimizer.update(self.params, grads, self.opt_state, lr)
+
+    def state_bytes(self) -> dict:
+        """Bytes this rank holds across steps: the parameters, the gradient
+        buffers its last step carried over its micro-batches
+        (``grad_bytes``) and the optimizer's moments."""
+        moments = [t for f in self.opt_state._fields if f != "step"
+                   for t in getattr(self.opt_state, f)]
+        return dict(params=_nbytes(self.params), grads=self.grad_bytes, moments=_nbytes(moments))
 
     def __call__(self, tokens, labels, gnorm_ref: Optional[float] = None):
         b_local, s_len = tokens.shape
@@ -147,17 +189,15 @@ class LMTrainStep:
         for sl in micro_slices(b_local, self.grad_accum, "per-shard"):
             part = self.micro_loss(tokens[sl], labels[sl], global_tokens)
             part.backward()
+            self.after_backward()
             loss = part.detach() if loss is None else loss + part.detach()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-        if self.world_size > 1:
-            _all_reduce_sum_(grads + [loss.reshape(1)], self.group)
+        grads = self.reduce_grads(loss)
         applied = True
         if self.anomaly_factor is not None:
             gnorm, applied = guard_verdict(loss, grads, self.anomaly_factor,
                                            0.0 if gnorm_ref is None else gnorm_ref)
         if applied:
-            lr = self.lr_fn(self.opt_state.step)
-            self.opt_state = self.optimizer.update(self.params, grads, self.opt_state, lr)
+            self.update(grads, self.lr_fn(self.opt_state.step))
         for p in self.params:
             p.grad = None
         if self.anomaly_factor is None:
@@ -174,7 +214,10 @@ def build_lm_train_step(model, optimizer, lr_fn: Callable[[int], float], world_s
     if comm is not None and getattr(comm, "overlap", False):
         raise NotImplementedError("training.comm.overlap is ROADMAP port item P9")
     if zero1:
-        raise NotImplementedError("ZeRO-1 weight-update sharding is ROADMAP port item P9")
+        # the ring path's own ZeRO-1 (JAX sp_steps.py, beside comm.overlap);
+        # training.zero on the GSPMD path is engine/tp_steps.py
+        raise NotImplementedError("ZeRO-1 weight-update sharding on the ring path (beside "
+                                  "training.comm.overlap) is ROADMAP port item P9")
     return LMTrainStep(model, optimizer, lr_fn, world_size, group, label_smoothing, grad_accum,
                        anomaly_factor)
 

@@ -2,10 +2,12 @@
 runner (port of ``parse_topology``'s model keys, JAX
 ``engine/topology.py:55-90``, its MoE checks, ``:142-153`` and
 ``:273-282``, its sequence- and tensor-parallel checks, ``:100-120`` and
-``:221-266``, and of ``parse_fault_tolerance``, ``:436-544``; the rest of
-that module is the pipeline layout and ZeRO, ROADMAP port item P9), and
-the checks and refusals of the GSPMD path that tensor-parallel and MoE
-models take (JAX ``engine/paths.py:48-73``, ``:156-164``)."""
+``:221-266``, its ``training.zero`` key, ``:160-179`` and ``:213-220``, and
+of ``parse_fault_tolerance``, ``:436-544``; the rest of that module is the
+pipeline layout, ROADMAP port item P9), the route of an LM run (JAX
+``engine/paths.py:290-306``) and the checks and refusals of the GSPMD path
+that tensor-parallel, ZeRO and MoE runs take (``paths.py:48-73``,
+``:156-164``)."""
 from __future__ import annotations
 
 import inspect
@@ -16,7 +18,8 @@ from ..models import TransformerLM, is_resnet
 from .fault import FaultInjector
 
 __all__ = ["check_gspmd_path", "check_moe", "check_sequence_parallel", "check_tensor_parallel",
-           "parse_fault_tolerance", "parse_model", "parse_parallelism", "ring_path"]
+           "gspmd_path", "parse_fault_tolerance", "parse_model", "parse_parallelism",
+           "ring_path", "ring_zero1_path"]
 
 _LM_DEFAULTS = {k: v.default for k, v in inspect.signature(TransformerLM).parameters.items()}
 
@@ -57,15 +60,37 @@ def check_gspmd_path(r, train_cfg: dict) -> None:
 
 
 def parse_parallelism(r, train_cfg: dict) -> None:
-    """Set ``r.seq_par`` and ``r.tensor_par`` from
+    """Set ``r.seq_par``, ``r.tensor_par`` and ``r.zero`` from
     ``training.sequence_parallelism`` and ``training.tensor_parallelism``
     (default 1), refused off the LM with the JAX message (``topology.py:100-101``,
-    ``:115-119``).  Run after :func:`parse_model`."""
+    ``:115-119``), and ``training.zero`` (:func:`parse_zero`).  Run after
+    :func:`parse_model`."""
     r.seq_par = int(train_cfg.get("sequence_parallelism", 1) or 1)
     r.tensor_par = int(train_cfg.get("tensor_parallelism", 1) or 1)
     if (r.seq_par > 1 or r.tensor_par > 1) and not r.is_lm:
         raise ValueError("training.sequence_parallelism / tensor_parallelism / "
                          "pipeline_parallelism require model.name: TransformerLM")
+    parse_zero(r, train_cfg)
+
+
+def parse_zero(r, train_cfg: dict) -> None:
+    """``r.zero``, the ZeRO stage of ``training.zero`` (JAX
+    ``topology.py:160-179``, ``:213-220``), with the JAX messages: a bool
+    (``True`` is stage 1) or a stage in 0-3; only on the LM; stage 3 not
+    beside the pipeline."""
+    zero = train_cfg.get("zero", False)
+    if isinstance(zero, bool):
+        r.zero = 1 if zero else 0
+    elif isinstance(zero, int) and zero in (0, 1, 2, 3):
+        r.zero = zero
+    else:
+        raise ValueError(f"training.zero must be a bool or a stage in (0, 1, 2, 3), "
+                         f"got {zero!r}")
+    if r.zero and not r.is_lm:
+        raise ValueError("training.zero is only wired for the LM task (GSPMD path)")
+    if r.zero >= 3 and int(train_cfg.get("pipeline_parallelism", 1) or 1) > 1:
+        raise ValueError(f"training.zero: {r.zero} does not compose with "
+                         "pipeline_parallelism — use zero: 1 or 2 under the pipeline")
 
 
 def ring_path(r, train_cfg: dict) -> bool:
@@ -75,7 +100,22 @@ def ring_path(r, train_cfg: dict) -> bool:
     combinations stay ROADMAP port item P9)."""
     return (r.seq_par > 1 and r.tensor_par == 1
             and int(train_cfg.get("pipeline_parallelism", 1) or 1) == 1
-            and not train_cfg.get("zero") and not r.is_moe)
+            and not r.zero and not r.is_moe)
+
+
+def ring_zero1_path(r, train_cfg: dict) -> bool:
+    """JAX ``paths.py:293-301``: ``comm.overlap`` beside ZeRO-1 on a dense
+    LM at ``tensor_parallelism`` 1 takes the manual reduce-scatter path
+    (``training.comm``, ROADMAP port item P9), not the GSPMD one."""
+    return (r.is_lm and bool((train_cfg.get("comm") or {}).get("overlap", False))
+            and r.zero == 1 and r.tensor_par == 1 and not r.is_moe)
+
+
+def gspmd_path(r, train_cfg: dict) -> bool:
+    """JAX ``paths.py:302-306``: an LM with tensor parallelism, ZeRO or MoE
+    blocks runs on the GSPMD path (:func:`ring_zero1_path` taken first)."""
+    return (r.is_lm and (r.tensor_par > 1 or bool(r.zero) or r.is_moe)
+            and not ring_zero1_path(r, train_cfg))
 
 
 def check_tensor_parallel(r, model_cfg: dict, world_size: int) -> None:

@@ -8,8 +8,30 @@ form a :class:`..parallel.mesh.TPLayout`, the model is one rank's shard of
 a Megatron tensor-parallel model over its model group (MoE blocks at expert
 parallelism over the same group; :mod:`..parallel.tensor`), and every rank
 of a model group takes the same tokens, as ``P(data, None)`` gives them.
-``training.zero`` still raises ``NotImplementedError`` naming ROADMAP item
-P9.
+
+``training.zero`` (JAX ``tp_steps.py:52-205``, ``parallel/tensor.py:79-191``)
+shards the state over the **data** group by :func:`..parallel.tensor.zero_shard_dim`'s
+rule (:class:`..parallel.tensor.ZeroPlan`); the stages add up, and the
+update's math is the same in each:
+
+- **1**: the optimizer moments live as this rank's slices.  After the last
+  micro-batch the sharded leaves' gradients are reduce-scattered into this
+  rank's slices (the whole leaves' all-reduced with the loss, as at stage
+  0), the optimizer runs on the slices of the parameters and moments, and
+  the fresh slices are all-gathered into the full parameters;
+- **2**: the gradient buffers too: each micro-batch's gradients are
+  reduce-scattered right after its backward and added into a slice
+  accumulator, so no full gradient is carried across micro-batches;
+- **3**: the parameters too (the model is built with ``zero_group``,
+  :class:`..models.TransformerLM`): each use all-gathers them and the
+  backward reduce-scatters their gradients into the slices, so the update
+  runs on the slices with no gather at all.
+
+At one data rank nothing changes (JAX ``n_data > 1``).  LARS and LAMB take
+their trust ratios over whole leaves: the step hands them ``whole_norms``,
+which sums a leaf's squares over the model group where tensor parallelism
+splits it and over the data group where ZeRO does (JAX
+``optimizers/__init__.py:231-282``, ``:392-460``).
 
 The step is :class:`.sp_steps.LMTrainStep` (its micro-batch slicing, its
 one all-reduce of the gradients and the loss, its optimizer update) with
@@ -43,11 +65,13 @@ is per batch row, so it needs no collective).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, List, Optional
 
 import torch
+import torch.distributed as dist
 
-from .sp_steps import LMTrainStep, lm_loss_local
+from ..parallel.tensor import TensorGroup, ZeroPlan, shard_dim
+from .sp_steps import LMTrainStep, _all_reduce_sum_, _grad, _nbytes, lm_loss_local
 
 __all__ = ["TPLMTrainStep", "build_tp_lm_train_step"]
 
@@ -56,13 +80,124 @@ class TPLMTrainStep(LMTrainStep):
     """``step(tokens, labels) -> loss`` with the MoE aux terms in the
     objective (see the module docstring); a dense model adds nothing.
     After a step, ``aux`` is its aux objective (the global terms averaged
-    over the micro-batches, already in the loss), a device scalar."""
+    over the micro-batches, already in the loss), a device scalar.
+
+    ``zero`` is the ZeRO stage over the data group (module docstring);
+    ``zero_plan`` its layout of the parameters (``None`` at stage 0 or one
+    data rank), which the optimizer state's slots follow from stage 1 on.
+    After a step, ``grad_bytes`` is what the gradient buffers carried
+    across its micro-batches held (:meth:`state_bytes`): the full gradients
+    at stages 0 and 1, the slices (and the whole leaves') from stage 2 on."""
 
     aux = None
+    zero_plan: Optional[ZeroPlan] = None
+
+    def __init__(self, model, optimizer, lr_fn: Callable[[int], float], world_size: int = 1,
+                 group=None, label_smoothing: float = 0.0, grad_accum: int = 1, zero: int = 0):
+        if int(zero) not in (0, 1, 2, 3):
+            raise ValueError(f"zero must be a stage in (0, 1, 2, 3), got {zero!r}")
+        self.zero = int(zero) if int(world_size) > 1 else 0
+        if (self.zero >= 3) != (getattr(model, "zero_plan", None) is not None):
+            raise ValueError("ZeRO-3 takes a model built with zero_group (its leaves live "
+                             "sharded), and only ZeRO-3 does")
+        self._acc: Optional[List[torch.Tensor]] = None
+        super().__init__(model, optimizer, lr_fn, world_size, group, label_smoothing, grad_accum)
+
+    def init_opt_state(self):
+        names = [n for n, p in self.model.named_parameters() if p.requires_grad]
+        if self.zero >= 3:
+            self.zero_plan = self.model.zero_plan
+            if self.zero_plan.names != names or self.zero_plan.dg.size != self.world_size:
+                raise ValueError("the model's ZeRO-3 leaves are not this step's data group's")
+        elif self.zero:
+            self.zero_plan = ZeroPlan(names, [p.shape for p in self.params],
+                                      TensorGroup(self.group, self.world_size))
+        plan, tg = self.zero_plan, self.model.tensor_group
+        self._data_split = [plan is not None and plan.dims[i] is not None
+                            for i in range(len(names))]
+        self._model_split = [tg is not None and tg.size > 1 and shard_dim(n) is not None
+                             for n in names]
+        held = self.params
+        if self.zero in (1, 2):
+            held = [p.new_empty(plan.part_shapes[i]) if plan.dims[i] is not None else p
+                    for i, p in enumerate(self.params)]
+        return self.optimizer.init(held)
 
     def __call__(self, tokens, labels, gnorm_ref=None):
         self.aux = torch.zeros((), device=tokens.device)
+        self._acc = None
         return super().__call__(tokens, labels, gnorm_ref)
+
+    def after_backward(self) -> None:
+        """ZeRO-2: this micro-batch's sharded gradients reduce-scattered into
+        the slice accumulator, their full buffers freed."""
+        if self.zero != 2:
+            return
+        idx = self.zero_plan.sharded
+        parts = self.zero_plan.scatter_sum([_grad(self.params[i]) for i in idx], idx)
+        if self._acc is None:
+            self._acc = parts
+        else:
+            torch._foreach_add_(self._acc, parts)
+        for i in idx:
+            self.params[i].grad = None
+
+    def reduce_grads(self, loss):
+        if not self.zero:
+            return super().reduce_grads(loss)
+        plan, n = self.zero_plan, len(self.params)
+        whole = [i for i in range(n) if plan.dims[i] is None]
+        grads: List[Optional[torch.Tensor]] = [None] * n
+        for i in whole:
+            grads[i] = _grad(self.params[i])
+        idx = plan.sharded
+        parts = (self._acc if self.zero == 2 and idx else
+                 [_grad(self.params[i]) for i in idx])  # stage 1: full, stage 3: slices
+        self.grad_bytes = _nbytes([grads[i] for i in whole] + list(parts))
+        _all_reduce_sum_([grads[i] for i in whole] + [loss.reshape(1)], self.group)
+        if self.zero == 1 and idx:
+            parts = plan.scatter_sum(parts, idx)
+        for i, g in zip(idx, parts):
+            grads[i] = g
+        self._acc = None
+        return grads
+
+    def update(self, grads, lr) -> None:
+        kw = {}
+        if getattr(self.optimizer, "per_leaf_norms", False) and (
+                any(self._model_split) or any(self._data_split)):
+            kw["whole_norms"] = self._whole_norms
+        if self.zero in (0, 3):
+            self.opt_state = self.optimizer.update(self.params, grads, self.opt_state, lr, **kw)
+            return
+        plan = self.zero_plan
+        idx = plan.sharded
+        held = list(self.params)
+        with torch.no_grad():
+            parts = [plan.slice(self.params[i], i).clone() for i in idx]
+        for i, t in zip(idx, parts):
+            held[i] = t
+        self.opt_state = self.optimizer.update(held, grads, self.opt_state, lr, **kw)
+        if idx:
+            with torch.no_grad():
+                plan.gather_into([self.params[i] for i in idx], parts, idx)
+
+    def _whole_norms(self, norms, idx):
+        """The whole leaves' norms from this rank's parts' (``[k,
+        len(idx)]``): squares summed over the model group where tensor
+        parallelism splits a leaf, then over the data group where ZeRO does."""
+        tg = self.model.tensor_group
+        for split, group in ((self._model_split, tg.group if tg is not None else None),
+                             (self._data_split, self.group)):
+            pick = [split[i] for i in idx]
+            if not any(pick):
+                continue
+            mask = torch.tensor(pick, device=norms.device)
+            sq = torch.where(mask, norms.square(), torch.zeros_like(norms))
+            dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=group)
+            norms = torch.where(mask, sq.sqrt(), norms)
+        return norms
+
 
     def micro_loss(self, tokens, labels, global_tokens: int):
         logits, stats = self.model(tokens, moe_stats=True)
@@ -85,8 +220,9 @@ class TPLMTrainStep(LMTrainStep):
 
 def build_tp_lm_train_step(model, optimizer, lr_fn: Callable[[int], float], world_size: int = 1,
                            group=None, label_smoothing: float = 0.0,
-                           grad_accum: int = 1) -> TPLMTrainStep:
+                           grad_accum: int = 1, zero: int = 0) -> TPLMTrainStep:
     """The GSPMD-path LM training step of one rank; ``world_size`` and
-    ``group`` are its data group's (see the module docstring)."""
+    ``group`` are its data group's, ``zero`` the ZeRO stage over it (see
+    the module docstring)."""
     return TPLMTrainStep(model, optimizer, lr_fn, world_size, group, label_smoothing,
-                         grad_accum)
+                         grad_accum, zero)

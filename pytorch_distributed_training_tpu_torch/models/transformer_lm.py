@@ -96,15 +96,34 @@ T-rank model starts from the one-rank model's weights of the same seed, as
 JAX's global init does; :meth:`TransformerLM.load_full_state_dict` slices a
 full ``state_dict`` into it, :meth:`TransformerLM.full_state_dict` gathers
 one back.  Serving refuses it (decode, the paged pool).
+
+``zero_group`` (the data group as a :class:`..parallel.tensor.TensorGroup`,
+:attr:`..parallel.mesh.TPLayout.zero_group`) makes the parameters live
+sharded, ZeRO-3 (JAX ``parallel/tensor.py:151-180``): after the tensor split
+each leaf keeps this data rank's slice along
+:func:`..parallel.tensor.zero_shard_dim` (``zero_plan``), and every use
+gathers it (:func:`..parallel.tensor.zero_gather`: the all-gather forward,
+the reduce-scatter of the f32 gradient backward): the embeddings once a
+call, each block's leaves at the block's start, **inside** its remat
+boundary (the replay gathers again, so no full block leaf lives across the
+step), and the final LayerNorm with the head.  A block runs on its gathered
+leaves through ``torch.func.functional_call``, so K3 and K4 read them
+through the same wrappers.  A leaf a Dense or an expert bank casts to a
+narrower compute dtype is gathered in it (the cast commutes with the
+gather and halves the bytes); the embeddings, LayerNorms, router and head
+are gathered in f32.  A leaf with no ZeRO dimension stays whole.  The full
+model's ``state_dict`` loads and gathers as under tensor parallelism, the
+data group first when gathering.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..ops.attention import KVCache, MultiHeadAttention, PagedKVCache
@@ -112,7 +131,7 @@ from ..ops.fused_elementwise import FusedResidualLayerNorm
 from ..ops.layers import Dense, LayerNorm
 from ..ops.moe import MoEMLP, moe_aux
 from ..parallel.mesh import resolve_seq_axis
-from ..parallel.tensor import gather_state_dict, shard_state_dict
+from ..parallel.tensor import ZeroPlan, gather_state_dict, shard_state_dict, zero_gather
 from .vit import MLP
 
 __all__ = ["DecoderBlock", "SAVED_OPS", "TransformerLM"]
@@ -199,6 +218,7 @@ class TransformerLM(nn.Module):
         lora_rank: int = 0,
         lora_adapters: int = 0,
         tensor_group=None,
+        zero_group=None,
     ):
         super().__init__()
         # the arguments, for clone()
@@ -244,6 +264,47 @@ class TransformerLM(nn.Module):
             with torch.no_grad():
                 self.tok_embedding.normal_(0.0, 0.02)
                 self.pos_embedding.normal_(0.0, 0.02)
+        self.zero_group, self.zero_plan = zero_group, None
+        if zero_group is not None and zero_group.size > 1:
+            self._shard_zero3(zero_group)
+
+    def _shard_zero3(self, zero_group) -> None:
+        """Keep this data rank's slice of every leaf (module docstring) and
+        the gather sets: the embeddings, each block, the final LayerNorm
+        with the head."""
+        named = list(self.named_parameters())
+        plan = ZeroPlan([n for n, _ in named], [p.shape for _, p in named], zero_group)
+        for i, (name, p) in enumerate(named):
+            if plan.dims[i] is not None:
+                owner, _, leaf = name.rpartition(".")
+                setattr(self.get_submodule(owner) if owner else self, leaf,
+                        nn.Parameter(plan.slice(p.data, i)))
+        narrow = {}  # leaf -> the compute dtype its module casts it to
+        for owner, module in self.named_modules():
+            leaves = (("weight", "bias") if isinstance(module, Dense) else
+                      ("wi", "bi", "wo", "bo") if isinstance(module, MoEMLP) else ())
+            if leaves and module.dtype != torch.float32:
+                narrow.update({f"{owner}.{leaf}": module.dtype for leaf in leaves})
+        units = {"embed": ("tok_embedding", "pos_embedding"), "final": ("ln.", "head.")}
+        units.update({f"block{i}": (f"block{i}.",) for i in range(self.depth)})
+        self._zero_units = {}
+        for unit, prefixes in units.items():
+            idx = [i for i in plan.sharded if plan.names[i].startswith(prefixes)]
+            self._zero_units[unit] = (
+                idx, [plan.names[i].removeprefix(prefixes[0]) if unit.startswith("block")
+                      else plan.names[i] for i in idx],
+                [narrow.get(plan.names[i], torch.float32) for i in idx])
+        self.zero_plan = plan
+
+    def _zero_full(self, unit: str) -> Dict[str, torch.Tensor]:
+        """ZeRO-3: the gathered leaves of ``unit`` by name (module docstring)."""
+        idx, names, dtypes = self._zero_units[unit]
+        parts = [self.get_parameter(self.zero_plan.names[i]) for i in idx]
+        return dict(zip(names, zero_gather(self.zero_plan, idx, parts, dtypes)))
+
+    def _zero_block(self, i: int, x, *args):
+        """Block ``i`` on its gathered leaves (inside the remat boundary)."""
+        return functional_call(self.blocks[i], self._zero_full(f"block{i}"), (x,) + args)
 
     def clone(self, **overrides) -> "TransformerLM":
         """A new model of this one's arguments with ``overrides`` (flax
@@ -270,11 +331,11 @@ class TransformerLM(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """flax's initializers: normal(0.02) embeddings, lecun-normal
         kernels, zero biases, unit LayerNorm scales; drawn in a fixed module
-        order from ``generator``.  A tensor-parallel model draws the full
-        model and keeps its slices."""
-        if self.tensor_group is not None:
+        order from ``generator``.  A tensor-parallel or ZeRO-3 model draws
+        the full model and keeps its slices."""
+        if self.tensor_group is not None or self.zero_plan is not None:
             with torch.device("meta"):
-                full = self.clone(tensor_group=None)
+                full = self.clone(tensor_group=None, zero_group=None)
             full.to_empty(device=self.tok_embedding.device)
             full.reset_parameters(generator)
             self.load_full_state_dict(full.state_dict())
@@ -303,19 +364,28 @@ class TransformerLM(nn.Module):
 
     def load_full_state_dict(self, state) -> None:
         """Load the full model's ``state_dict`` (strict): a tensor-parallel
-        model keeps its slices of it."""
-        self.load_state_dict(shard_state_dict(state, self.tensor_group), strict=True)
+        or ZeRO-3 model keeps its slices of it."""
+        local = shard_state_dict(state, self.tensor_group)
+        plan = self.zero_plan
+        if plan is not None:
+            local = {k: plan.slice(v, plan.index[k]) for k, v in local.items()}
+        self.load_state_dict(local, strict=True)
 
     def full_state_dict(self) -> dict:
-        """The full model's ``state_dict``: a tensor-parallel model gathers
-        its leaves over the model group (a collective on every rank)."""
-        return gather_state_dict(self.state_dict(), self.tensor_group)
+        """The full model's ``state_dict``: a ZeRO-3 model gathers its leaves
+        over the data group, then a tensor-parallel one over the model group
+        (collectives on every rank)."""
+        local = self.state_dict()
+        plan = self.zero_plan
+        if plan is not None:
+            local = dict(zip(plan.names, plan.gather_all([local[n] for n in plan.names])))
+        return gather_state_dict(local, self.tensor_group)
 
     def _refuse_decode(self) -> None:
         # JAX :216-217: serving (the batcher's cache, the paged pool) is dense
         if self.moe_experts > 0:
             raise ValueError("decode mode does not support MoE blocks yet")
-        if self.tensor_group is not None:
+        if self.tensor_group is not None or self.zero_plan is not None:
             raise ValueError("decode and paged modes are single-shard (tensor_group must be None)")
 
     def moe_aux(self, stats, n_tokens: int):
@@ -354,41 +424,45 @@ class TransformerLM(nn.Module):
             raise ValueError("adapter_ids given but the model has no LoRA factors "
                              "(clone with lora_rank/lora_adapters set)")
         b, s = tokens.shape
+        full = {} if self.zero_plan is None else self._zero_full("embed")
+        tok_embedding = full.get("tok_embedding", self.tok_embedding)
+        pos_embedding = full.get("pos_embedding", self.pos_embedding)
         # F.embedding, not indexing: the same rows, and a backward that sums
         # each row's gradient in a fixed order (indexing's scatter-add on the
         # CPU does not), so a resumed run repeats a straight one bit for bit
-        x = F.embedding(tokens, self.tok_embedding).to(self.dtype)
+        x = F.embedding(tokens, tok_embedding).to(self.dtype)
         if isinstance(cache, PagedKVCache):
             if decode_pos is None or block_tables is None:
                 raise ValueError("paged mode needs positions and block_tables")
             # per-token positions; padding (-1) reads row 0, its output unused
-            pe = self.pos_embedding[decode_pos.clamp(0, self.max_len - 1)]
+            pe = pos_embedding[decode_pos.clamp(0, self.max_len - 1)]
         elif decode_pos is not None:
             if cache is None:
                 raise ValueError("decode_pos given without a KV cache")
             # one new token per row at its own position
-            pe = self.pos_embedding[decode_pos][:, None]
+            pe = pos_embedding[decode_pos][:, None]
         elif self.seq_axis is not None and cache is None:
             # shard i holds global positions [i s, (i + 1) s) (JAX :253-264)
             group = resolve_seq_axis(self.seq_axis)
             if s * group.size > self.max_len:
                 raise ValueError(f"global sequence {s * group.size} (= {s} local x "
                                  f"{group.size} shards) exceeds max_len {self.max_len}")
-            pe = self.pos_embedding[group.rank * s:(group.rank + 1) * s][None]
+            pe = pos_embedding[group.rank * s:(group.rank + 1) * s][None]
         else:
             if s > self.max_len:
                 raise ValueError(f"sequence {s} exceeds max_len {self.max_len}")
-            pe = self.pos_embedding[:s][None]
+            pe = pos_embedding[:s][None]
         x = x + pe.to(self.dtype)
         recompute = self.remat and cache is None and torch.is_grad_enabled()
         stats = []
         for i, block in enumerate(self.blocks):
+            run = block if self.zero_plan is None else functools.partial(self._zero_block, i)
             if recompute and self._remat_context is not None:
-                x = checkpoint(block, x, use_reentrant=False, context_fn=self._remat_context)
+                x = checkpoint(run, x, use_reentrant=False, context_fn=self._remat_context)
             elif recompute:
-                x = checkpoint(block, x, use_reentrant=False)
+                x = checkpoint(run, x, use_reentrant=False)
             else:
-                x = block(x, cache, i, decode_pos, block_tables, adapter_ids)
+                x = run(x, cache, i, decode_pos, block_tables, adapter_ids)
             if block.is_moe:
                 x, st = x
                 stats.append(st)
@@ -396,7 +470,12 @@ class TransformerLM(nn.Module):
 
     def logits(self, x):
         """Final LayerNorm and the f32 head over stream rows ``x``."""
-        return self.head(self.ln(x))
+        if self.zero_plan is None:
+            return self.head(self.ln(x))
+        full = self._zero_full("final")
+        ln = {k[3:]: v for k, v in full.items() if k.startswith("ln.")}
+        head = {k[5:]: v for k, v in full.items() if k.startswith("head.")}
+        return functional_call(self.head, head, (functional_call(self.ln, ln, (x,)),))
 
     def forward(self, tokens, cache=None, decode_pos=None, block_tables=None, adapter_ids=None,
                 moe_stats: bool = False):

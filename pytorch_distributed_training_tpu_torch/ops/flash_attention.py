@@ -440,8 +440,10 @@ def _scale(d: int, sm_scale) -> float:
 
 
 def _fold(x):
+    """``[B, S, H, D]`` as the kernels' contiguous ``[BH, S, D]`` (at B = 1
+    the reshape of a qkv column is a strided view: copied)."""
     b, s_len, h, d = x.shape
-    return x.transpose(1, 2).reshape(b * h, s_len, d)
+    return x.transpose(1, 2).reshape(b * h, s_len, d).contiguous()
 
 
 def _unfold(x, b: int, h: int):

@@ -32,6 +32,15 @@ per operation over all parameters.
   per parameter of rank >= 2 the trust ratio ``||p|| / ||u||`` (1 where
   either norm is 0) scales ``lr``; parameters of rank <= 1 take ``p -= lr
   * u`` with no decay.  Its state is :class:`AdamWState`, as in JAX.
+
+Every update is elementwise but the trust ratios' norms, which JAX takes
+over whole leaves.  A sharded step (tensor parallelism, ZeRO) passes the
+parts it holds to ``update`` and, to LARS and LAMB (``per_leaf_norms``),
+``whole_norms(norms, idx)``: it turns the norms ``[k, len(idx)]`` of its
+parts of the leaves ``idx`` into the whole leaves' norms (a sum of squares
+over the ranks that hold the other parts, :class:`..engine.tp_steps.TPLMTrainStep`).
+A leaf's slice keeps its rank, so ``_is_excluded`` reads it as it reads the
+leaf.
 """
 from __future__ import annotations
 
@@ -57,6 +66,13 @@ class AdamWState(NamedTuple):
 
 def _f32(x) -> float:
     return float(np.float32(x))
+
+
+def _leaf_norms(lists, idx, whole_norms=None) -> torch.Tensor:
+    """The L2 norms ``[k, len(idx)]`` of the leaves ``idx`` of each of the
+    ``k`` lists (the parts a rank holds), made whole by ``whole_norms``."""
+    norms = torch.stack([torch.stack(torch._foreach_norm(ts)) for ts in lists])
+    return norms if whole_norms is None else whole_norms(norms, idx)
 
 
 def _is_excluded(param: torch.Tensor) -> bool:
@@ -109,6 +125,8 @@ class LARS:
     docstring); the norms of a step are one ``torch._foreach_norm`` pass
     each over the adapted parameters and their gradients."""
 
+    per_leaf_norms = True
+
     def __init__(self, lr: float, momentum: float = 0.9, weight_decay: float = 0.0,
                  eta: float = 0.001, eps: float = 1e-9):
         self.lr = float(lr)
@@ -122,7 +140,7 @@ class LARS:
 
     @torch.no_grad()
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-               state: SGDState, lr=None) -> SGDState:
+               state: SGDState, lr=None, whole_norms=None) -> SGDState:
         """Apply one step to ``params`` in place; returns the new state."""
         lr = self.lr if lr is None else lr
         wd = self.weight_decay
@@ -130,8 +148,7 @@ class LARS:
         adapt = [i for i, p in enumerate(params) if not _is_excluded(p)]
         if adapt:
             ps, gs = [params[i] for i in adapt], [grads[i] for i in adapt]
-            p_norm = torch.stack(torch._foreach_norm(ps))
-            g_norm = torch.stack(torch._foreach_norm(gs))
+            p_norm, g_norm = _leaf_norms([ps, gs], adapt, whole_norms)
             trust = torch.where((p_norm > 0) & (g_norm > 0),
                                 self.eta * p_norm / (g_norm + wd * p_norm + self.eps),
                                 torch.ones_like(p_norm))
@@ -194,6 +211,8 @@ class LAMB:
     docstring; the norms of a step are one ``torch._foreach_norm`` pass
     each over the adapted parameters and their directions."""
 
+    per_leaf_norms = True
+
     def __init__(self, lr: float, betas=(0.9, 0.999), eps: float = 1e-6,
                  weight_decay: float = 0.0):
         self.lr = float(lr)
@@ -207,7 +226,7 @@ class LAMB:
 
     @torch.no_grad()
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-               state: AdamWState, lr=None) -> AdamWState:
+               state: AdamWState, lr=None, whole_norms=None) -> AdamWState:
         """Apply one step to ``params`` in place; returns the new state."""
         lr = _f32(self.lr if lr is None else lr)
         t = np.float32(state.step + 1)
@@ -232,8 +251,7 @@ class LAMB:
             ps, us = [params[i] for i in adapt], [u[i] for i in adapt]
             if self.weight_decay != 0.0:
                 torch._foreach_add_(us, ps, alpha=self.weight_decay)
-            p_norm = torch.stack(torch._foreach_norm(ps))
-            u_norm = torch.stack(torch._foreach_norm(us))
+            p_norm, u_norm = _leaf_norms([ps, us], adapt, whole_norms)
             trust = torch.where((p_norm > 0) & (u_norm > 0), p_norm / u_norm,
                                 torch.ones_like(p_norm))
             torch._foreach_mul_(us, list((lr * trust).unbind()))

@@ -16,7 +16,8 @@ A model's ``seq_axis`` is the sequence group's exchange
 (:attr:`SPLayout.seq_exchange`); the JAX package's axis name ``"sequence"``
 names no process group by itself, so the runner puts the exchange in its
 place (:func:`resolve_seq_axis` refuses the bare name).  A model's
-``tensor_group`` is the model group (:attr:`TPLayout.tensor_group`).
+``tensor_group`` is the model group (:attr:`TPLayout.tensor_group`), and
+ZeRO splits leaves over the data group (:attr:`TPLayout.zero_group`).
 """
 from __future__ import annotations
 
@@ -75,14 +76,19 @@ class TPLayout(_GridLayout):
     """This rank's place in a ``(data, model)`` layout of ``world_size``
     ranks with model groups of ``tensor_parallelism``:
     ``data_idx``/``n_data``, ``model_idx``/``n_model``, the process groups
-    ``data_group`` and ``model_group`` and ``tensor_group``, the model group
-    as the modules' :class:`.tensor.TensorGroup`."""
+    ``data_group`` and ``model_group``, ``tensor_group``, the model group as
+    the modules' :class:`.tensor.TensorGroup` (``None`` at
+    ``tensor_parallelism`` 1), and ``zero_group``, the data group as ZeRO's
+    (:class:`.tensor.ZeroPlan`).  At ``tensor_parallelism`` 1 the layout
+    serves pure ZeRO: the data group is the whole world."""
 
     def __init__(self, world_size: int, rank: int, tensor_parallelism: int):
         super().__init__(world_size, rank, tensor_parallelism, MODEL_AXIS)
         self.n_model, self.model_idx = self.n_inner, self.inner_idx
         self.model_ranks, self.model_group = self.inner_ranks, self.inner_group
-        self.tensor_group = TensorGroup(self.model_group, self.n_model, self.model_idx)
+        self.tensor_group = (TensorGroup(self.model_group, self.n_model, self.model_idx)
+                             if self.n_model > 1 else None)
+        self.zero_group = TensorGroup(self.data_group, self.n_data, self.data_idx)
 
 
 def resolve_seq_axis(seq_axis):

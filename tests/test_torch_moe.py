@@ -25,8 +25,8 @@ not a tie broken otherwise).
   micro-batch: the global aux, the losses and the parameters equal the
   same single-device JAX run;
 - the layout checks and refusals with the JAX package's messages,
-  ``tensor_parallelism`` and ``expert_parallelism`` accepted and ``zero``
-  still naming P9;
+  ``tensor_parallelism``, ``expert_parallelism`` and ``zero`` accepted and
+  the pipeline still naming P9;
 - flax's initializers: lecun-normal over the stacked leaves with fan-in
   ``E * d``.
 """
@@ -473,13 +473,14 @@ def test_moe_refusals():
     assert check_moe(_cfg()) and not check_moe(_cfg({"moe_experts": 0}))
     # the runner: comm.overlap reaches the GSPMD refusal, not P9, for a MoE model
     trunner._reject_unported({"comm": {"overlap": True}}, gspmd=True)
-    # tensor (= expert) parallelism is ported on the GSPMD path, and
+    # tensor (= expert) parallelism and ZeRO are ported on the GSPMD path, and
     # training.expert_parallelism is no JAX key (left unread, as the JAX
-    # runner leaves it); ZeRO still names P9 on the runner
+    # runner leaves it); the pipeline still names P9 on the runner
     trunner._reject_unported({"tensor_parallelism": 4}, gspmd=True)
     trunner._reject_unported({"expert_parallelism": 4}, gspmd=True)
+    trunner._reject_unported({"zero": 1}, gspmd=True)
     with pytest.raises(NotImplementedError, match="P9"):
-        trunner._reject_unported({"zero": 1}, gspmd=True)
+        trunner._reject_unported({"pipeline_parallelism": 2}, gspmd=True)
     # model.pretrained still refuses a MoE model, as JAX does
     cfg = _cfg({"pretrained": "/nonexistent.pt"})
     want = _jax_topology_error(cfg)

@@ -37,7 +37,8 @@ as threads, a process group of their own each over one ``HashStore`` (rank
   sample set; the TP run's checkpoint resumes at T = 4 bit for bit,
   restores at T = 1 and serves through ``load_serving_state``;
 - the topology checks with the JAX messages, ``training.expert_parallelism``
-  left unread, and the refusals that still name P9.
+  left unread, and the refusals that still name P9 (ZeRO and LARS/LAMB
+  beside tensor parallelism are ported: ``tests/test_torch_zero.py``).
 """
 import json
 import os
@@ -596,17 +597,19 @@ def test_refusals_and_expert_parallelism_key(tmp_path):
     trunner._reject_unported({"expert_parallelism": 4, "tensor_parallelism": 4}, gspmd=True)
     cfg = _tp_cfg(tmp_path, "moe", tensor_parallelism=1, expert_parallelism=4, train_iters=1)
     Runner(1, 0, 0, "", False, None, cfg, device="cpu")()
-    # ZeRO, the pipeline and comm still name P9 on the GSPMD path
-    for key, val in (("zero", 1), ("pipeline_parallelism", 2)):
-        with pytest.raises(NotImplementedError, match="P9"):
-            trunner._reject_unported({key: val, "tensor_parallelism": 4}, gspmd=True)
+    # ZeRO beside tensor parallelism is ported (tests/test_torch_zero.py); the
+    # pipeline and comm still name P9 on the GSPMD path
+    trunner._reject_unported({"zero": 1, "tensor_parallelism": 4}, gspmd=True)
+    with pytest.raises(NotImplementedError, match="P9"):
+        trunner._reject_unported({"pipeline_parallelism": 2, "tensor_parallelism": 4},
+                                 gspmd=True)
     with pytest.raises(NotImplementedError, match="P9"):
         trunner._reject_unported({"comm": {"overlap": True}})
-    # sequence parallelism beside tensor parallelism, LAMB/LARS beside it
-    for training in ({"sequence_parallelism": 2}, {"optimizer": {"name": "LAMB", "lr": 1e-3}}):
-        with pytest.raises(NotImplementedError, match="P9"):
-            Runner(1, 0, 0, "", False, None, _tp_cfg(tmp_path, "dense", **training),
-                   device="cpu")()
+    # sequence parallelism beside tensor parallelism (LAMB/LARS beside it are
+    # ported: tests/test_torch_zero.py)
+    with pytest.raises(NotImplementedError, match="P9"):
+        Runner(1, 0, 0, "", False, None, _tp_cfg(tmp_path, "dense", sequence_parallelism=2),
+               device="cpu")()
     # serving refuses a tensor-parallel model
     model = TransformerLM(VOCAB, tensor_group=TensorGroup(None, 2, 0), **KINDS["dense"])
     with pytest.raises(ValueError, match="single-shard"):

@@ -395,7 +395,8 @@ def test_runner_trains_and_validates_on_cpu():
      pytest.param("sequence_parallelism", 2, ValueError,
                   r"training.sequence_parallelism \(2\) must divide the number of ranks \(1\)",
                   id="sequence_parallelism-2-P9"),
-     pytest.param("zero", 1, NotImplementedError, "P9", id="zero-1-P9"),
+     # ported (P9, ZeRO): at one rank the GSPMD step shards nothing
+     pytest.param("zero", 1, None, "zero", id="zero-1-P9"),
      pytest.param("comm", {"overlap": True}, NotImplementedError, "P9", id="comm-value6-P9"),
      pytest.param("telemetry", {"dir": "run/t"}, NotImplementedError, "P10",
                   id="telemetry-value7-P10")],
@@ -409,6 +410,8 @@ def test_runner_rejects_unported_keys(key, value, exc, match):
         assert all(np.isfinite(r["loss"]) for r in runner.train_log)
         if match == "dots":
             assert runner.model.remat and runner.model.remat_policy == "dots"
+        elif match == "zero":
+            assert runner.path == "gspmd" and runner.zero == 1 and runner.train_step.zero == 0
         else:
             assert runner.train_step.grad_accum == 2
         return
