@@ -26,6 +26,9 @@
                                        # expert parallelism, 4 gloo ranks on the card
     python3 chip_smoke.py --zero       # phases 1, 2 and 28 only: ZeRO-1/2/3, 4 gloo
                                        # ranks on the card, (b) at full depth
+    python3 chip_smoke.py --pp         # phases 1, 2 and 29 only: the pipeline (GPipe,
+                                       # 1F1B), 4 gloo stages on the card, (b) at full
+                                       # depth for 1 + 3 steps
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -33,7 +36,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    gloo's ``all_reduce`` of CUDA bf16 tensors over two ranks (phase 27's
    exchanges; it raises if gloo refuses bf16) and gloo's reduce-scatter and
    all-gather of CUDA f32 and bf16 tensors through the port's ZeRO
-   exchanges (phase 28's; it raises if gloo refuses one or sums wrong);
+   exchanges (phase 28's; it raises if gloo refuses one or sums wrong), and
+   CUDA f32 and bf16 tensors hopping between two processes through the
+   port's stage exchange (phase 29's; gloo's own send of a CUDA tensor
+   fails, so the exchange stages through pinned host memory; it raises if
+   a value arrives wrong);
 2. build every hand-written kernel from ``csrc/`` with nvcc for sm_90a
    (one nvcc per library, all started together), with ptxas's registers
    and spills for each kernel;
@@ -343,6 +350,26 @@ Phases, in order; any failure raises and the script exits non-zero:
     parameters, gradients and AdamW moments at stages 0-3 equal to the
     rule's.  (a) and (b) run in one spawn of four processes.  Gloo through
     the host on one card, as in 27.
+29. pipeline parallelism over the stage group, as 4 gloo processes on the
+    card: (a) f32, TF32 off, full width, 4 blocks (unfused tails, as JAX's
+    stage blocks), a batch of 8 x 256, seeded full weights with random
+    biases: GPipe over 4 microbatches and 1F1B over 8 at (data 1, stage 4),
+    1F1B over 4 at (data 2, stage 2), 2 SGD-momentum steps each, held
+    against the one-rank step on the card over the whole batch within phase
+    27's limits (gradients and parameters gathered over the stages), which
+    the received cotangent dropped, the shared leaves not summed over the
+    stages, microbatch m - 1's activation fed for m and the loss normalised
+    a microbatch must fail; each rank's launches exact.  (b) bf16: the
+    runner on ``config/TransformerLM-pp.yml`` as it is (4 stages, 1F1B over
+    8 microbatches of 8 x 2048, block remat, 16 blocks, 1 + 3 steps; with
+    ``--pp`` only: the whole script runs (a) alone) and one validation
+    batch: each rank's launches exact a step and in the validation (K2a
+    three times a block a microbatch, the K2c pair once, K1a twice and K1b
+    once a microbatch on the last stage), losses and validation equal on
+    the ranks; step ms, global tokens/s, the hops' and all-reduces' calls,
+    bytes, synced ms and share of the step, each process's peak memory.  (a)
+    and (b) run in one spawn.  Gloo through the host on one card: no NCCL,
+    no bubble of separate cards.
 
 The line before the last lists every TPU kernel (K1a ... K4) with the CUDA
 kernel that stands for it, its launches on the path that runs it (and on
@@ -4839,13 +4866,14 @@ def tp_probe_gloo(torch) -> str:
     return "bfloat16"
 
 
-def tp_gate_weights(torch, kind: str, seed: int) -> dict:
+def tp_gate_weights(torch, kind: str, seed: int, kw=None) -> dict:
     """(a)'s full weights, on the CPU: flax's init from ``seed``, then
     every bias drawn at 0.02 and every LayerNorm scale at 1 + 0.1 n, so
-    that a row-parallel bias counted ``T`` times moves the first forward."""
+    that a row-parallel bias counted ``T`` times moves the first forward
+    (``kw``: another model's, phase 29's)."""
     from pytorch_distributed_training_tpu_torch.models import TransformerLM
 
-    kw = dict(TP_GATE_KW, **(TP_GATE_MOE_KW if kind == "moe" else {}))
+    kw = kw or dict(TP_GATE_KW, **(TP_GATE_MOE_KW if kind == "moe" else {}))
     model = TransformerLM(**kw)
     gen = torch.Generator().manual_seed(seed)
     model.reset_parameters(gen)
@@ -5886,6 +5914,534 @@ def phase_zero(torch, modules, smi: str, depth=None) -> dict:
     return paths
 
 
+PP_CONFIG = os.path.join(_HERE, "config", "TransformerLM-pp.yml")
+PP_DIR = os.path.join(_HERE, "run", "chip_smoke", "pp")
+PP_RANKS = 4
+# (a)'s model: full width, 4 blocks (one a stage at 4 stages), f32, the
+# stage blocks' unfused tails (JAX _stage_applies), flash under its gate;
+# a batch of 8 x 256, each data rank's rows of it at 2 x 2
+PP_GATE_KW = dict(vocab_size=32768, max_len=2048, embed_dim=1024, depth=4, num_heads=16,
+                  flash=True)
+PP_GATE_BATCH = 8
+# (a)'s cases: name -> ((data, stage) ranks, schedule, microbatches)
+PP_GATE_CASES = {"gpipe 1x4": ((1, 4), "gpipe", 4), "1f1b 1x4": ((1, 4), "1f1b", 8),
+                 "1f1b 2x2": ((2, 2), "1f1b", 4)}
+
+
+def pp_probe_worker(rank: int, port: int) -> None:
+    """One of phase 1's two processes: CUDA f32 and bf16 tensors hop between
+    them through the port's stage exchange (``StageExchange.hop``, one hop
+    each way), checked on arrival; writes what arrived under ``PP_DIR``."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from pytorch_distributed_training_tpu_torch.parallel import StageExchange
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank, timeout=timedelta(seconds=60))
+    try:
+        ex = StageExchange(dist.group.WORLD, [0, 1], dist.get_backend())
+        out = {"host_staged": ex.host_staged}
+        for dtype in (torch.float32, torch.bfloat16):
+            base = torch.arange(1 << 20, device="cuda").float()
+            mine = (base + 3 * rank).to(dtype)
+            got = torch.empty_like(mine)
+            if rank == 0:
+                ex.hop(send_next=mine, recv_next=got)
+            else:
+                ex.hop(send_prev=mine, recv_prev=got)
+            torch.cuda.synchronize()
+            out[str(dtype).replace("torch.", "")] = bool(torch.equal(
+                got, (base + 3 * (1 - rank)).to(dtype)))
+        with open(os.path.join(PP_DIR, f"probe.rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def pp_probe_gloo(torch) -> str:
+    """Phase 1: gloo's send/recv of CUDA f32 and bf16 tensors between two
+    processes through the port's stage exchange (the pipeline's hops, phase
+    29).  Gloo's transport hands a tensor's raw pointer to its socket, which
+    a CUDA pointer fails (``writev ... Bad address``, torch 2.11), so under
+    gloo the exchange stages each tensor through pinned host memory.
+    Raises if a value arrives wrong."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    os.makedirs(PP_DIR, exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.start_processes(pp_probe_worker, args=(port,), nprocs=2, join=True,
+                       start_method="spawn")
+    got = [json.load(open(os.path.join(PP_DIR, f"probe.rank{r}.json"))) for r in range(2)]
+    for r, out in enumerate(got):
+        if not (out["float32"] and out["bfloat16"]):
+            raise AssertionError(f"gloo stage exchange of CUDA tensors on rank {r}: {out}")
+    return ("float32, bfloat16 "
+            + ("staged through pinned host memory" if got[0]["host_staged"] else "as they are"))
+
+
+def pp_gate_batch(torch, seed: int = 29):
+    gen = torch.Generator().manual_seed(seed)
+    shape = (PP_GATE_BATCH, TP_GATE_SEQ)
+    return (torch.randint(0, PP_GATE_KW["vocab_size"], shape, generator=gen),
+            torch.randint(0, PP_GATE_KW["vocab_size"], shape, generator=gen))
+
+
+def pp_gate_steps(torch, full: dict, tokens, labels, layout=None, sched=None,
+                  micro=None) -> dict:
+    """``TP_GATE_STEPS`` SGD steps on the card from ``full``: the one-rank
+    step on the whole batch, or this rank's stage of ``layout`` (a
+    :class:`..parallel.PPLayout`) under ``sched`` over ``micro``
+    microbatches of its data rows.  Returns the losses, every step's
+    gradients as the optimizer takes them and the parameters after, gathered
+    over the stages (collectives on every rank), on the card: the readings
+    are taken there, with no copy of ~1.4 GB a run to the host."""
+    from pytorch_distributed_training_tpu_torch import optimizers
+    from pytorch_distributed_training_tpu_torch.engine.pp_steps import build_pp_lm_train_step
+    from pytorch_distributed_training_tpu_torch.engine.sp_steps import build_lm_train_step
+    from pytorch_distributed_training_tpu_torch.models import TransformerLM
+
+    stage = layout.stage if layout is not None else None
+    with torch.device("meta"):  # no weights drawn: ``full`` is loaded next
+        model = TransformerLM(**PP_GATE_KW, stage_group=stage)
+    model.to_empty(device="cuda")
+    model.load_full_state_dict(full)
+    opt, lr = optimizers.SGD(**TP_GATE_SGD), (lambda i: TP_GATE_SGD["lr"])
+    if layout is None:
+        step = build_lm_train_step(model, opt, lr)
+    else:
+        step = build_pp_lm_train_step(model, opt, lr, layout.stage_exchange, micro, sched,
+                                      world_size=layout.n_data, group=layout.data_group)
+        rows = tokens.shape[0] // layout.n_data
+        sl = slice(layout.data_idx * rows, (layout.data_idx + 1) * rows)
+        tokens, labels = tokens[sl], labels[sl]
+    names = [n for n, _ in model.named_parameters()]
+    grads = []
+    update = step.optimizer.update
+
+    def record(params, gs, state, lr, **kw):
+        grads.append(model.gather_full(dict(zip(names, gs))))
+        return update(params, gs, state, lr, **kw)
+
+    step.optimizer.update = record
+    losses = [float(step(tokens.cuda(), labels.cuda())) for _ in range(TP_GATE_STEPS)]
+    return dict(losses=losses, grads=grads, after=model.full_state_dict())
+
+
+def pp_drop_dy(torch):
+    """A wrong hop: the cotangent received from the next stage dropped."""
+    from pytorch_distributed_training_tpu_torch.parallel.pipeline import StageExchange
+
+    plain = StageExchange.hop
+
+    def hop(self, send_next=None, send_prev=None, recv_prev=None, recv_next=None):
+        plain(self, send_next, send_prev, recv_prev, recv_next)
+        if recv_next is not None:
+            recv_next.zero_()
+
+    return StageExchange, "hop", hop
+
+
+def pp_no_stage_reduce(torch):
+    """A wrong reduce: the shared leaves' gradients not summed over the stage
+    group (the loss still is)."""
+    from pytorch_distributed_training_tpu_torch.engine import pp_steps
+
+    def reduce_grads(self, loss):
+        grads = [pp_steps._grad(p) for p in self.params]
+        pp_steps._all_reduce_sum_([loss.reshape(1)], self.ex.group)
+        if self.world_size > 1:
+            pp_steps._all_reduce_sum_(grads + [loss.reshape(1)], self.group)
+        return grads
+
+    return pp_steps.PPLMTrainStep, "reduce_grads", reduce_grads
+
+
+def pp_previous_microbatch(torch):
+    """A wrong hop: each stage fed microbatch m - 1's activation in place of
+    m's (the first microbatch its own)."""
+    from pytorch_distributed_training_tpu_torch.parallel.pipeline import StageExchange
+
+    plain = StageExchange.hop
+
+    def hop(self, send_next=None, send_prev=None, recv_prev=None, recv_next=None):
+        plain(self, send_next, send_prev, recv_prev, recv_next)
+        if recv_prev is not None:
+            last = getattr(self, "_previous", None)
+            self._previous = recv_prev.clone()
+            if last is not None:
+                recv_prev.copy_(last)
+
+    return StageExchange, "hop", hop
+
+
+def pp_loss_per_microbatch(torch):
+    """A wrong objective: each microbatch's loss normalised by its own tokens
+    (a mean a microbatch) in place of the step's global token count."""
+    from pytorch_distributed_training_tpu_torch.engine import pp_steps
+
+    plain = pp_steps.lm_loss_local
+    return pp_steps, "lm_loss_local", (
+        lambda logits, labels, global_tokens, ls=0.0: plain(logits, labels, labels.numel(), ls))
+
+
+# wrong variant -> (the case it runs in, its patch)
+PP_VARIANTS = {"received dy dropped": ("1f1b 1x4", pp_drop_dy),
+               "shared leaves not reduced over the stages": ("1f1b 1x4", pp_no_stage_reduce),
+               "microbatch m - 1's activation fed for m": ("1f1b 1x4", pp_previous_microbatch),
+               "loss normalised a microbatch": ("1f1b 1x4", pp_loss_per_microbatch)}
+
+
+def pp_gate_worker(torch, modules, rank: int, port: int) -> None:
+    """(a) on one rank: the one-rank step on the whole batch from the
+    parent's ``full.pt`` (this process), then every case of
+    :data:`PP_GATE_CASES` and :data:`PP_VARIANTS` in turn over one gloo
+    process group, each held against it; writes the readings (every rank
+    holds the gathered gradients and parameters) and launches as JSON."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from pytorch_distributed_training_tpu_torch.parallel import PPLayout
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    full = torch.load(os.path.join(PP_DIR, "full.pt"), weights_only=True)
+    tokens, labels = pp_gate_batch(torch)
+    for m in modules:
+        m.reset_launch_counts()
+    want = pp_gate_steps(torch, full, tokens, labels)
+    out = {"reference": all_counts(modules)}
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=PP_RANKS, rank=rank, timeout=timedelta(seconds=600))
+    try:
+        layouts = {}
+        runs = [(c, None) for c in PP_GATE_CASES] + [(c, v) for v, (c, _) in PP_VARIANTS.items()]
+        for case, variant in runs:
+            (_, n_stage), sched, micro = PP_GATE_CASES[case]
+            if n_stage not in layouts:  # every rank builds the groups in one order
+                layouts[n_stage] = PPLayout(PP_RANKS, rank, n_stage)
+            undo = None
+            if variant is not None:
+                owner, attr, wrong = PP_VARIANTS[variant][1](torch)
+                undo = (owner, attr, getattr(owner, attr))
+                setattr(owner, attr, wrong)
+            for m in modules:
+                m.reset_launch_counts()
+            try:
+                got = pp_gate_steps(torch, full, tokens, labels, layouts[n_stage], sched, micro)
+            finally:
+                if undo is not None:
+                    setattr(*undo)
+            out[variant or case] = dict(readings=tp_gate_readings(got, want),
+                                        losses=got["losses"], launches=all_counts(modules))
+            del got
+        with open(os.path.join(PP_DIR, f"gate.rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def pp_gate_launches(case: str, stage: int) -> dict:
+    """A stage's launches over (a)'s steps under ``case``: an f32 flash
+    forward (K2a) a block a microbatch and a second one in each 1F1B B slot's
+    recompute, one split backward (K2d dQ, K2e dK/dV) a block a
+    microbatch; the last stage a K1a per forward of the head and a K1b a
+    microbatch; no K3/K4 (the stage blocks' tails are unfused)."""
+    (_, n_stage), sched, micro = PP_GATE_CASES[case]
+    blocks, n = PP_GATE_KW["depth"] // n_stage, TP_GATE_STEPS * micro
+    fwd = 2 if sched == "1f1b" else 1
+    out = dict(flash_fwd=fwd * blocks * n, flash_bwd=2 * blocks * n, K2a=fwd * blocks * n,
+               K2d=blocks * n, K2e=blocks * n)
+    if stage == n_stage - 1:
+        out.update(ce_fwd=fwd * n, ce_bwd=n)
+    return out
+
+
+def phase_pp_gate(torch, ranks: list) -> dict:
+    """Phase 29 (a)'s verdicts on the ranks' results (:func:`pp_gate_worker`):
+    GPipe and 1F1B at (data 1, stage 4) and 1F1B at (data 2, stage 2), full
+    width, 4 blocks, f32 with TF32 off, a batch of 8 x 256: each took
+    ``TP_GATE_STEPS`` SGD-momentum steps on four gloo processes on the card
+    from the same seeded full weights as the one-rank step on the card over
+    the whole batch; the losses, every gathered gradient and every gathered
+    parameter after held to phase 27's limits, which four wrong variants
+    must fail (:data:`PP_VARIANTS`); each rank's launches (and its one-rank
+    reference's) exact."""
+    depth = PP_GATE_KW["depth"]
+    reference = {k: TP_GATE_STEPS * v for k, v in dict(
+        ce_fwd=1, ce_bwd=1, flash_fwd=depth, flash_bwd=2 * depth, K2a=depth, K2d=depth,
+        K2e=depth).items()}
+    readings = {}
+    for name in ranks[0]:
+        if name == "reference":
+            continue
+        case = PP_VARIANTS[name][0] if name in PP_VARIANTS else name
+        n_stage = PP_GATE_CASES[case][0][1]
+        for r, got in enumerate(ranks):
+            check_launches(f"rank {r} one-rank reference", got["reference"], reference)
+            check_launches(f"rank {r} {name}", got[name]["launches"],
+                           pp_gate_launches(case, r % n_stage))
+        readings[name] = {k: max(got[name]["readings"][k] for got in ranks)
+                          for k in ranks[0][name]["readings"]}
+    for name, r in readings.items():
+        wrong = name in PP_VARIANTS
+        verdict = "within" if tp_gate_within(r) else ("outside" if wrong else "OUTSIDE")
+        say(f"  {'wrong variant ' if wrong else ''}{name} vs one rank: {r} (rank 0 losses "
+            f"{ranks[0][name]['losses']}) -> {verdict}")
+    bad = [k for k, r in readings.items() if k not in PP_VARIANTS and not tp_gate_within(r)]
+    if bad:
+        raise AssertionError(f"the pipeline on the card outside its limits: {bad}")
+    inside = [k for k in PP_VARIANTS if tp_gate_within(readings[k])]
+    if inside:
+        raise AssertionError(f"the pipeline: wrong variants within the limits: {inside}")
+    return readings
+
+
+def pp_exchange_timer(torch) -> dict:
+    """Time every stage hop (``StageExchange.hop``, its host staging
+    included) and every all-reduce of the step (the stage group's of the
+    shared leaves and the loss, the data group's), synchronised before and
+    after: calls, bytes this rank sent and received, seconds."""
+    from pytorch_distributed_training_tpu_torch.engine import pp_steps
+    from pytorch_distributed_training_tpu_torch.parallel.pipeline import StageExchange
+
+    clock = {k: dict(seconds=0.0, calls=0, bytes=0) for k in ("hops", "reduces")}
+    size = lambda t: 0 if t is None else t.numel() * t.element_size()  # noqa: E731
+
+    def timed(kind, plain, nbytes):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = plain(*args, **kw)
+            torch.cuda.synchronize()
+            c = clock[kind]
+            c["seconds"] += time.perf_counter() - t0
+            c["calls"] += 1
+            c["bytes"] += nbytes(*args, **kw)
+            return out
+        return run
+
+    StageExchange.hop = timed("hops", StageExchange.hop, lambda self, *ts, **kw: sum(
+        size(t) for t in (*ts, *kw.values())))
+    pp_steps._all_reduce_sum_ = timed("reduces", pp_steps._all_reduce_sum_,
+                                      lambda ts, g=None: sum(size(t) for t in ts))
+    return clock
+
+
+def pp_config(depth=None, steps: int = 4) -> dict:
+    """``config/TransformerLM-pp.yml`` for (b), as it is but ``depth`` blocks
+    if given: ``steps`` steps, a log line each, a batch an epoch and one
+    validation batch after the last step."""
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
+
+    cfg = get_cfg(PP_CONFIG)
+    if depth is not None:
+        cfg["model"]["depth"] = depth
+    cfg["training"].update(train_iters=steps, print_interval=1, val_interval=steps)
+    cfg["dataset"]["n_samples"] = cfg["training"]["batch_size"]
+    return cfg
+
+
+def pp_runner_readings(torch, modules, rank: int, port: int, depth, steps: int) -> dict:
+    """(b) on one rank: the runner on ``config/TransformerLM-pp.yml`` (its
+    depth cut to ``depth`` if given) for ``steps`` steps (1 warm-up, the rest
+    timed) and one validation batch: its launches a step and in the
+    validation with their shapes, the step ms, the hops and all-reduces a
+    step and the peak memory of this process."""
+    from pytorch_distributed_training_tpu_torch.engine import Runner
+
+    clock = pp_exchange_timer(torch)
+    shapes, restore = tp_kernel_shapes(modules)
+    marks = []
+
+    def on_iter(runner):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), all_counts(modules),
+                       *(clock[k][f] for k in ("hops", "reduces")
+                         for f in ("seconds", "calls", "bytes"))))
+
+    for m in modules:
+        m.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = Runner(num_nodes=PP_RANKS, rank=rank, seed=0, dist_url=f"tcp://127.0.0.1:{port}",
+                    multiprocessing=False, logger_queue=None, global_cfg=pp_config(depth, steps),
+                    device="cuda", dist_backend="gloo", on_iter=on_iter)
+    runner()
+    wall = time.perf_counter() - t0
+    restore()
+    final = all_counts(modules)
+    prev, per_step = {k: 0 for k in final}, []
+    for _, counts, *_ in marks:
+        per_step.append({k: counts[k] - prev[k] for k in final})
+        prev = counts
+    diffs = lambda j: [b[j] - a[j] for a, b in zip(marks, marks[1:])]  # noqa: E731
+    lay = runner.layout
+    return dict(rank=rank, path=runner.path, stage=lay.stage_idx, n_data=lay.n_data,
+                n_stage=lay.n_stage, schedule=runner.pp_schedule, micro=runner.microbatches,
+                blocks=list(runner.model.block_ids), remat=runner.model.remat,
+                host_staged=lay.stage_exchange.host_staged, step_ms=[s * 1e3 for s in diffs(0)],
+                hop_ms=[s * 1e3 for s in diffs(2)], hop_calls=diffs(3), hop_bytes=diffs(4),
+                reduce_ms=[s * 1e3 for s in diffs(5)], reduce_calls=diffs(6),
+                reduce_bytes=diffs(7), per_step=per_step,
+                validation={k: final[k] - prev[k] for k in final}, final=final,
+                shapes={k: sorted(v) for k, v in shapes.items()},
+                losses=[r["loss"] for r in runner.train_log], val=runner.val_log,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, wall_s=wall,
+                params_m=sum(p.numel() for p in runner.model.parameters()) / 1e6)
+
+
+def pp_worker(rank: int, task: str, ports: list, run) -> None:
+    """One of phase 29's ranks, a process of its own on ``cuda:0``: (a)
+    (:func:`pp_gate_worker`), then, unless ``run`` is ``None``, (b)
+    (:func:`pp_runner_readings` at ``run = (depth, steps)``).  Writes its
+    results under ``PP_DIR``."""
+    import gc
+
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.ops import flash_attention as fa
+    from pytorch_distributed_training_tpu_torch.ops import fused_ce as ce
+    from pytorch_distributed_training_tpu_torch.ops import fused_elementwise as fe
+
+    modules = (fe, ce, fa)
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    pp_gate_worker(torch, modules, rank, ports[0])
+    if run is None:
+        return
+    gc.collect()  # (a)'s steps hold their optimizers in reference cycles
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out = pp_runner_readings(torch, modules, rank, ports[1], *run)
+    out.update(gate_s=t1 - t0, runner_s=time.perf_counter() - t1)
+    with open(os.path.join(PP_DIR, f"runner.rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def pp_run_launches(depth: int, micro: int, stage: int, n_stage: int) -> tuple:
+    """(b)'s launches a step and in the validation batch on ``stage``: under
+    1F1B with block remat each of the stage's blocks runs its bf16 flash
+    forward three times a microbatch (the F slot, the B slot's recompute and
+    remat's replay in its backward) and its backward pair (K2c, dK/dV and
+    dQ) once; the last stage runs the head's K1a in each F and B slot and
+    K1b in each B slot; no K3/K4.  The validation runs the GPipe ticks
+    forward only: one flash forward a block and, on the last stage, one
+    K1a a microbatch."""
+    blocks = depth // n_stage
+    step = dict(flash_fwd=3 * blocks * micro, flash_bwd=2 * blocks * micro,
+                K2a=3 * blocks * micro, K2c=2 * blocks * micro)
+    val = dict(flash_fwd=blocks * micro, K2a=blocks * micro)
+    if stage == n_stage - 1:
+        step.update(ce_fwd=2 * micro, ce_bwd=micro)
+        val.update(ce_fwd=micro)
+    return step, val
+
+
+def phase_pp_runner(torch, smi: str, ranks: list, depth: int, steps: int, wall: float) -> dict:
+    """Phase 29 (b)'s verdicts and readings on the ranks' results
+    (:func:`pp_runner_readings`): each rank ran its stage of the pipeline
+    path under 1F1B with block remat, its launches exact a step and in the
+    validation (:func:`pp_run_launches`), every loss finite and equal on the
+    ranks, the validation equal on the ranks.  Prints the step ms, global
+    tokens/s, the hops' and all-reduces' calls, bytes, synced ms and share of
+    the step, each process's peak memory and each rank's launches with
+    their shapes beside the card.  Returns the four ranks' launch counts
+    summed."""
+    cfg = pp_config(depth, steps)
+    micro, batch = cfg["training"]["microbatches"], cfg["training"]["batch_size"]
+    seq = cfg["dataset"]["seq_len"]
+    for got in ranks:
+        per_step, per_val = pp_run_launches(depth, micro, got["stage"], got["n_stage"])
+        if (got["path"] != "pipeline" or got["schedule"] != "1f1b" or not got["remat"]
+                or got["n_stage"] != PP_RANKS or got["micro"] != micro):
+            raise AssertionError(f"rank {got['rank']} did not run 1F1B over {PP_RANKS} stages "
+                                 f"with block remat: {got['path']}, {got['schedule']}")
+        for i, counts in enumerate(got["per_step"]):
+            check_launches(f"rank {got['rank']} step {i}", counts, per_step)
+        check_launches(f"rank {got['rank']} validation", got["validation"], per_val)
+        if got["losses"] != ranks[0]["losses"] or not all(
+                math.isfinite(x) for x in got["losses"]) or len(got["losses"]) != steps:
+            raise AssertionError(f"rank {got['rank']} losses {got['losses']}, rank 0's "
+                                 f"{ranks[0]['losses']}")
+        if got["val"] != ranks[0]["val"] or not math.isfinite(got["val"][0]["loss"]):
+            raise AssertionError(f"rank {got['rank']} validation {got['val']}")
+    step_ms = ranks[0]["step_ms"]
+    med = statistics.median(step_ms)
+    n_data = ranks[0]["n_data"]
+    tokens_per_s = n_data * batch * seq / med * 1e3
+    share = lambda key: [sum(r[key]) / sum(r["step_ms"]) for r in ranks]  # noqa: E731
+    say(f"  {smi}: TransformerLM-pp.yml at depth {depth}, {PP_RANKS} stages x {n_data} data "
+        f"(gloo processes on one card; hops "
+        f"{'staged through pinned host memory' if ranks[0]['host_staged'] else 'on device'}),"
+        f" 1F1B over {micro} microbatches of {batch // micro} x {seq}; parameters a rank "
+        f"(M) {[round(r['params_m'], 2) for r in ranks]}")
+    say(f"  losses {ranks[0]['losses']}; validation {ranks[0]['val']}")
+    say(f"  step ms (steps 1-{len(step_ms)}, host clock, synced): {step_ms}; median {med}; "
+        f"global tokens/s {tokens_per_s}")
+    say(f"  stage hops a step (synced, host staging included): calls by rank "
+        f"{[r['hop_calls'] for r in ranks]}, MiB sent + received by rank "
+        f"{[[b / 2**20 for b in r['hop_bytes']] for r in ranks]}, ms by rank "
+        f"{[r['hop_ms'] for r in ranks]}; share of the step by rank {share('hop_ms')}")
+    say(f"  all-reduces a step (the stage group's shared gradients and loss; synced): calls "
+        f"{ranks[0]['reduce_calls']}, MiB {[b / 2**20 for b in ranks[0]['reduce_bytes']]}, "
+        f"ms by rank {[r['reduce_ms'] for r in ranks]}; share of the step by rank "
+        f"{share('reduce_ms')}")
+    say(f"  peak device memory by process (GiB): {[r['peak_gib'] for r in ranks]}; wall "
+        f"{wall:.1f} s, of it (a) {[round(r['gate_s'], 1) for r in ranks]} s and (b) "
+        f"{[round(r['runner_s'], 1) for r in ranks]} s by rank")
+    for got in ranks:
+        say(f"  rank {got['rank']} (stage {got['stage']}, blocks {got['blocks']}) launches a "
+            f"step {counts_line(got['per_step'][-1])}; validation "
+            f"{counts_line(got['validation'])}; shapes {got['shapes']}")
+    total = {k: sum(r["final"][k] for r in ranks) for k in ranks[0]["final"]}
+    say("pp: " + json.dumps(dict(
+        depth=depth, step_ms=step_ms, median_step_ms=med, tokens_per_s=tokens_per_s,
+        hop_share=share("hop_ms"), reduce_share=share("reduce_ms"),
+        hop_calls=[r["hop_calls"] for r in ranks], hop_bytes=[r["hop_bytes"] for r in ranks],
+        peak_gib=[r["peak_gib"] for r in ranks], losses=ranks[0]["losses"],
+        val=ranks[0]["val"], wall_s=wall, card=smi)))
+    return total
+
+
+def phase_pipeline(torch, smi: str, runner: bool = True) -> dict:
+    """Phase 29: (a)'s full weights drawn here, then one spawn of four gloo
+    processes on the card runs (a) and, with ``runner``, (b)
+    (:func:`pp_worker`); :func:`phase_pp_gate` and :func:`phase_pp_runner`
+    (on ``config/TransformerLM-pp.yml`` at its depth, 1 + 3 steps) judge and
+    print.  The whole script's run takes (a) alone: with phase 29 at 4
+    blocks for 1 + 1 steps it took 1,094.8 s of its 1,200 s on an H100 80GB
+    HBM3 at 700 W.  Returns (b)'s launch counts summed over the ranks, by
+    path."""
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
+
+    t_phase = time.perf_counter()
+    os.makedirs(PP_DIR, exist_ok=True)
+    torch.save(tp_gate_weights(torch, "dense", seed=29, kw=PP_GATE_KW),
+               os.path.join(PP_DIR, "full.pt"))
+    depth, steps = get_cfg(PP_CONFIG)["model"]["depth"], 4
+    wall = tp_spawn(torch, "pp", depth=(depth, steps) if runner else None, worker=pp_worker,
+                    ports=2)
+    say(f"  four ranks' wall {wall:.1f} s (spawn, (a)'s {len(PP_GATE_CASES)} cases and "
+        f"{len(PP_VARIANTS)} wrong variants of {TP_GATE_STEPS} steps{', (b)' if runner else ''})")
+    read = lambda name: [json.load(open(os.path.join(PP_DIR, f"{name}.rank{r}.json")))  # noqa: E731
+                         for r in range(PP_RANKS)]
+    gate = phase_pp_gate(torch, read("gate"))
+    say("pp_gate: " + json.dumps(gate))
+    paths = ({"pp": by_tpu_kernel(phase_pp_runner(torch, smi, read("runner"), depth, steps,
+                                                  wall))} if runner else {})
+    say(f"  phase 29 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def counts_line(counts: dict) -> str:
     return ", ".join(f"{k} {v}" for k, v in counts.items() if v)
 
@@ -5913,6 +6469,8 @@ def main(argv=None) -> int:
                         help="phases 1, 2 and 27 only (no result line)")
     parser.add_argument("--zero", action="store_true",
                         help="phases 1, 2 and 28 only (no result line)")
+    parser.add_argument("--pp", action="store_true",
+                        help="phases 1, 2 and 29 only (no result line)")
     args = parser.parse_args(argv)
 
     import torch
@@ -5950,6 +6508,10 @@ def main(argv=None) -> int:
     # phase 28's ZeRO exchanges: reduce-scatters and all-gathers of f32 and bf16
     say(f"gloo reduce-scatter and all-gather of CUDA tensors, 2 ranks: takes "
         f"{zero_probe_gloo(torch)} (the port's ZeRO exchanges)")
+    # phase 29's pipeline hops: send/recv between two processes
+    say(f"gloo send/recv of CUDA tensors through the stage exchange, 2 processes: "
+        f"{pp_probe_gloo(torch)} (a raw gloo send of a CUDA tensor fails: writev, Bad "
+        f"address)")
 
     phase("phase 2: build")
     built = kernels.build()
@@ -6021,6 +6583,14 @@ def main(argv=None) -> int:
     if args.zero:
         phase("phase 28: ZeRO-1/2/3 at 4 data ranks, full width")
         phase_zero(torch, modules, smi)
+        phase(None)
+        say(f"total {time.perf_counter() - t_start:.1f} s")
+        say(smi)
+        return 0
+
+    if args.pp:
+        phase("phase 29: pipeline parallelism (GPipe, 1F1B) over 4 stages, full width")
+        phase_pipeline(torch, smi)
         phase(None)
         say(f"total {time.perf_counter() - t_start:.1f} s")
         say(smi)
@@ -6141,6 +6711,8 @@ def main(argv=None) -> int:
     phase(f"phase 28: ZeRO-1/2/3 at 4 data ranks, full width, (b) at depth "
           f"{ZERO_DEFAULT_RUN_DEPTH}")
     paths.update(phase_zero(torch, modules, smi, ZERO_DEFAULT_RUN_DEPTH))
+    phase("phase 29: pipeline parallelism (GPipe, 1F1B) over 4 stages, full width, (a) only")
+    paths.update(phase_pipeline(torch, smi, runner=False))
 
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "ffma_bound_ms")

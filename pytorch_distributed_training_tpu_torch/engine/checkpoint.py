@@ -31,7 +31,12 @@ alike, gathered over the data group (ZeRO's slices), then over the model
 group on every rank, and written once by rank 0, and restores by slicing
 the other way (:mod:`..parallel.tensor`): the payload is the one-rank
 run's, as JAX's global arrays carry no layout, so it resumes at any tensor
-parallelism and ZeRO stage, restores at 1 and serves on one card.
+parallelism and ZeRO stage, restores at 1 and serves on one card.  A
+pipeline stage (a model with a ``stage_group``) gathers its blocks'
+parameters and slots over the stage group the same way (the shared leaves
+are equal on every stage), rank 0 writes the per-layer leaves, and each
+stage restores its own blocks; JAX writes the stacked tree, and a restore
+at another stage count is the layout-converting restore (P10).
 
 Config keys (JAX ``:275-306``): ``dir`` (required to enable), ``interval``
 (1000), ``max_to_keep`` (3), ``resume`` (True), ``retry`` (``attempts``
@@ -90,17 +95,20 @@ def capture_training_state(model, train_step, iteration: int) -> Dict[str, Any]:
     opt = train_step.opt_state
     tg = getattr(model, "tensor_group", None)
     plan = getattr(train_step, "zero_plan", None)  # the slots' ZeRO layout
+    staged = getattr(model, "stage_group", None) is not None
 
     def full(leaves):
         if plan is not None:
             leaves = plan.gather_all(leaves)
+        if staged:
+            return model.gather_full(dict(zip(names, leaves)))
         if tg is None:
             return dict(zip(names, leaves))
         return {n: gather_param(t, shard_dim(n), tg) for n, t in zip(names, leaves)}
 
     slots = {field: full(getattr(opt, field)) for field in opt._fields if field != "step"}
     ema = getattr(train_step, "ema", None)
-    sharded = tg is not None or getattr(model, "zero_plan", None) is not None
+    sharded = tg is not None or getattr(model, "zero_plan", None) is not None or staged
     state = model.full_state_dict() if sharded else model.state_dict()
     return {"iter": int(iteration), "model": state,
             "optimizer": {"type": type(opt).__name__, "step": int(opt.step), "slots": slots},
@@ -112,14 +120,16 @@ def restore_training_state(payload: Dict[str, Any], model, train_step) -> int:
     devices and memory formats kept); returns the saved iteration.  A
     payload of another model, optimizer or EMA setting raises
     ``ValueError``.  A tensor-parallel or ZeRO model and step take their
-    slices of the full leaves."""
+    slices of the full leaves, a pipeline stage its blocks."""
     tg = getattr(model, "tensor_group", None)
     plan = getattr(train_step, "zero_plan", None)
-    if tg is None and getattr(model, "zero_plan", None) is None:
+    staged = getattr(model, "stage_group", None) is not None
+    if tg is None and getattr(model, "zero_plan", None) is None and not staged:
         model.load_state_dict(payload["model"], strict=True)
     else:
         model.load_full_state_dict(payload["model"])
     names = _param_names(model)
+    full_names = model.full_keys() if staged else names
     opt = train_step.opt_state
     saved = payload["optimizer"]
     if saved["type"] != type(opt).__name__:
@@ -137,7 +147,7 @@ def restore_training_state(payload: Dict[str, Any], model, train_step) -> int:
         pairs.append((ema, payload["ema"]))
     with torch.no_grad():
         for tensors, by_name in pairs:
-            if sorted(by_name) != sorted(names):
+            if sorted(by_name) != sorted(full_names):
                 raise ValueError("checkpoint parameter names differ from the model's")
             for i, (t, name) in enumerate(zip(tensors, names)):
                 saved_t = by_name[name]

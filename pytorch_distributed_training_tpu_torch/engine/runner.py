@@ -142,10 +142,26 @@ at stage 3 the model is built with the data group and gathers its leaves
 at each use); checkpoints still hold full leaves.  The CPU tests are
 ``tests/test_torch_zero.py``; on the card ``python3 chip_smoke.py --zero``.
 
+``training.pipeline_parallelism`` S > 1 on the LM (JAX ``_build_pipeline``,
+``paths.py:84-138``, the first row of its table; ``topology.py:102-158``,
+``:336-338``, ``:377-381``): the pipeline path, after its checks with the
+JAX messages (:func:`.topology.parse_pipeline`,
+:func:`.topology.check_pipeline`, :func:`.topology.check_pipeline_batch`):
+the ranks form a ``(data, stage)`` layout (:class:`..parallel.mesh.PPLayout`,
+pipelines of S consecutive ranks), the model is this rank's stage (its
+blocks and the shared leaves; unfused tails, as JAX's stage blocks), every
+stage of a pipeline reads its data rank's batch, and the step runs
+``training.pp_schedule`` (``gpipe`` or ``1f1b``) over
+``training.microbatches`` (:mod:`.pp_steps`); the logged loss is the one
+summed over the stages and data ranks.  A checkpoint holds the per-layer
+full leaves (:mod:`.checkpoint`).  The CPU tests are
+``tests/test_torch_pipeline.py``; on the card ``python3 chip_smoke.py --pp``.
+
 Not ported yet: every config key asking for one raises
-``NotImplementedError`` naming its ROADMAP item (:data:`UNPORTED_TRAINING_KEYS`):
-pipeline parallelism, sequence parallelism beside tensor or pipeline
-parallelism, ZeRO or MoE, and ``comm`` (with ZeRO-1 beside ``comm.overlap``
+``NotImplementedError`` naming its ROADMAP item (:data:`UNPORTED_TRAINING_KEYS`,
+:data:`PIPELINE_UNPORTED`): sequence parallelism beside tensor or pipeline
+parallelism, ZeRO or MoE, the pipeline beside tensor or sequence
+parallelism or ZeRO-1/2, and ``comm`` (with ZeRO-1 beside ``comm.overlap``
 on a dense LM at ``tensor_parallelism`` 1, JAX's ``ring-sp-zero1`` path)
 (P9), telemetry, integrity, elastic recovery and the checkpoint keys of
 :data:`.checkpoint.UNPORTED_CHECKPOINT_KEYS` (P10).
@@ -183,28 +199,32 @@ from ..data import (
 from ..metrics import AverageMeter
 from ..models import get_model, is_resnet
 from ..optimizers import get_optimizer
-from ..parallel import SEQUENCE_AXIS, SPLayout, TPLayout
+from ..parallel import SEQUENCE_AXIS, PPLayout, SPLayout, TPLayout
 from ..schedulers import get_scheduler
 from ..utils import make_deterministic
 from . import fault
 from .checkpoint import Checkpointer, capture_training_state, restore_training_state
+from .pp_steps import build_pp_lm_eval_step, build_pp_lm_train_step
 from .preemption import PreemptionGuard
 from .sp_steps import build_lm_eval_step, build_lm_train_step
 from .steps import build_eval_step, build_eval_step_exact, build_train_step
 from .topology import (
     check_gspmd_path,
+    check_pipeline,
+    check_pipeline_batch,
     check_sequence_parallel,
     check_tensor_parallel,
     gspmd_path,
     parse_fault_tolerance,
     parse_model,
     parse_parallelism,
+    pipeline_path,
     ring_path,
 )
 from .tp_steps import build_tp_lm_train_step
 from .watchdog import StepWatchdog
 
-__all__ = ["Runner", "UNPORTED_TRAINING_KEYS", "apply_remat_alias"]
+__all__ = ["PIPELINE_UNPORTED", "Runner", "UNPORTED_TRAINING_KEYS", "apply_remat_alias"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -213,7 +233,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 UNPORTED_TRAINING_KEYS = {
     "sequence_parallelism": ("sequence parallelism beside tensor or pipeline parallelism, "
                              "ZeRO or MoE is ROADMAP port item P9"),
-    "pipeline_parallelism": "pipeline parallelism is ROADMAP port item P9",
     "comm": "training.comm (bucketed overlap, ZeRO-1 beside it) is ROADMAP port item P9",
     "telemetry": "the telemetry layer is ROADMAP port item P10",
     "integrity": "the integrity sentinel is ROADMAP port item P10",
@@ -223,8 +242,21 @@ UNPORTED_TRAINING_KEYS = {
 PREFETCH_DEPTH = 2
 
 
+# what the pipeline does not compose with yet (JAX composes all three)
+PIPELINE_UNPORTED = {"tensor_parallelism": "tensor parallelism",
+                     "sequence_parallelism": "sequence parallelism", "zero": "ZeRO-1/2"}
+
+
 def _reject_unported(train_cfg: Dict[str, Any], gspmd: bool = False,
                      ring: bool = False) -> None:
+    if int(train_cfg.get("pipeline_parallelism", 1) or 1) > 1:
+        beside = [what for key, what in PIPELINE_UNPORTED.items()
+                  if (int(train_cfg.get(key) or 0) > 1 if key.endswith("parallelism")
+                      else bool(train_cfg.get(key)))]
+        if beside:
+            raise NotImplementedError(
+                f"pipeline parallelism beside {', '.join(beside)} is ROADMAP port item P9 "
+                f"(pipeline beside tensor parallelism, sequence parallelism or ZeRO-1/2)")
     for key, why in UNPORTED_TRAINING_KEYS.items():
         val = train_cfg.get(key)
         if key == "comm" and gspmd:
@@ -370,8 +402,10 @@ class Runner:
         model_name = self.model_name
         parse_parallelism(self, train_cfg)
         ring = ring_path(self, train_cfg)
-        # JAX engine/paths.py:290-310: a MoE, tensor-parallel or ZeRO LM takes
-        # the GSPMD path (sequence parallelism beside them stays P9)
+        # JAX engine/paths.py:290-310: the pipeline first, then a MoE,
+        # tensor-parallel or ZeRO LM takes the GSPMD path (sequence
+        # parallelism beside them stays P9)
+        pipeline = pipeline_path(self)
         gspmd = gspmd_path(self, train_cfg)
         _reject_unported(train_cfg, gspmd=gspmd, ring=ring)
         parse_fault_tolerance(self, train_cfg)
@@ -381,6 +415,7 @@ class Runner:
         if int(train_cfg["batch_size"]) % self.grad_accum != 0:
             raise ValueError(f"per-shard batch ({train_cfg['batch_size']}) not divisible by "
                              f"training.grad_accumulation ({self.grad_accum})")
+        check_pipeline_batch(self, int(train_cfg["batch_size"]), self.grad_accum)
         self._setup_faults()
         self.checkpointer = Checkpointer.from_config(
             train_cfg, rank=self.current_rank, world_size=self.world_size)
@@ -389,9 +424,12 @@ class Runner:
         if not 0.0 <= self.label_smoothing < 1.0:
             raise ValueError(f"label_smoothing must be in [0, 1), got {self.label_smoothing}")
 
-        self.path = "gspmd" if gspmd else "ring-sp" if self.is_lm else "image-dp"
+        self.path = ("pipeline" if pipeline else "gspmd" if gspmd else
+                     "ring-sp" if self.is_lm else "image-dp")
         if self.path == "gspmd":
             check_gspmd_path(self, train_cfg)
+        if self.path == "pipeline":
+            check_pipeline(self, train_cfg, model_cfg, get_optimizer(train_cfg["optimizer"]))
         apply_remat_alias(train_cfg, model_cfg, model_name)
         # JAX engine/topology.py:347-352
         ema_cfg = train_cfg.get("ema")
@@ -454,12 +492,17 @@ class Runner:
             self.logger.warning("validation.exact applies to the image eval path; LM "
                                 "validation keeps the per-batch meter semantics")
         if self.is_lm:
-            # the step's reduce: the data group under tensor parallelism, else
-            # the whole world (data and sequence ranks)
-            tp = isinstance(self.layout, TPLayout)
-            world, group = ((self.data_size, self.layout.data_group) if tp
+            # the step's reduce: the data group under tensor parallelism and
+            # the pipeline, else the whole world (data and sequence ranks)
+            grid = isinstance(self.layout, (TPLayout, PPLayout))
+            world, group = ((self.data_size, self.layout.data_group) if grid
                             else (self.world_size, None))
-            if self.path == "gspmd":
+            if self.path == "pipeline":
+                self.train_step = build_pp_lm_train_step(
+                    self.model, self.optimizer, self.scheduler.lr_fn,
+                    self.layout.stage_exchange, self.microbatches, self.pp_schedule,
+                    world_size=world, group=group, label_smoothing=self.label_smoothing)
+            elif self.path == "gspmd":
                 self.train_step = build_tp_lm_train_step(
                     self.model, self.optimizer, self.scheduler.lr_fn,
                     world_size=world, group=group, grad_accum=self.grad_accum,
@@ -469,8 +512,12 @@ class Runner:
                     self.model, self.optimizer, self.scheduler.lr_fn,
                     world_size=world, grad_accum=self.grad_accum,
                     label_smoothing=self.label_smoothing, anomaly_factor=anomaly_factor)
-            self.eval_step = build_lm_eval_step(self.model, world_size=world, group=group,
-                                                micro_batches=self.grad_accum)
+            self.eval_step = (
+                build_pp_lm_eval_step(self.model, self.layout.stage_exchange, self.microbatches,
+                                      world_size=world, group=group, logger=self.logger)
+                if self.path == "pipeline" else
+                build_lm_eval_step(self.model, world_size=world, group=group,
+                                   micro_batches=self.grad_accum))
         else:
             self.train_step = build_train_step(
                 self.model, self.optimizer, self.scheduler.lr_fn, world_size=self.world_size,
@@ -718,6 +765,20 @@ class Runner:
         ``sp_steps.py:21-23``)."""
         self.layout, self._columns = None, None
         self.data_rank, self.data_size = self.current_rank, self.world_size
+        if self.path == "pipeline":
+            if self.world_size % self.pipe_par != 0:
+                raise ValueError(f"training.pipeline_parallelism ({self.pipe_par}) must divide "
+                                 f"the number of ranks ({self.world_size})")
+            self.layout = lay = PPLayout(self.world_size, self.current_rank, self.pipe_par)
+            self.data_rank, self.data_size = lay.data_idx, lay.n_data
+            self.logger.info("Pipeline parallelism: data x stage = %d x %d, rank %d at (%d, %d), "
+                             "%s schedule over %d microbatches%s", lay.n_data, lay.n_stage,
+                             self.current_rank, lay.data_idx, lay.stage_idx, self.pp_schedule,
+                             self.microbatches,
+                             ", hops staged through pinned host memory"
+                             if lay.stage_exchange.host_staged and self.device.type == "cuda"
+                             else "")
+            return
         if self.tensor_par > 1 or (self.zero and self.world_size > 1):
             check_tensor_parallel(self, self.global_cfg["model"], self.world_size)
             self.layout = lay = TPLayout(self.world_size, self.current_rank, self.tensor_par)
@@ -745,7 +806,11 @@ class Runner:
         self.seq_len = int(train_dataset[0][0].shape[0])
         self.unit, self.items_per_sample = "tok", self.seq_len
         model_cfg.setdefault("max_len", self.seq_len)
-        if isinstance(self.layout, TPLayout):
+        if isinstance(self.layout, PPLayout):
+            model_cfg["stage_group"] = self.layout.stage
+            # JAX _stage_applies builds the stage's blocks without fused tails
+            model_cfg["fused_tails"] = False
+        elif isinstance(self.layout, TPLayout):
             model_cfg["tensor_group"] = self.layout.tensor_group
             if self.zero >= 3 and self.layout.n_data > 1:
                 model_cfg["zero_group"] = self.layout.zero_group
@@ -768,6 +833,9 @@ class Runner:
               f", tensor parallel over {self.tensor_par} ranks" if self.tensor_par > 1 else "")
         if m.zero_plan is not None:
             sp += f", ZeRO-3: this rank's slices of the leaves ({self.data_size} data ranks)"
+        if m.stage_group is not None:
+            sp += (f", pipeline stage {m.stage_group.rank} of {m.stage_group.size} (blocks "
+                   f"{m.block_ids.start}-{m.block_ids.stop - 1}, unfused tails)")
         self.logger.info("Model %s: %.1f M parameters, compute %s, flash attention on%s%s%s",
                          model_name, sum(p.numel() for p in m.parameters()) / 1e6,
                          str(self.compute_dtype).replace("torch.", ""),

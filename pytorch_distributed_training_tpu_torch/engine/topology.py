@@ -2,12 +2,12 @@
 runner (port of ``parse_topology``'s model keys, JAX
 ``engine/topology.py:55-90``, its MoE checks, ``:142-153`` and
 ``:273-282``, its sequence- and tensor-parallel checks, ``:100-120`` and
-``:221-266``, its ``training.zero`` key, ``:160-179`` and ``:213-220``, and
-of ``parse_fault_tolerance``, ``:436-544``; the rest of that module is the
-pipeline layout, ROADMAP port item P9), the route of an LM run (JAX
-``engine/paths.py:290-306``) and the checks and refusals of the GSPMD path
-that tensor-parallel, ZeRO and MoE runs take (``paths.py:48-73``,
-``:156-164``)."""
+``:221-266``, its ``training.zero`` key, ``:160-179`` and ``:213-220``, its
+pipeline keys, ``:102-158``, ``:336-338`` and ``:377-381``, and of
+``parse_fault_tolerance``, ``:436-544``), the route of an LM run (JAX
+``engine/paths.py:290-306``) and the checks and refusals of the pipeline
+path and of the GSPMD path that tensor-parallel, ZeRO and MoE runs take
+(``paths.py:48-138``, ``:156-164``)."""
 from __future__ import annotations
 
 import inspect
@@ -15,11 +15,13 @@ import inspect
 import torch
 
 from ..models import TransformerLM, is_resnet
+from ..optimizers import LARS
 from .fault import FaultInjector
 
-__all__ = ["check_gspmd_path", "check_moe", "check_sequence_parallel", "check_tensor_parallel",
-           "gspmd_path", "parse_fault_tolerance", "parse_model", "parse_parallelism",
-           "ring_path", "ring_zero1_path"]
+__all__ = ["check_gspmd_path", "check_moe", "check_pipeline", "check_pipeline_batch",
+           "check_sequence_parallel", "check_tensor_parallel", "gspmd_path",
+           "parse_fault_tolerance", "parse_model", "parse_parallelism", "parse_pipeline",
+           "pipeline_path", "ring_path", "ring_zero1_path"]
 
 _LM_DEFAULTS = {k: v.default for k, v in inspect.signature(TransformerLM).parameters.items()}
 
@@ -47,37 +49,111 @@ def check_moe(cfg: dict) -> bool:
     return True
 
 
-def check_gspmd_path(r, train_cfg: dict) -> None:
-    """What the GSPMD path refuses (JAX ``paths.py:156-157``), with the JAX
-    messages: the anomaly guard and ``training.comm.overlap``."""
+def _reject_guard_and_overlap(r, train_cfg: dict, path: str) -> None:
+    """JAX ``_reject_anomaly`` and ``_reject_comm`` (``paths.py:48-73``) for
+    the ``path`` execution path, with their messages."""
     if getattr(r, "anomaly_enabled", False):
-        raise ValueError("training.fault_tolerance.anomaly is not wired for the gspmd execution "
-                         "path (supported: image-dp, ring-sp)")
+        raise ValueError(f"training.fault_tolerance.anomaly is not wired for the {path} "
+                         "execution path (supported: image-dp, ring-sp)")
     if bool((train_cfg.get("comm") or {}).get("overlap", False)):
-        raise ValueError("training.comm.overlap is not wired for the gspmd execution path "
+        raise ValueError(f"training.comm.overlap is not wired for the {path} execution path "
                          "(supported: image-dp, ring-sp, and ring-sp with zero stage 1) — the "
                          "GSPMD partitioner schedules its own communication overlap there")
 
 
+def check_gspmd_path(r, train_cfg: dict) -> None:
+    """What the GSPMD path refuses (JAX ``paths.py:156-157``), with the JAX
+    messages: the anomaly guard and ``training.comm.overlap``."""
+    _reject_guard_and_overlap(r, train_cfg, "gspmd")
+
+
+def check_pipeline(r, train_cfg: dict, model_cfg: dict, optimizer_cls) -> None:
+    """What the pipeline path refuses (JAX ``_build_pipeline``,
+    ``paths.py:84-115``), with the JAX messages: the anomaly guard,
+    ``training.comm.overlap``, a ``model.depth`` that the stage count does
+    not divide, LARS, and heads that ``training.tensor_parallelism`` does
+    not divide."""
+    _reject_guard_and_overlap(r, train_cfg, "pipeline")
+    depth = int(model_cfg.get("depth", _LM_DEFAULTS["depth"]))
+    if depth % r.pipe_par != 0:
+        raise ValueError(f"model.depth ({depth}) must be divisible by "
+                         f"training.pipeline_parallelism ({r.pipe_par})")
+    if issubclass(optimizer_cls, LARS):
+        # per-parameter trust ratios would span a stage's stacked layers
+        raise ValueError("optimizer LARS is not supported with pipeline_parallelism "
+                         "(per-parameter trust ratios do not survive the stacked-layer param "
+                         "layout)")
+    num_heads = int(model_cfg.get("num_heads", _LM_DEFAULTS["num_heads"]))
+    if r.tensor_par > 1 and num_heads % r.tensor_par:
+        raise ValueError(f"model.num_heads ({num_heads}) must be divisible by "
+                         f"training.tensor_parallelism ({r.tensor_par})")
+
+
 def parse_parallelism(r, train_cfg: dict) -> None:
-    """Set ``r.seq_par``, ``r.tensor_par`` and ``r.zero`` from
+    """Set ``r.seq_par``, ``r.tensor_par``, the pipeline's keys
+    (:func:`parse_pipeline`) and ``r.zero`` from
     ``training.sequence_parallelism`` and ``training.tensor_parallelism``
-    (default 1), refused off the LM with the JAX message (``topology.py:100-101``,
-    ``:115-119``), and ``training.zero`` (:func:`parse_zero`).  Run after
+    (default 1), refused off the LM with the JAX message (``topology.py:100-119``),
+    and ``training.zero`` (:func:`parse_zero`).  Run after
     :func:`parse_model`."""
     r.seq_par = int(train_cfg.get("sequence_parallelism", 1) or 1)
     r.tensor_par = int(train_cfg.get("tensor_parallelism", 1) or 1)
-    if (r.seq_par > 1 or r.tensor_par > 1) and not r.is_lm:
+    parse_pipeline(r, train_cfg)
+    parse_zero(r, train_cfg)
+
+
+def parse_pipeline(r, train_cfg: dict) -> None:
+    """``r.pipe_par``, ``r.microbatches`` and ``r.pp_schedule`` from
+    ``training.pipeline_parallelism`` (default 1), ``training.microbatches``
+    (default the stage count) and ``training.pp_schedule`` (default
+    ``gpipe``), with the JAX checks and messages in JAX's order
+    (``topology.py:102-158``): ``microbatches`` and ``pp_schedule`` need a
+    pipeline, the parallel keys the LM, no three-way PP x SP x TP, a known
+    schedule, no MoE, and at least as many microbatches as stages."""
+    r.pipe_par = int(train_cfg.get("pipeline_parallelism", 1) or 1)
+    r.microbatches = int(train_cfg.get("microbatches", r.pipe_par))
+    if "microbatches" in train_cfg and r.pipe_par <= 1:
+        raise ValueError("training.microbatches requires pipeline_parallelism > 1 (use "
+                         "training.grad_accumulation for non-pipelined micro-batching)")
+    if (r.seq_par > 1 or r.tensor_par > 1 or r.pipe_par > 1) and not r.is_lm:
         raise ValueError("training.sequence_parallelism / tensor_parallelism / "
                          "pipeline_parallelism require model.name: TransformerLM")
-    parse_zero(r, train_cfg)
+    if r.pipe_par > 1 and r.seq_par > 1 and r.tensor_par > 1:
+        raise ValueError("pipeline_parallelism x sequence_parallelism x tensor_parallelism "
+                         "(three-way) is not wired; pick PP x SP or PP x TP")
+    r.pp_schedule = str(train_cfg.get("pp_schedule", "gpipe"))
+    if r.pp_schedule not in ("gpipe", "1f1b"):
+        raise ValueError(f"training.pp_schedule must be 'gpipe' or '1f1b', "
+                         f"got {r.pp_schedule!r}")
+    if "pp_schedule" in train_cfg and r.pipe_par <= 1:
+        raise ValueError("training.pp_schedule requires pipeline_parallelism > 1")
+    if r.pipe_par > 1 and r.is_moe:
+        raise ValueError("model.moe_experts does not compose with pipeline_parallelism")
+    if r.microbatches < max(r.pipe_par, 1):
+        raise ValueError(f"training.microbatches ({r.microbatches}) must be >= "
+                         f"pipeline_parallelism ({r.pipe_par})")
+
+
+def check_pipeline_batch(r, batch: int, grad_accum: int) -> None:
+    """JAX ``topology.py:336-338`` and ``:377-381`` under the pipeline:
+    ``grad_accumulation`` is redundant, and the per-shard batch (a rank's
+    ``batch_size``) must divide by ``training.microbatches``."""
+    if r.pipe_par <= 1:
+        return
+    if grad_accum > 1:
+        raise ValueError("grad_accumulation is redundant under pipeline_parallelism — raise "
+                         "training.microbatches instead (same memory effect, and it also "
+                         "shrinks the pipeline bubble)")
+    if batch % r.microbatches != 0:
+        raise ValueError(f"per-shard batch ({batch}) not divisible by training.microbatches "
+                         f"({r.microbatches})")
 
 
 def parse_zero(r, train_cfg: dict) -> None:
     """``r.zero``, the ZeRO stage of ``training.zero`` (JAX
     ``topology.py:160-179``, ``:213-220``), with the JAX messages: a bool
     (``True`` is stage 1) or a stage in 0-3; only on the LM; stage 3 not
-    beside the pipeline."""
+    beside the pipeline (:func:`parse_pipeline` first)."""
     zero = train_cfg.get("zero", False)
     if isinstance(zero, bool):
         r.zero = 1 if zero else 0
@@ -88,9 +164,15 @@ def parse_zero(r, train_cfg: dict) -> None:
                          f"got {zero!r}")
     if r.zero and not r.is_lm:
         raise ValueError("training.zero is only wired for the LM task (GSPMD path)")
-    if r.zero >= 3 and int(train_cfg.get("pipeline_parallelism", 1) or 1) > 1:
+    if r.zero >= 3 and r.pipe_par > 1:
         raise ValueError(f"training.zero: {r.zero} does not compose with "
                          "pipeline_parallelism — use zero: 1 or 2 under the pipeline")
+
+
+def pipeline_path(r) -> bool:
+    """JAX ``paths.py:291``, the first row of its table: an LM at
+    ``pipeline_parallelism`` > 1 runs on the pipeline path."""
+    return r.is_lm and r.pipe_par > 1
 
 
 def ring_path(r, train_cfg: dict) -> bool:
@@ -98,9 +180,8 @@ def ring_path(r, train_cfg: dict) -> bool:
     ``topology.py:256-266`` sets ``seq_axis`` for ``sequence_parallelism``
     > 1 with no tensor or pipeline parallelism, no ZeRO and no MoE (those
     combinations stay ROADMAP port item P9)."""
-    return (r.seq_par > 1 and r.tensor_par == 1
-            and int(train_cfg.get("pipeline_parallelism", 1) or 1) == 1
-            and not r.zero and not r.is_moe)
+    return (r.seq_par > 1 and r.tensor_par == 1 and r.pipe_par == 1 and not r.zero
+            and not r.is_moe)
 
 
 def ring_zero1_path(r, train_cfg: dict) -> bool:
@@ -113,9 +194,10 @@ def ring_zero1_path(r, train_cfg: dict) -> bool:
 
 def gspmd_path(r, train_cfg: dict) -> bool:
     """JAX ``paths.py:302-306``: an LM with tensor parallelism, ZeRO or MoE
-    blocks runs on the GSPMD path (:func:`ring_zero1_path` taken first)."""
+    blocks runs on the GSPMD path (:func:`pipeline_path` and
+    :func:`ring_zero1_path` taken first)."""
     return (r.is_lm and (r.tensor_par > 1 or bool(r.zero) or r.is_moe)
-            and not ring_zero1_path(r, train_cfg))
+            and not pipeline_path(r) and not ring_zero1_path(r, train_cfg))
 
 
 def check_tensor_parallel(r, model_cfg: dict, world_size: int) -> None:

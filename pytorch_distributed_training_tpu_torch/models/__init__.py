@@ -7,15 +7,20 @@ from __future__ import annotations
 
 import torch
 
-from .from_jax import lm_state_dict_from_jax, resnet_state_dict_from_jax, vit_state_dict_from_jax
+from .from_jax import (
+    lm_state_dict_from_jax,
+    lm_state_dict_from_jax_pp,
+    resnet_state_dict_from_jax,
+    vit_state_dict_from_jax,
+)
 from .resnet import RESNET_CONFIGS, BasicBlock, Bottleneck, ResNet, fold_stem_kernel
 from .transformer_lm import TransformerLM
 from .vit import VIT_CONFIGS, ViT
 
 __all__ = ["BasicBlock", "Bottleneck", "RESNET_CONFIGS", "ResNet", "TransformerLM",
            "VIT_CONFIGS", "ViT", "fold_stem_kernel", "get_model", "is_resnet",
-           "list_models", "lm_state_dict_from_jax", "resnet_state_dict_from_jax",
-           "vit_state_dict_from_jax"]
+           "list_models", "lm_state_dict_from_jax", "lm_state_dict_from_jax_pp",
+           "resnet_state_dict_from_jax", "vit_state_dict_from_jax"]
 
 _CANONICAL = {name.lower(): name for name in RESNET_CONFIGS}
 _CANONICAL.update({name.lower(): name for name in VIT_CONFIGS})

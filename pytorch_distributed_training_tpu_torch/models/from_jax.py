@@ -23,6 +23,11 @@ the tree's own dimensions (vocabulary and width from ``tok_embedding``,
 depth from the ``block{i}`` count, MLP width from ``block0``'s fc1 or
 experts, the expert count from each MoE block's router); a
 missing leaf, an extra leaf or a wrong shape raises ``ValueError``.
+:func:`lm_state_dict_from_jax_pp` takes the pipeline's layout of the same
+tree (JAX ``pp_stack_params``: ``{"blocks": <every block leaf stacked
+[depth, ...]>, "shared": <the rest>}``), unstacks it with the port's own
+:func:`..parallel.pipeline.pp_unstack` and maps it the same way; with a
+``stage_group`` it keeps that stage's blocks and the shared leaves.
 
 :func:`resnet_state_dict_from_jax` does the same for a JAX ``ResNet``'s
 ``{"params", "batch_stats"}`` into torchvision's names (the inverse of the
@@ -52,9 +57,11 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from ..parallel.pipeline import pp_unstack, stage_state_dict
 from ..parallel.tensor import shard_state_dict
 
-__all__ = ["lm_state_dict_from_jax", "resnet_state_dict_from_jax", "vit_state_dict_from_jax"]
+__all__ = ["lm_state_dict_from_jax", "lm_state_dict_from_jax_pp", "resnet_state_dict_from_jax",
+           "vit_state_dict_from_jax"]
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -139,6 +146,28 @@ def lm_state_dict_from_jax(params: Mapping, tensor_group=None) -> Dict[str, torc
             leaf = "weight"
         state[".".join(mod + [leaf])] = torch.tensor(np.ascontiguousarray(arr))
     return shard_state_dict(state, tensor_group)
+
+
+def lm_state_dict_from_jax_pp(pp_params: Mapping, stage_group=None) -> Dict[str, torch.Tensor]:
+    """The port's ``TransformerLM`` state_dict for the JAX pipeline layout
+    ``{"blocks": <stacked [depth, ...]>, "shared": ...}`` (numpy leaves);
+    with ``stage_group`` (a :class:`..parallel.tensor.TensorGroup` of the
+    stages) that stage's part of it."""
+    stacked = {path: torch.tensor(arr) for path, arr in _flatten(pp_params["blocks"]).items()}
+    tree: Dict = {}
+    for path, arr in {**_flatten(pp_params["shared"]),
+                      **pp_unstack({"blocks": stacked, "shared": {}})}.items():
+        # pp_unstack names a block's leaves "block{i}.<flax path>"
+        node = tree
+        *mods, leaf = path.replace(".", "/", 1).split("/")
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.asarray(arr)
+    state = lm_state_dict_from_jax(tree)
+    if stage_group is None:
+        return state
+    depth = next(iter(stacked.values())).shape[0]
+    return stage_state_dict(state, depth, stage_group.size, stage_group.rank)
 
 
 def _resnet_key(path: str) -> str:

@@ -114,6 +114,22 @@ gather and halves the bytes); the embeddings, LayerNorms, router and head
 are gathered in f32.  A leaf with no ZeRO dimension stays whole.  The full
 model's ``state_dict`` loads and gathers as under tensor parallelism, the
 data group first when gathering.
+
+``stage_group`` (the stage group of a pipeline as a
+:class:`..parallel.tensor.TensorGroup` of ``S`` ranks,
+:attr:`..parallel.mesh.PPLayout.stage`; JAX ``parallel/pipeline.py``) makes
+the model stage ``s``'s view of the LM: it holds only its own blocks,
+``[s L/S, (s + 1) L/S)`` (:func:`..parallel.pipeline.stage_blocks`), under
+their global names ``block{i}``, and the shared leaves (the embeddings, the
+final LayerNorm and the head), replicated on every stage.  Every block is
+still drawn in turn and the others dropped, so a stage starts from the
+one-rank model's weights of the same seed.  The pipeline step
+(:mod:`..engine.pp_steps`) runs a stage as :meth:`TransformerLM.embed` (stage
+0), :meth:`TransformerLM.run_blocks` (block remat as above) and
+:meth:`TransformerLM.logits` (the last stage).  The full model's
+``state_dict`` loads (each stage keeps its blocks) and gathers over the
+stage group.  MoE blocks, tensor parallelism and ZeRO-3 do not compose with
+it, and serving refuses it.
 """
 from __future__ import annotations
 
@@ -131,6 +147,7 @@ from ..ops.fused_elementwise import FusedResidualLayerNorm
 from ..ops.layers import Dense, LayerNorm
 from ..ops.moe import MoEMLP, moe_aux
 from ..parallel.mesh import resolve_seq_axis
+from ..parallel.pipeline import block_index, gather_stages, stage_blocks, stage_state_dict
 from ..parallel.tensor import ZeroPlan, gather_state_dict, shard_state_dict, zero_gather
 from .vit import MLP
 
@@ -219,12 +236,18 @@ class TransformerLM(nn.Module):
         lora_adapters: int = 0,
         tensor_group=None,
         zero_group=None,
+        stage_group=None,
     ):
         super().__init__()
         # the arguments, for clone()
         self._config = {k: v for k, v in locals().items() if k not in ("self", "__class__")}
         if moe_experts > 0 and moe_every < 1:
             raise ValueError(f"moe_every must be >= 1, got {moe_every}")
+        if stage_group is not None and moe_experts > 0:
+            raise ValueError("model.moe_experts does not compose with pipeline_parallelism")
+        if stage_group is not None and (tensor_group is not None or zero_group is not None):
+            raise NotImplementedError("pipeline parallelism beside tensor parallelism or ZeRO "
+                                      "is ROADMAP port item P9")
         # unknown names raise even with remat off, as in JAX
         self.set_remat(remat, remat_policy)
         if embed_dim % num_heads != 0:
@@ -247,16 +270,19 @@ class TransformerLM(nn.Module):
         # passed to a call selects the mode, and carries the pool's size
         self.tok_embedding = nn.Parameter(torch.empty(vocab_size, embed_dim))
         self.pos_embedding = nn.Parameter(torch.empty(max_len, embed_dim))
+        self.stage_group = stage_group
+        self.block_ids = (range(depth) if stage_group is None else
+                          stage_blocks(depth, stage_group.size, stage_group.rank))
         for i in range(depth):
             # JAX :281-296: every moe_every-th block routes, the first at
             # block moe_every - 1
             is_moe = moe_experts > 0 and i % moe_every == moe_every - 1
-            self.add_module(
-                f"block{i}",
-                DecoderBlock(embed_dim, num_heads, mlp_ratio, dtype, fused_tails, flash,
-                             lora_rank, lora_adapters, moe_experts if is_moe else 0,
-                             moe_top_k, moe_capacity_factor, seq_axis, seq_impl, tensor_group),
-            )
+            block = DecoderBlock(embed_dim, num_heads, mlp_ratio, dtype, fused_tails, flash,
+                                 lora_rank, lora_adapters, moe_experts if is_moe else 0,
+                                 moe_top_k, moe_capacity_factor, seq_axis, seq_impl,
+                                 tensor_group)
+            if i in self.block_ids:  # a pipeline stage drops the others' (drawn all the same)
+                self.add_module(f"block{i}", block)
         self.ln = LayerNorm(embed_dim, dtype)
         self.head = Dense(embed_dim, vocab_size, torch.float32)
         # the submodules initialised themselves; the embeddings are ours
@@ -326,16 +352,18 @@ class TransformerLM(nn.Module):
 
     @property
     def blocks(self):
-        return [getattr(self, f"block{i}") for i in range(self.depth)]
+        """This model's blocks (a pipeline stage's own), in order."""
+        return [getattr(self, f"block{i}") for i in self.block_ids]
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """flax's initializers: normal(0.02) embeddings, lecun-normal
         kernels, zero biases, unit LayerNorm scales; drawn in a fixed module
-        order from ``generator``.  A tensor-parallel or ZeRO-3 model draws
-        the full model and keeps its slices."""
-        if self.tensor_group is not None or self.zero_plan is not None:
+        order from ``generator``.  A tensor-parallel, ZeRO-3 or pipeline-stage
+        model draws the full model and keeps its part."""
+        if (self.tensor_group is not None or self.zero_plan is not None
+                or self.stage_group is not None):
             with torch.device("meta"):
-                full = self.clone(tensor_group=None, zero_group=None)
+                full = self.clone(tensor_group=None, zero_group=None, stage_group=None)
             full.to_empty(device=self.tok_embedding.device)
             full.reset_parameters(generator)
             self.load_full_state_dict(full.state_dict())
@@ -362,9 +390,26 @@ class TransformerLM(nn.Module):
                     module.bias.data = module.bias.data.to(module.dtype)
         return self
 
+    def full_keys(self):
+        """The full model's ``state_dict`` keys (a pipeline stage's blocks
+        stand for every stage's)."""
+        local = list(self.state_dict())
+        if self.stage_group is None:
+            return local
+        first = f"block{self.block_ids[0]}."
+        leaves = [k[len(first):] for k in local if k.startswith(first)]
+        return ([k for k in local if block_index(k) is None]
+                + [f"block{i}.{leaf}" for i in range(self.depth) for leaf in leaves])
+
     def load_full_state_dict(self, state) -> None:
         """Load the full model's ``state_dict`` (strict): a tensor-parallel
-        or ZeRO-3 model keeps its slices of it."""
+        or ZeRO-3 model keeps its slices of it, a pipeline stage its blocks."""
+        if self.stage_group is not None:
+            differ = sorted(set(self.full_keys()) ^ set(state))
+            if differ:
+                raise ValueError(f"full state_dict keys differ from the model's: {differ[:4]}")
+            state = stage_state_dict(state, self.depth, self.stage_group.size,
+                                     self.stage_group.rank)
         local = shard_state_dict(state, self.tensor_group)
         plan = self.zero_plan
         if plan is not None:
@@ -373,19 +418,28 @@ class TransformerLM(nn.Module):
 
     def full_state_dict(self) -> dict:
         """The full model's ``state_dict``: a ZeRO-3 model gathers its leaves
-        over the data group, then a tensor-parallel one over the model group
-        (collectives on every rank)."""
-        local = self.state_dict()
+        over the data group, then a tensor-parallel one over the model group;
+        a pipeline stage gathers the blocks over the stage group (collectives
+        on every rank)."""
+        return self.gather_full(self.state_dict())
+
+    def gather_full(self, local) -> dict:
+        """The full model's entries from ``local``, this model's by name (its
+        ``state_dict`` or a like-named dict of optimizer slots), gathered as
+        :meth:`full_state_dict` gathers (collectives on every rank)."""
         plan = self.zero_plan
         if plan is not None:
             local = dict(zip(plan.names, plan.gather_all([local[n] for n in plan.names])))
+        if self.stage_group is not None:
+            return gather_stages(local, self.depth, self.stage_group)
         return gather_state_dict(local, self.tensor_group)
 
     def _refuse_decode(self) -> None:
         # JAX :216-217: serving (the batcher's cache, the paged pool) is dense
         if self.moe_experts > 0:
             raise ValueError("decode mode does not support MoE blocks yet")
-        if self.tensor_group is not None or self.zero_plan is not None:
+        if (self.tensor_group is not None or self.zero_plan is not None
+                or self.stage_group is not None):
             raise ValueError("decode and paged modes are single-shard (tensor_group must be None)")
 
     def moe_aux(self, stats, n_tokens: int):
@@ -455,18 +509,38 @@ class TransformerLM(nn.Module):
         x = x + pe.to(self.dtype)
         recompute = self.remat and cache is None and torch.is_grad_enabled()
         stats = []
-        for i, block in enumerate(self.blocks):
-            run = block if self.zero_plan is None else functools.partial(self._zero_block, i)
-            if recompute and self._remat_context is not None:
-                x = checkpoint(run, x, use_reentrant=False, context_fn=self._remat_context)
-            elif recompute:
-                x = checkpoint(run, x, use_reentrant=False)
-            else:
-                x = run(x, cache, i, decode_pos, block_tables, adapter_ids)
+        for i, block in zip(self.block_ids, self.blocks):
+            x = self._apply_block(i, block, x, recompute, cache, i, decode_pos, block_tables,
+                                  adapter_ids)
             if block.is_moe:
                 x, st = x
                 stats.append(st)
         return (x, stats) if moe_stats else x
+
+    def _apply_block(self, i: int, block, x, recompute: bool, *args):
+        """Block ``i`` over ``x``, under remat when ``recompute`` (the remat
+        boundary takes the stream alone)."""
+        run = block if self.zero_plan is None else functools.partial(self._zero_block, i)
+        if recompute and self._remat_context is not None:
+            return checkpoint(run, x, use_reentrant=False, context_fn=self._remat_context)
+        if recompute:
+            return checkpoint(run, x, use_reentrant=False)
+        return run(x, *args)
+
+    def embed(self, tokens):
+        """The token and position embeddings of a plain call, ``[B, S]`` ->
+        the stream ``[B, S, E]`` in the compute dtype (a pipeline's stage 0;
+        the caller checks the sequence against ``max_len``)."""
+        x = F.embedding(tokens, self.tok_embedding).to(self.dtype)
+        return x + self.pos_embedding[:tokens.shape[1]][None].to(self.dtype)
+
+    def run_blocks(self, x):
+        """This model's blocks (a pipeline stage's own) over the stream ``x``,
+        under block remat while autograd records, as :meth:`trunk` runs them."""
+        recompute = self.remat and torch.is_grad_enabled()
+        for i, block in zip(self.block_ids, self.blocks):
+            x = self._apply_block(i, block, x, recompute)
+        return x
 
     def logits(self, x):
         """Final LayerNorm and the f32 head over stream rows ``x``."""

@@ -41,6 +41,15 @@ parts of the leaves ``idx`` into the whole leaves' norms (a sum of squares
 over the ranks that hold the other parts, :class:`..engine.tp_steps.TPLMTrainStep`).
 A leaf's slice keeps its rank, so ``_is_excluded`` reads it as it reads the
 leaf.
+
+Under the pipeline the JAX optimizers see each stage's blocks as stacked
+leaves ``[L/S, ...]`` (JAX ``engine/pp_steps.py:522-526``): a block's bias
+or LayerNorm scale has rank 2 there, so the rank rule no longer excludes it
+(AdamW's ``exclude_norm_bias`` decays it, LAMB adapts it), and LAMB's trust
+ratio is taken over the whole stack.  The port keeps per-layer leaves: the
+pipeline step passes ``excluded`` (a flag a leaf, the rule read on the
+stacked layout) to AdamW and LAMB, and to LAMB a ``whole_norms`` that takes
+each stack's norm over its layers.
 """
 from __future__ import annotations
 
@@ -73,6 +82,11 @@ def _leaf_norms(lists, idx, whole_norms=None) -> torch.Tensor:
     ``k`` lists (the parts a rank holds), made whole by ``whole_norms``."""
     norms = torch.stack([torch.stack(torch._foreach_norm(ts)) for ts in lists])
     return norms if whole_norms is None else whole_norms(norms, idx)
+
+
+def _excluded(params, excluded=None) -> List[bool]:
+    """Each leaf's exclusion: ``excluded`` as given, else by rank."""
+    return [_is_excluded(p) for p in params] if excluded is None else list(excluded)
 
 
 def _is_excluded(param: torch.Tensor) -> bool:
@@ -182,8 +196,9 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-               state: AdamWState, lr=None) -> AdamWState:
-        """Apply one step to ``params`` in place; returns the new state."""
+               state: AdamWState, lr=None, excluded=None) -> AdamWState:
+        """Apply one step to ``params`` in place; returns the new state.
+        ``excluded``: the leaves ``exclude_norm_bias`` skips, if not by rank."""
         lr = np.float32(self.lr if lr is None else lr)
         b1, b2 = np.float32(self.b1), np.float32(self.b2)
         t = np.float32(state.step + 1)
@@ -191,7 +206,8 @@ class AdamW:
         bc2 = np.float32(1.0) - b2 ** t
         if self.weight_decay != 0.0:
             decay = float(np.float32(1.0) - lr * np.float32(self.weight_decay))
-            decayed = [p for p in params if not (self.exclude_norm_bias and _is_excluded(p))]
+            skip = _excluded(params, excluded) if self.exclude_norm_bias else [False] * len(params)
+            decayed = [p for p, s in zip(params, skip) if not s]
             if decayed:
                 torch._foreach_mul_(decayed, decay)
         mu, nu = state.mu, state.nu
@@ -226,8 +242,9 @@ class LAMB:
 
     @torch.no_grad()
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-               state: AdamWState, lr=None, whole_norms=None) -> AdamWState:
-        """Apply one step to ``params`` in place; returns the new state."""
+               state: AdamWState, lr=None, whole_norms=None, excluded=None) -> AdamWState:
+        """Apply one step to ``params`` in place; returns the new state.
+        ``excluded``: the leaves the rule excludes, if not by rank."""
         lr = _f32(self.lr if lr is None else lr)
         t = np.float32(state.step + 1)
         bc1 = float(np.float32(1.0) - np.float32(self.b1) ** t)
@@ -243,8 +260,9 @@ class LAMB:
         u = torch._foreach_div(mu, bc1)
         torch._foreach_div_(u, denom)
         del denom
-        adapt = [i for i, p in enumerate(params) if not _is_excluded(p)]
-        plain = [i for i, p in enumerate(params) if _is_excluded(p)]
+        skip = _excluded(params, excluded)
+        adapt = [i for i, s in enumerate(skip) if not s]
+        plain = [i for i, s in enumerate(skip) if s]
         if plain:
             torch._foreach_add_([params[i] for i in plain], [u[i] for i in plain], alpha=-lr)
         if adapt:

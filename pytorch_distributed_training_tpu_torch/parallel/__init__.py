@@ -1,9 +1,20 @@
 """Parallelism over ``torch.distributed`` process groups (port of the JAX
-package's ``parallel/``): the (data, sequence) and (data, model) layouts
-(:mod:`.mesh`), ring and Ulysses attention over the sequence group
-(:mod:`.sequence`) and Megatron tensor and expert parallelism over the model
-group (:mod:`.tensor`)."""
-from .mesh import DATA_AXIS, MODEL_AXIS, SEQUENCE_AXIS, SPLayout, TPLayout, resolve_seq_axis
+package's ``parallel/``): the (data, sequence), (data, model) and (data,
+stage) layouts (:mod:`.mesh`), ring and Ulysses attention over the sequence
+group (:mod:`.sequence`), Megatron tensor and expert parallelism over the
+model group (:mod:`.tensor`), and the pipeline's stage layout and hops
+(:mod:`.pipeline`)."""
+from .mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    SEQUENCE_AXIS,
+    STAGE_AXIS,
+    PPLayout,
+    SPLayout,
+    TPLayout,
+    resolve_seq_axis,
+)
+from .pipeline import StageExchange
 from .sequence import GroupExchange, loopback, ring_attention, ulysses_attention
 from .tensor import (
     TensorGroup,
@@ -14,7 +25,7 @@ from .tensor import (
     shard_state_dict,
 )
 
-__all__ = ["DATA_AXIS", "MODEL_AXIS", "SEQUENCE_AXIS", "GroupExchange", "SPLayout", "TPLayout",
-           "TensorGroup", "copy_to_model", "gather_state_dict", "loopback", "param_role",
-           "reduce_from_model", "resolve_seq_axis", "ring_attention", "shard_state_dict",
-           "ulysses_attention"]
+__all__ = ["DATA_AXIS", "MODEL_AXIS", "SEQUENCE_AXIS", "STAGE_AXIS", "GroupExchange", "PPLayout",
+           "SPLayout", "StageExchange", "TPLayout", "TensorGroup", "copy_to_model",
+           "gather_state_dict", "loopback", "param_role", "reduce_from_model",
+           "resolve_seq_axis", "ring_attention", "shard_state_dict", "ulysses_attention"]

@@ -1,11 +1,12 @@
-"""The (data, sequence) and (data, model) layouts of the ranks as process
-groups.
+"""The (data, sequence), (data, model) and (data, stage) layouts of the
+ranks as process groups.
 
 Port of what the sequence- and tensor-parallel paths need of
 ``pytorch_distributed_training_tpu/parallel/mesh.py``: ``make_sp_mesh``'s
 2-D ``(data, sequence)`` mesh and ``make_3d_mesh``'s ``(data, sequence,
-model)`` mesh at sequence 1, the data axis outermost and the other axis
-innermost (``_make_nd_mesh``, JAX ``:36-64``, ``:92-111``).  One rank is one
+model)`` mesh at sequence 1, and ``make_pp_mesh``'s ``(data, stage)`` mesh
+(``parallel/pipeline.py:56-95``), the data axis outermost and the other
+axis innermost (``_make_nd_mesh``, JAX ``:36-64``, ``:92-111``).  One rank is one
 card, so a mesh is a layout of the world's ranks: a sequence (or model)
 group is a run of ``n`` consecutive ranks, ``rank = data_idx * n +
 inner_idx``, and a data group takes one rank of each.  Every rank builds
@@ -17,17 +18,21 @@ A model's ``seq_axis`` is the sequence group's exchange
 names no process group by itself, so the runner puts the exchange in its
 place (:func:`resolve_seq_axis` refuses the bare name).  A model's
 ``tensor_group`` is the model group (:attr:`TPLayout.tensor_group`), and
-ZeRO splits leaves over the data group (:attr:`TPLayout.zero_group`).
+ZeRO splits leaves over the data group (:attr:`TPLayout.zero_group`).  A
+pipeline stage's model holds its blocks of the stage group
+(:attr:`PPLayout.stage`), and the step hops activations and cotangents to
+the neighbouring stages through :attr:`PPLayout.stage_exchange`.
 """
 from __future__ import annotations
 
 import torch.distributed as dist
 
+from .pipeline import STAGE_AXIS, StageExchange
 from .sequence import GroupExchange
 from .tensor import TensorGroup
 
-__all__ = ["DATA_AXIS", "MODEL_AXIS", "SEQUENCE_AXIS", "SPLayout", "TPLayout",
-           "resolve_seq_axis"]
+__all__ = ["DATA_AXIS", "MODEL_AXIS", "PPLayout", "SEQUENCE_AXIS", "STAGE_AXIS", "SPLayout",
+           "TPLayout", "resolve_seq_axis"]
 
 DATA_AXIS = "data"
 SEQUENCE_AXIS = "sequence"
@@ -89,6 +94,25 @@ class TPLayout(_GridLayout):
         self.tensor_group = (TensorGroup(self.model_group, self.n_model, self.model_idx)
                              if self.n_model > 1 else None)
         self.zero_group = TensorGroup(self.data_group, self.n_data, self.data_idx)
+
+
+class PPLayout(_GridLayout):
+    """This rank's place in a ``(data, stage)`` layout of ``world_size``
+    ranks with pipelines of ``pipeline_parallelism`` stages (JAX
+    ``make_pp_mesh``, stage innermost: ``rank = data_idx * S + stage_idx``):
+    ``data_idx``/``n_data``, ``stage_idx``/``n_stage``, the process groups
+    ``data_group`` and ``stage_group``, ``stage``, the stage group as a
+    :class:`.tensor.TensorGroup`, and ``stage_exchange``, its hops to the
+    next and the previous stage (:class:`.pipeline.StageExchange`, staged
+    through pinned host memory on gloo)."""
+
+    def __init__(self, world_size: int, rank: int, pipeline_parallelism: int):
+        super().__init__(world_size, rank, pipeline_parallelism, STAGE_AXIS)
+        self.n_stage, self.stage_idx = self.n_inner, self.inner_idx
+        self.stage_ranks, self.stage_group = self.inner_ranks, self.inner_group
+        self.stage = TensorGroup(self.stage_group, self.n_stage, self.stage_idx)
+        self.stage_exchange = StageExchange(self.stage_group, self.stage_ranks,
+                                            dist.get_backend())
 
 
 def resolve_seq_axis(seq_axis):

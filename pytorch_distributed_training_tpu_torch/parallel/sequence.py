@@ -262,16 +262,22 @@ class GroupExchange:
         to, frm = (self.rank - step) % self.size, (self.rank + step) % self.size
         sends = [t.contiguous() for t in tensors]
         recvs = [torch.empty_like(t) for t in sends]
+        self._post([(t, to) for t in sends], [(t, frm) for t in recvs])
+        return recvs
+
+    def _post(self, sends, recvs, tag: int = 0) -> None:
+        """Post every ``(tensor, peer)`` send and receive at once (peers are
+        ranks of the group), then wait for all of them."""
         if self.ranks is not None:
-            ops = [dist.P2POp(dist.isend, t, self.ranks[to], self.group) for t in sends]
-            ops += [dist.P2POp(dist.irecv, t, self.ranks[frm], self.group) for t in recvs]
-            works = dist.batch_isend_irecv(ops)
+            ops = [dist.P2POp(dist.isend, t, self.ranks[to], self.group, tag) for t, to in sends]
+            ops += [dist.P2POp(dist.irecv, t, self.ranks[frm], self.group, tag)
+                    for t, frm in recvs]
+            works = dist.batch_isend_irecv(ops) if ops else []
         else:
-            works = [self.group.send([t], to, 0) for t in sends]
-            works += [self.group.recv([t], frm, 0) for t in recvs]
+            works = [self.group.send([t], to, tag) for t, to in sends]
+            works += [self.group.recv([t], frm, tag) for t, frm in recvs]
         for w in works:
             w.wait()
-        return recvs
 
     def _all_to_all(self, x, split_dim: int, concat_dim: int):
         n = self.size

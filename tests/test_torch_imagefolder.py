@@ -10,10 +10,18 @@ quarantined).  Both packages build the library from the same
 batches must equal the JAX package's bit for bit; the native batch
 against PIL's is held, as JAX ``tests/test_imagefolder.py:143`` holds it,
 within one uint8 level divided by min(std), plus 1e-4.
+
+The JAX package's library is built and loaded once in this process, under
+a file lock (:func:`_load_jax_native`), before the comparisons with it:
+its loader runs ``make`` and then ``ctypes.CDLL`` with no lock across
+processes, and latches a failed load for the life of the process, so a
+worker that loads while another builds would lose every comparison.
 """
+import fcntl
 import logging
 import os
 import pickle
+import time
 
 import numpy as np
 import pytest
@@ -29,6 +37,33 @@ from pytorch_distributed_training_tpu_torch.tools.image_folder import write_imag
 
 SIZE = 32
 REFUSED = ("zz.png", "cmyk.jpg", "trunc.jpg")  # by libjpeg
+# every process of this file builds the JAX library under this lock (the
+# port's build directory, ignored by git)
+JAX_NATIVE_LOCK = os.path.join(tnative.BUILD_DIR, "jax-native.lock")
+
+
+def _load_jax_native(attempts: int = 40, wait_s: float = 0.5) -> bool:
+    """Build (``make``) and load the JAX package's native library under
+    :data:`JAX_NATIVE_LOCK`.  A process that does not take the lock (another
+    test file's) may run the same ``make`` at once and leave the library
+    half-written; the JAX loader then fails and latches the failure, so this
+    clears the latch and loads again, under the lock, until the other build
+    has finished."""
+    os.makedirs(tnative.BUILD_DIR, exist_ok=True)
+    with open(JAX_NATIVE_LOCK, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        for _ in range(attempts):
+            if jnative.ensure_built():
+                return True
+            jnative._build_failed = False
+            time.sleep(wait_s)
+    return False
+
+
+@pytest.fixture(scope="module")
+def jax_native():
+    """The JAX package's native library, built and loaded in this process."""
+    assert _load_jax_native(), "the JAX package's native library did not build and load"
 
 
 @pytest.fixture(scope="module")
@@ -136,7 +171,7 @@ def _batch_args(ds):
 
 @pytest.mark.parametrize("dct", [1, 2, 0])
 @pytest.mark.parametrize("dtype", ["float32", "uint8"])
-def test_decode_jpeg_batch_matches_jax(tree, dtype, dct):
+def test_decode_jpeg_batch_matches_jax(tree, jax_native, dtype, dct):
     ds, _ = _pair(tree, "train")
     paths, boxes, flips = _batch_args(ds)
     norm = (None, None) if dtype == "uint8" else (ds.norm_mean, ds.norm_std)
@@ -170,7 +205,7 @@ def test_decode_rejects_bad_arguments(tree):
                                   out=np.zeros((len(paths), SIZE, SIZE, 3), np.float32))
 
 
-def test_normalize_batch_matches_jax():
+def test_normalize_batch_matches_jax(jax_native):
     rng = np.random.default_rng(0)
     batch = rng.integers(0, 256, (3, 17, 19, 3), dtype=np.uint8)
     got = tnative.normalize_batch(batch, tds.IMAGENET_MEAN, tds.IMAGENET_STD, n_threads=2)

@@ -26,7 +26,7 @@ not a tie broken otherwise).
   same single-device JAX run;
 - the layout checks and refusals with the JAX package's messages,
   ``tensor_parallelism``, ``expert_parallelism`` and ``zero`` accepted and
-  the pipeline still naming P9;
+  the pipeline beside expert (= tensor) parallelism still naming P9;
 - flax's initializers: lecun-normal over the stacked leaves with fan-in
   ``E * d``.
 """
@@ -475,12 +475,15 @@ def test_moe_refusals():
     trunner._reject_unported({"comm": {"overlap": True}}, gspmd=True)
     # tensor (= expert) parallelism and ZeRO are ported on the GSPMD path, and
     # training.expert_parallelism is no JAX key (left unread, as the JAX
-    # runner leaves it); the pipeline still names P9 on the runner
+    # runner leaves it); the pipeline beside expert (= tensor) parallelism
+    # still names P9 on the runner (a MoE LM under the pipeline is JAX's
+    # ValueError, test_moe_layout_checks_raise_the_jax_messages)
     trunner._reject_unported({"tensor_parallelism": 4}, gspmd=True)
     trunner._reject_unported({"expert_parallelism": 4}, gspmd=True)
     trunner._reject_unported({"zero": 1}, gspmd=True)
     with pytest.raises(NotImplementedError, match="P9"):
-        trunner._reject_unported({"pipeline_parallelism": 2}, gspmd=True)
+        trunner._reject_unported({"pipeline_parallelism": 2, "tensor_parallelism": 4},
+                                 gspmd=True)
     # model.pretrained still refuses a MoE model, as JAX does
     cfg = _cfg({"pretrained": "/nonexistent.pt"})
     want = _jax_topology_error(cfg)
