@@ -26,8 +26,9 @@
                                        # expert parallelism, 4 gloo ranks on the card
     python3 chip_smoke.py --zero       # phases 1, 2 and 28 only: ZeRO-1/2/3, 4 gloo
                                        # ranks on the card, (b) at full depth
-    python3 chip_smoke.py --pp         # phases 1, 2 and 29 only: the pipeline (GPipe,
-                                       # 1F1B), 4 gloo stages on the card, (b) at full
+    python3 chip_smoke.py --pp         # phases 1, 2, 29 and 30 only: the pipeline
+                                       # (GPipe, 1F1B), alone and beside ZeRO-1/2, TP
+                                       # and SP, 4 gloo ranks on the card, (b) at full
                                        # depth for 1 + 3 steps
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -38,9 +39,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    all-gather of CUDA f32 and bf16 tensors through the port's ZeRO
    exchanges (phase 28's; it raises if gloo refuses one or sums wrong), and
    CUDA f32 and bf16 tensors hopping between two processes through the
-   port's stage exchange (phase 29's; gloo's own send of a CUDA tensor
-   fails, so the exchange stages through pinned host memory; it raises if
-   a value arrives wrong);
+   port's stage exchange (phase 29's) and rotating and exchanged all to all
+   through the sequence group's exchange (phase 30's ring; gloo's own send
+   of a CUDA tensor fails, so both exchanges stage through pinned host
+   memory; it raises if a value arrives wrong);
 2. build every hand-written kernel from ``csrc/`` with nvcc for sm_90a
    (one nvcc per library, all started together), with ptxas's registers
    and spills for each kernel;
@@ -318,9 +320,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     fail; each rank's launches exact.  (b) bf16: the runner on
     ``configs/train-lm-tp.yml`` and ``configs/train-lm-moe-ep.yml``
     (``tensor_parallelism: 4`` kept, batch 64 as 8 micro-batches, block
-    remat; at 2 blocks and 1 + 1 steps in the whole script's run, which 16
-    blocks' ~11 min through gloo would carry past its limit, at 16 and 1 +
-    3 steps with ``--tp``) and one validation batch through ``Runner(num_nodes=4,
+    remat; in the whole script's run at 2 blocks, 2 of those micro-batches
+    and 1 + 1 steps, which 16 blocks' ~11 min through gloo would carry past
+    its limit, whole and 1 + 3 steps with ``--tp``) and one validation
+    batch through ``Runner(num_nodes=4,
     rank=r, device="cuda", dist_backend="gloo")``: each rank's launches
     exact a step and in the validation, with their shapes (K1a/K1b
     [16384, 32768], the flash pair at [8, 2048, 4, 64], K3 [16384, 1024]
@@ -328,7 +331,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     each process's peak memory and the share of the step the gloo
     exchanges take, beside the card's name and power limit.  These cross
     the host through gloo: they describe no NCCL run and no multi-card
-    speed.
+    speed.  (a) and (b) run in one spawn of four processes.
 28. ZeRO-1/2/3 over the data group, as 4 gloo processes on the card: (a)
     f32, TF32 off, full width, depth 2, a rank's batch 2 x 256, seeded full
     weights with random biases (the expert banks' too): ZeRO-1, ZeRO-2 (2
@@ -341,8 +344,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     shards after the update and slices taken one rank over must fail; each
     rank's launches exact and its state bytes the rule's.  (b) bf16: the
     runner on ``configs/train-lm-fsdp.yml`` (ZeRO-3 over 4 data ranks, batch
-    64 as 8 micro-batches, block remat; 2 blocks in the whole script's run,
-    16 with ``--zero``), 1 + 3 steps and one validation batch: launches
+    64 as 8 micro-batches, block remat; in the whole script's run 2 blocks,
+    2 of those micro-batches and 1 + 1 steps, whole and 1 + 3 steps with
+    ``--zero``) and one validation batch: launches
     exact a step and in the validation, losses equal on the ranks; step ms,
     global tokens/s, the exchanges' calls, bytes and share of the step,
     each process's peak memory; then one step each of the runner's steps
@@ -370,6 +374,30 @@ Phases, in order; any failure raises and the script exits non-zero:
     bytes, synced ms and share of the step, each process's peak memory.  (a)
     and (b) run in one spawn.  Gloo through the host on one card: no NCCL,
     no bubble of separate cards.
+30. the pipeline beside ZeRO-1/2, tensor and sequence parallelism, as 4
+    gloo processes on the card, in phase 29's spawn: (a) on phase 29 (a)'s
+    model, batch and steps, PP x ZeRO-1 and PP x ZeRO-2 under 1F1B at (data
+    2, stage 2), PP x TP under GPipe and 1F1B at (stage 2, model 2) and PP x
+    SP (ring) under 1F1B at (stage 2, sequence 2), each held against the
+    one-rank step within phase 27's limits (gradients and parameters
+    gathered over the data slices, the model slices and the stages), which
+    six wrong variants must fail: a ZeRO rank updating its slice from its
+    local gradient, stale ZeRO shards after the update, the shared leaves'
+    gradients also summed over the model group, a row-parallel bias added
+    on every model rank, every sequence shard's positions from 0, the
+    shared leaves not summed over the sequence group; each rank's launches
+    exact (a causal ring rank runs a flash call for each block up to its
+    own), each ZeRO rank's state bytes the rule's.  (b) bf16, with ``--pp``
+    only: ``config/TransformerLM-pp.yml`` at its 16 blocks with only the
+    parallel keys changed in memory, ``pipeline_parallelism: 2`` beside
+    ``tensor_parallelism: 2``, over 2 data ranks with ``zero: 1``, and
+    beside ``sequence_parallelism: 2``, 1 + 3 steps and one validation batch
+    each: launches exact a step and in the validation, losses and
+    validation equal on the ranks; step ms, global tokens/s, the calls,
+    bytes, synced ms and share of the step of the hops, the stage, sequence
+    and data all-reduces, ZeRO's reduce-scatters and gathers, Megatron's
+    all-reduces and the ring's rotations, each process's peak memory.  Gloo
+    through the host on one card, as in 29.
 
 The line before the last lists every TPU kernel (K1a ... K4) with the CUDA
 kernel that stands for it, its launches on the path that runs it (and on
@@ -2604,7 +2632,7 @@ def phase_faults(torch) -> dict:
     (c) ``ckpt_fail@0:2`` with ``retry``: 2 retries, the final state
     bitwise a clean run's; (d) ``kill_worker@2`` through the process loader
     (8 workers, 4-batch epochs, 10 steps): one respawn, every batch and
-    loss bitwise the clean run's; (e) ``stall_step@5:3`` with the watchdog
+    loss bitwise the clean run's (through the thread loader); (e) ``stall_step@5:3`` with the watchdog
     (factor 2, ``min_seconds`` 1, warm-up 3): it fires once.  Prints the
     counters of each and the seconds the rollback took."""
     import shutil
@@ -2699,14 +2727,17 @@ def phase_faults(torch) -> dict:
         say(f"  (c) ckpt_fail@0:2: 2 retries, saves {c.checkpointer.all_steps()}, the final "
             f"state bitwise the clean run's; counters {cc}")
 
-        d0, _, _, ld0 = run("d0", 10, worker_mode="process", n_batches=4)
+        # the clean run through the thread loader, whose batches are the
+        # process loader's bit for bit: one pool of 8 spawned workers (each
+        # importing torch; ~20 s on the card's host) fewer
+        d0, _, _, ld0 = run("d0", 10, worker_mode="thread", n_batches=4)
         d, cd, _, ld = run("d", 10, "kill_worker@2", worker_mode="process", n_batches=4)
         if (cd.get("worker_respawns") != 1 or d.batch_sums != d0.batch_sums or ld != ld0):
             raise AssertionError(f"(d) kill_worker: counters {cd}, batches {d.batch_sums} vs "
                                  f"{d0.batch_sums}, losses {ld} vs {ld0}")
         out["d"] = cd
         say(f"  (d) kill_worker@2 (process loader, 8 workers): one respawn, every batch and "
-            f"loss bitwise the clean run's; counters {cd}")
+            f"loss bitwise the clean run's (thread loader); counters {cd}")
 
         watchdog = {"factor": 2.0, "min_seconds": 1.0, "poll_seconds": 0.05, "warmup": 3}
         e, ce, _, _ = run("e", 7, "stall_step@5:3.0", watchdog=watchdog)
@@ -4897,16 +4928,18 @@ def tp_gate_steps(torch, kind: str, full: dict, tokens, labels, tg=None) -> dict
     """``TP_GATE_STEPS`` SGD steps of the GSPMD-path step on the card from
     ``full`` (this rank's slices of it under ``tg``): the losses, every
     step's gradients before the update and the parameters after, gathered
-    over the model group (a collective on every rank), on the CPU."""
+    over the model group (a collective on every rank), on the card: the
+    readings are taken there, with no copy to the host."""
     from pytorch_distributed_training_tpu_torch import optimizers
     from pytorch_distributed_training_tpu_torch.engine.tp_steps import build_tp_lm_train_step
     from pytorch_distributed_training_tpu_torch.models import TransformerLM
     from pytorch_distributed_training_tpu_torch.parallel.tensor import gather_param, shard_dim
 
     kw = dict(TP_GATE_KW, **(TP_GATE_MOE_KW if kind == "moe" else {}))
-    model = TransformerLM(**kw, tensor_group=tg)
+    with torch.device("meta"):  # no weights drawn: ``full`` is loaded next
+        model = TransformerLM(**kw, tensor_group=tg)
+    model.to_empty(device="cuda")
     model.load_full_state_dict(full)
-    model.cuda()
     step = build_tp_lm_train_step(model, optimizers.SGD(**TP_GATE_SGD),
                                   lambda i: TP_GATE_SGD["lr"])
     names = [n for n, _ in model.named_parameters()]
@@ -4914,14 +4947,13 @@ def tp_gate_steps(torch, kind: str, full: dict, tokens, labels, tg=None) -> dict
     update = step.optimizer.update
 
     def record(params, gs, state, lr):
-        grads.append({n: gather_param(g, shard_dim(n), tg).cpu() if tg is not None
-                      else g.cpu() for n, g in zip(names, gs)})
+        grads.append({n: (gather_param(g, shard_dim(n), tg) if tg is not None else g).clone()
+                      for n, g in zip(names, gs)})
         return update(params, gs, state, lr)
 
     step.optimizer.update = record
     losses = [float(step(tokens.cuda(), labels.cuda())) for _ in range(TP_GATE_STEPS)]
-    after = {k: v.cpu() for k, v in model.full_state_dict().items()}
-    return dict(losses=losses, grads=grads, after=after)
+    return dict(losses=losses, grads=grads, after=model.full_state_dict())
 
 
 def tp_gate_readings(got: dict, want: dict) -> dict:
@@ -5036,11 +5068,14 @@ def tp_runner_readings(torch, modules, config: str, rank: int, port: int,
     from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
     from pytorch_distributed_training_tpu_torch.engine import Runner
 
+    from pytorch_distributed_training_tpu_torch.parallel import tensor
+
     cfg = get_cfg(config)
     cfg["training"].update(train_iters=steps, print_interval=1, val_interval=steps)
-    cfg["dataset"]["n_samples"] = cfg["training"]["batch_size"]  # 1 validation batch
     if edit is not None:
         edit(cfg)
+    cfg["dataset"]["n_samples"] = cfg["training"]["batch_size"]  # 1 validation batch
+    plain_all_reduce = tensor._all_reduce
     clock = tp_exchange_timer(torch)
     shapes, restore = tp_kernel_shapes(modules)
     marks = []
@@ -5059,6 +5094,7 @@ def tp_runner_readings(torch, modules, config: str, rank: int, port: int,
     runner()
     wall = time.perf_counter() - t0
     restore()
+    tensor._all_reduce = plain_all_reduce
     final = all_counts(modules)
     prev, per_step = {k: 0 for k in final}, []
     for _, counts, _ in marks:
@@ -5078,11 +5114,12 @@ def tp_runner_readings(torch, modules, config: str, rank: int, port: int,
                 params_m=sum(p.numel() for p in runner.model.parameters()) / 1e6)
 
 
-def tp_worker(rank: int, task: str, port: int, depth=None) -> None:
+def tp_worker(rank: int, task: str, port, depth=None) -> None:
     """One of phase 27's ranks, a process of its own on ``cuda:0``: ``gate``
     runs (a)'s cases in turn over one gloo process group, ``tp`` and ``ep``
-    run (b) on their config (its depth cut to ``depth`` if given).  Writes
-    its results under ``TP_DIR``."""
+    run (b) on their config (cut by :func:`default_run_cut` at ``depth``),
+    ``all`` runs the three in turn, each on its own port of the list
+    ``port``.  Writes its results under ``TP_DIR``."""
     import torch
 
     from pytorch_distributed_training_tpu_torch.ops import flash_attention as fa
@@ -5091,13 +5128,23 @@ def tp_worker(rank: int, task: str, port: int, depth=None) -> None:
 
     modules = (fe, ce, fa)
     torch.cuda.set_device(0)
+    if task == "all":
+        tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        tp_worker(rank, "gate", port[0])
+        # (b) at torch's defaults, as in a process of its own
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        for name, p in zip(("tp", "ep"), port[1:]):
+            torch.cuda.empty_cache()
+            tp_worker(rank, name, p, depth)
+        return
     if task != "gate":
-        edit = None if depth is None else (lambda c: c["model"].update(depth=depth))
+        edit = lambda c: default_run_cut(c, depth)  # noqa: E731
         out = tp_runner_readings(torch, modules, TP_CONFIG if task == "tp" else EP_CONFIG,
                                  rank, port, edit=edit, steps=tp_run_steps(depth))
         with open(os.path.join(TP_DIR, f"{task}.rank{rank}.json"), "w") as f:
             json.dump(out, f)
         return
+    import gc
     from datetime import timedelta
 
     import torch.distributed as dist
@@ -5106,15 +5153,20 @@ def tp_worker(rank: int, task: str, port: int, depth=None) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    tokens, labels = tp_gate_batch(torch)
+    fulls, want, out = {}, {}, {"references": {}}
+    for kind in ("dense", "moe"):  # the one-rank step, in this process
+        fulls[kind] = torch.load(os.path.join(TP_DIR, f"full_{kind}.pt"), weights_only=True)
+        for m in modules:
+            m.reset_launch_counts()
+        want[kind] = tp_gate_steps(torch, kind, fulls[kind], tokens, labels)
+        out["references"][kind] = all_counts(modules)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=TP_RANKS, rank=rank, timeout=timedelta(seconds=600))
     try:
         tg = TPLayout(TP_RANKS, rank, TP_RANKS).tensor_group
-        tokens, labels = tp_gate_batch(torch)
-        results, launches = {}, {}
         cases = [("dense", None), ("moe", None)] + [("dense", v) for v in TP_VARIANTS]
         for kind, variant in cases:
-            full = torch.load(os.path.join(TP_DIR, f"full_{kind}.pt"), weights_only=True)
             undo = None
             if variant is not None:
                 owner, attr, wrong = TP_VARIANTS[variant](torch)
@@ -5122,16 +5174,19 @@ def tp_worker(rank: int, task: str, port: int, depth=None) -> None:
                 setattr(owner, attr, wrong)
             for m in modules:
                 m.reset_launch_counts()
+            t0 = time.perf_counter()
             try:
-                results[variant or kind] = tp_gate_steps(torch, kind, full, tokens, labels, tg)
+                got = tp_gate_steps(torch, kind, fulls[kind], tokens, labels, tg)
             finally:
                 if undo is not None:
                     setattr(*undo)
-            launches[variant or kind] = all_counts(modules)
-        if rank == 0:
-            torch.save(results, os.path.join(TP_DIR, "gate.pt"))
+            out[variant or kind] = dict(readings=tp_gate_readings(got, want[kind]),
+                                        losses=got["losses"], launches=all_counts(modules),
+                                        seconds=time.perf_counter() - t0)
+            del got
+            gc.collect()  # the step's optimizer sits in a reference cycle
         with open(os.path.join(TP_DIR, f"gate.rank{rank}.json"), "w") as f:
-            json.dump(launches, f)
+            json.dump(out, f)
     finally:
         dist.destroy_process_group()
 
@@ -5156,35 +5211,34 @@ def tp_spawn(torch, task: str, depth=None, worker=None, ports: int = 0) -> float
     return time.perf_counter() - t0
 
 
-def phase_tp_gate(torch, modules) -> dict:
-    """Phase 27 (a): dense at T = 4 and MoE at EP = 4 (2 experts a rank),
+def tp_prepare(torch) -> None:
+    """Phase 27 (a)'s full weights, drawn here for the ranks to load."""
+    os.makedirs(TP_DIR, exist_ok=True)
+    for i, kind in enumerate(("dense", "moe")):
+        torch.save(tp_gate_weights(torch, kind, seed=27 + i),
+                   os.path.join(TP_DIR, f"full_{kind}.pt"))
+
+
+def phase_tp_gate(torch, depth=None, wall=None) -> dict:
+    """Phase 27 (a), in the spawn that also runs (b) at ``depth`` (read by
+    :func:`phase_tp_runner`): dense at T = 4 and MoE at EP = 4 (2 experts a rank),
     full width, depth 2, f32 with TF32 off, batch 2 x 256: each takes
     ``TP_GATE_STEPS`` SGD steps on four gloo ranks (processes on the card)
-    from the same seeded full weights and batch as the one-rank step on the
-    card; the loss, every gathered gradient before each update and every
-    gathered parameter after held to ``TP_*`` limits, which two wrong dense
-    variants must fail (:data:`TP_VARIANTS`); each rank's launches exact
-    (every rank runs every kernel on its own slice: K2a/K2d/K2e at [2, 256,
-    4, 64] f32)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    os.makedirs(TP_DIR, exist_ok=True)
-    tokens, labels = tp_gate_batch(torch)
-    want, one_launches = {}, {}
-    for i, kind in enumerate(("dense", "moe")):
-        full = tp_gate_weights(torch, kind, seed=27 + i)
-        torch.save(full, os.path.join(TP_DIR, f"full_{kind}.pt"))
-        for m in modules:
-            m.reset_launch_counts()
-        want[kind] = tp_gate_steps(torch, kind, full, tokens, labels)
-        one_launches[kind] = all_counts(modules)
-    torch.cuda.empty_cache()
-    wall = tp_spawn(torch, "gate")
-    got = torch.load(os.path.join(TP_DIR, "gate.pt"), weights_only=True)
+    from the same seeded full weights and batch as the one-rank step each
+    rank runs on the card first; the loss, every gathered gradient before
+    each update and every gathered parameter after held to ``TP_*`` limits
+    on the card, which two wrong dense variants must fail
+    (:data:`TP_VARIANTS`); each rank's launches (and its one-rank
+    reference's) exact (every rank runs every kernel on its own slice:
+    K2a/K2d/K2e at [2, 256, 4, 64] f32).  ``wall``: the ranks already ran
+    in :func:`parallel_spawn`'s spawn, which took that long."""
+    if wall is None:
+        tp_prepare(torch)
+        wall = tp_spawn(torch, "all", depth=depth, ports=3)
     ranks = [json.load(open(os.path.join(TP_DIR, f"gate.rank{r}.json")))
              for r in range(TP_RANKS)]
     steps, depth = TP_GATE_STEPS, TP_GATE_KW["depth"]
-    for kind in want:
+    for kind in ("dense", "moe"):
         dense = depth if kind == "dense" else 1
         # per rank, as the one rank: one K1 pair, a flash forward and split
         # backward a block, K3/K4 in the dense blocks, a step
@@ -5192,17 +5246,24 @@ def phase_tp_gate(torch, modules) -> dict:
                        flash_bwd=2 * steps * depth, K2a=steps * depth, K2d=steps * depth,
                        K2e=steps * depth, add_layernorm=steps * dense,
                        bias_gelu=steps * dense)
-        check_launches(f"one rank {kind}", one_launches[kind], per_run)
-        for r, launches in enumerate(ranks):
-            check_launches(f"rank {r} {kind}", launches[kind], per_run)
-    sound = {kind: tp_gate_readings(got[kind], want[kind]) for kind in want}
-    variants = {v: tp_gate_readings(got[v], want["dense"]) for v in TP_VARIANTS}
+        for r, got in enumerate(ranks):
+            check_launches(f"rank {r} one rank {kind}", got["references"][kind], per_run)
+            names = [kind] + (list(TP_VARIANTS) if kind == "dense" else [])
+            for name in names:
+                check_launches(f"rank {r} {name}", got[name]["launches"], per_run)
+    read = lambda name: {k: max(got[name]["readings"][k] for got in ranks)  # noqa: E731
+                         for k in ranks[0][name]["readings"]}
+    sound = {kind: read(kind) for kind in ("dense", "moe")}
+    variants = {v: read(v) for v in TP_VARIANTS}
     for kind, r in sound.items():
-        say(f"  {kind} T = {TP_RANKS} vs one rank: {r} (losses {got[kind]['losses']} vs "
-            f"{want[kind]['losses']}) -> {'within' if tp_gate_within(r) else 'OUTSIDE'}")
+        say(f"  {kind} T = {TP_RANKS} vs one rank: {r} (rank 0 losses {ranks[0][kind]['losses']})"
+            f" -> {'within' if tp_gate_within(r) else 'OUTSIDE'}")
     for v, r in variants.items():
         say(f"  wrong variant {v}: {r} -> {'within' if tp_gate_within(r) else 'outside'}")
-    say(f"  four ranks' wall {wall:.1f} s (spawn, build, 4 runs of {steps} steps)")
+    secs = [round(sum(got[k]["seconds"] for k in list(sound) + list(variants)), 1)
+            for got in ranks]
+    say(f"  four ranks' wall {wall:.1f} s (spawn, one-rank references, 4 runs of {steps} steps "
+        f"taking {secs} s by rank, (b))")
     bad = [k for k, r in sound.items() if not tp_gate_within(r)]
     if bad:
         raise AssertionError(f"tensor parallelism on the card outside its limits: {bad}")
@@ -5213,9 +5274,9 @@ def phase_tp_gate(torch, modules) -> dict:
 
 
 def phase_tp_runner(torch, task: str, config: str, smi: str, depth=None) -> dict:
-    """Phase 27 (b) on ``config`` (its depth cut to ``depth`` if given):
-    four gloo processes on the card through the runner
-    (:func:`tp_runner_readings`); each rank's launches exact a
+    """Phase 27 (b) on ``config`` (cut by :func:`default_run_cut` at
+    ``depth``), read from phase 27's spawn of four gloo processes on the
+    card through the runner (:func:`tp_runner_readings`); each rank's launches exact a
     step (K1a/K1b n, K2a/K2c n x 2 x depth, K3/K4 n x 2 x dense blocks:
     block remat runs each forward twice) and in the validation batch (run
     as n micro-batches); every loss finite and equal on the ranks.  Prints
@@ -5224,15 +5285,13 @@ def phase_tp_runner(torch, task: str, config: str, smi: str, depth=None) -> dict
     card.  Returns the four ranks' launch counts summed."""
     from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
 
-    cfg, cut = get_cfg(config), depth
-    if cut is not None:
-        cfg["model"]["depth"] = cut
+    cut = depth
+    cfg = default_run_cut(get_cfg(config), cut)
     depth, n = cfg["model"]["depth"], cfg["training"]["grad_accumulation"]
     every = cfg["model"].get("moe_every", 0)
     dense = sum(1 for i in range(depth)
                 if not (cfg["model"].get("moe_experts") and i % every == every - 1))
     batch, seq = cfg["training"]["batch_size"], cfg["dataset"]["seq_len"]
-    wall = tp_spawn(torch, task, cut)
     ranks = [json.load(open(os.path.join(TP_DIR, f"{task}.rank{r}.json")))
              for r in range(TP_RANKS)]
     per_step = dict(ce_fwd=n, ce_bwd=n, flash_fwd=n * 2 * depth, flash_bwd=n * 2 * depth,
@@ -5265,8 +5324,9 @@ def phase_tp_runner(torch, task: str, config: str, smi: str, depth=None) -> dict
     say(f"  gloo exchanges (copy/reduce all-reduces, synced): {ranks[0]['exchange_calls']} calls, "
         f"{ranks[0]['exchange_bytes'] / 2**30:.2f} GiB a rank in the run; ms a step by rank "
         f"{[r['exchange_ms'] for r in ranks]}; share of the step by rank {share}")
-    say(f"  peak device memory by process (GiB): {[r['peak_gib'] for r in ranks]}; wall "
-        f"{wall:.1f} s")
+    wall = ranks[0]["wall_s"]
+    say(f"  peak device memory by process (GiB): {[r['peak_gib'] for r in ranks]}; rank 0's "
+        f"runner wall {wall:.1f} s")
     for got in ranks:
         say(f"  rank {got['rank']} launches a step {got['per_step'][-1]}, validation "
             f"{got['validation']}; shapes {got['shapes']}")
@@ -5281,10 +5341,10 @@ def phase_tp_runner(torch, task: str, config: str, smi: str, depth=None) -> dict
 
 
 def tp_run_steps(depth) -> int:
-    """Phase 27 (b)'s steps: 1 + 3 at the configs' depth, 1 + 1 in the whole
-    script's run (its depth cut), so that the script with phase 28 stays
+    """Phases 27 (b)'s and 28 (b)'s steps: 1 + 3 at the configs' depth, 1 +
+    1 in the whole script's run (its depth cut), so that the script stays
     inside its time (a run of it took 1,179.4 s on an H100 80GB HBM3 at
-    700 W with 1 + 3)."""
+    700 W with 1 + 3 in phase 27)."""
     return 4 if depth is None else 2
 
 
@@ -5294,15 +5354,38 @@ def tp_run_steps(depth) -> int:
 # 1200 s limit, so the default run cuts (b) to 2 blocks (the MoE config: 1
 # dense, 1 MoE); ``--tp`` runs the full depth
 TP_DEFAULT_RUN_DEPTH = 2
+# phases 27 (b)'s and 28 (b)'s micro-batches a step in the whole script's
+# run: the configs' micro-batch of 8 x 2048, 2 of them (the configs run 8).
+# At 8, 2 blocks and 1 + 3 steps in phase 28 the three gloo runs moved ~34
+# GiB a rank through the host (66-75% of each step) and the whole script
+# took 1,108.4 s on an H100 80GB HBM3 at 700 W, too near its 1200 s limit
+PAR_DEFAULT_RUN_MICRO = 2
 
 
-def phase_tensor_parallel(torch, modules, smi: str, depth=None) -> dict:
-    """Phase 27: (a) :func:`phase_tp_gate`; (b) :func:`phase_tp_runner` on
-    ``configs/train-lm-tp.yml`` and ``configs/train-lm-moe-ep.yml`` (at
-    ``depth`` blocks if given).  Returns the launch counts of (b) summed
-    over the ranks, by path."""
+def default_run_cut(cfg: dict, depth) -> dict:
+    """Phase 27 (b)'s or 28 (b)'s config as the whole script's run takes
+    it: ``depth`` blocks and ``PAR_DEFAULT_RUN_MICRO`` micro-batches of the
+    config's own micro-batch shape, in training and in validation.  Leaves
+    ``cfg`` whole at ``depth`` None (the phase's own flag)."""
+    if depth is None:
+        return cfg
+    train = cfg["training"]
+    rows = train["batch_size"] // train["grad_accumulation"] * PAR_DEFAULT_RUN_MICRO
+    cfg["model"]["depth"] = depth
+    train.update(batch_size=rows, grad_accumulation=PAR_DEFAULT_RUN_MICRO)
+    cfg["validation"]["batch_size"] = rows
+    return cfg
+
+
+def phase_tensor_parallel(torch, smi: str, depth=None, wall=None) -> dict:
+    """Phase 27 in one spawn of four gloo processes: (a)
+    :func:`phase_tp_gate`; (b) :func:`phase_tp_runner` on
+    ``configs/train-lm-tp.yml`` and ``configs/train-lm-moe-ep.yml`` (cut by
+    :func:`default_run_cut` at ``depth`` if given).  ``wall``: the spawn
+    already ran (:func:`parallel_spawn`).  Returns the launch counts of (b)
+    summed over the ranks, by path."""
     t_phase = time.perf_counter()
-    gate = phase_tp_gate(torch, modules)
+    gate = phase_tp_gate(torch, depth, wall)
     say("tp_gate: " + json.dumps(gate))
     paths = {"tp": by_tpu_kernel(phase_tp_runner(torch, "tp", TP_CONFIG, smi, depth)),
              "ep": by_tpu_kernel(phase_tp_runner(torch, "ep", EP_CONFIG, smi, depth))}
@@ -5400,7 +5483,8 @@ def zero_gate_steps(torch, kind: str, full: dict, tokens, labels, accum: int,
     Returns the losses, every step's gradients as the optimizer takes them,
     gathered (over the data group, then the model group), the full
     parameters after, the momentum as this rank holds it (by name) and the
-    step's state bytes, all on the CPU."""
+    step's state bytes, all on the card: the readings are taken there, with
+    no copy to the host."""
     from pytorch_distributed_training_tpu_torch import optimizers
     from pytorch_distributed_training_tpu_torch.engine.tp_steps import build_tp_lm_train_step
     from pytorch_distributed_training_tpu_torch.models import TransformerLM
@@ -5424,7 +5508,7 @@ def zero_gate_steps(torch, kind: str, full: dict, tokens, labels, accum: int,
 
     def record(params, gs, state, lr, **kw):
         whole = step.zero_plan.gather_all(gs) if step.zero_plan is not None else gs
-        grads.append({n: (gather_param(g, shard_dim(n), tg) if tg is not None else g).cpu()
+        grads.append({n: (gather_param(g, shard_dim(n), tg) if tg is not None else g).clone()
                       for n, g in zip(names, whole)})
         return update(params, gs, state, lr, **kw)
 
@@ -5434,9 +5518,8 @@ def zero_gate_steps(torch, kind: str, full: dict, tokens, labels, accum: int,
         sl = slice(layout.data_idx * rows, (layout.data_idx + 1) * rows)
         tokens, labels = tokens[sl], labels[sl]
     losses = [float(step(tokens.cuda(), labels.cuda())) for _ in range(TP_GATE_STEPS)]
-    after = {k: v.cpu() for k, v in model.full_state_dict().items()}
-    momentum = {n: t.cpu() for n, t in zip(names, step.opt_state.momentum)}
-    return dict(losses=losses, grads=grads, after=after, momentum=momentum,
+    momentum = dict(zip(names, step.opt_state.momentum))
+    return dict(losses=losses, grads=grads, after=model.full_state_dict(), momentum=momentum,
                 bytes=step.state_bytes())
 
 
@@ -5506,6 +5589,7 @@ def zero_gate_worker(torch, modules, rank: int, port: int) -> None:
     parameters (equal on every rank) are read on rank 0, the losses and the
     momentum slices on every rank.  Writes its readings, launches (and the
     references') and state bytes as JSON."""
+    import gc
     from datetime import timedelta
 
     import torch.distributed as dist
@@ -5520,6 +5604,11 @@ def zero_gate_worker(torch, modules, rank: int, port: int) -> None:
         out, refs, fulls = {"references": {}}, {}, {}
         runs = [(c, None) for c in ZERO_GATE_CASES] + [(c, v) for v, (c, _) in
                                                       ZERO_VARIANTS.items()]
+        # grouped by their one-rank reference, so that each is run once
+        keys = list(dict.fromkeys(zero_ref_key(ZERO_GATE_CASES[c][0], ZERO_GATE_CASES[c][3])
+                                  for c, _ in runs))
+        runs.sort(key=lambda run: keys.index(zero_ref_key(ZERO_GATE_CASES[run[0]][0],
+                                                          ZERO_GATE_CASES[run[0]][3])))
         for case, variant in runs:
             kind, (n_data, t), zero, accum = ZERO_GATE_CASES[case]
             if kind not in fulls:
@@ -5541,6 +5630,7 @@ def zero_gate_worker(torch, modules, rank: int, port: int) -> None:
                 setattr(owner, attr, wrong)
             for m in modules:
                 m.reset_launch_counts()
+            t0 = time.perf_counter()
             try:
                 got = zero_gate_steps(torch, kind, fulls[kind], tokens, labels, accum, layout,
                                       zero)
@@ -5554,8 +5644,10 @@ def zero_gate_worker(torch, modules, rank: int, port: int) -> None:
             if rank == 0:
                 r.update(tp_gate_readings(got, want))
             out[variant or case] = dict(readings=r, losses=got["losses"],
-                                        launches=all_counts(modules), bytes=got["bytes"])
+                                        launches=all_counts(modules), bytes=got["bytes"],
+                                        seconds=time.perf_counter() - t0)
             del got
+            gc.collect()  # the step's optimizer sits in a reference cycle
         with open(os.path.join(ZERO_DIR, f"gate.rank{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
@@ -5634,6 +5726,9 @@ def phase_zero_gate(torch, modules, ranks: list) -> dict:
             f"{ranks[0][name]['losses']}) -> {verdict}")
     for name in ZERO_GATE_CASES:
         say(f"  {name}: state bytes a rank {ranks[0][name]['bytes']} (the rule's)")
+    say(f"  (a)'s {len(ZERO_GATE_CASES)} cases and {len(ZERO_VARIANTS)} wrong variants took "
+        f"{[round(sum(got[k]['seconds'] for k in readings), 1) for got in ranks]} s by rank "
+        "(one-rank references aside)")
     bad = [k for k, r in readings.items() if k not in ZERO_VARIANTS and not zero_gate_within(r)]
     if bad:
         raise AssertionError(f"ZeRO on the card outside its limits: {bad}")
@@ -5680,15 +5775,13 @@ ZERO_BYTES_BATCH = 4
 
 
 def zero_config(depth=None, **training) -> dict:
-    """``configs/train-lm-fsdp.yml`` for (b): no checkpoint, ``depth`` blocks
-    if given, ``training`` set, a batch a data rank an epoch and one
-    validation batch."""
+    """``configs/train-lm-fsdp.yml`` for (b): no checkpoint, cut by
+    :func:`default_run_cut` at ``depth``, ``training`` set, a batch a data
+    rank an epoch and one validation batch."""
     from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
 
-    cfg = get_cfg(ZERO_CONFIG)
+    cfg = default_run_cut(get_cfg(ZERO_CONFIG), depth)
     cfg["training"].pop("checkpoint")
-    if depth is not None:
-        cfg["model"]["depth"] = depth
     cfg["training"].update(training)
     cfg["dataset"]["n_samples"] = cfg["training"]["batch_size"] * ZERO_RANKS
     return cfg
@@ -5746,9 +5839,9 @@ def zero_stage_bytes(torch, cfg: dict, rank: int, port: int) -> dict:
 
 
 def zero_runner_readings(torch, modules, rank: int, ports: list, depth=None) -> dict:
-    """(b) on one rank: the runner on ``configs/train-lm-fsdp.yml`` (its
-    depth cut to ``depth`` if given, no checkpoint) for 4 steps (1 warm-up, 3
-    timed) and one validation batch, its launches a step and in the
+    """(b) on one rank: the runner on ``configs/train-lm-fsdp.yml``
+    (:func:`zero_config` at ``depth``) for :func:`tp_run_steps` steps (1
+    warm-up, the rest timed) and one validation batch, its launches a step and in the
     validation, the step ms, the exchanges a step and the peak memory of
     this process and its state bytes; then :func:`zero_stage_bytes`."""
     from pytorch_distributed_training_tpu_torch.engine import Runner
@@ -5761,7 +5854,7 @@ def zero_runner_readings(torch, modules, rank: int, ports: list, depth=None) -> 
         marks.append((time.perf_counter(), all_counts(modules), clock["seconds"],
                       clock["calls"], clock["bytes"]))
 
-    steps = 4
+    steps = tp_run_steps(depth)
     for m in modules:
         m.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -5816,16 +5909,16 @@ def zero_worker(rank: int, task: str, ports: list, depth=None) -> None:
 
 def phase_zero_runner(torch, smi: str, ranks: list, depth: int, wall: float) -> dict:
     """Phase 28 (b)'s verdicts and readings on the ranks' results
-    (:func:`zero_runner_readings`, ``configs/train-lm-fsdp.yml`` at ``depth``
-    blocks through the runner): each rank's launches exact a step (K1a/K1b
+    (:func:`zero_runner_readings`, :func:`zero_config` at ``depth`` through
+    the runner): each rank's launches exact a step (K1a/K1b
     n, K2a/K2c n x 2 x depth, K3/K4 n x 2 x depth: block remat runs each
     forward twice) and in the validation batch; every loss finite and equal
     on the ranks; each rank's bytes of parameters, gradients and moments at
     stages 0-3 the rule's.  Prints the step ms, global tokens/s, the
     exchanges' calls, bytes and share of the step and each process's peak
     memory beside the card.  Returns the four ranks' launch counts summed."""
-    cfg = zero_config(depth)
-    n = cfg["training"]["grad_accumulation"]
+    cfg, cut = zero_config(depth), depth
+    depth, n = cfg["model"]["depth"], cfg["training"]["grad_accumulation"]
     batch, seq = cfg["training"]["batch_size"], cfg["dataset"]["seq_len"]
     per_step = dict(ce_fwd=n, ce_bwd=n, flash_fwd=n * 2 * depth, flash_bwd=n * 2 * depth,
                     K2a=n * 2 * depth, K2c=n * 2 * depth, add_layernorm=n * 2 * depth,
@@ -5845,7 +5938,8 @@ def phase_zero_runner(torch, smi: str, ranks: list, depth: int, wall: float) -> 
             check_launches(f"rank {got['rank']} step {i}", counts, per_step)
         check_launches(f"rank {got['rank']} validation", got["validation"], per_val)
         if got["losses"] != ranks[0]["losses"] or not all(
-                math.isfinite(x) for x in got["losses"]) or len(got["losses"]) != 4:
+                math.isfinite(x) for x in got["losses"]) or len(
+                    got["losses"]) != tp_run_steps(cut):
             raise AssertionError(f"rank {got['rank']} losses {got['losses']}, rank 0's "
                                  f"{ranks[0]['losses']}")
         for s in range(4):
@@ -5861,7 +5955,8 @@ def phase_zero_runner(torch, smi: str, ranks: list, depth: int, wall: float) -> 
         f"(gloo processes on one card), {ranks[0]['params_m']:.2f} M parameters held a rank, "
         f"{n} micro-batches of {batch // n} x {seq} a rank")
     say(f"  losses {ranks[0]['losses']}; validation {ranks[0]['val']}")
-    say(f"  step ms (steps 1-3, host clock, synced): {step_ms}; median {med}; global tokens/s "
+    say(f"  step ms (steps 1-{len(step_ms)}, host clock, synced): {step_ms}; median {med}; "
+        f"global tokens/s "
         f"{tokens_per_s} ({ZERO_RANKS} data ranks)")
     say(f"  gloo exchanges a step (reduce-scatters, all-gathers, all-reduces; synced): calls "
         f"{ranks[0]['exchange_calls']}, GiB {[b / 2**30 for b in ranks[0]['exchange_bytes']]} "
@@ -5884,25 +5979,31 @@ def phase_zero_runner(torch, smi: str, ranks: list, depth: int, wall: float) -> 
 
 # phase 28 (b)'s depth in the whole script's run: 16 blocks through gloo
 # would carry the script past its limit, as phase 27's would, so the default
-# run cuts (b) to 2 blocks; ``--zero`` runs the full depth
+# run cuts (b) to 2 blocks (and :func:`default_run_cut`'s micro-batches,
+# 1 + 1 steps); ``--zero`` runs the config whole, 1 + 3 steps
 ZERO_DEFAULT_RUN_DEPTH = 2
 
 
-def phase_zero(torch, modules, smi: str, depth=None) -> dict:
-    """Phase 28: the full weights of (a) drawn here, then one spawn of four
-    gloo processes on the card runs (a) and (b) (:func:`zero_worker`);
-    :func:`phase_zero_gate` and :func:`phase_zero_runner` (on
-    ``configs/train-lm-fsdp.yml``, at ``depth`` blocks if given) judge and
-    print.  Returns (b)'s launch counts summed over the ranks, by path."""
-    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
-
-    t_phase = time.perf_counter()
+def zero_prepare(torch) -> None:
+    """Phase 28 (a)'s full weights, drawn here for the ranks to load."""
     os.makedirs(ZERO_DIR, exist_ok=True)
     for i, kind in enumerate(("dense", "moe")):
         torch.save(zero_gate_weights(torch, kind, seed=28 + i),
                    os.path.join(ZERO_DIR, f"full_{kind}.pt"))
-    depth = get_cfg(ZERO_CONFIG)["model"]["depth"] if depth is None else depth
-    wall = tp_spawn(torch, "zero", depth=depth, worker=zero_worker, ports=3)
+
+
+def phase_zero(torch, modules, smi: str, depth=None, wall=None) -> dict:
+    """Phase 28: the full weights of (a) drawn here, then one spawn of four
+    gloo processes on the card runs (a) and (b) (:func:`zero_worker`);
+    :func:`phase_zero_gate` and :func:`phase_zero_runner` (on
+    ``configs/train-lm-fsdp.yml``, cut by :func:`default_run_cut` at
+    ``depth``) judge and print.  ``wall``: the ranks already ran in
+    :func:`parallel_spawn`'s spawn.  Returns (b)'s launch counts summed over
+    the ranks, by path."""
+    t_phase = time.perf_counter()
+    if wall is None:
+        zero_prepare(torch)
+        wall = tp_spawn(torch, "zero", depth=depth, worker=zero_worker, ports=3)
     say(f"  four ranks' wall {wall:.1f} s (spawn, (a)'s {len(ZERO_GATE_CASES)} cases and "
         f"{len(ZERO_VARIANTS)} wrong variants of {TP_GATE_STEPS} steps, (b))")
     read = lambda name: [json.load(open(os.path.join(ZERO_DIR, f"{name}.rank{r}.json")))  # noqa: E731
@@ -5937,25 +6038,33 @@ def pp_probe_worker(rank: int, port: int) -> None:
     import torch
     import torch.distributed as dist
 
-    from pytorch_distributed_training_tpu_torch.parallel import StageExchange
+    from pytorch_distributed_training_tpu_torch.parallel import GroupExchange, StageExchange
 
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
                             rank=rank, timeout=timedelta(seconds=60))
     try:
         ex = StageExchange(dist.group.WORLD, [0, 1], dist.get_backend())
-        out = {"host_staged": ex.host_staged}
+        ring = GroupExchange(dist.group.WORLD, [0, 1], dist.get_backend())
+        out = {"host_staged": ex.host_staged and ring.host_staged}
         for dtype in (torch.float32, torch.bfloat16):
             base = torch.arange(1 << 20, device="cuda").float()
             mine = (base + 3 * rank).to(dtype)
+            theirs = (base + 3 * (1 - rank)).to(dtype)
             got = torch.empty_like(mine)
             if rank == 0:
                 ex.hop(send_next=mine, recv_next=got)
             else:
                 ex.hop(send_prev=mine, recv_prev=got)
+            # phase 30's ring: a rotation, and an all-to-all of halves (rank r
+            # gets every rank's half r)
+            _, rotated = ring.shift(torch.zeros((), device="cuda"), mine)
+            (halves,) = ring.all_to_all([mine.view(2, -1)], 0, 0)
+            want = torch.stack([(base + 3 * j).view(2, -1)[rank] for j in range(2)]).to(dtype)
             torch.cuda.synchronize()
-            out[str(dtype).replace("torch.", "")] = bool(torch.equal(
-                got, (base + 3 * (1 - rank)).to(dtype)))
+            out[str(dtype).replace("torch.", "")] = bool(
+                torch.equal(got, theirs) and torch.equal(rotated, theirs)
+                and torch.equal(halves, want))
         with open(os.path.join(PP_DIR, f"probe.rank{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
@@ -5965,10 +6074,12 @@ def pp_probe_worker(rank: int, port: int) -> None:
 def pp_probe_gloo(torch) -> str:
     """Phase 1: gloo's send/recv of CUDA f32 and bf16 tensors between two
     processes through the port's stage exchange (the pipeline's hops, phase
-    29).  Gloo's transport hands a tensor's raw pointer to its socket, which
-    a CUDA pointer fails (``writev ... Bad address``, torch 2.11), so under
-    gloo the exchange stages each tensor through pinned host memory.
-    Raises if a value arrives wrong."""
+    29) and the sequence group's rotation and all-to-all (ring and Ulysses
+    attention's exchanges beside the pipeline, phase 30).  Gloo's transport
+    hands a tensor's raw pointer to its socket, which a CUDA pointer fails
+    (``writev ... Bad address``, torch 2.11), so under gloo both exchanges
+    stage each tensor through pinned host memory.  Raises if a value
+    arrives wrong."""
     import socket
 
     import torch.multiprocessing as mp
@@ -5982,7 +6093,7 @@ def pp_probe_gloo(torch) -> str:
     got = [json.load(open(os.path.join(PP_DIR, f"probe.rank{r}.json"))) for r in range(2)]
     for r, out in enumerate(got):
         if not (out["float32"] and out["bfloat16"]):
-            raise AssertionError(f"gloo stage exchange of CUDA tensors on rank {r}: {out}")
+            raise AssertionError(f"gloo exchanges of CUDA tensors on rank {r}: {out}")
     return ("float32, bfloat16 "
             + ("staged through pinned host memory" if got[0]["host_staged"] else "as they are"))
 
@@ -5995,22 +6106,27 @@ def pp_gate_batch(torch, seed: int = 29):
 
 
 def pp_gate_steps(torch, full: dict, tokens, labels, layout=None, sched=None,
-                  micro=None) -> dict:
+                  micro=None, zero: int = 0) -> dict:
     """``TP_GATE_STEPS`` SGD steps on the card from ``full``: the one-rank
     step on the whole batch, or this rank's stage of ``layout`` (a
-    :class:`..parallel.PPLayout`) under ``sched`` over ``micro``
-    microbatches of its data rows.  Returns the losses, every step's
-    gradients as the optimizer takes them and the parameters after, gathered
-    over the stages (collectives on every rank), on the card: the readings
-    are taken there, with no copy of ~1.4 GB a run to the host."""
+    :class:`..parallel.PPLayout`, its model or sequence group beside) under
+    ``sched`` over ``micro`` microbatches of its data rows (its columns of
+    them under PP x SP), ZeRO ``zero`` over the data group.  Returns the
+    losses, every step's gradients as the optimizer takes them and the
+    parameters after, gathered over the data group (ZeRO's slices), the
+    model group and the stages (collectives on every rank), on the card:
+    the readings are taken there, with no copy of ~1.4 GB a run to the
+    host; and the step's state bytes."""
     from pytorch_distributed_training_tpu_torch import optimizers
     from pytorch_distributed_training_tpu_torch.engine.pp_steps import build_pp_lm_train_step
     from pytorch_distributed_training_tpu_torch.engine.sp_steps import build_lm_train_step
     from pytorch_distributed_training_tpu_torch.models import TransformerLM
 
-    stage = layout.stage if layout is not None else None
+    groups = {} if layout is None else dict(stage_group=layout.stage,
+                                            tensor_group=layout.tensor_group,
+                                            seq_axis=layout.seq_exchange)
     with torch.device("meta"):  # no weights drawn: ``full`` is loaded next
-        model = TransformerLM(**PP_GATE_KW, stage_group=stage)
+        model = TransformerLM(**PP_GATE_KW, **groups)
     model.to_empty(device="cuda")
     model.load_full_state_dict(full)
     opt, lr = optimizers.SGD(**TP_GATE_SGD), (lambda i: TP_GATE_SGD["lr"])
@@ -6018,21 +6134,26 @@ def pp_gate_steps(torch, full: dict, tokens, labels, layout=None, sched=None,
         step = build_lm_train_step(model, opt, lr)
     else:
         step = build_pp_lm_train_step(model, opt, lr, layout.stage_exchange, micro, sched,
-                                      world_size=layout.n_data, group=layout.data_group)
-        rows = tokens.shape[0] // layout.n_data
-        sl = slice(layout.data_idx * rows, (layout.data_idx + 1) * rows)
-        tokens, labels = tokens[sl], labels[sl]
+                                      world_size=layout.n_data, group=layout.data_group,
+                                      zero=zero)
+        rows, cols = tokens.shape[0] // layout.n_data, tokens.shape[1] // layout.n_seq
+        sl = (slice(layout.data_idx * rows, (layout.data_idx + 1) * rows),
+              slice(layout.seq_idx * cols, (layout.seq_idx + 1) * cols))
+        tokens, labels = tokens[sl].contiguous(), labels[sl].contiguous()
     names = [n for n, _ in model.named_parameters()]
     grads = []
     update = step.optimizer.update
+    plan = getattr(step, "zero_plan", None)
 
     def record(params, gs, state, lr, **kw):
-        grads.append(model.gather_full(dict(zip(names, gs))))
+        whole = gs if plan is None else plan.gather_all(gs)
+        grads.append(model.gather_full(dict(zip(names, whole))))
         return update(params, gs, state, lr, **kw)
 
     step.optimizer.update = record
     losses = [float(step(tokens.cuda(), labels.cuda())) for _ in range(TP_GATE_STEPS)]
-    return dict(losses=losses, grads=grads, after=model.full_state_dict())
+    return dict(losses=losses, grads=grads, after=model.full_state_dict(),
+                bytes=step.state_bytes())
 
 
 def pp_drop_dy(torch):
@@ -6099,12 +6220,24 @@ PP_VARIANTS = {"received dy dropped": ("1f1b 1x4", pp_drop_dy),
                "loss normalised a microbatch": ("1f1b 1x4", pp_loss_per_microbatch)}
 
 
+def pp_case(case: str) -> tuple:
+    """``((data, stage, model, sequence) ranks, schedule, microbatches,
+    zero)`` of a case of phase 29 (:data:`PP_GATE_CASES`) or 30
+    (:data:`PPC_GATE_CASES`)."""
+    if case in PP_GATE_CASES:
+        (n_data, n_stage), sched, micro = PP_GATE_CASES[case]
+        return (n_data, n_stage, 1, 1), sched, micro, 0
+    return PPC_GATE_CASES[case]
+
+
 def pp_gate_worker(torch, modules, rank: int, port: int) -> None:
-    """(a) on one rank: the one-rank step on the whole batch from the
-    parent's ``full.pt`` (this process), then every case of
-    :data:`PP_GATE_CASES` and :data:`PP_VARIANTS` in turn over one gloo
-    process group, each held against it; writes the readings (every rank
-    holds the gathered gradients and parameters) and launches as JSON."""
+    """(a) of phases 29 and 30 on one rank: the one-rank step on the whole
+    batch from the parent's ``full.pt`` (this process), then every case of
+    :data:`PP_GATE_CASES`, :data:`PP_VARIANTS`, :data:`PPC_GATE_CASES` and
+    :data:`PPC_VARIANTS` in turn over one gloo process group, each held
+    against it; writes the readings (every rank holds the gathered
+    gradients and parameters), the launches and the state bytes as JSON."""
+    import gc
     from datetime import timedelta
 
     import torch.distributed as dist
@@ -6121,51 +6254,67 @@ def pp_gate_worker(torch, modules, rank: int, port: int) -> None:
     out = {"reference": all_counts(modules)}
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=PP_RANKS, rank=rank, timeout=timedelta(seconds=600))
+    variants = {**PP_VARIANTS, **PPC_VARIANTS}
     try:
         layouts = {}
         runs = [(c, None) for c in PP_GATE_CASES] + [(c, v) for v, (c, _) in PP_VARIANTS.items()]
+        runs += [(c, None) for c in PPC_GATE_CASES]
+        runs += [(c, v) for v, (c, _) in PPC_VARIANTS.items()]
         for case, variant in runs:
-            (_, n_stage), sched, micro = PP_GATE_CASES[case]
-            if n_stage not in layouts:  # every rank builds the groups in one order
-                layouts[n_stage] = PPLayout(PP_RANKS, rank, n_stage)
+            shape, sched, micro, zero = pp_case(case)
+            if shape not in layouts:  # every rank builds the groups in one order
+                layouts[shape] = PPLayout(PP_RANKS, rank, *shape[1:])
             undo = None
             if variant is not None:
-                owner, attr, wrong = PP_VARIANTS[variant][1](torch)
+                owner, attr, wrong = variants[variant][1](torch)
                 undo = (owner, attr, getattr(owner, attr))
                 setattr(owner, attr, wrong)
             for m in modules:
                 m.reset_launch_counts()
+            t0 = time.perf_counter()
             try:
-                got = pp_gate_steps(torch, full, tokens, labels, layouts[n_stage], sched, micro)
+                got = pp_gate_steps(torch, full, tokens, labels, layouts[shape], sched, micro,
+                                    zero)
             finally:
                 if undo is not None:
                     setattr(*undo)
             out[variant or case] = dict(readings=tp_gate_readings(got, want),
-                                        losses=got["losses"], launches=all_counts(modules))
+                                        losses=got["losses"], launches=all_counts(modules),
+                                        bytes=got["bytes"], seconds=time.perf_counter() - t0)
             del got
+            # each case's step holds its optimizer in a reference cycle:
+            # freed here, not whenever the collector runs (four ranks'
+            # uncollected cases ran the card out of memory in one run)
+            gc.collect()
         with open(os.path.join(PP_DIR, f"gate.rank{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
         dist.destroy_process_group()
 
 
-def pp_gate_launches(case: str, stage: int) -> dict:
-    """A stage's launches over (a)'s steps under ``case``: an f32 flash
+def pp_gate_launches(case: str, rank: int) -> dict:
+    """Rank ``rank``'s launches over (a)'s steps under ``case``: an f32 flash
     forward (K2a) a block a microbatch and a second one in each 1F1B B slot's
     recompute, one split backward (K2d dQ, K2e dK/dV) a block a
     microbatch; the last stage a K1a per forward of the head and a K1b a
-    microbatch; no K3/K4 (the stage blocks' tails are unfused)."""
-    (_, n_stage), sched, micro = PP_GATE_CASES[case]
+    microbatch; no K3/K4 (the stage blocks' tails are unfused).  Under PP x
+    SP every flash launch is one of the causal ring's: sequence rank ``q``
+    runs ``q + 1`` of them a block a forward (its own block and the ones
+    before it), each with its backward pair."""
+    (n_data, n_stage, n_model, n_seq), sched, micro, _ = pp_case(case)
+    inner = n_model * n_seq
+    stage, q = (rank // inner) % n_stage, rank % inner
     blocks, n = PP_GATE_KW["depth"] // n_stage, TP_GATE_STEPS * micro
+    flashes = blocks * n * (q + 1 if n_seq > 1 else 1)
     fwd = 2 if sched == "1f1b" else 1
-    out = dict(flash_fwd=fwd * blocks * n, flash_bwd=2 * blocks * n, K2a=fwd * blocks * n,
-               K2d=blocks * n, K2e=blocks * n)
+    out = dict(flash_fwd=fwd * flashes, flash_bwd=2 * flashes, K2a=fwd * flashes, K2d=flashes,
+               K2e=flashes)
     if stage == n_stage - 1:
         out.update(ce_fwd=fwd * n, ce_bwd=n)
     return out
 
 
-def phase_pp_gate(torch, ranks: list) -> dict:
+def phase_pp_gate(torch, ranks: list, cases=None, variants=None) -> dict:
     """Phase 29 (a)'s verdicts on the ranks' results (:func:`pp_gate_worker`):
     GPipe and 1F1B at (data 1, stage 4) and 1F1B at (data 2, stage 2), full
     width, 4 blocks, f32 with TF32 off, a batch of 8 x 256: each took
@@ -6174,49 +6323,65 @@ def phase_pp_gate(torch, ranks: list) -> dict:
     the whole batch; the losses, every gathered gradient and every gathered
     parameter after held to phase 27's limits, which four wrong variants
     must fail (:data:`PP_VARIANTS`); each rank's launches (and its one-rank
-    reference's) exact."""
+    reference's) exact.  Phase 30 (a) judges its own ``cases`` and
+    ``variants`` (:func:`phase_ppc_gate`) the same way."""
+    cases = PP_GATE_CASES if cases is None else cases
+    variants = PP_VARIANTS if variants is None else variants
     depth = PP_GATE_KW["depth"]
     reference = {k: TP_GATE_STEPS * v for k, v in dict(
         ce_fwd=1, ce_bwd=1, flash_fwd=depth, flash_bwd=2 * depth, K2a=depth, K2d=depth,
         K2e=depth).items()}
     readings = {}
-    for name in ranks[0]:
-        if name == "reference":
-            continue
-        case = PP_VARIANTS[name][0] if name in PP_VARIANTS else name
-        n_stage = PP_GATE_CASES[case][0][1]
+    for name in list(cases) + list(variants):
+        case = variants[name][0] if name in variants else name
         for r, got in enumerate(ranks):
             check_launches(f"rank {r} one-rank reference", got["reference"], reference)
-            check_launches(f"rank {r} {name}", got[name]["launches"],
-                           pp_gate_launches(case, r % n_stage))
+            check_launches(f"rank {r} {name}", got[name]["launches"], pp_gate_launches(case, r))
         readings[name] = {k: max(got[name]["readings"][k] for got in ranks)
                           for k in ranks[0][name]["readings"]}
     for name, r in readings.items():
-        wrong = name in PP_VARIANTS
+        wrong = name in variants
         verdict = "within" if tp_gate_within(r) else ("outside" if wrong else "OUTSIDE")
         say(f"  {'wrong variant ' if wrong else ''}{name} vs one rank: {r} (rank 0 losses "
             f"{ranks[0][name]['losses']}) -> {verdict}")
-    bad = [k for k, r in readings.items() if k not in PP_VARIANTS and not tp_gate_within(r)]
+    bad = [k for k, r in readings.items() if k not in variants and not tp_gate_within(r)]
     if bad:
         raise AssertionError(f"the pipeline on the card outside its limits: {bad}")
-    inside = [k for k in PP_VARIANTS if tp_gate_within(readings[k])]
+    inside = [k for k in variants if tp_gate_within(readings[k])]
     if inside:
         raise AssertionError(f"the pipeline: wrong variants within the limits: {inside}")
+    say(f"  (a)'s {len(cases)} cases and {len(variants)} wrong variants took "
+        f"{[round(sum(got[k]['seconds'] for k in readings), 1) for got in ranks]} s by rank")
     return readings
 
 
-def pp_exchange_timer(torch) -> dict:
-    """Time every stage hop (``StageExchange.hop``, its host staging
-    included) and every all-reduce of the step (the stage group's of the
-    shared leaves and the loss, the data group's), synchronised before and
-    after: calls, bytes this rank sent and received, seconds."""
+# (b)'s timed exchanges: kind -> what it times
+PP_EXCHANGES = {"hops": "stage hops (host staging included)",
+                "reduces": "all-reduces of the step (stage, sequence, data groups)",
+                "scatters": "ZeRO reduce-scatters", "gathers": "ZeRO gathers",
+                "tp": "Megatron copy/reduce all-reduces", "ring": "ring rotations and "
+                "all-to-alls (host staging included)"}
+
+
+def pp_exchange_timer(torch) -> tuple:
+    """Time every exchange of the pipeline's step, synchronised before and
+    after (:data:`PP_EXCHANGES`): calls, bytes this rank sent and received
+    (its input's), seconds.  Returns the clock and a function that takes
+    the timers out."""
     from pytorch_distributed_training_tpu_torch.engine import pp_steps
+    from pytorch_distributed_training_tpu_torch.parallel import tensor as tensor_mod
     from pytorch_distributed_training_tpu_torch.parallel.pipeline import StageExchange
+    from pytorch_distributed_training_tpu_torch.parallel.sequence import GroupExchange
+    from pytorch_distributed_training_tpu_torch.parallel.tensor import ZeroPlan
 
-    clock = {k: dict(seconds=0.0, calls=0, bytes=0) for k in ("hops", "reduces")}
+    clock = {k: dict(seconds=0.0, calls=0, bytes=0) for k in PP_EXCHANGES}
     size = lambda t: 0 if t is None else t.numel() * t.element_size()  # noqa: E731
+    sizes = lambda ts: sum(size(t) for t in ts)  # noqa: E731
+    undo = []
 
-    def timed(kind, plain, nbytes):
+    def timed(kind, owner, attr, nbytes):
+        plain = getattr(owner, attr)
+
         def run(*args, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -6227,71 +6392,88 @@ def pp_exchange_timer(torch) -> dict:
             c["calls"] += 1
             c["bytes"] += nbytes(*args, **kw)
             return out
-        return run
 
-    StageExchange.hop = timed("hops", StageExchange.hop, lambda self, *ts, **kw: sum(
-        size(t) for t in (*ts, *kw.values())))
-    pp_steps._all_reduce_sum_ = timed("reduces", pp_steps._all_reduce_sum_,
-                                      lambda ts, g=None: sum(size(t) for t in ts))
-    return clock
+        undo.append((owner, attr, plain))
+        setattr(owner, attr, run)
+
+    timed("hops", StageExchange, "hop", lambda self, *ts, **kw: sizes((*ts, *kw.values())))
+    timed("reduces", pp_steps, "_all_reduce_sum_", lambda ts, g=None: sizes(ts))
+    timed("scatters", ZeroPlan, "scatter_sum", lambda self, fulls, idx: sizes(fulls))
+    timed("gathers", ZeroPlan, "gather_into", lambda self, fulls, parts, idx: sizes(parts))
+    timed("tp", tensor_mod, "_all_reduce", lambda t, group: size(t))
+    timed("ring", GroupExchange, "_rotate", lambda self, ts, step: sizes(ts))
+    timed("ring", GroupExchange, "_all_to_all", lambda self, x, *dims: size(x))
+
+    def restore():
+        for owner, attr, plain in reversed(undo):
+            setattr(owner, attr, plain)
+
+    return clock, restore
 
 
-def pp_config(depth=None, steps: int = 4) -> dict:
+def pp_config(depth=None, steps: int = 4, n_data: int = 1, **training) -> dict:
     """``config/TransformerLM-pp.yml`` for (b), as it is but ``depth`` blocks
-    if given: ``steps`` steps, a log line each, a batch an epoch and one
+    if given and the parallel keys ``training`` (phase 30): ``steps`` steps,
+    a log line each, a batch a data rank an epoch (of ``n_data``) and one
     validation batch after the last step."""
     from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
 
     cfg = get_cfg(PP_CONFIG)
     if depth is not None:
         cfg["model"]["depth"] = depth
-    cfg["training"].update(train_iters=steps, print_interval=1, val_interval=steps)
-    cfg["dataset"]["n_samples"] = cfg["training"]["batch_size"]
+    cfg["training"].update(train_iters=steps, print_interval=1, val_interval=steps, **training)
+    cfg["dataset"]["n_samples"] = cfg["training"]["batch_size"] * n_data
     return cfg
 
 
-def pp_runner_readings(torch, modules, rank: int, port: int, depth, steps: int) -> dict:
-    """(b) on one rank: the runner on ``config/TransformerLM-pp.yml`` (its
-    depth cut to ``depth`` if given) for ``steps`` steps (1 warm-up, the rest
-    timed) and one validation batch: its launches a step and in the
-    validation with their shapes, the step ms, the hops and all-reduces a
-    step and the peak memory of this process."""
+def pp_runner_readings(torch, modules, rank: int, port: int, cfg: dict) -> dict:
+    """(b) on one rank: the runner on ``cfg`` (``config/TransformerLM-pp.yml``
+    by :func:`pp_config`), its first step a warm-up, the rest timed, and one
+    validation batch: its launches a step and in the validation with their
+    shapes, the step ms, each kind of exchange a step and the peak memory of
+    this process."""
     from pytorch_distributed_training_tpu_torch.engine import Runner
 
-    clock = pp_exchange_timer(torch)
+    clock, untime = pp_exchange_timer(torch)
     shapes, restore = tp_kernel_shapes(modules)
     marks = []
 
     def on_iter(runner):
         torch.cuda.synchronize()
         marks.append((time.perf_counter(), all_counts(modules),
-                       *(clock[k][f] for k in ("hops", "reduces")
-                         for f in ("seconds", "calls", "bytes"))))
+                      {k: dict(c) for k, c in clock.items()}))
 
     for m in modules:
         m.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     runner = Runner(num_nodes=PP_RANKS, rank=rank, seed=0, dist_url=f"tcp://127.0.0.1:{port}",
-                    multiprocessing=False, logger_queue=None, global_cfg=pp_config(depth, steps),
+                    multiprocessing=False, logger_queue=None, global_cfg=cfg,
                     device="cuda", dist_backend="gloo", on_iter=on_iter)
-    runner()
+    try:
+        runner()
+    finally:
+        restore()
+        untime()
     wall = time.perf_counter() - t0
-    restore()
     final = all_counts(modules)
     prev, per_step = {k: 0 for k in final}, []
-    for _, counts, *_ in marks:
+    for _, counts, _ in marks:
         per_step.append({k: counts[k] - prev[k] for k in final})
         prev = counts
-    diffs = lambda j: [b[j] - a[j] for a, b in zip(marks, marks[1:])]  # noqa: E731
+    exchanges = {k: {f: [(b[2][k][f] - a[2][k][f]) * (1e3 if f == "seconds" else 1)
+                         for a, b in zip(marks, marks[1:])] for f in ("seconds", "calls", "bytes")}
+                 for k in clock}
     lay = runner.layout
     return dict(rank=rank, path=runner.path, stage=lay.stage_idx, n_data=lay.n_data,
-                n_stage=lay.n_stage, schedule=runner.pp_schedule, micro=runner.microbatches,
+                n_stage=lay.n_stage, n_model=lay.n_model, n_seq=lay.n_seq,
+                inner=lay.inner_idx, zero=runner.zero, schedule=runner.pp_schedule,
+                micro=runner.microbatches,
+                micro_rows=int(cfg["training"]["batch_size"]) // runner.microbatches,
                 blocks=list(runner.model.block_ids), remat=runner.model.remat,
-                host_staged=lay.stage_exchange.host_staged, step_ms=[s * 1e3 for s in diffs(0)],
-                hop_ms=[s * 1e3 for s in diffs(2)], hop_calls=diffs(3), hop_bytes=diffs(4),
-                reduce_ms=[s * 1e3 for s in diffs(5)], reduce_calls=diffs(6),
-                reduce_bytes=diffs(7), per_step=per_step,
+                host_staged=lay.stage_exchange.host_staged,
+                step_ms=[(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])],
+                exchanges=exchanges, per_step=per_step,
                 validation={k: final[k] - prev[k] for k in final}, final=final,
                 shapes={k: sorted(v) for k, v in shapes.items()},
                 losses=[r["loss"] for r in runner.train_log], val=runner.val_log,
@@ -6300,9 +6482,10 @@ def pp_runner_readings(torch, modules, rank: int, port: int, depth, steps: int) 
 
 
 def pp_worker(rank: int, task: str, ports: list, run) -> None:
-    """One of phase 29's ranks, a process of its own on ``cuda:0``: (a)
-    (:func:`pp_gate_worker`), then, unless ``run`` is ``None``, (b)
-    (:func:`pp_runner_readings` at ``run = (depth, steps)``).  Writes its
+    """One of phases 29 and 30's ranks, a process of its own on ``cuda:0``:
+    (a) of both (:func:`pp_gate_worker`), then, unless ``run`` is ``None``,
+    (b) of both (:func:`pp_runner_readings` at ``run = (depth, steps)``: phase
+    29's config, then each of :data:`PPC_RUNS`, a port each).  Writes its
     results under ``PP_DIR``."""
     import gc
 
@@ -6318,16 +6501,20 @@ def pp_worker(rank: int, task: str, ports: list, run) -> None:
     pp_gate_worker(torch, modules, rank, ports[0])
     if run is None:
         return
-    gc.collect()  # (a)'s steps hold their optimizers in reference cycles
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    out = pp_runner_readings(torch, modules, rank, ports[1], *run)
-    out.update(gate_s=t1 - t0, runner_s=time.perf_counter() - t1)
-    with open(os.path.join(PP_DIR, f"runner.rank{rank}.json"), "w") as f:
-        json.dump(out, f)
+    depth, steps = run
+    for i, (name, (n_data, training)) in enumerate({"pp": (1, {}), **PPC_RUNS}.items()):
+        gc.collect()  # (a)'s steps hold their optimizers in reference cycles
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        out = pp_runner_readings(torch, modules, rank, ports[1 + i],
+                                 pp_config(depth, steps, n_data, **training))
+        out.update(gate_s=t1 - t0, runner_s=time.perf_counter() - t1)
+        with open(os.path.join(PP_DIR, f"runner-{name}.rank{rank}.json"), "w") as f:
+            json.dump(out, f)
 
 
-def pp_run_launches(depth: int, micro: int, stage: int, n_stage: int) -> tuple:
+def pp_run_launches(depth: int, micro: int, stage: int, n_stage: int, q: int = 0,
+                    n_seq: int = 1) -> tuple:
     """(b)'s launches a step and in the validation batch on ``stage``: under
     1F1B with block remat each of the stage's blocks runs its bf16 flash
     forward three times a microbatch (the F slot, the B slot's recompute and
@@ -6335,111 +6522,299 @@ def pp_run_launches(depth: int, micro: int, stage: int, n_stage: int) -> tuple:
     dQ) once; the last stage runs the head's K1a in each F and B slot and
     K1b in each B slot; no K3/K4.  The validation runs the GPipe ticks
     forward only: one flash forward a block and, on the last stage, one
-    K1a a microbatch."""
-    blocks = depth // n_stage
-    step = dict(flash_fwd=3 * blocks * micro, flash_bwd=2 * blocks * micro,
-                K2a=3 * blocks * micro, K2c=2 * blocks * micro)
-    val = dict(flash_fwd=blocks * micro, K2a=blocks * micro)
+    K1a a microbatch.  Under PP x SP sequence rank ``q`` of ``n_seq`` runs
+    ``q + 1`` of the causal ring's flash calls where one call stood, with
+    f32 dots (K2a forward, K2d + K2e backward)."""
+    blocks, f = depth // n_stage, (q + 1 if n_seq > 1 else 1)
+    flashes = blocks * micro * f
+    step = dict(flash_fwd=3 * flashes, flash_bwd=2 * flashes, K2a=3 * flashes)
+    step.update(dict(K2d=flashes, K2e=flashes) if n_seq > 1 else dict(K2c=2 * flashes))
+    val = dict(flash_fwd=flashes, K2a=flashes)
     if stage == n_stage - 1:
         step.update(ce_fwd=2 * micro, ce_bwd=micro)
         val.update(ce_fwd=micro)
     return step, val
 
 
-def phase_pp_runner(torch, smi: str, ranks: list, depth: int, steps: int, wall: float) -> dict:
+def phase_pp_runner(torch, smi: str, ranks: list, depth: int, steps: int, wall: float,
+                    name: str = "pp") -> dict:
     """Phase 29 (b)'s verdicts and readings on the ranks' results
-    (:func:`pp_runner_readings`): each rank ran its stage of the pipeline
+    (:func:`pp_runner_readings`), and phase 30 (b)'s on each of its runs
+    (``name`` in :data:`PPC_RUNS`): each rank ran its stage of the pipeline
     path under 1F1B with block remat, its launches exact a step and in the
     validation (:func:`pp_run_launches`), every loss finite and equal on the
     ranks, the validation equal on the ranks.  Prints the step ms, global
-    tokens/s, the hops' and all-reduces' calls, bytes, synced ms and share of
-    the step, each process's peak memory and each rank's launches with
-    their shapes beside the card.  Returns the four ranks' launch counts
-    summed."""
-    cfg = pp_config(depth, steps)
+    tokens/s, each kind of exchange's calls, bytes, synced ms and share of
+    the step (:data:`PP_EXCHANGES`), each process's peak memory and each
+    rank's launches with their shapes beside the card.  Returns the four
+    ranks' launch counts summed."""
+    n_data, training = PPC_RUNS.get(name, (1, {}))
+    cfg = pp_config(depth, steps, n_data, **training)
     micro, batch = cfg["training"]["microbatches"], cfg["training"]["batch_size"]
     seq = cfg["dataset"]["seq_len"]
+    n_stage = int(cfg["training"]["pipeline_parallelism"])
     for got in ranks:
-        per_step, per_val = pp_run_launches(depth, micro, got["stage"], got["n_stage"])
+        per_step, per_val = pp_run_launches(depth, micro, got["stage"], got["n_stage"],
+                                            got["inner"], got["n_seq"])
         if (got["path"] != "pipeline" or got["schedule"] != "1f1b" or not got["remat"]
-                or got["n_stage"] != PP_RANKS or got["micro"] != micro):
-            raise AssertionError(f"rank {got['rank']} did not run 1F1B over {PP_RANKS} stages "
-                                 f"with block remat: {got['path']}, {got['schedule']}")
+                or got["n_stage"] != n_stage or got["micro"] != micro
+                or got["n_data"] != n_data):
+            raise AssertionError(f"rank {got['rank']} did not run 1F1B over {n_stage} stages "
+                                 f"x {n_data} data with block remat: {got['path']}, "
+                                 f"{got['schedule']}")
         for i, counts in enumerate(got["per_step"]):
-            check_launches(f"rank {got['rank']} step {i}", counts, per_step)
-        check_launches(f"rank {got['rank']} validation", got["validation"], per_val)
+            check_launches(f"{name} rank {got['rank']} step {i}", counts, per_step)
+        check_launches(f"{name} rank {got['rank']} validation", got["validation"], per_val)
         if got["losses"] != ranks[0]["losses"] or not all(
                 math.isfinite(x) for x in got["losses"]) or len(got["losses"]) != steps:
-            raise AssertionError(f"rank {got['rank']} losses {got['losses']}, rank 0's "
+            raise AssertionError(f"{name} rank {got['rank']} losses {got['losses']}, rank 0's "
                                  f"{ranks[0]['losses']}")
         if got["val"] != ranks[0]["val"] or not math.isfinite(got["val"][0]["loss"]):
-            raise AssertionError(f"rank {got['rank']} validation {got['val']}")
+            raise AssertionError(f"{name} rank {got['rank']} validation {got['val']}")
     step_ms = ranks[0]["step_ms"]
     med = statistics.median(step_ms)
-    n_data = ranks[0]["n_data"]
+    r0 = ranks[0]
     tokens_per_s = n_data * batch * seq / med * 1e3
-    share = lambda key: [sum(r[key]) / sum(r["step_ms"]) for r in ranks]  # noqa: E731
-    say(f"  {smi}: TransformerLM-pp.yml at depth {depth}, {PP_RANKS} stages x {n_data} data "
-        f"(gloo processes on one card; hops "
-        f"{'staged through pinned host memory' if ranks[0]['host_staged'] else 'on device'}),"
-        f" 1F1B over {micro} microbatches of {batch // micro} x {seq}; parameters a rank "
-        f"(M) {[round(r['params_m'], 2) for r in ranks]}")
-    say(f"  losses {ranks[0]['losses']}; validation {ranks[0]['val']}")
+    inner = (f" x model {r0['n_model']}" if r0["n_model"] > 1 else
+             f" x sequence {r0['n_seq']}" if r0["n_seq"] > 1 else "")
+    zero = f", ZeRO-{r0['zero']}" if r0["zero"] else ""
+    say(f"  {smi}: TransformerLM-pp.yml at depth {depth}, data {n_data} x stage {n_stage}"
+        f"{inner}{zero} (gloo processes on one card; exchanges "
+        f"{'staged through pinned host memory' if r0['host_staged'] else 'on device'}), 1F1B "
+        f"over {micro} microbatches of {r0['micro_rows']} x {seq // r0['n_seq']}; parameters a "
+        f"rank (M) {[round(r['params_m'], 2) for r in ranks]}")
+    say(f"  losses {r0['losses']}; validation {r0['val']}")
     say(f"  step ms (steps 1-{len(step_ms)}, host clock, synced): {step_ms}; median {med}; "
         f"global tokens/s {tokens_per_s}")
-    say(f"  stage hops a step (synced, host staging included): calls by rank "
-        f"{[r['hop_calls'] for r in ranks]}, MiB sent + received by rank "
-        f"{[[b / 2**20 for b in r['hop_bytes']] for r in ranks]}, ms by rank "
-        f"{[r['hop_ms'] for r in ranks]}; share of the step by rank {share('hop_ms')}")
-    say(f"  all-reduces a step (the stage group's shared gradients and loss; synced): calls "
-        f"{ranks[0]['reduce_calls']}, MiB {[b / 2**20 for b in ranks[0]['reduce_bytes']]}, "
-        f"ms by rank {[r['reduce_ms'] for r in ranks]}; share of the step by rank "
-        f"{share('reduce_ms')}")
+    shares = {}
+    for kind, what in PP_EXCHANGES.items():
+        if not any(sum(r["exchanges"][kind]["calls"]) for r in ranks):
+            continue
+        shares[kind] = [sum(r["exchanges"][kind]["seconds"]) / sum(r["step_ms"]) for r in ranks]
+        say(f"  {what} a step (synced): calls by rank "
+            f"{[r['exchanges'][kind]['calls'] for r in ranks]}, MiB by rank "
+            f"{[[b / 2**20 for b in r['exchanges'][kind]['bytes']] for r in ranks]}, ms by rank "
+            f"{[r['exchanges'][kind]['seconds'] for r in ranks]}; share of the step by rank "
+            f"{shares[kind]}")
     say(f"  peak device memory by process (GiB): {[r['peak_gib'] for r in ranks]}; wall "
-        f"{wall:.1f} s, of it (a) {[round(r['gate_s'], 1) for r in ranks]} s and (b) "
-        f"{[round(r['runner_s'], 1) for r in ranks]} s by rank")
+        f"{wall:.1f} s, of it this run {[round(r['runner_s'], 1) for r in ranks]} s by rank")
     for got in ranks:
-        say(f"  rank {got['rank']} (stage {got['stage']}, blocks {got['blocks']}) launches a "
-            f"step {counts_line(got['per_step'][-1])}; validation "
+        say(f"  rank {got['rank']} (stage {got['stage']}, inner {got['inner']}, blocks "
+            f"{got['blocks']}) launches a step {counts_line(got['per_step'][-1])}; validation "
             f"{counts_line(got['validation'])}; shapes {got['shapes']}")
-    total = {k: sum(r["final"][k] for r in ranks) for k in ranks[0]["final"]}
-    say("pp: " + json.dumps(dict(
-        depth=depth, step_ms=step_ms, median_step_ms=med, tokens_per_s=tokens_per_s,
-        hop_share=share("hop_ms"), reduce_share=share("reduce_ms"),
-        hop_calls=[r["hop_calls"] for r in ranks], hop_bytes=[r["hop_bytes"] for r in ranks],
-        peak_gib=[r["peak_gib"] for r in ranks], losses=ranks[0]["losses"],
-        val=ranks[0]["val"], wall_s=wall, card=smi)))
+    total = {k: sum(r["final"][k] for r in ranks) for k in r0["final"]}
+    say(f"{name}: " + json.dumps(dict(
+        depth=depth, n_data=n_data, n_stage=n_stage, n_model=r0["n_model"], n_seq=r0["n_seq"],
+        zero=r0["zero"], micro_rows=r0["micro_rows"], step_ms=step_ms, median_step_ms=med,
+        tokens_per_s=tokens_per_s, shares=shares,
+        exchanges={k: [r["exchanges"][k] for r in ranks] for k in shares},
+        peak_gib=[r["peak_gib"] for r in ranks], losses=r0["losses"], val=r0["val"],
+        wall_s=wall, card=smi)))
     return total
 
 
-def phase_pipeline(torch, smi: str, runner: bool = True) -> dict:
-    """Phase 29: (a)'s full weights drawn here, then one spawn of four gloo
-    processes on the card runs (a) and, with ``runner``, (b)
-    (:func:`pp_worker`); :func:`phase_pp_gate` and :func:`phase_pp_runner`
-    (on ``config/TransformerLM-pp.yml`` at its depth, 1 + 3 steps) judge and
-    print.  The whole script's run takes (a) alone: with phase 29 at 4
-    blocks for 1 + 1 steps it took 1,094.8 s of its 1,200 s on an H100 80GB
-    HBM3 at 700 W.  Returns (b)'s launch counts summed over the ranks, by
-    path."""
-    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
+# phase 30 (a)'s cases: name -> ((data, stage, model, sequence) ranks, schedule,
+# microbatches, ZeRO stage); the model, batch and steps are phase 29's
+PPC_GATE_CASES = {"zero1 2x2 1f1b": ((2, 2, 1, 1), "1f1b", 4, 1),
+                  "zero2 2x2 1f1b": ((2, 2, 1, 1), "1f1b", 4, 2),
+                  "tp 2x2 gpipe": ((1, 2, 2, 1), "gpipe", 4, 0),
+                  "tp 2x2 1f1b": ((1, 2, 2, 1), "1f1b", 4, 0),
+                  "sp ring 2x2 1f1b": ((1, 2, 1, 2), "1f1b", 4, 0)}
+# phase 30 (a)'s compositions, by path of the kernels line
+PPC_PATHS = {"pp_zero": ("zero1 2x2 1f1b", "zero2 2x2 1f1b"),
+             "pp_tp": ("tp 2x2 gpipe", "tp 2x2 1f1b"), "pp_sp": ("sp ring 2x2 1f1b",)}
+# phase 30 (b)'s runs: name -> (data ranks, the parallel keys set in memory)
+PPC_RUNS = {"pp_tp": (1, dict(pipeline_parallelism=2, tensor_parallelism=2)),
+            "pp_zero": (2, dict(pipeline_parallelism=2, zero=1)),
+            "pp_sp": (1, dict(pipeline_parallelism=2, sequence_parallelism=2))}
 
-    t_phase = time.perf_counter()
+
+def ppc_shared_over_model(torch):
+    """A wrong reduce: the shared leaves' gradients also summed over the
+    model group (already whole on each model rank: T times over)."""
+    from pytorch_distributed_training_tpu_torch.engine import pp_steps
+
+    plain = pp_steps.PPLMTrainStep.reduce_grads
+
+    def reduce_grads(self, loss):
+        grads = plain(self, loss)
+        pp_steps._all_reduce_sum_([g for g, sh in zip(grads, self._shared) if sh],
+                                  self.model.tensor_group.group)
+        return grads
+
+    return pp_steps.PPLMTrainStep, "reduce_grads", reduce_grads
+
+
+def ppc_positions_from_zero(torch):
+    """A wrong embedding: every sequence shard's positions start at 0."""
+    import torch.nn.functional as F
+
+    from pytorch_distributed_training_tpu_torch.models import TransformerLM
+
+    def embed(self, tokens):
+        x = F.embedding(tokens, self.tok_embedding).to(self.dtype)
+        return x + self.pos_embedding[:tokens.shape[1]][None].to(self.dtype)
+
+    return TransformerLM, "embed", embed
+
+
+def ppc_shared_not_over_sequence(torch):
+    """A wrong reduce: the shared leaves' gradients not summed over the
+    sequence group (the blocks' and the loss still are)."""
+    from pytorch_distributed_training_tpu_torch.engine import pp_steps
+
+    def reduce_grads(self, loss):
+        grads = [pp_steps._grad(p) for p in self.params]
+        pp_steps._all_reduce_sum_([g for g, sh in zip(grads, self._shared) if sh]
+                                  + [loss.reshape(1)], self.ex.group)
+        pp_steps._all_reduce_sum_([g for g, sh in zip(grads, self._shared) if not sh]
+                                  + [loss.reshape(1)], self.seq.group)
+        return grads
+
+    return pp_steps.PPLMTrainStep, "reduce_grads", reduce_grads
+
+
+# phase 30's wrong variants -> (the case it runs in, its patch)
+PPC_VARIANTS = {
+    "ZeRO: each rank's slice of its local gradient": ("zero1 2x2 1f1b", zero_no_reduce),
+    "ZeRO: stale shards (no gather after the update)": ("zero1 2x2 1f1b", zero_stale_shards),
+    "TP: shared gradients also summed over the model group": ("tp 2x2 1f1b",
+                                                              ppc_shared_over_model),
+    "TP: row-parallel bias on every model rank": ("tp 2x2 1f1b", tp_bias_on_every_rank),
+    "SP: every shard's positions from 0": ("sp ring 2x2 1f1b", ppc_positions_from_zero),
+    "SP: shared gradients not summed over the sequence group": ("sp ring 2x2 1f1b",
+                                                                ppc_shared_not_over_sequence)}
+
+
+def ppc_rule_bytes(torch, case: str, rank: int) -> dict:
+    """Rank ``rank``'s bytes of f32 parameters, gradients and SGD momentum
+    under ``case`` by the rule: its stage's leaves (its model slices under
+    TP) whole, the gradients too (every microbatch adds into the full
+    buffer), the momentum a leaf's data slice where ZeRO splits it
+    (``zero_shard_dim``, the model axis taken only under TP)."""
+    from pytorch_distributed_training_tpu_torch.models import TransformerLM
+    from pytorch_distributed_training_tpu_torch.parallel import TensorGroup
+    from pytorch_distributed_training_tpu_torch.parallel.tensor import zero_shard_dim
+
+    (n_data, n_stage, n_model, n_seq), _, _, zero = pp_case(case)
+    inner = n_model * n_seq
+    with torch.device("meta"):
+        model = TransformerLM(**PP_GATE_KW,
+                              stage_group=TensorGroup(None, n_stage, (rank // inner) % n_stage),
+                              tensor_group=(TensorGroup(None, n_model, rank % inner)
+                                            if n_model > 1 else None))
+    out = dict(params=0, grads=0, moments=0)
+    for name, p in model.named_parameters():
+        whole = p.numel() * 4
+        split = zero and zero_shard_dim(name, p.shape, n_data, n_model > 1) is not None
+        out["params"] += whole
+        out["grads"] += whole
+        out["moments"] += whole // n_data if split else whole
+    return out
+
+
+def phase_ppc_gate(torch, ranks: list) -> dict:
+    """Phase 30 (a)'s verdicts on the ranks' results (:func:`pp_gate_worker`,
+    run beside phase 29's): PP x ZeRO-1 and PP x ZeRO-2 under 1F1B at (data
+    2, stage 2), PP x TP under GPipe and 1F1B at (stage 2, model 2) and PP x
+    SP (ring) under 1F1B at (stage 2, sequence 2), phase 29's model, batch
+    and steps, held to phase 27's limits against the one-rank step, which
+    the six wrong variants of :data:`PPC_VARIANTS` must fail; each rank's
+    launches exact and each ZeRO rank's state bytes the rule's
+    (:func:`ppc_rule_bytes`).  Returns each composition's launches summed
+    over its cases and ranks, by path (:data:`PPC_PATHS`)."""
+    readings = phase_pp_gate(torch, ranks, PPC_GATE_CASES, PPC_VARIANTS)
+    for case, (_, _, _, zero) in PPC_GATE_CASES.items():
+        if not zero:
+            continue
+        for r, got in enumerate(ranks):
+            rule = ppc_rule_bytes(torch, case, r)
+            if got[case]["bytes"] != rule:
+                raise AssertionError(f"{case} rank {r}: state bytes {got[case]['bytes']}, the "
+                                     f"rule's {rule}")
+        say(f"  {case}: state bytes by rank {[got[case]['bytes'] for got in ranks]} (the rule's)")
+    say("pp_compose_gate: " + json.dumps(readings))
+    return {path: by_tpu_kernel({k: sum(got[c]["launches"][k] for c in cases for got in ranks)
+                                 for k in ranks[0][cases[0]]["launches"]})
+            for path, cases in PPC_PATHS.items()}
+
+
+def pp_prepare(torch) -> None:
+    """Phases 29 and 30 (a)'s full weights, drawn here for the ranks to load."""
     os.makedirs(PP_DIR, exist_ok=True)
     torch.save(tp_gate_weights(torch, "dense", seed=29, kw=PP_GATE_KW),
                os.path.join(PP_DIR, "full.pt"))
+
+
+def phase_pipeline(torch, smi: str, runner: bool = True, wall=None) -> dict:
+    """Phases 29 and 30: (a)'s full weights drawn here, then one spawn of four
+    gloo processes on the card runs (a) of both and, with ``runner``, (b) of
+    both (:func:`pp_worker`); :func:`phase_pp_gate`, :func:`phase_ppc_gate`
+    and :func:`phase_pp_runner` (on ``config/TransformerLM-pp.yml`` at its
+    depth, 1 + 3 steps, then each of :data:`PPC_RUNS`) judge and print.  The
+    whole script's run takes (a) alone: with phase 29 at 4 blocks for 1 + 1
+    steps it took 1,094.8 s of its 1,200 s on an H100 80GB HBM3 at 700 W.
+    ``wall``: (a) already ran in :func:`parallel_spawn`'s spawn.  Returns
+    the launch counts summed over the ranks, by path: phase 30 (a)'s
+    compositions, and (b)'s pipeline with ``runner``."""
+    from pytorch_distributed_training_tpu_torch.config_parsing import get_cfg
+
+    t_phase = time.perf_counter()
     depth, steps = get_cfg(PP_CONFIG)["model"]["depth"], 4
-    wall = tp_spawn(torch, "pp", depth=(depth, steps) if runner else None, worker=pp_worker,
-                    ports=2)
-    say(f"  four ranks' wall {wall:.1f} s (spawn, (a)'s {len(PP_GATE_CASES)} cases and "
-        f"{len(PP_VARIANTS)} wrong variants of {TP_GATE_STEPS} steps{', (b)' if runner else ''})")
+    if wall is None:
+        pp_prepare(torch)
+        wall = tp_spawn(torch, "pp", depth=(depth, steps) if runner else None,
+                        worker=pp_worker, ports=2 + len(PPC_RUNS))
+    n_cases = len(PP_GATE_CASES) + len(PPC_GATE_CASES)
+    say(f"  four ranks' wall {wall:.1f} s (spawn, (a)'s {n_cases} cases and "
+        f"{len(PP_VARIANTS) + len(PPC_VARIANTS)} wrong variants of {TP_GATE_STEPS} steps"
+        f"{', (b) of phases 29 and 30' if runner else ''})")
     read = lambda name: [json.load(open(os.path.join(PP_DIR, f"{name}.rank{r}.json")))  # noqa: E731
                          for r in range(PP_RANKS)]
-    gate = phase_pp_gate(torch, read("gate"))
+    gate_runs = read("gate")
+    gate = phase_pp_gate(torch, gate_runs)
     say("pp_gate: " + json.dumps(gate))
-    paths = ({"pp": by_tpu_kernel(phase_pp_runner(torch, smi, read("runner"), depth, steps,
-                                                  wall))} if runner else {})
-    say(f"  phase 29 took {time.perf_counter() - t_phase:.1f} s")
+    paths = {}
+    if runner:
+        paths["pp"] = by_tpu_kernel(phase_pp_runner(torch, smi, read("runner-pp"), depth, steps,
+                                                    wall))
+    say(f"  phases 29 and 30 took {time.perf_counter() - t_phase:.1f} s (one spawn)")
+    phase("phase 30: the pipeline beside ZeRO-1/2, tensor and sequence parallelism, 4 gloo "
+          "processes, full width" + ("" if runner else ", (a) only") + " (in phase 29's spawn)")
+    paths.update(phase_ppc_gate(torch, gate_runs))
+    if runner:
+        for name in PPC_RUNS:
+            phase_pp_runner(torch, smi, read(f"runner-{name}"), depth, steps, wall, name)
     return paths
+
+
+def parallel_worker(rank: int, task: str, ports: list, depths) -> None:
+    """One of the four ranks of the whole script's run of phases 27-30: the
+    work of :func:`tp_worker` (``all``, at ``depths[0]``), :func:`zero_worker`
+    (at ``depths[1]``) and :func:`pp_worker` ((a) only) in turn, each on its
+    own ports, in one process (the four start once, not three times)."""
+    import gc
+
+    import torch
+
+    tp_worker(rank, "all", ports[:3], depths[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_worker(rank, "zero", ports[3:6], depths[1])
+    gc.collect()
+    torch.cuda.empty_cache()
+    pp_worker(rank, "pp", ports[6:], None)
+
+
+def parallel_spawn(torch, tp_depth: int, zero_depth: int) -> float:
+    """The whole script's phases 27-30 on the ranks: every phase's weights
+    drawn here, then one spawn of :func:`parallel_worker`.  Returns its wall
+    s; the phases judge what the ranks wrote."""
+    tp_prepare(torch)
+    zero_prepare(torch)
+    pp_prepare(torch)
+    return tp_spawn(torch, "all", depth=(tp_depth, zero_depth), worker=parallel_worker,
+                    ports=7)
 
 
 def counts_line(counts: dict) -> str:
@@ -6470,7 +6845,7 @@ def main(argv=None) -> int:
     parser.add_argument("--zero", action="store_true",
                         help="phases 1, 2 and 28 only (no result line)")
     parser.add_argument("--pp", action="store_true",
-                        help="phases 1, 2 and 29 only (no result line)")
+                        help="phases 1, 2, 29 and 30 only (no result line)")
     args = parser.parse_args(argv)
 
     import torch
@@ -6509,9 +6884,9 @@ def main(argv=None) -> int:
     say(f"gloo reduce-scatter and all-gather of CUDA tensors, 2 ranks: takes "
         f"{zero_probe_gloo(torch)} (the port's ZeRO exchanges)")
     # phase 29's pipeline hops: send/recv between two processes
-    say(f"gloo send/recv of CUDA tensors through the stage exchange, 2 processes: "
-        f"{pp_probe_gloo(torch)} (a raw gloo send of a CUDA tensor fails: writev, Bad "
-        f"address)")
+    say(f"gloo send/recv of CUDA tensors through the stage exchange and the ring's rotation "
+        f"and all-to-all, 2 processes: {pp_probe_gloo(torch)} (a raw gloo send of a CUDA "
+        f"tensor fails: writev, Bad address)")
 
     phase("phase 2: build")
     built = kernels.build()
@@ -6574,7 +6949,7 @@ def main(argv=None) -> int:
 
     if args.tp:
         phase("phase 27: tensor and expert parallelism at degree 4, full width")
-        phase_tensor_parallel(torch, modules, smi)
+        phase_tensor_parallel(torch, smi)
         phase(None)
         say(f"total {time.perf_counter() - t_start:.1f} s")
         say(smi)
@@ -6706,13 +7081,16 @@ def main(argv=None) -> int:
     paths["sp"] = by_tpu_kernel(sp_counts)
     cases.update(sp_rows)
     phase("phase 27: tensor and expert parallelism at degree 4, full width, (b) at depth "
-          f"{TP_DEFAULT_RUN_DEPTH}")
-    paths.update(phase_tensor_parallel(torch, modules, smi, TP_DEFAULT_RUN_DEPTH))
+          f"{TP_DEFAULT_RUN_DEPTH}, {PAR_DEFAULT_RUN_MICRO} micro-batches")
+    # phases 27-30 run on one spawn of four gloo processes, judged in turn
+    wall = parallel_spawn(torch, TP_DEFAULT_RUN_DEPTH, ZERO_DEFAULT_RUN_DEPTH)
+    say(f"  phases 27-30's one spawn of four gloo processes took {wall:.1f} s")
+    paths.update(phase_tensor_parallel(torch, smi, TP_DEFAULT_RUN_DEPTH, wall))
     phase(f"phase 28: ZeRO-1/2/3 at 4 data ranks, full width, (b) at depth "
-          f"{ZERO_DEFAULT_RUN_DEPTH}")
-    paths.update(phase_zero(torch, modules, smi, ZERO_DEFAULT_RUN_DEPTH))
+          f"{ZERO_DEFAULT_RUN_DEPTH}, {PAR_DEFAULT_RUN_MICRO} micro-batches")
+    paths.update(phase_zero(torch, modules, smi, ZERO_DEFAULT_RUN_DEPTH, wall))
     phase("phase 29: pipeline parallelism (GPipe, 1F1B) over 4 stages, full width, (a) only")
-    paths.update(phase_pipeline(torch, smi, runner=False))
+    paths.update(phase_pipeline(torch, smi, runner=False, wall=wall))  # and phase 30 (a)
 
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "ffma_bound_ms")

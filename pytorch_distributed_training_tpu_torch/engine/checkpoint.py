@@ -32,10 +32,11 @@ group on every rank, and written once by rank 0, and restores by slicing
 the other way (:mod:`..parallel.tensor`): the payload is the one-rank
 run's, as JAX's global arrays carry no layout, so it resumes at any tensor
 parallelism and ZeRO stage, restores at 1 and serves on one card.  A
-pipeline stage (a model with a ``stage_group``) gathers its blocks'
-parameters and slots over the stage group the same way (the shared leaves
+pipeline stage (a model with a ``stage_group``) gathers its ZeRO slots
+over the data group, its blocks' parameters and slots over the model group
+(PP x TP) and then over the stage group the same way (the shared leaves
 are equal on every stage), rank 0 writes the per-layer leaves, and each
-stage restores its own blocks; JAX writes the stacked tree, and a restore
+rank restores its own part; JAX writes the stacked tree, and a restore
 at another stage count is the layout-converting restore (P10).
 
 Config keys (JAX ``:275-306``): ``dir`` (required to enable), ``interval``

@@ -34,19 +34,44 @@ local batch (``training.microbatches``, default the stage count):
   are held.  The tick's sends (the activation forward, the input's
   cotangent back) go after both slots.
 
+The compositions (JAX ``make_pp_mesh``'s inner axis, ``_stage_applies``,
+the ZeRO branch of ``compile_for``, ``:538-608``) come with the layout's
+groups (:class:`..parallel.mesh.PPLayout`):
+
+- PP x TP: a stage's blocks are Megatron-split over the model group (the
+  model's ``tensor_group``); its copy/reduce pair leaves every activation
+  and every shared leaf's gradient whole on each model rank, so the step
+  adds no reduce over the model group, and the hops carry whole
+  activations between the stages' ranks of the same model index;
+- PP x SP: every rank holds ``S/n`` columns of its batch, stage 0 embeds
+  them at their global positions, every block's attention runs ring or
+  Ulysses over the sequence group (the model's ``seq_axis``), and every
+  gradient and the loss are also summed over the sequence group (JAX's
+  ``loss_axes`` are ``(data, stage, sequence)``);
+- PP x ZeRO-1/2 (beside TP too): the moments live as this rank's slices
+  over the data group (:class:`..parallel.tensor.ZeroPlan` with the model
+  axis only under TP, JAX ``pp_state_shardings(zero=True)``); the split
+  leaves' gradients are reduce-scattered into the slices once a step after
+  the last microbatch, the optimizer runs on the slices and the fresh
+  slices are all-gathered into the parameters.  The backward accumulates
+  every microbatch into the full gradient (JAX's ``gacc``), so ZeRO-1 and
+  ZeRO-2 run the same exchanges here.
+
 The objective is the global mean CE: each microbatch's partial loss is
-:func:`.sp_steps.lm_loss_local` over ``b_local x seq x n_data`` tokens.
-After the schedule the shared leaves' gradients (the embeddings' are stage
-0's, the head's the last stage's) are summed over the stage group with the
-loss, then every gradient and the loss over the data group, the sums JAX's
-transposes take; the replicas of the shared leaves stay equal.  Then the
-optimizer runs on this rank's leaves, with the stacked-layout rules of
-:mod:`..optimizers` (``excluded``; LAMB's norms over each stack).
+:func:`.sp_steps.lm_loss_local` over ``b_local x seq x n_data x n_seq``
+tokens.  After the schedule the shared leaves' gradients (the embeddings'
+are stage 0's, the head's the last stage's) are summed over the stage group
+with the loss, then every gradient and the loss over the sequence group and
+the data group, the sums JAX's transposes take; the replicas of the shared
+leaves stay equal.  Then the optimizer runs on this rank's leaves, with the
+stacked-layout rules of :mod:`..optimizers` (``excluded``; LAMB's norms over
+each stack, its model slices and its data slices).
 
 The eval step (JAX ``:644-760``) runs the GPipe ticks forward only; a
 local batch that ``M`` does not divide falls back to ``gcd(M, batch)``
-microbatches with a warning, once a batch size.  Every stage returns the
-same reduced ``(loss, acc1, acc5)``.
+microbatches with a warning, once a batch size.  Every rank returns the
+same ``(loss, acc1, acc5)``, reduced over the stage, sequence and data
+groups.
 """
 from __future__ import annotations
 
@@ -56,9 +81,12 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..optimizers import LAMB, AdamW
+from ..parallel.mesh import resolve_seq_axis
 from ..parallel.pipeline import block_index
+from ..parallel.tensor import TensorGroup, ZeroPlan, shard_dim
 from .sp_steps import LMTrainStep, _all_reduce_sum_, _grad, _nbytes, lm_loss_local
 
 __all__ = ["PPLMTrainStep", "build_pp_lm_eval_step", "build_pp_lm_train_step",
@@ -179,22 +207,40 @@ class _Hop(torch.autograd.Function):
 class PPLMTrainStep(LMTrainStep):
     """One pipeline training iteration of this rank's stage:
     ``step(tokens, labels) -> loss`` (the global mean, equal on every rank).
-    ``tokens``/``labels`` are the data rank's ``[B_local, S]`` batch, the
-    same on every stage of a pipeline.  ``exchange`` is the stage group's
-    :class:`..parallel.pipeline.StageExchange`; ``world_size``/``group`` the
-    data group's (see the module docstring)."""
+    ``tokens``/``labels`` are the data rank's ``[B_local, S]`` batch (under
+    PP x SP this rank's ``S/n`` columns of it), the same on every stage of a
+    pipeline and every model rank of a stage.  ``exchange`` is the stage
+    group's :class:`..parallel.pipeline.StageExchange`; ``world_size``/``group``
+    the data group's; ``zero`` the ZeRO stage (1 or 2) over the data group
+    (see the module docstring).  The model group (the model's
+    ``tensor_group``) and the sequence group (its ``seq_axis``) come with the
+    model."""
+
+    zero_plan: Optional[ZeroPlan] = None
 
     def __init__(self, model, optimizer, lr_fn: Callable[[int], float], exchange,
                  num_microbatches: int, schedule: str = "gpipe", world_size: int = 1,
-                 group=None, label_smoothing: float = 0.0):
+                 group=None, label_smoothing: float = 0.0, zero: int = 0):
         m = int(num_microbatches)
         if m < 1:
             raise ValueError(f"num_microbatches must be >= 1, got {m}")
         if schedule not in SCHEDULES:
             raise ValueError(f"unknown pipeline schedule {schedule!r}")
+        if int(zero) not in (0, 1, 2):
+            raise ValueError(f"training.zero: {zero} does not compose with "
+                             "pipeline_parallelism — use zero: 1 or 2 under the pipeline")
         self.ex, self.n_micro, self.schedule = exchange, m, schedule
         self.n_stage, self.stage_idx = exchange.size, exchange.rank
+        self.zero = int(zero) if int(world_size) > 1 else 0
+        self.seq = None if model.seq_axis is None else resolve_seq_axis(model.seq_axis)
+        self.n_seq = 1 if self.seq is None else self.seq.size
         super().__init__(model, optimizer, lr_fn, world_size, group, label_smoothing)
+
+    def init_opt_state(self):
+        """The optimizer's state over this rank's leaves (their ZeRO slices
+        under ``zero``), and the leaves' layout: shared or a block's (its
+        stack), split over the model group, split over the data group."""
+        model = self.model
         names = [n for n, p in model.named_parameters() if p.requires_grad]
         leaves = [None if block_index(n) is None else n.split(".", 1)[1] for n in names]
         self._shared = [leaf is None for leaf in leaves]
@@ -203,15 +249,30 @@ class PPLMTrainStep(LMTrainStep):
         # the stack of each block leaf (LAMB's norms), -1 for a shared leaf
         keys = sorted(set(leaf for leaf in leaves if leaf is not None))
         self._stack = [-1 if leaf is None else keys.index(leaf) for leaf in leaves]
+        tg = model.tensor_group
+        self._model_split = [tg is not None and shard_dim(n) is not None for n in names]
+        if self.zero:
+            # JAX pp_state_shardings(zero=True): the stacked leaf's first free
+            # divisible dim after the stage axis (and the model axis under TP)
+            self.zero_plan = ZeroPlan(names, [p.shape for p in self.params],
+                                      TensorGroup(self.group, self.world_size),
+                                      model_axis=tg is not None)
+        plan = self.zero_plan
+        self._data_split = ([d is not None for d in plan.dims] if plan is not None
+                            else [False] * len(names))
+        held = [p if plan is None or plan.dims[i] is None else p.new_empty(plan.part_shapes[i])
+                for i, p in enumerate(self.params)]
+        return self.optimizer.init(held)
 
     def __call__(self, tokens, labels):
         b_local, seq = tokens.shape
         if b_local % self.n_micro != 0:
             raise ValueError(f"per-shard batch {b_local} not divisible by num_microbatches "
                              f"{self.n_micro}")
-        if seq > self.model.max_len:
-            raise ValueError(f"global sequence {seq} exceeds max_len {self.model.max_len}")
-        global_tokens = b_local * seq * self.world_size
+        if seq * self.n_seq > self.model.max_len:
+            raise ValueError(f"global sequence {seq * self.n_seq} exceeds max_len "
+                             f"{self.model.max_len}")
+        global_tokens = b_local * seq * self.world_size * self.n_seq
         tok = tokens.reshape(self.n_micro, -1, seq)
         lab = labels.reshape(self.n_micro, -1, seq)
         for p in self.params:
@@ -296,53 +357,103 @@ class PPLMTrainStep(LMTrainStep):
 
     def reduce_grads(self, loss):
         """The shared leaves' gradients and the loss summed over the stage
-        group, then every gradient and the loss over the data group."""
+        group, then every gradient and the loss over the sequence group
+        (PP x SP), then over the data group: all-reduced, or under ZeRO the
+        leaves it splits reduce-scattered into this rank's slices (once a
+        step, after the last microbatch; JAX pins ZeRO-2's gradients at the
+        ``shard_map`` boundary, ZeRO-1's reach the sharded update through
+        GSPMD's reduce-scatter)."""
         grads = [_grad(p) for p in self.params]
         self.grad_bytes = _nbytes(grads)
         shared = [g for g, sh in zip(grads, self._shared) if sh]
         _all_reduce_sum_(shared + [loss.reshape(1)], self.ex.group)
-        if self.world_size > 1:
-            _all_reduce_sum_(grads + [loss.reshape(1)], self.group)
+        if self.seq is not None:
+            _all_reduce_sum_(grads + [loss.reshape(1)], self.seq.group)
+        if self.world_size == 1:
+            return grads
+        plan = self.zero_plan
+        idx = [] if plan is None else plan.sharded
+        whole = [g for g, split in zip(grads, self._data_split) if not split]
+        _all_reduce_sum_(whole + [loss.reshape(1)], self.group)
+        if idx:
+            for i, g in zip(idx, plan.scatter_sum([grads[i] for i in idx], idx)):
+                grads[i] = g
+                self.params[i].grad = None  # the full buffer goes
         return grads
 
     def update(self, grads, lr) -> None:
+        """The optimizer on this rank's leaves, under ZeRO on their slices
+        (the fresh slices then all-gathered into the full parameters)."""
         kw = {}
         if isinstance(self.optimizer, (AdamW, LAMB)):
             kw["excluded"] = self._excluded
         if isinstance(self.optimizer, LAMB):
-            kw["whole_norms"] = self._stack_norms
-        self.opt_state = self.optimizer.update(self.params, grads, self.opt_state, lr, **kw)
+            kw["whole_norms"] = self._whole_norms
+        plan = self.zero_plan
+        if plan is None:
+            self.opt_state = self.optimizer.update(self.params, grads, self.opt_state, lr, **kw)
+            return
+        idx, held = plan.sharded, list(self.params)
+        with torch.no_grad():
+            parts = [plan.slice(self.params[i], i).clone() for i in idx]
+        for i, t in zip(idx, parts):
+            held[i] = t
+        self.opt_state = self.optimizer.update(held, grads, self.opt_state, lr, **kw)
+        if idx:
+            with torch.no_grad():
+                plan.gather_into([self.params[i] for i in idx], parts, idx)
 
-    def _stack_norms(self, norms, idx):
-        """LAMB's norms over JAX's stacked leaves: the norms ``[k, len(idx)]``
-        of the leaves ``idx`` combined over each stack's layers."""
+    def _whole_norms(self, norms, idx):
+        """LAMB's norms over JAX's stacked leaves from this rank's parts' (the
+        norms ``[k, len(idx)]`` of the leaves ``idx``): squares summed over
+        the data group where ZeRO splits a leaf, over the model group where
+        tensor parallelism does, then over each stack's layers on this stage
+        and, under ZeRO (JAX's update runs outside the ``shard_map``, on the
+        whole stacked leaf), over the stages too."""
+        tg = self.model.tensor_group
+        sq, changed = norms.square(), torch.zeros_like(norms, dtype=torch.bool)
+        for split, group in ((self._data_split, self.group),
+                             (self._model_split, None if tg is None else tg.group)):
+            pick = [split[i] for i in idx]
+            if not any(pick):
+                continue
+            mask = torch.tensor(pick, device=norms.device).expand_as(sq)
+            red = torch.where(mask, sq, torch.zeros_like(sq))
+            dist.all_reduce(red, op=dist.ReduceOp.SUM, group=group)
+            sq, changed = torch.where(mask, red, sq), changed | mask
         stack = [self._stack[i] for i in idx]
-        if all(k < 0 for k in stack):
-            return norms
-        ids = torch.tensor([max(k, 0) for k in stack], device=norms.device)
-        stacked = torch.tensor([k >= 0 for k in stack], device=norms.device)
-        sums = norms.new_zeros(norms.shape[0], max(stack) + 1)
-        sums.index_add_(1, ids, torch.where(stacked, norms.square(), 0.0))
-        return torch.where(stacked, sums[:, ids].sqrt(), norms)
+        if any(k >= 0 for k in stack):
+            ids = torch.tensor([max(k, 0) for k in stack], device=norms.device)
+            stacked = torch.tensor([k >= 0 for k in stack], device=norms.device).expand_as(sq)
+            sums = norms.new_zeros(norms.shape[0], max(stack) + 1)
+            sums.index_add_(1, ids, torch.where(stacked, sq, 0.0))
+            if self.zero:
+                dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=self.ex.group)
+            sq, changed = torch.where(stacked, sums[:, ids], sq), changed | stacked
+        return torch.where(changed, sq.sqrt(), norms)
 
 
 def build_pp_lm_train_step(model, optimizer, lr_fn: Callable[[int], float], exchange,
                            num_microbatches: int, schedule: str = "gpipe", world_size: int = 1,
-                           group=None, label_smoothing: float = 0.0) -> PPLMTrainStep:
+                           group=None, label_smoothing: float = 0.0,
+                           zero: int = 0) -> PPLMTrainStep:
     """The pipeline training step of one rank's stage (module docstring)."""
     return PPLMTrainStep(model, optimizer, lr_fn, exchange, num_microbatches, schedule,
-                         world_size, group, label_smoothing)
+                         world_size, group, label_smoothing, zero)
 
 
 def build_pp_lm_eval_step(model, exchange, num_microbatches: int, world_size: int = 1,
                           group=None, logger: Optional[logging.Logger] = None):
     """``eval_step(tokens, labels) -> (loss, acc1, acc5)`` over the pipeline:
     the GPipe ticks forward only, the mean CE a token and the top-1/top-5
-    accuracy in percent, summed over the stage group and the ``world_size``
-    data ranks of ``group`` (module docstring)."""
+    accuracy in percent, summed over the stage group, the model's sequence
+    group and the ``world_size`` data ranks of ``group`` (module
+    docstring)."""
     logger = logger or logging.getLogger(__name__)
     s, n, m_cfg = exchange.rank, exchange.size, int(num_microbatches)
     last = s == n - 1
+    seq_ex = None if model.seq_axis is None else resolve_seq_axis(model.seq_axis)
+    n_seq = 1 if seq_ex is None else seq_ex.size
     warned = set()
 
     @torch.no_grad()
@@ -353,9 +464,9 @@ def build_pp_lm_eval_step(model, exchange, num_microbatches: int, world_size: in
             warned.add(b_local)
             logger.warning("pp eval: per-shard tail batch %d not divisible by microbatches %d; "
                            "falling back to M=%d for this batch", b_local, m_cfg, m_count)
-        if seq > model.max_len:
-            raise ValueError(f"global sequence {seq} exceeds max_len {model.max_len}")
-        global_tokens = b_local * seq * world_size
+        if seq * n_seq > model.max_len:
+            raise ValueError(f"global sequence {seq * n_seq} exceeds max_len {model.max_len}")
+        global_tokens = b_local * seq * world_size * n_seq
         tok = tokens.reshape(m_count, -1, seq)
         lab = labels.reshape(m_count, -1, seq)
         shape = (tok.shape[1], seq, model.embed_dim)
@@ -380,6 +491,8 @@ def build_pp_lm_eval_step(model, exchange, num_microbatches: int, world_size: in
             if recv is not None:
                 xs[nxt] = recv
         _all_reduce_sum_([sums], exchange.group)
+        if seq_ex is not None:
+            _all_reduce_sum_([sums], seq_ex.group)
         if world_size > 1:
             _all_reduce_sum_([sums], group)
         return sums[0], sums[1] / global_tokens * 100.0, sums[2] / global_tokens * 100.0

@@ -148,22 +148,27 @@ at each use); checkpoints still hold full leaves.  The CPU tests are
 JAX messages (:func:`.topology.parse_pipeline`,
 :func:`.topology.check_pipeline`, :func:`.topology.check_pipeline_batch`):
 the ranks form a ``(data, stage)`` layout (:class:`..parallel.mesh.PPLayout`,
-pipelines of S consecutive ranks), the model is this rank's stage (its
-blocks and the shared leaves; unfused tails, as JAX's stage blocks), every
-stage of a pipeline reads its data rank's batch, and the step runs
+pipelines of S consecutive ranks), grown by a model axis at
+``tensor_parallelism`` T > 1 or a sequence axis at ``sequence_parallelism``
+> 1 (innermost: ``rank = (data_idx * S + stage_idx) * T + model_idx``), the
+model is this rank's stage (its blocks, Megatron-split over the model group
+or running their attention over the sequence group, and the shared leaves;
+unfused tails, as JAX's stage blocks), every stage of a pipeline reads its
+data rank's batch (a sequence rank its columns of it), and the step runs
 ``training.pp_schedule`` (``gpipe`` or ``1f1b``) over
-``training.microbatches`` (:mod:`.pp_steps`); the logged loss is the one
-summed over the stages and data ranks.  A checkpoint holds the per-layer
-full leaves (:mod:`.checkpoint`).  The CPU tests are
-``tests/test_torch_pipeline.py``; on the card ``python3 chip_smoke.py --pp``.
+``training.microbatches`` with ``training.zero`` 1 or 2 over the data group
+(:mod:`.pp_steps`); the logged loss is the one summed over the stages,
+sequence and data ranks.  A checkpoint holds the per-layer full leaves
+(:mod:`.checkpoint`).  The CPU tests are ``tests/test_torch_pipeline.py``
+and ``tests/test_torch_pipeline_compose.py``; on the card ``python3
+chip_smoke.py --pp``.
 
 Not ported yet: every config key asking for one raises
-``NotImplementedError`` naming its ROADMAP item (:data:`UNPORTED_TRAINING_KEYS`,
-:data:`PIPELINE_UNPORTED`): sequence parallelism beside tensor or pipeline
-parallelism, ZeRO or MoE, the pipeline beside tensor or sequence
-parallelism or ZeRO-1/2, and ``comm`` (with ZeRO-1 beside ``comm.overlap``
-on a dense LM at ``tensor_parallelism`` 1, JAX's ``ring-sp-zero1`` path)
-(P9), telemetry, integrity, elastic recovery and the checkpoint keys of
+``NotImplementedError`` naming its ROADMAP item (:data:`UNPORTED_TRAINING_KEYS`):
+sequence parallelism beside tensor parallelism, ZeRO or MoE, and ``comm``
+(with ZeRO-1 beside ``comm.overlap`` on a dense LM at ``tensor_parallelism``
+1, JAX's ``ring-sp-zero1`` path) (P9), telemetry, integrity, elastic
+recovery and the checkpoint keys of
 :data:`.checkpoint.UNPORTED_CHECKPOINT_KEYS` (P10).
 TensorBoard is absent (P10): the log file and the console carry the
 metrics.
@@ -224,15 +229,15 @@ from .topology import (
 from .tp_steps import build_tp_lm_train_step
 from .watchdog import StepWatchdog
 
-__all__ = ["PIPELINE_UNPORTED", "Runner", "UNPORTED_TRAINING_KEYS", "apply_remat_alias"]
+__all__ = ["Runner", "UNPORTED_TRAINING_KEYS", "apply_remat_alias"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # training.<key> -> why it raises; a key counts when it is set and truthy
 # (a parallelism degree counts above 1)
 UNPORTED_TRAINING_KEYS = {
-    "sequence_parallelism": ("sequence parallelism beside tensor or pipeline parallelism, "
-                             "ZeRO or MoE is ROADMAP port item P9"),
+    "sequence_parallelism": ("sequence parallelism beside tensor parallelism, ZeRO or MoE "
+                             "is ROADMAP port item P9"),
     "comm": "training.comm (bucketed overlap, ZeRO-1 beside it) is ROADMAP port item P9",
     "telemetry": "the telemetry layer is ROADMAP port item P10",
     "integrity": "the integrity sentinel is ROADMAP port item P10",
@@ -242,26 +247,13 @@ UNPORTED_TRAINING_KEYS = {
 PREFETCH_DEPTH = 2
 
 
-# what the pipeline does not compose with yet (JAX composes all three)
-PIPELINE_UNPORTED = {"tensor_parallelism": "tensor parallelism",
-                     "sequence_parallelism": "sequence parallelism", "zero": "ZeRO-1/2"}
-
-
 def _reject_unported(train_cfg: Dict[str, Any], gspmd: bool = False,
-                     ring: bool = False) -> None:
-    if int(train_cfg.get("pipeline_parallelism", 1) or 1) > 1:
-        beside = [what for key, what in PIPELINE_UNPORTED.items()
-                  if (int(train_cfg.get(key) or 0) > 1 if key.endswith("parallelism")
-                      else bool(train_cfg.get(key)))]
-        if beside:
-            raise NotImplementedError(
-                f"pipeline parallelism beside {', '.join(beside)} is ROADMAP port item P9 "
-                f"(pipeline beside tensor parallelism, sequence parallelism or ZeRO-1/2)")
+                     ring: bool = False, pipeline: bool = False) -> None:
     for key, why in UNPORTED_TRAINING_KEYS.items():
         val = train_cfg.get(key)
         if key == "comm" and gspmd:
             continue  # the GSPMD path refuses comm.overlap with the JAX message
-        if key == "sequence_parallelism" and ring:
+        if key == "sequence_parallelism" and (ring or pipeline):
             continue  # ported: ring and Ulysses attention over the sequence group
         if key.endswith("parallelism"):
             wanted = val is not None and int(val) > 1
@@ -407,7 +399,7 @@ class Runner:
         # parallelism beside them stays P9)
         pipeline = pipeline_path(self)
         gspmd = gspmd_path(self, train_cfg)
-        _reject_unported(train_cfg, gspmd=gspmd, ring=ring)
+        _reject_unported(train_cfg, gspmd=gspmd, ring=ring, pipeline=pipeline)
         parse_fault_tolerance(self, train_cfg)
         self.grad_accum = int(train_cfg.get("grad_accumulation", 1))
         if self.grad_accum < 1:
@@ -501,7 +493,8 @@ class Runner:
                 self.train_step = build_pp_lm_train_step(
                     self.model, self.optimizer, self.scheduler.lr_fn,
                     self.layout.stage_exchange, self.microbatches, self.pp_schedule,
-                    world_size=world, group=group, label_smoothing=self.label_smoothing)
+                    world_size=world, group=group, label_smoothing=self.label_smoothing,
+                    zero=self.zero)
             elif self.path == "gspmd":
                 self.train_step = build_tp_lm_train_step(
                     self.model, self.optimizer, self.scheduler.lr_fn,
@@ -769,15 +762,28 @@ class Runner:
             if self.world_size % self.pipe_par != 0:
                 raise ValueError(f"training.pipeline_parallelism ({self.pipe_par}) must divide "
                                  f"the number of ranks ({self.world_size})")
-            self.layout = lay = PPLayout(self.world_size, self.current_rank, self.pipe_par)
+            seq_len = int(train_dataset[0][0].shape[0])
+            if self.tensor_par > 1:
+                check_tensor_parallel(self, self.global_cfg["model"], self.world_size)
+            if self.seq_par > 1:
+                check_sequence_parallel(self, seq_len, self.world_size)
+            self.layout = lay = PPLayout(self.world_size, self.current_rank, self.pipe_par,
+                                         self.tensor_par, self.seq_par)
             self.data_rank, self.data_size = lay.data_idx, lay.n_data
-            self.logger.info("Pipeline parallelism: data x stage = %d x %d, rank %d at (%d, %d), "
-                             "%s schedule over %d microbatches%s", lay.n_data, lay.n_stage,
-                             self.current_rank, lay.data_idx, lay.stage_idx, self.pp_schedule,
-                             self.microbatches,
-                             ", hops staged through pinned host memory"
-                             if lay.stage_exchange.host_staged and self.device.type == "cuda"
-                             else "")
+            if lay.n_seq > 1:
+                s_local = seq_len // lay.n_seq
+                self._columns = slice(lay.seq_idx * s_local, (lay.seq_idx + 1) * s_local)
+            axis = ("model" if lay.n_model > 1 else "sequence") if lay.n_inner > 1 else ""
+            self.logger.info(
+                "Pipeline parallelism: data x stage%s = %d x %d%s, rank %d at (%d, %d%s), %s "
+                "schedule over %d microbatches of %d rows%s%s", f" x {axis}" if axis else "",
+                lay.n_data, lay.n_stage, f" x {lay.n_inner}" if axis else "", self.current_rank,
+                lay.data_idx, lay.stage_idx, f", {lay.inner_idx}" if axis else "",
+                self.pp_schedule, self.microbatches,
+                int(self.global_cfg["training"]["batch_size"]) // self.microbatches,
+                f", ZeRO-{self.zero} over the data group" if self.zero else "",
+                ", hops staged through pinned host memory"
+                if lay.stage_exchange.host_staged and self.device.type == "cuda" else "")
             return
         if self.tensor_par > 1 or (self.zero and self.world_size > 1):
             check_tensor_parallel(self, self.global_cfg["model"], self.world_size)
@@ -810,6 +816,13 @@ class Runner:
             model_cfg["stage_group"] = self.layout.stage
             # JAX _stage_applies builds the stage's blocks without fused tails
             model_cfg["fused_tails"] = False
+            if self.layout.tensor_group is not None:
+                model_cfg["tensor_group"] = self.layout.tensor_group
+            if self.layout.seq_exchange is not None:
+                if model_cfg.get("seq_axis", SEQUENCE_AXIS) != SEQUENCE_AXIS:
+                    raise ValueError(f"model.seq_axis must be {SEQUENCE_AXIS!r}, got "
+                                     f"{model_cfg['seq_axis']!r}")
+                model_cfg["seq_axis"] = self.layout.seq_exchange
         elif isinstance(self.layout, TPLayout):
             model_cfg["tensor_group"] = self.layout.tensor_group
             if self.zero >= 3 and self.layout.n_data > 1:
@@ -829,7 +842,7 @@ class Runner:
         moe = (f", MoE in {sum(b.is_moe for b in m.blocks)} of {m.depth} blocks "
                f"({m.moe_experts} experts, {self.path} path)" if self.is_moe else "")
         sp = (f", {m.seq_impl} attention over the sequence group"
-              if isinstance(self.layout, SPLayout) else
+              if m.seq_axis is not None else
               f", tensor parallel over {self.tensor_par} ranks" if self.tensor_par > 1 else "")
         if m.zero_plan is not None:
             sp += f", ZeRO-3: this rank's slices of the leaves ({self.data_size} data ranks)"

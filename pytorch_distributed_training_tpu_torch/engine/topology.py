@@ -178,8 +178,9 @@ def pipeline_path(r) -> bool:
 def ring_path(r, train_cfg: dict) -> bool:
     """Whether the run shards the sequence over a ring of ranks: JAX
     ``topology.py:256-266`` sets ``seq_axis`` for ``sequence_parallelism``
-    > 1 with no tensor or pipeline parallelism, no ZeRO and no MoE (those
-    combinations stay ROADMAP port item P9)."""
+    > 1 with no tensor or pipeline parallelism, no ZeRO and no MoE (beside
+    the pipeline it runs on the pipeline path; beside the others it stays
+    ROADMAP port item P9)."""
     return (r.seq_par > 1 and r.tensor_par == 1 and r.pipe_par == 1 and not r.zero
             and not r.is_moe)
 

@@ -148,11 +148,14 @@ def lm_state_dict_from_jax(params: Mapping, tensor_group=None) -> Dict[str, torc
     return shard_state_dict(state, tensor_group)
 
 
-def lm_state_dict_from_jax_pp(pp_params: Mapping, stage_group=None) -> Dict[str, torch.Tensor]:
+def lm_state_dict_from_jax_pp(pp_params: Mapping, stage_group=None,
+                              tensor_group=None) -> Dict[str, torch.Tensor]:
     """The port's ``TransformerLM`` state_dict for the JAX pipeline layout
     ``{"blocks": <stacked [depth, ...]>, "shared": ...}`` (numpy leaves);
     with ``stage_group`` (a :class:`..parallel.tensor.TensorGroup` of the
-    stages) that stage's part of it."""
+    stages) that stage's part of it, and with ``tensor_group`` (the model
+    group's) this model rank's Megatron slices of its blocks (the shared
+    leaves whole, as JAX ``pp_param_specs`` gives them ``P()``)."""
     stacked = {path: torch.tensor(arr) for path, arr in _flatten(pp_params["blocks"]).items()}
     tree: Dict = {}
     for path, arr in {**_flatten(pp_params["shared"]),
@@ -164,10 +167,10 @@ def lm_state_dict_from_jax_pp(pp_params: Mapping, stage_group=None) -> Dict[str,
             node = node.setdefault(m, {})
         node[leaf] = np.asarray(arr)
     state = lm_state_dict_from_jax(tree)
-    if stage_group is None:
-        return state
-    depth = next(iter(stacked.values())).shape[0]
-    return stage_state_dict(state, depth, stage_group.size, stage_group.rank)
+    if stage_group is not None:
+        depth = next(iter(stacked.values())).shape[0]
+        state = stage_state_dict(state, depth, stage_group.size, stage_group.rank)
+    return shard_state_dict(state, tensor_group)
 
 
 def _resnet_key(path: str) -> str:

@@ -126,10 +126,15 @@ still drawn in turn and the others dropped, so a stage starts from the
 one-rank model's weights of the same seed.  The pipeline step
 (:mod:`..engine.pp_steps`) runs a stage as :meth:`TransformerLM.embed` (stage
 0), :meth:`TransformerLM.run_blocks` (block remat as above) and
-:meth:`TransformerLM.logits` (the last stage).  The full model's
-``state_dict`` loads (each stage keeps its blocks) and gathers over the
-stage group.  MoE blocks, tensor parallelism and ZeRO-3 do not compose with
-it, and serving refuses it.
+:meth:`TransformerLM.logits` (the last stage).  Beside ``tensor_group``
+(PP x TP, JAX ``pp_param_specs(tensor_parallel=True)``) a stage's blocks
+are Megatron-split over the model group and the shared leaves stay whole on
+every model rank; beside ``seq_axis`` (PP x SP, JAX ``_stage_applies``)
+stage 0 embeds its sequence shard at its global positions and every block's
+attention runs over the sequence group.  The full model's ``state_dict``
+loads (each stage keeps its blocks, then its model slices) and gathers over
+the model group, then the stage group.  MoE blocks and ZeRO-3 do not compose
+with it (the JAX messages), and serving refuses it.
 """
 from __future__ import annotations
 
@@ -245,9 +250,11 @@ class TransformerLM(nn.Module):
             raise ValueError(f"moe_every must be >= 1, got {moe_every}")
         if stage_group is not None and moe_experts > 0:
             raise ValueError("model.moe_experts does not compose with pipeline_parallelism")
-        if stage_group is not None and (tensor_group is not None or zero_group is not None):
-            raise NotImplementedError("pipeline parallelism beside tensor parallelism or ZeRO "
-                                      "is ROADMAP port item P9")
+        if stage_group is not None and zero_group is not None:
+            # JAX topology.py:213-220: ZeRO-1/2 compose with the pipeline (the
+            # step's), ZeRO-3's sharded leaves do not
+            raise ValueError("training.zero: 3 does not compose with pipeline_parallelism "
+                             "— use zero: 1 or 2 under the pipeline")
         # unknown names raise even with remat off, as in JAX
         self.set_remat(remat, remat_policy)
         if embed_dim % num_heads != 0:
@@ -402,8 +409,8 @@ class TransformerLM(nn.Module):
                 + [f"block{i}.{leaf}" for i in range(self.depth) for leaf in leaves])
 
     def load_full_state_dict(self, state) -> None:
-        """Load the full model's ``state_dict`` (strict): a tensor-parallel
-        or ZeRO-3 model keeps its slices of it, a pipeline stage its blocks."""
+        """Load the full model's ``state_dict`` (strict): a pipeline stage
+        keeps its blocks, a tensor-parallel or ZeRO-3 model its slices."""
         if self.stage_group is not None:
             differ = sorted(set(self.full_keys()) ^ set(state))
             if differ:
@@ -418,9 +425,9 @@ class TransformerLM(nn.Module):
 
     def full_state_dict(self) -> dict:
         """The full model's ``state_dict``: a ZeRO-3 model gathers its leaves
-        over the data group, then a tensor-parallel one over the model group;
-        a pipeline stage gathers the blocks over the stage group (collectives
-        on every rank)."""
+        over the data group, then a tensor-parallel one over the model group,
+        then a pipeline stage its blocks over the stage group (collectives on
+        every rank)."""
         return self.gather_full(self.state_dict())
 
     def gather_full(self, local) -> dict:
@@ -430,9 +437,10 @@ class TransformerLM(nn.Module):
         plan = self.zero_plan
         if plan is not None:
             local = dict(zip(plan.names, plan.gather_all([local[n] for n in plan.names])))
+        local = gather_state_dict(local, self.tensor_group)
         if self.stage_group is not None:
             return gather_stages(local, self.depth, self.stage_group)
-        return gather_state_dict(local, self.tensor_group)
+        return local
 
     def _refuse_decode(self) -> None:
         # JAX :216-217: serving (the batcher's cache, the paged pool) is dense
@@ -530,9 +538,13 @@ class TransformerLM(nn.Module):
     def embed(self, tokens):
         """The token and position embeddings of a plain call, ``[B, S]`` ->
         the stream ``[B, S, E]`` in the compute dtype (a pipeline's stage 0;
-        the caller checks the sequence against ``max_len``)."""
+        the caller checks the sequence against ``max_len``).  With
+        ``seq_axis`` the tokens are this rank's shard of the sequence and
+        its positions start at ``seq_idx * S`` (JAX ``_stage_applies``)."""
+        s = tokens.shape[1]
+        off = 0 if self.seq_axis is None else resolve_seq_axis(self.seq_axis).rank * s
         x = F.embedding(tokens, self.tok_embedding).to(self.dtype)
-        return x + self.pos_embedding[:tokens.shape[1]][None].to(self.dtype)
+        return x + self.pos_embedding[off:off + s][None].to(self.dtype)
 
     def run_blocks(self, x):
         """This model's blocks (a pipeline stage's own) over the stream ``x``,

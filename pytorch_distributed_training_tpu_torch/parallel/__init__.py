@@ -1,6 +1,7 @@
 """Parallelism over ``torch.distributed`` process groups (port of the JAX
 package's ``parallel/``): the (data, sequence), (data, model) and (data,
-stage) layouts (:mod:`.mesh`), ring and Ulysses attention over the sequence
+stage) layouts, the last grown by a model or a sequence axis
+(:mod:`.mesh`), ring and Ulysses attention over the sequence
 group (:mod:`.sequence`), Megatron tensor and expert parallelism over the
 model group (:mod:`.tensor`), and the pipeline's stage layout and hops
 (:mod:`.pipeline`)."""

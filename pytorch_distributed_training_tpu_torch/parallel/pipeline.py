@@ -114,18 +114,9 @@ class StageExchange(GroupExchange):
     receives at once and waits for them.  Activations only ever travel from
     stage ``s`` to ``s + 1`` and cotangents from ``s + 1`` to ``s``, so
     each ordered pair of ranks carries one kind of message and one tag
-    serves both.
-
-    ``backend`` picks, once, how a CUDA tensor travels: NCCL takes the
-    device buffers; gloo's transport hands the tensor's raw pointer to its
-    socket (a CUDA pointer fails there, ``writev ... Bad address`` on torch
-    2.11), so under gloo a CUDA tensor is copied into pinned host memory
-    before its send and a receive lands in pinned memory and is copied up.
-    CPU tensors go as they are."""
-
-    def __init__(self, group, ranks=None, backend: str = "gloo"):
-        super().__init__(group, ranks)
-        self.host_staged = backend == "gloo"
+    serves both.  ``backend`` picks how a CUDA tensor travels, as
+    :class:`.sequence.GroupExchange`'s does (under gloo through pinned host
+    memory)."""
 
     def hop(self, send_next=None, send_prev=None, recv_prev=None, recv_next=None) -> None:
         """Send ``send_next`` to stage + 1 and ``send_prev`` to stage - 1;
@@ -136,21 +127,5 @@ class StageExchange(GroupExchange):
                  if t is not None]
         recvs = [(t, peer) for t, peer in ((recv_prev, s - 1), (recv_next, s + 1))
                  if t is not None]
-        if not sends and not recvs:
-            return
-        staged = [(t, self._host(t)) for t, _ in recvs]
-        self._post([(self._host(t.detach(), copy=True), peer) for t, peer in sends],
-                   [(h, peer) for (_, peer), (_, h) in zip(recvs, staged)])
-        for t, h in staged:
-            if h is not t:
-                t.copy_(h, non_blocking=True)
-
-    def _host(self, t, copy: bool = False):
-        """``t`` itself, or its pinned host stand-in (module docstring);
-        ``copy``: holding ``t``'s values."""
-        if not (self.host_staged and t.is_cuda):
-            return t.contiguous()
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        if copy:
-            h.copy_(t)
-        return h
+        if sends or recvs:
+            self._staged_post(sends, recvs)

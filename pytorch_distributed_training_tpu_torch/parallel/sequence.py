@@ -237,13 +237,22 @@ class GroupExchange:
     send and receive.  Without it the group object is used on its own
     (a gloo group over a store of its own, as the tests' thread ranks
     build), its ``send``/``recv`` called directly.
+
+    ``backend`` picks, once, how a CUDA tensor travels: NCCL takes the
+    device buffers; gloo's transport hands the tensor's raw pointer to its
+    socket (a CUDA pointer fails there, ``writev ... Bad address`` on torch
+    2.11), so under gloo (``host_staged``) a CUDA tensor is copied into
+    pinned host memory before a send or an all-to-all, and what arrives
+    lands in pinned memory and is copied up.  CPU tensors go as they are.
     """
 
-    def __init__(self, group, ranks: Optional[Sequence[int]] = None):
+    def __init__(self, group, ranks: Optional[Sequence[int]] = None,
+                 backend: Optional[str] = None):
         self.group = group
         self.ranks = None if ranks is None else list(ranks)
         self.size = group.size()
         self.rank = group.rank()
+        self.host_staged = backend == "gloo"
 
     def shift(self, carry, *tensors):
         """``(carry, *blocks of rank + 1)``: send ``tensors`` to rank - 1 and
@@ -260,10 +269,30 @@ class GroupExchange:
     def _rotate(self, tensors, step: int):
         """Send ``tensors`` to rank - step, receive rank + step's."""
         to, frm = (self.rank - step) % self.size, (self.rank + step) % self.size
-        sends = [t.contiguous() for t in tensors]
-        recvs = [torch.empty_like(t) for t in sends]
-        self._post([(t, to) for t in sends], [(t, frm) for t in recvs])
+        recvs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in tensors]
+        self._staged_post([(t, to) for t in tensors], [(t, frm) for t in recvs])
         return recvs
+
+    def _host(self, t, copy: bool = False):
+        """``t`` itself (contiguous), or its pinned host stand-in (class
+        docstring); ``copy``: holding ``t``'s values."""
+        if not (self.host_staged and t.is_cuda):
+            return t.contiguous()
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        if copy:
+            h.copy_(t)
+        return h
+
+    def _staged_post(self, sends, recvs) -> None:
+        """:meth:`_post` of ``(tensor, peer)`` sends and receives, each
+        tensor through its host stand-in (:meth:`_host`); what arrives is
+        copied into the receiving tensors."""
+        staged = [self._host(t) for t, _ in recvs]
+        self._post([(self._host(t.detach(), copy=True), peer) for t, peer in sends],
+                   [(h, peer) for h, (_, peer) in zip(staged, recvs)])
+        for (t, _), h in zip(recvs, staged):
+            if h is not t:
+                t.copy_(h, non_blocking=True)
 
     def _post(self, sends, recvs, tag: int = 0) -> None:
         """Post every ``(tensor, peer)`` send and receive at once (peers are
@@ -283,7 +312,10 @@ class GroupExchange:
         n = self.size
         send = torch.stack(x.chunk(n, split_dim))  # [n, ...chunk], contiguous
         recv = torch.empty_like(send)
-        self.group.alltoall_base(recv, send, [], []).wait()
+        host = self._host(recv)
+        self.group.alltoall_base(host, self._host(send, copy=True), [], []).wait()
+        if host is not recv:
+            recv.copy_(host, non_blocking=True)
         return torch.cat(recv.unbind(0), concat_dim)
 
 

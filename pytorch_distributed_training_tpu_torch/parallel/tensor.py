@@ -216,18 +216,23 @@ def reduce_from_model(x: torch.Tensor, tg: Optional[TensorGroup]) -> torch.Tenso
 # --------------------------------------------------------------------- ZeRO
 
 
-def zero_shard_dim(name: str, shape: Sequence[int], n_data: int) -> Optional[int]:
+def zero_shard_dim(name: str, shape: Sequence[int], n_data: int,
+                   model_axis: bool = True) -> Optional[int]:
     """The dim of the port's leaf ``name`` (of ``shape``, whole or this model
     rank's slice: the dims the rule may take are the same in both) that ZeRO
     splits over ``n_data`` data ranks, by JAX ``zero_shard_moment``'s rule
     (module docstring); ``None``: the leaf stays whole, as it does at one data
-    rank."""
+    rank.  ``model_axis``: whether the leaf's spec carries the model axis
+    (the GSPMD path's always does; a pipeline's blocks only under tensor
+    parallelism, JAX ``pp_param_specs``, whose stacked layer axis the
+    port's per-layer leaf does not have)."""
     if n_data <= 1:
         return None
     nd = len(shape)
     # a Dense weight [out, in] is flax's kernel [in, out] transposed
     flip = nd == 2 and name.rsplit(".", 1)[-1] == "weight"
-    model = shard_dim(name)  # taken by the model axis, at any degree (JAX keeps the spec)
+    # taken by the model axis, at any degree (JAX keeps the spec)
+    model = shard_dim(name) if model_axis else None
     for flax_dim in range(nd):
         d = nd - 1 - flax_dim if flip else flax_dim
         if d != model and shape[d] % n_data == 0:
@@ -250,16 +255,17 @@ def _all_gather(out: torch.Tensor, inp: torch.Tensor, group) -> None:
 class ZeroPlan:
     """ZeRO's layout of the leaves ``names`` (of ``shapes``, this model
     rank's) over the data group ``dg`` (a :class:`TensorGroup`): ``dims[i]``
-    (:func:`zero_shard_dim`), ``part_shapes[i]`` (this rank's slice),
+    (:func:`zero_shard_dim`, under ``model_axis``), ``part_shapes[i]`` (this rank's slice),
     ``sharded`` (the indices that split) and the exchanges of the module
     docstring.  Every method that exchanges is a collective: every rank of
     the data group calls it, in the same order."""
 
-    def __init__(self, names: Sequence[str], shapes: Sequence[Sequence[int]], dg: TensorGroup):
+    def __init__(self, names: Sequence[str], shapes: Sequence[Sequence[int]], dg: TensorGroup,
+                 model_axis: bool = True):
         self.dg = dg
         self.names = list(names)
         shapes = [tuple(int(x) for x in s) for s in shapes]
-        self.dims = [zero_shard_dim(n, s, dg.size) for n, s in zip(self.names, shapes)]
+        self.dims = [zero_shard_dim(n, s, dg.size, model_axis) for n, s in zip(self.names, shapes)]
         self.part_shapes = []
         for shape, d in zip(shapes, self.dims):
             part = list(shape)

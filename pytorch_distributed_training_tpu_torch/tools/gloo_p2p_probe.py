@@ -1,18 +1,21 @@
-"""Whether gloo's send/recv take CUDA tensors, raw and through the stage exchange.
+"""Whether gloo's send/recv take CUDA tensors, raw and through the port's exchanges.
 
     python -m pytorch_distributed_training_tpu_torch.tools.gloo_p2p_probe
 
 For f32 and bf16 tensors of 2^20 elements on ``cuda:0``, two processes join
 a gloo group and either hop one tensor each way through
-:class:`..parallel.pipeline.StageExchange` (the pipeline's hops, staged
-through pinned host memory under gloo) or send one from rank 0 to rank 1
-with ``dist.send``/``dist.recv`` (raw).  Each pair runs in processes of its
-own, since gloo's transport hands a tensor's raw pointer to its socket and
-a refused send may abort the process.  Each result is ``"exact"``, ``"wrong
-values"``, or the exit code and the last line the pair printed.  Prints
-the card's ``nvidia-smi`` name and power limit, then one JSON line per
-dtype.  Needs one CUDA card; exits 1 without one, and 1 when the stage
-exchange does not deliver exact values.
+:class:`..parallel.pipeline.StageExchange` (the pipeline's hops), rotate
+one around the two-rank ring or exchange halves in one all-to-all through
+:class:`..parallel.sequence.GroupExchange` (ring and Ulysses attention's
+exchanges; all three staged through pinned host memory under gloo), or
+send one from rank 0 to rank 1 with ``dist.send``/``dist.recv`` (raw).
+Each pair runs in processes of its own, since gloo's transport hands a
+tensor's raw pointer to its socket and a refused send may abort the
+process.  Each result is ``"exact"``, ``"wrong values"``, or the exit code
+and the last line the pair printed.  Prints the card's ``nvidia-smi`` name
+and power limit, then one JSON line per dtype.  Needs one CUDA card; exits
+1 without one, and 1 when an exchange of the port's does not deliver exact
+values.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import sys
 from datetime import timedelta
 
 N = 1 << 20
+MODES = ("exchange", "rotation", "all_to_all")  # the port's exchanges
 
 
 def _rank(rank: int, port: int, mode: str, dtype_name: str) -> None:
@@ -32,7 +36,7 @@ def _rank(rank: int, port: int, mode: str, dtype_name: str) -> None:
     import torch
     import torch.distributed as dist
 
-    from pytorch_distributed_training_tpu_torch.parallel import StageExchange
+    from pytorch_distributed_training_tpu_torch.parallel import GroupExchange, StageExchange
 
     torch.cuda.set_device(0)
     dtype = getattr(torch, dtype_name)
@@ -47,6 +51,15 @@ def _rank(rank: int, port: int, mode: str, dtype_name: str) -> None:
         else:
             ex.hop(send_prev=mine, recv_prev=got)
         want = (base + 3 * (1 - rank)).to(dtype)
+    elif mode == "rotation":
+        ex = GroupExchange(dist.group.WORLD, [0, 1], dist.get_backend())
+        _, got = ex.shift(torch.zeros((), device="cuda"), (base + 3 * rank).to(dtype))
+        want = (base + 3 * (1 - rank)).to(dtype)
+    elif mode == "all_to_all":
+        ex = GroupExchange(dist.group.WORLD, [0, 1], dist.get_backend())
+        # rank r sends half j of its tensor to rank j and gets every rank's half r
+        (got,) = ex.all_to_all([(base + 3 * rank).to(dtype).view(2, -1)], 0, 0)
+        want = torch.stack([(base + 3 * j).view(2, -1)[rank] for j in range(2)]).to(dtype)
     else:
         got = base.to(dtype) if rank == 0 else torch.empty(N, dtype=dtype, device="cuda")
         (dist.send if rank == 0 else dist.recv)(got, 1 - rank)
@@ -83,7 +96,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--rank", type=int)
     parser.add_argument("--port", type=int)
-    parser.add_argument("--mode", choices=("exchange", "raw"))
+    parser.add_argument("--mode", choices=MODES + ("raw",))
     parser.add_argument("--dtype")
     args = parser.parse_args(argv)
     if args.rank is not None:
@@ -100,10 +113,9 @@ def main(argv=None) -> int:
     print(smi.splitlines()[0])
     ok = True
     for name in ("float32", "bfloat16"):
-        row = {"dtype": name, "stage_exchange": _pair("exchange", name),
-               "raw": _pair("raw", name)}
+        row = {"dtype": name, **{m: _pair(m, name) for m in MODES}, "raw": _pair("raw", name)}
         print(json.dumps(row), flush=True)
-        ok &= row["stage_exchange"] == "exact"
+        ok &= all(row[m] == "exact" for m in MODES)
     return 0 if ok else 1
 
 

@@ -475,15 +475,17 @@ def test_moe_refusals():
     trunner._reject_unported({"comm": {"overlap": True}}, gspmd=True)
     # tensor (= expert) parallelism and ZeRO are ported on the GSPMD path, and
     # training.expert_parallelism is no JAX key (left unread, as the JAX
-    # runner leaves it); the pipeline beside expert (= tensor) parallelism
-    # still names P9 on the runner (a MoE LM under the pipeline is JAX's
-    # ValueError, test_moe_layout_checks_raise_the_jax_messages)
+    # runner leaves it); the pipeline beside tensor parallelism is ported
+    # (tests/test_torch_pipeline_compose.py), and a MoE LM under it raises
+    # JAX's ValueError before any refusal
     trunner._reject_unported({"tensor_parallelism": 4}, gspmd=True)
     trunner._reject_unported({"expert_parallelism": 4}, gspmd=True)
     trunner._reject_unported({"zero": 1}, gspmd=True)
-    with pytest.raises(NotImplementedError, match="P9"):
-        trunner._reject_unported({"pipeline_parallelism": 2, "tensor_parallelism": 4},
-                                 gspmd=True)
+    trunner._reject_unported({"pipeline_parallelism": 2, "tensor_parallelism": 4},
+                             pipeline=True)
+    with pytest.raises(ValueError, match=r"^model.moe_experts does not compose with "
+                                         r"pipeline_parallelism$"):
+        check_moe(_cfg(training={"pipeline_parallelism": 2, "tensor_parallelism": 4}))
     # model.pretrained still refuses a MoE model, as JAX does
     cfg = _cfg({"pretrained": "/nonexistent.pt"})
     want = _jax_topology_error(cfg)

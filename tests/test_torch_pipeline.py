@@ -23,7 +23,8 @@ stage on the plain twins, its weights from ``lm_state_dict_from_jax_pp``.
 - the eval step with a ragged tail batch against JAX
   ``build_pp_lm_eval_step``;
 - the JAX checks of the pipeline with the JAX messages, and the pipeline
-  beside tensor or sequence parallelism or ZeRO-1/2 naming P9;
+  beside tensor or sequence parallelism or ZeRO-1/2 reaching the ranks
+  check (their steps: tests/test_torch_pipeline_compose.py);
 - the runner on ``config/TransformerLM-pp.yml`` at a tiny width as four
   gloo processes: 1F1B and GPipe train and validate, a checkpoint of
   per-layer leaves resumes bit for bit, and the losses follow the one-rank
@@ -476,12 +477,31 @@ def test_pipeline_path_refusals_raise_the_jax_messages(what):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("training", [{"tensor_parallelism": 2}, {"sequence_parallelism": 2},
-                                      {"zero": 1}, {"zero": 2}],
-                         ids=["tp", "sp", "zero1", "zero2"])
-def test_pipeline_beside_other_families_names_p9(tmp_path, training):
-    with pytest.raises(NotImplementedError, match=r"P9 \(pipeline beside tensor"):
-        Runner(1, 0, 0, "", False, None, _pp_cfg(tmp_path, **training), device="cpu")()
+_RANKS_CHECK = r"training.pipeline_parallelism \(4\) must divide the number of ranks \(1\)"
+
+
+@pytest.mark.parametrize("training,model,match", [
+    ({"tensor_parallelism": 2}, None, _RANKS_CHECK),
+    ({"sequence_parallelism": 2}, None, _RANKS_CHECK),
+    ({"zero": 1}, None, _RANKS_CHECK),
+    ({"zero": 2}, None, _RANKS_CHECK),
+    ({"zero": 3}, None, r"^training.zero: 3 does not compose with pipeline_parallelism — use "
+                        r"zero: 1 or 2 under the pipeline$"),
+    ({"tensor_parallelism": 2, "sequence_parallelism": 2}, None,
+     r"^pipeline_parallelism x sequence_parallelism x tensor_parallelism \(three-way\) is not "
+     r"wired; pick PP x SP or PP x TP$"),
+    ({}, {"moe_experts": 2}, r"^model.moe_experts does not compose with pipeline_parallelism$"),
+], ids=["tp", "sp", "zero1", "zero2", "zero3", "tp-sp", "moe"])
+def test_pipeline_beside_other_families_names_p9(tmp_path, training, model, match):
+    """The pipeline beside tensor or sequence parallelism or ZeRO-1/2 names P9
+    no more: the runner at one rank passes every refusal and meets the ranks
+    check (the compositions run in tests/test_torch_pipeline_compose.py);
+    ZeRO-3 beside it, the three-way PP x SP x TP and a MoE LM under it raise
+    the JAX messages."""
+    cfg = _pp_cfg(tmp_path, **training)
+    cfg["model"].update(model or {})
+    with pytest.raises(ValueError, match=match):
+        Runner(1, 0, 0, "", False, None, cfg, device="cpu")()
 
 
 # --------------------------------------------------------------------- #

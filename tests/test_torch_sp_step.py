@@ -321,14 +321,17 @@ def _tiny_runner(tmp_path, model=None, **training):
     return Runner(1, 0, 0, "", False, None, cfg, device="cpu")
 
 
-@pytest.mark.parametrize("training,model", [
-    ({"tensor_parallelism": 2}, None),
-    ({"pipeline_parallelism": 2}, None),
-    ({"zero": 1}, None),
-    ({}, {"moe_experts": 2, "moe_every": 1}),
+@pytest.mark.parametrize("training,model,error,match", [
+    ({"tensor_parallelism": 2}, None, NotImplementedError, "P9"),
+    # the pipeline beside SP is ported (tests/test_torch_pipeline_compose.py):
+    # at one rank the runner meets the ranks check
+    ({"pipeline_parallelism": 2}, {"depth": 2}, ValueError,
+     r"training.pipeline_parallelism \(2\) must divide the number of ranks \(1\)"),
+    ({"zero": 1}, None, NotImplementedError, "P9"),
+    ({}, {"moe_experts": 2, "moe_every": 1}, NotImplementedError, "P9"),
 ], ids=["tp", "pp", "zero", "moe"])
-def test_sp_beside_other_families_names_p9(tmp_path, training, model):
-    with pytest.raises(NotImplementedError, match="P9"):
+def test_sp_beside_other_families_names_p9(tmp_path, training, model, error, match):
+    with pytest.raises(error, match=match):
         _tiny_runner(tmp_path, model, **training)()
 
 

@@ -70,7 +70,11 @@ from pytorch_distributed_training_tpu_torch import optimizers as topt
 from pytorch_distributed_training_tpu_torch.engine import Runner, build_lm_eval_step
 from pytorch_distributed_training_tpu_torch.engine import runner as trunner
 from pytorch_distributed_training_tpu_torch.engine.checkpoint import load_serving_state
-from pytorch_distributed_training_tpu_torch.engine.topology import check_moe, check_tensor_parallel
+from pytorch_distributed_training_tpu_torch.engine.topology import (
+    check_moe,
+    check_tensor_parallel,
+    parse_parallelism,
+)
 from pytorch_distributed_training_tpu_torch.engine.tp_steps import build_tp_lm_train_step
 from pytorch_distributed_training_tpu_torch.models import TransformerLM, lm_state_dict_from_jax
 from pytorch_distributed_training_tpu_torch.parallel import TensorGroup, gather_state_dict
@@ -597,12 +601,16 @@ def test_refusals_and_expert_parallelism_key(tmp_path):
     trunner._reject_unported({"expert_parallelism": 4, "tensor_parallelism": 4}, gspmd=True)
     cfg = _tp_cfg(tmp_path, "moe", tensor_parallelism=1, expert_parallelism=4, train_iters=1)
     Runner(1, 0, 0, "", False, None, cfg, device="cpu")()
-    # ZeRO beside tensor parallelism is ported (tests/test_torch_zero.py); the
-    # pipeline and comm still name P9 on the GSPMD path
+    # ZeRO beside tensor parallelism is ported (tests/test_torch_zero.py), and
+    # the pipeline beside it (tests/test_torch_pipeline_compose.py); the
+    # three-way PP x SP x TP raises JAX's message; comm still names P9
     trunner._reject_unported({"zero": 1, "tensor_parallelism": 4}, gspmd=True)
-    with pytest.raises(NotImplementedError, match="P9"):
-        trunner._reject_unported({"pipeline_parallelism": 2, "tensor_parallelism": 4},
-                                 gspmd=True)
+    trunner._reject_unported({"pipeline_parallelism": 2, "tensor_parallelism": 4},
+                             pipeline=True)
+    with pytest.raises(ValueError, match=r"^pipeline_parallelism x sequence_parallelism x "
+                                         r"tensor_parallelism \(three-way\) is not wired"):
+        parse_parallelism(SimpleNamespace(is_lm=True), {
+            "pipeline_parallelism": 2, "tensor_parallelism": 4, "sequence_parallelism": 2})
     with pytest.raises(NotImplementedError, match="P9"):
         trunner._reject_unported({"comm": {"overlap": True}})
     # sequence parallelism beside tensor parallelism (LAMB/LARS beside it are

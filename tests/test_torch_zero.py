@@ -521,14 +521,18 @@ def test_zero_values_and_routes():
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("training", [
-    {"zero": 1, "comm": {"overlap": True}},
-    {"zero": True, "comm": {"overlap": True}},
-    {"zero": 1, "sequence_parallelism": 2},
-    {"zero": 1, "pipeline_parallelism": 2},
+@pytest.mark.parametrize("training,error,match", [
+    ({"zero": 1, "comm": {"overlap": True}}, NotImplementedError, "P9"),
+    ({"zero": True, "comm": {"overlap": True}}, NotImplementedError, "P9"),
+    ({"zero": 1, "sequence_parallelism": 2}, NotImplementedError, "P9"),
+    # ZeRO-1/2 beside the pipeline are ported (tests/test_torch_pipeline_compose.py);
+    # ZeRO-3 beside it raises JAX's message
+    ({"zero": 3, "pipeline_parallelism": 2}, ValueError,
+     r"^training.zero: 3 does not compose with pipeline_parallelism — use zero: 1 or 2 under "
+     r"the pipeline$"),
 ], ids=["comm-zero1", "comm-zero-true", "sp", "pipeline"])
-def test_zero_refusals_name_p9(tmp_path, training):
-    with pytest.raises(NotImplementedError, match="P9"):
+def test_zero_refusals_name_p9(tmp_path, training, error, match):
+    with pytest.raises(error, match=match):
         Runner(1, 0, 0, "", False, None, _fsdp_cfg(tmp_path, **training), device="cpu")()
 
 
